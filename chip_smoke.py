@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of client_tpu_torch on one NVIDIA GPU: builds the kernels,
 holds each against its plain PyTorch version, serves the int8 LM over
-KServe-v2 HTTP, and times the kernels and the serial decode.
+KServe-v2 HTTP, trains the flagship LM through the flash-attention
+kernels, and times the kernels, the serial decode and the train step.
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure exits non-zero:
+Phases, one line each or more; any failure exits non-zero:
   1 device      CUDA present; the card's name and power limit
   2 build       the CUDA kernels, from the sources in this checkout
   3 kernel      int8_matmul (kernel) against int8_matmul_reference on the
@@ -14,34 +15,63 @@ Phases, one line each; any failure exits non-zero:
   4 model       DEFAULT_LM_CONFIG int8 forward + 32-token greedy generate
                 on cuda (kernel) against the same weights on cpu (plain),
                 24 kernel launches per decode step
-  5 server      the language set behind Server(http_port=0), driven over
-                HTTP with urllib, then the decoupled engine.execute stream
-                against _LmRunner.stream; the launch counts are reset just
-                before this phase and read just after it
+  5 server      the serving path: the language set behind
+                Server(http_port=0), driven over HTTP with urllib, then the
+                decoupled engine.execute stream against _LmRunner.stream;
+                the launch counts are reset just before this phase and read
+                just after it
   6 timings     each served kernel shape at M=1 and M=128 beside its
                 bound, the plain version and torch.matmul on the
                 dequantized weight: device time from CUDA-graph replay
                 and back-to-back eager time, both by CUDA events; serial
                 decode tokens/s and TTFT
-  7 kernels     one JSON line: every ported kernel, its launches in phase
-                5, its error in phase 3 and its times in phase 6
-The last line is {"ok": true, "device": {...}}.
+  7 flash       the flash forward, dQ and dK/dV kernels against
+                _fa_forward_reference / _fa_backward_reference on the
+                card: T in {128,512,100}, D in {32,64,128}, causal and not,
+                f32 and bf16, BH in {2,5}, a zero and a nonzero lse
+                cotangent; flash_attention at T=100 (padded by the
+                wrapper) against plain_attention, forward and gradients
+  8 training    the training path: 10 Adam steps of the flagship config
+                (__graft_entry__.entry(): vocab 8192, d_model 512, 4
+                layers, bf16) on tokens [8, 513] with attn_impl="flash";
+                the launch counts are reset just before and read just
+                after (4/4/4 flash launches a step, no int8); the same 10
+                steps with attn_impl="plain"; 3 float32 steps at 2 layers,
+                flash against plain; forward flash against plain; a
+                checkpoint save / restore / resume round trip
+  9 timings     each flash kernel at the training shape (BH=64, T=512,
+                D=64, bf16, causal) by CUDA-graph replay beside its bound,
+                its plain version and scaled_dot_product_attention; the
+                train step, plain and flash alternated, with its peak
+                memory; a torch.profiler trace of 3 flash steps
+ 10 kernels     one JSON line: every ported kernel, its launches on its
+                path (phase 5 or 8), its error (phase 3 or 7) and its
+                times (phase 6 or 9)
+Every timing line carries the card's name and power limit.  The last line
+is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import gzip
+import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.error
 import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-# H100 SXM published peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
+# H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
+# and f32 FLOP/s outside the tensor cores (the flash kernels' own floor)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12
 
 # stated tolerances: kernel against its plain version on the same inputs
 TOL = {
@@ -59,6 +89,24 @@ SERVED_KN = ((256, 256), (256, 128), (256, 768))
 LAYER_KN = ((256, 256), (256, 128), (256, 128), (256, 256), (256, 768),
             (256, 768))
 PROMPT = "KServe-v2 streaming inference on Hopper: the quick brown fox. "
+
+# the flagship LM of __graft_entry__.entry(), at full width and depth
+FLAGSHIP = dict(vocab_size=8192, d_model=512, n_layers=4, n_heads=8,
+                n_kv_heads=4, d_ff=1536, max_seq=512)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED, TRAIN_STEPS, TRAIN_LR = 8, 512, 0, 10, 1e-3
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# stated tolerances, training path:
+# - bf16, flash against plain from the same weights: the first loss differs
+#   only by the attention's rounding (plain rounds p to bf16 before p.V, the
+#   kernels keep it f32), averaged over 4096 tokens; after 10 Adam steps the
+#   two bf16 trajectories drift apart by their own rounding
+TRAIN_LOSS0_ATOL = 0.02
+TRAIN_LOSS_LAST_ATOL = 0.1
+# - float32 (TF32 off), flash against plain: sums in another order
+F32_LOSS_ATOL = 1e-4
+F32_LOGIT_ATOL = 1e-4
+# - flash_attention through the padding against plain_attention, f32
+WRAPPER_TOL = (1e-4, 1e-3)
 
 
 def phase(n, name, **fields):
@@ -152,15 +200,232 @@ def lm_request(tokens, max_tokens):
     ]}).encode()
 
 
+def dtype_name(dt):
+    return str(dt).replace("torch.", "")
+
+
+def flash_bounds(bh, t, d, causal, elt=2):
+    """{kernel: (bound_ms, bound_by, f32_fma_floor_ms)} for the flash
+    kernels on [bh, t, d] inputs of elt bytes: each input read once and each
+    output written once over HBM, against the operations these inputs need
+    (only the (q, k) pairs on or below the diagonal when causal) over the
+    bf16 dense peak; the floor is the same operations on the f32 CUDA
+    cores, where these kernels take them."""
+    pairs = bh * (t * (t + 1) // 2 if causal else t * t)
+    mat, row = bh * t * d * elt, bh * t * 4
+    work = {
+        # q, k, v in; out, lse out; s = q.k and p.v
+        "flash_fwd": (4 * mat + row, 4 * pairs * d),
+        # q, k, v, dO, lse, delta, g_lse in; dq out; s, dO.v, ds.k
+        "flash_bwd_dq": (5 * mat + 3 * row, 6 * pairs * d),
+        # the same in; dk, dv out; s, dO.v, p.dO, ds.q
+        "flash_bwd_dkv": (6 * mat + 3 * row, 8 * pairs * d),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        out[name] = (max(by_bytes, by_ops) * 1e3,
+                     "bytes" if by_bytes >= by_ops else "operations",
+                     flops / F32_FLOPS_PER_S * 1e3)
+    return out
+
+
+def flash_vs_plain(fa, gen):
+    """Phase 7: every flash kernel against its plain version on the card.
+    Returns ({kernel: {dtype: max abs err}}, cases)."""
+    worst = {name: {} for name in FLASH_KERNELS}
+
+    def hold(name, dt, got, want, what, tol=None):
+        atol, rtol = tol or TOL[dt]
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        check(bool((err <= atol + rtol * want.abs()).all()),
+              f"{what}: max abs err {err.max().item()} beyond atol {atol} "
+              f"rtol {rtol}")
+        key = dtype_name(dt)
+        worst[name][key] = max(worst[name].get(key, 0.0), err.max().item())
+
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        grid = itertools.product((128, 512, 100), (32, 64, 128), (True, False))
+        for i, (t, d, causal) in enumerate(grid):
+            bh = (2, 5)[i % 2]
+            q, k, v, g = (torch.randn(bh, t, d, generator=gen).to(dt).cuda()
+                          for _ in range(4))
+            scale = d ** -0.5
+            what = f"{dtype_name(dt)} BH={bh} T={t} D={d} causal={causal}"
+            out, lse = fa._fa_forward(q, k, v, scale, causal)
+            want_out, want_lse = fa._fa_forward_reference(q, k, v, scale,
+                                                          causal)
+            hold("flash_fwd", dt, out, want_out, f"flash_fwd out {what}")
+            # lse is f32 on both sides, whatever the inputs' dtype
+            hold("flash_fwd", dt, lse, want_lse, f"flash_fwd lse {what}",
+                 TOL[torch.float32])
+            for g_lse in (torch.zeros_like(lse),
+                          torch.randn(bh, t, 1, generator=gen).cuda()):
+                dq, dk, dv = fa._fa_backward(q, k, v, out, lse, g, g_lse,
+                                             scale, causal)
+                rq, rk, rv = fa._fa_backward_reference(q, k, v, out, lse, g,
+                                                       g_lse, scale, causal)
+                nz = f"{what} g_lse={'0' if not g_lse.any() else 'randn'}"
+                hold("flash_bwd_dq", dt, dq, rq, f"flash_bwd_dq {nz}")
+                hold("flash_bwd_dkv", dt, dk, rk, f"flash_bwd_dkv dk {nz}")
+                hold("flash_bwd_dkv", dt, dv, rv, f"flash_bwd_dkv dv {nz}")
+            cases += 1
+    torch.cuda.synchronize()
+    return worst, cases
+
+
+def wrapper_vs_plain(fa, plain_attention, gen):
+    """flash_attention at T=100 (the wrapper pads to 128 on the causal path)
+    against plain_attention, output and gradients, f32 on the card."""
+    atol, rtol = WRAPPER_TOL
+    qkv = [torch.randn(2, 100, 4, 64, generator=gen).cuda().requires_grad_()
+           for _ in range(3)]
+    errs = {}
+    for name, fn in (("flash", fa.flash_attention), ("plain", plain_attention)):
+        out = fn(*qkv)
+        grads = torch.autograd.grad((out ** 2).sum(), qkv)
+        errs[name] = [out.detach()] + list(grads)
+    worst = 0.0
+    for got, want in zip(errs["flash"], errs["plain"]):
+        err = (got - want).abs()
+        check(bool((err <= atol + rtol * want.abs()).all()),
+              f"flash_attention T=100 against plain_attention: max abs err "
+              f"{err.max().item()} beyond atol {atol} rtol {rtol}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def train_run(tfm, cfg, impl, tokens, steps, params=None):
+    """``steps`` Adam steps from init_params(seed 0) through the port's
+    train-step entry points; returns (params, opt_state, losses)."""
+    if params is None:
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    opt, step = tfm.make_train_step(cfg, attn_impl=impl,
+                                    learning_rate=TRAIN_LR)
+    state = opt.init(params)
+    losses = []
+    for _ in range(steps):
+        params, state, loss = step(params, state, tokens)
+        losses.append(loss)
+    return params, state, [float(x) for x in losses]
+
+
+def checkpoint_round_trip(tfm, CheckpointManager, cfg, tokens):
+    """Two flash steps, a checkpoint, then one more step from the live state
+    and one from a fresh restore: both must be equal bit for bit."""
+    opt, step = tfm.make_train_step(cfg, attn_impl="flash",
+                                    learning_rate=TRAIN_LR)
+    fresh = lambda: tfm.init_params(  # noqa: E731
+        torch.Generator().manual_seed(0), cfg, "cuda")
+    params = fresh()
+    state = opt.init(params)
+    for _ in range(2):
+        params, state, _ = step(params, state, tokens)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        with CheckpointManager(d) as mgr:
+            mgr.save(2, params=params, opt_state=state.state_dict())
+            template = fresh()
+            restored = mgr.restore({
+                "params": template,
+                "opt_state": opt.init(template).state_dict()})
+            latest = mgr.latest_step()
+    params2 = restored["params"]
+    state2 = opt.init(params2)
+    state2.load_state_dict(restored["opt_state"])
+    params, state, loss = step(params, state, tokens)
+    params2, state2, loss2 = step(params2, state2, tokens)
+    same = all(torch.equal(a, b) for a, b in
+               zip(tfm._leaves(params), tfm._leaves(params2)))
+    check(latest == 2 and float(loss) == float(loss2) and same,
+          f"resumed step differs from the uninterrupted one: loss "
+          f"{float(loss2)} against {float(loss)}, params equal {same}")
+    return float(loss)
+
+
+def step_time(tfm, cfg, impl, tokens, steps=10, warmup=2):
+    """Train-step wall time (host clock around synchronized steps) and the
+    peak device memory of the steps, from fresh weights."""
+    params, state, _ = train_run(tfm, cfg, impl, tokens, warmup)
+    _, step = tfm.make_train_step(cfg, attn_impl=impl, learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, state, loss = step(params, state, tokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return {"attn_impl": impl, "ms_per_step": ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+            "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
+            "peak_above_state_mb":
+                (torch.cuda.max_memory_allocated() - base) / 2**20,
+            "steps": steps, "last_loss": float(loss)}
+
+
+def profile_steps(tfm, cfg, tokens, steps=3):
+    """torch.profiler over ``steps`` warm flash steps: the device-busy share
+    of the wall time and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    params, state, _ = train_run(tfm, cfg, "flash", tokens, 2)
+    _, step = tfm.make_train_step(cfg, attn_impl="flash",
+                                  learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            params, state, _ = step(params, state, tokens)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # kernels and copies only: a user annotation (Optimizer.step#...) also
+    # lies on the device timeline, spanning the gaps between its kernels
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    if not spans:
+        return {"device_busy_share": "not measured",
+                "top_kernels": "not measured"}
+    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    for start, end, _ in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    by_name = {}
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us,
+            "kernel_launches": len(spans),
+            "top_kernels": [{"name": n[:120], "ms": us / 1e3,
+                             "share_of_busy": us / busy} for n, us in top]}
+
+
 def main():
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     from client_tpu_torch import ops
     from client_tpu_torch.ops import _build, quant
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel.ring_attention import plain_attention
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import language
     from client_tpu_torch.serve.models import transformer as tfm
+    from client_tpu_torch.train import CheckpointManager
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -176,7 +441,7 @@ def main():
 
     # -- 2 build ---------------------------------------------------------
     _build.kernels()
-    phase(2, "build", kernels=["int8_matmul"],
+    phase(2, "build", kernels=["int8_matmul", *FLASH_KERNELS],
           seconds=round(_build.build_seconds, 3), flags=_build.CUDA_FLAGS)
 
     # -- 3 kernel against its plain version -------------------------------
@@ -195,7 +460,7 @@ def main():
                 check(bool((err <= atol + rtol * want.abs()).all()),
                       f"int8_matmul {dt} M={m} K={k} N={n}: max abs err "
                       f"{err.max().item()} beyond atol {atol} rtol {rtol}")
-                key = str(dt).replace("torch.", "")
+                key = dtype_name(dt)
                 worst[key] = max(worst.get(key, 0.0), err.max().item())
     torch.cuda.synchronize()
     phase(3, "kernel_vs_plain", kernel="int8_matmul", cases=2 * 6 * 3,
@@ -341,14 +606,134 @@ def main():
             phase(6, "serial_decode", model=model, **decode_rate(params, depth),
                   **card)
 
-    # -- 7 kernels -----------------------------------------------------------
+    # -- 7 flash kernels against their plain versions ----------------------
+    flash_worst, flash_cases = flash_vs_plain(fa, gen)
+    wrapper_err = wrapper_vs_plain(fa, plain_attention, gen)
+    phase(7, "flash_vs_plain", kernels=list(FLASH_KERNELS),
+          cases=flash_cases, max_abs_err=flash_worst,
+          tolerance={"float32": TOL[torch.float32],
+                     "bfloat16": TOL[torch.bfloat16],
+                     "lse": TOL[torch.float32]},
+          wrapper_t100_max_abs_err=wrapper_err, wrapper_tolerance=WRAPPER_TOL)
+
+    # -- 8 training: the main path of the flash kernels, counted -------------
+    tcfg = tfm.TransformerConfig(**FLAGSHIP)
+    tokens = torch.from_numpy(np.random.default_rng(TRAIN_SEED).integers(
+        0, tcfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+    ops.reset_launches()
+    _, _, flash_losses = train_run(tfm, tcfg, "flash", tokens, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_launches = dict(ops.LAUNCHES)
+    per_step = {n: c / TRAIN_STEPS for n, c in train_launches.items()}
+    check(per_step == {"int8_matmul": 0, **{n: tcfg.n_layers
+                                            for n in FLASH_KERNELS}},
+          f"flash training launched {train_launches} in {TRAIN_STEPS} "
+          f"steps, expected {tcfg.n_layers} of each flash kernel a step")
+    check(all(np.isfinite(flash_losses)) and flash_losses[-1] < flash_losses[0],
+          f"flash training losses {flash_losses}")
+    _, _, plain_losses = train_run(tfm, tcfg, "plain", tokens, TRAIN_STEPS)
+    d0 = abs(flash_losses[0] - plain_losses[0])
+    dlast = abs(flash_losses[-1] - plain_losses[-1])
+    check(d0 <= TRAIN_LOSS0_ATOL and dlast <= TRAIN_LOSS_LAST_ATOL,
+          f"flash losses {flash_losses} against plain {plain_losses}")
+    cfg32 = dataclasses.replace(tcfg, n_layers=2, dtype="float32")
+    _, _, f32_flash = train_run(tfm, cfg32, "flash", tokens, 3)
+    _, _, f32_plain = train_run(tfm, cfg32, "plain", tokens, 3)
+    d32 = max(abs(a - b) for a, b in zip(f32_flash, f32_plain))
+    check(d32 <= F32_LOSS_ATOL,
+          f"float32 flash losses {f32_flash} against plain {f32_plain}")
+    with torch.no_grad():
+        logit_err = {}
+        for c, atol in ((tcfg, LOGIT_ATOL), (cfg32, F32_LOGIT_ATOL)):
+            p0 = tfm.init_params(torch.Generator().manual_seed(0), c, "cuda")
+            lf = tfm.forward(p0, tokens[:, :-1], c, attn_impl="flash")
+            lp = tfm.forward(p0, tokens[:, :-1], c, attn_impl="plain")
+            err = (lf - lp).abs().max().item()
+            agree = (lf.argmax(-1) == lp.argmax(-1)).float().mean().item()
+            check(bool(torch.isfinite(lf).all()) and err <= atol
+                  and agree >= MIN_AGREE,
+                  f"{c.dtype} forward flash against plain: max abs err "
+                  f"{err} (atol {atol}), argmax agreement {agree}")
+            logit_err[c.dtype] = {"max_abs_err": err, "atol": atol,
+                                  "argmax_agree": agree}
+            del p0, lf, lp
+    resumed_loss = checkpoint_round_trip(tfm, CheckpointManager, tcfg, tokens)
+    phase(8, "training", config=FLAGSHIP, dtype=tcfg.dtype,
+          tokens=[TRAIN_BATCH, TRAIN_SEQ + 1], steps=TRAIN_STEPS,
+          lr=TRAIN_LR, launches=train_launches, launches_per_step=per_step,
+          flash_losses=flash_losses, plain_losses=plain_losses,
+          loss0_diff=d0, loss0_atol=TRAIN_LOSS0_ATOL, last_loss_diff=dlast,
+          last_loss_atol=TRAIN_LOSS_LAST_ATOL,
+          float32_2layer={"flash": f32_flash, "plain": f32_plain,
+                          "max_diff": d32, "atol": F32_LOSS_ATOL},
+          forward_flash_vs_plain=logit_err,
+          checkpoint_resume_bit_exact=True, resumed_step_loss=resumed_loss)
+
+    # -- 9 timings: flash kernels, train step, profile -----------------------
+    ext = _build.kernels()
+    bh, t, d = TRAIN_BATCH * tcfg.n_heads, TRAIN_SEQ, tcfg.head_dim
+    q, k, v, g = (torch.randn(bh, t, d, generator=gen).to(torch.bfloat16)
+                  .cuda() for _ in range(4))
+    scale = d ** -0.5
+    out, lse = ext.flash_fwd(q, k, v, scale, True)
+    delta, g_lse = fa._delta(g, out), torch.zeros_like(lse)
+    # SDPA takes [B, H, T, D]: the same memory as the folded [B*H, T, D]
+    q4, k4, v4, g4 = (x.view(TRAIN_BATCH, tcfg.n_heads, t, d)
+                      for x in (q, k, v, g))
+    q4r, k4r, v4r = (x.clone().requires_grad_() for x in (q4, k4, v4))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, is_causal=True)
+    sdpa_fwd_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        F.scaled_dot_product_attention(q4r, k4r, v4r, is_causal=True),
+        (q4r, k4r, v4r), g4)
+    bwd_plain = lambda: fa._fa_backward_reference(  # noqa: E731
+        q, k, v, out, lse, g, g_lse, scale, True)
+    graph = lambda fn: graph_ms(fn, iters=20)  # noqa: E731
+    sdpa_ms = graph(sdpa)
+    sdpa_bwd_ms = graph(sdpa_fwd_bwd) - sdpa_ms
+    bwd_plain_ms = graph(bwd_plain)
+    bounds = flash_bounds(bh, t, d, causal=True)
+    flash_rows = {
+        "flash_fwd": {
+            "ms": graph(lambda: ext.flash_fwd(q, k, v, scale, True)),
+            "plain_ms": graph(
+                lambda: fa._fa_forward_reference(q, k, v, scale, True)),
+            "library_ms": sdpa_ms,
+            "library": "F.scaled_dot_product_attention(is_causal=True)"},
+        "flash_bwd_dq": {
+            "ms": graph(lambda: ext.flash_bwd_dq(q, k, v, g, lse, delta,
+                                                 g_lse, scale, True))},
+        "flash_bwd_dkv": {
+            "ms": graph(lambda: ext.flash_bwd_dkv(q, k, v, g, lse, delta,
+                                                  g_lse, scale, True))},
+    }
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        flash_rows[name].update({
+            "plain_ms": bwd_plain_ms,
+            "plain": "_fa_backward_reference: dq, dk and dv in one call",
+            "library_ms": sdpa_bwd_ms,
+            "library": "SDPA backward (dq, dk and dv together): graph-timed "
+                       "SDPA forward + torch.autograd.grad minus the "
+                       "graph-timed SDPA forward"})
+    for name, row in flash_rows.items():
+        row["bound_ms"], row["bound_by"], row["f32_fma_floor_ms"] = bounds[name]
+        phase(9, "flash_kernel_time", kernel=name, shape=[bh, t, d],
+              dtype="bfloat16", causal=True,
+              timing="device time from CUDA-graph replay", **row, **card)
+    del q, k, v, g, out, lse, delta, g_lse, q4, k4, v4, g4, q4r, k4r, v4r
+    for impl in ("plain", "flash", "flash", "plain"):
+        phase(9, "train_step", **step_time(tfm, tcfg, impl, tokens), **card)
+    phase(9, "train_profile", attn_impl="flash",
+          **profile_steps(tfm, tcfg, tokens), **card)
+
+    # -- 10 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
     layer = [by_shape[(1, k, n)] for k, n in LAYER_KN]
     total = {key: sum(r[key] for r in layer)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                          "eager_ms")}
-    phase(7, "kernels", held_against_plain_in="phase 3")
-    print(json.dumps({"kernels": [{
+    phase(10, "kernels", held_against_plain_in="phases 3 and 7")
+    kernels = [{
         "name": "int8_matmul",
         "route": "cuda",
         "source": "client_tpu_torch/ops/csrc/int8_matmul.cu",
@@ -365,8 +750,31 @@ def main():
                   "replay; eager_ms: back-to-back Python calls",
         "work": "one decode layer's six int8 projections at M=1, bf16 "
                 "(wq, wk, wv, wo, w_gate, w_up)",
+        "launches_in": "phase 5 (serving)",
         "checked_in": "phase 3",
-    }]}), flush=True)
+    }]
+    replaces = {"flash_fwd": "client_tpu/ops/flash_attention.py:91",
+                "flash_bwd_dq": "client_tpu/ops/flash_attention.py:185",
+                "flash_bwd_dkv": "client_tpu/ops/flash_attention.py:215"}
+    for name in FLASH_KERNELS:
+        row = flash_rows[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "client_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces[name],
+            "launches": train_launches[name],
+            "max_abs_err": max(flash_worst[name].values()),
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms",
+                                         "f32_fma_floor_ms")},
+            "timing": "device time from CUDA-graph replay",
+            "work": f"one layer's attention at the training shape: "
+                    f"[{bh}, {t}, {d}] bf16, causal",
+            "launches_in": f"phase 8 ({TRAIN_STEPS} flash train steps)",
+            "checked_in": "phase 7",
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,7 +16,8 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_CSRC)))
 BUILD_DIR = os.path.join(_ROOT, "build", "client_tpu_torch_kernels")
 SOURCES = [
     os.path.join(_CSRC, "int8_matmul.cu"),
-    os.path.join(_CSRC, "int8_matmul_binding.cpp"),
+    os.path.join(_CSRC, "flash_attention.cu"),
+    os.path.join(_CSRC, "binding.cpp"),
 ]
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 

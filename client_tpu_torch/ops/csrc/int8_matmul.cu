@@ -21,7 +21,7 @@
 // no tensor cores (wgmma), no TMA, no split-K for the M = 1 case.
 //
 // Plain C interface (no PyTorch headers here, so nvcc stays fast); the
-// binding in int8_matmul_binding.cpp checks the tensors, allocates the
+// binding in binding.cpp checks the tensors, allocates the
 // output and launches on PyTorch's current stream.
 
 #include <cuda_bf16.h>

@@ -8,13 +8,17 @@ weights are ``{"q", "s"}`` dicts that ``_mm`` sends to the CUDA kernel.
 
 - ``init_params(generator, cfg, device)``: random weights from a seeded
   ``torch.Generator``
-- ``forward(params, tokens, cfg)``: full-sequence logits
+- ``forward(params, tokens, cfg, attn_impl)``: full-sequence logits;
+  ``attn_impl="flash"`` runs attention through the flash-attention
+  kernels (client_tpu_torch.ops.flash_attention)
 - ``prefill`` / ``decode_step``: KV-cache incremental decoding with a
-  static-shape cache, written in place
+  static-shape cache, written in place (plain attention, as in JAX)
 - ``generate``: the token-by-token loop behind the streaming models
+- ``loss_fn`` / ``make_train_step``: next-token cross-entropy and the
+  single-device Adam train step
 
-Flash and ring attention, mixture-of-experts FFNs and training wait for
-the training slice of the port.
+Ring attention (``"ring"``, ``"ring_flash"``) and mixture-of-experts FFNs
+need a mesh of several GPUs and wait for the multi-GPU slice of the port.
 """
 
 import collections
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from client_tpu_torch import resolve_device
+from client_tpu_torch.ops.flash_attention import flash_attention
 from client_tpu_torch.ops.quant import matmul as _mm
 from client_tpu_torch.parallel.ring_attention import _NEG, plain_attention
 
@@ -55,8 +60,12 @@ class TransformerConfig:
 
 
 _MOE_LATER = (
-    "mixture-of-experts FFNs (n_experts > 0) come with the training slice "
-    "of the port"
+    "mixture-of-experts FFNs (n_experts > 0) are expert-parallel over a "
+    "mesh and come with the multi-GPU slice of the port"
+)
+_RING_LATER = (
+    "attn_impl={!r}: ring attention runs over a sequence-parallel mesh and "
+    "comes with the multi-GPU slice of the port"
 )
 
 
@@ -138,11 +147,8 @@ def _repeat_kv(x, n_rep):
 def _attention_block(layer, x, cfg, positions, attn_impl="plain"):
     """Full-sequence causal self-attention sublayer; returns (x, (k, v)) so
     prefill can capture the per-layer KV blocks for the cache."""
-    if attn_impl != "plain":
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r}: flash and ring attention come with "
-            "the flash-attention and training slice of the port"
-        )
+    if attn_impl in ("ring", "ring_flash"):
+        raise NotImplementedError(_RING_LATER.format(attn_impl))
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = _rms_norm(x, layer["ln_attn"])
@@ -152,7 +158,11 @@ def _attention_block(layer, x, cfg, positions, attn_impl="plain"):
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    attn = plain_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep))
+    if attn_impl == "flash":
+        # the flash kernels: no [T, T] scores in device memory
+        attn = flash_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep))
+    else:
+        attn = plain_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep))
     out = _mm(attn.reshape(b, t, cfg.n_heads * hd), layer["attn"]["wo"])
     return x + out, (k, v)
 
@@ -172,8 +182,13 @@ def _ffn_block(layer, x):
     return _mlp_block(layer, x)
 
 
-def forward(params, tokens, cfg, attn_impl="plain"):
-    """Full-sequence causal LM: tokens [B,T] int -> logits [B,T,V] f32."""
+def forward(params, tokens, cfg, attn_impl="plain", with_aux=False):
+    """Full-sequence causal LM: tokens [B,T] int -> logits [B,T,V] f32.
+
+    With ``with_aux=True`` returns ``(logits, aux)``, aux being the mean
+    per-layer router load-balance loss: 0 for the dense configs the port
+    runs.
+    """
     _dense_only(cfg)
     t = tokens.shape[1]
     x = params["embed"][tokens.long()]
@@ -182,7 +197,10 @@ def forward(params, tokens, cfg, attn_impl="plain"):
         x, _ = _attention_block(layer, x, cfg, positions, attn_impl)
         x = _ffn_block(layer, x)
     x = _rms_norm(x, params["ln_f"])
-    return _mm(x, params["lm_head"]).float()
+    logits = _mm(x, params["lm_head"]).float()
+    if with_aux:
+        return logits, logits.new_zeros(())
+    return logits
 
 
 def init_cache(cfg, batch, device=None):
@@ -275,6 +293,100 @@ def lm_flops_per_token(cfg, context=0):
     per_layer += 4 * cfg.n_heads * hd * int(context)  # scores + combine
     head = 2 * cfg.d_model * cfg.vocab_size
     return cfg.n_layers * per_layer + head
+
+
+def _next_token_nll(logits, targets):
+    """Mean next-token cross-entropy: logits [B,T,V] f32, targets [B,T]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.mean(-torch.gather(logp, -1, targets[..., None].long()))
+
+
+def loss_fn(params, tokens, cfg, attn_impl="plain"):
+    """Next-token cross-entropy over tokens [B,T] (dense configs: no router
+    aux term)."""
+    logits = forward(params, tokens[:, :-1], cfg, attn_impl)
+    return _next_token_nll(logits, tokens[:, 1:])
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+class _Adam:
+    """The counterpart of ``optax.adam(learning_rate)``: ``init(params)``
+    returns the optimizer state, a ``torch.optim.Adam`` over the params'
+    leaves (optax's formula and defaults: b1 0.9, b2 0.999, eps 1e-8)."""
+
+    def __init__(self, learning_rate):
+        self.learning_rate = learning_rate
+
+    def init(self, params):
+        """Mark every leaf ``requires_grad`` and build the optimizer.  Its
+        moments exist from step 0, as optax's do, so ``state_dict()`` has
+        every tensor of the state (a checkpoint template needs them)."""
+        leaves = list(_leaves(params))
+        if not all(torch.is_floating_point(w) for w in leaves):
+            raise ValueError(
+                "quantized params are single-device serving weights and are "
+                "not trainable; train the float params"
+            )
+        for w in leaves:
+            w.requires_grad_(True)
+        opt = torch.optim.Adam(leaves, lr=self.learning_rate,
+                               betas=(0.9, 0.999), eps=1e-8)
+        for w in leaves:
+            opt.state[w] = {
+                "step": torch.tensor(0.0),
+                "exp_avg": torch.zeros_like(w),
+                "exp_avg_sq": torch.zeros_like(w),
+            }
+        return opt
+
+
+def _make_adam_step(loss, learning_rate):
+    """Adam scaffolding: (loss(params, tokens) -> scalar) ->
+    ``(opt, step)`` with ``step(params, opt_state, tokens) -> (params,
+    opt_state, loss)``.
+
+    The step updates the params and the optimizer state in place and hands
+    the same objects back: that takes the place of the JAX step's buffer
+    donation, and keeps the JAX call shape."""
+    opt = _Adam(learning_rate)
+
+    def step(params, opt_state, tokens):
+        opt_state.zero_grad(set_to_none=True)
+        value = loss(params, tokens)
+        value.backward()
+        opt_state.step()
+        return params, opt_state, value.detach()
+
+    return opt, step
+
+
+def make_train_step(cfg, attn_impl="plain", learning_rate=1e-3):
+    """Single-device Adam train step on next-token cross-entropy::
+
+        opt, step = make_train_step(cfg, attn_impl="flash")
+        opt_state = opt.init(params)
+        params, opt_state, loss = step(params, opt_state, tokens)
+
+    tokens [B, T+1] on the params' device; the forward sees T of them.
+    Quantized params are serving-only: ``opt.init`` refuses them.
+    """
+    if attn_impl in ("ring", "ring_flash"):
+        raise NotImplementedError(_RING_LATER.format(attn_impl))
+    _dense_only(cfg)
+    return _make_adam_step(
+        lambda params, tokens: loss_fn(params, tokens, cfg, attn_impl),
+        learning_rate,
+    )
 
 
 def quantize_params(params):

@@ -13,11 +13,12 @@ import pytest
 import torch
 
 from client_tpu_torch import ops
+from client_tpu_torch.ops import flash_attention as fa
 from client_tpu_torch.ops import quant
 from client_tpu_torch.serve.models import transformer as tfm
 
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# the kernel against its plain version: f32 sums in another order; bf16
+# a kernel against its plain version: f32 sums in another order; bf16
 # within one ulp of the f32-summed result (as in chip_smoke.py)
 _TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}
 _TINY = tfm.TransformerConfig(
@@ -71,6 +72,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(RuntimeError, match="one device|CUDA"):
         quant._launch(torch.ones(2, 128, device=cuda_device),
                       qw["q"].cpu(), qw["s"])
+    with pytest.raises(RuntimeError, match=r"do not agree: x \[2, 64\]"):
+        quant._launch(torch.ones(2, 64, device=cuda_device), qw["q"], qw["s"])
 
 
 @pytest.mark.cuda
@@ -95,3 +98,99 @@ def test_int8_model_on_cuda_equals_cpu(cuda_device):
     got = list(tfm.generate(gpu, _TINY, prompt, 16))
     assert ops.LAUNCHES["int8_matmul"] == 7 * _TINY.n_layers * 16
     assert got == list(tfm.generate(params, _TINY, prompt, 16))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_match_plain_versions(cuda_device, dtype):
+    """The forward, dQ and dK/dV kernels against _fa_forward_reference and
+    _fa_backward_reference on the card, with a zero and a nonzero lse
+    cotangent; T=100 and 96 leave a ragged edge in the 64-row tile."""
+    atol, rtol = _TOL[dtype]
+    gen = torch.Generator().manual_seed(21)
+    for t, d, causal in ((128, 64, True), (100, 32, True), (96, 128, False),
+                         (512, 64, True)):
+        q, k, v, g = (torch.randn(3, t, d, generator=gen).to(_DT[dtype])
+                      .to(cuda_device) for _ in range(4))
+        scale = d ** -0.5
+        before = dict(ops.LAUNCHES)
+        out, lse = fa._fa_forward(q, k, v, scale, causal)
+        want_out, want_lse = fa._fa_forward_reference(q, k, v, scale, causal)
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+        for g_lse in (torch.zeros_like(lse),
+                      torch.randn(3, t, 1, generator=gen).to(cuda_device)):
+            got = fa._fa_backward(q, k, v, out, lse, g, g_lse, scale, causal)
+            want = fa._fa_backward_reference(q, k, v, out, lse, g, g_lse,
+                                             scale, causal)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                           rtol=rtol)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+        assert ops.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 2
+        assert ops.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 2
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
+    """Each refusal raises (and its message names the numbers) instead of
+    launching or crashing."""
+    q = torch.ones(2, 64, 16, device=cuda_device)
+    with pytest.raises(RuntimeError, match="head dim must be 32, 64 or 128, "
+                                           "got 16"):
+        fa._fa_forward(q, q, q, 0.25, True)
+    rows = torch.zeros(2, 64, 1, device=cuda_device)
+    with pytest.raises(RuntimeError, match="head dim"):
+        fa._fa_backward(q, q, q, q, rows, q, rows, 0.25, True)
+    h = torch.ones(2, 64, 64, dtype=torch.float16, device=cuda_device)
+    with pytest.raises(RuntimeError, match="float32 or bfloat16"):
+        fa._fa_forward(h, h, h, 0.125, True)
+    x = torch.ones(2, 64, 64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="one dtype"):
+        fa._fa_forward(x, x.bfloat16(), x, 0.125, True)
+    with pytest.raises(RuntimeError, match="contiguous"):
+        fa._fa_forward(x.transpose(1, 2), x, x, 0.125, True)
+    with pytest.raises(RuntimeError, match=r"one shape .*\[2, 32, 64\]"):
+        fa._fa_forward(x, x[:, :32].contiguous(), x, 0.125, True)
+    ext = fa._kernels()
+    with pytest.raises(RuntimeError, match=r"\[BH,T,1\], got \[2, 64\]"):
+        ext.flash_bwd_dkv(x, x, x, x, rows[..., 0], rows, rows, 0.125, True)
+
+
+@pytest.mark.cuda
+def test_flash_training_on_cuda_equals_cpu(cuda_device):
+    """The tiny float32 model at head dim 32: flash forward on the card
+    (kernels) against the CPU (plain versions), and three flash train
+    steps' losses, at 1e-4; 2 layers -> 2 launches of each kernel a
+    step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tfm.TransformerConfig(vocab_size=258, d_model=128, n_layers=2,
+                                n_heads=4, n_kv_heads=2, d_ff=256,
+                                max_seq=64, dtype="float32")
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gpu = _to(params, cuda_device)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 258, (2, 49)).astype(np.int64))
+    want = tfm.forward(params, toks[:, :-1], cfg, attn_impl="flash")
+    got = tfm.forward(gpu, toks[:, :-1].to(cuda_device), cfg,
+                      attn_impl="flash")
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    opt, step = tfm.make_train_step(cfg, attn_impl="flash", learning_rate=1e-3)
+    state, gstate = opt.init(params), opt.init(gpu)
+    ops.reset_launches()
+    for _ in range(3):
+        params, state, loss = step(params, state, toks)
+        gpu, gstate, gloss = step(gpu, gstate, toks.to(cuda_device))
+        assert abs(loss.item() - gloss.item()) <= 1e-4
+    assert ops.LAUNCHES["flash_fwd"] == ops.LAUNCHES["flash_bwd_dq"] == \
+        ops.LAUNCHES["flash_bwd_dkv"] == 3 * cfg.n_layers

@@ -38,8 +38,8 @@ def _imports(path):
 
 def test_port_sources_exist():
     names = {p.name for p in PORT_SOURCES}
-    assert {"quant.py", "transformer.py", "language.py", "http_server.py",
-            "chip_smoke.py"} <= names
+    assert {"quant.py", "flash_attention.py", "transformer.py", "language.py",
+            "http_server.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -70,6 +70,18 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _train_from_init_params(**kw):
+    """The training path's first device allocation: make_train_step, then
+    init_params without a device."""
+    from client_tpu_torch.serve.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(vocab_size=64, d_model=32, n_layers=1,
+                                n_heads=4, n_kv_heads=2, d_ff=64)
+    opt, _ = tfm.make_train_step(cfg, attn_impl="flash")
+    return opt.init(tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                                    **kw))
+
+
 def _lm_entry_points():
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import language, model_sets
@@ -79,11 +91,13 @@ def _lm_entry_points():
         "language_models": lambda **kw: language.language_models(**kw),
         "model_sets": lambda **kw: model_sets("language", **kw),
         "Server": lambda **kw: Server(**kw),
+        "make_train_step+init_params": _train_from_init_params,
     }
 
 
 @pytest.mark.parametrize(
-    "entry", ["_LmRunner", "language_models", "model_sets", "Server"]
+    "entry", ["_LmRunner", "language_models", "model_sets", "Server",
+              "make_train_step+init_params"]
 )
 def test_entry_points_refuse_to_run_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="no.*available|device='cpu'"):
@@ -95,6 +109,8 @@ def test_cpu_runs_when_asked(no_cuda):
 
     runner = language._LmRunner(device="cpu")
     assert runner.params["embed"].device.type == "cpu"
+    state = _train_from_init_params(device="cpu")
+    assert all(p.device.type == "cpu" for p in state.param_groups[0]["params"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
@@ -127,3 +143,54 @@ def test_kernel_wrapper_never_falls_back(no_cuda, monkeypatch):
     )
     assert calls == ["meta"] and tuple(out.shape) == (2, 3, 128)
     assert ops.LAUNCHES["int8_matmul"] == before + 1
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_flash_wrappers_never_fall_back(no_cuda, monkeypatch, with_lse):
+    """Off the CPU, flash_attention's forward and backward go to the three
+    kernels (one counted launch each); the plain versions are taken only
+    for CPU tensors."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.ops import _build
+    from client_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+
+    class FakeExt:
+        @staticmethod
+        def flash_fwd(q, k, v, scale, causal):
+            calls.append(("flash_fwd", q.device.type))
+            return (torch.empty_like(q),
+                    torch.empty(q.shape[0], q.shape[1], 1, device=q.device))
+
+        @staticmethod
+        def flash_bwd_dq(q, k, v, g, lse, delta, g_lse, scale, causal):
+            calls.append(("flash_bwd_dq", q.device.type))
+            return torch.empty_like(q)
+
+        @staticmethod
+        def flash_bwd_dkv(q, k, v, g, lse, delta, g_lse, scale, causal):
+            calls.append(("flash_bwd_dkv", q.device.type))
+            return torch.empty_like(k), torch.empty_like(v)
+
+    def no_plain(*args):
+        raise AssertionError("plain version taken for a device tensor")
+
+    monkeypatch.setattr(_build, "kernels", lambda: FakeExt)
+    monkeypatch.setattr(fa, "_fa_forward_reference", no_plain)
+    monkeypatch.setattr(fa, "_fa_backward_reference", no_plain)
+    q, k, v = (torch.empty(2, 128, 4, 64, device="meta", requires_grad=True)
+               for _ in range(3))
+    before = dict(ops.LAUNCHES)
+    if with_lse:
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        assert tuple(lse.shape) == (2, 4, 128, 1)
+        (out.sum() + lse.sum()).backward()
+    else:
+        out = fa.flash_attention(q, k, v)
+        out.sum().backward()
+    assert tuple(out.shape) == (2, 128, 4, 64)
+    assert calls == [("flash_fwd", "meta"), ("flash_bwd_dq", "meta"),
+                     ("flash_bwd_dkv", "meta")]
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert ops.LAUNCHES[name] == before[name] + 1

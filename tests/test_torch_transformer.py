@@ -197,11 +197,11 @@ def test_lm_flops_per_token_matches_jax(context):
 
 
 def test_unported_paths_raise(weights):
-    """Flash/ring attention and MoE name the later slice instead of
-    running something else."""
+    """Ring attention and MoE name the later slice instead of running
+    something else."""
     _, params = weights[("float32", False)]
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    for impl in ("flash", "ring", "ring_flash"):
+    for impl in ("ring", "ring_flash"):
         with pytest.raises(NotImplementedError, match="slice"):
             tfm.forward(params, toks, _TINY, attn_impl=impl)
     moe = dataclasses.replace(_TINY, n_experts=4)
