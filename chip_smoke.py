@@ -29,14 +29,16 @@ Phases, one line each or more; any failure exits non-zero:
                 _fa_forward_reference / _fa_backward_reference on the
                 card: T in {128,512,100}, D in {32,64,128}, causal and not,
                 f32 and bf16, BH in {2,5}, a zero and a nonzero lse
-                cotangent; flash_attention at T=100 (padded by the
-                wrapper) against plain_attention, forward and gradients
+                cotangent, and the main path's own shape (BH=64, T=512,
+                D=64, bf16, causal); flash_attention at T=100 (padded by
+                the wrapper) against plain_attention, forward and gradients
   8 training    the training path: 10 Adam steps of the flagship config
                 (__graft_entry__.entry(): vocab 8192, d_model 512, 4
                 layers, bf16) on tokens [8, 513] with attn_impl="flash";
                 the launch counts are reset just before and read just
                 after (4/4/4 flash launches a step, no int8); the same 10
-                steps with attn_impl="plain"; 3 float32 steps at 2 layers,
+                steps with attn_impl="plain", every loss beside the flash
+                one's; 3 float32 steps at 2 layers,
                 flash against plain; forward flash against plain; a
                 checkpoint save / restore / resume round trip
   9 timings     each flash kernel at the training shape (BH=64, T=512,
@@ -98,10 +100,14 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # stated tolerances, training path:
 # - bf16, flash against plain from the same weights: the first loss differs
 #   only by the attention's rounding (plain rounds p to bf16 before p.V, the
-#   kernels keep it f32), averaged over 4096 tokens; after 10 Adam steps the
-#   two bf16 trajectories drift apart by their own rounding
-TRAIN_LOSS0_ATOL = 0.02
-TRAIN_LOSS_LAST_ATOL = 0.1
+#   kernels keep it f32), averaged over 4096 tokens; over the 10 Adam steps
+#   the two bf16 trajectories drift apart by their own rounding.  On an H100
+#   80GB HBM3 (700 W) the losses (9.525 falling to 0.101) differed by 1.2e-4
+#   at step 1, by at most 2.7e-3 (step 5) and by 2.2e-4 at step 10; each
+#   limit leaves about 10x room and stays well below the loss it bounds
+TRAIN_LOSS0_ATOL = 2e-3
+TRAIN_LOSS_STEP_ATOL = 0.03
+TRAIN_LOSS_LAST_ATOL = 2e-3
 # - float32 (TF32 off), flash against plain: sums in another order
 F32_LOSS_ATOL = 1e-4
 F32_LOGIT_ATOL = 1e-4
@@ -230,9 +236,11 @@ def flash_bounds(bh, t, d, causal, elt=2):
     return out
 
 
-def flash_vs_plain(fa, gen):
-    """Phase 7: every flash kernel against its plain version on the card.
-    Returns ({kernel: {dtype: max abs err}}, cases)."""
+def flash_vs_plain(fa, gen, main_shape):
+    """Phase 7: every flash kernel against its plain version on the card,
+    over a grid of shapes and at ``main_shape`` ([BH, T, D] of the training
+    step, bf16, causal).  Returns ({kernel: {dtype: max abs err}}, cases,
+    {kernel: max abs err} at ``main_shape``)."""
     worst = {name: {} for name in FLASH_KERNELS}
 
     def hold(name, dt, got, want, what, tol=None):
@@ -245,36 +253,45 @@ def flash_vs_plain(fa, gen):
               f"rtol {rtol}")
         key = dtype_name(dt)
         worst[name][key] = max(worst[name].get(key, 0.0), err.max().item())
+        return err.max().item()
 
-    cases = 0
-    for dt in (torch.float32, torch.bfloat16):
-        grid = itertools.product((128, 512, 100), (32, 64, 128), (True, False))
-        for i, (t, d, causal) in enumerate(grid):
-            bh = (2, 5)[i % 2]
-            q, k, v, g = (torch.randn(bh, t, d, generator=gen).to(dt).cuda()
-                          for _ in range(4))
-            scale = d ** -0.5
-            what = f"{dtype_name(dt)} BH={bh} T={t} D={d} causal={causal}"
-            out, lse = fa._fa_forward(q, k, v, scale, causal)
-            want_out, want_lse = fa._fa_forward_reference(q, k, v, scale,
-                                                          causal)
-            hold("flash_fwd", dt, out, want_out, f"flash_fwd out {what}")
-            # lse is f32 on both sides, whatever the inputs' dtype
-            hold("flash_fwd", dt, lse, want_lse, f"flash_fwd lse {what}",
-                 TOL[torch.float32])
-            for g_lse in (torch.zeros_like(lse),
-                          torch.randn(bh, t, 1, generator=gen).cuda()):
-                dq, dk, dv = fa._fa_backward(q, k, v, out, lse, g, g_lse,
-                                             scale, causal)
-                rq, rk, rv = fa._fa_backward_reference(q, k, v, out, lse, g,
-                                                       g_lse, scale, causal)
-                nz = f"{what} g_lse={'0' if not g_lse.any() else 'randn'}"
-                hold("flash_bwd_dq", dt, dq, rq, f"flash_bwd_dq {nz}")
-                hold("flash_bwd_dkv", dt, dk, rk, f"flash_bwd_dkv dk {nz}")
-                hold("flash_bwd_dkv", dt, dv, rv, f"flash_bwd_dkv dv {nz}")
-            cases += 1
+    def case(dt, bh, t, d, causal):
+        errs = dict.fromkeys(FLASH_KERNELS, 0.0)
+
+        def held(name, *args):
+            errs[name] = max(errs[name], hold(name, dt, *args))
+
+        q, k, v, g = (torch.randn(bh, t, d, generator=gen).to(dt).cuda()
+                      for _ in range(4))
+        scale = d ** -0.5
+        what = f"{dtype_name(dt)} BH={bh} T={t} D={d} causal={causal}"
+        out, lse = fa._fa_forward(q, k, v, scale, causal)
+        want_out, want_lse = fa._fa_forward_reference(q, k, v, scale, causal)
+        held("flash_fwd", out, want_out, f"flash_fwd out {what}")
+        # lse is f32 on both sides, whatever the inputs' dtype
+        held("flash_fwd", lse, want_lse, f"flash_fwd lse {what}",
+             TOL[torch.float32])
+        for g_lse in (torch.zeros_like(lse),
+                      torch.randn(bh, t, 1, generator=gen).cuda()):
+            dq, dk, dv = fa._fa_backward(q, k, v, out, lse, g, g_lse, scale,
+                                         causal)
+            rq, rk, rv = fa._fa_backward_reference(q, k, v, out, lse, g,
+                                                   g_lse, scale, causal)
+            nz = f"{what} g_lse={'0' if not g_lse.any() else 'randn'}"
+            held("flash_bwd_dq", dq, rq, f"flash_bwd_dq {nz}")
+            held("flash_bwd_dkv", dk, rk, f"flash_bwd_dkv dk {nz}")
+            held("flash_bwd_dkv", dv, rv, f"flash_bwd_dkv dv {nz}")
+        return errs
+
+    grid = [(dt, (2, 5)[i % 2], t, d, causal)
+            for dt in (torch.float32, torch.bfloat16)
+            for i, (t, d, causal) in enumerate(itertools.product(
+                (128, 512, 100), (32, 64, 128), (True, False)))]
+    for args in grid:
+        case(*args)
+    main = case(torch.bfloat16, *main_shape, True)
     torch.cuda.synchronize()
-    return worst, cases
+    return worst, len(grid) + 1, main
 
 
 def wrapper_vs_plain(fa, plain_attention, gen):
@@ -607,17 +624,20 @@ def main():
                   **card)
 
     # -- 7 flash kernels against their plain versions ----------------------
-    flash_worst, flash_cases = flash_vs_plain(fa, gen)
+    tcfg = tfm.TransformerConfig(**FLAGSHIP)
+    main_shape = [TRAIN_BATCH * tcfg.n_heads, TRAIN_SEQ, tcfg.head_dim]
+    flash_worst, flash_cases, main_err = flash_vs_plain(fa, gen, main_shape)
     wrapper_err = wrapper_vs_plain(fa, plain_attention, gen)
     phase(7, "flash_vs_plain", kernels=list(FLASH_KERNELS),
           cases=flash_cases, max_abs_err=flash_worst,
+          main_path_case={"shape": main_shape, "dtype": "bfloat16",
+                          "causal": True, "max_abs_err": main_err},
           tolerance={"float32": TOL[torch.float32],
                      "bfloat16": TOL[torch.bfloat16],
                      "lse": TOL[torch.float32]},
           wrapper_t100_max_abs_err=wrapper_err, wrapper_tolerance=WRAPPER_TOL)
 
     # -- 8 training: the main path of the flash kernels, counted -------------
-    tcfg = tfm.TransformerConfig(**FLAGSHIP)
     tokens = torch.from_numpy(np.random.default_rng(TRAIN_SEED).integers(
         0, tcfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
     ops.reset_launches()
@@ -632,9 +652,10 @@ def main():
     check(all(np.isfinite(flash_losses)) and flash_losses[-1] < flash_losses[0],
           f"flash training losses {flash_losses}")
     _, _, plain_losses = train_run(tfm, tcfg, "plain", tokens, TRAIN_STEPS)
-    d0 = abs(flash_losses[0] - plain_losses[0])
-    dlast = abs(flash_losses[-1] - plain_losses[-1])
-    check(d0 <= TRAIN_LOSS0_ATOL and dlast <= TRAIN_LOSS_LAST_ATOL,
+    diffs = [abs(a - b) for a, b in zip(flash_losses, plain_losses)]
+    d0, dstep, dlast = diffs[0], max(diffs), diffs[-1]
+    check(d0 <= TRAIN_LOSS0_ATOL and dstep <= TRAIN_LOSS_STEP_ATOL
+          and dlast <= TRAIN_LOSS_LAST_ATOL,
           f"flash losses {flash_losses} against plain {plain_losses}")
     cfg32 = dataclasses.replace(tcfg, n_layers=2, dtype="float32")
     _, _, f32_flash = train_run(tfm, cfg32, "flash", tokens, 3)
@@ -662,7 +683,8 @@ def main():
           tokens=[TRAIN_BATCH, TRAIN_SEQ + 1], steps=TRAIN_STEPS,
           lr=TRAIN_LR, launches=train_launches, launches_per_step=per_step,
           flash_losses=flash_losses, plain_losses=plain_losses,
-          loss0_diff=d0, loss0_atol=TRAIN_LOSS0_ATOL, last_loss_diff=dlast,
+          loss0_diff=d0, loss0_atol=TRAIN_LOSS0_ATOL, max_loss_diff=dstep,
+          max_loss_atol=TRAIN_LOSS_STEP_ATOL, last_loss_diff=dlast,
           last_loss_atol=TRAIN_LOSS_LAST_ATOL,
           float32_2layer={"flash": f32_flash, "plain": f32_plain,
                           "max_diff": d32, "atol": F32_LOSS_ATOL},
@@ -671,7 +693,7 @@ def main():
 
     # -- 9 timings: flash kernels, train step, profile -----------------------
     ext = _build.kernels()
-    bh, t, d = TRAIN_BATCH * tcfg.n_heads, TRAIN_SEQ, tcfg.head_dim
+    bh, t, d = main_shape
     q, k, v, g = (torch.randn(bh, t, d, generator=gen).to(torch.bfloat16)
                   .cuda() for _ in range(4))
     scale = d ** -0.5
@@ -766,8 +788,7 @@ def main():
             "launches": train_launches[name],
             "max_abs_err": max(flash_worst[name].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms",
-                                         "f32_fma_floor_ms")},
+                                         "bound_by", "library_ms")},
             "timing": "device time from CUDA-graph replay",
             "work": f"one layer's attention at the training shape: "
                     f"[{bh}, {t}, {d}] bf16, causal",
