@@ -17,6 +17,7 @@ BUILD_DIR = os.path.join(_ROOT, "build", "client_tpu_torch_kernels")
 SOURCES = [
     os.path.join(_CSRC, "int8_matmul.cu"),
     os.path.join(_CSRC, "flash_attention.cu"),
+    os.path.join(_CSRC, "flash_fwd_bf16.cu"),
     os.path.join(_CSRC, "binding.cpp"),
 ]
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]

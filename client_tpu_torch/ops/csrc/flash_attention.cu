@@ -1,7 +1,8 @@
 // Flash attention forward, dQ and dK/dV for Hopper (sm_90a).
 //
 // Replaces the three Pallas kernels of client_tpu/ops/flash_attention.py:
-//   fa_fwd_kernel     <- _fa_kernel  (pallas_call in _fa_forward)
+//   fa_fwd_kernel     <- _fa_kernel  (pallas_call in _fa_forward), f32;
+//                        bf16 takes fa_fwd_bf16_kernel (flash_fwd_bf16.cu)
 //   fa_bwd_dq_kernel  <- _dq_kernel  (first pallas_call in _fa_backward)
 //   fa_bwd_dkv_kernel <- _dkv_kernel (second pallas_call in _fa_backward)
 // on q, k, v, dO [BH, T, D] (f32 or bf16, D in {32, 64, 128}) with lse,
@@ -14,13 +15,15 @@
 //
 // What bounds them on this card: at the training shape (BH = 64, T = 512,
 // D = 64, bf16, causal) each moves 17-25 MB and does 2.1-4.3 GFLOP, so the
-// least time is the bytes over 3.35 TB/s, 5-8 us.  These kernels take every
-// product in f32 on the CUDA cores, as the Pallas kernels do (q, k, v and
-// dO widened to f32, p.V in f32), so they cannot beat the f32 FMA rate:
-// 2.15 GFLOP / 67 TFLOP/s = 32 us for the forward.  In practice they sit
-// below that too, bound by shared-memory loads: a 4x4 register micro-tile
-// issues one shared load for every two FMAs.  A tensor-core version (wgmma,
-// bf16 p) is later work.
+// least time is the bytes over 3.35 TB/s, 5-8 us.  The kernels here take
+// every product in f32 on the CUDA cores, as the Pallas kernels do (q, k, v
+// and dO widened to f32, p.V in f32), so they cannot beat the f32 FMA rate:
+// 3.2-4.3 GFLOP of the backward / 67 TFLOP/s = 48-64 us.  In practice they
+// sit below that too, bound by shared-memory loads: a 4x4 register
+// micro-tile issues one shared load for every two FMAs.  The bf16 forward
+// runs on the tensor cores instead (flash_fwd_bf16.cu); fa_fwd_kernel here
+// takes f32 inputs only, where a tensor-core product would be TF32.  The
+// tensor-core backward is later work.
 //
 // The design keeps what the TPU kernels kept out of device memory:
 // - The sequential KV grid axis ("arbitrary" in Pallas) becomes a loop
@@ -418,14 +421,14 @@ cudaError_t launch(Kernel kernel, size_t smem, int bh, int t,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
-                float* lse, int bh, int t, float scale, bool causal,
-                cudaStream_t stream) {
-  return launch(fa_fwd_kernel<T, D>, 3 * tile_bytes(D) + tile_bytes(kTile),
-                bh, t, stream, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<T*>(out), lse, t, scale, causal);
+template <int D>
+cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int bh, int t, float scale, bool causal,
+                    cudaStream_t stream) {
+  return launch(fa_fwd_kernel<float, D>, 3 * tile_bytes(D) + tile_bytes(kTile),
+                bh, t, stream, static_cast<const float*>(q),
+                static_cast<const float*>(k), static_cast<const float*>(v),
+                static_cast<float*>(out), lse, t, scale, causal);
 }
 
 template <typename T, int D>
@@ -474,14 +477,30 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+cudaError_t ctpu_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                                void* out, float* lse, int bh, int t, int d,
+                                float scale, bool causal, cudaStream_t stream);
+
 // q, k, v [bh, t, d] (f32, or bf16 when bf16 is true), all contiguous ->
-// out [bh, t, d] in their dtype and lse [bh, t] f32.
+// out [bh, t, d] in their dtype and lse [bh, t] f32.  bf16 takes the
+// tensor-core kernel of flash_fwd_bf16.cu, f32 fa_fwd_kernel.
 cudaError_t ctpu_flash_fwd(bool bf16, const void* q, const void* k,
                            const void* v, void* out, float* lse, int bh,
                            int t, int d, float scale, bool causal,
                            cudaStream_t stream) {
-  CTPU_FLASH_DISPATCH(bf16, d, fwd, q, k, v, out, lse, bh, t, scale, causal,
-                      stream);
+  if (bf16)
+    return ctpu_flash_fwd_bf16(q, k, v, out, lse, bh, t, d, scale, causal,
+                               stream);
+  switch (d) {
+    case 32:
+      return fwd_f32<32>(q, k, v, out, lse, bh, t, scale, causal, stream);
+    case 64:
+      return fwd_f32<64>(q, k, v, out, lse, bh, t, scale, causal, stream);
+    case 128:
+      return fwd_f32<128>(q, k, v, out, lse, bh, t, scale, causal, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The same q, k, v and dout [bh, t, d]; lse, delta, glse [bh, t] f32 ->

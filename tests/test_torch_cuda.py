@@ -64,6 +64,77 @@ def test_kernel_matches_plain_version(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_both_routes_match_plain_version(cuda_device, dtype):
+    """Both routes of int8_matmul.cu against int8_matmul_reference: the GEMV
+    kernel at M <= 8 (N a multiple of 16), the tiled one at M = 9 and 16, at
+    N = 40 (not a multiple of 16) and for a q whose rows the 16-byte loads
+    cannot take; one counted launch a call."""
+    atol, rtol = _TOL[dtype]
+    rng = np.random.default_rng(12)
+    for m in list(range(1, 10)) + [16]:
+        for k, n in ((256, 256), (256, 128), (256, 768), (64, 40)):
+            x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+            x = x.to(_DT[dtype]).to(cuda_device)
+            qw = quant.quantize_int8(_weights(m * n + k, k, n).to(cuda_device))
+            want = quant.int8_matmul_reference(x, qw["q"], qw["s"])
+            # the same q one byte off a 16-byte boundary: the tiled route
+            shifted = torch.empty(k * n + 1, dtype=torch.int8,
+                                  device=cuda_device)[1:].view(k, n)
+            shifted.copy_(qw["q"])
+            for q in (qw["q"], shifted):
+                before = ops.LAUNCHES["int8_matmul"]
+                got = quant.int8_matmul(x, {"q": q, "s": qw["s"]})
+                assert ops.LAUNCHES["int8_matmul"] == before + 1
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_bf16_flash_forward_matches_plain_version(cuda_device, d, causal):
+    """The tensor-core bf16 forward (flash_fwd_bf16.cu) against
+    _fa_forward_reference: out within one bf16 ulp of the f32-summed
+    result, lse (f32 on both sides) at 1e-4; T = 1 and 100 leave a ragged
+    64-row tile; one counted launch a call."""
+    atol, rtol = _TOL["bfloat16"]
+    gen = torch.Generator().manual_seed(d + causal)
+    for t in (1, 64, 100, 512):
+        q, k, v = (torch.randn(3, t, d, generator=gen).bfloat16()
+                   .to(cuda_device) for _ in range(3))
+        scale = d ** -0.5
+        before = ops.LAUNCHES["flash_fwd"]
+        out, lse = fa._fa_forward(q, k, v, scale, causal)
+        assert ops.LAUNCHES["flash_fwd"] == before + 1
+        want_out, want_lse = fa._fa_forward_reference(q, k, v, scale, causal)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    # a negative scale flips q's sign inside the kernel: the same function
+    out, lse = fa._fa_forward(q, k, v, -scale, causal)
+    want_out, want_lse = fa._fa_forward_reference(q, k, v, -scale, causal)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_flash_forward_refuses_a_misaligned_tensor(cuda_device):
+    """The 16-byte copies need 16-byte aligned rows: a q two bytes off
+    raises instead of launching (no fallback to another kernel)."""
+    x = torch.ones(2, 64, 64, dtype=torch.bfloat16, device=cuda_device)
+    off = torch.empty(x.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(2, 64, 64)
+    off.copy_(x)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa._fa_forward(off, x, x, 0.125, True)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     qw = quant.quantize_int8(_weights(0, 128, 128).to(cuda_device))
     with pytest.raises(RuntimeError, match="float32 or bfloat16"):

@@ -42,6 +42,19 @@ def test_port_sources_exist():
             "http_server.py", "chip_smoke.py"} <= names
 
 
+def test_build_compiles_every_kernel_source():
+    """Every CUDA source under ops/csrc/ is in the one build, and the build
+    names no file that is missing."""
+    from client_tpu_torch.ops import _build
+
+    csrc = ROOT / "client_tpu_torch" / "ops" / "csrc"
+    on_disk = {p.name for p in csrc.iterdir() if p.suffix in (".cu", ".cpp")}
+    built = [pathlib.Path(p) for p in _build.SOURCES]
+    assert all(p.is_file() for p in built)
+    assert {p.name for p in built} == on_disk
+    assert "flash_fwd_bf16.cu" in on_disk
+
+
 @pytest.mark.parametrize(
     "path", PORT_SOURCES, ids=[str(p.relative_to(ROOT)) for p in PORT_SOURCES]
 )
