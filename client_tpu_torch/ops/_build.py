@@ -2,9 +2,10 @@
 
 The sources under ``csrc/`` compile for ``sm_90a`` with
 ``torch.utils.cpp_extension.load`` into ``build/client_tpu_torch_kernels/``
-beside the package.  Nothing is built at import time: the CPU never
-builds, and a CUDA caller builds once per process (``load`` reuses an
-up-to-date build directory).
+beside the package; ``flash_bf16.cuh``, which the two bf16 flash sources
+include, is tracked by ninja's dependency files.  Nothing is built at
+import time: the CPU never builds, and a CUDA caller builds once per
+process (``load`` reuses an up-to-date build directory).
 """
 
 import os
@@ -18,6 +19,7 @@ SOURCES = [
     os.path.join(_CSRC, "int8_matmul.cu"),
     os.path.join(_CSRC, "flash_attention.cu"),
     os.path.join(_CSRC, "flash_fwd_bf16.cu"),
+    os.path.join(_CSRC, "flash_bwd_bf16.cu"),
     os.path.join(_CSRC, "binding.cpp"),
 ]
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]

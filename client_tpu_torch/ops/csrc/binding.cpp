@@ -1,6 +1,7 @@
 // PyTorch binding of the package's CUDA kernels: the int8 dequant-matmul
 // (int8_matmul.cu) and the flash-attention forward, dQ and dK/dV kernels
-// (flash_attention.cu; the bf16 forward in flash_fwd_bf16.cu).
+// (flash_attention.cu for f32; bf16 in flash_fwd_bf16.cu and
+// flash_bwd_bf16.cu).
 //
 // The only source that includes PyTorch's headers: it checks the tensors,
 // allocates the outputs with torch::empty, launches on the current stream

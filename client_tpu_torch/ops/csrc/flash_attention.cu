@@ -1,29 +1,29 @@
-// Flash attention forward, dQ and dK/dV for Hopper (sm_90a).
+// Flash attention forward, dQ and dK/dV in f32 on Hopper (sm_90a).
 //
-// Replaces the three Pallas kernels of client_tpu/ops/flash_attention.py:
-//   fa_fwd_kernel     <- _fa_kernel  (pallas_call in _fa_forward), f32;
-//                        bf16 takes fa_fwd_bf16_kernel (flash_fwd_bf16.cu)
+// Replaces the three Pallas kernels of client_tpu/ops/flash_attention.py
+// for f32 inputs:
+//   fa_fwd_kernel     <- _fa_kernel  (pallas_call in _fa_forward)
 //   fa_bwd_dq_kernel  <- _dq_kernel  (first pallas_call in _fa_backward)
 //   fa_bwd_dkv_kernel <- _dkv_kernel (second pallas_call in _fa_backward)
-// on q, k, v, dO [BH, T, D] (f32 or bf16, D in {32, 64, 128}) with lse,
+// on q, k, v, dO [BH, T, D] f32 (D in {32, 64, 128}) with lse,
 // delta = rowsum(dO * O) and the lse cotangent g_lse as [BH, T] f32 rows:
 //   forward: out = softmax(q k^T * scale) v, lse = logsumexp of the scores;
 //   dQ:      dq = sum_k ds k;
 //   dK/dV:   dv = sum_q p^T dO, dk = sum_q ds^T q;
 // with p = exp(s - lse) recomputed from lse and
 // ds = p * (dO v^T - delta + g_lse) * scale (the Pallas _block_dscores).
+// bf16 inputs, the training path's, take the tensor-core kernels instead:
+// the forward in flash_fwd_bf16.cu, dQ and dK/dV in flash_bwd_bf16.cu.
+// These are kept for f32 only, where a tensor-core product would be TF32,
+// outside the f32 tolerance.
 //
-// What bounds them on this card: at the training shape (BH = 64, T = 512,
-// D = 64, bf16, causal) each moves 17-25 MB and does 2.1-4.3 GFLOP, so the
-// least time is the bytes over 3.35 TB/s, 5-8 us.  The kernels here take
-// every product in f32 on the CUDA cores, as the Pallas kernels do (q, k, v
-// and dO widened to f32, p.V in f32), so they cannot beat the f32 FMA rate:
-// 3.2-4.3 GFLOP of the backward / 67 TFLOP/s = 48-64 us.  In practice they
-// sit below that too, bound by shared-memory loads: a 4x4 register
-// micro-tile issues one shared load for every two FMAs.  The bf16 forward
-// runs on the tensor cores instead (flash_fwd_bf16.cu); fa_fwd_kernel here
-// takes f32 inputs only, where a tensor-core product would be TF32.  The
-// tensor-core backward is later work.
+// What bounds them on this card: every product is taken in f32 on the CUDA
+// cores, as the Pallas kernels take them, so they cannot beat the f32 FMA
+// rate: at [64, 512, 64] causal the forward's 2.15 GFLOP and the
+// backward's 3.2-4.3 GFLOP take 32-64 us at 67 TFLOP/s, where the bytes
+// (34-51 MB in f32) take 10-15 us.  In practice they sit below that too,
+// bound by shared-memory loads: a 4x4 register micro-tile issues one shared
+// load for every two FMAs.
 //
 // The design keeps what the TPU kernels kept out of device memory:
 // - The sequential KV grid axis ("arbitrary" in Pallas) becomes a loop
@@ -37,10 +37,10 @@
 //   and walks KV tiles; the dK/dV kernel owns a KV tile and walks the Q
 //   tiles from the first one that touches the diagonal.  No atomics, so
 //   the result is the same on every run.
-// - Tiles live in shared memory as f32, transposed ([D][65]): the odd row
-//   stride makes both the row-wise and the column-wise reads of a tile free
-//   of bank conflicts.  That is 33 KB a tile at D = 128, 116-167 KB a
-//   block, so the launch raises the block's dynamic shared-memory limit.
+// - Tiles live in shared memory transposed ([D][65]): the odd row stride
+//   makes both the row-wise and the column-wise reads of a tile free of bank
+//   conflicts.  That is 33 KB a tile at D = 128, 116-167 KB a block, so the
+//   launch raises the block's dynamic shared-memory limit.
 // - Rows at or past T are masked here (keys to _NEG, loads to 0), so T need
 //   not be a multiple of the tile.
 //
@@ -48,7 +48,6 @@
 // binding in binding.cpp checks the tensors, allocates the outputs and
 // launches on PyTorch's current stream.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -62,24 +61,15 @@ constexpr int kRows = 4;            // tile rows a thread owns: ty * 4 + i
 constexpr int kCols = 4;            // tile columns a thread owns: tx + 16 * j
 constexpr float kNeg = -1e30f;      // the Pallas _NEG: -inf without NaNs
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);  // round to nearest even, as astype does
-}
-
-// Rows [r0, r0 + kTile) of one [t, D] matrix into the transposed f32 tile
+// Rows [r0, r0 + kTile) of one [t, D] matrix into the transposed tile
 // dst[d * kStride + r]; rows at or past t read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int t) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int t) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int gr = r0 + r;
-    dst[d * kStride + r] = gr < t ? to_f32(src[(size_t)gr * D + d]) : 0.f;
+    dst[d * kStride + r] = gr < t ? src[(size_t)gr * D + d] : 0.f;
   }
 }
 
@@ -125,10 +115,10 @@ __device__ __forceinline__ bool masked(int qi, int kj, int t, bool causal) {
   return qi >= t || kj >= t || (causal && kj > qi);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out,
+fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out,
               float* __restrict__ lse, int t, float scale, bool causal) {
   extern __shared__ float smem[];
   float* qs = smem;              // [D][kStride]
@@ -143,7 +133,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = (size_t)bh * t * D;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D>(qs, q + base, q0, t);
+  load_tile<D>(qs, q + base, q0, t);
 
   float m[kRows], l[kRows], acc[kRows][kDc];
 #pragma unroll
@@ -157,8 +147,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(t, q0 + kTile) : t;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();  // the previous tile's reads of ks, vs and ps are done
-    load_tile<T, D>(ks, k + base, k0, t);
-    load_tile<T, D>(vs, v + base, k0, t);
+    load_tile<D>(ks, k + base, k0, t);
+    load_tile<D>(vs, v + base, k0, t);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -214,19 +204,19 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int dc = 0; dc < kDc; ++dc)
-      store_out(&out[base + (size_t)qi * D + tx + 16 * dc], acc[i][dc] / li);
+      out[base + (size_t)qi * D + tx + 16 * dc] = acc[i][dc] / li;
     if (tx == 0) lse[(size_t)bh * t + qi] = m[i] + logf(li);
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 const float* __restrict__ glse, T* __restrict__ dq, int t,
-                 float scale, bool causal) {
+                 const float* __restrict__ glse, float* __restrict__ dq,
+                 int t, float scale, bool causal) {
   extern __shared__ float smem[];
   float* qs = smem;                // [D][kStride]
   float* dos = qs + D * kStride;   // [D][kStride]
@@ -241,8 +231,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t rbase = (size_t)bh * t;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D>(qs, q + base, q0, t);
-  load_tile<T, D>(dos, dout + base, q0, t);
+  load_tile<D>(qs, q + base, q0, t);
+  load_tile<D>(dos, dout + base, q0, t);
   float lse_r[kRows], delta_r[kRows], glse_r[kRows], acc[kRows][kDc];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -257,8 +247,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(t, q0 + kTile) : t;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();
-    load_tile<T, D>(ks, k + base, k0, t);
-    load_tile<T, D>(vs, v + base, k0, t);
+    load_tile<D>(ks, k + base, k0, t);
+    load_tile<D>(vs, v + base, k0, t);
     __syncthreads();
 
     float s[kRows][kCols], dp[kRows][kCols];
@@ -299,18 +289,18 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= t) continue;
 #pragma unroll
     for (int dc = 0; dc < kDc; ++dc)
-      store_out(&dq[base + (size_t)qi * D + tx + 16 * dc], acc[i][dc]);
+      dq[base + (size_t)qi * D + tx + 16 * dc] = acc[i][dc];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+fa_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
-                  const float* __restrict__ glse, T* __restrict__ dk,
-                  T* __restrict__ dv, int t, float scale, bool causal) {
+                  const float* __restrict__ glse, float* __restrict__ dk,
+                  float* __restrict__ dv, int t, float scale, bool causal) {
   extern __shared__ float smem[];
   float* ks = smem;                 // [D][kStride], this block's KV tile
   float* vs = ks + D * kStride;     // [D][kStride]
@@ -329,8 +319,8 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t rbase = (size_t)bh * t;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D>(ks, k + base, k0, t);
-  load_tile<T, D>(vs, v + base, k0, t);
+  load_tile<D>(ks, k + base, k0, t);
+  load_tile<D>(vs, v + base, k0, t);
   float dk_acc[kRows][kDc], dv_acc[kRows][kDc];
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
@@ -340,8 +330,8 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Q tiles wholly before this KV tile see none of its keys
   for (int q0 = causal ? k0 : 0; q0 < t; q0 += kTile) {
     __syncthreads();  // the previous Q tile's reads are done
-    load_tile<T, D>(qs, q + base, q0, t);
-    load_tile<T, D>(dos, dout + base, q0, t);
+    load_tile<D>(qs, q + base, q0, t);
+    load_tile<D>(dos, dout + base, q0, t);
     for (int r = threadIdx.x; r < kTile; r += kThreads) {
       const int qi = q0 + r;
       lse_s[r] = qi < t ? lse[rbase + qi] : 0.f;
@@ -397,8 +387,8 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int dc = 0; dc < kDc; ++dc) {
       const size_t at = base + (size_t)kj * D + tx + 16 * dc;
-      store_out(&dk[at], dk_acc[i][dc]);
-      store_out(&dv[at], dv_acc[i][dc]);
+      dk[at] = dk_acc[i][dc];
+      dv[at] = dv_acc[i][dc];
     }
   }
 }
@@ -425,54 +415,52 @@ template <int D>
 cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* out,
                     float* lse, int bh, int t, float scale, bool causal,
                     cudaStream_t stream) {
-  return launch(fa_fwd_kernel<float, D>, 3 * tile_bytes(D) + tile_bytes(kTile),
+  return launch(fa_fwd_kernel<D>, 3 * tile_bytes(D) + tile_bytes(kTile),
                 bh, t, stream, static_cast<const float*>(q),
                 static_cast<const float*>(k), static_cast<const float*>(v),
                 static_cast<float*>(out), lse, t, scale, causal);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    const float* glse, void* dq, int bh, int t, float scale,
                    bool causal, cudaStream_t stream) {
-  return launch(fa_bwd_dq_kernel<T, D>, 4 * tile_bytes(D) + tile_bytes(kTile),
-                bh, t, stream, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), lse, delta, glse,
-                static_cast<T*>(dq), t, scale, causal);
+  return launch(fa_bwd_dq_kernel<D>, 4 * tile_bytes(D) + tile_bytes(kTile),
+                bh, t, stream, static_cast<const float*>(q),
+                static_cast<const float*>(k), static_cast<const float*>(v),
+                static_cast<const float*>(dout), lse, delta, glse,
+                static_cast<float*>(dq), t, scale, causal);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     const float* glse, void* dk, void* dv, int bh, int t,
                     float scale, bool causal, cudaStream_t stream) {
-  return launch(fa_bwd_dkv_kernel<T, D>,
+  return launch(fa_bwd_dkv_kernel<D>,
                 4 * tile_bytes(D) + 2 * tile_bytes(kTile) +
                     3 * kTile * sizeof(float),
-                bh, t, stream, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), lse, delta, glse,
-                static_cast<T*>(dk), static_cast<T*>(dv), t, scale, causal);
+                bh, t, stream, static_cast<const float*>(q),
+                static_cast<const float*>(k), static_cast<const float*>(v),
+                static_cast<const float*>(dout), lse, delta, glse,
+                static_cast<float*>(dk), static_cast<float*>(dv), t, scale,
+                causal);
 }
 
-// One instantiation per (dtype, D); D outside {32, 64, 128} is refused.
-#define CTPU_FLASH_DISPATCH(BF16, D_, FN, ...)                       \
-  do {                                                               \
-    switch (D_) {                                                    \
-      case 32:                                                       \
-        return BF16 ? FN<__nv_bfloat16, 32>(__VA_ARGS__)             \
-                    : FN<float, 32>(__VA_ARGS__);                    \
-      case 64:                                                       \
-        return BF16 ? FN<__nv_bfloat16, 64>(__VA_ARGS__)             \
-                    : FN<float, 64>(__VA_ARGS__);                    \
-      case 128:                                                      \
-        return BF16 ? FN<__nv_bfloat16, 128>(__VA_ARGS__)            \
-                    : FN<float, 128>(__VA_ARGS__);                   \
-      default:                                                       \
-        return cudaErrorInvalidValue;                                \
-    }                                                                \
+// One instantiation per D; D outside {32, 64, 128} is refused.
+#define CTPU_FLASH_BY_D(D_, FN, ...)          \
+  do {                                        \
+    switch (D_) {                             \
+      case 32:                                \
+        return FN<32>(__VA_ARGS__);           \
+      case 64:                                \
+        return FN<64>(__VA_ARGS__);           \
+      case 128:                               \
+        return FN<128>(__VA_ARGS__);          \
+      default:                                \
+        return cudaErrorInvalidValue;         \
+    }                                         \
   } while (0)
 
 }  // namespace
@@ -480,6 +468,18 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
 cudaError_t ctpu_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int bh, int t, int d,
                                 float scale, bool causal, cudaStream_t stream);
+cudaError_t ctpu_flash_bwd_dq_bf16(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const float* lse, const float* delta,
+                                   const float* glse, void* dq, int bh, int t,
+                                   int d, float scale, bool causal,
+                                   cudaStream_t stream);
+cudaError_t ctpu_flash_bwd_dkv_bf16(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const float* lse, const float* delta,
+                                    const float* glse, void* dk, void* dv,
+                                    int bh, int t, int d, float scale,
+                                    bool causal, cudaStream_t stream);
 
 // q, k, v [bh, t, d] (f32, or bf16 when bf16 is true), all contiguous ->
 // out [bh, t, d] in their dtype and lse [bh, t] f32.  bf16 takes the
@@ -491,37 +491,37 @@ cudaError_t ctpu_flash_fwd(bool bf16, const void* q, const void* k,
   if (bf16)
     return ctpu_flash_fwd_bf16(q, k, v, out, lse, bh, t, d, scale, causal,
                                stream);
-  switch (d) {
-    case 32:
-      return fwd_f32<32>(q, k, v, out, lse, bh, t, scale, causal, stream);
-    case 64:
-      return fwd_f32<64>(q, k, v, out, lse, bh, t, scale, causal, stream);
-    case 128:
-      return fwd_f32<128>(q, k, v, out, lse, bh, t, scale, causal, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  CTPU_FLASH_BY_D(d, fwd_f32, q, k, v, out, lse, bh, t, scale, causal,
+                  stream);
 }
 
 // The same q, k, v and dout [bh, t, d]; lse, delta, glse [bh, t] f32 ->
-// dq [bh, t, d].
+// dq [bh, t, d].  bf16 takes the tensor-core kernel of flash_bwd_bf16.cu,
+// f32 fa_bwd_dq_kernel.
 cudaError_t ctpu_flash_bwd_dq(bool bf16, const void* q, const void* k,
                               const void* v, const void* dout,
                               const float* lse, const float* delta,
                               const float* glse, void* dq, int bh, int t,
                               int d, float scale, bool causal,
                               cudaStream_t stream) {
-  CTPU_FLASH_DISPATCH(bf16, d, bwd_dq, q, k, v, dout, lse, delta, glse, dq,
-                      bh, t, scale, causal, stream);
+  if (bf16)
+    return ctpu_flash_bwd_dq_bf16(q, k, v, dout, lse, delta, glse, dq, bh, t,
+                                  d, scale, causal, stream);
+  CTPU_FLASH_BY_D(d, bwd_dq, q, k, v, dout, lse, delta, glse, dq, bh, t,
+                  scale, causal, stream);
 }
 
-// The same inputs -> dk, dv [bh, t, d].
+// The same inputs -> dk, dv [bh, t, d]: bf16 by flash_bwd_bf16.cu, f32 by
+// fa_bwd_dkv_kernel.
 cudaError_t ctpu_flash_bwd_dkv(bool bf16, const void* q, const void* k,
                                const void* v, const void* dout,
                                const float* lse, const float* delta,
                                const float* glse, void* dk, void* dv, int bh,
                                int t, int d, float scale, bool causal,
                                cudaStream_t stream) {
-  CTPU_FLASH_DISPATCH(bf16, d, bwd_dkv, q, k, v, dout, lse, delta, glse, dk,
-                      dv, bh, t, scale, causal, stream);
+  if (bf16)
+    return ctpu_flash_bwd_dkv_bf16(q, k, v, dout, lse, delta, glse, dk, dv,
+                                   bh, t, d, scale, causal, stream);
+  CTPU_FLASH_BY_D(d, bwd_dkv, q, k, v, dout, lse, delta, glse, dk, dv, bh, t,
+                  scale, causal, stream);
 }

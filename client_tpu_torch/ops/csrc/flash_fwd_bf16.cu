@@ -47,100 +47,22 @@
 // every row's largest p is 1.
 //
 // Plain C interface; ctpu_flash_fwd in flash_attention.cu sends bf16 here.
+// The fragment helpers are in flash_bf16.cuh, shared with the backward.
+
+#include "flash_bf16.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
-#include <initializer_list>
 
 namespace {
 
-constexpr int kTile = 64;       // rows of a Q tile and of a KV tile
-constexpr int kThreads = 128;   // 4 warps of 16 Q rows
-constexpr int kPad = 8;         // bf16 elements of padding a shared row
+using namespace flash_bf16;
+
 constexpr float kNeg = -1e30f;  // the Pallas _NEG: -inf without NaNs
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 -> one bf16x2 register, lo in the low half (round to nearest even)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-// 2^x on the SFU, flushing results below 2^-126 to 0
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Rows [r0, r0 + kTile) of one [t, D] bf16 matrix into a padded shared tile
-// by 16-byte cp.async; rows at or past t are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int r0,
-                                          int t) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  constexpr int kStride = D + kPad;
-  static_assert(kTile * kChunks % kThreads == 0, "whole rounds of copies");
-#pragma unroll
-  for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const int gr = r0 + r;
-    const bool in = gr < t;
-    // a zero-filled row still names a valid address: the tile's first row
-    const __nv_bfloat16* from = src + (size_t)(in ? gr : r0) * D + c * 8;
-    cp_async16(dst + r * kStride + c * 8, from, in ? 16 : 0);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -272,10 +194,8 @@ fa_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     // O += P V: key step s takes S blocks 2s and 2s + 1 as its A fragment
 #pragma unroll
     for (int s = 0; s < kTile / 16; ++s) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * s][0], sc[2 * s][1]),
-                              pack_bf16(sc[2 * s][2], sc[2 * s][3]),
-                              pack_bf16(sc[2 * s + 1][0], sc[2 * s + 1][1]),
-                              pack_bf16(sc[2 * s + 1][2], sc[2 * s + 1][3])};
+      uint32_t pa[4];
+      c_to_a(pa, sc[2 * s], sc[2 * s + 1]);
 #pragma unroll
       for (int b = 0; b < kOBlocks; b += 2) {
         uint32_t vb[4];  // b0, b1 of column block b, then of block b + 1
@@ -289,9 +209,6 @@ fa_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // every warp is done with this stage
   }
 
-  // stage the warp's 16 output rows in its own Q rows, then store them as
-  // 16-byte chunks
-  __nv_bfloat16* os = qs + warp * 16 * kStride;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     // the quad's lanes hold parts of the row's denominator; every real row
@@ -301,24 +218,15 @@ fa_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     lr += __shfl_xor_sync(~0u, lr, 2);
     const float inv = 1.f / fmaxf(lr, 1e-30f);
 #pragma unroll
-    for (int b = 0; b < kOBlocks; ++b)
-      *reinterpret_cast<uint32_t*>(os + (h * 8 + g) * kStride + b * 8 +
-                                   tq * 2) =
-          pack_bf16(o[b][2 * h] * inv, o[b][2 * h + 1] * inv);
+    for (int b = 0; b < kOBlocks; ++b) {
+      o[b][2 * h] *= inv;
+      o[b][2 * h + 1] *= inv;
+    }
     const int qi = row0 + h * 8;
     if (tq == 0 && qi < t) lse[(size_t)bh * t + qi] = m[h] * kLn2 + logf(lr);
   }
-  __syncwarp();
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int it = 0; it < 16 * kChunks / 32; ++it) {
-    const int i = lane + it * 32;
-    const int r = i / kChunks, ch = i % kChunks;
-    const int qi = q0 + warp * 16 + r;
-    if (qi < t)
-      *reinterpret_cast<uint4*>(out + base + (size_t)qi * D + ch * 8) =
-          *reinterpret_cast<const uint4*>(os + r * kStride + ch * 8);
-  }
+  // the output goes through the warp's own Q rows for 16-byte stores
+  store_rows<D>(qs + warp * 16 * kStride, o, out + base, q0 + warp * 16, t);
 }
 
 template <int D>
@@ -326,17 +234,12 @@ cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* out,
                      float* lse, int bh, int t, float scale, bool causal,
                      cudaStream_t stream) {
   const size_t smem = 5 * (size_t)kTile * (D + kPad) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t + kTile - 1) / kTile);
-  fa_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      lse, t, scale * kLog2e, causal);
-  return cudaGetLastError();
+  return launch(fa_fwd_bf16_kernel<D>, smem, bh, t, stream,
+                static_cast<const __nv_bfloat16*>(q),
+                static_cast<const __nv_bfloat16*>(k),
+                static_cast<const __nv_bfloat16*>(v),
+                static_cast<__nv_bfloat16*>(out), lse, t, scale * kLog2e,
+                causal);
 }
 
 }  // namespace
@@ -348,8 +251,7 @@ cudaError_t ctpu_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int bh, int t, int d,
                                 float scale, bool causal,
                                 cudaStream_t stream) {
-  for (const void* p : {q, k, v, static_cast<const void*>(out)})
-    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  if (!aligned16({q, k, v, out})) return cudaErrorMisalignedAddress;
   switch (d) {
     case 32:
       return fwd_bf16<32>(q, k, v, out, lse, bh, t, scale, causal, stream);

@@ -10,8 +10,9 @@ interface and with the same dispatch rules:
   refuses a longer one.
 
 ``block_q``/``block_k`` only decide that dispatch, as in the JAX package;
-the CUDA kernels (``csrc/flash_attention.cu``) pick their own tiles and mask
-a ragged T edge themselves.  The two ``jax.custom_vjp``s become one
+the CUDA kernels pick their own tiles and mask a ragged T edge themselves
+(bf16 on the tensor cores in ``csrc/flash_fwd_bf16.cu`` and
+``csrc/flash_bwd_bf16.cu``, f32 in ``csrc/flash_attention.cu``).  The two ``jax.custom_vjp``s become one
 ``torch.autograd.Function`` whose backward is the dQ kernel plus the dK/dV
 kernel (the FA-2 two-kernel scheme: no atomics, the same result on every
 run), with ``delta = rowsum(dO * O)`` computed in plain torch between them.

@@ -39,7 +39,7 @@ setup(
         "client_tpu.utils.shared_memory": ["libcshm_tpu.so"],
         "client_tpu.analysis": ["baseline.json"],
         # the port's CUDA sources, compiled on the GPU machine at first use
-        "client_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cpp"],
+        "client_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"],
     },
     python_requires=">=3.9",
     install_requires=["numpy>=1.22", "urllib3>=1.26", "protobuf>=3.19"],

@@ -135,6 +135,74 @@ def test_bf16_flash_forward_refuses_a_misaligned_tensor(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_bf16_flash_backward_matches_plain_version(cuda_device, d, causal):
+    """The tensor-core bf16 dQ and dK/dV kernels (flash_bwd_bf16.cu) against
+    _fa_backward_reference, within one bf16 ulp of the f32-summed result,
+    with a zero and a randn lse cotangent; T = 1 and 100 leave a ragged
+    64-row tile, and a negative scale must mask p itself; one counted
+    launch of each kernel a call."""
+    atol, rtol = _TOL["bfloat16"]
+    gen = torch.Generator().manual_seed(100 + d + causal)
+
+    def held(q, k, v, g, scale):
+        out, lse = fa._fa_forward(q, k, v, scale, causal)
+        for g_lse in (torch.zeros_like(lse),
+                      torch.randn(*lse.shape, generator=gen).to(cuda_device)):
+            before = dict(ops.LAUNCHES)
+            got = fa._fa_backward(q, k, v, out, lse, g, g_lse, scale, causal)
+            assert ops.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+            assert ops.LAUNCHES["flash_bwd_dkv"] == \
+                before["flash_bwd_dkv"] + 1
+            want = fa._fa_backward_reference(q, k, v, out, lse, g, g_lse,
+                                             scale, causal)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert a.dtype == torch.bfloat16
+                torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                           rtol=rtol)
+
+    for t in (1, 64, 100, 512):
+        q, k, v, g = (torch.randn(3, t, d, generator=gen).bfloat16()
+                      .to(cuda_device) for _ in range(4))
+        held(q, k, v, g, d ** -0.5)
+    held(q, k, v, g, -d ** -0.5)
+
+
+@pytest.mark.cuda
+def test_bf16_flash_backward_refuses_a_misaligned_tensor(cuda_device):
+    """Each backward kernel's 16-byte copies need 16-byte aligned rows: a q
+    two bytes off raises instead of launching (no fallback)."""
+    x = torch.ones(2, 64, 64, dtype=torch.bfloat16, device=cuda_device)
+    off = torch.empty(x.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(2, 64, 64)
+    off.copy_(x)
+    rows = torch.zeros(2, 64, 1, device=cuda_device)
+    ext = fa._kernels()
+    with pytest.raises(RuntimeError, match="misaligned"):
+        ext.flash_bwd_dq(off, x, x, x, rows, rows, rows, 0.125, True)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        ext.flash_bwd_dkv(off, x, x, x, rows, rows, rows, 0.125, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_repeats_bit_for_bit(cuda_device, dtype):
+    """Two launches of the dQ and dK/dV kernels on the same inputs give
+    equal dq, dk and dv: no atomics, so a checkpoint resume can be exact."""
+    gen = torch.Generator().manual_seed(31)
+    q, k, v, g = (torch.randn(8, 512, 64, generator=gen).to(_DT[dtype])
+                  .to(cuda_device) for _ in range(4))
+    out, lse = fa._fa_forward(q, k, v, 0.125, True)
+    g_lse = torch.randn(8, 512, 1, generator=gen).to(cuda_device)
+    first = fa._fa_backward(q, k, v, out, lse, g, g_lse, 0.125, True)
+    second = fa._fa_backward(q, k, v, out, lse, g, g_lse, 0.125, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     qw = quant.quantize_int8(_weights(0, 128, 128).to(cuda_device))
     with pytest.raises(RuntimeError, match="float32 or bfloat16"):

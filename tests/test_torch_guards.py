@@ -9,6 +9,7 @@
 
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
@@ -43,8 +44,9 @@ def test_port_sources_exist():
 
 
 def test_build_compiles_every_kernel_source():
-    """Every CUDA source under ops/csrc/ is in the one build, and the build
-    names no file that is missing."""
+    """Every CUDA source under ops/csrc/ is in the one build, the build
+    names no file that is missing, and every header a source includes by
+    a quoted name lies beside it."""
     from client_tpu_torch.ops import _build
 
     csrc = ROOT / "client_tpu_torch" / "ops" / "csrc"
@@ -52,7 +54,10 @@ def test_build_compiles_every_kernel_source():
     built = [pathlib.Path(p) for p in _build.SOURCES]
     assert all(p.is_file() for p in built)
     assert {p.name for p in built} == on_disk
-    assert "flash_fwd_bf16.cu" in on_disk
+    assert {"flash_fwd_bf16.cu", "flash_bwd_bf16.cu"} <= on_disk
+    for p in built:
+        for name in re.findall(r'^#include "([^"]+)"', p.read_text(), re.M):
+            assert (csrc / name).is_file(), f"{p.name} includes {name}"
 
 
 @pytest.mark.parametrize(
