@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of client_tpu_torch on one NVIDIA GPU: builds the kernels,
-holds each against its plain PyTorch version, serves the int8 LM over
-KServe-v2 HTTP, trains the flagship LM through the flash-attention
-kernels, and times the kernels, the serial decode and the train step.
+holds each against its plain PyTorch version, serves the LM over
+KServe-v2 HTTP through the continuous-batching engine, trains the flagship
+LM through the flash-attention kernels, and times the kernels, the serial
+decode, the engine and the train step.
 
     python3 chip_smoke.py
 
@@ -19,10 +20,15 @@ Phases, one line each or more; any failure exits non-zero:
                 on cuda (kernel) against the same weights on cpu (plain),
                 24 kernel launches per decode step
   5 server      the serving path: the language set behind
-                Server(http_port=0), driven over HTTP with urllib, then the
-                decoupled engine.execute stream against _LmRunner.stream;
-                the launch counts are reset just before this phase and read
-                just after it
+                Server(http_port=0), driven over HTTP with urllib
+                (MAX_TOKENS=1 to lm_streaming_int8 and lm_streaming_batched,
+                both on the continuous-batching engine, and to the serial
+                lm_streaming), then engine.execute streams 32 tokens from
+                each batched model, equal to its engine's own stream; the
+                int8 stream against the serial _LmRunner.stream (equal, or
+                diverging only at a near-tie: see NEAR_TIE); the launch
+                counts are reset just before this phase and read just
+                after it
   6 timings     each served kernel shape at M=1 and 8 (GEMV route), M=63
                 (the served prompt) and M=128 (tiled route) beside its bound,
                 the plain version and torch.matmul on the dequantized
@@ -55,9 +61,31 @@ Phases, one line each or more; any failure exits non-zero:
                 [32, 512, 128] (D=128) on a line of their own; the
                 train step, plain and flash alternated, with its peak
                 memory; a torch.profiler trace of 3 flash steps
- 10 kernels     one JSON line: every ported kernel, its launches on its
-                path (phase 5 or 8), its error (phase 3 or 7) and its
-                times (phase 6 or 9)
+ 10 paged       paged_attention (kernel) against paged_attention_reference
+                at the engine's shapes: decode B in {2,4,8}, T=1; verify
+                B=8, T in {2,4,5}; prefill B=1, T in {16,32,64}; contexts 1
+                to 511 with partly filled last blocks; hd in {16,32,64,128};
+                bf16 and f32; shuffled, non-contiguous block tables.  Every
+                pool row the mask excludes (the trash block included) is
+                NaN for the kernel; the plain version reads a clean copy
+ 11 engine      LmEngine on DEFAULT_LM_CONFIG: 16 concurrent greedy streams
+                over 8 lanes (prompts of 1 to 200 tokens, two sharing a
+                48-token prefix) in float32, each equal to the serial
+                generate; the same in bf16 and int8 (equal, or diverging
+                only at a near-tie); a preempted and resumed stream and a
+                speculative run (k=4, n-gram) against greedy; the launch
+                counts a tick (paged n_layers, int8 6 x n_layers); the KV
+                audit clean after close()
+ 12 timings     paged_attention by CUDA-graph replay at decode B=8,
+                contexts 64, 256 and 511, and at prefill T=64, beside its
+                bound, its plain version and scaled_dot_product_attention
+                on K/V gathered through the table; the engine's aggregate
+                tokens/s and TTFT at 1, 4 and 8 concurrent streams (bf16
+                and int8, 128 tokens each); the device-busy share of a
+                decode-heavy window under torch.profiler
+ 13 kernels     one JSON line: every ported kernel, its launches on its
+                path (phase 5 or 8), its error (phase 3, 7 or 10) and its
+                times (phase 6, 9 or 12)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -72,6 +100,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -83,6 +112,7 @@ import torch.nn.functional as F
 # H100 SXM published peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12  # outside the tensor cores
 
 # stated tolerances: kernel against its plain version on the same inputs
 TOL = {
@@ -93,6 +123,11 @@ TOL = {
 # the logits' magnitude (2..4, ulp 1/64) after four layers of bf16 rounding
 LOGIT_ATOL = 0.1
 MIN_AGREE = 0.9  # greedy positions; allows the documented bf16 near-ties
+# a bf16 or int8 stream of the batched engine against the serial runner
+# (other kernels, other sums): equal, or diverging first where the serial
+# logits of the two tokens lie within the bf16 logit tolerance above — a
+# near-tie, which either order of the sums may resolve either way
+NEAR_TIE = LOGIT_ATOL
 
 # both int8 routes: the GEMV kernel takes M <= 8 (every served N is a
 # multiple of 16), the tiled kernel the rest
@@ -231,7 +266,7 @@ def kernel_resources(library):
         # the last length-prefixed name ending in _kernel, then its
         # template arguments: integers (Li64E) and the types f and bf16
         kernel = re.search(
-            r".*\d((?:fa|int8)_[a-z0-9_]*?_kernel)(?:I(.*?)EE)?", name)
+            r".*\d((?:fa|int8|paged)_[a-z0-9_]*?_kernel)(?:I(.*?)EE)?", name)
         key = kernel.group(1) if kernel else name
         args = [num or ("f32" if typ == "f" else "bf16")
                 for num, typ in re.findall(r"Li(\d+)|(f|13__nv_bfloat16)",
@@ -474,7 +509,6 @@ def step_time(tfm, cfg, impl, tokens, steps=10, warmup=2):
 def profile_steps(tfm, cfg, tokens, steps=3):
     """torch.profiler over ``steps`` warm flash steps: the device-busy share
     of the wall time and the top kernels by device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     params, state, _ = train_run(tfm, cfg, "flash", tokens, 2)
@@ -488,8 +522,288 @@ def profile_steps(tfm, cfg, tokens, steps=3):
             params, state, _ = step(params, state, tokens)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # kernels and copies only: a user annotation (Optimizer.step#...) also
-    # lies on the device timeline, spanning the gaps between its kernels
+    return {"steps": steps, **busy_share(prof, wall_us)}
+
+
+# -- the continuous-batching engine (phases 5, 10-12) -----------------------
+
+# the engine's JAX defaults: 8 slots, lane counts {2, 4, 8}, 16-token
+# blocks, 64-token prefill chunks (buckets {16, 32, 64}), table width 32
+ENGINE_KW = dict(max_slots=8, block_size=16, prefill_chunk=64)
+PAGED_BS, PAGED_WIDTH = 16, 32
+PAGED_HEADS = (8, 4)  # DEFAULT_LM_CONFIG's query and KV heads
+ENGINE_TOKENS = 128   # tokens a stream in the engine timings
+
+
+def paged_case(batch, t, hd, dtype, contexts, seed, heads=PAGED_HEADS):
+    """A paged-attention input on the card at the engine's layout: lane b's
+    T queries end at key contexts[b] - 1, its blocks are shuffled
+    physical blocks scattered over the pool, and its table's tail is the
+    trash block 0.  Returns (clean args, the same args with every pool row
+    the mask excludes set to NaN, pos as numpy)."""
+    rng = np.random.default_rng(seed)
+    n_heads, n_kv = heads
+    bs = PAGED_BS
+    ctx = np.maximum(np.asarray(contexts), t)
+    pos = (ctx[:, None] - t + np.arange(t)[None, :]).astype(np.int32)
+    own = pos.max(axis=1) // bs + 1
+    n_blocks = int(own.sum()) + 3  # three blocks no lane owns
+    perm = rng.permutation(np.arange(1, n_blocks + 1))
+    tables = np.zeros((batch, PAGED_WIDTH), np.int32)
+    live = np.zeros((n_blocks + 1, bs), bool)
+    start = 0
+    for b in range(batch):
+        tables[b, :own[b]] = perm[start:start + own[b]]
+        start += own[b]
+        for j in range(int(pos[b].max()) + 1):
+            live[tables[b, j // bs], j % bs] = True
+    shape = (n_blocks + 1, bs, n_kv, hd)
+    k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dtype) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal(
+        (batch, t, n_heads, hd)).astype(np.float32)).to(dtype)
+    kn, vn = k.clone(), v.clone()
+    dead = torch.from_numpy(~live)
+    kn[dead] = float("nan")
+    vn[dead] = float("nan")
+    tab, ps = torch.from_numpy(tables).cuda(), torch.from_numpy(pos).cuda()
+    return ((q.cuda(), k.cuda(), v.cuda(), tab, ps),
+            (q.cuda(), kn.cuda(), vn.cuda(), tab, ps), pos)
+
+
+def paged_grid():
+    """(kind, batch, t, contexts) of phase 10: the engine's decode, verify
+    and prefill shapes, contexts from 1 to 511 (most end mid-block)."""
+    grid = [("decode", b, 1, np.linspace(1, 511, b).astype(int))
+            for b in (2, 4, 8)]
+    grid += [("verify", 8, t, np.linspace(t, 511, 8).astype(int))
+             for t in (2, 4, 5)]
+    grid += [("prefill", 1, t, [ctx]) for t in (16, 32, 64)
+             for ctx in (t, 511)]
+    return grid
+
+
+def paged_vs_plain(pa):
+    """Phase 10: the kernel on NaN-poisoned pools against the plain version
+    on clean ones, over paged_grid() x hd x dtype."""
+    worst, cases = {}, 0
+    for kind, batch, t, contexts in paged_grid():
+        for hd in (16, 32, 64, 128):
+            for dt in (torch.float32, torch.bfloat16):
+                clean, poisoned, _ = paged_case(batch, t, hd, dt, contexts,
+                                                seed=cases)
+                got = pa._launch(*poisoned, PAGED_BS).float()
+                want = pa.paged_attention_reference(*clean,
+                                                    PAGED_BS).float()
+                atol, rtol = TOL[dt]
+                err = (got - want).abs()
+                what = (f"paged_attention {kind} B={batch} T={t} hd={hd} "
+                        f"{dtype_name(dt)}")
+                check(bool(torch.isfinite(got).all()),
+                      f"{what}: non-finite output (read a masked row?)")
+                check(bool((err <= atol + rtol * want.abs()).all()),
+                      f"{what}: max abs err {err.max().item()} beyond atol "
+                      f"{atol} rtol {rtol}")
+                key = dtype_name(dt)
+                worst[key] = max(worst.get(key, 0.0), err.max().item())
+                cases += 1
+    torch.cuda.synchronize()
+    return worst, cases
+
+
+def paged_bound(pos, heads, hd, elt):
+    """(bound_ms, bound_by) of one paged-attention call: each input read
+    once (the K/V rows up to each lane's last pos, q, tables, pos) and out
+    written once, over HBM; q.k and p.v for every attended (query, key)
+    pair over the dense peak of the dtype (bf16 tensor cores, or f32)."""
+    n_heads, n_kv = heads
+    batch, t = pos.shape
+    rows = int((pos.max(axis=1) + 1).sum())
+    nbytes = (2 * rows * n_kv * hd * elt + 2 * batch * t * n_heads * hd * elt
+              + batch * PAGED_WIDTH * 4 + batch * t * 4)
+    flops = 4 * n_heads * hd * int((pos.astype(np.int64) + 1).sum())
+    peak = BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def paged_timings(pa, ext, graph):
+    """Phase 12: the kernel by CUDA-graph replay at the engine's decode
+    (B=8, contexts 64, 256, 511) and prefill (B=1, T=64 ending at key 256)
+    shapes, bf16, hd 32, beside its bound, its plain version and SDPA on
+    K/V gathered through the table (gather included)."""
+    rows = []
+    for kind, batch, t, ctx in (("decode", 8, 1, 64), ("decode", 8, 1, 256),
+                                ("decode", 8, 1, 511),
+                                ("prefill", 1, 64, 256)):
+        (q, k, v, tables, pos), _, pos_np = paged_case(
+            batch, t, 32, torch.bfloat16, [ctx] * batch, seed=ctx + t)
+        n_kv, hd = k.shape[2], k.shape[3]
+        s_len = PAGED_WIDTH * PAGED_BS
+        idx = tables.long()
+        mask = (torch.arange(s_len, device="cuda")[None, None, :]
+                <= pos[:, :, None])[:, None]  # [B,1,T,S]
+        qh = q.transpose(1, 2)
+
+        def library():
+            kk = k[idx].reshape(batch, s_len, n_kv, hd).transpose(1, 2)
+            vv = v[idx].reshape(batch, s_len, n_kv, hd).transpose(1, 2)
+            return F.scaled_dot_product_attention(qh, kk, vv, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        want = pa.paged_attention_reference(q, k, v, tables, pos,
+                                            PAGED_BS).float()
+        got_lib = library().transpose(1, 2).float()
+        check(bool(((got_lib - want).abs() <= 2e-2 + 1e-2 * want.abs()).all()),
+              "SDPA on the gathered K/V does not compute the same function")
+        bound, bound_by = paged_bound(pos_np, PAGED_HEADS, hd, 2)
+        rows.append({
+            "shape": kind, "B": batch, "T": t, "context": ctx, "hd": hd,
+            "heads": list(PAGED_HEADS), "dtype": "bfloat16",
+            "ms": graph(lambda: ext.paged_attention(q, k, v, tables, pos,
+                                                    PAGED_BS)),
+            "plain_ms": graph(lambda: pa.paged_attention_reference(
+                q, k, v, tables, pos, PAGED_BS)),
+            "library_ms": graph(library),
+            "library": "F.scaled_dot_product_attention(attn_mask, "
+                       "enable_gqa=True) on K/V gathered through the table",
+            "bound_ms": bound, "bound_by": bound_by,
+            "timing": "device time from CUDA-graph replay"})
+    return rows
+
+
+def collect(q, close, timeout=300):
+    out = []
+    while True:
+        tok = q.get(timeout=timeout)
+        if tok is close:
+            return out
+        out.append(tok)
+
+
+def agreement(tfm, params, cfg, prompt, got, want):
+    """A batched stream against the serial one: equal, or, where they first
+    diverge, the serial model's logits of both tokens (a full forward over
+    the common prefix) and their gap.  Fails unless the gap is a near-tie
+    (at most NEAR_TIE)."""
+    if got == want:
+        return {"equal": True, "tokens": len(got)}
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    check(i < min(len(got), len(want)),
+          f"stream lengths differ: {len(got)} against {len(want)}")
+    seq = torch.as_tensor(list(prompt) + list(want[:i]), dtype=torch.int32,
+                          device="cuda")[None]
+    with torch.no_grad():
+        logits = tfm.forward(params, seq, cfg)[0, -1].float()
+    top2 = torch.topk(logits, 2).values
+    gap = float(logits[want[i]] - logits[got[i]])
+    check(gap <= NEAR_TIE,
+          f"stream diverges from serial at position {i} where the serial "
+          f"logits differ by {gap} > {NEAR_TIE}: {got} against {want}")
+    return {"equal": False, "tokens": len(got), "first_divergence": i,
+            "gap": gap, "top2_gap": float(top2[0] - top2[1])}
+
+
+def engine_run(LmEngine, ops, params, cfg, prompts, lengths, **kw):
+    """Submit every (prompt, n) to a fresh engine on the card at once and
+    collect the streams; the launch counts are reset just before and read
+    just after.  Returns (streams, launches, ticks by kind, stats); fails
+    unless the KV audit is clean after close()."""
+    eng = LmEngine(params, cfg, device="cuda", **{**ENGINE_KW, **kw})
+    ops.reset_launches()
+    try:
+        qs = [eng.submit(p, n)[0] for p, n in zip(prompts, lengths)]
+        got = [collect(q, LmEngine.CLOSE) for q in qs]
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        ticks = {}
+        for rec in eng.tick_trace():
+            ticks[rec["kind"]] = ticks.get(rec["kind"], 0) + 1
+        stats = {"prefix": eng.prefix_stats(),
+                 "preempt": eng.preempt_stats(), "spec": eng.spec_stats(),
+                 "shapes": {"prefill_widths": eng.prefill_executables(),
+                            "lane_counts": eng.decode_executables(),
+                            "verify": eng.verify_executables()}}
+    finally:
+        eng.close()
+    check(eng.kv.used_blocks == 0 and eng.kv.ref_counts() == {},
+          f"KV audit after close: {eng.kv.used_blocks} blocks used, "
+          f"refs {eng.kv.ref_counts()}")
+    return got, launches, ticks, stats
+
+
+def check_launches(launches, ticks, cfg, int8):
+    """paged attention n_layers a device tick (decode, verify or prefill
+    chunk); int8 6 x n_layers a tick when the weights are int8."""
+    device_ticks = sum(n for kind, n in ticks.items() if kind != "draft")
+    want = {"paged_attention": cfg.n_layers * device_ticks,
+            "int8_matmul": 6 * cfg.n_layers * device_ticks if int8 else 0}
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{name} launched {launches[name]} times in {ticks} ticks, "
+              f"expected {n}")
+    return {"per_tick": {name: n // max(device_ticks, 1)
+                         for name, n in want.items()},
+            "ticks": ticks, "launches": launches}
+
+
+def distinct_prompts(prompt, n):
+    """n copies of prompt, each with its own second token: no prefix is
+    shared, so every stream prefills its own chunk."""
+    out = []
+    for i in range(n):
+        p = np.array(prompt, np.int32)
+        p[1] = 32 + i
+        out.append(p)
+    return out
+
+
+def engine_rate(LmEngine, params, cfg, prompt, n_streams):
+    """Aggregate tokens/s and TTFT of n_streams concurrent greedy streams of
+    ENGINE_TOKENS tokens each, after a warm-up run; host clock from the
+    first submit to the last token."""
+    eng = LmEngine(params, cfg, device="cuda", **ENGINE_KW)
+
+    def run(n, tokens):
+        stamps = [[] for _ in range(n)]
+        t0 = time.monotonic()
+        qs = [eng.submit(p, tokens)[0] for p in distinct_prompts(prompt, n)]
+
+        def drain(i):
+            while qs[i].get(timeout=300) is not LmEngine.CLOSE:
+                stamps[i].append(time.monotonic())
+
+        threads = [threading.Thread(target=drain, args=(i,), daemon=True)
+                   for i in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        return t0, stamps
+
+    try:
+        run(8, 8)  # warm-up: every lane count and the prefill width
+        t0, stamps = run(n_streams, ENGINE_TOKENS)
+    finally:
+        eng.close()
+    total = sum(len(s) for s in stamps)
+    check(total == n_streams * ENGINE_TOKENS, f"{total} tokens delivered")
+    end = max(s[-1] for s in stamps)
+    ttft = [(s[0] - t0) * 1e3 for s in stamps]
+    return {"streams": n_streams, "tokens_each": ENGINE_TOKENS,
+            "tokens_per_s": total / (end - t0),
+            "ttft_ms_mean": float(np.mean(ttft)), "ttft_ms_max": max(ttft)}
+
+
+def busy_share(prof, wall_us):
+    """Device-busy share of the wall time from a torch.profiler trace:
+    kernels and copies merged on the device timeline (a user annotation,
+    which spans the gaps between its kernels, is left out), and the top
+    kernels by device time."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA
@@ -509,12 +823,38 @@ def profile_steps(tfm, cfg, tokens, steps=3):
     for start, end, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"steps": steps, "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy / 1e3,
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us,
             "kernel_launches": len(spans),
             "top_kernels": [{"name": n[:120], "ms": us / 1e3,
                              "share_of_busy": us / busy} for n, us in top]}
+
+
+def engine_profile(LmEngine, params, cfg, prompt, window_s=0.5):
+    """torch.profiler over a decode-heavy window of the engine: 8 greedy
+    streams, the window opened once every stream has its first token (all
+    prefill done)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = LmEngine(params, cfg, device="cuda", **ENGINE_KW)
+    try:
+        collect(eng.submit(prompt, 8)[0], LmEngine.CLOSE)  # warm-up
+        qs = [eng.submit(p, 400)[0] for p in distinct_prompts(prompt, 8)]
+        for q in qs:
+            q.get(timeout=300)
+        before = sum(1 for r in eng.tick_trace() if r["kind"] == "decode")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            time.sleep(window_s)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ticks = sum(1 for r in eng.tick_trace()
+                    if r["kind"] == "decode") - before
+    finally:
+        eng.close()
+    return {"window_s": window_s, "streams": 8, "decode_ticks": ticks,
+            **busy_share(prof, wall_us)}
 
 
 def main():
@@ -524,8 +864,10 @@ def main():
     from client_tpu_torch import ops
     from client_tpu_torch.ops import _build, quant
     from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.ops import paged_attention as pa
     from client_tpu_torch.parallel.ring_attention import plain_attention
     from client_tpu_torch.serve import Server
+    from client_tpu_torch.serve.lm import LmEngine
     from client_tpu_torch.serve.models import language
     from client_tpu_torch.serve.models import transformer as tfm
     from client_tpu_torch.train import CheckpointManager
@@ -544,7 +886,8 @@ def main():
 
     # -- 2 build ---------------------------------------------------------
     library = _build.kernels().__file__
-    phase(2, "build", kernels=["int8_matmul", *FLASH_KERNELS],
+    phase(2, "build", kernels=["int8_matmul", *FLASH_KERNELS,
+                               "paged_attention"],
           seconds=round(_build.build_seconds, 3), flags=_build.CUDA_FLAGS,
           resources=kernel_resources(library))
 
@@ -620,9 +963,15 @@ def main():
           tokens_cuda=gen_gpu)
 
     # -- 5 server: the main path, counted ---------------------------------
+    # lm_streaming_int8 and lm_streaming_batched run on the continuous-
+    # batching engine (paged attention; int8 at decode on the GEMV route)
     ops.reset_launches()
-    with Server(models=language.language_models(device="cuda"),
-                http_port=0) as server:
+    served_models = language.language_models(device="cuda")
+    engines = {m.name: m.closer.__self__ for m in served_models
+               if m.closer is not None}
+    check(set(engines) == {"lm_streaming_int8", "lm_streaming_batched"},
+          f"batched models {sorted(engines)}")
+    with Server(models=served_models, http_port=0) as server:
         addr = server.http_address
         status, _, _ = http(addr, "/v2/health/ready")
         check(status == 200, f"ready answered {status}")
@@ -636,17 +985,20 @@ def main():
         tok_out = {o["name"]: o for o in json.loads(body)["outputs"]}
         check(tok_out["TOKENS"]["data"] == prompt.tolist(),
               "tokenizer output differs from encode_text")
-        served = []
-        for model_name in ("lm_streaming_int8",) * 3 + ("lm_streaming",):
+        served = {}
+        for model_name in (("lm_streaming_int8",) * 3 + ("lm_streaming",)
+                           + ("lm_streaming_batched",) * 2):
             _, body, headers = http(
                 addr, f"/v2/models/{model_name}/infer",
                 lm_request(prompt, 1), {"Accept-Encoding": "gzip"},
             )
             check(headers.get("Content-Encoding") == "gzip", "no gzip body")
             out = json.loads(gzip.decompress(body))
-            served.append(out["outputs"][0]["data"][0])
-        check(served[0] == served[1] == served[2] == gen_gpu[0],
-              f"served first tokens {served[:3]}, generate gave {gen_gpu[0]}")
+            served.setdefault(model_name, []).append(
+                out["outputs"][0]["data"][0])
+        for model_name, firsts in served.items():
+            check(len(set(firsts)) == 1,
+                  f"{model_name} answered {firsts} to one request")
         try:
             http(addr, "/v2/models/lm_streaming_int8/infer",
                  lm_request(prompt, 4))
@@ -655,20 +1007,37 @@ def main():
             err_body = e.read().decode()
             check(e.code == 400 and "gRPC streaming" in err_body,
                   f"decoupled rule answered {e.code}: {err_body}")
-        stream = server.engine.execute(
-            "lm_streaming_int8", "",
-            json.loads(lm_request(prompt, 32)), b"")
-        streamed = [r[0]["outputs"][0]["data"][0] for r in stream]
+        streamed, own = {}, {}
+        for model_name, eng in engines.items():
+            stream = server.engine.execute(
+                model_name, "", json.loads(lm_request(prompt, 32)), b"")
+            streamed[model_name] = [r[0]["outputs"][0]["data"][0]
+                                    for r in stream]
+            # the same request straight to the model's engine
+            own[model_name] = collect(eng.submit(prompt, 32)[0],
+                                      LmEngine.CLOSE)
+            check(streamed[model_name] == own[model_name],
+                  f"{model_name}: engine.execute stream "
+                  f"{streamed[model_name]} != its engine's {own[model_name]}")
+            check(served[model_name][0] == own[model_name][0],
+                  f"{model_name}: HTTP answered {served[model_name][0]}, "
+                  f"its engine {own[model_name][0]}")
     torch.cuda.synchronize()
     main_launches = dict(ops.LAUNCHES)
-    check(main_launches["int8_matmul"] > 0,
-          "the served path launched int8_matmul no time")
+    check(all(not eng._thread.is_alive() for eng in engines.values()),
+          "Server.stop left an engine's scheduler thread running")
+    for name in ("int8_matmul", "paged_attention"):
+        check(main_launches[name] > 0,
+              f"the served path launched {name} no time")
+    # the int8 engine against the serial runner on the same weights
     ref_runner = language._LmRunner(device="cuda", quantize=True)
     expected = list(ref_runner.stream(prompt, 32))
-    check(streamed == expected,
-          f"engine.execute stream {streamed} != _LmRunner.stream {expected}")
-    phase(5, "server", requests=7, streamed_tokens=len(streamed),
-          stream_matches_runner=True, launches=main_launches)
+    int8_vs_serial = agreement(tfm, ref_runner.params, cfg, prompt,
+                               streamed["lm_streaming_int8"], expected)
+    phase(5, "server", requests=9, streamed_tokens={
+              k: len(v) for k, v in streamed.items()},
+          execute_matches_engine=True, int8_vs_serial=int8_vs_serial,
+          near_tie=NEAR_TIE, first_tokens=served, launches=main_launches)
 
     # -- 6 timings ---------------------------------------------------------
     rows = []
@@ -735,8 +1104,8 @@ def main():
     torch.cuda.synchronize()
     train_launches = dict(ops.LAUNCHES)
     per_step = {n: c / TRAIN_STEPS for n, c in train_launches.items()}
-    check(per_step == {"int8_matmul": 0, **{n: tcfg.n_layers
-                                            for n in FLASH_KERNELS}},
+    check(per_step == {"int8_matmul": 0, "paged_attention": 0,
+                       **{n: tcfg.n_layers for n in FLASH_KERNELS}},
           f"flash training launched {train_launches} in {TRAIN_STEPS} "
           f"steps, expected {tcfg.n_layers} of each flash kernel a step")
     check(all(np.isfinite(flash_losses)) and flash_losses[-1] < flash_losses[0],
@@ -840,13 +1209,117 @@ def main():
     phase(9, "train_profile", attn_impl="flash",
           **profile_steps(tfm, tcfg, tokens), **card)
 
-    # -- 10 kernels ----------------------------------------------------------
+    # -- 10 paged attention against its plain version ----------------------
+    paged_worst, paged_cases = paged_vs_plain(pa)
+    phase(10, "paged_vs_plain", kernel="paged_attention", cases=paged_cases,
+          shapes=[[kind, b, t_] for kind, b, t_, _ in paged_grid()],
+          head_dims=[16, 32, 64, 128], heads=list(PAGED_HEADS),
+          block_size=PAGED_BS, table_width=PAGED_WIDTH,
+          masked_rows="NaN for the kernel, clean for the plain version",
+          max_abs_err=paged_worst,
+          tolerance={"float32": TOL[torch.float32],
+                     "bfloat16": TOL[torch.bfloat16]})
+
+    # -- 11 the engine on the card ------------------------------------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tfm.init_params(torch.Generator().manual_seed(0), cfg32, "cuda")
+    pbf = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    p8 = tfm.quantize_params(pbf)
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, 256, 48).tolist()
+    lens = [1, 3, 9, 16, 17, 31, 40, 63, 64, 65, 100, 128, 150, 200]
+    prompts = [rng.integers(0, 256, n).tolist() for n in lens]
+    prompts += [shared + rng.integers(0, 256, 5).tolist(),
+                shared + rng.integers(0, 256, 9).tolist()]
+    lengths = [16 + (7 * i) % 33 for i in range(len(prompts))]
+    engine_report = {}
+    for name, params, c, int8 in (("float32", p32, cfg32, False),
+                                  ("bfloat16", pbf, cfg, False),
+                                  ("int8", p8, cfg, True)):
+        got, launches, ticks, stats = engine_run(
+            LmEngine, ops, params, c, prompts, lengths)
+        serial = [list(tfm.generate(params, c, p, n, readback_depth=0))
+                  for p, n in zip(prompts, lengths)]
+        if name == "float32":
+            for p, g, s in zip(prompts, got, serial):
+                check(g == s, f"float32 engine stream of a {len(p)}-token "
+                              f"prompt {g} != serial generate {s}")
+            agree = [{"equal": True, "tokens": len(g)} for g in got]
+        else:
+            agree = [agreement(tfm, params, c, p, g, s)
+                     for p, g, s in zip(prompts, got, serial)]
+        check(stats["prefix"]["hits"] >= 3,
+              f"the shared 48-token prefix was not adopted: {stats}")
+        engine_report[name] = {
+            "streams": len(prompts), "equal_streams":
+                sum(a["equal"] for a in agree),
+            "divergent": [dict(a, prompt_tokens=len(p))
+                          for a, p in zip(agree, prompts) if not a["equal"]],
+            **check_launches(launches, ticks, c, int8), **stats}
+    # one preempted stream: 'lo' holds 26 of the 32 blocks when 'hi' comes
+    eng = LmEngine(p32, cfg32, device="cuda", pool_tokens=512,
+                   tenant_priority={"hi": 10.0}, **ENGINE_KW)
+    try:
+        pa_, pb_ = [256, 1, 2], [256, 7]
+        qa, _ = eng.submit(pa_, 400, tenant="lo")
+        first = qa.get(timeout=300)
+        qb, _ = eng.submit(pb_, 100, tenant="hi")
+        got_b = collect(qb, LmEngine.CLOSE)
+        got_a = [first] + collect(qa, LmEngine.CLOSE)
+        preempt = eng.preempt_stats()
+    finally:
+        eng.close()
+    check(preempt["preemptions"] >= 1
+          and preempt["resumes"] == preempt["preemptions"],
+          f"no preemption and resume: {preempt}")
+    for p, n, g in ((pa_, 400, got_a), (pb_, 100, got_b)):
+        check(g == list(tfm.generate(p32, cfg32, p, n, readback_depth=0)),
+              f"preempted run: the {len(g)}-token stream differs from "
+              f"greedy")
+    check(eng.kv.used_blocks == 0 and eng.kv.ref_counts() == {},
+          "KV audit after the preemption run")
+    # one speculative run: k=4, n-gram drafter, repetitive prompts
+    spec_prompts = [language.encode_text("abcabcabcabcabcabc").tolist(),
+                    language.encode_text(PROMPT * 2).tolist(),
+                    [256] + [7, 9, 11] * 8, rng.integers(0, 256, 30).tolist()]
+    got, launches, ticks, stats = engine_run(
+        LmEngine, ops, p32, cfg32, spec_prompts, [64] * 4,
+        speculative={"k": 4, "drafter": "ngram"})
+    for p, g in zip(spec_prompts, got):
+        check(g == list(tfm.generate(p32, cfg32, p, 64, readback_depth=0)),
+              "speculative stream differs from greedy")
+    check(stats["spec"]["accepted"] > 0 and ticks.get("verify", 0) > 0,
+          f"speculation never engaged: {stats['spec']} {ticks}")
+    engine_report["speculative"] = {
+        "streams": len(spec_prompts), "tokens_each": 64,
+        "equal_to_greedy": True, **check_launches(launches, ticks, cfg32,
+                                                  False), **stats}
+    phase(11, "engine", config="DEFAULT_LM_CONFIG", engine=ENGINE_KW,
+          prompt_tokens=[len(p) for p in prompts], tokens=lengths,
+          shared_prefix_tokens=48, near_tie=NEAR_TIE,
+          preempted={"preempt": preempt, "equal_to_greedy": True,
+                     "tokens": [len(got_a), len(got_b)]},
+          kv_audit_after_close="clean", **engine_report)
+
+    # -- 12 timings: paged attention, the engine ---------------------------
+    paged_rows = paged_timings(pa, ext, graph)
+    for row in paged_rows:
+        phase(12, "paged_kernel_time", kernel="paged_attention", **row,
+              **card)
+    for name, params in (("bfloat16", pbf), ("int8", p8)):
+        for n in (1, 4, 8):
+            phase(12, "engine_rate", weights=name, **engine_rate(
+                LmEngine, params, cfg, prompt, n), **card)
+    phase(12, "engine_profile", weights="bfloat16",
+          **engine_profile(LmEngine, pbf, cfg, prompt), **card)
+
+    # -- 13 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
     layer = [by_shape[(1, k, n)] for k, n in LAYER_KN]
     total = {key: sum(r[key] for r in layer)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                          "eager_ms")}
-    phase(10, "kernels", held_against_plain_in="phases 3 and 7")
+    phase(13, "kernels", held_against_plain_in="phases 3, 7 and 10")
     kernels = [{
         "name": "int8_matmul",
         "route": "cuda",
@@ -890,6 +1363,24 @@ def main():
             "launches_in": f"phase 8 ({TRAIN_STEPS} flash train steps)",
             "checked_in": "phase 7",
         })
+    row = next(r for r in paged_rows
+               if r["shape"] == "decode" and r["context"] == 511)
+    kernels.append({
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "client_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "client_tpu/serve/models/transformer.py:357 (jnp in the "
+                    "reference, not Pallas)",
+        "launches": main_launches["paged_attention"],
+        "max_abs_err": max(paged_worst.values()),
+        **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        "timing": "device time from CUDA-graph replay",
+        "work": "one decode tick's attention of one layer: B=8 lanes at "
+                "context 511, 8 heads over 4 KV heads, hd 32, bf16",
+        "launches_in": "phase 5 (serving)",
+        "checked_in": "phase 10",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,7 @@ through.  Launching a kernel is the only thing that increments a count
 import threading
 
 LAUNCHES = {"int8_matmul": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "paged_attention": 0}
 _lock = threading.Lock()
 
 

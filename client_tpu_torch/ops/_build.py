@@ -20,6 +20,7 @@ SOURCES = [
     os.path.join(_CSRC, "flash_attention.cu"),
     os.path.join(_CSRC, "flash_fwd_bf16.cu"),
     os.path.join(_CSRC, "flash_bwd_bf16.cu"),
+    os.path.join(_CSRC, "paged_attention.cu"),
     os.path.join(_CSRC, "binding.cpp"),
 ]
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]

@@ -1,7 +1,7 @@
 // PyTorch binding of the package's CUDA kernels: the int8 dequant-matmul
-// (int8_matmul.cu) and the flash-attention forward, dQ and dK/dV kernels
+// (int8_matmul.cu), the flash-attention forward, dQ and dK/dV kernels
 // (flash_attention.cu for f32; bf16 in flash_fwd_bf16.cu and
-// flash_bwd_bf16.cu).
+// flash_bwd_bf16.cu) and paged attention (paged_attention.cu).
 //
 // The only source that includes PyTorch's headers: it checks the tensors,
 // allocates the outputs with torch::empty, launches on the current stream
@@ -13,6 +13,7 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 #include <string>
 #include <tuple>
@@ -39,6 +40,13 @@ cudaError_t ctpu_flash_bwd_dkv(bool bf16, const void* q, const void* k,
                                const float* glse, void* dk, void* dv, int bh,
                                int t, int d, float scale, bool causal,
                                cudaStream_t stream);
+cudaError_t ctpu_paged_attention(bool bf16, const void* q, const void* pool_k,
+                                 const void* pool_v, const int32_t* tables,
+                                 const int32_t* pos, void* out, int batch,
+                                 int t_len, int n_heads, int n_kv,
+                                 int head_dim, int n_pool_blocks,
+                                 int block_size, int table_width, float scale,
+                                 cudaStream_t stream);
 
 namespace {
 
@@ -211,6 +219,79 @@ std::tuple<torch::Tensor, torch::Tensor> flash_bwd_dkv(
   return {dk, dv};
 }
 
+// q [B,T,H,hd] roped queries; pool_k, pool_v [n_blocks+1, block_size, KV,
+// hd] one layer's pools; tables [B,W] int32; pos [B,T] int32.  q and the
+// pools share one dtype (f32 or bf16), hd is 16, 32, 64 or 128, and every
+// tensor is contiguous: anything else is refused, nothing is copied.
+torch::Tensor paged_attention(const torch::Tensor& q,
+                              const torch::Tensor& pool_k,
+                              const torch::Tensor& pool_v,
+                              const torch::Tensor& tables,
+                              const torch::Tensor& pos, int64_t block_size) {
+  const char* name = "paged_attention";
+  for (const auto& x : {q, pool_k, pool_v, tables, pos}) {
+    TORCH_CHECK(x.is_cuda(), name,
+                ": q, pool_k, pool_v, tables and pos must be CUDA tensors");
+    TORCH_CHECK(x.device() == q.device(), name,
+                ": q, pool_k, pool_v, tables and pos must be on one device");
+    TORCH_CHECK(x.is_contiguous(), name,
+                ": q, pool_k, pool_v, tables and pos must be contiguous");
+  }
+  TORCH_CHECK(q.dim() == 4 && pool_k.dim() == 4 && tables.dim() == 2 &&
+                  pos.dim() == 2,
+              name, ": expected q [B,T,H,hd], pools [N,bs,KV,hd], tables "
+              "[B,W] and pos [B,T], got q ", shape_of(q).c_str(), ", pool ",
+              shape_of(pool_k).c_str(), ", tables ", shape_of(tables).c_str(),
+              ", pos ", shape_of(pos).c_str());
+  TORCH_CHECK(pool_v.sizes() == pool_k.sizes(), name,
+              ": pool_k and pool_v differ in shape: ",
+              shape_of(pool_k).c_str(), " and ", shape_of(pool_v).c_str());
+  const int64_t b = q.size(0), t = q.size(1), h = q.size(2), hd = q.size(3);
+  const int64_t n_blocks = pool_k.size(0), kv = pool_k.size(2);
+  TORCH_CHECK(pool_k.size(1) == block_size && block_size > 0, name,
+              ": the pools' block size is ", num(pool_k.size(1)).c_str(),
+              ", block_size is ", num(block_size).c_str());
+  TORCH_CHECK(pool_k.size(3) == hd, name, ": q's head dim ",
+              num(hd).c_str(), " differs from the pools' ",
+              num(pool_k.size(3)).c_str());
+  TORCH_CHECK(kv > 0 && h % kv == 0, name, ": ", num(h).c_str(),
+              " query heads do not group over ", num(kv).c_str(),
+              " KV heads");
+  TORCH_CHECK(tables.size(0) == b && pos.size(0) == b && pos.size(1) == t,
+              name, ": tables ", shape_of(tables).c_str(), " and pos ",
+              shape_of(pos).c_str(), " do not match q ", shape_of(q).c_str());
+  TORCH_CHECK(hd == 16 || hd == 32 || hd == 64 || hd == 128, name,
+              ": head dim must be 16, 32, 64 or 128, got ", num(hd).c_str());
+  TORCH_CHECK(q.scalar_type() == torch::kFloat32 ||
+                  q.scalar_type() == torch::kBFloat16,
+              name, ": q must be float32 or bfloat16, got ", q.scalar_type());
+  TORCH_CHECK(pool_k.scalar_type() == q.scalar_type() &&
+                  pool_v.scalar_type() == q.scalar_type(),
+              name, ": q, pool_k and pool_v must have one dtype");
+  TORCH_CHECK(tables.scalar_type() == torch::kInt32 &&
+                  pos.scalar_type() == torch::kInt32,
+              name, ": tables and pos must be int32");
+  TORCH_CHECK(b < 65536 && t < 65536 && n_blocks < INT32_MAX &&
+                  tables.size(1) * block_size < INT32_MAX,
+              name, ": dimension too large");
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = torch::empty_like(q);
+  if (b == 0 || t == 0 || h == 0) return out;
+  check_launch(name, ctpu_paged_attention(
+                         q.scalar_type() == torch::kBFloat16, q.data_ptr(),
+                         pool_k.data_ptr(), pool_v.data_ptr(),
+                         tables.data_ptr<int32_t>(), pos.data_ptr<int32_t>(),
+                         out.data_ptr(), static_cast<int>(b),
+                         static_cast<int>(t), static_cast<int>(h),
+                         static_cast<int>(kv), static_cast<int>(hd),
+                         static_cast<int>(n_blocks),
+                         static_cast<int>(block_size),
+                         static_cast<int>(tables.size(1)),
+                         static_cast<float>(std::pow(static_cast<double>(hd), -0.5)),
+                         at::cuda::getCurrentCUDAStream()));
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, module) {
@@ -225,4 +306,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, module) {
   module.def("flash_bwd_dkv", &flash_bwd_dkv,
              "(q, k, v, dO [BH,T,D], lse, delta, g_lse [BH,T,1] f32, scale, "
              "causal) -> (dk, dv)");
+  module.def("paged_attention", &paged_attention,
+             "(q [B,T,H,hd], pool_k, pool_v [N,bs,KV,hd], tables [B,W] int32, "
+             "pos [B,T] int32, block_size) -> out [B,T,H,hd]");
 }

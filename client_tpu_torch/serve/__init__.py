@@ -50,8 +50,11 @@ class Server:
         return self
 
     def stop(self):
+        """Stop the frontend, then close the engine: every model's closer
+        runs, so no scheduler thread outlives its server."""
         if self._http:
             self._http.stop()
+        self.engine.close()
 
     def __enter__(self):
         return self.start()

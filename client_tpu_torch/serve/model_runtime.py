@@ -14,6 +14,7 @@ import threading
 import numpy as np
 
 from client_tpu_torch._infer_types import _np_from_json_data
+from client_tpu_torch.serve.metrics import Registry
 from client_tpu_torch.utils import (
     InferenceServerException,
     from_wire_bytes,
@@ -45,6 +46,11 @@ class Model:
     iterator of such dicts (the LLM token-streaming shape).  ``context`` is
     always None here (sequences come with a later slice).  Every model has
     the one version "1" and no batching dimension.
+
+    ``closer`` (optional) releases model-owned resources (the batched LM
+    engine's scheduler thread and KV pool) when the engine closes;
+    ``binder`` (optional) is called by ``InferenceEngine.add_model`` with
+    the engine, so model-owned subsystems pick up its metrics registry.
     """
 
     versions = ["1"]
@@ -57,6 +63,8 @@ class Model:
         self.fn = fn
         self.platform = platform
         self.decoupled = decoupled
+        self.closer = None
+        self.binder = None
 
     def metadata(self):
         return {
@@ -127,6 +135,9 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self._models = {}
         self._stats = {}
+        # series written by model-owned subsystems (the LM engine's lane,
+        # KV and prefix gauges), bound through Model.binder
+        self.metrics = Registry()
         for model in models or []:
             self.add_model(model)
 
@@ -136,6 +147,18 @@ class InferenceEngine:
         with self._lock:
             self._models[model.name] = model
             self._stats.setdefault(model.name, ModelStats())
+        # outside the repository lock: binders may take their own locks
+        if model.binder is not None:
+            model.binder(self)
+
+    def close(self):
+        """Release model-owned resources (e.g. the batched LM engine's
+        scheduler thread and KV pool) with the engine, not the process."""
+        with self._lock:
+            models = list(self._models.values())
+        for model in models:
+            if model.closer is not None:
+                model.closer()
 
     def get_model(self, name, version=""):
         with self._lock:

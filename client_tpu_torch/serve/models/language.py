@@ -1,12 +1,15 @@
 """Language-model serving stack: tokenizer + streaming decoder LM.
 
 Counterpart of client_tpu/serve/models/language.py: a byte-level
-tokenizer model, a decoupled LM that streams one response per generated
-token, and a text ensemble that chains them server-side.  The LM runs the
-serial ``generate`` loop; ``lm_streaming_int8`` serves the same weights
-int8-quantized, every tiling projection through the CUDA dequant-matmul
-kernel.  The continuous-batching ``lm_streaming_batched`` comes with the
-engine slice of the port and is absent here.
+tokenizer model, decoupled LMs that stream one response per generated
+token, and a text ensemble that chains them server-side.
+``lm_streaming`` runs the serial ``generate`` loop; ``lm_streaming_batched``
+serves the same weights through the continuous-batching engine
+(client_tpu_torch.serve.lm: paged KV pool, chunked prefill, prefix cache,
+speculative decoding), every step's attention through the paged-attention
+kernel; ``lm_streaming_int8`` serves them int8-quantized, every tiling
+projection through the CUDA dequant-matmul kernel, batched on the engine
+on a CUDA device and serially on the CPU.
 """
 
 import numpy as np
@@ -121,7 +124,8 @@ class _LmRunner:
         if n_prompt_tokens == 0:
             raise InferenceServerException("empty prompt", status="400")
 
-    def stream(self, tokens, max_tokens, temperature=0.0, seed=0, top_k=0):
+    def stream(self, tokens, max_tokens, temperature=0.0, seed=0, top_k=0,
+               tenant=""):
         self.check_prompt(int(np.asarray(tokens).reshape(-1).shape[0]))
         if top_k and int(top_k) > 0:
             raise InferenceServerException(
@@ -146,8 +150,8 @@ def lm_streaming_model(name="lm_streaming", runner=None, device=None):
     """Decoupled LM: one KServe response per generated token.
 
     Inputs: TOKENS (prompt ids), MAX_TOKENS; optional request parameters
-    ``temperature`` and ``seed``.  Each response carries the token id and
-    its decoded text piece."""
+    ``temperature``, ``seed`` and ``top_k``.  Each response carries the
+    token id and its decoded text piece."""
     runner = runner or _LmRunner(device=device)
 
     def fn(inputs, params, ctx):
@@ -155,9 +159,12 @@ def lm_streaming_model(name="lm_streaming", runner=None, device=None):
         max_tokens = int(np.asarray(inputs["MAX_TOKENS"]).flatten()[0])
         temperature = float(params.get("temperature", 0.0) or 0.0)
         seed = int(params.get("seed", 0) or 0)
+        # __tenant__ is the reserved caller identity; the batched engine
+        # enforces per-tenant decode-lane quotas at lane admission
         top_k = int(params.get("top_k", 0) or 0)
+        tenant = str(params.get("__tenant__", "") or "")
         for tok in runner.stream(tokens, max_tokens, temperature, seed,
-                                 top_k=top_k):
+                                 top_k=top_k, tenant=tenant):
             piece = decode_tokens([tok]).encode("utf-8")
             yield {
                 "TOKEN": np.array([tok], dtype=np.int32),
@@ -177,6 +184,62 @@ def lm_streaming_model(name="lm_streaming", runner=None, device=None):
         fn=fn,
         decoupled=True,
     )
+
+
+def lm_streaming_batched_model(name="lm_streaming_batched", runner=None,
+                               max_slots=8, response_cache=None,
+                               speculative=None, device=None,
+                               **engine_kwargs):
+    """Decoupled LM with CONTINUOUS BATCHING: concurrent streams share one
+    batched decode tick per token step (client_tpu_torch.serve.lm: paged KV
+    cache, bucketed + chunked prefill, KV prefix caching, lane
+    autoscaling), so aggregate tokens/s scales with active streams instead
+    of serializing whole per-request decode loops.  Per-request
+    ``temperature``/``top_k``/``seed`` sample inside the tick from per-lane
+    RNG state; same request/response surface as lm_streaming — the model
+    IS lm_streaming_model with the batched runner behind it.
+
+    ``response_cache`` is the per-model cache-hint config block; its
+    ``prefix_cache`` sub-block carries the KV prefix-cache knobs this
+    model's engine honors: ``{"prefix_cache": {"enable": bool,
+    "min_prefix_blocks": int}}``.
+
+    ``speculative`` turns on speculative decoding for this model's engine
+    (off by default): ``{"k": 4, "drafter": "ngram", ...}`` — see
+    serve/lm/spec.py:SpecConfig.  Greedy streams keep their output;
+    temperature streams stay distribution-exact via rejection sampling.
+
+    The engine runs on the runner's device (``cuda`` unless the caller
+    passes ``device="cpu"``)."""
+    from client_tpu_torch.serve.models.continuous import BatchedLmRunner
+
+    prefix_knobs = dict((response_cache or {}).get("prefix_cache") or {})
+    if "enable" in prefix_knobs:
+        engine_kwargs.setdefault("prefix_cache",
+                                 bool(prefix_knobs["enable"]))
+    if "min_prefix_blocks" in prefix_knobs:
+        engine_kwargs.setdefault("min_prefix_blocks",
+                                 int(prefix_knobs["min_prefix_blocks"]))
+    if speculative is not None:
+        engine_kwargs.setdefault("speculative", speculative)
+    base = runner or _LmRunner(device=device)
+    batched = BatchedLmRunner(
+        base.params, base.cfg, max_slots=max_slots, eos_id=_EOS,
+        check_prompt=base.check_prompt, device=base.device, **engine_kwargs,
+    )
+    model = lm_streaming_model(name=name, runner=batched)
+    # the scheduler's thread + paged KV pool release with the engine
+    model.closer = batched.scheduler.close
+
+    def bind(engine):
+        """Late-bind the owning InferenceEngine's metrics registry
+        (add_model calls this): the lane, KV and prefix gauges land in
+        it.  The tracer, flight recorder, tenant QoS and fleet hooks of
+        the JAX package wait for the slices that port them."""
+        batched.scheduler.set_registry(engine.metrics)
+
+    model.binder = bind
+    return model
 
 
 def text_ensemble_model(name="text_generator", runner=None, device=None):
@@ -207,19 +270,38 @@ def text_ensemble_model(name="text_generator", runner=None, device=None):
     )
 
 
-def language_models(device=None):
+def language_models(device=None, speculative=None, int8_batched=None):
     """The language set on *device* (``cuda`` unless the caller says
-    otherwise): tokenizer, detokenizer, the serial ``lm_streaming`` and
-    ``lm_streaming_int8`` (the int8 runner quantizes the shared weights),
-    and ``text_generator``."""
+    otherwise): tokenizer, detokenizer, the serial ``lm_streaming``, the
+    continuous-batching ``lm_streaming_batched`` and ``lm_streaming_int8``
+    (the int8 runner quantizes the shared weights), and
+    ``text_generator``.
+
+    ``lm_streaming_int8`` serves through the batched engine on a CUDA
+    device, where the int8 kernel runs, and serially on the CPU, where
+    every int8 projection takes its plain version; ``int8_batched``
+    overrides that either way.  ``speculative`` enables speculative
+    decoding on the batched engines (see
+    :func:`lm_streaming_batched_model`)."""
     runner = _LmRunner(device=device)
     int8_runner = _LmRunner(
         cfg=runner.cfg, params=runner.params, quantize=True, device=device,
+    )
+    if int8_batched is None:
+        int8_batched = runner.device.type == "cuda"
+    int8_model = (
+        lm_streaming_batched_model(
+            name="lm_streaming_int8", runner=int8_runner,
+            speculative=speculative,
+        )
+        if int8_batched else
+        lm_streaming_model(name="lm_streaming_int8", runner=int8_runner)
     )
     return [
         tokenizer_model(),
         detokenizer_model(),
         lm_streaming_model(runner=runner),
-        lm_streaming_model(name="lm_streaming_int8", runner=int8_runner),
+        int8_model,
+        lm_streaming_batched_model(runner=runner, speculative=speculative),
         text_ensemble_model(runner=runner),
     ]

@@ -14,6 +14,9 @@ weights are ``{"q", "s"}`` dicts that ``_mm`` sends to the CUDA kernel.
 - ``prefill`` / ``decode_step``: KV-cache incremental decoding with a
   static-shape cache, written in place (plain attention, as in JAX)
 - ``generate``: the token-by-token loop behind the streaming models
+- ``paged_attention``: attention against the continuous-batching engine's
+  paged KV pool (client_tpu_torch.serve.lm), through the paged-attention
+  kernel (client_tpu_torch.ops.paged_attention)
 - ``loss_fn`` / ``make_train_step``: next-token cross-entropy and the
   single-device Adam train step
 
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from client_tpu_torch import resolve_device
+from client_tpu_torch.ops import paged_attention as _paged
 from client_tpu_torch.ops.flash_attention import flash_attention
 from client_tpu_torch.ops.quant import matmul as _mm
 from client_tpu_torch.parallel.ring_attention import _NEG, plain_attention
@@ -275,6 +279,26 @@ def decode_step(params, token, cfg, cache):
     return logits, cache
 
 
+def paged_attention(q, pool_k, pool_v, tables, pos, cfg, block_size):
+    """Attention of ``q`` ([B,T,H,hd], already roped) against a PAGED KV
+    cache: ``pool_k``/``pool_v`` are one layer's block pools
+    ([n_blocks+1, block_size, n_kv, hd], serve/lm/kv.KvBlockPool layout)
+    and ``tables`` ([B, table_width] int32) maps each lane's logical block
+    index to its physical pool block.  Length-masked at ``pos`` ([B,T]
+    int32 logical query positions; keys at logical position j attend iff
+    j <= pos), so trash-mapped rows are never read.
+
+    A CUDA tensor runs the paged-attention kernel (one launch); a CPU
+    tensor its plain version, the JAX function step by step."""
+    if q.shape[2] != cfg.n_heads or pool_k.shape[2] != cfg.n_kv_heads:
+        raise ValueError(
+            f"paged_attention: q has {q.shape[2]} heads and the pools "
+            f"{pool_k.shape[2]} KV heads; the config has {cfg.n_heads} and "
+            f"{cfg.n_kv_heads}"
+        )
+    return _paged.paged_attention(q, pool_k, pool_v, tables, pos, block_size)
+
+
 def lm_flops_per_token(cfg, context=0):
     """Model FLOPs one generated token costs: 2 per weight element of every
     matmul the token traverses (the PaLM 2N convention), plus the attention
@@ -425,11 +449,17 @@ def _start_readback(token):
     return host, done
 
 
-def _finish_readback(pending):
+def _readback_values(pending):
+    """Wait for a readback started by ``_start_readback``; returns the
+    values as a numpy array (a copy: the device tensor may change)."""
     host, done = pending
     if done is not None:
         done.synchronize()
-    return int(host[0])
+    return host.numpy().copy()
+
+
+def _finish_readback(pending):
+    return int(_readback_values(pending)[0])
 
 
 def generate(params, cfg, prompt, max_new_tokens, temperature=0.0,

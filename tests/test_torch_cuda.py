@@ -333,3 +333,134 @@ def test_flash_training_on_cuda_equals_cpu(cuda_device):
         assert abs(loss.item() - gloss.item()) <= 1e-4
     assert ops.LAUNCHES["flash_fwd"] == ops.LAUNCHES["flash_bwd_dq"] == \
         ops.LAUNCHES["flash_bwd_dkv"] == 3 * cfg.n_layers
+
+
+# -- paged attention and the continuous-batching engine ---------------------
+
+def _paged_case(batch, t, hd, dtype, seed, n_heads=8, n_kv=4, bs=16,
+                width=32):
+    """One paged-attention input at the engine's layout: shuffled physical
+    blocks per lane, table tails on the trash block 0, contexts ending
+    mid-block.  Returns (args on the card, the same args with every pool
+    row the mask excludes set to NaN)."""
+    rng = np.random.default_rng(seed)
+    ctx = rng.integers(1, width * bs - t, size=batch)
+    ctx[0] = 1
+    ctx[-1] = width * bs - t  # the longest context with a partial block
+    pos = (ctx[:, None] - 1 + np.arange(t)[None, :]).astype(np.int32)
+    own = np.minimum(pos.max(axis=1) // bs + 1, width)
+    n_blocks = int(own.sum()) + 3
+    perm = rng.permutation(np.arange(1, n_blocks + 1))
+    tables = np.zeros((batch, width), np.int32)
+    live = np.zeros((n_blocks + 1, bs), bool)
+    start = 0
+    for b in range(batch):
+        tables[b, :own[b]] = perm[start:start + own[b]]
+        start += own[b]
+        for j in range(int(pos[b].max()) + 1):
+            live[tables[b, j // bs], j % bs] = True
+    shape = (n_blocks + 1, bs, n_kv, hd)
+    k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(_DT[dtype]) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal(
+        (batch, t, n_heads, hd)).astype(np.float32)).to(_DT[dtype])
+    dead = torch.from_numpy(~live)
+    kn, vn = k.clone(), v.clone()
+    kn[dead] = float("nan")
+    vn[dead] = float("nan")
+    to = lambda *xs: [x.cuda() for x in xs]  # noqa: E731
+    return (to(q, k, v, torch.from_numpy(tables), torch.from_numpy(pos)),
+            to(q, kn, vn, torch.from_numpy(tables), torch.from_numpy(pos)),
+            bs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("shape", [(8, 1), (4, 5), (1, 64)],
+                         ids=["decode", "verify", "prefill"])
+def test_paged_attention_matches_plain_on_nan_poisoned_pools(
+        cuda_device, shape, hd, dtype):
+    """The kernel on pools whose every masked row (the trash block, table
+    tails, rows past pos) is NaN equals the plain version on the clean
+    pools: it never loads a masked row.  One counted launch a call."""
+    from client_tpu_torch.ops import paged_attention as pa
+
+    atol, rtol = _TOL[dtype]
+    clean, poisoned, bs = _paged_case(*shape, hd, dtype, seed=hd + shape[1])
+    before = ops.LAUNCHES["paged_attention"]
+    got = pa.paged_attention(*poisoned, bs)
+    assert ops.LAUNCHES["paged_attention"] == before + 1
+    want = pa.paged_attention_reference(*clean, bs)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_paged_attention_repeats_bit_for_bit(cuda_device):
+    from client_tpu_torch.ops import paged_attention as pa
+
+    _, poisoned, bs = _paged_case(8, 5, 32, "bfloat16", seed=5)
+    assert torch.equal(pa.paged_attention(*poisoned, bs),
+                       pa.paged_attention(*poisoned, bs))
+
+
+@pytest.mark.cuda
+def test_paged_attention_refuses_what_it_does_not_take(cuda_device):
+    from client_tpu_torch.ops import paged_attention as pa
+
+    (q, k, v, tables, pos), _, bs = _paged_case(2, 1, 32, "float32", seed=1)
+    with pytest.raises(RuntimeError, match="float32 or bfloat16"):
+        pa.paged_attention(q.half(), k.half(), v.half(), tables, pos, bs)
+    with pytest.raises(RuntimeError, match="one dtype"):
+        pa.paged_attention(q, k.bfloat16(), v.bfloat16(), tables, pos, bs)
+    with pytest.raises(RuntimeError, match="contiguous"):
+        pa.paged_attention(q, k, v, tables.t().contiguous().t(), pos, bs)
+    with pytest.raises(RuntimeError, match="int32"):
+        pa.paged_attention(q, k, v, tables, pos.long(), bs)
+    with pytest.raises(RuntimeError, match="head dim must be"):
+        pa.paged_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                           v[..., :24].contiguous(), tables, pos, bs)
+    with pytest.raises(RuntimeError, match="block size"):
+        pa.paged_attention(q, k, v, tables, pos, bs // 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pa._launch(q, k.cpu(), v, tables, pos, bs)
+
+
+@pytest.mark.cuda
+def test_engine_on_cuda_equals_serial_generate(cuda_device):
+    """The float32 engine on the card (paged-attention kernel, one launch a
+    layer a step) streams what the serial generate streams there, for
+    concurrent prompts of one to three prefill chunks, and releases every
+    KV block at close."""
+    from client_tpu_torch.serve.lm import LmEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tfm.TransformerConfig(vocab_size=128, d_model=64, n_layers=2,
+                                n_heads=4, n_kv_heads=2, d_ff=128,
+                                max_seq=96, dtype="float32")
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                             cuda_device)
+    prompts = [[1, 2, 3], [7, 9], list(range(1, 41)), [11, 3, 2, 8]]
+    lengths = [20, 9, 12, 30]
+    eng = LmEngine(params, cfg, max_slots=4, lane_counts=(4,), block_size=8,
+                   prefill_chunk=16, min_bucket=4, device=cuda_device)
+    ops.reset_launches()
+    try:
+        qs = [eng.submit(p, n)[0] for p, n in zip(prompts, lengths)]
+        got = []
+        for q in qs:
+            toks = []
+            while (tok := q.get(timeout=120)) is not LmEngine.CLOSE:
+                toks.append(tok)
+            got.append(toks)
+    finally:
+        eng.close()
+    assert ops.LAUNCHES["paged_attention"] > 0
+    assert ops.LAUNCHES["paged_attention"] % cfg.n_layers == 0
+    for p, n, toks in zip(prompts, lengths, got):
+        assert toks == list(tfm.generate(params, cfg, p, n,
+                                         readback_depth=0)), (p, n)
+    assert eng.kv.used_blocks == 0 and eng.kv.ref_counts() == {}

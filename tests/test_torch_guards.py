@@ -40,7 +40,8 @@ def _imports(path):
 def test_port_sources_exist():
     names = {p.name for p in PORT_SOURCES}
     assert {"quant.py", "flash_attention.py", "transformer.py", "language.py",
-            "http_server.py", "chip_smoke.py"} <= names
+            "http_server.py", "chip_smoke.py", "engine.py", "kv.py",
+            "paged_attention.py"} <= names
 
 
 def test_build_compiles_every_kernel_source():
@@ -54,7 +55,8 @@ def test_build_compiles_every_kernel_source():
     built = [pathlib.Path(p) for p in _build.SOURCES]
     assert all(p.is_file() for p in built)
     assert {p.name for p in built} == on_disk
-    assert {"flash_fwd_bf16.cu", "flash_bwd_bf16.cu"} <= on_disk
+    assert {"flash_fwd_bf16.cu", "flash_bwd_bf16.cu",
+            "paged_attention.cu"} <= on_disk
     for p in built:
         for name in re.findall(r'^#include "([^"]+)"', p.read_text(), re.M):
             assert (csrc / name).is_file(), f"{p.name} includes {name}"
@@ -100,6 +102,17 @@ def _train_from_init_params(**kw):
                                     **kw))
 
 
+def _engine(**kw):
+    """The continuous-batching engine over tiny CPU params."""
+    from client_tpu_torch.serve.lm import LmEngine
+    from client_tpu_torch.serve.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(vocab_size=64, d_model=32, n_layers=1,
+                                n_heads=4, n_kv_heads=2, d_ff=64, max_seq=32)
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    return LmEngine(params, cfg, max_slots=2, **kw)
+
+
 def _lm_entry_points():
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import language, model_sets
@@ -110,12 +123,16 @@ def _lm_entry_points():
         "model_sets": lambda **kw: model_sets("language", **kw),
         "Server": lambda **kw: Server(**kw),
         "make_train_step+init_params": _train_from_init_params,
+        "lm_streaming_batched_model":
+            lambda **kw: language.lm_streaming_batched_model(**kw),
+        "LmEngine": _engine,
     }
 
 
 @pytest.mark.parametrize(
     "entry", ["_LmRunner", "language_models", "model_sets", "Server",
-              "make_train_step+init_params"]
+              "make_train_step+init_params", "lm_streaming_batched_model",
+              "LmEngine"]
 )
 def test_entry_points_refuse_to_run_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="no.*available|device='cpu'"):
@@ -132,6 +149,10 @@ def test_cpu_runs_when_asked(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    eng = _engine(device="cpu")
+    assert eng.device == torch.device("cpu")
+    model = language.lm_streaming_batched_model(device="cpu")
+    model.closer()
 
 
 def test_kernel_wrapper_never_falls_back(no_cuda, monkeypatch):
@@ -212,3 +233,34 @@ def test_flash_wrappers_never_fall_back(no_cuda, monkeypatch, with_lse):
                      ("flash_bwd_dkv", "meta")]
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         assert ops.LAUNCHES[name] == before[name] + 1
+
+
+def test_paged_attention_wrapper_never_falls_back(no_cuda, monkeypatch):
+    """Off the CPU, paged_attention goes to the kernel (one counted launch
+    per call, the pools passed as they are); the plain version is taken
+    only for CPU tensors."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.ops import _build
+    from client_tpu_torch.ops import paged_attention as pa
+
+    calls = []
+
+    class FakeExt:
+        @staticmethod
+        def paged_attention(q, pool_k, pool_v, tables, pos, block_size):
+            calls.append((q.device.type, pool_k.device.type, block_size))
+            return torch.empty_like(q)
+
+    def no_plain(*args):
+        raise AssertionError("plain version taken for a device tensor")
+
+    monkeypatch.setattr(_build, "kernels", lambda: FakeExt)
+    monkeypatch.setattr(pa, "paged_attention_reference", no_plain)
+    q = torch.empty(3, 1, 4, 16, device="meta")
+    pool = torch.empty(9, 8, 2, 16, device="meta")
+    tables = torch.empty(3, 4, dtype=torch.int32, device="meta")
+    pos = torch.empty(3, 1, dtype=torch.int32, device="meta")
+    before = ops.LAUNCHES["paged_attention"]
+    out = pa.paged_attention(q, pool, pool, tables, pos, 8)
+    assert calls == [("meta", "meta", 8)] and out.shape == q.shape
+    assert ops.LAUNCHES["paged_attention"] == before + 1
