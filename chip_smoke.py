@@ -13,9 +13,13 @@ Phases, one line each or more; any failure exits non-zero:
                 kernel's registers, stack and spills (cuobjdump -res-usage
                 on the built library)
   3 kernel      int8_matmul (kernel) against int8_matmul_reference on the
-                card, on both routes (GEMV at M <= 8, tiled above): M in
-                {1..9,16,37,128,511}, (K,N) in {(256,256),(256,128),
-                (256,768)}, x in bf16 and f32
+                card, on every route (bf16 from M = 5 on the tensor cores,
+                and forced onto the CUDA-core tiled kernel and, at M 5-8,
+                the GEMV too; the GEMV below and for f32 up to M = 8; f32
+                above on the tiled kernel): M in
+                {1..9,16,37,40,63,64,128,511}, (K,N) in {(256,256),
+                (256,128),(256,768)}, x in bf16 and f32; each call's
+                reported route is the one its shape and dtype name
   4 model       DEFAULT_LM_CONFIG int8 forward + 32-token greedy generate
                 on cuda (kernel) against the same weights on cpu (plain),
                 24 kernel launches per decode step
@@ -28,13 +32,18 @@ Phases, one line each or more; any failure exits non-zero:
                 int8 stream against the serial _LmRunner.stream (equal, or
                 diverging only at a near-tie: see NEAR_TIE); the launch
                 counts are reset just before this phase and read just
-                after it
-  6 timings     each served kernel shape at M=1 and 8 (GEMV route), M=63
-                (the served prompt) and M=128 (tiled route) beside its bound,
-                the plain version and torch.matmul on the dequantized
-                weight: device time from CUDA-graph replay
-                and back-to-back eager time, both by CUDA events; serial
-                decode tokens/s and TTFT
+                after it, with the launches by route (int8: GEMV and
+                tensor cores; paged: CUDA-core and tensor-core splits),
+                each of which the path must have run
+  6 timings     each served kernel shape at M=1 (GEMV route, the
+                tensor cores beside it), M=8 (decode at 8 lanes), the
+                engine's prefill and verify M=16, 32, 40, 64, the served
+                prompt M=63 and M=128 (tensor-core route, the GEMV beside
+                it at M=8 and the CUDA-core tiled route above) beside its
+                bound, the plain version
+                and torch.matmul on the dequantized weight: device time
+                from CUDA-graph replay and back-to-back eager time, both by
+                CUDA events; serial decode tokens/s and TTFT
   7 flash       the flash forward, dQ and dK/dV kernels against
                 _fa_forward_reference / _fa_backward_reference on the
                 card: T in {128,512,100}, D in {32,64,128}, causal and not,
@@ -67,7 +76,10 @@ Phases, one line each or more; any failure exits non-zero:
                 to 511 with partly filled last blocks; hd in {16,32,64,128};
                 bf16 and f32; shuffled, non-contiguous block tables.  Every
                 pool row the mask excludes (the trash block included) is
-                NaN for the kernel; the plain version reads a clean copy
+                NaN for the kernel; the plain version reads a clean copy.
+                Then queries at pos = -1 (no attended key: the mean of the
+                whole table's V rows) on clean pools, decode, verify and
+                prefill
  11 engine      LmEngine on DEFAULT_LM_CONFIG: 16 concurrent greedy streams
                 over 8 lanes (prompts of 1 to 200 tokens, two sharing a
                 48-token prefix) in float32, each equal to the serial
@@ -77,15 +89,19 @@ Phases, one line each or more; any failure exits non-zero:
                 counts a tick (paged n_layers, int8 6 x n_layers); the KV
                 audit clean after close()
  12 timings     paged_attention by CUDA-graph replay at decode B=8,
-                contexts 64, 256 and 511, and at prefill T=64, beside its
+                contexts 64, 256 and 511, verify B=8, T in {2,4,5} ending
+                at key 256, and at prefill T=64, beside its
                 bound, its plain version and scaled_dot_product_attention
                 on K/V gathered through the table; the engine's aggregate
                 tokens/s and TTFT at 1, 4 and 8 concurrent streams (bf16
                 and int8, 128 tokens each); the device-busy share of a
                 decode-heavy window under torch.profiler
- 13 kernels     one JSON line: every ported kernel, its launches on its
-                path (phase 5 or 8), its error (phase 3, 7 or 10) and its
-                times (phase 6, 9 or 12)
+ 13 kernels     one JSON line: every kernel of the served and trained
+                paths (the int8 GEMV and tensor-core routes, the three
+                flash kernels, paged attention's CUDA-core and tensor-core
+                split routes), its launches on its path (phase 5 or 8),
+                its error (phase 3, 7 or 10) and its times (phase 6, 9 or
+                12)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -129,10 +145,17 @@ MIN_AGREE = 0.9  # greedy positions; allows the documented bf16 near-ties
 # near-tie, which either order of the sums may resolve either way
 NEAR_TIE = LOGIT_ATOL
 
-# both int8 routes: the GEMV kernel takes M <= 8 (every served N is a
-# multiple of 16), the tiled kernel the rest
-M_LIST = tuple(range(1, 10)) + (16, 37, 128, 511)
+# the int8 routes (every served N is a multiple of 16): bf16 from M = 5 on
+# the tensor cores, the GEMV kernel below that and for f32 up to M = 8, f32
+# above on the CUDA-core tiled kernel
+M_LIST = tuple(range(1, 10)) + (16, 37, 40, 63, 64, 128, 511)
 GEMV_MAX_M = 8
+MMA_FROM_M = 5
+# int8_matmul.cu's routes, as the binding numbers them for int8_matmul_route
+INT8_ROUTE_IDS = {"gemv": 1, "tiled": 2, "mma": 3}
+# the engine's int8 shapes timed in phase 6: decode lanes, prefill chunks
+# (16, 32, 64), a verify tick (8 lanes x width 5), the served prompt, 128
+TIMED_M = (1, 8, 16, 32, 40, 63, 64, 128)
 SERVED_KN = ((256, 256), (256, 128), (256, 768))
 # one layer's six kernel projections: wq, wk, wv, wo, w_gate, w_up
 LAYER_KN = ((256, 256), (256, 128), (256, 128), (256, 256), (256, 768),
@@ -239,10 +262,16 @@ def bound_ms(m, k, n):
     return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
 
 
-def int8_route(m, n):
+def int8_route(m, n, dtype=torch.bfloat16):
     """The int8 kernel's route at this shape, as int8_matmul.cu's launch()
-    picks it for a 16-byte-aligned q and x within 48 KB."""
-    return "gemv" if m <= GEMV_MAX_M and n % 16 == 0 else "tiled"
+    picks it for 16-byte-aligned tensors, K a multiple of 16 and x within
+    48 KB (phase 3 checks the route each call reports against this)."""
+    mma = dtype == torch.bfloat16 and n % 16 == 0
+    if mma and m >= MMA_FROM_M:
+        return "mma"
+    if m <= GEMV_MAX_M and n % 16 == 0:
+        return "gemv"
+    return "mma" if mma else "tiled"
 
 
 def kernel_resources(library):
@@ -611,6 +640,39 @@ def paged_vs_plain(pa):
     return worst, cases
 
 
+def paged_no_key(pa):
+    """Phase 10, second part: queries at pos = -1 attend no key, so the
+    reference's softmax is uniform over the whole gathered table; the
+    kernel must give the same (the only case that reads past the mask
+    bound, so the pools are clean).  Decode, verify and prefill, every hd
+    and dtype, beside ordinary rows."""
+    worst, cases = {}, 0
+    for kind, batch, t in (("decode", 8, 1), ("verify", 8, 5),
+                           ("prefill", 1, 64)):
+        for hd in (16, 32, 64, 128):
+            for dt in (torch.float32, torch.bfloat16):
+                (q, k, v, tables, pos), _, _ = paged_case(
+                    batch, t, hd, dt, np.linspace(t, 300, batch).astype(int),
+                    seed=1000 + cases)
+                pos = pos.clone()
+                pos[0, :max(1, t // 2)] = -1
+                got = pa._launch(q, k, v, tables, pos, PAGED_BS).float()
+                want = pa.paged_attention_reference(q, k, v, tables, pos,
+                                                    PAGED_BS).float()
+                atol, rtol = TOL[dt]
+                err = (got - want).abs()
+                check(bool(torch.isfinite(got).all())
+                      and bool((err <= atol + rtol * want.abs()).all()),
+                      f"paged_attention pos=-1 {kind} hd={hd} "
+                      f"{dtype_name(dt)}: max abs err {err.max().item()} "
+                      f"beyond atol {atol} rtol {rtol}")
+                key = dtype_name(dt)
+                worst[key] = max(worst.get(key, 0.0), err.max().item())
+                cases += 1
+    torch.cuda.synchronize()
+    return worst, cases
+
+
 def paged_bound(pos, heads, hd, elt):
     """(bound_ms, bound_by) of one paged-attention call: each input read
     once (the K/V rows up to each lane's last pos, q, tables, pos) and out
@@ -635,7 +697,8 @@ def paged_timings(pa, ext, graph):
     K/V gathered through the table (gather included)."""
     rows = []
     for kind, batch, t, ctx in (("decode", 8, 1, 64), ("decode", 8, 1, 256),
-                                ("decode", 8, 1, 511),
+                                ("decode", 8, 1, 511), ("verify", 8, 2, 256),
+                                ("verify", 8, 4, 256), ("verify", 8, 5, 256),
                                 ("prefill", 1, 64, 256)):
         (q, k, v, tables, pos), _, pos_np = paged_case(
             batch, t, 32, torch.bfloat16, [ctx] * batch, seed=ctx + t)
@@ -661,6 +724,7 @@ def paged_timings(pa, ext, graph):
         rows.append({
             "shape": kind, "B": batch, "T": t, "context": ctx, "hd": hd,
             "heads": list(PAGED_HEADS), "dtype": "bfloat16",
+            "route": "mma" if t >= 16 else "split",
             "ms": graph(lambda: ext.paged_attention(q, k, v, tables, pos,
                                                     PAGED_BS)),
             "plain_ms": graph(lambda: pa.paged_attention_reference(
@@ -886,35 +950,51 @@ def main():
 
     # -- 2 build ---------------------------------------------------------
     library = _build.kernels().__file__
-    phase(2, "build", kernels=["int8_matmul", *FLASH_KERNELS,
-                               "paged_attention"],
+    phase(2, "build", kernels=["int8_matmul (gemv, tiled, mma routes)",
+                               *FLASH_KERNELS,
+                               "paged_attention (split, mma routes, combine)"],
           seconds=round(_build.build_seconds, 3), flags=_build.CUDA_FLAGS,
           resources=kernel_resources(library))
 
     # -- 3 kernel against its plain version -------------------------------
     gen = torch.Generator().manual_seed(1234)
-    worst, worst_route = {}, {}
+    ext = _build.kernels()
+    worst, worst_route, cases = {}, {}, 0
     for dt in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dt]
+        key = dtype_name(dt)
         for m in M_LIST:
             for k, n in SERVED_KN:
                 x = torch.randn(m, k, generator=gen).to(dt).cuda()
                 w = torch.randn(k, n, generator=gen) * k ** -0.5
                 qw = tree_to(quant.quantize_int8(w), "cuda")
-                got = quant._launch(x, qw["q"], qw["s"]).float()
                 want = quant.int8_matmul_reference(x, qw["q"], qw["s"]).float()
-                err = (got - want).abs()
-                check(bool((err <= atol + rtol * want.abs()).all()),
-                      f"int8_matmul {dt} M={m} K={k} N={n}: max abs err "
-                      f"{err.max().item()} beyond atol {atol} rtol {rtol}")
-                key = dtype_name(dt)
-                worst[key] = max(worst.get(key, 0.0), err.max().item())
-                route = worst_route.setdefault(int8_route(m, n), {})
-                route[key] = max(route.get(key, 0.0), err.max().item())
+                route = int8_route(m, n, dt)
+                before = ops.ROUTES["int8_matmul"][route]
+                runs = [(route, quant._launch(x, qw["q"], qw["s"]))]
+                check(ops.ROUTES["int8_matmul"][route] == before + 1,
+                      f"int8_matmul {key} M={m} N={n} did not report the "
+                      f"{route} route: {ops.ROUTES['int8_matmul']}")
+                # bf16 on the tensor cores: the CUDA-core tiled kernel too,
+                # and the GEMV where the tensor cores took it over (M 5-8)
+                others = (("tiled",) if route == "mma" else ()) + (
+                    ("gemv",) if route == "mma" and m <= GEMV_MAX_M else ())
+                for other in others:
+                    runs.append((other, ext.int8_matmul_route(
+                        x, qw["q"], qw["s"], INT8_ROUTE_IDS[other])))
+                for name, got in runs:
+                    err = (got.float() - want).abs()
+                    check(bool((err <= atol + rtol * want.abs()).all()),
+                          f"int8_matmul {name} {key} M={m} K={k} N={n}: max "
+                          f"abs err {err.max().item()} beyond atol {atol} "
+                          f"rtol {rtol}")
+                    worst[key] = max(worst.get(key, 0.0), err.max().item())
+                    by = worst_route.setdefault(name, {})
+                    by[key] = max(by.get(key, 0.0), err.max().item())
+                    cases += 1
     torch.cuda.synchronize()
-    phase(3, "kernel_vs_plain", kernel="int8_matmul",
-          cases=2 * len(M_LIST) * len(SERVED_KN), max_abs_err=worst,
-          max_abs_err_by_route=worst_route,
+    phase(3, "kernel_vs_plain", kernel="int8_matmul", cases=cases,
+          max_abs_err=worst, max_abs_err_by_route=worst_route,
           tolerance={"float32": TOL[torch.float32],
                      "bfloat16": TOL[torch.bfloat16]})
 
@@ -1024,11 +1104,19 @@ def main():
                   f"its engine {own[model_name][0]}")
     torch.cuda.synchronize()
     main_launches = dict(ops.LAUNCHES)
+    main_routes = {name: dict(r) for name, r in ops.ROUTES.items()}
     check(all(not eng._thread.is_alive() for eng in engines.values()),
           "Server.stop left an engine's scheduler thread running")
     for name in ("int8_matmul", "paged_attention"):
         check(main_launches[name] > 0,
               f"the served path launched {name} no time")
+    # bf16 and int8 decode, prefill chunks: each route of the served path
+    for name, route in (("int8_matmul", "gemv"), ("int8_matmul", "mma"),
+                        ("paged_attention", "split"),
+                        ("paged_attention", "mma")):
+        check(main_routes[name][route] > 0,
+              f"the served path launched {name}'s {route} route no time: "
+              f"{main_routes}")
     # the int8 engine against the serial runner on the same weights
     ref_runner = language._LmRunner(device="cuda", quantize=True)
     expected = list(ref_runner.stream(prompt, 32))
@@ -1037,11 +1125,12 @@ def main():
     phase(5, "server", requests=9, streamed_tokens={
               k: len(v) for k, v in streamed.items()},
           execute_matches_engine=True, int8_vs_serial=int8_vs_serial,
-          near_tie=NEAR_TIE, first_tokens=served, launches=main_launches)
+          near_tie=NEAR_TIE, first_tokens=served, launches=main_launches,
+          launches_by_route=main_routes)
 
     # -- 6 timings ---------------------------------------------------------
     rows = []
-    for m in (1, 8, 63, 128):
+    for m in TIMED_M:
         for k, n in SERVED_KN:
             x = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
             qw = tree_to(quant.quantize_int8(
@@ -1051,8 +1140,9 @@ def main():
             kernel = lambda: quant._launch(x, q, s)  # noqa: E731
             plain = lambda: quant.int8_matmul_reference(x, q, s)  # noqa: E731
             library = lambda: torch.matmul(x, w_deq)  # noqa: E731
-            rows.append({
-                "M": m, "K": k, "N": n, "route": int8_route(m, n),
+            route = int8_route(m, n)
+            row = {
+                "M": m, "K": k, "N": n, "route": route,
                 "ms": graph_ms(kernel),
                 "plain_ms": graph_ms(plain),
                 "library_ms": graph_ms(library),
@@ -1060,7 +1150,17 @@ def main():
                 "eager_ms": eager_ms(kernel),
                 "eager_plain_ms": eager_ms(plain),
                 "eager_library_ms": eager_ms(library),
-            })
+            }
+            # the other route beside it: the CUDA-core tiled kernel beside
+            # the tensor cores (the GEMV at M <= 8), the tensor cores beside
+            # the GEMV
+            other = {"mma": "gemv" if m <= GEMV_MAX_M else "tiled",
+                     "gemv": "mma"}[route]
+            if other:
+                row[f"{other}_ms"] = graph_ms(
+                    lambda: ext.int8_matmul_route(x, q, s,
+                                                  INT8_ROUTE_IDS[other]))
+            rows.append(row)
     for row in rows:
         phase(6, "kernel_time", kernel="int8_matmul", dtype="bfloat16",
               **row, **card)
@@ -1211,12 +1311,15 @@ def main():
 
     # -- 10 paged attention against its plain version ----------------------
     paged_worst, paged_cases = paged_vs_plain(pa)
+    no_key_worst, no_key_cases = paged_no_key(pa)
     phase(10, "paged_vs_plain", kernel="paged_attention", cases=paged_cases,
           shapes=[[kind, b, t_] for kind, b, t_, _ in paged_grid()],
           head_dims=[16, 32, 64, 128], heads=list(PAGED_HEADS),
           block_size=PAGED_BS, table_width=PAGED_WIDTH,
           masked_rows="NaN for the kernel, clean for the plain version",
           max_abs_err=paged_worst,
+          no_attended_key={"cases": no_key_cases, "pos": -1,
+                           "pools": "clean", "max_abs_err": no_key_worst},
           tolerance={"float32": TOL[torch.float32],
                      "bfloat16": TOL[torch.bfloat16]})
 
@@ -1315,10 +1418,14 @@ def main():
 
     # -- 13 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
-    layer = [by_shape[(1, k, n)] for k, n in LAYER_KN]
-    total = {key: sum(r[key] for r in layer)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                         "eager_ms")}
+
+    def layer_total(m):
+        layer = [by_shape[(m, k, n)] for k, n in LAYER_KN]
+        return {key: sum(r[key] for r in layer)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "eager_ms")}
+
+    total, prefill = layer_total(1), layer_total(64)
     phase(13, "kernels", held_against_plain_in="phases 3, 7 and 10")
     kernels = [{
         "name": "int8_matmul",
@@ -1337,7 +1444,27 @@ def main():
                   "replay; eager_ms: back-to-back Python calls",
         "work": "one decode layer's six int8 projections at M=1, bf16 "
                 "(wq, wk, wv, wo, w_gate, w_up)",
-        "launches_in": "phase 5 (serving)",
+        "launches_in": "phase 5 (serving); all routes, the GEMV's "
+                       f"{main_routes['int8_matmul']['gemv']}",
+        "checked_in": "phase 3",
+    }, {
+        "name": "int8_matmul (tensor-core route, int8_mma_kernel)",
+        "route": "cuda",
+        "source": "client_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "client_tpu/ops/quant.py:51",
+        "launches": main_routes["int8_matmul"]["mma"],
+        "max_abs_err": worst_route["mma"]["bfloat16"],
+        "ms": prefill["ms"],
+        "plain_ms": prefill["plain_ms"],
+        "bound_ms": prefill["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": prefill["library_ms"],
+        "eager_ms": prefill["eager_ms"],
+        "timing": "ms, plain_ms, library_ms: device time from CUDA-graph "
+                  "replay; eager_ms: back-to-back Python calls",
+        "work": "one prefill chunk's six int8 projections at M=64, bf16 "
+                "(wq, wk, wv, wo, w_gate, w_up)",
+        "launches_in": "phase 5 (serving: prefill chunks)",
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -1363,24 +1490,33 @@ def main():
             "launches_in": f"phase 8 ({TRAIN_STEPS} flash train steps)",
             "checked_in": "phase 7",
         })
-    row = next(r for r in paged_rows
-               if r["shape"] == "decode" and r["context"] == 511)
-    kernels.append({
-        "name": "paged_attention",
-        "route": "cuda",
-        "source": "client_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "client_tpu/serve/models/transformer.py:357 (jnp in the "
-                    "reference, not Pallas)",
-        "launches": main_launches["paged_attention"],
-        "max_abs_err": max(paged_worst.values()),
-        **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
-        "timing": "device time from CUDA-graph replay",
-        "work": "one decode tick's attention of one layer: B=8 lanes at "
-                "context 511, 8 heads over 4 KV heads, hd 32, bf16",
-        "launches_in": "phase 5 (serving)",
-        "checked_in": "phase 10",
-    })
+    for name, route, shape, ctx, work in (
+            ("paged_attention (CUDA-core splits, paged_split_kernel, and "
+             "paged_combine_kernel)", "split", "decode", 511,
+             "one decode tick's attention of one layer: B=8 lanes at "
+             "context 511, 8 heads over 4 KV heads, hd 32, bf16"),
+            ("paged_attention (tensor-core splits, paged_mma_kernel, and "
+             "paged_combine_kernel)", "mma", "prefill", 256,
+             "one prefill chunk's attention of one layer: T=64 ending at "
+             "key 256, 8 heads over 4 KV heads, hd 32, bf16")):
+        row = next(r for r in paged_rows
+                   if r["shape"] == shape and r["context"] == ctx)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "client_tpu_torch/ops/csrc/paged_attention.cu",
+            "replaces": "client_tpu/serve/models/transformer.py:357 (jnp in "
+                        "the reference, not Pallas)",
+            "launches": main_routes["paged_attention"][route],
+            "max_abs_err": max(paged_worst.values()),
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "timing": "device time from CUDA-graph replay",
+            "work": work,
+            "launches_in": "phase 5 (serving; one count a call: a split "
+                           "kernel and the combine)",
+            "checked_in": "phase 10",
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,10 +20,13 @@
 
 cudaError_t ctpu_int8_matmul_f32(const void* x, const int8_t* q,
                                  const float* s, void* out, int m, int k,
-                                 int n, cudaStream_t stream);
+                                 int n, int* route, cudaStream_t stream);
 cudaError_t ctpu_int8_matmul_bf16(const void* x, const int8_t* q,
                                   const float* s, void* out, int m, int k,
-                                  int n, cudaStream_t stream);
+                                  int n, int* route, cudaStream_t stream);
+cudaError_t ctpu_int8_matmul_route(bool bf16, int route, const void* x,
+                                   const int8_t* q, const float* s, void* out,
+                                   int m, int k, int n, cudaStream_t stream);
 cudaError_t ctpu_flash_fwd(bool bf16, const void* q, const void* k,
                            const void* v, void* out, float* lse, int bh,
                            int t, int d, float scale, bool causal,
@@ -40,12 +43,14 @@ cudaError_t ctpu_flash_bwd_dkv(bool bf16, const void* q, const void* k,
                                const float* glse, void* dk, void* dv, int bh,
                                int t, int d, float scale, bool causal,
                                cudaStream_t stream);
+int ctpu_paged_splits(int table_width, int block_size);
 cudaError_t ctpu_paged_attention(bool bf16, const void* q, const void* pool_k,
                                  const void* pool_v, const int32_t* tables,
-                                 const int32_t* pos, void* out, int batch,
-                                 int t_len, int n_heads, int n_kv,
-                                 int head_dim, int n_pool_blocks,
-                                 int block_size, int table_width, float scale,
+                                 const int32_t* pos, void* out, float* part_o,
+                                 float* part_ml, int batch, int t_len,
+                                 int n_heads, int n_kv, int head_dim,
+                                 int n_pool_blocks, int block_size,
+                                 int table_width, float scale, int* route,
                                  cudaStream_t stream);
 
 namespace {
@@ -74,8 +79,14 @@ void check_launch(const char* name, cudaError_t err) {
               cudaGetErrorString(err));
 }
 
-torch::Tensor int8_matmul(const torch::Tensor& x, const torch::Tensor& q,
-                          const torch::Tensor& s) {
+// x [M,K] f32 or bf16, q [K,N] int8, s [N] f32, all contiguous on one
+// device; route 0 is the kernel's own rule (int8_matmul.cu: launch()),
+// 1-3 force the GEMV, CUDA-core tiled or tensor-core route.  Returns the
+// output and the route launched (0 where nothing was: an empty output).
+std::tuple<torch::Tensor, int64_t> int8_matmul_on(const torch::Tensor& x,
+                                                  const torch::Tensor& q,
+                                                  const torch::Tensor& s,
+                                                  int64_t route) {
   TORCH_CHECK(x.is_cuda() && q.is_cuda() && s.is_cuda(),
               "int8_matmul: x, q and s must be CUDA tensors");
   TORCH_CHECK(x.device() == q.device() && x.device() == s.device(),
@@ -100,15 +111,40 @@ torch::Tensor int8_matmul(const torch::Tensor& x, const torch::Tensor& q,
 
   const c10::cuda::CUDAGuard guard(x.device());
   auto out = torch::empty({m, n}, x.options());
-  if (m == 0 || n == 0) return out;
+  if (m == 0 || n == 0) return {out, 0};
   const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
-  const auto fn = x.scalar_type() == torch::kFloat32 ? ctpu_int8_matmul_f32
-                                                     : ctpu_int8_matmul_bf16;
-  check_launch("int8_matmul",
-               fn(x.data_ptr(), q.data_ptr<int8_t>(), s.data_ptr<float>(),
-                  out.data_ptr(), static_cast<int>(m), static_cast<int>(k),
-                  static_cast<int>(n), stream));
-  return out;
+  const bool bf16 = x.scalar_type() == torch::kBFloat16;
+  int taken = static_cast<int>(route);
+  const int mi = static_cast<int>(m), ki = static_cast<int>(k),
+            ni = static_cast<int>(n);
+  cudaError_t err;
+  if (route == 0) {
+    err = (bf16 ? ctpu_int8_matmul_bf16 : ctpu_int8_matmul_f32)(
+        x.data_ptr(), q.data_ptr<int8_t>(), s.data_ptr<float>(),
+        out.data_ptr(), mi, ki, ni, &taken, stream);
+  } else {
+    err = ctpu_int8_matmul_route(bf16, static_cast<int>(route), x.data_ptr(),
+                                 q.data_ptr<int8_t>(), s.data_ptr<float>(),
+                                 out.data_ptr(), mi, ki, ni, stream);
+    TORCH_CHECK(err != cudaErrorInvalidValue,
+                "int8_matmul: the route does not take this shape, dtype or "
+                "alignment");
+  }
+  check_launch("int8_matmul", err);
+  return {out, taken};
+}
+
+std::tuple<torch::Tensor, int64_t> int8_matmul(const torch::Tensor& x,
+                                               const torch::Tensor& q,
+                                               const torch::Tensor& s) {
+  return int8_matmul_on(x, q, s, 0);
+}
+
+torch::Tensor int8_matmul_route(const torch::Tensor& x, const torch::Tensor& q,
+                                const torch::Tensor& s, int64_t route) {
+  TORCH_CHECK(route >= 1 && route <= 3,
+              "int8_matmul: route must be 1 (gemv), 2 (tiled) or 3 (mma)");
+  return std::get<0>(int8_matmul_on(x, q, s, route));
 }
 
 // q, k, v (and dout): contiguous [BH, T, D] of one shape, one device and
@@ -222,12 +258,13 @@ std::tuple<torch::Tensor, torch::Tensor> flash_bwd_dkv(
 // q [B,T,H,hd] roped queries; pool_k, pool_v [n_blocks+1, block_size, KV,
 // hd] one layer's pools; tables [B,W] int32; pos [B,T] int32.  q and the
 // pools share one dtype (f32 or bf16), hd is 16, 32, 64 or 128, and every
-// tensor is contiguous: anything else is refused, nothing is copied.
-torch::Tensor paged_attention(const torch::Tensor& q,
-                              const torch::Tensor& pool_k,
-                              const torch::Tensor& pool_v,
-                              const torch::Tensor& tables,
-                              const torch::Tensor& pos, int64_t block_size) {
+// tensor is contiguous, q and the pools 16-byte aligned: anything else is
+// refused, nothing is copied.  The kernel's split partials go to a
+// workspace allocated here: [B*T*H, splits, hd] and [B*T*H, splits, 2] f32.
+std::tuple<torch::Tensor, int64_t> paged_attention(
+    const torch::Tensor& q, const torch::Tensor& pool_k,
+    const torch::Tensor& pool_v, const torch::Tensor& tables,
+    const torch::Tensor& pos, int64_t block_size) {
   const char* name = "paged_attention";
   for (const auto& x : {q, pool_k, pool_v, tables, pos}) {
     TORCH_CHECK(x.is_cuda(), name,
@@ -271,32 +308,46 @@ torch::Tensor paged_attention(const torch::Tensor& q,
   TORCH_CHECK(tables.scalar_type() == torch::kInt32 &&
                   pos.scalar_type() == torch::kInt32,
               name, ": tables and pos must be int32");
+  TORCH_CHECK(tables.size(1) > 0, name, ": the block table is empty");
   TORCH_CHECK(b < 65536 && t < 65536 && n_blocks < INT32_MAX &&
                   tables.size(1) * block_size < INT32_MAX,
               name, ": dimension too large");
   const c10::cuda::CUDAGuard guard(q.device());
   auto out = torch::empty_like(q);
-  if (b == 0 || t == 0 || h == 0) return out;
+  if (b == 0 || t == 0 || h == 0) return {out, 0};
+  int route = 0;
+  const int64_t splits = ctpu_paged_splits(static_cast<int>(tables.size(1)),
+                                           static_cast<int>(block_size));
+  const auto f32 = q.options().dtype(torch::kFloat32);
+  auto part_o = torch::empty({b * t * h, splits, hd}, f32);
+  auto part_ml = torch::empty({b * t * h, splits, 2}, f32);
   check_launch(name, ctpu_paged_attention(
                          q.scalar_type() == torch::kBFloat16, q.data_ptr(),
                          pool_k.data_ptr(), pool_v.data_ptr(),
                          tables.data_ptr<int32_t>(), pos.data_ptr<int32_t>(),
-                         out.data_ptr(), static_cast<int>(b),
+                         out.data_ptr(), part_o.data_ptr<float>(),
+                         part_ml.data_ptr<float>(), static_cast<int>(b),
                          static_cast<int>(t), static_cast<int>(h),
                          static_cast<int>(kv), static_cast<int>(hd),
                          static_cast<int>(n_blocks),
                          static_cast<int>(block_size),
                          static_cast<int>(tables.size(1)),
-                         static_cast<float>(std::pow(static_cast<double>(hd), -0.5)),
+                         static_cast<float>(
+                             std::pow(static_cast<double>(hd), -0.5)),
+                         &route,
                          at::cuda::getCurrentCUDAStream()));
-  return out;
+  return {out, route};
 }
 
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, module) {
   module.def("int8_matmul", &int8_matmul,
-             "(x [M,K] f32|bf16, q [K,N] int8, s [N] f32) -> x @ q * s");
+             "(x [M,K] f32|bf16, q [K,N] int8, s [N] f32) -> (x @ q * s, "
+             "route launched: 1 gemv, 2 tiled, 3 mma)");
+  module.def("int8_matmul_route", &int8_matmul_route,
+             "(x, q, s, route) -> x @ q * s on one route: 1 gemv, 2 tiled "
+             "(CUDA cores), 3 mma (tensor cores); for timing and tests");
   module.def("flash_fwd", &flash_fwd,
              "(q, k, v [BH,T,D], scale, causal) -> (out [BH,T,D], "
              "lse [BH,T,1] f32)");
@@ -308,5 +359,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, module) {
              "causal) -> (dk, dv)");
   module.def("paged_attention", &paged_attention,
              "(q [B,T,H,hd], pool_k, pool_v [N,bs,KV,hd], tables [B,W] int32, "
-             "pos [B,T] int32, block_size) -> out [B,T,H,hd]");
+             "pos [B,T] int32, block_size) -> (out [B,T,H,hd], split route "
+             "launched: 1 CUDA cores, 2 tensor cores)");
 }

@@ -9,10 +9,11 @@
 // thin GEMM of 32-196 KB of int8 weights, far below the card's ~295
 // operations per byte, so it is bound by bytes: 0.01-0.14 us.  At that size
 // what a launch costs is latency: how many dependent rounds of memory
-// traffic and barriers it waits through.  Two routes, chosen by shape in
-// launch() below; both are this file's kernels, and neither falls back.
-// - int8_gemv_kernel, for decode (M <= 8, N a multiple of 16, x within
-//   48 KB of shared memory): each thread owns 16 consecutive output columns
+// traffic and barriers it waits through.  Three routes, chosen by dtype and
+// shape in launch() below; all are this file's kernels, and none falls back
+// to another after a failure.
+// - int8_gemv_kernel, for decode (M <= 4 in bf16, M <= 8 in f32, N a
+//   multiple of 16, x within 48 KB of shared memory): each thread owns 16 consecutive output columns
 //   and loads them as one 16-byte vector of q per K row, issuing all the
 //   loads of its K slice before its FMAs (the first of them before x is
 //   staged in shared memory as f32, so the two latencies overlap); the
@@ -20,12 +21,29 @@
 //   shared memory), and the channel scale is applied once, after the
 //   reduction.  One wave of loads and two barriers; no masked rows beyond
 //   M.  What is left at M = 1 is the launch's own latency, as for cuBLAS.
-// - int8_mm_kernel, the tiled route for the other shapes (prefill): a
-//   16 x 64 output tile a block, K walked in rounds 64 deep through shared
+// - int8_mma_kernel, for bf16 x from M = 5 (decode at 8 lanes, prefill
+//   chunks, verify ticks) where K and N are multiples of 16 and x, q, out
+//   are 16-byte aligned:
+//   the Pallas kernel's own arithmetic, a bf16 product with f32
+//   accumulation, on the tensor cores (mma.sync.m16n8k16).  A block owns a
+//   16 x 32 output tile (larger above one wave of blocks), each of its 4
+//   warps 8 columns over the whole of K, in four independent mma chains.
+//   The channel scales are loaded with the first wave.  The x slab (bf16)
+//   comes by 16-byte cp.async and the q
+//   slab (int8) by 16-byte loads into registers, in one wave: q is widened
+//   to bf16 in registers (exact: |q| <= 127 has 7 significant bits) and
+//   stored as the B operand tile, then one barrier, and the fragments load
+//   by ldmatrix (q's with .trans, as V's in the flash forward).  K = 256 is
+//   one pass; a larger K walks 256-deep chunks through a two-stage ring.
+//   Small tiles give the engine's shapes blocks enough: M = 63 at N = 768
+//   is 96 blocks.  What is left at the engine's shapes is the launch's own
+//   latency and one round of loads, as for cuBLAS.
+// - int8_mm_kernel, the CUDA-core tiled route for the rest: f32 x (a bf16
+//   product would round x), and shapes the mma route cannot take.  A 16 x
+//   64 output tile a block, K walked in rounds 64 deep through shared
 //   memory with scalar loads, the weight widened to f32 there (exact: every
-//   int8 value is a float).  It is latency-bound by its serial rounds
-//   (PERF.md); mma.sync with the int8 widened in registers is later work.
-// Both sum over K in f32 registers and scale once at the end, as the TPU
+//   int8 value is a float); latency-bound by its serial rounds (PERF.md).
+// All sum over K in f32 registers and scale once at the end, as the TPU
 // kernel does; a loop inside the block replaces the TPU's sequential K grid
 // axis.  Rows and columns beyond M and N are masked, so the caller pads
 // nothing.
@@ -33,6 +51,8 @@
 // Plain C interface (no PyTorch headers here, so nvcc stays fast); the
 // binding in binding.cpp checks the tensors, allocates the
 // output and launches on PyTorch's current stream.
+
+#include "flash_bf16.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,54 +269,352 @@ cudaError_t launch_tiled(const T* x, const int8_t* q, const float* s, T* out,
   return cudaGetLastError();
 }
 
-// The GEMV kernel where x fits the shared memory a block has without
-// opting in (every M <= 8 at K <= 1024), else the tiled one.
 template <typename T, int M>
 cudaError_t launch_gemv(const T* x, const int8_t* q, const float* s, T* out,
                         int k, int n, cudaStream_t stream) {
   using G = Gemv<M>;
-  const size_t smem = G::smem_bytes(k);
-  if (smem > kGemvMaxSmem) return launch_tiled(x, q, s, out, M, k, n, stream);
   const dim3 grid((n + G::kBlockCols - 1) / G::kBlockCols);
-  int8_gemv_kernel<T, M><<<grid, G::kThreads, smem, stream>>>(x, q, s, out,
-                                                              k, n);
+  int8_gemv_kernel<T, M><<<grid, G::kThreads, G::smem_bytes(k), stream>>>(
+      x, q, s, out, k, n);
   return cudaGetLastError();
 }
 
-// The route by shape: decode shapes whose q rows the 16-byte loads can take
-// go to the GEMV kernel, the rest to the tiled kernel.
+// The tensor-core route (bf16 x).  A block of 4 warps owns MT 16-row tiles
+// by 32 NB columns, a warp 8 NB of the columns; shared memory a stage: the x
+// slab [16 MT][kMmaKC] and the widened q slab [kMmaKC][32 NB], both bf16,
+// rows padded by 16 bytes so every ldmatrix phase reads eight distinct
+// 16-byte bank groups.
+constexpr int kMmaKC = 256;        // K depth a stage
+constexpr int kMmaThreads = 128;   // 4 warps
+constexpr int kXStride = kMmaKC + flash_bf16::kPad;
+template <int MT, int NB>
+struct MmaTile {
+  static constexpr int kBM = 16 * MT;  // output rows a block
+  static constexpr int kBN = 32 * NB;  // output columns a block
+  static constexpr int kQStride = kBN + flash_bf16::kPad;
+  static constexpr int kXPieces = kBM * kMmaKC / 8 / kMmaThreads;
+  static constexpr int kQPieces = kMmaKC * kBN / 16 / kMmaThreads;
+  static constexpr int kXElems = kBM * kXStride;
+  static constexpr size_t kStageBytes =
+      (size_t)(kXElems + kMmaKC * kQStride) * sizeof(__nv_bfloat16);
+};
+
+// Chunk [k0, k0 + kMmaKC) of the x slab into a stage by cp.async; rows past
+// m and columns past k are zero-filled (the address stays x's first row).
+template <typename Tile>
+__device__ __forceinline__ void mma_load_x(__nv_bfloat16* xs,
+                                           const __nv_bfloat16* x, int m0,
+                                           int k0, int m, int k) {
+#pragma unroll
+  for (int it = 0; it < Tile::kXPieces; ++it) {
+    const int p = threadIdx.x + it * kMmaThreads;
+    const int r = p / (kMmaKC / 8), c = (p % (kMmaKC / 8)) * 8;
+    const bool in = m0 + r < m && k0 + c < k;
+    const __nv_bfloat16* from = in ? x + (size_t)(m0 + r) * k + k0 + c : x;
+    flash_bf16::cp_async16(xs + r * kXStride + c, from, in ? 16 : 0);
+  }
+}
+
+// The same chunk of q's column slab [n0, n0 + kBN) into registers as
+// 16-byte loads; pieces past k or n read as zeros.
+template <typename Tile>
+__device__ __forceinline__ void mma_load_q(uint4 (&w)[Tile::kQPieces],
+                                           const int8_t* q, int n0, int k0,
+                                           int k, int n) {
+#pragma unroll
+  for (int it = 0; it < Tile::kQPieces; ++it) {
+    const int p = threadIdx.x + it * kMmaThreads;
+    const int r = p / (Tile::kBN / 16), c = (p % (Tile::kBN / 16)) * 16;
+    w[it] = k0 + r < k && n0 + c < n
+                ? __ldg(reinterpret_cast<const uint4*>(
+                      q + (size_t)(k0 + r) * n + n0 + c))
+                : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// Widen the registers' int8 to bf16 (exact) and store them as the B tile.
+template <typename Tile>
+__device__ __forceinline__ void mma_store_q(__nv_bfloat16* qs,
+                                            const uint4 (&w)[Tile::kQPieces]) {
+#pragma unroll
+  for (int it = 0; it < Tile::kQPieces; ++it) {
+    const int p = threadIdx.x + it * kMmaThreads;
+    const int r = p / (Tile::kBN / 16), c = (p % (Tile::kBN / 16)) * 16;
+    float f[16];
+    widen4(w[it].x, f);
+    widen4(w[it].y, f + 4);
+    widen4(w[it].z, f + 8);
+    widen4(w[it].w, f + 12);
+    uint4* dst = reinterpret_cast<uint4*>(qs + r * Tile::kQStride + c);
+    using flash_bf16::pack_bf16;
+    dst[0] = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                        pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+    dst[1] = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]),
+                        pack_bf16(f[12], f[13]), pack_bf16(f[14], f[15]));
+  }
+}
+
+// Four k-steps (64 of K) from k-step st of a stage: each of the warp's MT
+// row tiles against each of its NB 8-column blocks, one accumulator a
+// step, so the mma chains are a quarter of the steps long.
+template <int MT, int NB>
+__device__ __forceinline__ void mma_steps4(float (&acc)[MT][NB][4][4],
+                                           const __nv_bfloat16* xs,
+                                           const __nv_bfloat16* qs, int st) {
+  using namespace flash_bf16;
+  using Tile = MmaTile<MT, NB>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int mi = lane >> 3;
+  uint32_t b[NB][2][4];  // a column block's b0, b1 of steps st, st + 1; then
+                         // of st + 2, st + 3
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      ldmatrix_x4_trans(b[nb][h],
+                        qs + ((st + 2 * h) * 16 + mi * 8 + (lane & 7)) *
+                                 Tile::kQStride +
+                            (warp * NB + nb) * 8);
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t a[4];
+      ldmatrix_x4(a, xs + (t * 16 + (lane & 15)) * kXStride +
+                         (st + j) * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        mma_bf16(acc[t][nb][j], a, b[nb][j >> 1][(j & 1) * 2],
+                 b[nb][j >> 1][(j & 1) * 2 + 1]);
+    }
+}
+
+template <int MT, int NB>
+__global__ void __launch_bounds__(kMmaThreads)
+int8_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                const int8_t* __restrict__ q, const float* __restrict__ s,
+                __nv_bfloat16* __restrict__ out, int m, int k, int n) {
+  using namespace flash_bf16;
+  using Tile = MmaTile<MT, NB>;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* stage[2] = {
+      reinterpret_cast<__nv_bfloat16*>(mma_smem),
+      reinterpret_cast<__nv_bfloat16*>(mma_smem + Tile::kStageBytes)};
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * Tile::kBN, m0 = blockIdx.y * Tile::kBM;
+  const int chunks = (k + kMmaKC - 1) / kMmaKC;
+
+  // chunk 0 (x by cp.async, q by 16-byte loads) and the channel scales, all
+  // in flight at once
+  uint4 w[Tile::kQPieces];
+  mma_load_x<Tile>(stage[0], x, m0, 0, m, k);
+  cp_async_commit();
+  mma_load_q<Tile>(w, q, n0, 0, k, n);
+  float2 scale[NB];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    const int col = n0 + (warp * NB + nb) * 8 + tq * 2;
+    scale[nb] = col < n ? make_float2(__ldg(s + col), __ldg(s + col + 1))
+                        : make_float2(0.f, 0.f);
+  }
+  mma_store_q<Tile>(stage[0] + Tile::kXElems, w);
+
+  float acc[MT][NB][4][4] = {};
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c is in its stage; chunk c - 1 is done with
+    const int k0 = c * kMmaKC;
+    const bool next = c + 1 < chunks;
+    const __nv_bfloat16* xs = stage[c & 1];
+    const __nv_bfloat16* qs = xs + Tile::kXElems;
+    if (next) {  // chunk c + 1 into the other stage while c computes
+      mma_load_x<Tile>(stage[(c + 1) & 1], x, m0, k0 + kMmaKC, m, k);
+      cp_async_commit();
+      mma_load_q<Tile>(w, q, n0, k0 + kMmaKC, k, n);
+    }
+    const int kc = min(kMmaKC, k - k0);
+    if (kc == kMmaKC) {  // a whole chunk: unrolled
+#pragma unroll
+      for (int st = 0; st < kMmaKC / 16; st += 4)
+        mma_steps4<MT, NB>(acc, xs, qs, st);
+    } else {  // the ragged last chunk: steps past k are zero-filled
+      for (int st = 0; st < kc / 16; st += 4)
+        mma_steps4<MT, NB>(acc, xs, qs, st);
+    }
+    if (next) mma_store_q<Tile>(stage[(c + 1) & 1] + Tile::kXElems, w);
+  }
+
+  // the channel scale once, after the K loop; rows past m, columns past n
+  // left out
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    const int col = n0 + (warp * NB + nb) * 8 + tq * 2;
+    if (col >= n) continue;
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float(&a)[4][4] = acc[t][nb];
+        const int row = m0 + t * 16 + g + h * 8;
+        const float v0 = (a[0][2 * h] + a[1][2 * h]) +
+                         (a[2][2 * h] + a[3][2 * h]);
+        const float v1 = (a[0][2 * h + 1] + a[1][2 * h + 1]) +
+                         (a[2][2 * h + 1] + a[3][2 * h + 1]);
+        if (row < m)
+          *reinterpret_cast<uint32_t*>(out + (size_t)row * n + col) =
+              pack_bf16(v0 * scale[nb].x, v1 * scale[nb].y);
+      }
+  }
+}
+
+// True where the tensor-core route takes the shape: K and N whole 16-wide
+// steps (so every 16-byte piece is all in or all out) and 16-byte aligned
+// x, q and out.
+bool mma_takes(const void* x, const int8_t* q, const void* out, int k,
+               int n) {
+  return k % 16 == 0 && n % 16 == 0 && flash_bf16::aligned16({x, q, out});
+}
+
+template <int MT, int NB>
+cudaError_t launch_mma_tiles(const __nv_bfloat16* x, const int8_t* q,
+                             const float* s, __nv_bfloat16* out, int m, int k,
+                             int n, cudaStream_t stream) {
+  using Tile = MmaTile<MT, NB>;
+  const auto kernel = int8_mma_kernel<MT, NB>;
+  const size_t smem = (k > kMmaKC ? 2 : 1) * Tile::kStageBytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((n + Tile::kBN - 1) / Tile::kBN,
+                  (m + Tile::kBM - 1) / Tile::kBM);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(x, q, s, out, m, k, n);
+  return cudaGetLastError();
+}
+
+// The tile by shape, from the grid each would launch: 16 x 32 while that
+// fits one block an SM (all of the engine's shapes: the most blocks for
+// the least work each), 32 x 32 while that fits two, 32 x 64 above (larger
+// tiles read x and q fewer times through L2).  Chosen among five tiles
+// timed on an H100 (PERF.md).
+constexpr int64_t kSms = 132;  // an H100's streaming multiprocessors
+
+cudaError_t launch_mma(const __nv_bfloat16* x, const int8_t* q,
+                       const float* s, __nv_bfloat16* out, int m, int k, int n,
+                       cudaStream_t stream) {
+  const int64_t cols = (n + 31) / 32;
+  if ((m + 15) / 16 * cols <= kSms)
+    return launch_mma_tiles<1, 1>(x, q, s, out, m, k, n, stream);
+  if ((m + 31) / 32 * cols <= 2 * kSms)
+    return launch_mma_tiles<2, 1>(x, q, s, out, m, k, n, stream);
+  return launch_mma_tiles<2, 2>(x, q, s, out, m, k, n, stream);
+}
+
+template <int M>
+size_t gemv_smem_bytes(int k) { return Gemv<M>::smem_bytes(k); }
+
+// True where the GEMV route takes the shape: M <= 8, q rows the 16-byte
+// loads can take, and x within the shared memory a block has without
+// opting in (every M <= 8 at K <= 1024).
+bool gemv_takes(const int8_t* q, int m, int k, int n) {
+  if (m < 1 || m > 8 || n % kGemvCols || reinterpret_cast<uintptr_t>(q) % 16)
+    return false;
+  static size_t (*const smem[])(int) = {
+      gemv_smem_bytes<1>, gemv_smem_bytes<2>, gemv_smem_bytes<3>,
+      gemv_smem_bytes<4>, gemv_smem_bytes<5>, gemv_smem_bytes<6>,
+      gemv_smem_bytes<7>, gemv_smem_bytes<8>};
+  return smem[m - 1](k) <= kGemvMaxSmem;
+}
+
+template <typename T>
+cudaError_t launch_gemv_m(const T* x, const int8_t* q, const float* s, T* out,
+                          int m, int k, int n, cudaStream_t stream) {
+  switch (m) {
+    case 1: return launch_gemv<T, 1>(x, q, s, out, k, n, stream);
+    case 2: return launch_gemv<T, 2>(x, q, s, out, k, n, stream);
+    case 3: return launch_gemv<T, 3>(x, q, s, out, k, n, stream);
+    case 4: return launch_gemv<T, 4>(x, q, s, out, k, n, stream);
+    case 5: return launch_gemv<T, 5>(x, q, s, out, k, n, stream);
+    case 6: return launch_gemv<T, 6>(x, q, s, out, k, n, stream);
+    case 7: return launch_gemv<T, 7>(x, q, s, out, k, n, stream);
+    default: return launch_gemv<T, 8>(x, q, s, out, k, n, stream);
+  }
+}
+
+// The route by dtype and shape (not a fallback: each shape has one route):
+// - bf16 x that the tensor-core route takes, from M = kMmaFromM: mma (at
+//   M = 8 it took 2.24-2.30 us against the GEMV's 4.37-4.53 on an H100,
+//   PERF.md);
+// - decode shapes below that (and f32 x up to M = 8) whose q rows the
+//   16-byte loads can take: GEMV;
+// - the rest (f32 x above M = 8, K or N not a multiple of 16, a misaligned
+//   tensor): the CUDA-core tiled kernel.
+// Route kRouteAuto is this rule; the others force one route (for timing and
+// the card tests) and refuse a shape it does not take.  The route launched
+// goes to *taken, so the caller can count launches by route.
+constexpr int kRouteAuto = 0, kRouteGemv = 1, kRouteTiled = 2, kRouteMma = 3;
+constexpr int kMmaFromM = 5;
+
 template <typename T>
 cudaError_t launch(const void* x_, const int8_t* q, const float* s,
-                   void* out_, int m, int k, int n, cudaStream_t stream) {
+                   void* out_, int m, int k, int n, int route, int* taken,
+                   cudaStream_t stream) {
   const T* x = static_cast<const T*>(x_);
   T* out = static_cast<T*>(out_);
-  if (n % kGemvCols == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0) {
-    switch (m) {
-      case 1: return launch_gemv<T, 1>(x, q, s, out, k, n, stream);
-      case 2: return launch_gemv<T, 2>(x, q, s, out, k, n, stream);
-      case 3: return launch_gemv<T, 3>(x, q, s, out, k, n, stream);
-      case 4: return launch_gemv<T, 4>(x, q, s, out, k, n, stream);
-      case 5: return launch_gemv<T, 5>(x, q, s, out, k, n, stream);
-      case 6: return launch_gemv<T, 6>(x, q, s, out, k, n, stream);
-      case 7: return launch_gemv<T, 7>(x, q, s, out, k, n, stream);
-      case 8: return launch_gemv<T, 8>(x, q, s, out, k, n, stream);
-    }
+  constexpr bool bf16 = sizeof(T) == 2;
+  const bool mma = bf16 && mma_takes(x_, q, out_, k, n);
+  if (route == kRouteAuto)
+    route = mma && m >= kMmaFromM   ? kRouteMma
+            : gemv_takes(q, m, k, n) ? kRouteGemv
+            : mma                    ? kRouteMma
+                                     : kRouteTiled;
+  *taken = route;
+  switch (route) {
+    case kRouteGemv:
+      if (!gemv_takes(q, m, k, n)) return cudaErrorInvalidValue;
+      return launch_gemv_m<T>(x, q, s, out, m, k, n, stream);
+    case kRouteMma:
+      if (!mma) return cudaErrorInvalidValue;
+      if constexpr (bf16)
+        return launch_mma(x, q, s, out, m, k, n, stream);
+      return cudaErrorInvalidValue;
+    case kRouteTiled:
+      return launch_tiled(x, q, s, out, m, k, n, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return launch_tiled(x, q, s, out, m, k, n, stream);
 }
 
 }  // namespace
 
 // x [m, k] f32, q [k, n] int8, s [n] f32 -> out [m, n] f32; all contiguous.
+// *route: the route launched (1 GEMV, 2 CUDA-core tiled, 3 tensor cores).
 cudaError_t ctpu_int8_matmul_f32(const void* x, const int8_t* q,
                                  const float* s, void* out, int m, int k,
-                                 int n, cudaStream_t stream) {
-  return launch<float>(x, q, s, out, m, k, n, stream);
+                                 int n, int* route, cudaStream_t stream) {
+  return launch<float>(x, q, s, out, m, k, n, kRouteAuto, route, stream);
 }
 
 // The same with x and out in bf16.
 cudaError_t ctpu_int8_matmul_bf16(const void* x, const int8_t* q,
                                   const float* s, void* out, int m, int k,
-                                  int n, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(x, q, s, out, m, k, n, stream);
+                                  int n, int* route, cudaStream_t stream) {
+  return launch<__nv_bfloat16>(x, q, s, out, m, k, n, kRouteAuto, route,
+                               stream);
+}
+
+// One route forced (1 GEMV, 2 CUDA-core tiled, 3 tensor cores), for timing
+// the routes against each other and for the card tests; a shape the route
+// does not take is refused (cudaErrorInvalidValue).
+cudaError_t ctpu_int8_matmul_route(bool bf16, int route, const void* x,
+                                   const int8_t* q, const float* s, void* out,
+                                   int m, int k, int n, cudaStream_t stream) {
+  if (route < kRouteGemv || route > kRouteMma) return cudaErrorInvalidValue;
+  int taken;
+  return bf16 ? launch<__nv_bfloat16>(x, q, s, out, m, k, n, route, &taken,
+                                      stream)
+              : launch<float>(x, q, s, out, m, k, n, route, &taken, stream);
 }

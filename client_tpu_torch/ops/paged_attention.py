@@ -8,8 +8,13 @@ query head ``h`` reading KV head ``h // (H // KV)``, a key at logical
 position ``j`` attended iff ``j <= pos[b, t]`` (``pos [B, T]`` int32),
 scores and softmax in f32, the output in the pools' dtype.
 
-On a CUDA tensor ``paged_attention`` launches ``csrc/paged_attention.cu``,
-which walks each lane's table only up to the mask bound; on a CPU tensor it
+On a CUDA tensor ``paged_attention`` launches ``csrc/paged_attention.cu``:
+a split-K kernel over fixed 64-key splits of each lane's table (on the
+tensor cores for bf16 prefill chunks, T >= 16, on the CUDA cores for the
+rest), which loads no pool row past the mask bound, then a combine of the
+splits in a fixed order.  The grid depends on the shapes only, never on
+``pos``.  A query at ``pos < 0`` attends no key; as in the reference it
+gets the mean of the V rows its whole table gathers.  On a CPU tensor it
 takes ``paged_attention_reference``, the plain PyTorch version, which
 mirrors the JAX function step by step (the whole-table gather, the KV-head
 repeat, f32 scores, the ``-1e30`` mask, softmax, ``p`` cast to the pools'
@@ -19,6 +24,8 @@ dtype for P.V).  Nothing on the card's main path calls the plain version.
 import torch
 
 from client_tpu_torch.ops import count_launch
+
+_ROUTE_NAMES = {1: "split", 2: "mma"}
 
 _MASKED = -1e30  # the reference's mask value: exp() of it is exactly 0
 
@@ -46,9 +53,10 @@ def paged_attention_reference(q, pool_k, pool_v, tables, pos, block_size):
 def _launch(q, pool_k, pool_v, tables, pos, block_size):
     from client_tpu_torch.ops._build import kernels
 
-    out = kernels().paged_attention(q, pool_k, pool_v, tables, pos,
-                                    int(block_size))
-    count_launch("paged_attention")
+    out, route = kernels().paged_attention(q, pool_k, pool_v, tables, pos,
+                                           int(block_size))
+    if route:  # 0: an empty output, nothing launched
+        count_launch("paged_attention", _ROUTE_NAMES[route])
     return out
 
 
@@ -57,7 +65,9 @@ def paged_attention(q, pool_k, pool_v, tables, pos, block_size):
 
     A CUDA tensor always goes to the kernel, which refuses (raises on) a
     shape, dtype or layout it does not take; a CPU tensor goes to the plain
-    version."""
+    version.  A call counts one launch in ``ops.LAUNCHES`` (and one of its
+    route in ``ops.ROUTES``), though it launches a split kernel and a
+    combine."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, pool_k, pool_v, tables, pos,
                                          block_size)

@@ -6,13 +6,19 @@ channel, symmetric (int8 value x f32 scale); activations stay unquantized.
 do not tile (``n % min(128, n)`` or ``k % min(512, k)``) take the
 dequantize-then-matmul fallback, the rest take the kernel.  On a CUDA
 tensor the kernel is ``csrc/int8_matmul.cu`` (replacing the Pallas
-``_int8_mm_kernel``); on a CPU tensor it is ``int8_matmul_reference``,
-the plain PyTorch version of the same arithmetic.
+``_int8_mm_kernel``), which picks one of three routes by dtype and shape:
+bf16 from M = 5 on the tensor cores, a GEMV below that (and for f32 up
+to M = 8), f32 above on the CUDA cores;
+each call counts one launch of ``int8_matmul`` and one of its route in
+``ops.ROUTES``.  On a CPU tensor it is ``int8_matmul_reference``, the
+plain PyTorch version of the same arithmetic.
 """
 
 import torch
 
 from client_tpu_torch.ops import count_launch
+
+_ROUTE_NAMES = {1: "gemv", 2: "tiled", 3: "mma"}
 
 
 def quantize_int8(w):
@@ -43,8 +49,9 @@ def int8_matmul_reference(x2, q, s):
 def _launch(x2, q, s):
     from client_tpu_torch.ops._build import kernels
 
-    out = kernels().int8_matmul(x2.contiguous(), q, s)
-    count_launch("int8_matmul")
+    out, route = kernels().int8_matmul(x2.contiguous(), q, s)
+    if route:  # 0: an empty output, nothing launched
+        count_launch("int8_matmul", _ROUTE_NAMES[route])
     return out
 
 

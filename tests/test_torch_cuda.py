@@ -66,10 +66,11 @@ def test_kernel_matches_plain_version(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int8_both_routes_match_plain_version(cuda_device, dtype):
-    """Both routes of int8_matmul.cu against int8_matmul_reference: the GEMV
-    kernel at M <= 8 (N a multiple of 16), the tiled one at M = 9 and 16, at
-    N = 40 (not a multiple of 16) and for a q whose rows the 16-byte loads
-    cannot take; one counted launch a call."""
+    """Every route of int8_matmul.cu against int8_matmul_reference: the
+    GEMV kernel at M <= 8 (f32) or 4 (bf16; N a multiple of 16), the tensor
+    cores for bf16 from M = 5, the CUDA-core tiled kernel for f32 at M = 9
+    and 16, at N = 40 (not a multiple of 16) and for a q whose rows the
+    16-byte loads cannot take; one counted launch a call."""
     atol, rtol = _TOL[dtype]
     rng = np.random.default_rng(12)
     for m in list(range(1, 10)) + [16]:
@@ -89,6 +90,82 @@ def test_int8_both_routes_match_plain_version(cuda_device, dtype):
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got.float(), want.float(),
                                            atol=atol, rtol=rtol)
+
+
+# int8_matmul.cu's forced routes (the binding's int8_matmul_route)
+_GEMV, _TILED, _MMA = 1, 2, 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_tiled_and_mma_routes_match_plain_version(cuda_device, dtype):
+    """The CUDA-core tiled route (both dtypes) and the tensor-core route
+    (bf16) against int8_matmul_reference at the engine's M (prefill chunks
+    16-64, verify 40, the served prompt 63) and beyond, the served (K, N)
+    and K = 1024 (the mma route's two-stage ring); f32 within (1e-4, 1e-4),
+    bf16 within (2e-2, 1e-2): one bf16 ulp of the f32-summed result."""
+    atol, rtol = _TOL[dtype]
+    ext = quant_kernels()
+    rng = np.random.default_rng(13)
+    routes = (_TILED, _MMA) if dtype == "bfloat16" else (_TILED,)
+    for m in (16, 32, 40, 63, 64, 128, 511):
+        for k, n in ((256, 256), (256, 128), (256, 768), (1024, 256)):
+            x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+            x = x.to(_DT[dtype]).to(cuda_device)
+            qw = quant.quantize_int8(_weights(m + n + k, k, n).to(cuda_device))
+            want = quant.int8_matmul_reference(x, qw["q"], qw["s"])
+            for route in routes:
+                got = ext.int8_matmul_route(x, qw["q"], qw["s"], route)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_int8_mma_route_repeats_bit_for_bit(cuda_device):
+    """Two launches of the tensor-core route on the same inputs are equal
+    bit for bit (no atomics), at one and at two K chunks."""
+    ext = quant_kernels()
+    gen = torch.Generator().manual_seed(3)
+    for k in (256, 1024):
+        x = torch.randn(63, k, generator=gen).bfloat16().to(cuda_device)
+        qw = quant.quantize_int8(_weights(k, k, 768).to(cuda_device))
+        a = ext.int8_matmul_route(x, qw["q"], qw["s"], _MMA)
+        b = ext.int8_matmul_route(x, qw["q"], qw["s"], _MMA)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_int8_routes_refuse_what_they_do_not_take(cuda_device):
+    """A forced route raises on a shape it does not take; the dispatch rule
+    sends such shapes elsewhere (a misaligned bf16 x goes to the tiled
+    kernel and still matches)."""
+    ext = quant_kernels()
+    qw = quant.quantize_int8(_weights(5, 256, 256).to(cuda_device))
+    x = torch.randn(32, 256).bfloat16().to(cuda_device)
+    with pytest.raises(RuntimeError, match="does not take"):
+        ext.int8_matmul_route(x.float(), qw["q"], qw["s"], _MMA)  # f32 x
+    with pytest.raises(RuntimeError, match="does not take"):
+        ext.int8_matmul_route(x, qw["q"], qw["s"], _GEMV)  # M = 32
+    off = torch.empty(x.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(32, 256)
+    off.copy_(x)
+    with pytest.raises(RuntimeError, match="does not take"):
+        ext.int8_matmul_route(off, qw["q"], qw["s"], _MMA)
+    qn = quant.quantize_int8(_weights(6, 256, 40).to(cuda_device))
+    with pytest.raises(RuntimeError, match="does not take"):
+        ext.int8_matmul_route(x, qn["q"], qn["s"], _MMA)  # N = 40
+    with pytest.raises(RuntimeError, match="route must be"):
+        ext.int8_matmul_route(x, qw["q"], qw["s"], 4)
+    want = quant.int8_matmul_reference(x, qw["q"], qw["s"])
+    torch.testing.assert_close(quant.int8_matmul(off, qw).float(),
+                               want.float(), atol=2e-2, rtol=1e-2)
+
+
+def quant_kernels():
+    from client_tpu_torch.ops._build import kernels
+
+    return kernels()
 
 
 @pytest.mark.cuda
@@ -377,13 +454,18 @@ def _paged_case(batch, t, hd, dtype, seed, n_heads=8, n_kv=4, bs=16,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("shape", [(8, 1), (4, 5), (1, 64)],
-                         ids=["decode", "verify", "prefill"])
+@pytest.mark.parametrize("shape", [(8, 1), (8, 2), (8, 4), (4, 5), (1, 16),
+                                   (1, 64)],
+                         ids=["decode", "verify2", "verify4", "verify5",
+                              "prefill16", "prefill64"])
 def test_paged_attention_matches_plain_on_nan_poisoned_pools(
         cuda_device, shape, hd, dtype):
     """The kernel on pools whose every masked row (the trash block, table
     tails, rows past pos) is NaN equals the plain version on the clean
-    pools: it never loads a masked row.  One counted launch a call."""
+    pools: it never loads a masked row.  Decode and verify (and f32) take
+    the CUDA-core split route, bf16 prefill the tensor-core one.  One
+    counted launch a call, though a call launches a split kernel and a
+    combine."""
     from client_tpu_torch.ops import paged_attention as pa
 
     atol, rtol = _TOL[dtype]
@@ -399,12 +481,101 @@ def test_paged_attention_matches_plain_on_nan_poisoned_pools(
 
 
 @pytest.mark.cuda
-def test_paged_attention_repeats_bit_for_bit(cuda_device):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 1), (8, 5), (1, 64)],
+                         ids=["decode", "verify", "prefill"])
+def test_paged_attention_repeats_bit_for_bit(cuda_device, shape, dtype):
+    """Relaunches are equal bit for bit on both routes: the splits combine
+    in a fixed order, with no atomics."""
     from client_tpu_torch.ops import paged_attention as pa
 
-    _, poisoned, bs = _paged_case(8, 5, 32, "bfloat16", seed=5)
-    assert torch.equal(pa.paged_attention(*poisoned, bs),
-                       pa.paged_attention(*poisoned, bs))
+    _, poisoned, bs = _paged_case(*shape, 32, dtype, seed=5)
+    first = pa.paged_attention(*poisoned, bs)
+    for _ in range(3):
+        assert torch.equal(pa.paged_attention(*poisoned, bs), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 1), (8, 5), (1, 64)],
+                         ids=["decode", "verify", "prefill"])
+def test_paged_attention_no_attended_key(cuda_device, shape, dtype):
+    """A query at pos = -1 gets the reference's result, the mean of the V
+    rows its lane's whole table gathers (the only case that reads past the
+    mask bound, so the pools are clean), beside ordinary rows; within the
+    kernel tolerances of the plain version."""
+    from client_tpu_torch.ops import paged_attention as pa
+
+    atol, rtol = _TOL[dtype]
+    (q, k, v, tables, pos), _, bs = _paged_case(*shape, 32, dtype, seed=17)
+    pos = pos.clone()
+    pos[0, :] = -1
+    if shape[1] > 1:
+        pos[-1, 0] = -1
+    got = pa.paged_attention(q, k, v, tables, pos, bs)
+    want = pa.paged_attention_reference(q, k, v, tables, pos, bs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 5, 64])
+def test_paged_attention_graph_replays_at_another_context(cuda_device, t,
+                                                          dtype):
+    """Captured in a CUDA graph at context 64, then replayed after pos and
+    tables are copy_'d to context 511: the output equals the plain version
+    at 511, so the grid does not depend on pos (which lives on the
+    device)."""
+    from client_tpu_torch.ops import paged_attention as pa
+
+    atol, rtol = _TOL[dtype]
+    batch = 8 if t < 16 else 1
+    n_heads, n_kv, hd, bs, width = 8, 4, 32, 16, 32
+    rng = np.random.default_rng(23 + t)
+    n_blocks = batch * width
+    shape = (n_blocks + 1, bs, n_kv, hd)
+    k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(_DT[dtype]).to(cuda_device) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal(
+        (batch, t, n_heads, hd)).astype(np.float32)).to(_DT[dtype]).to(
+        cuda_device)
+
+    def at(ctx):
+        pos = (ctx - t + np.arange(t))[None, :].repeat(batch, 0)
+        own = (ctx - 1) // bs + 1
+        tables = np.zeros((batch, width), np.int32)
+        perm = rng.permutation(np.arange(1, n_blocks + 1))
+        for b in range(batch):
+            tables[b, :own] = perm[b * width:b * width + own]
+        return (torch.from_numpy(tables).to(cuda_device),
+                torch.from_numpy(pos.astype(np.int32)).to(cuda_device))
+
+    tables, pos = at(64)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(q, k, v, tables, pos, bs)  # build and warm up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(q, k, v, tables, pos, bs)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out.float(), pa.paged_attention_reference(q, k, v, tables, pos,
+                                                  bs).float(),
+        atol=atol, rtol=rtol)
+    t511, p511 = at(511)
+    tables.copy_(t511)
+    pos.copy_(p511)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = pa.paged_attention_reference(q, k, v, tables, pos, bs)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -427,6 +598,16 @@ def test_paged_attention_refuses_what_it_does_not_take(cuda_device):
         pa.paged_attention(q, k, v, tables, pos, bs // 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         pa._launch(q, k.cpu(), v, tables, pos, bs)
+    with pytest.raises(RuntimeError, match="empty"):
+        pa.paged_attention(q, k, v, tables[:, :0].contiguous(), pos, bs)
+    # the 16-byte copies refuse a misaligned tensor, bf16 and f32 alike
+    for x in (q.bfloat16(), q):
+        off = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=cuda_device)[1:].view(x.shape)
+        off.copy_(x)
+        kk, vv = k.to(x.dtype), v.to(x.dtype)
+        with pytest.raises(RuntimeError, match="misaligned"):
+            pa.paged_attention(off, kk, vv, tables, pos, bs)
 
 
 @pytest.mark.cuda

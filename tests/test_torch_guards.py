@@ -167,7 +167,8 @@ def test_kernel_wrapper_never_falls_back(no_cuda, monkeypatch):
         @staticmethod
         def int8_matmul(x, q, s):
             calls.append(x.device.type)
-            return torch.empty((x.shape[0], q.shape[1]), device=x.device)
+            # the binding returns the route it launched: 3, tensor cores
+            return torch.empty((x.shape[0], q.shape[1]), device=x.device), 3
 
     def no_plain(*args):
         raise AssertionError("plain version taken for a device tensor")
@@ -176,12 +177,14 @@ def test_kernel_wrapper_never_falls_back(no_cuda, monkeypatch):
     monkeypatch.setattr(quant, "int8_matmul_reference", no_plain)
     qw = quant.quantize_int8(torch.ones(128, 128))
     before = ops.LAUNCHES["int8_matmul"]
+    before_mma = ops.ROUTES["int8_matmul"]["mma"]
     out = quant.int8_matmul(
         torch.ones(2, 3, 128, device="meta"),
         {"q": qw["q"].to("meta"), "s": qw["s"].to("meta")},
     )
     assert calls == ["meta"] and tuple(out.shape) == (2, 3, 128)
     assert ops.LAUNCHES["int8_matmul"] == before + 1
+    assert ops.ROUTES["int8_matmul"]["mma"] == before_mma + 1
 
 
 @pytest.mark.parametrize("with_lse", [False, True])
@@ -249,7 +252,8 @@ def test_paged_attention_wrapper_never_falls_back(no_cuda, monkeypatch):
         @staticmethod
         def paged_attention(q, pool_k, pool_v, tables, pos, block_size):
             calls.append((q.device.type, pool_k.device.type, block_size))
-            return torch.empty_like(q)
+            # the binding returns the split route it launched: 1, CUDA cores
+            return torch.empty_like(q), 1
 
     def no_plain(*args):
         raise AssertionError("plain version taken for a device tensor")
@@ -261,6 +265,8 @@ def test_paged_attention_wrapper_never_falls_back(no_cuda, monkeypatch):
     tables = torch.empty(3, 4, dtype=torch.int32, device="meta")
     pos = torch.empty(3, 1, dtype=torch.int32, device="meta")
     before = ops.LAUNCHES["paged_attention"]
+    before_split = ops.ROUTES["paged_attention"]["split"]
     out = pa.paged_attention(q, pool, pool, tables, pos, 8)
     assert calls == [("meta", "meta", 8)] and out.shape == q.shape
     assert ops.LAUNCHES["paged_attention"] == before + 1
+    assert ops.ROUTES["paged_attention"]["split"] == before_split + 1

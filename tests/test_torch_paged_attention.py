@@ -159,3 +159,152 @@ def test_head_counts_must_match_the_config():
     with pytest.raises(ValueError, match="heads"):
         tfm.paged_attention(t["q"], t["k"], t["v"], t["tables"], t["pos"],
                             cfg, 8)
+
+
+# -- the redesigned kernel's arithmetic, emulated -----------------------------
+#
+# The CUDA kernel (ops/csrc/paged_attention.cu) splits each lane's keys into
+# fixed 64-key splits, writes per-split partials (m, l, acc) and combines
+# them in split order.  The card tests hold the kernel itself; here the same
+# arithmetic, written out in numpy float32 below (not in the package),
+# is held against the JAX function at 1e-5.
+
+def _row_bound(pos, n_keys):
+    """(last attended key, uniform): pos < 0 attends every key of the table
+    with one score, as the reference's all-masked softmax does."""
+    if pos < 0:
+        return n_keys - 1, True
+    return min(pos, n_keys - 1), False
+
+
+def _split_k(q, pool_k, pool_v, tables, pos, block_size, split_keys):
+    """out [B,T,H,hd] by the kernel's split-K arithmetic in float32: for
+    every (lane, KV head), the splits' partials over keys [k0, k0 +
+    split_keys) (keys past the block's bound read as zero rows and every
+    row masks its own), then the fixed-order combine."""
+    b_n, t_n, n_heads, hd = q.shape
+    n_kv = pool_k.shape[2]
+    rep = n_heads // n_kv
+    n_keys = tables.shape[1] * block_size
+    n_splits = -(-n_keys // split_keys)
+    scale = np.float32(hd ** -0.5)
+    n_pool = pool_k.shape[0]
+    out = np.zeros(q.shape, np.float32)
+    for b in range(b_n):
+        bounds = [_row_bound(int(p), n_keys) for p in pos[b]]
+        block_last = max(last for last, _ in bounds)
+        for g in range(n_kv):
+            parts = []  # per split: (m [T,rep], l [T,rep], acc [T,rep,hd])
+            for s in range(n_splits):
+                k0 = s * split_keys
+                m = np.full((t_n, rep), -np.inf, np.float32)
+                l = np.zeros((t_n, rep), np.float32)
+                acc = np.zeros((t_n, rep, hd), np.float32)
+                if k0 <= block_last:
+                    keys = np.arange(k0, min(k0 + split_keys, n_keys))
+                    blk = np.clip(tables[b, keys // block_size], 0, n_pool - 1)
+                    kk = pool_k[blk, keys % block_size, g].astype(np.float32)
+                    vv = pool_v[blk, keys % block_size, g].astype(np.float32)
+                    kk[keys > block_last] = 0
+                    vv[keys > block_last] = 0
+                    for t in range(t_n):
+                        last, uniform = bounds[t]
+                        for i in range(rep):
+                            qv = q[b, t, g * rep + i].astype(np.float32)
+                            sc = np.zeros(len(keys), np.float32) if uniform \
+                                else (kk @ qv) * scale
+                            sc = np.where(keys > last, -np.inf, sc)
+                            mx = sc.max()
+                            if mx == -np.inf:
+                                continue  # no key of this row here
+                            e = np.exp(sc - mx).astype(np.float32)
+                            m[t, i], l[t, i] = mx, e.sum(dtype=np.float32)
+                            acc[t, i] = e @ vv
+                parts.append((m, l, acc))
+            mx = np.max([p[0] for p in parts], axis=0)
+            l_all = np.zeros((t_n, rep), np.float32)
+            acc_all = np.zeros((t_n, rep, hd), np.float32)
+            for m, l, acc in parts:  # the splits in order
+                w = np.where(m == -np.inf, 0,
+                             np.exp(np.where(m == -np.inf, 0, m - mx)))
+                w = w.astype(np.float32)
+                l_all += w * l
+                acc_all += w[..., None] * acc
+            out[b, :, g * rep:(g + 1) * rep] = acc_all / l_all[..., None]
+    return out
+
+
+def _split_case(seed, n_heads=4, n_kv=2, hd=16, block_size=16, width=32):
+    """The engine's table (32 blocks of 16 keys: 8 splits of 64) with lanes
+    at every edge: contexts ending mid-block (most splits attend no key),
+    one exactly on a split boundary, a lane filling the whole table (one
+    position past its end), verify rows and a lane at pos = -1."""
+    rng = np.random.default_rng(seed)
+    n_keys = width * block_size
+    t = 3
+    ends = [5, 63, 64, 200, n_keys - 1, n_keys + 1]
+    pos = np.array([[e - 2, e - 1, e] for e in ends] + [[-1, -1, -1]],
+                   np.int32)
+    b = pos.shape[0]
+    n_blocks = b * width
+    perm = rng.permutation(np.arange(1, n_blocks + 1)).astype(np.int32)
+    tables = np.zeros((b, width), np.int32)
+    for i in range(b):
+        own = min(int(pos[i].max()) // block_size + 1, width)
+        tables[i, :own] = perm[i * width:i * width + own]
+    tables[-1] = perm[-width:]  # the pos = -1 lane: a full table
+    shape = (n_blocks + 1, block_size, n_kv, hd)
+    pool_k = rng.standard_normal(shape).astype(np.float32)
+    pool_v = rng.standard_normal(shape).astype(np.float32)
+    q = rng.standard_normal((b, t, n_heads, hd)).astype(np.float32)
+    return q, pool_k, pool_v, tables, pos, block_size
+
+
+@pytest.mark.parametrize("split_keys", [64, 16])
+def test_split_k_arithmetic_matches_jax(split_keys):
+    """The kernel's split-K arithmetic (64-key splits as in the kernel, and
+    16-key ones for more splits a lane) against the JAX paged_attention in
+    float32 at 1e-5: splits past every row's bound, contexts ending
+    mid-block and on a split boundary, a lane whose context fills (and
+    passes) the table, and pos = -1 (the uniform row)."""
+    q, pool_k, pool_v, tables, pos, bs = _split_case(seed=split_keys)
+    jcfg, _ = _configs(q.shape[2], pool_k.shape[2], q.shape[3], "float32")
+    want = np.asarray(jtfm.paged_attention(
+        jnp.asarray(q), jnp.asarray(pool_k), jnp.asarray(pool_v),
+        jnp.asarray(tables), jnp.asarray(pos), jcfg, bs))
+    got = _split_k(q, pool_k, pool_v, tables, pos, bs, split_keys)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= F32_ATOL, np.abs(got - want).max()
+    # the pos = -1 lane is the mean of every V row its table gathers
+    mean = pool_v[tables[-1]].reshape(-1, *pool_v.shape[2:]).mean(axis=0)
+    np.testing.assert_allclose(got[-1, 0], np.repeat(mean, 2, axis=0),
+                               atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_no_attended_key_matches_jax(dtype):
+    """A query at pos = -1 attends no key: the reference's softmax over
+    all-masked scores is uniform, so its output is the mean of the V rows
+    its whole table gathers.  The plain version (which the kernel is held
+    against on the card) gives the same, beside ordinary lanes."""
+    q, pool_k, pool_v, tables, pos, bs = _case("decode", 4, 2, 16, seed=9)
+    pos = pos.copy()
+    pos[1, 0] = -1
+    jcfg, cfg = _configs(4, 2, 16, dtype)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jarr = {k: np.asarray(jnp.asarray(v, jdt))
+            for k, v in {"q": q, "k": pool_k, "v": pool_v}.items()}
+    want = np.asarray(jtfm.paged_attention(
+        jnp.asarray(jarr["q"]), jnp.asarray(jarr["k"]),
+        jnp.asarray(jarr["v"]), jnp.asarray(tables), jnp.asarray(pos), jcfg,
+        bs).astype(jnp.float32))
+    t = convert.params_from_numpy(
+        {**jarr, "tables": tables, "pos": pos}, "cpu")
+    got = tfm.paged_attention(t["q"], t["k"], t["v"], t["tables"], t["pos"],
+                              cfg, bs)
+    _hold(got, want, dtype)
+    v32 = jarr["v"].astype(np.float32)
+    mean = v32[tables[1]].reshape(-1, 2, 16).mean(axis=0)
+    tol = F32_ATOL if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got[1, 0].float().numpy(),
+                               np.repeat(mean, 2, axis=0), atol=tol)
