@@ -99,9 +99,10 @@ Phases, one line each or more; any failure exits non-zero:
  13 kernels     one JSON line: every kernel of the served and trained
                 paths (the int8 GEMV and tensor-core routes, the three
                 flash kernels, paged attention's CUDA-core and tensor-core
-                split routes), its launches on its path (phase 5 or 8),
-                its error (phase 3, 7 or 10) and its times (phase 6, 9 or
-                12)
+                split routes; an entry is named by its wrapper, with the
+                route in kernel_route), its launches on its path (phase 5
+                or 8), its route's own error (phase 3, 7 or 10) and its
+                times (phase 6, 9 or 12)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -612,16 +613,30 @@ def paged_grid():
     return grid
 
 
-def paged_vs_plain(pa):
+def paged_route(t, dtype):
+    """The split kernel paged_attention.cu picks: the tensor cores for bf16
+    prefill chunks (T >= 16), the CUDA cores for the rest."""
+    return "mma" if dtype == torch.bfloat16 and t >= 16 else "split"
+
+
+def paged_vs_plain(pa, ops):
     """Phase 10: the kernel on NaN-poisoned pools against the plain version
-    on clean ones, over paged_grid() x hd x dtype."""
-    worst, cases = {}, 0
+    on clean ones, over paged_grid() x hd x dtype.  Returns the worst error
+    by dtype, the same by the route each case reported (checked against
+    paged_route), and the count of cases."""
+    worst, worst_route, cases = {}, {}, 0
     for kind, batch, t, contexts in paged_grid():
         for hd in (16, 32, 64, 128):
             for dt in (torch.float32, torch.bfloat16):
                 clean, poisoned, _ = paged_case(batch, t, hd, dt, contexts,
                                                 seed=cases)
+                route = paged_route(t, dt)
+                before = ops.ROUTES["paged_attention"][route]
                 got = pa._launch(*poisoned, PAGED_BS).float()
+                check(ops.ROUTES["paged_attention"][route] == before + 1,
+                      f"paged_attention {kind} T={t} {dtype_name(dt)} did "
+                      f"not report the {route} route: "
+                      f"{ops.ROUTES['paged_attention']}")
                 want = pa.paged_attention_reference(*clean,
                                                     PAGED_BS).float()
                 atol, rtol = TOL[dt]
@@ -635,9 +650,11 @@ def paged_vs_plain(pa):
                       f"{atol} rtol {rtol}")
                 key = dtype_name(dt)
                 worst[key] = max(worst.get(key, 0.0), err.max().item())
+                by = worst_route.setdefault(route, {})
+                by[key] = max(by.get(key, 0.0), err.max().item())
                 cases += 1
     torch.cuda.synchronize()
-    return worst, cases
+    return worst, worst_route, cases
 
 
 def paged_no_key(pa):
@@ -724,7 +741,7 @@ def paged_timings(pa, ext, graph):
         rows.append({
             "shape": kind, "B": batch, "T": t, "context": ctx, "hd": hd,
             "heads": list(PAGED_HEADS), "dtype": "bfloat16",
-            "route": "mma" if t >= 16 else "split",
+            "route": paged_route(t, torch.bfloat16),
             "ms": graph(lambda: ext.paged_attention(q, k, v, tables, pos,
                                                     PAGED_BS)),
             "plain_ms": graph(lambda: pa.paged_attention_reference(
@@ -735,6 +752,21 @@ def paged_timings(pa, ext, graph):
             "bound_ms": bound, "bound_by": bound_by,
             "timing": "device time from CUDA-graph replay"})
     return rows
+
+
+def engine_prompts():
+    """Phase 11's 16 concurrent greedy requests: (prompts, token counts).
+    Fourteen prompts of 1 to 200 tokens, two sharing a 48-token prefix;
+    16 to 48 tokens each.  tools/jax_engine_vs_generate.py gives the same
+    requests to the JAX package's engine."""
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, 256, 48).tolist()
+    lens = [1, 3, 9, 16, 17, 31, 40, 63, 64, 65, 100, 128, 150, 200]
+    prompts = [rng.integers(0, 256, n).tolist() for n in lens]
+    prompts += [shared + rng.integers(0, 256, 5).tolist(),
+                shared + rng.integers(0, 256, 9).tolist()]
+    lengths = [16 + (7 * i) % 33 for i in range(len(prompts))]
+    return prompts, lengths
 
 
 def collect(q, close, timeout=300):
@@ -1310,14 +1342,14 @@ def main():
           **profile_steps(tfm, tcfg, tokens), **card)
 
     # -- 10 paged attention against its plain version ----------------------
-    paged_worst, paged_cases = paged_vs_plain(pa)
+    paged_worst, paged_worst_route, paged_cases = paged_vs_plain(pa, ops)
     no_key_worst, no_key_cases = paged_no_key(pa)
     phase(10, "paged_vs_plain", kernel="paged_attention", cases=paged_cases,
           shapes=[[kind, b, t_] for kind, b, t_, _ in paged_grid()],
           head_dims=[16, 32, 64, 128], heads=list(PAGED_HEADS),
           block_size=PAGED_BS, table_width=PAGED_WIDTH,
           masked_rows="NaN for the kernel, clean for the plain version",
-          max_abs_err=paged_worst,
+          max_abs_err=paged_worst, max_abs_err_by_route=paged_worst_route,
           no_attended_key={"cases": no_key_cases, "pos": -1,
                            "pools": "clean", "max_abs_err": no_key_worst},
           tolerance={"float32": TOL[torch.float32],
@@ -1328,13 +1360,7 @@ def main():
     p32 = tfm.init_params(torch.Generator().manual_seed(0), cfg32, "cuda")
     pbf = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
     p8 = tfm.quantize_params(pbf)
-    rng = np.random.default_rng(5)
-    shared = rng.integers(0, 256, 48).tolist()
-    lens = [1, 3, 9, 16, 17, 31, 40, 63, 64, 65, 100, 128, 150, 200]
-    prompts = [rng.integers(0, 256, n).tolist() for n in lens]
-    prompts += [shared + rng.integers(0, 256, 5).tolist(),
-                shared + rng.integers(0, 256, 9).tolist()]
-    lengths = [16 + (7 * i) % 33 for i in range(len(prompts))]
+    prompts, lengths = engine_prompts()
     engine_report = {}
     for name, params, c, int8 in (("float32", p32, cfg32, False),
                                   ("bfloat16", pbf, cfg, False),
@@ -1384,7 +1410,8 @@ def main():
     # one speculative run: k=4, n-gram drafter, repetitive prompts
     spec_prompts = [language.encode_text("abcabcabcabcabcabc").tolist(),
                     language.encode_text(PROMPT * 2).tolist(),
-                    [256] + [7, 9, 11] * 8, rng.integers(0, 256, 30).tolist()]
+                    [256] + [7, 9, 11] * 8,
+                    np.random.default_rng(6).integers(0, 256, 30).tolist()]
     got, launches, ticks, stats = engine_run(
         LmEngine, ops, p32, cfg32, spec_prompts, [64] * 4,
         speculative={"k": 4, "drafter": "ngram"})
@@ -1429,6 +1456,9 @@ def main():
     phase(13, "kernels", held_against_plain_in="phases 3, 7 and 10")
     kernels = [{
         "name": "int8_matmul",
+        "kernel_route": "all",
+        "device_kernels": ["int8_gemv_kernel", "int8_mma_kernel",
+                           "int8_mm_kernel"],
         "route": "cuda",
         "source": "client_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "client_tpu/ops/quant.py:51",
@@ -1448,7 +1478,9 @@ def main():
                        f"{main_routes['int8_matmul']['gemv']}",
         "checked_in": "phase 3",
     }, {
-        "name": "int8_matmul (tensor-core route, int8_mma_kernel)",
+        "name": "int8_matmul",
+        "kernel_route": "mma",
+        "device_kernels": ["int8_mma_kernel"],
         "route": "cuda",
         "source": "client_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "client_tpu/ops/quant.py:51",
@@ -1490,25 +1522,27 @@ def main():
             "launches_in": f"phase 8 ({TRAIN_STEPS} flash train steps)",
             "checked_in": "phase 7",
         })
-    for name, route, shape, ctx, work in (
-            ("paged_attention (CUDA-core splits, paged_split_kernel, and "
-             "paged_combine_kernel)", "split", "decode", 511,
+    for route, device_kernels, shape, ctx, work in (
+            ("split", ["paged_split_kernel", "paged_combine_kernel"],
+             "decode", 511,
              "one decode tick's attention of one layer: B=8 lanes at "
              "context 511, 8 heads over 4 KV heads, hd 32, bf16"),
-            ("paged_attention (tensor-core splits, paged_mma_kernel, and "
-             "paged_combine_kernel)", "mma", "prefill", 256,
+            ("mma", ["paged_mma_kernel", "paged_combine_kernel"],
+             "prefill", 256,
              "one prefill chunk's attention of one layer: T=64 ending at "
              "key 256, 8 heads over 4 KV heads, hd 32, bf16")):
         row = next(r for r in paged_rows
                    if r["shape"] == shape and r["context"] == ctx)
         kernels.append({
-            "name": name,
+            "name": "paged_attention",
+            "kernel_route": route,
+            "device_kernels": device_kernels,
             "route": "cuda",
             "source": "client_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "client_tpu/serve/models/transformer.py:357 (jnp in "
                         "the reference, not Pallas)",
             "launches": main_routes["paged_attention"][route],
-            "max_abs_err": max(paged_worst.values()),
+            "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
             "timing": "device time from CUDA-graph replay",

@@ -26,8 +26,8 @@
 //   are 16-byte aligned:
 //   the Pallas kernel's own arithmetic, a bf16 product with f32
 //   accumulation, on the tensor cores (mma.sync.m16n8k16).  A block owns a
-//   16 x 32 output tile (larger above one wave of blocks), each of its 4
-//   warps 8 columns over the whole of K, in four independent mma chains.
+//   16 x 32 output tile, each of its 4 warps 8 columns over the whole of
+//   K, in four independent mma chains.
 //   The channel scales are loaded with the first wave.  The x slab (bf16)
 //   comes by 16-byte cp.async and the q
 //   slab (int8) by 16-byte loads into registers, in one wave: q is widened
@@ -279,34 +279,30 @@ cudaError_t launch_gemv(const T* x, const int8_t* q, const float* s, T* out,
   return cudaGetLastError();
 }
 
-// The tensor-core route (bf16 x).  A block of 4 warps owns MT 16-row tiles
-// by 32 NB columns, a warp 8 NB of the columns; shared memory a stage: the x
-// slab [16 MT][kMmaKC] and the widened q slab [kMmaKC][32 NB], both bf16,
-// rows padded by 16 bytes so every ldmatrix phase reads eight distinct
-// 16-byte bank groups.
+// The tensor-core route (bf16 x).  A block of 4 warps owns a 16 x 32
+// output tile, a warp 8 of its columns; shared memory a stage: the x slab
+// [16][kMmaKC] and the widened q slab [kMmaKC][32], both bf16, rows padded
+// by 16 bytes so every ldmatrix phase reads eight distinct 16-byte bank
+// groups.
+constexpr int kMmaBM = 16;         // output rows a block
+constexpr int kMmaBN = 32;         // output columns a block
 constexpr int kMmaKC = 256;        // K depth a stage
 constexpr int kMmaThreads = 128;   // 4 warps
 constexpr int kXStride = kMmaKC + flash_bf16::kPad;
-template <int MT, int NB>
-struct MmaTile {
-  static constexpr int kBM = 16 * MT;  // output rows a block
-  static constexpr int kBN = 32 * NB;  // output columns a block
-  static constexpr int kQStride = kBN + flash_bf16::kPad;
-  static constexpr int kXPieces = kBM * kMmaKC / 8 / kMmaThreads;
-  static constexpr int kQPieces = kMmaKC * kBN / 16 / kMmaThreads;
-  static constexpr int kXElems = kBM * kXStride;
-  static constexpr size_t kStageBytes =
-      (size_t)(kXElems + kMmaKC * kQStride) * sizeof(__nv_bfloat16);
-};
+constexpr int kQStride = kMmaBN + flash_bf16::kPad;
+constexpr int kXPieces = kMmaBM * kMmaKC / 8 / kMmaThreads;
+constexpr int kQPieces = kMmaKC * kMmaBN / 16 / kMmaThreads;
+constexpr int kXElems = kMmaBM * kXStride;
+constexpr size_t kStageBytes =
+    (size_t)(kXElems + kMmaKC * kQStride) * sizeof(__nv_bfloat16);
 
 // Chunk [k0, k0 + kMmaKC) of the x slab into a stage by cp.async; rows past
 // m and columns past k are zero-filled (the address stays x's first row).
-template <typename Tile>
 __device__ __forceinline__ void mma_load_x(__nv_bfloat16* xs,
                                            const __nv_bfloat16* x, int m0,
                                            int k0, int m, int k) {
 #pragma unroll
-  for (int it = 0; it < Tile::kXPieces; ++it) {
+  for (int it = 0; it < kXPieces; ++it) {
     const int p = threadIdx.x + it * kMmaThreads;
     const int r = p / (kMmaKC / 8), c = (p % (kMmaKC / 8)) * 8;
     const bool in = m0 + r < m && k0 + c < k;
@@ -315,16 +311,15 @@ __device__ __forceinline__ void mma_load_x(__nv_bfloat16* xs,
   }
 }
 
-// The same chunk of q's column slab [n0, n0 + kBN) into registers as
+// The same chunk of q's column slab [n0, n0 + kMmaBN) into registers as
 // 16-byte loads; pieces past k or n read as zeros.
-template <typename Tile>
-__device__ __forceinline__ void mma_load_q(uint4 (&w)[Tile::kQPieces],
+__device__ __forceinline__ void mma_load_q(uint4 (&w)[kQPieces],
                                            const int8_t* q, int n0, int k0,
                                            int k, int n) {
 #pragma unroll
-  for (int it = 0; it < Tile::kQPieces; ++it) {
+  for (int it = 0; it < kQPieces; ++it) {
     const int p = threadIdx.x + it * kMmaThreads;
-    const int r = p / (Tile::kBN / 16), c = (p % (Tile::kBN / 16)) * 16;
+    const int r = p / (kMmaBN / 16), c = (p % (kMmaBN / 16)) * 16;
     w[it] = k0 + r < k && n0 + c < n
                 ? __ldg(reinterpret_cast<const uint4*>(
                       q + (size_t)(k0 + r) * n + n0 + c))
@@ -333,19 +328,18 @@ __device__ __forceinline__ void mma_load_q(uint4 (&w)[Tile::kQPieces],
 }
 
 // Widen the registers' int8 to bf16 (exact) and store them as the B tile.
-template <typename Tile>
 __device__ __forceinline__ void mma_store_q(__nv_bfloat16* qs,
-                                            const uint4 (&w)[Tile::kQPieces]) {
+                                            const uint4 (&w)[kQPieces]) {
 #pragma unroll
-  for (int it = 0; it < Tile::kQPieces; ++it) {
+  for (int it = 0; it < kQPieces; ++it) {
     const int p = threadIdx.x + it * kMmaThreads;
-    const int r = p / (Tile::kBN / 16), c = (p % (Tile::kBN / 16)) * 16;
+    const int r = p / (kMmaBN / 16), c = (p % (kMmaBN / 16)) * 16;
     float f[16];
     widen4(w[it].x, f);
     widen4(w[it].y, f + 4);
     widen4(w[it].z, f + 8);
     widen4(w[it].w, f + 12);
-    uint4* dst = reinterpret_cast<uint4*>(qs + r * Tile::kQStride + c);
+    uint4* dst = reinterpret_cast<uint4*>(qs + r * kQStride + c);
     using flash_bf16::pack_bf16;
     dst[0] = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
                         pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
@@ -354,117 +348,93 @@ __device__ __forceinline__ void mma_store_q(__nv_bfloat16* qs,
   }
 }
 
-// Four k-steps (64 of K) from k-step st of a stage: each of the warp's MT
-// row tiles against each of its NB 8-column blocks, one accumulator a
-// step, so the mma chains are a quarter of the steps long.
-template <int MT, int NB>
-__device__ __forceinline__ void mma_steps4(float (&acc)[MT][NB][4][4],
+// Four k-steps (64 of K) from k-step st of a stage: the 16 rows against the
+// warp's 8 columns, one accumulator a step, so the mma chains are a quarter
+// of the steps long.
+__device__ __forceinline__ void mma_steps4(float (&acc)[4][4],
                                            const __nv_bfloat16* xs,
                                            const __nv_bfloat16* qs, int st) {
   using namespace flash_bf16;
-  using Tile = MmaTile<MT, NB>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int mi = lane >> 3;
-  uint32_t b[NB][2][4];  // a column block's b0, b1 of steps st, st + 1; then
-                         // of st + 2, st + 3
+  uint32_t b[2][4];  // b0, b1 of steps st, st + 1; then of st + 2, st + 3
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int h = 0; h < 2; ++h)
+    ldmatrix_x4_trans(
+        b[h], qs + ((st + 2 * h) * 16 + mi * 8 + (lane & 7)) * kQStride +
+                  warp * 8);
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      ldmatrix_x4_trans(b[nb][h],
-                        qs + ((st + 2 * h) * 16 + mi * 8 + (lane & 7)) *
-                                 Tile::kQStride +
-                            (warp * NB + nb) * 8);
-#pragma unroll
-  for (int t = 0; t < MT; ++t)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t a[4];
-      ldmatrix_x4(a, xs + (t * 16 + (lane & 15)) * kXStride +
-                         (st + j) * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-        mma_bf16(acc[t][nb][j], a, b[nb][j >> 1][(j & 1) * 2],
-                 b[nb][j >> 1][(j & 1) * 2 + 1]);
-    }
+  for (int j = 0; j < 4; ++j) {
+    uint32_t a[4];
+    ldmatrix_x4(a, xs + (lane & 15) * kXStride + (st + j) * 16 +
+                       (lane >> 4) * 8);
+    mma_bf16(acc[j], a, b[j >> 1][(j & 1) * 2], b[j >> 1][(j & 1) * 2 + 1]);
+  }
 }
 
-template <int MT, int NB>
 __global__ void __launch_bounds__(kMmaThreads)
 int8_mma_kernel(const __nv_bfloat16* __restrict__ x,
                 const int8_t* __restrict__ q, const float* __restrict__ s,
                 __nv_bfloat16* __restrict__ out, int m, int k, int n) {
   using namespace flash_bf16;
-  using Tile = MmaTile<MT, NB>;
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* stage[2] = {
       reinterpret_cast<__nv_bfloat16*>(mma_smem),
-      reinterpret_cast<__nv_bfloat16*>(mma_smem + Tile::kStageBytes)};
+      reinterpret_cast<__nv_bfloat16*>(mma_smem + kStageBytes)};
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
-  const int n0 = blockIdx.x * Tile::kBN, m0 = blockIdx.y * Tile::kBM;
+  const int n0 = blockIdx.x * kMmaBN, m0 = blockIdx.y * kMmaBM;
   const int chunks = (k + kMmaKC - 1) / kMmaKC;
 
   // chunk 0 (x by cp.async, q by 16-byte loads) and the channel scales, all
   // in flight at once
-  uint4 w[Tile::kQPieces];
-  mma_load_x<Tile>(stage[0], x, m0, 0, m, k);
+  uint4 w[kQPieces];
+  mma_load_x(stage[0], x, m0, 0, m, k);
   cp_async_commit();
-  mma_load_q<Tile>(w, q, n0, 0, k, n);
-  float2 scale[NB];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    const int col = n0 + (warp * NB + nb) * 8 + tq * 2;
-    scale[nb] = col < n ? make_float2(__ldg(s + col), __ldg(s + col + 1))
-                        : make_float2(0.f, 0.f);
-  }
-  mma_store_q<Tile>(stage[0] + Tile::kXElems, w);
+  mma_load_q(w, q, n0, 0, k, n);
+  const int col = n0 + warp * 8 + tq * 2;
+  const float2 scale = col < n
+                           ? make_float2(__ldg(s + col), __ldg(s + col + 1))
+                           : make_float2(0.f, 0.f);
+  mma_store_q(stage[0] + kXElems, w);
 
-  float acc[MT][NB][4][4] = {};
+  float acc[4][4] = {};
   for (int c = 0; c < chunks; ++c) {
     cp_async_wait<0>();
     __syncthreads();  // chunk c is in its stage; chunk c - 1 is done with
     const int k0 = c * kMmaKC;
     const bool next = c + 1 < chunks;
     const __nv_bfloat16* xs = stage[c & 1];
-    const __nv_bfloat16* qs = xs + Tile::kXElems;
+    const __nv_bfloat16* qs = xs + kXElems;
     if (next) {  // chunk c + 1 into the other stage while c computes
-      mma_load_x<Tile>(stage[(c + 1) & 1], x, m0, k0 + kMmaKC, m, k);
+      mma_load_x(stage[(c + 1) & 1], x, m0, k0 + kMmaKC, m, k);
       cp_async_commit();
-      mma_load_q<Tile>(w, q, n0, k0 + kMmaKC, k, n);
+      mma_load_q(w, q, n0, k0 + kMmaKC, k, n);
     }
     const int kc = min(kMmaKC, k - k0);
     if (kc == kMmaKC) {  // a whole chunk: unrolled
 #pragma unroll
       for (int st = 0; st < kMmaKC / 16; st += 4)
-        mma_steps4<MT, NB>(acc, xs, qs, st);
+        mma_steps4(acc, xs, qs, st);
     } else {  // the ragged last chunk: steps past k are zero-filled
-      for (int st = 0; st < kc / 16; st += 4)
-        mma_steps4<MT, NB>(acc, xs, qs, st);
+      for (int st = 0; st < kc / 16; st += 4) mma_steps4(acc, xs, qs, st);
     }
-    if (next) mma_store_q<Tile>(stage[(c + 1) & 1] + Tile::kXElems, w);
+    if (next) mma_store_q(stage[(c + 1) & 1] + kXElems, w);
   }
 
   // the channel scale once, after the K loop; rows past m, columns past n
   // left out
+  if (col >= n) return;
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    const int col = n0 + (warp * NB + nb) * 8 + tq * 2;
-    if (col >= n) continue;
-#pragma unroll
-    for (int t = 0; t < MT; ++t)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float(&a)[4][4] = acc[t][nb];
-        const int row = m0 + t * 16 + g + h * 8;
-        const float v0 = (a[0][2 * h] + a[1][2 * h]) +
-                         (a[2][2 * h] + a[3][2 * h]);
-        const float v1 = (a[0][2 * h + 1] + a[1][2 * h + 1]) +
-                         (a[2][2 * h + 1] + a[3][2 * h + 1]);
-        if (row < m)
-          *reinterpret_cast<uint32_t*>(out + (size_t)row * n + col) =
-              pack_bf16(v0 * scale[nb].x, v1 * scale[nb].y);
-      }
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + g + h * 8;
+    const float v0 = (acc[0][2 * h] + acc[1][2 * h]) +
+                     (acc[2][2 * h] + acc[3][2 * h]);
+    const float v1 = (acc[0][2 * h + 1] + acc[1][2 * h + 1]) +
+                     (acc[2][2 * h + 1] + acc[3][2 * h + 1]);
+    if (row < m)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row * n + col) =
+          pack_bf16(v0 * scale.x, v1 * scale.y);
   }
 }
 
@@ -476,41 +446,21 @@ bool mma_takes(const void* x, const int8_t* q, const void* out, int k,
   return k % 16 == 0 && n % 16 == 0 && flash_bf16::aligned16({x, q, out});
 }
 
-template <int MT, int NB>
-cudaError_t launch_mma_tiles(const __nv_bfloat16* x, const int8_t* q,
-                             const float* s, __nv_bfloat16* out, int m, int k,
-                             int n, cudaStream_t stream) {
-  using Tile = MmaTile<MT, NB>;
-  const auto kernel = int8_mma_kernel<MT, NB>;
-  const size_t smem = (k > kMmaKC ? 2 : 1) * Tile::kStageBytes;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((n + Tile::kBN - 1) / Tile::kBN,
-                  (m + Tile::kBM - 1) / Tile::kBM);
-  kernel<<<grid, kMmaThreads, smem, stream>>>(x, q, s, out, m, k, n);
-  return cudaGetLastError();
-}
-
-// The tile by shape, from the grid each would launch: 16 x 32 while that
-// fits one block an SM (all of the engine's shapes: the most blocks for
-// the least work each), 32 x 32 while that fits two, 32 x 64 above (larger
-// tiles read x and q fewer times through L2).  Chosen among five tiles
-// timed on an H100 (PERF.md).
-constexpr int64_t kSms = 132;  // an H100's streaming multiprocessors
-
+// One 16 x 32 tile for every shape: the engine's (M <= 64, N <= 768) are
+// at most 96 blocks, one wave on the card's 132 SMs.
 cudaError_t launch_mma(const __nv_bfloat16* x, const int8_t* q,
                        const float* s, __nv_bfloat16* out, int m, int k, int n,
                        cudaStream_t stream) {
-  const int64_t cols = (n + 31) / 32;
-  if ((m + 15) / 16 * cols <= kSms)
-    return launch_mma_tiles<1, 1>(x, q, s, out, m, k, n, stream);
-  if ((m + 31) / 32 * cols <= 2 * kSms)
-    return launch_mma_tiles<2, 1>(x, q, s, out, m, k, n, stream);
-  return launch_mma_tiles<2, 2>(x, q, s, out, m, k, n, stream);
+  const size_t smem = (k > kMmaKC ? 2 : 1) * kStageBytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        int8_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((n + kMmaBN - 1) / kMmaBN, (m + kMmaBM - 1) / kMmaBM);
+  int8_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(x, q, s, out, m, k, n);
+  return cudaGetLastError();
 }
 
 template <int M>

@@ -1,9 +1,11 @@
 """The port's engine, end to end, at one checkout: for A/B runs on the card.
 
-    python3 tests/engine_ab.py ROOT LABEL
+    python3 tools/engine_ab.py ROOT LABEL
 
-Imports chip_smoke.py and client_tpu_torch from the checkout at ROOT (its
-own kernels, built into ROOT/build/), then prints one JSON line a
+ROOT is this checkout or another one unpacked inside it (for example the
+parent commit's `git archive` under build/, which .gitignore lists).
+Imports chip_smoke.py and client_tpu_torch from ROOT (its own kernels,
+built into ROOT/build/), then prints one JSON line a
 measurement, each tagged LABEL: the engine's aggregate tokens/s and TTFT at
 1, 4 and 8 concurrent greedy streams of 128 tokens (bf16 and int8 weights,
 DEFAULT_LM_CONFIG, seed 0; chip_smoke.engine_rate), and the device-busy

@@ -1,11 +1,11 @@
 """The JAX package's own LmEngine against its serial generate, in bf16.
 
-    JAX_PLATFORMS=cpu python tests/jax_engine_vs_generate.py
+    JAX_PLATFORMS=cpu python tools/jax_engine_vs_generate.py
 
 Runs the reference engine (client_tpu.serve.lm.LmEngine, 8 slots, 16-token
-blocks, 64-token prefill chunks) on the 16 concurrent greedy prompts that
-chip_smoke.py's phase 11 gives the port's engine (the same rng, prompt
-lengths and token counts) at DEFAULT_LM_CONFIG in bf16, with weights from
+blocks, 64-token prefill chunks) on the 16 concurrent greedy requests that
+chip_smoke.py's phase 11 gives the port's engine (chip_smoke.engine_prompts)
+at DEFAULT_LM_CONFIG in bf16, with weights from
 jax.random.PRNGKey(0), and each prompt through serial generate
 (readback_depth=0).  Prints one JSON line: how many streams are equal and,
 for each divergent one, the first divergent position, the serial logits'
@@ -25,21 +25,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from chip_smoke import engine_prompts  # noqa: E402
 from client_tpu.serve.lm.engine import LmEngine  # noqa: E402
 from client_tpu.serve.models import transformer as tfm  # noqa: E402
 from client_tpu.serve.models.language import DEFAULT_LM_CONFIG  # noqa: E402
-
-
-def phase11_prompts():
-    """chip_smoke.py phase 11's prompts and token counts."""
-    rng = np.random.default_rng(5)
-    shared = rng.integers(0, 256, 48).tolist()
-    lens = [1, 3, 9, 16, 17, 31, 40, 63, 64, 65, 100, 128, 150, 200]
-    prompts = [rng.integers(0, 256, n).tolist() for n in lens]
-    prompts += [shared + rng.integers(0, 256, 5).tolist(),
-                shared + rng.integers(0, 256, 9).tolist()]
-    lengths = [16 + (7 * i) % 33 for i in range(len(prompts))]
-    return prompts, lengths
 
 
 def collect(q):
@@ -52,7 +41,7 @@ def collect(q):
 def main():
     cfg = DEFAULT_LM_CONFIG
     params = tfm.init_params(jax.random.PRNGKey(0), cfg)
-    prompts, lengths = phase11_prompts()
+    prompts, lengths = engine_prompts()
     eng = LmEngine(params, cfg, max_slots=8, block_size=16, prefill_chunk=64)
     try:
         qs = [eng.submit(p, n)[0] for p, n in zip(prompts, lengths)]
