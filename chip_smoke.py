@@ -80,22 +80,37 @@ Phases, one line each or more; any failure exits non-zero:
                 Then queries at pos = -1 (no attended key: the mean of the
                 whole table's V rows) on clean pools, decode, verify and
                 prefill
- 11 engine      LmEngine on DEFAULT_LM_CONFIG: 16 concurrent greedy streams
+ 11 engine      LmEngine on DEFAULT_LM_CONFIG, every decode, verify and
+                prefill tick a replay of a CUDA graph the engine captured
+                at start: 16 concurrent greedy streams
                 over 8 lanes (prompts of 1 to 200 tokens, two sharing a
                 48-token prefix) in float32, each equal to the serial
                 generate; the same in bf16 and int8 (equal, or diverging
                 only at a near-tie); a preempted and resumed stream and a
                 speculative run (k=4, n-gram) against greedy; the launch
-                counts a tick (paged n_layers, int8 6 x n_layers); the KV
-                audit clean after close()
+                counts a tick, replays included (paged n_layers, int8 6 x
+                n_layers); the KV audit clean after close().  Then the
+                graphs themselves, in float32, bf16 and int8 (k=4): every
+                pool row but the trash block's NaN and the lane buffers
+                set while the engine captures, and untouched after; each
+                captured program (decode at 2, 4, 8 lanes, verify at every
+                (lanes, width), prefill at 16, 32, 64) replayed against
+                its eager function on clones of the same pools and
+                buffers, bit-equal, with the launches the eager run
+                counted; the graphs against their bounds, capture
+                seconds, memory_reserved before and after the set, and
+                what the set keeps reserved once the cache is emptied
  12 timings     paged_attention by CUDA-graph replay at decode B=8,
                 contexts 64, 256 and 511, verify B=8, T in {2,4,5} ending
                 at key 256, and at prefill T=64, beside its
                 bound, its plain version and scaled_dot_product_attention
                 on K/V gathered through the table; the engine's aggregate
-                tokens/s and TTFT at 1, 4 and 8 concurrent streams (bf16
-                and int8, 128 tokens each); the device-busy share of a
-                decode-heavy window under torch.profiler
+                tokens/s, TTFT and host ms a decode tick (tick_trace) at 1,
+                4 and 8 concurrent streams (bf16 and int8, 128 tokens
+                each); the device-busy share of a decode-heavy window
+                under torch.profiler, its kernels and graph launches a
+                decode tick, and one decode replay's device time at 8
+                lanes (CUDA events) with the busy share it implies
  13 kernels     one JSON line: every kernel of the served and trained
                 paths (the int8 GEMV and tensor-core routes, the three
                 flash kernels, paged attention's CUDA-core and tensor-core
@@ -819,15 +834,31 @@ def engine_run(LmEngine, ops, params, cfg, prompts, lengths, **kw):
             ticks[rec["kind"]] = ticks.get(rec["kind"], 0) + 1
         stats = {"prefix": eng.prefix_stats(),
                  "preempt": eng.preempt_stats(), "spec": eng.spec_stats(),
-                 "shapes": {"prefill_widths": eng.prefill_executables(),
-                            "lane_counts": eng.decode_executables(),
-                            "verify": eng.verify_executables()}}
+                 "graphs": eng.graph_stats()}
     finally:
         eng.close()
+    graphs, bounds = stats["graphs"]["graphs"], graph_bounds(eng)
+    check(all(graphs[k] <= bounds[k] for k in bounds)
+          and graphs["decode"] and graphs["prefill"],
+          f"captured graphs {graphs} against their bounds {bounds}")
+    stats["graphs"]["bounds"] = bounds
     check(eng.kv.used_blocks == 0 and eng.kv.ref_counts() == {},
           f"KV audit after close: {eng.kv.used_blocks} blocks used, "
           f"refs {eng.kv.ref_counts()}")
     return got, launches, ticks, stats
+
+
+def graph_bounds(eng):
+    """The most graphs an engine may capture: a decode graph per lane
+    count, a verify graph per (lane count, verify width), a prefill graph
+    per bucket."""
+    from client_tpu_torch.serve.lm.policy import verify_widths
+
+    spec = eng._spec
+    return {"decode": len(eng.lane_counts),
+            "verify": (len(verify_widths(spec.k)) * len(eng.lane_counts)
+                       if spec is not None else 0),
+            "prefill": len(eng.buckets)}
 
 
 def check_launches(launches, ticks, cfg, int8):
@@ -882,28 +913,41 @@ def engine_rate(LmEngine, params, cfg, prompt, n_streams):
     try:
         run(8, 8)  # warm-up: every lane count and the prefill width
         t0, stamps = run(n_streams, ENGINE_TOKENS)
+        ticks = [r for r in eng.tick_trace()
+                 if r["kind"] == "decode" and r["t0"] >= t0]
     finally:
         eng.close()
     total = sum(len(s) for s in stamps)
     check(total == n_streams * ENGINE_TOKENS, f"{total} tokens delivered")
     end = max(s[-1] for s in stamps)
     ttft = [(s[0] - t0) * 1e3 for s in stamps]
+    starts = [r["t0"] for r in ticks]
     return {"streams": n_streams, "tokens_each": ENGINE_TOKENS,
             "tokens_per_s": total / (end - t0),
-            "ttft_ms_mean": float(np.mean(ttft)), "ttft_ms_max": max(ttft)}
+            "ttft_ms_mean": float(np.mean(ttft)), "ttft_ms_max": max(ttft),
+            "decode_ticks": len(ticks),
+            # host clock: one scheduler pass from decode tick to decode
+            # tick, and the tick's dispatch alone (pack, copy, replay)
+            "host_ms_per_tick": float(np.mean(np.diff(starts)) * 1e3),
+            "dispatch_ms_per_tick": float(np.mean(
+                [r["t1"] - r["t0"] for r in ticks]) * 1e3)}
 
 
-def busy_share(prof, wall_us):
+def busy_share(prof, wall_us, window=None):
     """Device-busy share of the wall time from a torch.profiler trace:
     kernels and copies merged on the device timeline (a user annotation,
     which spans the gaps between its kernels, is left out), and the top
-    kernels by device time."""
+    kernels by device time.  With ``window`` (start, end), in the trace's
+    microseconds, only what ran inside it counts."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+    lo, hi = window if window is not None else (float("-inf"), float("inf"))
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi),
+                    e.name)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.end > lo and e.time_range.start < hi)
     if not spans:
         return {"device_busy_share": "not measured",
                 "top_kernels": "not measured"}
@@ -919,38 +963,204 @@ def busy_share(prof, wall_us):
     for start, end, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    graph_launches = sum(1 for e in prof.events()
+                         if e.device_type != DeviceType.CUDA
+                         and "cudaGraphLaunch" in e.name
+                         and lo <= e.time_range.start < hi)
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us,
-            "kernel_launches": len(spans),
+            "kernel_launches": len(spans), "graph_launches": graph_launches,
             "top_kernels": [{"name": n[:120], "ms": us / 1e3,
                              "share_of_busy": us / busy} for n, us in top]}
 
 
 def engine_profile(LmEngine, params, cfg, prompt, window_s=0.5):
     """torch.profiler over a decode-heavy window of the engine: 8 greedy
-    streams, the window opened once every stream has its first token (all
-    prefill done)."""
-    from torch.profiler import ProfilerActivity, profile
+    streams, the window (a ``record_function`` span) opened once every
+    stream has its first token (all prefill done).  The profiler starts
+    before the streams and stops after they are cancelled: CUPTI is
+    switched on and off while the engine launches nothing (switched on
+    under another thread's graph launches, it traced no kernel or
+    hung)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     eng = LmEngine(params, cfg, device="cuda", **ENGINE_KW)
     try:
         collect(eng.submit(prompt, 8)[0], LmEngine.CLOSE)  # warm-up
-        qs = [eng.submit(p, 400)[0] for p in distinct_prompts(prompt, 8)]
-        for q in qs:
-            q.get(timeout=300)
-        before = sum(1 for r in eng.tick_trace() if r["kind"] == "decode")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            time.sleep(window_s)
+            subs = [eng.submit(p, 400) for p in distinct_prompts(prompt, 8)]
+            for q, _ in subs:
+                q.get(timeout=300)
+            with record_function("decode_window"):
+                t0 = time.monotonic()
+                time.sleep(window_s)
+                t1 = time.monotonic()
+            for q, handle in subs:
+                eng.cancel(handle)
+                collect(q, LmEngine.CLOSE)
+            time.sleep(0.1)  # the scheduler's last pass ends
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
         ticks = sum(1 for r in eng.tick_trace()
-                    if r["kind"] == "decode") - before
+                    if r["kind"] == "decode" and t0 <= r["t0"] < t1)
     finally:
         eng.close()
+    win = next(e for e in prof.events() if e.name == "decode_window")
+    lo, hi = win.time_range.start, win.time_range.end
+    share = busy_share(prof, hi - lo, window=(lo, hi))
+    if "kernel_launches" in share and ticks:
+        share["kernels_per_decode_tick"] = share["kernel_launches"] / ticks
     return {"window_s": window_s, "streams": 8, "decode_ticks": ticks,
-            **busy_share(prof, wall_us)}
+            **share}
+
+
+def decode_replay_ms(LmEngine, params, cfg, context=128, replays=200):
+    """Device time of one decode tick at 8 lanes, context ``context``:
+    the captured decode graph of an idle engine replayed back to back,
+    timed by CUDA events (every lane's table on the trash block, so it
+    writes no live row)."""
+    eng = LmEngine(params, cfg, device="cuda", **ENGINE_KW)
+    with eng._cv:
+        eng._init_device_locked()
+        eng._build_programs_locked()
+    try:
+        prog = eng._decode_programs[8]
+        width = eng._table_width
+        prog.feed({"tables": np.zeros((8, width), np.int32),
+                   "lens": np.full((8,), context - 1, np.int32),
+                   "temps": np.zeros((8,), np.float32),
+                   "topks": np.zeros((8,), np.int32)})
+        for _ in range(3):
+            prog.run()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(replays):
+            prog.graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / replays
+    finally:
+        eng.close()
+
+
+def program_values(kind, shape, rng, context, width, vocab):
+    """Host inputs of one engine program at ``context``: every lane on
+    blocks of its own (decode, verify; greedy and sampled lanes, top-k on
+    and off), or a prefill chunk ending 3 tokens into its bucket
+    padding."""
+    bs = ENGINE_KW["block_size"]
+    perm = rng.permutation(np.arange(1, 8 * width + 1))
+    own = min(-(-(context + 8) // bs), width)
+    if kind == "prefill":
+        table = np.zeros((width,), np.int32)
+        table[:own] = perm[:own]
+        return {"chunk": rng.integers(0, vocab, (1, shape)), "table": table,
+                "start": context - shape + 3, "prompt_len": context,
+                "key": (123, 2), "temperature": 0.8, "top_k": 10}
+    n = shape if kind == "decode" else shape[0]
+    tables = np.zeros((n, width), np.int32)
+    for b in range(n):
+        tables[b, :own] = perm[b * width:b * width + own]
+    values = {"tables": tables,
+              "lens": rng.integers(context - 8, context, n),
+              "temps": np.where(np.arange(n) % 2, 0.7, 0.0),
+              "topks": np.arange(n) % 3 * 5}
+    if kind == "verify":
+        values["props"] = rng.integers(0, vocab, (n, shape[1] - 1))
+        values["counts"] = rng.integers(0, shape[1], n)
+    return values
+
+
+def replay_vs_eager(ops, eng, prog, values, gen):
+    """One program's eager function on clones of its state against its
+    graph's replay on the live state, same feeds: fails unless every
+    output, lane buffer and pool row outside the trash block is bit-equal
+    and the replay counted the eager run's launches and routes.  Returns
+    the replay's launches."""
+    for pool in eng.kv.pools["k"] + eng.kv.pools["v"]:
+        pool.copy_(torch.randn(pool.shape, generator=gen, device="cuda"))
+    eng._tokens.copy_(torch.randint(0, eng.cfg.vocab_size,
+                                    eng._tokens.shape, generator=gen,
+                                    device="cuda"))
+    eng._keys.copy_(torch.randint(0, 2 ** 31, eng._keys.shape,
+                                  generator=gen, device="cuda"))
+    prog.feed(values)
+    clone = {name: ({k: [p.clone() for p in v] for k, v in buf.items()}
+                    if name == "pools" else buf.clone())
+             for name, buf in prog.state.items()}
+
+    def counted(fn):
+        ops.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        return (dict(ops.LAUNCHES),
+                {k: dict(v) for k, v in ops.ROUTES.items()})
+
+    eager = counted(lambda: prog.body(prog.feeds, clone))
+    replay = counted(prog.run)
+    check(replay == eager, f"replay counted {replay}, eager {eager}")
+    for name, buf in prog.state.items():
+        # the pools from block 1: several writes of one tick may land in
+        # the trash block, in any order, and nothing reads it
+        pairs = ([(a[1:], b[1:]) for k in ("k", "v")
+                  for a, b in zip(buf[k], clone["pools"][k])]
+                 if name == "pools" else [(buf, clone[name])])
+        for got, want in pairs:
+            check(torch.equal(got, want),
+                  f"replayed {name} differs from the eager program's: max "
+                  f"abs err {(got.float() - want.float()).abs().max()}")
+    return {k: v for k, v in replay[0].items() if v}
+
+
+def engine_graphs(LmEngine, ops, params, cfg, vocab):
+    """Phase 11's graph checks for one set of weights (k = 4, so every
+    verify shape is captured too)."""
+    eng = LmEngine(params, cfg, device="cuda",
+                   speculative={"k": 4, "drafter": "ngram"}, **ENGINE_KW)
+    try:
+        with eng._cv:
+            eng._init_device_locked()
+            for pool in eng.kv.pools["k"] + eng.kv.pools["v"]:
+                pool[1:] = float("nan")
+            eng._tokens.fill_(7)
+            eng._keys.fill_(9)
+            # the graphs' memory: what capturing the set keeps reserved
+            # once every cached block is released
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            eng._build_programs_locked()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved() - reserved
+        check(all(bool(torch.isnan(pool[1:]).all())
+                  for pool in eng.kv.pools["k"] + eng.kv.pools["v"])
+              and bool((eng._tokens == 7).all())
+              and bool((eng._keys == 9).all()),
+              "warm-up or capture wrote a live pool row or lane buffer")
+        stats = dict(eng.graph_stats(), bounds=graph_bounds(eng),
+                     graph_memory_bytes=reserved)
+        check(stats["graphs"] == stats["bounds"],
+              f"graphs captured against their bounds: {stats}")
+        rng = np.random.default_rng(8)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        width = eng._table_width
+        launches = {}
+        for kind, progs in (("decode", eng._decode_programs),
+                            ("verify", eng._verify_programs),
+                            ("prefill", eng._prefill_programs)):
+            for shape, prog in progs.items():
+                launches[f"{kind} {shape}"] = replay_vs_eager(
+                    ops, eng, prog, program_values(
+                        kind, shape, rng, 200, width, vocab), gen)
+    finally:
+        eng.close()
+    check(eng.decode_executables() == 0, "close() kept its graphs")
+    return {**stats, "live_rows_after_capture": "untouched",
+            "replay_vs_eager": "bit-equal", "context": 200,
+            "launches_a_replay": launches}
 
 
 def main():
@@ -1424,6 +1634,13 @@ def main():
         "streams": len(spec_prompts), "tokens_each": 64,
         "equal_to_greedy": True, **check_launches(launches, ticks, cfg32,
                                                   False), **stats}
+    graph_report = {name: engine_graphs(LmEngine, ops, params, c,
+                                        cfg.vocab_size)
+                    for name, params, c in (("float32", p32, cfg32),
+                                            ("bfloat16", pbf, cfg),
+                                            ("int8", p8, cfg))}
+    phase(11, "engine_graphs", config="DEFAULT_LM_CONFIG", engine=ENGINE_KW,
+          speculative_k=4, **graph_report)
     phase(11, "engine", config="DEFAULT_LM_CONFIG", engine=ENGINE_KW,
           prompt_tokens=[len(p) for p in prompts], tokens=lengths,
           shared_prefix_tokens=48, near_tie=NEAR_TIE,
@@ -1440,8 +1657,13 @@ def main():
         for n in (1, 4, 8):
             phase(12, "engine_rate", weights=name, **engine_rate(
                 LmEngine, params, cfg, prompt, n), **card)
-    phase(12, "engine_profile", weights="bfloat16",
-          **engine_profile(LmEngine, pbf, cfg, prompt), **card)
+    profile = engine_profile(LmEngine, pbf, cfg, prompt)
+    replay_ms = decode_replay_ms(LmEngine, pbf, cfg)
+    phase(12, "engine_profile", weights="bfloat16", **profile,
+          decode_replay_ms=replay_ms, replay_context=128,
+          busy_share_from_replay_ms=(replay_ms * profile["decode_ticks"]
+                                     / (profile["window_s"] * 1e3)),
+          **card)
 
     # -- 13 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
@@ -1474,7 +1696,8 @@ def main():
                   "replay; eager_ms: back-to-back Python calls",
         "work": "one decode layer's six int8 projections at M=1, bf16 "
                 "(wq, wk, wv, wo, w_gate, w_up)",
-        "launches_in": "phase 5 (serving); all routes, the GEMV's "
+        "launches_in": "phase 5 (serving, counted at each CUDA-graph "
+                       "replay); all routes, the GEMV's "
                        f"{main_routes['int8_matmul']['gemv']}",
         "checked_in": "phase 3",
     }, {
@@ -1496,7 +1719,8 @@ def main():
                   "replay; eager_ms: back-to-back Python calls",
         "work": "one prefill chunk's six int8 projections at M=64, bf16 "
                 "(wq, wk, wv, wo, w_gate, w_up)",
-        "launches_in": "phase 5 (serving: prefill chunks)",
+        "launches_in": "phase 5 (serving: prefill chunks, counted at "
+                       "each CUDA-graph replay)",
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -1547,8 +1771,9 @@ def main():
                                          "bound_by", "library_ms")},
             "timing": "device time from CUDA-graph replay",
             "work": work,
-            "launches_in": "phase 5 (serving; one count a call: a split "
-                           "kernel and the combine)",
+            "launches_in": "phase 5 (serving, counted at each CUDA-graph "
+                           "replay; one count a call: a split kernel and "
+                           "the combine)",
             "checked_in": "phase 10",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

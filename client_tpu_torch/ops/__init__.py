@@ -7,8 +7,17 @@ through.  Launching a kernel is the only thing that increments a count
 whose binding picks one of several kernels by dtype and shape also counts
 the route the binding reports in ``ROUTES`` (one call, one count, however
 many kernels the call launches).
+
+A CUDA graph launches its kernels without calling the wrappers, so a
+replay would count nothing.  While a thread captures a graph it holds
+``recording()``: the wrappers it calls add to the recording instead of
+the counts, and every replay adds that recording once through
+``count_replay``.  A graph's launches are counted where it launches them,
+at each replay; the warm-up run before a capture records too and is not
+counted (it serves no tick).
 """
 
+import contextlib
 import threading
 
 LAUNCHES = {"int8_matmul": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
@@ -17,13 +26,40 @@ LAUNCHES = {"int8_matmul": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
 ROUTES = {"int8_matmul": {"gemv": 0, "tiled": 0, "mma": 0},
           "paged_attention": {"split": 0, "mma": 0}}
 _lock = threading.Lock()
+_local = threading.local()  # .record: this thread's recording, if any
 
 
 def count_launch(name, route=None):
+    record = getattr(_local, "record", None)
+    if record is not None:
+        record[name, route] = record.get((name, route), 0) + 1
+        return
     with _lock:
         LAUNCHES[name] += 1
         if route is not None:
             ROUTES[name][route] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Divert this thread's launch counts into a dict ``{(name, route):
+    launches}``, yielded, until the block ends (a CUDA graph's capture)."""
+    if getattr(_local, "record", None) is not None:
+        raise RuntimeError("launch recordings do not nest")
+    _local.record = record = {}
+    try:
+        yield record
+    finally:
+        _local.record = None
+
+
+def count_replay(record):
+    """Count one replay of a graph whose capture recorded ``record``."""
+    with _lock:
+        for (name, route), n in record.items():
+            LAUNCHES[name] += n
+            if route is not None:
+                ROUTES[name][route] += n
 
 
 def reset_launches():

@@ -10,27 +10,47 @@ profiler phases) is the JAX package's, with its lock discipline: every
 device dispatch happens outside ``_cv``.  What differs:
 
 - the device programs (``_decode_tick``, ``_verify_tick``,
-  ``_prefill_chunk``) are eager PyTorch functions; every step's attention
-  is the paged-attention kernel (client_tpu_torch.ops.paged_attention) and
-  every int8 projection the dequant-matmul kernel, through the same
-  ``_mm`` dispatch;
+  ``_prefill_chunk``) are PyTorch functions; every step's attention is the
+  paged-attention kernel (client_tpu_torch.ops.paged_attention) and every
+  int8 projection the dequant-matmul kernel, through the same ``_mm``
+  dispatch.  Their inputs are device values, as in JAX's traced
+  programs: nothing in them reads a device value on the host or branches
+  on one;
+- the counterpart of the JAX engine's per-shape ``jax.jit`` executables
+  is a :class:`_Program` per static shape (decode by lane count, verify by
+  (lanes, width), prefill by chunk width), each with static input buffers
+  its host arrays reach through one pinned buffer and one ``copy_`` a
+  tick.  On a CUDA device every program is captured as a CUDA graph when
+  the engine starts (before it serves, one capture at a time in the
+  process, all graphs in one memory pool) and every tick replays one; a
+  failed capture raises from the ``submit`` that started the engine, and
+  nothing runs the programs eagerly on the card.  On the CPU the same
+  programs run eagerly through the same buffers.  ``_adopt`` is an
+  in-place write into the lane buffers;
 - the KV pools are written IN PLACE (``index_put_``) and the programs
   return nothing for them: that takes the place of the JAX engine's
-  buffer donation.  The recycling-safety argument below rests on dispatch
-  order, so it holds because every device operation of the engine runs
-  on one CUDA stream, issued from the scheduler thread (the swap-out read
-  and the swap-in write are ordinary copies on that stream);
-- the lane token and RNG tensors stay functional (a tick returns new
-  ones), so a readback in flight never sees a later tick's write;
+  buffer donation.  The lane token and RNG tensors are written in place
+  too, by the decode and verify programs and by ``_adopt``, and the
+  programs write their other outputs (verify's ``[2, n]``, prefill's
+  token and RNG carry) into buffers allocated before capture, outside the
+  graphs' memory pool;
+- ONE STREAM, IN ORDER: every device operation of the engine (the
+  static-input copy, each replay, each readback's device-to-host copy,
+  ``_adopt``, the swap-out read and the swap-in write) is issued from the
+  scheduler thread on its current stream.  So a readback of a buffer a
+  program writes (the lane tokens, verify's result, prefill's token) is
+  queued before the next replay that overwrites it, a static input is
+  rewritten only after the replay that read it, and the recycling-safety
+  argument below, which rests on dispatch order, holds;
 - per-lane sampling uses a counter-based generator of the port's own
   (``_uniforms``): a lane's state is (seed, draw counter), and its stream
   depends only on those, not on its slot or the lanes beside it.  It is
   not JAX's threefry stream, so seeded temperature streams differ from the
   JAX engine's; greedy streams do not;
-- "executables" are the distinct static shapes dispatched (prefill chunk
-  widths, lane counts, (lanes, width) verify pairs): eager PyTorch
-  compiles nothing, but the bounds are the ones a per-shape CUDA graph
-  capture relies on;
+- "executables" count the programs built (captured graphs on CUDA):
+  every static shape, at most ``len(lane_counts)`` decode,
+  ``len(verify_widths) * len(lane_counts)`` verify and ``len(buckets)``
+  prefill programs;
 - the fleet prefix tier is not ported yet: ``fleet=`` and ``set_fleet``
   raise.
 
@@ -91,7 +111,7 @@ from collections import OrderedDict, deque
 import numpy as np
 import torch
 
-from client_tpu_torch import resolve_device
+from client_tpu_torch import ops, resolve_device
 from client_tpu_torch.serve.lm.kv import KvBlockPool
 from client_tpu_torch.serve.lm.policy import (
     LaneAutoscaler,
@@ -389,8 +409,10 @@ def _prefill_chunk(params, chunk, pools, table, start, prompt_len, rng,
     and are never attended (the length mask), so padding is inert.  The
     returned token is the sampled/greedy first generation token — only
     the FINAL chunk's return is meaningful (its chunk contains position
-    prompt_len - 1).  ``rng`` is the lane's [2] (seed, counter); returns
-    ``(token [1] int32, rng_carry [2])``."""
+    prompt_len - 1).  ``start`` and ``prompt_len`` are 0-d int32 tensors
+    (device values, as the JAX engine traces them), so one program serves
+    every chunk of a width.  ``rng`` is the lane's [2] (seed, counter);
+    returns ``(token [1] int32, rng_carry [2])``."""
     c = chunk.shape[1]
     dev = chunk.device
     x = params["embed"][chunk.long()]  # [1,C,D]
@@ -418,8 +440,11 @@ def _prefill_chunk(params, chunk, pools, table, start, prompt_len, rng,
         x = x + out.to(x.dtype)
         x = _ffn_block(layer, x)
     x = _rms_norm(x, params["ln_f"])
-    last = min(max(prompt_len - 1 - start, 0), c - 1)
-    logits = _mm(x[:, last], params["lm_head"]).float()  # [1,V]
+    # the row of position prompt_len - 1, clipped into the chunk (JAX's
+    # jnp.clip then take), picked on the device
+    last = torch.clamp(prompt_len - 1 - start, 0, c - 1)
+    xsel = torch.index_select(x, 1, last.reshape(1).long())  # [1,1,D]
+    logits = _mm(xsel[:, 0], params["lm_head"]).float()  # [1,V]
     tok = _select_token(logits, rng[None], temperature, top_k)
     carry = rng.clone()
     carry[1] += 1
@@ -437,14 +462,152 @@ def _to_device(arr, device):
     return host.pin_memory().to(device, non_blocking=True)
 
 
-def _adopt(tokens, rng, slot, tok, key):
-    """Install an admitted request's first token + RNG carry into lane
-    ``slot`` (new tensors: a readback in flight keeps the old ones)."""
-    tokens = tokens.clone()
-    rng = rng.clone()
-    tokens[slot] = tok
-    rng[slot] = key
-    return tokens, rng
+# -- the device programs at their static shapes ------------------------------
+#
+# Each body runs one program on its static inputs (``feeds``) and writes
+# its results into the buffers of ``state`` in place: the lane token and
+# RNG tensors, the KV pools, and its own outputs.
+
+@torch.no_grad()
+def _decode_body(params, feeds, state, *, cfg, n, block_size):
+    tokens, keys = _decode_tick(
+        params, state["tokens"], state["pools"], feeds["tables"],
+        feeds["lens"], feeds["temps"], feeds["topks"], state["keys"],
+        cfg=cfg, n=n, block_size=block_size,
+    )
+    state["tokens"].copy_(tokens)
+    state["keys"].copy_(keys)
+
+
+@torch.no_grad()
+def _verify_body(params, feeds, state, *, cfg, n, width, block_size):
+    out, tokens, keys = _verify_tick(
+        params, state["tokens"], state["pools"], feeds["tables"],
+        feeds["lens"], feeds["temps"], feeds["topks"], state["keys"],
+        feeds["props"], feeds["counts"], cfg=cfg, n=n, width=width,
+        block_size=block_size,
+    )
+    state["out"].copy_(out)
+    state["tokens"].copy_(tokens)
+    state["keys"].copy_(keys)
+
+
+@torch.no_grad()
+def _prefill_body(params, feeds, state, *, cfg, block_size):
+    tok, carry = _prefill_chunk(
+        params, feeds["chunk"], state["pools"], feeds["table"],
+        feeds["start"], feeds["prompt_len"], feeds["key"],
+        feeds["temperature"], feeds["top_k"], cfg=cfg,
+        block_size=block_size,
+    )
+    state["tok"].copy_(tok)
+    state["carry"].copy_(carry)
+
+
+def _lane_feeds(n, table_width):
+    return [("tables", (n, table_width), np.int32), ("lens", (n,), np.int32),
+            ("temps", (n,), np.float32), ("topks", (n,), np.int32)]
+
+
+def _prefill_feeds(width, table_width):
+    return [("chunk", (1, width), np.int32),
+            ("table", (table_width,), np.int32),
+            ("start", (), np.int32), ("prompt_len", (), np.int32),
+            ("key", (2,), np.int64), ("temperature", (1,), np.float32),
+            ("top_k", (1,), np.int32)]
+
+
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64,
+                 np.dtype(np.float32): torch.float32}
+
+# CUDA graphs allow one capture at a time in a process; engines start on
+# whichever thread submits first
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _Program:
+    """One device program at one static shape: the port's counterpart of
+    one ``jax.jit`` executable of the JAX engine.
+
+    ``body(feeds, state)`` runs it.  ``feeds`` are its host-fed inputs,
+    ``spec`` ``(name, shape, numpy dtype)``, as views of ONE device buffer
+    allocated here; ``state`` holds the device buffers it reads and writes
+    in place, all allocated before any capture.  ``program(values)`` packs
+    the host arrays ``values`` (by name) into one host buffer, pinned on
+    CUDA (the caching host allocator keeps it until its copy ran), makes
+    one ``copy_`` into the feeds, and runs the program: by replaying the
+    CUDA graph ``capture`` recorded, counting the launches the capture
+    recorded (``ops.count_replay``), or on the CPU by calling ``body``."""
+
+    def __init__(self, body, spec, state, device):
+        self.body = body
+        self.state = state
+        self.device = device
+        self._fields = []
+        size = 0
+        for name, shape, dtype in spec:
+            dtype = np.dtype(dtype)
+            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            self._fields.append((name, tuple(shape), dtype, size, nbytes))
+            size += -(-nbytes // 8) * 8  # every field 8-byte aligned
+        self._buf = torch.zeros((size,), dtype=torch.uint8, device=device)
+        self.feeds = {
+            name: self._buf[off:off + nbytes].view(_TORCH_DTYPES[dtype])
+            .view(shape)
+            for name, shape, dtype, off, nbytes in self._fields
+        }
+        self.graph = None
+        self.launches = {}  # {(kernel, route): launches} of one replay
+
+    def __call__(self, values):
+        self.feed(values)
+        self.run()
+
+    def feed(self, values):
+        """Pack ``values`` into the static inputs with one copy."""
+        cuda = self.device.type == "cuda"
+        host = (torch.empty(self._buf.shape, dtype=torch.uint8,
+                            pin_memory=True) if cuda else self._buf)
+        raw = host.numpy()
+        for name, shape, dtype, off, nbytes in self._fields:
+            raw[off:off + nbytes].view(dtype).reshape(shape)[...] = (
+                values[name])
+        if cuda:
+            self._buf.copy_(host, non_blocking=True)
+
+    def run(self):
+        if self.graph is None:
+            self.body(self.feeds, self.state)
+            return
+        self.graph.replay()
+        ops.count_replay(self.launches)
+
+    def capture(self, pool, stream):
+        """Record the program as a CUDA graph in ``pool`` on ``stream``.
+
+        A warm-up run comes first (the kernels' lazy set-up: cuBLAS's
+        handle and workspace for ``stream``, the allocator's blocks), on
+        zeroed feeds, which send every K/V write to the trash block
+        (``KvBlockPool.TRASH`` is 0; prefill at ``prompt_len`` 0 writes no
+        position), and on scratch copies of every state buffer but the
+        pools: it changes no live row.  The capture itself runs nothing.
+        The warm-up's launches count nowhere; the capture's are recorded
+        and counted at each replay."""
+        self._buf.zero_()
+        scratch = {name: buf if name == "pools" else buf.clone()
+                   for name, buf in self.state.items()}
+        main = torch.cuda.current_stream(self.device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream), ops.recording():
+            self.body(self.feeds, scratch)
+        graph = torch.cuda.CUDAGraph()
+        with ops.recording() as launches:
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.body(self.feeds, self.state)
+        main.wait_stream(stream)
+        self.graph, self.launches = graph, launches
 
 
 class _Lane:
@@ -493,17 +656,15 @@ class _Handle:
 
 class _PrefillJob:
     __slots__ = ("handle", "slot", "blocks", "table", "plan", "chunk_idx",
-                 "key", "token", "resume")
+                 "resume")
 
-    def __init__(self, handle, slot, blocks, table, plan, key):
+    def __init__(self, handle, slot, blocks, table, plan):
         self.handle = handle
         self.slot = slot
         self.blocks = blocks
         self.table = table
         self.plan = plan
         self.chunk_idx = 0
-        self.key = key
-        self.token = None
         # _Swapped being resumed via the recompute path (None for normal
         # admissions): activation restores its produced/remaining state
         # and the saved token/RNG carry instead of the chunk's sample
@@ -652,14 +813,15 @@ class LmEngine:
         self.prefix = None
         self._tokens = None
         self._keys = None   # [max_slots, 2] int64: each lane's (seed, counter)
-        self._prefill = functools.partial(
-            _prefill_chunk, cfg=cfg, block_size=self.block_size
-        )
-        # distinct static shapes dispatched (the eager counterpart of the
-        # JAX engine's jit caches): prefill chunk widths, and the decode
-        # tick's per-lane-count programs below
-        self._prefill_widths = set()
-        self._tick_jits = {}
+        # the device programs, one per static shape (the JAX engine's jit
+        # caches), built with the device state: decode by lane count,
+        # verify by (lanes, width), prefill by chunk width.  _prefill is
+        # the one prefill dispatch the scheduler calls (tests gate it).
+        self._decode_programs = {}
+        self._verify_programs = {}
+        self._prefill_programs = {}
+        self._prefill = self._run_prefill
+        self._graph_stats = {}
 
         # speculative decoding (serve/lm/spec.py; off by default): the
         # drafter + adaptive-k policy is per-model config, the verify
@@ -669,29 +831,37 @@ class LmEngine:
         self._verify_widths = (
             verify_widths(self._spec.k) if self._spec is not None else ()
         )
-        self._verify_jits = {}
         self._spec_proposed = 0
         self._spec_accepted = 0
 
     # -- shape accounting (the bounded-shape proofs) ------------------------
 
     def prefill_executables(self):
-        """Distinct prefill chunk widths dispatched (<= len(self.buckets)
-        by construction — chunk widths come from the bucket set)."""
+        """Prefill programs built, one per chunk width (captured graphs on
+        CUDA; <= len(self.buckets): chunk widths come from the bucket
+        set)."""
         with self._cv:
-            return len(self._prefill_widths)
+            return len(self._prefill_programs)
 
     def decode_executables(self):
-        """Distinct decode-tick lane counts dispatched
-        (<= len(lane_counts))."""
-        with self._cv:  # the scheduler inserts into _tick_jits mid-run
-            return len(self._tick_jits)
+        """Decode programs built, one per lane count (captured graphs on
+        CUDA; <= len(lane_counts))."""
+        with self._cv:
+            return len(self._decode_programs)
 
     def verify_executables(self):
-        """Distinct speculative-verify (lanes, width) shapes dispatched
-        (<= len(verify_widths(k)) * len(lane_counts) by construction)."""
-        with self._cv:  # the scheduler inserts into _verify_jits mid-run
-            return len(self._verify_jits)
+        """Speculative-verify programs built, one per (lanes, width)
+        (captured graphs on CUDA; <= len(verify_widths(k)) *
+        len(lane_counts))."""
+        with self._cv:
+            return len(self._verify_programs)
+
+    def graph_stats(self):
+        """The CUDA graphs' capture record ({} on the CPU or before the
+        engine started): graphs by kind, capture seconds, and
+        ``torch.cuda.memory_reserved()`` before and after the whole set."""
+        with self._cv:
+            return dict(self._graph_stats)
 
     def spec_stats(self):
         """Speculative-decoding counters ({} when speculation is off)."""
@@ -841,12 +1011,36 @@ class LmEngine:
             self._cv.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=30)
+            if self._thread.is_alive():
+                return  # a tick still running keeps its programs
+        self._release_programs()
+
+    def _release_programs(self):
+        """Drop every program (and with the last graph, the graphs'
+        memory pool) once no replay can be running."""
+        if self.device.type == "cuda" and self._decode_programs:
+            torch.cuda.synchronize(self.device)
+        with self._cv:
+            self._decode_programs = {}
+            self._verify_programs = {}
+            self._prefill_programs = {}
 
     # -- locked helpers ----------------------------------------------------
 
     def _ensure_thread_locked(self):
+        """Start the engine on the first submit: the device state, every
+        program (captured before the scheduler serves; a failed capture
+        raises here), then the scheduler thread."""
         if self._thread is not None:
             return
+        self._init_device_locked()
+        self._build_programs_locked()
+        self._thread = threading.Thread(
+            target=self._loop, name="lm-engine", daemon=True
+        )
+        self._thread.start()
+
+    def _init_device_locked(self):
         self.kv = KvBlockPool(
             self.cfg,
             n_blocks=max(
@@ -869,10 +1063,91 @@ class LmEngine:
         self._keys = torch.zeros(
             (self.max_slots, 2), dtype=torch.int64, device=self.device
         )
-        self._thread = threading.Thread(
-            target=self._loop, name="lm-engine", daemon=True
-        )
-        self._thread.start()
+
+    def _build_programs_locked(self):
+        """One program per static shape over the engine's device state;
+        on CUDA each is captured as a CUDA graph, all in one memory pool,
+        before the scheduler serves."""
+        params, cfg, bs = self.params, self.cfg, self.block_size
+        width, dev = self._table_width, self.device
+        lanes = {"tokens": self._tokens, "keys": self._keys,
+                 "pools": self.kv.pools}
+        decode = {
+            n: _Program(
+                functools.partial(_decode_body, params, cfg=cfg, n=n,
+                                  block_size=bs),
+                _lane_feeds(n, width), lanes, dev,
+            )
+            for n in self.lane_counts
+        }
+        verify = {
+            (n, w): _Program(
+                functools.partial(_verify_body, params, cfg=cfg, n=n,
+                                  width=w, block_size=bs),
+                _lane_feeds(n, width) + [
+                    ("props", (n, w - 1), np.int32),
+                    ("counts", (n,), np.int32)],
+                {**lanes, "out": torch.zeros((2, n), dtype=torch.int32,
+                                             device=dev)},
+                dev,
+            )
+            for n in self.lane_counts for w in self._verify_widths
+        }
+        # one token and RNG carry for every width: chunks run one at a
+        # time, and the final one's are read before the next chunk
+        first = {"pools": self.kv.pools,
+                 "tok": torch.zeros((1,), dtype=torch.int32, device=dev),
+                 "carry": torch.zeros((2,), dtype=torch.int64, device=dev)}
+        prefill = {
+            c: _Program(
+                functools.partial(_prefill_body, params, cfg=cfg,
+                                  block_size=bs),
+                _prefill_feeds(c, width), first, dev,
+            )
+            for c in self.buckets
+        }
+        stats = {}
+        if dev.type == "cuda":
+            from client_tpu_torch.ops._build import kernels
+
+            kernels()  # build the extension before any capture
+            programs = [*decode.values(), *verify.values(),
+                        *prefill.values()]
+            pool = torch.cuda.graph_pool_handle()
+            stream = torch.cuda.Stream(dev)
+            with _CAPTURE_LOCK:
+                torch.cuda.synchronize(dev)
+                before = torch.cuda.memory_reserved(dev)
+                t0 = time.monotonic()
+                for prog in programs:
+                    prog.capture(pool, stream)
+                torch.cuda.synchronize(dev)
+                stats = {
+                    "graphs": {"decode": len(decode),
+                               "verify": len(verify),
+                               "prefill": len(prefill)},
+                    "capture_s": time.monotonic() - t0,
+                    "memory_reserved_before": before,
+                    "memory_reserved_after": torch.cuda.memory_reserved(dev),
+                }
+        self._decode_programs = decode
+        self._verify_programs = verify
+        self._prefill_programs = prefill
+        self._graph_stats = stats
+
+    def _adopt(self, slot, tok, key):
+        """Install a lane's next input token and RNG (seed, counter) in
+        place (the JAX engine's jitted ``_adopt``): on the scheduler's
+        stream, after every tick dispatched so far and its readback."""
+        self._tokens[slot:slot + 1] = tok
+        self._keys[slot] = key
+
+    def _run_prefill(self, width, values):
+        """Run one prefill chunk through its width's program; returns its
+        (token [1], RNG carry [2]) output buffers."""
+        prog = self._prefill_programs[width]
+        prog(values)
+        return prog.state["tok"], prog.state["carry"]
 
     def _retire_lane_locked(self, lane, close_queue=True):
         """Release a lane and return its KV reservation (full prompt
@@ -1186,13 +1461,9 @@ class LmEngine:
                     "ctpu_lm_prefill_tokens_saved_total", None, value=start,
                     help_=LM_PREFIX_HELP["ctpu_lm_prefill_tokens_saved_total"],
                 )
-            # key=None: building the lane's RNG state is a device
-            # operation and must not run under _cv — the first
-            # _prefill_step builds it
             self._job = _PrefillJob(
                 handle, slot, blocks, table,
                 chunk_plan(handle.prompt_len, self.buckets, start=start),
-                None,
             )
             self._scaler.note_ok(False, self._max_active_locked())
 
@@ -1218,24 +1489,20 @@ class LmEngine:
                 self._job = None
                 return
             start, width = job.plan[job.chunk_idx]
-            self._prefill_widths.add(width)
         handle = job.handle
-        if job.key is None:  # deferred out of _admit: dispatch-free lock
-            job.key = _to_device(
-                np.array([_seed32(handle.seed), 0], np.int64), self.device
-            )
         chunk = pad_prompt(
             handle.prompt[:, start:start + width], width,
             pad_id=0,
         )
         t0 = time.monotonic()
-        dev = self.device
-        tok, job.key = self._prefill(
-            self.params, _to_device(chunk, dev), self.kv.pools,
-            _to_device(job.table, dev), start, handle.prompt_len, job.key,
-            _to_device(np.array([handle.temperature], np.float32), dev),
-            _to_device(np.array([handle.top_k], np.int32), dev),
-        )
+        # chunk i is the lane's i-th draw: RNG state (seed, i); the final
+        # chunk's carry (seed, i + 1) seeds the decode ticks
+        tok, carry = self._prefill(width, {
+            "chunk": chunk, "table": job.table, "start": start,
+            "prompt_len": handle.prompt_len,
+            "key": (_seed32(handle.seed), job.chunk_idx),
+            "temperature": handle.temperature, "top_k": handle.top_k,
+        })
         job.chunk_idx += 1
         self._log_tick("prefill_chunk", t0, (job.slot,))
         if self.registry is not None:
@@ -1301,17 +1568,12 @@ class LmEngine:
         if resume is not None:
             # install the saved next-tick input token + RNG carry; nothing
             # streams (everything up to `produced` was already delivered)
-            self._tokens, self._keys = _adopt(
-                self._tokens, self._keys, job.slot, resume.token,
-                resume.key.to(self.device),
-            )
+            self._adopt(job.slot, resume.token, resume.key)
             return
         # install the first token + RNG carry into the lane arrays and
         # stream the token through the readback pipeline (single-lane
         # entry, exactly like a full tick's vector)
-        self._tokens, self._keys = _adopt(
-            self._tokens, self._keys, job.slot, tok[0], job.key
-        )
+        self._adopt(job.slot, tok, carry)
         self._inflight.append((_start_readback(tok), snapshot))
 
     def drain(self):
@@ -1321,20 +1583,6 @@ class LmEngine:
         the close, audited: no leaked blocks)."""
         self.close()
         return 0
-
-    def _tick_for(self, n):
-        # memoized under _cv: decode_executables() reads this dict from
-        # the caller thread while the scheduler inserts — building the
-        # partial is cheap, and the dispatch itself runs outside the lock
-        with self._cv:
-            fn = self._tick_jits.get(n)
-            if fn is None:
-                fn = functools.partial(
-                    _decode_tick, cfg=self.cfg, n=n,
-                    block_size=self.block_size,
-                )
-                self._tick_jits[n] = fn
-        return fn
 
     def _decode_pass(self):
         """One batched decode tick over the active lanes (dispatch
@@ -1378,30 +1626,13 @@ class LmEngine:
                 self._lanes[i].length += 1  # this tick writes position len
             self._lane_gauges_locked(active_count=len(active))
         t0 = time.monotonic()
-        fn = self._tick_for(n)
-        dev = self.device
-        self._tokens, self._keys = fn(
-            self.params, self._tokens, self.kv.pools,
-            _to_device(tables, dev), _to_device(lens, dev),
-            _to_device(temps, dev), _to_device(topks, dev), self._keys,
-        )
+        self._decode_programs[n]({"tables": tables, "lens": lens,
+                                  "temps": temps, "topks": topks})
         self._inflight.append(
             (_start_readback(self._tokens), tuple(active))
         )
         self._log_tick("decode", t0, tuple(i for i, _ in active))
         return True
-
-    def _verify_for(self, n, w):
-        # memoized under _cv exactly like _tick_for
-        with self._cv:
-            fn = self._verify_jits.get((n, w))
-            if fn is None:
-                fn = functools.partial(
-                    _verify_tick, cfg=self.cfg, n=n, width=w,
-                    block_size=self.block_size,
-                )
-                self._verify_jits[(n, w)] = fn
-        return fn
 
     def _spec_pass(self, ptick):
         """One speculative draft + verify pass over the active lanes;
@@ -1521,19 +1752,13 @@ class LmEngine:
             )
             self._lane_gauges_locked(active_count=len(active))
         t0 = time.monotonic()
-        fn = self._verify_for(n, w)
-        dev = self.device
+        prog = self._verify_programs[(n, w)]
         with ptick.phase("verify_dispatch"):
-            out, self._tokens, self._keys = fn(
-                self.params, self._tokens, self.kv.pools,
-                _to_device(tables, dev), _to_device(lens, dev),
-                _to_device(temps, dev), _to_device(topks, dev),
-                self._keys, _to_device(props, dev),
-                _to_device(counts, dev),
-            )
+            prog({"tables": tables, "lens": lens, "temps": temps,
+                  "topks": topks, "props": props, "counts": counts})
         with ptick.phase("device_wait"):
             # [2, n]: accepted count, correction
-            vals = _readback_values(_start_readback(out))
+            vals = _readback_values(_start_readback(prog.state["out"]))
         self._log_tick("verify", t0, tuple(i for i, _ in active))
         self._deliver_verified(ptick, active, vals, props, counts)
         return True
@@ -1695,7 +1920,7 @@ class LmEngine:
             host_k = [p[idx].cpu() for p in self.kv.pools["k"]]
             host_v = [p[idx].cpu() for p in self.kv.pools["v"]]
         token = int(self._tokens[slot])
-        key = self._keys[slot].cpu()
+        key = self._keys[slot].to("cpu", copy=True)  # the lane is reused
         with self._cv:
             lane = self._lanes[slot]
             if self._closed or not lane.active or lane.gen != gen:
@@ -1802,7 +2027,6 @@ class LmEngine:
                             entry.length, self.buckets,
                             start=len(matched_blocks) * self.block_size,
                         ),
-                        None,
                     )
                     job.resume = entry
                     self._job = job  # _prefill_step replays from here
@@ -1859,10 +2083,7 @@ class LmEngine:
             self._lane_gauges_locked()
         # install the saved next-tick input token + RNG carry (scheduler
         # thread: the next decode pass dispatches strictly after this)
-        self._tokens, self._keys = _adopt(
-            self._tokens, self._keys, slot, entry.token,
-            entry.key.to(self.device),
-        )
+        self._adopt(slot, entry.token, entry.key)
 
     def _loop(self):
         try:

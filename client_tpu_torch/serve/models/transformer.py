@@ -438,10 +438,12 @@ def quantize_params(params):
 
 def _start_readback(token):
     """Begin the device-to-host copy of a [B] token tensor; returns what
-    ``_finish_readback`` needs.  On CUDA the copy goes to pinned memory
-    behind an event, so the host waits only when it reads the token."""
+    ``_finish_readback`` needs: the values the tensor holds now, though a
+    later dispatch may overwrite it in place.  On CUDA the copy goes to
+    pinned memory behind an event, so the host waits only when it reads
+    the token."""
     if token.device.type != "cuda":
-        return token, None
+        return token.clone(), None
     host = torch.empty(token.shape, dtype=token.dtype, pin_memory=True)
     host.copy_(token, non_blocking=True)
     done = torch.cuda.Event()

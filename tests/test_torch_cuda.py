@@ -8,6 +8,8 @@ runs on the GPU machine, which has neither:
 of the suite.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -612,8 +614,9 @@ def test_paged_attention_refuses_what_it_does_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_engine_on_cuda_equals_serial_generate(cuda_device):
-    """The float32 engine on the card (paged-attention kernel, one launch a
-    layer a step) streams what the serial generate streams there, for
+    """The float32 engine on the card (every tick a replayed CUDA graph,
+    the paged-attention kernel one launch a layer a tick) streams what the
+    serial generate streams there, for
     concurrent prompts of one to three prefill chunks, and releases every
     KV block at close."""
     from client_tpu_torch.serve.lm import LmEngine
@@ -637,11 +640,177 @@ def test_engine_on_cuda_equals_serial_generate(cuda_device):
             while (tok := q.get(timeout=120)) is not LmEngine.CLOSE:
                 toks.append(tok)
             got.append(toks)
+        graphs = eng.graph_stats()["graphs"]
     finally:
         eng.close()
     assert ops.LAUNCHES["paged_attention"] > 0
     assert ops.LAUNCHES["paged_attention"] % cfg.n_layers == 0
+    # every tick replayed a captured graph: decode at the one lane count,
+    # prefill at the widths {4, 8, 16}
+    assert graphs == {"decode": 1, "verify": 0, "prefill": 3}
     for p, n, toks in zip(prompts, lengths, got):
         assert toks == list(tfm.generate(params, cfg, p, n,
                                          readback_depth=0)), (p, n)
     assert eng.kv.used_blocks == 0 and eng.kv.ref_counts() == {}
+
+
+# -- the engine's programs as CUDA graphs -------------------------------------
+
+_GRAPH_CFG = tfm.TransformerConfig(
+    vocab_size=258, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+    d_ff=128, max_seq=512, dtype="float32",
+)
+_GRAPH_BS = 16
+_GRAPH_WIDTH = _GRAPH_CFG.max_seq // _GRAPH_BS  # table width
+
+
+def _graph_engine(cuda_device, dtype, poison=False):
+    """An engine on the card with its device state allocated and every
+    program captured (8 slots, lane counts {2, 8}, prefill widths {16,
+    32, 64}, verify widths {2, 4, 5}), the scheduler not started.  With
+    ``poison`` every pool row but the trash block's is NaN and the lane
+    buffers hold sentinels while it captures."""
+    from client_tpu_torch.serve.lm import LmEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        _GRAPH_CFG, dtype="float32" if dtype == "float32" else "bfloat16")
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                             cuda_device)
+    if dtype == "int8":
+        params = tfm.quantize_params(params)
+    eng = LmEngine(params, cfg, max_slots=8, lane_counts=(2, 8),
+                   block_size=_GRAPH_BS, prefill_chunk=64, min_bucket=16,
+                   speculative={"k": 4}, device=cuda_device)
+    with eng._cv:
+        eng._init_device_locked()
+        if poison:
+            for pool in eng.kv.pools["k"] + eng.kv.pools["v"]:
+                pool[1:] = float("nan")
+            eng._tokens.fill_(7)
+            eng._keys.fill_(9)
+        eng._build_programs_locked()
+    return eng
+
+
+def _program_values(kind, shape, rng, context):
+    """Host inputs of one program: every lane on blocks of its own, at
+    ``context`` keys (decode, verify) or a chunk ending 3 tokens into the
+    bucket padding at ``context`` (prefill); greedy and sampled lanes."""
+    perm = rng.permutation(np.arange(1, 8 * _GRAPH_WIDTH + 1))
+    own = min(-(-(context + 8) // _GRAPH_BS), _GRAPH_WIDTH)
+    if kind == "prefill":
+        table = np.zeros((_GRAPH_WIDTH,), np.int32)
+        table[:own] = perm[:own]
+        start = context - shape + 3
+        return {"chunk": rng.integers(0, 258, (1, shape)), "table": table,
+                "start": start, "prompt_len": context, "key": (123, 2),
+                "temperature": 0.8, "top_k": 10}
+    n = shape if kind == "decode" else shape[0]
+    tables = np.zeros((n, _GRAPH_WIDTH), np.int32)
+    for b in range(n):
+        tables[b, :own] = perm[b * _GRAPH_WIDTH:b * _GRAPH_WIDTH + own]
+    values = {"tables": tables, "lens": rng.integers(context - 8, context,
+                                                     n),
+              "temps": np.where(np.arange(n) % 2, 0.7, 0.0),
+              "topks": np.arange(n) % 3 * 5}
+    if kind == "verify":
+        values["props"] = rng.integers(0, 258, (n, shape[1] - 1))
+        values["counts"] = rng.integers(0, shape[1], n)
+    return values
+
+
+def _replay_against_eager(eng, kind, shape, values, seed):
+    """Run one program's body eagerly on clones of its state, then replay
+    its graph on the live state with the same feeds: every output buffer,
+    lane buffer and pool row outside the trash block bit-equal, and the
+    replay counts the launches the eager run made."""
+    prog = {"decode": eng._decode_programs, "verify": eng._verify_programs,
+            "prefill": eng._prefill_programs}[kind][shape]
+    gen = torch.Generator(device=eng.device).manual_seed(seed)
+    for pool in eng.kv.pools["k"] + eng.kv.pools["v"]:
+        pool.copy_(torch.randn(pool.shape, generator=gen,
+                               device=eng.device))
+    eng._tokens.copy_(torch.randint(0, 258, eng._tokens.shape,
+                                    generator=gen, device=eng.device))
+    eng._keys.copy_(torch.randint(0, 2 ** 31, eng._keys.shape,
+                                  generator=gen, device=eng.device))
+    prog.feed(values)
+    clone = {name: ({k: [p.clone() for p in v] for k, v in buf.items()}
+                    if name == "pools" else buf.clone())
+             for name, buf in prog.state.items()}
+    ops.reset_launches()
+    prog.body(prog.feeds, clone)
+    torch.cuda.synchronize()
+    eager = dict(ops.LAUNCHES), {k: dict(v) for k, v in ops.ROUTES.items()}
+    ops.reset_launches()
+    prog.run()
+    torch.cuda.synchronize()
+    assert prog.graph is not None
+    assert (dict(ops.LAUNCHES),
+            {k: dict(v) for k, v in ops.ROUTES.items()}) == eager
+    assert eager[0]["paged_attention"] == eng.cfg.n_layers
+    for name, buf in prog.state.items():
+        if name == "pools":  # from block 1: nothing reads the trash block,
+            for k in ("k", "v"):  # which a tick's writes hit in any order
+                for got, want in zip(buf[k], clone["pools"][k]):
+                    assert torch.equal(got[1:], want[1:]), (kind, shape, k)
+        else:
+            assert torch.equal(buf, clone[name]), (kind, shape, name,
+                                                   buf, clone[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kind,shape", [("decode", 2), ("decode", 8),
+                                        ("verify", (8, 5)),
+                                        ("prefill", 16), ("prefill", 64)])
+def test_engine_graph_replays_its_eager_program(cuda_device, dtype, kind,
+                                                shape):
+    """Each captured program against its eager function on clones of the
+    same pools and buffers, at context 200: tokens, RNG carry, outputs
+    and every pool bit-equal, and the replay's launch and route counts
+    equal the eager run's (int8: 6 projections a layer)."""
+    eng = _graph_engine(cuda_device, dtype)
+    try:
+        # every bound: 2 lane counts, 3 verify widths, 3 buckets
+        assert eng.graph_stats()["graphs"] == {
+            "decode": 2, "verify": 6, "prefill": 3}
+        rng = np.random.default_rng(len(str(shape)) + len(kind))
+        _replay_against_eager(eng, kind, shape,
+                              _program_values(kind, shape, rng, 200), 1)
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_engine_decode_graph_replays_at_another_context(cuda_device):
+    """One decode graph replayed at context 64 and then at 511 (the grid
+    of every kernel in it is fixed by shapes, never by the lengths fed):
+    each replay equals the eager program there."""
+    eng = _graph_engine(cuda_device, "bfloat16")
+    try:
+        rng = np.random.default_rng(3)
+        for seed, context in enumerate((64, 511)):
+            _replay_against_eager(
+                eng, "decode", 8,
+                _program_values("decode", 8, rng, context), seed)
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_engine_capture_writes_no_live_row(cuda_device, dtype):
+    """Warm-up and capture of every program leave every pool row outside
+    the trash block NaN as poisoned, and the lane buffers as they were."""
+    eng = _graph_engine(cuda_device, dtype, poison=True)
+    try:
+        torch.cuda.synchronize()
+        for pool in eng.kv.pools["k"] + eng.kv.pools["v"]:
+            assert bool(torch.isnan(pool[1:]).all())
+        assert bool((eng._tokens == 7).all() and (eng._keys == 9).all())
+        assert sum(eng.graph_stats()["graphs"].values()) == 11
+    finally:
+        eng.close()
+    assert eng.decode_executables() == 0  # close() released the graphs

@@ -4,17 +4,20 @@
 
 ROOT is this checkout or another one unpacked inside it (for example the
 parent commit's `git archive` under build/, which .gitignore lists).
-Imports chip_smoke.py and client_tpu_torch from ROOT (its own kernels,
-built into ROOT/build/), then prints one JSON line a
-measurement, each tagged LABEL: the engine's aggregate tokens/s and TTFT at
-1, 4 and 8 concurrent greedy streams of 128 tokens (bf16 and int8 weights,
-DEFAULT_LM_CONFIG, seed 0; chip_smoke.engine_rate), and the device-busy
-share of a bf16 decode window (chip_smoke.engine_profile).  Host-clock
+Imports client_tpu_torch from ROOT (its own engine and kernels, built into
+ROOT/build/) and measures it with THIS checkout's chip_smoke.py, so both
+sides of an A/B are timed by one harness.  Prints one JSON line a
+measurement, each tagged LABEL: the engine's aggregate tokens/s, TTFT and
+host ms a decode tick (tick_trace) at 1, 4 and 8 concurrent greedy streams
+of 128 tokens (bf16 and int8 weights, DEFAULT_LM_CONFIG, seed 0;
+chip_smoke.engine_rate), and the device-busy share of a bf16 decode window
+with its kernels a decode tick (chip_smoke.engine_profile).  Host-clock
 figures vary between machines more than a kernel moves them, so compare
 two checkouts only within one call on one card, in turns: parent, change,
 change, parent.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -23,10 +26,14 @@ import sys
 
 def main():
     root, label = os.path.abspath(sys.argv[1]), sys.argv[2]
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
     import torch
 
-    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(here, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     from client_tpu_torch.ops import _build
     from client_tpu_torch.serve.lm import LmEngine
     from client_tpu_torch.serve.models import language
