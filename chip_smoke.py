@@ -2,8 +2,10 @@
 """Smoke run of client_tpu_torch on one NVIDIA GPU: builds the kernels,
 holds each against its plain PyTorch version, serves the LM over
 KServe-v2 HTTP through the continuous-batching engine, trains the flagship
-LM through the flash-attention kernels, and times the kernels, the serial
-decode, the engine and the train step.
+LM through the flash-attention kernels, serves ResNet-50 and the CNN
+through the dynamic batcher and the vision ensemble, and times the
+kernels, the serial decode, the engine, the train step and the vision
+models.
 
     python3 chip_smoke.py
 
@@ -111,7 +113,25 @@ Phases, one line each or more; any failure exits non-zero:
                 under torch.profiler, its kernels and graph launches a
                 decode tick, and one decode replay's device time at 8
                 lanes (CUDA events) with the busy share it implies
- 13 kernels     one JSON line: every kernel of the served and trained
+ 13 vision      ResNet-50 (_RESNET50_STAGES, 224, 1000 classes, bf16)
+                and the CNN at 224, each behind the dynamic batcher with
+                warmup: XLA's asymmetric SAME padding on the card (the
+                stem 7x7/2 at 224, the 3x3/2 convs at 56, 28, 14, the
+                max-pool at 112) against a stride-1 formulation; every
+                bucket graph (1..64, 12 of them) replayed against the
+                eager forward, bit-equal; the bf16 forward against the
+                float32 forward of the same weights (VISION_BF16_TOL);
+                device ms of a graph replay at buckets 1, 8, 32, 64 with
+                images/s, MFU and the bound; capture seconds and
+                memory_reserved; batch-1 binary requests over HTTP at
+                concurrency 1, 8 and 32 (infer/s, p50/p99, the mean
+                fused batch), then the device-busy share of a served
+                window (torch.profiler); the launch counts reset before
+                the serving and read after it: the vision path launches
+                none of the hand-written kernels; the vision ensemble at
+                224 (SCORES equal to its three steps called in turn, 0
+                host hops, 2 device handoffs a request)
+ 14 kernels     one JSON line: every kernel of the served and trained
                 paths (the int8 GEMV and tensor-core routes, the three
                 flash kernels, paged attention's CUDA-core and tensor-core
                 split routes; an entry is named by its wrapper, with the
@@ -1163,6 +1183,402 @@ def engine_graphs(LmEngine, ops, params, cfg, vocab):
             "launches_a_replay": launches}
 
 
+# -- the vision path (phase 13) ---------------------------------------------
+
+VISION_IMAGE = 224
+# bf16 forward against the float32 forward of the same weights (cast up;
+# the image rounds to bf16 in both, TF32 off): the bf16 activations round
+# after every one of ResNet-50's 53 convs, about 2**-9 of each value, and
+# the roundings accumulate through the residual sums, so the scores agree
+# within 5e-2 of the largest f32 score; top-1 agrees wherever the f32
+# top-2 gap is larger than that
+VISION_BF16_TOL = 5e-2
+# timed buckets, and the served concurrencies with their request counts
+VISION_TIMED_BUCKETS = (1, 8, 32, 64)
+VISION_CONCURRENCY = ((1, 64), (8, 256), (32, 768))
+VISION_BYTES_PER_REQUEST = 3 * VISION_IMAGE * VISION_IMAGE * 4
+
+
+def same_pad_reference(x, w=None, k=3, stride=2):
+    """SAME conv (or, with w None, 3x3 max-pool) written another way: a
+    stride-1 op with the symmetric padding ``hi``, then every stride-th
+    row and column from ``hi - lo`` (the windows XLA's asymmetric
+    padding starts)."""
+    from client_tpu_torch.serve.models.vision import _same_pads
+
+    lo, hi = _same_pads(x.shape[2], k, stride)
+    out = -(-x.shape[2] // stride)
+    if w is None:
+        y = F.max_pool2d(x, k, 1, padding=hi)
+    else:
+        y = F.conv2d(x, w, padding=hi)
+    return y[:, :, hi - lo::stride, hi - lo::stride][:, :, :out, :out]
+
+
+def same_pad_cases(vision, gen):
+    """The asymmetric SAME cases of ResNet-50 at 224 on the card, float32:
+    the stem 7x7/2 at 224 (2, 3), the 3x3/2 convs at 56, 28 and 14 (0, 1),
+    the max-pool 3x3/2 at 112 (0, 1); each against same_pad_reference."""
+    cases = []
+    for size, cin, k in ((224, 3, 7), (56, 64, 3), (28, 128, 3),
+                         (14, 256, 3)):
+        x = torch.randn(2, cin, size, size, generator=gen).cuda()
+        w = (torch.randn(8, cin, k, k, generator=gen) * 0.1).cuda()
+        got = vision._conv(x, w, stride=2)
+        err = (got - same_pad_reference(x, w, k)).abs().max().item()
+        check(err <= 1e-4, f"SAME conv at {size}, k={k}: {err}")
+        cases.append({"op": f"conv {k}x{k}/2", "size": size,
+                      "pads": vision._same_pads(size, k, 2),
+                      "max_abs_err": err})
+    x = torch.randn(2, 64, 112, 112, generator=gen).cuda()
+    err = (vision._max_pool(x) - same_pad_reference(x)).abs().max().item()
+    check(err == 0.0, f"SAME max-pool at 112: {err}")
+    cases.append({"op": "max_pool 3x3/2", "size": 112,
+                  "pads": vision._same_pads(112, 3, 2), "max_abs_err": err})
+    return cases
+
+
+def vision_images(n, seed):
+    return torch.randn(n, 3, VISION_IMAGE, VISION_IMAGE,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def graphs_vs_eager(model, batcher):
+    """Every bucket's graph replayed on seeded images against the eager
+    forward of the same images: bit-equal.  Returns the buckets checked."""
+    progs = batcher.programs()
+    for b, prog in sorted(progs.items()):
+        x = vision_images(b, 100 + b).cuda()
+        prog.inputs["INPUT0"].copy_(x)
+        prog.run()
+        got = prog.outputs["OUTPUT0"].clone()
+        want = model.fn({"INPUT0": x}, {}, None)["OUTPUT0"]
+        check(torch.equal(got, want),
+              f"{model.name} bucket {b}: graph differs from eager by "
+              f"{(got - want).abs().max().item()}")
+        check(bool(torch.isfinite(got).all()), f"{model.name}: non-finite")
+    return sorted(progs)
+
+
+def bf16_vs_f32(forward, params, n=16):
+    """The bf16 forward against the float32 forward of the same weights
+    cast up: the largest error relative to the largest f32 score, and
+    top-1 equal wherever the f32 top-2 gap exceeds the tolerance."""
+    x = vision_images(n, 7).cuda()
+    p32 = tree_to(params, torch.float32)
+    got, want = forward(params, x), forward(p32, x)
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max().item() / scale
+    top2 = want.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > VISION_BF16_TOL * scale
+    agree = (got.argmax(1) == want.argmax(1))[decided]
+    check(rel <= VISION_BF16_TOL, f"bf16 against f32: {rel}")
+    check(bool(agree.all()), "bf16 top-1 differs where the f32 gap is wide")
+    return {"images": n, "max_err_of_largest_score": rel,
+            "largest_f32_score": scale, "tolerance": VISION_BF16_TOL,
+            "top1_decided": int(decided.sum()), "top1_equal": int(agree.sum())}
+
+
+def param_bytes(params):
+    leaves = params if isinstance(params, list) else [params]
+    total = 0
+    while leaves:
+        item = leaves.pop()
+        if isinstance(item, dict):
+            leaves.extend(item.values())
+        elif isinstance(item, list):
+            leaves.extend(item)
+        else:
+            total += item.numel() * item.element_size()
+    return total
+
+
+def replay_timings(model, batcher, weight_bytes):
+    """Device time of one bucket graph replay, back to back, by CUDA
+    events, for each timed bucket: images/s, MFU over the bf16 dense peak,
+    and the bound (FLOPs over the peak, or weights once + input + output
+    over HBM, whichever is larger)."""
+    progs = batcher.programs()
+    rows = []
+    for b in VISION_TIMED_BUCKETS:
+        graph = progs[b].graph
+        for _ in range(3):
+            graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reps = 20
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+        flops = model.flops_per_item * b
+        nbytes = weight_bytes + b * VISION_BYTES_PER_REQUEST + b * 1000 * 4
+        by_flops = flops / BF16_FLOPS_PER_S * 1e3
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "bucket": b, "device_ms": ms, "images_per_s": b / ms * 1e3,
+            "mfu": flops / (ms / 1e3) / BF16_FLOPS_PER_S,
+            "bound_ms": max(by_flops, by_bytes),
+            "bound_by": "operations" if by_flops >= by_bytes else "bytes",
+        })
+    return rows
+
+
+# the load generator of phase 13: its own process (as perf_analyzer is),
+# so the clients do not share the server's interpreter lock.  argv: one
+# JSON object {addr, model, concurrency, requests, images, out}; it sends
+# batch-1 binary requests from `concurrency` threads, one keep-alive
+# connection each, and saves each request's image index, latency and
+# output to `out` (.npz); stdout: {"wall_s", "errors"}
+VISION_CLIENT = r"""
+import http.client, json, sys, threading, time
+import numpy as np
+
+args = json.loads(sys.argv[1])
+host, port = args["addr"].split(":")
+images = np.load(args["images"])
+bodies = []
+for img in images:
+    raw = np.ascontiguousarray(img[None], dtype=np.float32).tobytes()
+    header = json.dumps({
+        "inputs": [{"name": "INPUT0", "shape": [1] + list(img.shape),
+                    "datatype": "FP32",
+                    "parameters": {"binary_data_size": len(raw)}}],
+        "outputs": [{"name": "OUTPUT0",
+                     "parameters": {"binary_data": True}}],
+    }).encode()
+    bodies.append((header + raw, len(header)))
+per_client = args["requests"] // args["concurrency"]
+n = per_client * args["concurrency"]
+lat = np.zeros(n)
+index = np.zeros(n, dtype=np.int64)
+outs = [None] * n
+errors = []
+path = "/v2/models/%s/infer" % args["model"]
+
+
+def client(c):
+    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+    try:
+        for i in range(per_client):
+            j = c * per_client + i
+            k = j % len(bodies)
+            body, hlen = bodies[k]
+            t0 = time.monotonic()
+            conn.request("POST", path, body=body, headers={
+                "Inference-Header-Content-Length": str(hlen)})
+            resp = conn.getresponse()
+            data = resp.read()
+            lat[j] = time.monotonic() - t0
+            if resp.status != 200:
+                raise RuntimeError("HTTP %d: %r" % (resp.status, data[:200]))
+            jlen = int(resp.getheader("Inference-Header-Content-Length"))
+            index[j] = k
+            outs[j] = np.frombuffer(data[jlen:], dtype=np.float32)
+    except Exception as e:
+        errors.append(repr(e))
+    finally:
+        conn.close()
+
+
+threads = [threading.Thread(target=client, args=(c,))
+           for c in range(args["concurrency"])]
+t0 = time.monotonic()
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+wall = time.monotonic() - t0
+if not errors:
+    np.savez(args["out"], lat=lat, index=index, outs=np.stack(outs))
+print(json.dumps({"wall_s": wall, "errors": errors[:3]}))
+"""
+
+
+def served_rate(addr, engine, name, images, want, concurrency, requests):
+    """``requests`` batch-1 binary requests over HTTP from ``concurrency``
+    clients in a process of their own (VISION_CLIENT): infer/s, p50/p99
+    latency (client clock), the mean fused batch (inferences over
+    executions in the window), and each response against the eager
+    forward of its image (within twice the bf16 tolerance of its largest
+    score: both are bf16, at other batch sizes)."""
+    before = engine.statistics(name)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        img_path = os.path.join(tmp, "images.npy")
+        out_path = os.path.join(tmp, "out.npz")
+        np.save(img_path, images)
+        run = subprocess.run(
+            [sys.executable, "-c", VISION_CLIENT, json.dumps({
+                "addr": addr, "model": name, "concurrency": concurrency,
+                "requests": requests, "images": img_path,
+                "out": out_path})],
+            capture_output=True, text=True, timeout=600)
+        check(run.returncode == 0, f"load generator: {run.stderr[-2000:]}")
+        report = json.loads(run.stdout.strip().splitlines()[-1])
+        check(not report["errors"], f"served {name}: {report['errors']}")
+        got = np.load(out_path)
+        lat, index, outs = got["lat"], got["index"], got["outs"]
+    after = engine.statistics(name)[0]
+    n = len(lat)
+    worst = max(float(np.abs(o - want[k]).max() / np.abs(want[k]).max())
+                for o, k in zip(outs, index))
+    check(worst <= 2 * VISION_BF16_TOL,
+          f"served {name}: response off its eager forward by {worst}")
+    inferences = after["inference_count"] - before["inference_count"]
+    executions = after["execution_count"] - before["execution_count"]
+    check(inferences == n, f"served {name}: {inferences} inferences for {n}")
+    lat_ms = lat * 1e3
+
+    def ms(key, per):  # server-side ns of one statistics entry, in ms
+        ns = (after["inference_stats"][key]["ns"]
+              - before["inference_stats"][key]["ns"])
+        return ns / max(per, 1) / 1e6
+
+    return {"concurrency": concurrency, "requests": n,
+            "infer_per_s": n / report["wall_s"],
+            "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+            "latency_ms_p99": float(np.percentile(lat_ms, 99)),
+            "latency_ms_mean": float(lat_ms.mean()),
+            "executions": executions,
+            "mean_fused_batch": inferences / max(executions, 1),
+            # where a request's time goes on the server: all of it (body
+            # parsed to response rendered), the batcher's queue, and one
+            # execution (copy-in, replay, copy-out, split)
+            "server_ms_per_request": ms("success", n),
+            "queue_ms_per_request": ms("queue", n),
+            "execution_ms": (ms("compute_input", executions)
+                             + ms("compute_infer", executions)
+                             + ms("compute_output", executions)),
+            "max_err_of_largest_score": worst}
+
+
+def served_busy_share(addr, engine, name, images, want, concurrency=32,
+                      requests=256):
+    """The device-busy share of a served window at ``concurrency``
+    clients: torch.profiler switched on before the clients start and off
+    after they end, the window a ``record_function`` span around them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("served_window"):
+            rate = served_rate(addr, engine, name, images, want,
+                               concurrency, requests)
+        torch.cuda.synchronize()
+    win = next(e for e in prof.events() if e.name == "served_window")
+    lo, hi = win.time_range.start, win.time_range.end
+    share = busy_share(prof, hi - lo, window=(lo, hi))
+    return {"concurrency": concurrency, "requests": rate["requests"],
+            "infer_per_s_under_profiler": rate["infer_per_s"], **share}
+
+
+def vision_pipeline_run(pipeline_models, InferenceEngine):
+    """The vision ensemble at 224 (ResNet-50 stages, 1000 classes):
+    requests of 1 and 3 images, SCORES equal to the three composing
+    models called in turn, 0 host hops, 2 device handoffs a request."""
+    engine = InferenceEngine(pipeline_models(device="cuda"))
+    try:
+        steps = [engine.get_model(f"vision_{s}")
+                 for s in ("preprocess", "backbone", "postprocess")]
+        results = []
+        for rows in (1, 3, 1, 3):
+            img = np.random.default_rng(rows).integers(
+                0, 256, (rows, VISION_IMAGE, VISION_IMAGE, 3), dtype=np.uint8)
+            raw = img.tobytes()
+            request = {"inputs": [{"name": "IMAGE", "datatype": "UINT8",
+                                   "shape": list(img.shape),
+                                   "parameters": {"binary_data_size":
+                                                  len(raw)}}],
+                       "outputs": [{"name": "SCORES",
+                                    "parameters": {"binary_data": True}}]}
+            response, blobs = engine.execute("vision_pipeline", "", request,
+                                             raw)
+            got = np.frombuffer(blobs[0], dtype=np.float32).reshape(rows,
+                                                                    1000)
+            h = {"IMAGE": img}
+            for step in steps:
+                h = step.fn(h, {}, None)
+            want = h["SCORES"].cpu().numpy()
+            check(np.array_equal(got, want),
+                  f"pipeline SCORES differ from the steps in turn by "
+                  f"{np.abs(got - want).max()}")
+            check(np.allclose(got.sum(1), 1.0, atol=1e-3), "SCORES sums")
+            results.append(rows)
+        hops = engine.metrics.get("ctpu_ensemble_host_hops_total",
+                                  {"model": "vision_pipeline"}) or 0
+        handoffs = engine.metrics.get("ctpu_ensemble_device_handoffs_total",
+                                      {"model": "vision_pipeline"}) or 0
+        check(hops == 0, f"{hops} host hops")
+        check(handoffs == 2 * len(results),
+              f"{handoffs} device handoffs for {len(results)} requests")
+        backbone = engine.statistics("vision_backbone")[0]
+    finally:
+        engine.close()
+    return {"config": "224, _RESNET50_STAGES, 1000 classes",
+            "requests_rows": results, "scores": "equal to the steps in turn",
+            "host_hops": hops, "device_handoffs": handoffs,
+            "backbone_executions": backbone["execution_count"]}
+
+
+def vision_phase(card):
+    """Phase 13: ResNet-50 and the CNN served through the dynamic batcher
+    (graphs, precision, replay times, HTTP), then the vision ensemble."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.serve import Server
+    from client_tpu_torch.serve.model_runtime import InferenceEngine
+    from client_tpu_torch.serve.models import pipeline_models, vision
+
+    t_vision = time.monotonic()
+    gen = torch.Generator().manual_seed(0)
+    phase(13, "vision_same_padding", cases=same_pad_cases(vision, gen))
+    served = {"resnet50": vision.resnet50_model(warmup=True),
+              "cnn_classifier": vision.cnn_classifier_model(warmup=True)}
+    forwards = {"resnet50": vision._resnet_forward,
+                "cnn_classifier": vision._cnn_forward}
+    ops.reset_launches()
+    with Server(models=list(served.values()), http_port=0) as vserver:
+        engine = vserver.engine
+        for name, model in served.items():
+            batcher = engine._batchers[name]
+            params = model.fn.params
+            weight_bytes = param_bytes(params)
+            phase(13, "vision_graphs", model=name,
+                  buckets=graphs_vs_eager(model, batcher),
+                  replay_vs_eager="bit-equal", **batcher.graph_stats(),
+                  weight_bytes=weight_bytes)
+            phase(13, "vision_bf16_vs_f32", model=name,
+                  **bf16_vs_f32(forwards[name], params))
+            for row in replay_timings(model, batcher, weight_bytes):
+                phase(13, "vision_replay_time", model=name,
+                      flops_per_image=model.flops_per_item, **row, **card)
+        # served over HTTP through the batcher: batch-1 binary requests
+        model = served["resnet50"]
+        images = vision_images(8, 1).numpy()
+        want = model.fn({"INPUT0": images}, {}, None)["OUTPUT0"].cpu()
+        want = [w.numpy() for w in want]  # the eager forward at batch 8
+        for concurrency, requests in VISION_CONCURRENCY:
+            phase(13, "vision_served", model="resnet50",
+                  request_bytes=VISION_BYTES_PER_REQUEST,
+                  **served_rate(vserver.http_address, engine, "resnet50",
+                                images, want, concurrency, requests),
+                  **card)
+        phase(13, "vision_served_profile", model="resnet50",
+              **served_busy_share(vserver.http_address, engine, "resnet50",
+                                  images, want), **card)
+    vision_launches = dict(ops.LAUNCHES)
+    # the vision path runs library calls only: none of the hand-written
+    # kernels (rows 1-5 of the kernel table) may have launched
+    check(not any(vision_launches.values()),
+          f"the vision path launched {vision_launches}")
+    phase(13, "vision_pipeline",
+          **vision_pipeline_run(pipeline_models, InferenceEngine))
+    phase(13, "vision_done", launches=vision_launches,
+          seconds=time.monotonic() - t_vision)
+
+
 def main():
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1665,7 +2081,10 @@ def main():
                                      / (profile["window_s"] * 1e3)),
           **card)
 
-    # -- 13 kernels ----------------------------------------------------------
+    # -- 13 vision: ResNet-50 and the CNN through the dynamic batcher ------
+    vision_phase(card)
+
+    # -- 14 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
 
     def layer_total(m):
@@ -1675,7 +2094,7 @@ def main():
                             "eager_ms")}
 
     total, prefill = layer_total(1), layer_total(64)
-    phase(13, "kernels", held_against_plain_in="phases 3, 7 and 10")
+    phase(14, "kernels", held_against_plain_in="phases 3, 7 and 10")
     kernels = [{
         "name": "int8_matmul",
         "kernel_route": "all",

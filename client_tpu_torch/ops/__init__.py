@@ -27,6 +27,10 @@ ROUTES = {"int8_matmul": {"gemv": 0, "tiled": 0, "mma": 0},
           "paged_attention": {"split": 0, "mma": 0}}
 _lock = threading.Lock()
 _local = threading.local()  # .record: this thread's recording, if any
+# CUDA graphs are captured one at a time in a process (the engine's
+# programs and the dynamic batcher's bucket programs alike): captures
+# start on whichever thread needs them first
+CAPTURE_LOCK = threading.Lock()
 
 
 def count_launch(name, route=None):

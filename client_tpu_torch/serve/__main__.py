@@ -14,7 +14,9 @@ def main():
     parser.add_argument("-v", "--verbose", action="store_true")
     parser.add_argument(
         "--models", default="language",
-        help="comma-separated model sets: language (default: language)",
+        help="comma-separated model sets: jax (the CNN classifier), "
+             "resnet (resnet50), language, pipeline (the resnet50 vision "
+             "ensemble) (default: language)",
     )
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",

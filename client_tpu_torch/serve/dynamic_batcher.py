@@ -1,0 +1,1028 @@
+"""Cross-request dynamic micro-batching for stateless batchable models.
+
+Counterpart of client_tpu/serve/dynamic_batcher.py.  The host logic (the
+bucket sizes, the weighted-fair queue, gather / top-up / dispatch, host
+completion, failure per request, admission, close) is the reference's;
+the device half is rewritten for PyTorch:
+
+- a device array is a ``torch.Tensor`` on the device its model runs on
+  (CUDA on the card; the CPU when the caller asked for it), the port's
+  ``jax.Array``;
+- a ``fused_batching`` model (a torch-pure ``fn``) runs every group
+  through one :class:`_BucketProgram` per padded bucket, the counterpart
+  of the reference's ``jax.jit`` forward: on a CUDA device a CUDA graph
+  captured at warmup (every bucket up to ``max_batch_size``) or at the
+  bucket's first use, replayed for each group.  A dispatch copies the
+  group into the program's static input (host groups with one pinned
+  copy, device groups tensor by tensor), zero-pads the rest, replays, and
+  copies each request's rows out of the static output before anything
+  else runs on the stream: the next replay of that bucket overwrites it.
+  On the CPU the same programs run eagerly.  A failed capture raises;
+  nothing falls back to eager on the card;
+- other models keep the reference's eager paths: host groups concatenate
+  and pad on the host, device groups assemble a zero-padded bucket buffer
+  (``_device_batch``) and narrow the output (``_device_split``).
+
+Streams: the batcher thread, the request threads and an ensemble's steps
+are different threads, and an ensemble hands a CUDA tensor from one step
+to the next.  Every hop runs on its device's default stream
+(:func:`device_stream`), so each is ordered after the work that made its
+input, with no event to forget.
+
+Eligibility: stateless, non-decoupled models with ``max_batch_size > 1``
+and host-resident (wire) inputs, or device tensors for models that opt in
+with ``batch_device_inputs``.
+"""
+
+import contextlib
+import threading
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from client_tpu_torch import ops
+from client_tpu_torch.serve._completion import CompletionObserver
+from client_tpu_torch.utils import InferenceServerException, triton_to_np_dtype
+
+
+def _bucket(n, cap):
+    """Smallest bucket >= n from {2^k, 3*2^k}, capped at cap.
+
+    The 1.5x intermediate sizes keep worst-case padding waste to 33% instead
+    of 100% while the bucket count (and so the graph count) stays O(log n).
+    """
+    b = 1
+    while b < n:
+        if b * 3 // 2 >= n and b >= 2:
+            b = b * 3 // 2
+            break
+        b *= 2
+    return min(b, cap)
+
+
+def _buckets_up_to(cap):
+    """All bucket sizes warmup must cover, ending exactly at cap."""
+    out = []
+    b = 1
+    while b < cap:
+        out.append(b)
+        if b >= 2 and b * 3 // 2 < cap:
+            out.append(b * 3 // 2)
+        b *= 2
+    out.append(cap)
+    return sorted(set(out))
+
+
+def _is_device_array(arr):
+    """A tensor, on the device its model runs on: what a jax.Array is to
+    the reference (numpy arrays are host arrays)."""
+    return isinstance(arr, torch.Tensor)
+
+
+def device_stream(device):
+    """Run on *device*'s default stream (a no-op off CUDA): the one stream
+    every hop of a device tensor is ordered on."""
+    if device is not None and torch.device(device).type == "cuda":
+        return torch.cuda.stream(torch.cuda.default_stream(device))
+    return contextlib.nullcontext()
+
+
+def _dtype_key(arr):
+    return arr.dtype.str if isinstance(arr, np.ndarray) else str(arr.dtype)
+
+
+def _torch_dtype(np_dtype):
+    return torch.from_numpy(np.zeros(0, dtype=np_dtype)).dtype
+
+
+def _device_batch(parts, padded, out=None):
+    """The parts laid end to end in a [padded, ...] buffer (*out*, a
+    bucket program's static input, or a new one), the rows after them
+    zero: padding rows never reach a response."""
+    first = parts[0]
+    if out is None:
+        out = first.new_empty((padded,) + tuple(first.shape[1:]))
+    offset = 0
+    for p in parts:
+        if p.device != out.device or p.dtype != out.dtype:
+            raise InferenceServerException(
+                f"device input {p.dtype} on {p.device} does not match the "
+                f"batch buffer ({out.dtype} on {out.device})", status="400")
+        rows = int(p.shape[0])
+        out[offset:offset + rows].copy_(p)
+        offset += rows
+    if offset < padded:
+        out[offset:].zero_()
+    return out
+
+
+def _device_split(arr, offset, rows):
+    """One request's row slice of an eager batch output (a view: the
+    output is the request's own)."""
+    return arr.narrow(0, offset, rows)
+
+
+class _HostRows:
+    """A host group's output rows on their way to the host: pinned tensors
+    that non_blocking copies fill, and the CUDA event after the copies
+    (None on the CPU)."""
+
+    __slots__ = ("tensors", "event")
+
+    def __init__(self, tensors, event):
+        self.tensors = tensors
+        self.event = event
+
+    def numpy(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return {name: t.numpy() for name, t in self.tensors.items()}
+
+
+def _to_host(result):
+    """A model result as host numpy arrays (the reference's
+    ``jax.device_get``); non-tensor entries (``__parameters__``) pass."""
+    if isinstance(result, _HostRows):
+        return result.numpy()
+    if isinstance(result, dict):
+        return {k: _to_host(v) for k, v in result.items()}
+    if isinstance(result, torch.Tensor):
+        return result.detach().cpu().numpy()
+    return result
+
+
+class _BucketProgram:
+    """One padded bucket's forward at one input signature: the port's
+    counterpart of one executable of the reference's jitted forward.
+
+    ``inputs`` are static buffers ``[bucket, ...]`` on the model's device
+    that a dispatch fills; ``outputs`` the forward's result tensors, which
+    every ``run`` overwrites in place.  On a CUDA device ``capture``
+    records the forward as a CUDA graph and ``run`` replays it (counting
+    the hand-written kernel launches the capture recorded,
+    ``ops.count_replay``); on the CPU ``run`` calls the forward eagerly
+    and copies its result into the same static outputs, so both devices
+    share one contract."""
+
+    def __init__(self, fn, shapes, bucket, device):
+        self.fn = fn
+        self.bucket = bucket
+        self.device = device
+        self.inputs = {
+            name: torch.zeros((bucket,) + tuple(dims), dtype=dtype,
+                              device=device)
+            for name, (dims, dtype) in shapes.items()
+        }
+        self.outputs = None
+        self.graph = None
+        self.launches = {}  # {(kernel, route): launches} of one replay
+
+    def _forward(self):
+        out = self.fn(self.inputs, {}, None)
+        # a replayed graph runs no python: fused models cannot set
+        # per-response parameters, as in the reference's fused path
+        out.pop("__parameters__", None)
+        return out
+
+    def run(self):
+        if self.graph is None:
+            out = self._forward()
+            if self.outputs is None:
+                self.outputs = out
+            else:
+                for name, arr in out.items():
+                    self.outputs[name].copy_(arr)
+            return
+        self.graph.replay()
+        ops.count_replay(self.launches)
+
+    def capture(self, pool, stream):
+        """Record the forward as a CUDA graph in *pool* on *stream*.  A
+        warm-up run on the same (zeroed) inputs comes first, so cuDNN and
+        cuBLAS pick their algorithms and workspaces outside the capture;
+        its launches count nowhere."""
+        main = torch.cuda.current_stream(self.device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream), ops.recording():
+            self._forward()
+        graph = torch.cuda.CUDAGraph()
+        with ops.recording() as launches:
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.outputs = self._forward()
+        main.wait_stream(stream)
+        self.graph, self.launches = graph, launches
+
+
+class _Pending:
+    __slots__ = ("inputs", "rows", "signature", "event", "result", "error",
+                 "t_enq", "tenant", "weight", "vfinish")
+
+    def __init__(self, inputs, rows, signature, tenant="", weight=1.0):
+        self.inputs = inputs
+        self.rows = rows
+        self.signature = signature
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+        self.t_enq = time.monotonic_ns()
+        self.tenant = tenant  # fair-queue lane (see _FairQueue)
+        self.weight = max(float(weight), 1e-3)
+        self.vfinish = 0.0  # virtual finish time, stamped at push
+
+
+class _FairQueue:
+    """Weighted-fair queue over per-tenant FIFO lanes.
+
+    Each request is stamped a *virtual finish time* on push
+    (``max(vclock, lane_last_finish) + rows / weight``, the start-time
+    fair queueing recurrence) and :meth:`pop` always takes the earliest
+    stamp across lane heads: a tenant's burst deepens only its own lane,
+    and service converges to the weight ratio regardless of arrival
+    order.  Within one lane order stays FIFO.
+
+    Not internally locked: the batcher's ``_cond`` guards every call.
+    """
+
+    __slots__ = ("_lanes", "_last_vfinish", "_vclock", "_len")
+
+    def __init__(self):
+        self._lanes = {}  # tenant -> deque of _Pending
+        self._last_vfinish = {}  # tenant -> last stamped vfinish
+        self._vclock = 0.0
+        self._len = 0
+
+    def __len__(self):
+        return self._len
+
+    def push(self, pending):
+        lane = self._lanes.get(pending.tenant)
+        if lane is None:
+            lane = deque()
+            self._lanes[pending.tenant] = lane
+        start = max(
+            self._vclock, self._last_vfinish.get(pending.tenant, 0.0)
+        )
+        pending.vfinish = start + max(pending.rows, 1) / pending.weight
+        self._last_vfinish[pending.tenant] = pending.vfinish
+        lane.append(pending)
+        self._len += 1
+
+    def pop(self):
+        """Remove and return the entry with the earliest virtual finish
+        time (caller guarantees non-empty)."""
+        best_tenant, best = None, None
+        for tenant, lane in self._lanes.items():
+            head = lane[0]
+            if best is None or head.vfinish < best.vfinish:
+                best_tenant, best = tenant, head
+        self._remove(best_tenant, 0)
+        self._vclock = max(self._vclock, best.vfinish)
+        return best
+
+    def take_first(self, pred):
+        """Remove and return the fair-order-first entry matching *pred*
+        (the batch fold-in scan), or None.  Per lane only the earliest
+        match is a candidate: lane order stays FIFO."""
+        best_tenant, best_i, best = None, None, None
+        for tenant, lane in self._lanes.items():
+            for i, pending in enumerate(lane):
+                if pred(pending):
+                    if best is None or pending.vfinish < best.vfinish:
+                        best_tenant, best_i, best = tenant, i, pending
+                    break
+        if best is None:
+            return None
+        self._remove(best_tenant, best_i)
+        return best
+
+    def _remove(self, tenant, index):
+        lane = self._lanes[tenant]
+        del lane[index]
+        self._len -= 1
+        if not lane:
+            del self._lanes[tenant]
+        if not self._lanes:
+            # busy period over: forget per-tenant stamps so the map cannot
+            # grow without bound across tenant churn
+            self._last_vfinish.clear()
+            self._vclock = 0.0
+
+    def depths(self):
+        """{tenant: queued count}."""
+        return {tenant: len(lane) for tenant, lane in self._lanes.items()}
+
+    def drain(self):
+        """Remove and return every queued entry (shutdown/failure paths)."""
+        out = [p for lane in self._lanes.values() for p in lane]
+        self._lanes.clear()
+        self._last_vfinish.clear()
+        self._vclock = 0.0
+        self._len = 0
+        return out
+
+
+# dispatched groups in flight: wire groups hold host copies of their
+# tensors, device groups only device references (a runaway bound)
+_PIPELINE_DEPTH = 4
+_DEVICE_PIPELINE_DEPTH = 64
+
+
+class ModelBatcher:
+    """One background batcher per model: gathers concurrent requests into a
+    single padded forward pass and splits the outputs back per request."""
+
+    def __init__(self, model, stats, max_queue_delay_s=0.003,
+                 max_queue_depth=None, registry=None, prof=None):
+        self.model = model
+        self.stats = stats
+        self._registry = registry  # engine metrics Registry (shed counters)
+        self.prof = prof  # engine PhaseProfiler: one "batch" tick per group
+        self.max_batch = max(int(model.max_batch_size), 1)
+        self.max_queue_delay_s = max_queue_delay_s
+        # Admission control: requests beyond this queue depth are shed with
+        # a retryable 503 instead of growing the queue (and the tail
+        # latency) without bound.  None = unbounded.
+        self.max_queue_depth = max_queue_depth
+        self.max_fused_arity = int(model.max_fused_arity)
+        # fused models: {(bucket, input signature): _BucketProgram}
+        self._programs = {}
+        self._programs_lock = threading.Lock()
+        self._graph_stats = {"graphs": 0, "capture_s": 0.0}
+        # Dispatch and completion are decoupled: the batcher thread only
+        # gathers and issues batches; completion waits run off the
+        # dispatch path.  HOST (wire) groups end in a real batch-wide D2H,
+        # so a small completion pool + semaphore bounds memory; DEVICE
+        # groups hold device references only and are acked at dispatch,
+        # with a deep semaphore purely as a runaway bound and one watcher
+        # thread that waits on each group's CUDA event.
+        self._sem = threading.Semaphore(_PIPELINE_DEPTH)
+        self._sem_device = threading.Semaphore(_DEVICE_PIPELINE_DEPTH)
+        self._observer = CompletionObserver(
+            name=f"batcher-{model.name}-watch"
+        )
+        # Host completions (batch D2H + row split) run on daemon worker
+        # threads consuming _host_q, bounded-waited in close().
+        self._host_cv = threading.Condition()
+        self._host_q = deque()
+        self._host_threads = []
+        self._host_outstanding = 0
+        # Workers exit on _host_closed, set only AFTER the batcher thread is
+        # joined: the batcher keeps dispatching its remaining queue after
+        # _closed, and a worker exiting early would strand those batches.
+        self._host_closed = False
+        self._inflight = 0  # dispatched, completion pending (under _cond)
+        self._cond = threading.Condition()
+        self._queue = _FairQueue()
+        # Requests popped off the queue but not yet completed/failed, so
+        # the _loop BaseException handler can fail them too.
+        self._active = set()
+        self._closed = False
+        self._thread = threading.Thread(
+            target=self._loop, name=f"batcher-{model.name}", daemon=True
+        )
+        self._thread.start()
+
+    def _device(self):
+        return torch.device(self.model.device or "cpu")
+
+    # -- bucket programs (fused models) -------------------------------------
+
+    @staticmethod
+    def _program_key(bucket, shapes):
+        return (bucket, tuple(sorted(
+            (name, str(dtype), tuple(dims))
+            for name, (dims, dtype) in shapes.items())))
+
+    def _program(self, bucket, shapes):
+        """The program of *bucket* at *shapes* ``{name: (dims, torch
+        dtype)}``, built (and on CUDA captured) at its first use."""
+        key = self._program_key(bucket, shapes)
+        with self._programs_lock:
+            prog = self._programs.get(key)
+            if prog is None:
+                prog, = self._build_programs([(key, bucket, shapes)])
+            return prog
+
+    def _build_programs(self, specs):
+        """Build one program per ``(key, bucket, shapes)`` and, on a CUDA
+        device, capture them all under the process's capture lock.  The
+        caller holds ``_programs_lock``."""
+        device = self._device()
+        progs = [_BucketProgram(self.model.fn, shapes, bucket, device)
+                 for _, bucket, shapes in specs]
+        if device.type == "cuda":
+            pool = torch.cuda.graph_pool_handle()
+            stream = torch.cuda.Stream(device)
+            with ops.CAPTURE_LOCK, device_stream(device):
+                torch.cuda.synchronize(device)
+                before = torch.cuda.memory_reserved(device)
+                t0 = time.monotonic()
+                for prog in progs:
+                    prog.capture(pool, stream)
+                torch.cuda.synchronize(device)
+                stats = self._graph_stats
+                stats["capture_s"] += time.monotonic() - t0
+                stats.setdefault("memory_reserved_before", before)
+                stats["memory_reserved_after"] = (
+                    torch.cuda.memory_reserved(device))
+            self._graph_stats["graphs"] += len(progs)
+        for (key, _, _), prog in zip(specs, progs):
+            self._programs[key] = prog
+        return progs
+
+    def programs(self):
+        """{bucket: program} of the programs built so far (the last built
+        per bucket where several input signatures were seen)."""
+        with self._programs_lock:
+            return {prog.bucket: prog for prog in self._programs.values()}
+
+    def graph_stats(self):
+        """Graphs captured, capture seconds, ``memory_reserved`` before the
+        first capture and after the last (CUDA only)."""
+        with self._programs_lock:
+            return dict(self._graph_stats)
+
+    def _run_program(self, group, names, rows):
+        """Copy the group into its bucket's static inputs, run the
+        program, and copy each request's rows out before returning: device
+        groups get a clone each, host groups one pinned copy of the live
+        rows (an event after it).  Everything runs on the device's default
+        stream, in this order, before any later replay is issued."""
+        padded = _bucket(rows, cap=self.max_batch)
+        parts = {name: [p.inputs[name] for p in group] for name in names}
+        shapes = {
+            name: (tuple(ps[0].shape[1:]),
+                   ps[0].dtype if _is_device_array(ps[0])
+                   else _torch_dtype(ps[0].dtype))
+            for name, ps in parts.items()
+        }
+        prog = self._program(padded, shapes)
+        device = prog.device
+        cuda = device.type == "cuda"
+        with device_stream(device):
+            for name, ps in parts.items():
+                buf = prog.inputs[name]
+                if _is_device_array(ps[0]):
+                    _device_batch(ps, padded, out=buf)
+                    continue
+                host = torch.empty(buf.shape, dtype=buf.dtype,
+                                   pin_memory=cuda)
+                raw = host.numpy()
+                np.concatenate(ps, axis=0, out=raw[:rows])
+                raw[rows:] = 0
+                buf.copy_(host, non_blocking=cuda)
+            prog.run()
+            out = prog.outputs
+            if group[0].signature[0]:
+                offs = np.cumsum([0] + [p.rows for p in group])
+                return ("fused", {
+                    name: tuple(arr[offs[i]:offs[i + 1]].clone()
+                                for i in range(len(group)))
+                    for name, arr in out.items()
+                })
+            tensors = {}
+            for name, arr in out.items():
+                host = torch.empty((rows,) + tuple(arr.shape[1:]),
+                                   dtype=arr.dtype, pin_memory=cuda)
+                host.copy_(arr[:rows], non_blocking=cuda)
+                tensors[name] = host
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record()
+            return _HostRows(tensors, event)
+
+    def warmup(self, input_specs):
+        """Prepare every padded bucket (the reference's ``model_warmup``)
+        so no client request pays a capture or an algorithm search.  A
+        fused model builds (on CUDA captures) one program per bucket,
+        which serves host and device groups alike; other models run their
+        forward once per bucket.  Skipped for models with dynamic
+        non-batch dims."""
+        shapes = {}
+        for spec in input_specs:
+            dims = list(spec.dims)
+            if any(d < 0 for d in dims[1:]):
+                return
+            np_dtype = triton_to_np_dtype(spec.datatype)
+            if np_dtype is None or np_dtype == np.object_:
+                return
+            shapes[spec.name] = (dims[1:], np_dtype)
+        buckets = _buckets_up_to(self.max_batch)
+        if self.model.fused_batching:
+            tshapes = {name: (tuple(dims), _torch_dtype(dt))
+                       for name, (dims, dt) in shapes.items()}
+            with self._programs_lock:
+                keys = [(self._program_key(b, tshapes), b) for b in buckets]
+                self._build_programs([(key, b, tshapes) for key, b in keys
+                                      if key not in self._programs])
+            return
+        # one eager forward per bucket: cuDNN and cuBLAS pick their
+        # algorithms for each shape.  A device group's forward runs at the
+        # same shapes (its parts assembled into a bucket buffer), so
+        # unlike the reference's executables it needs no pass of its own.
+        device = self._device()
+        with device_stream(device):
+            for b in buckets:
+                zeros = {
+                    name: np.zeros([b] + dims, dtype=np_dtype)
+                    for name, (dims, np_dtype) in shapes.items()
+                }
+                _to_host(self.model.fn(zeros, {}, None))
+
+    # -- request side -----------------------------------------------------
+
+    def queue_depth(self):
+        """Requests currently waiting in the queue."""
+        with self._cond:
+            return len(self._queue)
+
+    def queue_depths_by_tenant(self):
+        """{tenant: queued count}."""
+        with self._cond:
+            return self._queue.depths()
+
+    def submit(self, inputs, tenant="", weight=1.0):
+        """Block until the batched execution finishes; return this request's
+        slice of the outputs: host numpy arrays for wire groups, device
+        tensors (its own) for device groups.  ``tenant``/``weight`` select
+        and weight the fair-queue lane this request waits in."""
+        rows = _leading_rows(inputs)
+        # device-resident requests batch on the device and must never mix
+        # with host groups: the signature's device flag keeps them apart
+        device = all(_is_device_array(a) for a in inputs.values())
+        signature = (device,) + tuple(
+            (name, _dtype_key(arr), tuple(arr.shape[1:]))
+            for name, arr in sorted(inputs.items())
+        )
+        pending = _Pending(inputs, rows, signature, tenant=tenant,
+                           weight=weight)
+        with self._cond:
+            if self._closed:
+                raise InferenceServerException(
+                    f"model '{self.model.name}' is shutting down", status="500"
+                )
+            if (
+                self.max_queue_depth is not None
+                and len(self._queue) >= self.max_queue_depth
+            ):
+                # retryable overload: the client backs off and re-submits
+                if self._registry is not None:
+                    self._registry.inc(
+                        "ctpu_requests_shed_total",
+                        {"reason": "queue_full"},
+                        help_="Requests shed with a retryable 503",
+                    )
+                raise InferenceServerException(
+                    f"model '{self.model.name}' queue is full "
+                    f"({len(self._queue)} >= {self.max_queue_depth} queued); "
+                    "retry after backoff",
+                    status="503",
+                )
+            self._queue.push(pending)
+            self._cond.notify()
+        pending.event.wait()
+        if pending.error is not None:
+            raise pending.error
+        return pending.result
+
+    def close(self, shutdown_timeout_s=30.0):
+        # one deadline budget shared across every shutdown phase (batcher
+        # join, host-completion drain, observer close)
+        deadline = time.monotonic() + shutdown_timeout_s
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        self._thread.join(timeout=max(deadline - time.monotonic(), 0.0))
+        # Host completion tasks for batches already dispatched finish
+        # before leftovers are failed; bounded, so a task wedged on a
+        # stalled device cannot hang close().
+        with self._host_cv:
+            self._host_closed = True
+            self._host_cv.notify_all()
+            while self._host_outstanding or self._host_q:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._host_cv.wait(timeout=remaining)
+        self._observer.close(timeout=max(deadline - time.monotonic(), 0.0))
+        # Fail anything still queued (drained under the lock: items the
+        # batcher thread already popped are its to complete).
+        with self._cond:
+            leftovers = self._queue.drain()
+        for p in leftovers:
+            p.error = InferenceServerException("server shutdown", status="500")
+            p.event.set()
+
+    # -- batcher thread ----------------------------------------------------
+
+    def _loop(self):
+        try:
+            self._run()
+        except BaseException:  # noqa: BLE001 - a dead batcher must not strand waiters
+            with self._cond:
+                self._closed = True
+                leftovers = self._queue.drain() + [
+                    p for p in self._active if not p.event.is_set()
+                ]
+                self._active.clear()
+            err = InferenceServerException(
+                f"model '{self.model.name}' batcher thread died", status="500"
+            )
+            for p in leftovers:
+                p.error = err
+                p.event.set()
+            raise
+
+    def _run(self):
+        # Pipelined dispatch: the batcher thread gathers and issues batches;
+        # completion waits run elsewhere (pool for host groups, the
+        # watcher for device groups).
+        while True:
+            group = self._gather()
+            if group is None:
+                return
+            device = group[0].signature[0]
+            sem = self._sem_device if device else self._sem
+            # Backpressure: block while the pipeline is full.  The queue
+            # keeps filling meanwhile, and _topup folds those arrivals into
+            # this batch: depth and batch size grow together under load.
+            sem.acquire()
+            self._topup(group)
+            dispatched = self._dispatch(group)
+            if dispatched is None:
+                sem.release()
+                continue
+            with self._cond:
+                self._inflight += 1
+            if device:
+                result = self._handoff_device(*dispatched)
+                if result is None:  # handoff failed; group already notified
+                    self._finish_one(sem)
+                else:
+                    with device_stream(self.model.device):
+                        self._observer.watch(
+                            result, lambda s=sem: self._finish_one(s)
+                        )
+            else:
+                self._submit_host(dispatched)
+
+    def _finish_one(self, sem):
+        with self._cond:
+            self._inflight -= 1
+            # wake a _gather waiting out its peer-delay: with nothing in
+            # flight the delay no longer buys anything
+            self._cond.notify_all()
+        sem.release()
+
+    # -- host-group completion workers --------------------------------------
+
+    def _submit_host(self, dispatched):
+        with self._host_cv:
+            self._host_q.append(dispatched)
+            self._host_threads = [
+                t for t in self._host_threads if t.is_alive()
+            ]
+            if len(self._host_threads) < _PIPELINE_DEPTH:
+                t = threading.Thread(
+                    target=self._host_loop,
+                    name=f"batcher-{self.model.name}-done",
+                    daemon=True,
+                )
+                self._host_threads.append(t)
+                t.start()
+            self._host_cv.notify()
+
+    def _host_loop(self):
+        # one guard per pass: an escaped exception would kill this
+        # completion worker silently and strand every group behind it
+        while True:
+            try:
+                if not self._host_once():
+                    return
+            except Exception:
+                pass
+
+    def _host_once(self):
+        """Complete one dispatched host group; False once closed and
+        drained."""
+        with self._host_cv:
+            while not self._host_q and not self._host_closed:
+                self._host_cv.wait()
+            if not self._host_q:
+                self._host_cv.notify_all()  # wake the close() waiter
+                return False
+            dispatched = self._host_q.popleft()
+            self._host_outstanding += 1
+        try:
+            self._complete_host(*dispatched)
+        finally:
+            with self._host_cv:
+                self._host_outstanding -= 1
+                self._host_cv.notify_all()
+            self._finish_one(self._sem)
+        return True
+
+    def _drain_compatible_locked(self, group, first, rows, max_arity):
+        """Fold queued signature-compatible requests into *group* (no wait),
+        taken in fair-queue order.  Caller holds self._cond.  Returns the
+        updated row count."""
+        while rows < self.max_batch and len(group) < max_arity:
+            taken = self._queue.take_first(
+                lambda p, rows=rows: (
+                    p.signature == first.signature
+                    and rows + p.rows <= self.max_batch
+                )
+            )
+            if taken is None:
+                break
+            self._active.add(taken)
+            group.append(taken)
+            rows += taken.rows
+        return rows
+
+    def _max_arity(self, first):
+        # fused device groups cap the part count (one clone a part at
+        # dispatch)
+        return (
+            self.max_fused_arity
+            if first.signature[0] and self.model.fused_batching
+            else self.max_batch
+        )
+
+    def _gather(self):
+        """Take the oldest request and fold in signature-compatible peers.
+
+        Batch-while-busy: the timed max_queue_delay wait for peers only
+        happens while at least one batch is dispatched-but-incomplete; an
+        idle pipeline dispatches immediately, so low-concurrency requests
+        pay no artificial queue delay."""
+        with self._cond:
+            while not self._queue:
+                if self._closed:
+                    return None
+                self._cond.wait()
+            first = self._queue.pop()
+            self._active.add(first)
+            group = [first]
+            max_arity = self._max_arity(first)
+            rows = self._drain_compatible_locked(
+                group, first, first.rows, max_arity
+            )
+            deadline = time.monotonic() + self.max_queue_delay_s
+            while (
+                rows < self.max_batch
+                and len(group) < max_arity
+                and self._inflight > 0
+                and not self._closed
+            ):
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cond.wait(timeout=remaining)
+                rows = self._drain_compatible_locked(
+                    group, first, rows, max_arity
+                )
+            return group
+
+    def _topup(self, group):
+        """Last-moment fold-in of arrivals that queued while the pipeline
+        semaphore blocked (or between gather and dispatch)."""
+        with self._cond:
+            first = group[0]
+            rows = sum(p.rows for p in group)
+            self._drain_compatible_locked(
+                group, first, rows, self._max_arity(first)
+            )
+
+    def _prof_commit(self, rows, t0, t_in, infer_ns, output_ns):
+        """Fold one completed group into the engine's continuous profiler
+        (serve/prof.py) as a "batch" tick, reusing the timestamps
+        record_batched already took.  Queue wait is omitted: it overlaps
+        other groups' device time."""
+        prof = self.prof
+        if prof is None:
+            return
+        prof.commit(
+            "batch",
+            (t_in - t0 + infer_ns + output_ns) / 1e9,
+            phases={
+                "host": (t_in - t0) / 1e9,
+                "compute": infer_ns / 1e9,
+                "render": output_ns / 1e9,
+            },
+            model=self.model.name,
+            items=rows,
+            flops_per_item=self.model.flops_per_item,
+        )
+
+    def _dispatch(self, group):
+        """Pad the group to its bucket and issue the (asynchronous)
+        forward.  Returns state for the completion, or None if the
+        dispatch failed (the group is already notified)."""
+        t0 = time.monotonic_ns()
+        try:
+            device = group[0].signature[0]
+            names = [e[0] for e in group[0].signature[1:]]
+            rows = sum(p.rows for p in group)
+            if self.model.fused_batching:
+                t_in = time.monotonic_ns()
+                result = self._run_program(group, names, rows)
+                return group, result, rows, t0, t_in
+            # rows <= max_batch by construction, so padded >= rows always.
+            padded = _bucket(rows, cap=self.max_batch)
+            batched = {}
+            for name in names:
+                parts = [p.inputs[name] for p in group]
+                if device:
+                    # a lone full-bucket part skips assembly (zero-copy)
+                    if len(parts) == 1 and parts[0].shape[0] == padded:
+                        batched[name] = parts[0]
+                    else:
+                        with device_stream(parts[0].device):
+                            batched[name] = _device_batch(parts, padded)
+                else:
+                    if padded > rows:
+                        pad = np.zeros(
+                            (padded - rows,) + tuple(parts[0].shape[1:]),
+                            dtype=parts[0].dtype,
+                        )
+                        parts = parts + [pad]
+                    batched[name] = (
+                        np.concatenate(parts, axis=0)
+                        if len(parts) > 1
+                        else parts[0]
+                    )
+            t_in = time.monotonic_ns()
+            with device_stream(self.model.device):
+                result = self.model.fn(batched, {}, None)
+            return group, result, rows, t0, t_in
+        except Exception as e:  # noqa: BLE001 - failure propagates per-request
+            self._fail(group, e)
+            return None
+
+    def _handoff_device(self, group, result, rows, t0, t_in):
+        """Hand a device group's results to its waiters at dispatch time
+        (the device work may still be running: every consumer is ordered
+        after it on the default stream).  Returns what the watcher should
+        observe for completion, or None on failure (the group is already
+        notified)."""
+        try:
+            if isinstance(result, tuple) and result[0] == "fused":
+                # each request's own copy of its rows, made at dispatch
+                per_part = result[1]
+                for i, p in enumerate(group):
+                    p.result = {
+                        name: parts[i] for name, parts in per_part.items()
+                    }
+                    p.event.set()
+                watch = per_part
+            else:
+                # batch-wide response parameters replicate, never slice
+                # (reserved "__parameters__" result key)
+                extra_params = (
+                    result.pop("__parameters__", None)
+                    if isinstance(result, dict)
+                    else None
+                )
+                offset = 0
+                for p in group:
+                    # whole-buffer pass-through when one request fills the
+                    # bucket; a row view otherwise
+                    p.result = {
+                        name: arr
+                        if offset == 0 and p.rows == arr.shape[0]
+                        else _device_split(arr, offset, p.rows)
+                        for name, arr in result.items()
+                    }
+                    if extra_params is not None:
+                        p.result["__parameters__"] = extra_params
+                    offset += p.rows
+                    p.event.set()
+                watch = result
+            with self._cond:
+                self._active.difference_update(group)
+            t1 = time.monotonic_ns()
+            self.stats.record_batched(
+                rows=rows,
+                infer_ns=t1 - t_in,
+                input_ns=t_in - t0,
+                output_ns=0,
+                queue_ns=sum(t_in - p.t_enq for p in group),
+            )
+            self._prof_commit(rows, t0, t_in, t1 - t_in, 0)
+            return watch
+        except Exception as e:  # noqa: BLE001 - failure propagates per-request
+            self._fail(group, e)
+            return None
+
+    def _complete_host(self, group, result, rows, t0, t_in):
+        """Wire-group completion (runs on the completion pool): the
+        batch's rows reach the host, then split back to requests."""
+        try:
+            with device_stream(self.model.device):
+                host = _to_host(result)
+            t_inf = time.monotonic_ns()
+            # response-level parameters (reserved "__parameters__" result
+            # key) are batch-wide, not row-sliceable: replicate them onto
+            # every request's split instead of slicing a dict
+            extra_params = host.pop("__parameters__", None)
+            offset = 0
+            for p in group:
+                p.result = {
+                    name: arr[offset : offset + p.rows]
+                    for name, arr in host.items()
+                }
+                if extra_params is not None:
+                    p.result["__parameters__"] = extra_params
+                offset += p.rows
+                p.event.set()
+            with self._cond:
+                self._active.difference_update(group)
+            t1 = time.monotonic_ns()
+            self.stats.record_batched(
+                rows=rows,
+                infer_ns=t_inf - t_in,
+                input_ns=t_in - t0,
+                output_ns=t1 - t_inf,
+                queue_ns=sum(t_in - p.t_enq for p in group),
+            )
+            self._prof_commit(rows, t0, t_in, t_inf - t_in, t1 - t_inf)
+        except Exception as e:  # noqa: BLE001 - failure propagates per-request
+            self._fail(group, e)
+
+    def _fail(self, group, e):
+        err = (
+            e
+            if isinstance(e, InferenceServerException)
+            else InferenceServerException(
+                f"{self.model.name}: batched execution failed: {e}",
+                status="500",
+                debug_details=e,
+            )
+        )
+        for p in group:
+            p.error = err
+            p.event.set()
+        with self._cond:
+            self._active.difference_update(group)
+
+
+def _leading_rows(inputs):
+    for arr in inputs.values():
+        if arr.ndim == 0:
+            raise InferenceServerException(
+                "batchable model input must have a leading batch dimension",
+                status="400",
+            )
+        return int(arr.shape[0])
+    raise InferenceServerException("request has no inputs", status="400")
+
+
+def batchable_request(model, inputs, params, context, request):
+    """Whether this request may take the dynamic-batching path."""
+    if not model.dynamic_batching or model.decoupled:
+        return False
+    if context is not None or params.get("sequence_id"):
+        return False
+    # Request parameters beyond rendering hints reach model.fn on the direct
+    # path; the batcher calls fn once for many requests and cannot honor
+    # per-request parameters, so any such request keeps the direct path.
+    if any(k not in ("binary_data_output",) for k in params):
+        return False
+    if model.max_batch_size <= 1:
+        return False
+    device = bool(inputs) and all(
+        _is_device_array(a) for a in inputs.values()
+    )
+    if device and not model.batch_device_inputs:
+        # device-resident inputs dispatch directly by default: fusing adds
+        # assemble/split device work per request, pure overhead on a path
+        # that pays no H2D either way.  Models opt in per model.
+        return False
+    if not device:
+        for out in request.get("outputs") or []:
+            # shm outputs of host groups stay on the direct path
+            if "shared_memory_region" in (out.get("parameters") or {}):
+                return False
+    rows = None
+    for arr in inputs.values():
+        if isinstance(arr, np.ndarray):
+            if arr.dtype == np.object_:
+                return False  # BYTES inputs: direct path
+        elif not _is_device_array(arr):
+            return False
+        if arr.ndim == 0:
+            return False
+        if rows is None:
+            rows = arr.shape[0]
+        elif arr.shape[0] != rows:
+            return False
+    # mixed host/device inputs in one request keep the direct path (a device
+    # concat would silently copy the host parts or vice versa)
+    if not device and any(_is_device_array(a) for a in inputs.values()):
+        return False
+    return rows is not None and rows <= model.max_batch_size

@@ -521,11 +521,6 @@ _TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
                  np.dtype(np.int64): torch.int64,
                  np.dtype(np.float32): torch.float32}
 
-# CUDA graphs allow one capture at a time in a process; engines start on
-# whichever thread submits first
-_CAPTURE_LOCK = threading.Lock()
-
-
 class _Program:
     """One device program at one static shape: the port's counterpart of
     one ``jax.jit`` executable of the JAX engine.
@@ -1115,7 +1110,7 @@ class LmEngine:
                         *prefill.values()]
             pool = torch.cuda.graph_pool_handle()
             stream = torch.cuda.Stream(dev)
-            with _CAPTURE_LOCK:
+            with ops.CAPTURE_LOCK:
                 torch.cuda.synchronize(dev)
                 before = torch.cuda.memory_reserved(dev)
                 t0 = time.monotonic()

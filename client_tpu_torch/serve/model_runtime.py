@@ -1,20 +1,32 @@
 """In-process KServe-v2 model runtime: repository + request execution.
 
 Counterpart of client_tpu/serve/model_runtime.py, cut to what serving the
-language models needs: ``TensorSpec``, ``Model``, and an
-``InferenceEngine`` with the repository verbs, request execution for
-unary and decoupled models, and per-model success/failure counts.  The
-front door (response cache, coalescing, tenant QoS), dynamic batching,
-sequences, ensembles, shared memory, tracing and profiling wait for later
-slices of the port.
+language and vision models needs: ``TensorSpec``, ``Model``, and an
+``InferenceEngine`` with the repository verbs (add, load, unload),
+request execution for unary and decoupled models, dynamic batching
+(serve/dynamic_batcher.py), ensembles through the DAG scheduler
+(serve/pipeline.py) and per-model statistics.  The front door (response cache, coalescing, tenant QoS),
+sequences, shared memory and tracing wait for later slices of the port.
+
+Request inputs are numpy arrays decoded from the wire; device tensors
+appear only between the steps of an ensemble.
 """
 
 import threading
+import time
 
 import numpy as np
+import torch
 
 from client_tpu_torch._infer_types import _np_from_json_data
+from client_tpu_torch.serve.dynamic_batcher import (
+    ModelBatcher,
+    batchable_request,
+    device_stream,
+)
 from client_tpu_torch.serve.metrics import Registry
+from client_tpu_torch.serve.pipeline import PipelineRunner, build_dag
+from client_tpu_torch.serve.prof import PhaseProfiler
 from client_tpu_torch.utils import (
     InferenceServerException,
     from_wire_bytes,
@@ -29,10 +41,12 @@ SERVER_EXTENSIONS = ["binary_tensor_data", "parameters", "statistics"]
 class TensorSpec:
     """Metadata for one model input/output tensor."""
 
-    def __init__(self, name, datatype, dims):
+    def __init__(self, name, datatype, dims, labels=None, optional=False):
         self.name = name
         self.datatype = datatype
         self.dims = list(dims)
+        self.labels = labels or []
+        self.optional = optional
 
     def metadata(self):
         return {"name": self.name, "datatype": self.datatype, "shape": self.dims}
@@ -41,11 +55,24 @@ class TensorSpec:
 class Model:
     """A servable model: tensor specs + a python callable.
 
-    ``fn(inputs, parameters, context)`` takes a dict of numpy arrays and
-    returns a dict of numpy arrays, or, for ``decoupled=True`` models, an
-    iterator of such dicts (the LLM token-streaming shape).  ``context`` is
-    always None here (sequences come with a later slice).  Every model has
-    the one version "1" and no batching dimension.
+    ``fn(inputs, parameters, context)`` takes a dict of numpy arrays (or,
+    between the steps of an ensemble and inside the dynamic batcher, of
+    tensors on ``device``) and returns a dict of arrays or tensors, or,
+    for ``decoupled=True`` models, an iterator of such dicts (the LLM
+    token-streaming shape).  ``context`` is always None here (sequences
+    come with a later slice).  Every model has the one version "1".
+
+    The batching fields are the reference's: ``max_batch_size`` (> 0: the
+    first dim is the batch), ``dynamic_batching`` with
+    ``max_queue_delay_us``, ``warmup`` (prepare every bucket at add),
+    ``batch_device_inputs`` (device-tensor requests batch too),
+    ``fused_batching`` (``fn`` is torch-pure: every group runs through one
+    bucket program, a CUDA graph on the card), ``max_fused_arity`` (parts
+    in a fused device group), ``max_queue_depth`` (shed beyond it, None =
+    unbounded) and ``flops_per_item`` (one batch row's forward FLOPs, for
+    MFU).  ``ensemble_steps`` makes the model an ensemble executed by the
+    DAG scheduler (``fn`` is ignored).  ``device`` is the device a
+    torch-backed model runs on.
 
     ``closer`` (optional) releases model-owned resources (the batched LM
     engine's scheduler thread and KV pool) when the engine closes;
@@ -56,15 +83,34 @@ class Model:
     versions = ["1"]
 
     def __init__(self, name, inputs, outputs, fn, platform="python",
-                 decoupled=False):
+                 backend="python", device=None, max_batch_size=0,
+                 decoupled=False, dynamic_batching=False,
+                 max_queue_delay_us=3000, warmup=False,
+                 batch_device_inputs=False, fused_batching=False,
+                 max_fused_arity=8, max_queue_depth=None,
+                 ensemble_steps=None, flops_per_item=None):
         self.name = name
         self.inputs = list(inputs)
         self.outputs = list(outputs)
         self.fn = fn
         self.platform = platform
+        self.backend = backend
+        self.device = device
+        self.max_batch_size = max_batch_size
         self.decoupled = decoupled
+        self.dynamic_batching = dynamic_batching
+        self.max_queue_delay_us = max_queue_delay_us
+        self.warmup = warmup
+        self.batch_device_inputs = batch_device_inputs
+        self.fused_batching = fused_batching
+        self.max_fused_arity = max_fused_arity
+        self.max_queue_depth = max_queue_depth
+        self.ensemble_steps = list(ensemble_steps or [])
+        self.flops_per_item = flops_per_item
         self.closer = None
         self.binder = None
+        # validated ensemble DAG (serve/pipeline.py), built at add/load time
+        self._dag = None
 
     def metadata(self):
         return {
@@ -79,8 +125,8 @@ class Model:
         cfg = {
             "name": self.name,
             "platform": self.platform,
-            "backend": "python",
-            "max_batch_size": 0,
+            "backend": self.backend,
+            "max_batch_size": self.max_batch_size,
             "input": [
                 {"name": t.name, "data_type": f"TYPE_{_cfg_type(t.datatype)}",
                  "dims": t.dims}
@@ -92,8 +138,30 @@ class Model:
                 for t in self.outputs
             ],
         }
+        if self.dynamic_batching:
+            cfg["dynamic_batching"] = {
+                "max_queue_delay_microseconds": self.max_queue_delay_us
+            }
         if self.decoupled:
             cfg["model_transaction_policy"] = {"decoupled": True}
+        if self.flops_per_item:
+            # Triton-style config parameters map (string_value entries)
+            cfg["parameters"] = {
+                "flops_per_item": {
+                    "string_value": str(int(self.flops_per_item))}
+            }
+        if self.ensemble_steps:
+            cfg["ensemble_scheduling"] = {
+                "step": [
+                    {
+                        "model_name": s["model_name"],
+                        "model_version": s.get("model_version", -1),
+                        "input_map": dict(s.get("input_map", {})),
+                        "output_map": dict(s.get("output_map", {})),
+                    }
+                    for s in self.ensemble_steps
+                ]
+            }
         return cfg
 
 
@@ -102,28 +170,80 @@ def _cfg_type(datatype):
 
 
 class ModelStats:
-    """Per-model request counts."""
+    """Per-model cumulative statistics in the statistics extension's shape:
+    request outcomes apart from executions (a batched execution serves
+    several requests, so ``inference_count`` counts batch rows and
+    ``execution_count`` forward passes)."""
 
     def __init__(self):
         self.lock = threading.Lock()
+        self.inference_count = 0
+        self.execution_count = 0
+        self.last_inference_ms = 0
         self.success_count = 0
+        self.success_ns = 0
         self.fail_count = 0
+        self.fail_ns = 0
+        self.compute_infer_ns = 0
+        self.compute_input_ns = 0
+        self.compute_output_ns = 0
+        self.queue_ns = 0
 
-    def record(self, ok):
+    def record(self, ok, total_ns=0, infer_ns=0, input_ns=0, output_ns=0,
+               batch=1):
+        """One request executed on its own (or its failure)."""
         with self.lock:
             if ok:
+                self.inference_count += batch
+                self.execution_count += 1
                 self.success_count += 1
+                self.success_ns += total_ns
+                self.compute_infer_ns += infer_ns
+                self.compute_input_ns += input_ns
+                self.compute_output_ns += output_ns
+                self.last_inference_ms = int(time.time() * 1000)
             else:
                 self.fail_count += 1
+                self.fail_ns += total_ns
+
+    def record_batched(self, rows, infer_ns, input_ns, output_ns, queue_ns):
+        """One dynamic-batched execution.  Per-request success outcomes are
+        recorded by record_request_success once rendering finishes;
+        failures go through record(False, ...) in execute()."""
+        with self.lock:
+            self.inference_count += rows
+            self.execution_count += 1
+            self.compute_infer_ns += infer_ns
+            self.compute_input_ns += input_ns
+            self.compute_output_ns += output_ns
+            self.queue_ns += queue_ns
+            self.last_inference_ms = int(time.time() * 1000)
+
+    def record_request_success(self, total_ns):
+        """One successful request served through the batched path."""
+        with self.lock:
+            self.success_count += 1
+            self.success_ns += total_ns
 
     def to_json(self, name, version):
         with self.lock:
+            count = self.success_count
             return {
                 "name": name,
                 "version": version,
+                "last_inference": self.last_inference_ms,
+                "inference_count": self.inference_count,
+                "execution_count": self.execution_count,
                 "inference_stats": {
-                    "success": {"count": self.success_count},
-                    "fail": {"count": self.fail_count},
+                    "success": {"count": count, "ns": self.success_ns},
+                    "fail": {"count": self.fail_count, "ns": self.fail_ns},
+                    "queue": {"count": count, "ns": self.queue_ns},
+                    "compute_input": {"count": count,
+                                      "ns": self.compute_input_ns},
+                    "compute_infer": {"count": count,
+                                      "ns": self.compute_infer_ns},
+                    "compute_output": {"count": count,
+                                       "ns": self.compute_output_ns},
                 },
             }
 
@@ -134,28 +254,98 @@ class InferenceEngine:
     def __init__(self, models=None):
         self._lock = threading.Lock()
         self._models = {}
+        self._ready = {}
         self._stats = {}
+        self._batchers = {}
+        self._pipeline = None
         # series written by model-owned subsystems (the LM engine's lane,
-        # KV and prefix gauges), bound through Model.binder
+        # KV and prefix gauges, bound through Model.binder), the batcher's
+        # sheds and the ensemble scheduler's counters
         self.metrics = Registry()
+        # one "batch" tick per batched execution, with the per-model
+        # FLOPs behind the MFU series
+        self.prof = PhaseProfiler(name="serve", registry=self.metrics)
         for model in models or []:
             self.add_model(model)
 
     # repository -----------------------------------------------------------
 
     def add_model(self, model):
+        # Validation and installation are ONE critical section: a DAG
+        # validated against a snapshot that mutates before the install
+        # could leave a READY ensemble describing a replaced model.
         with self._lock:
+            known = dict(self._models)
+            known[model.name] = model
+            if model.ensemble_steps:
+                # ensembles validate at ADD time -> 400 here, never a
+                # surprise at infer time; composing models come first
+                model._dag = build_dag(model, known.get)
+            # every ready ensemble composing over this name revalidates
+            # against the replacement: a compatible swap refreshes its
+            # DAG, an incompatible one marks it NOT READY
+            for n, dep in self._models.items():
+                if (
+                    n == model.name or not dep.ensemble_steps
+                    or not self._ready.get(n)
+                    or all(s.get("model_name") != model.name
+                           for s in dep.ensemble_steps)
+                ):
+                    continue
+                try:
+                    dep._dag = build_dag(dep, known.get)
+                except InferenceServerException:
+                    self._ready[n] = False
             self._models[model.name] = model
+            self._ready[model.name] = True
             self._stats.setdefault(model.name, ModelStats())
+            # a replaced model must not keep serving through the old batcher
+            stale = self._batchers.pop(model.name, None)
+        if stale is not None:
+            stale.close()
         # outside the repository lock: binders may take their own locks
         if model.binder is not None:
             model.binder(self)
+        if model.dynamic_batching and model.warmup:
+            self._batcher_for(model).warmup(model.inputs)
+
+    def load_model(self, name):
+        """Mark *name* ready again; an ensemble revalidates against the
+        current repository first (a broken one fails the load with a 400
+        and stays unready)."""
+        from client_tpu_torch.serve.pipeline import build_dag
+
+        with self._lock:
+            if name not in self._models:
+                raise InferenceServerException(
+                    f"failed to load '{name}', no such model", status="400"
+                )
+            model = self._models[name]
+            if model.ensemble_steps:
+                model._dag = build_dag(model, dict(self._models).get)
+            self._ready[name] = True
+
+    def unload_model(self, name):
+        with self._lock:
+            if name not in self._models:
+                raise InferenceServerException(
+                    f"failed to unload '{name}', no such model", status="400"
+                )
+            self._ready[name] = False
+            batcher = self._batchers.pop(name, None)
+        if batcher is not None:
+            batcher.close()
 
     def close(self):
-        """Release model-owned resources (e.g. the batched LM engine's
-        scheduler thread and KV pool) with the engine, not the process."""
+        """Close the batchers, then release model-owned resources (e.g.
+        the batched LM engine's scheduler thread and KV pool) with the
+        engine, not the process."""
         with self._lock:
+            batchers = list(self._batchers.values())
+            self._batchers.clear()
             models = list(self._models.values())
+        for batcher in batchers:
+            batcher.close()
         for model in models:
             if model.closer is not None:
                 model.closer()
@@ -163,7 +353,7 @@ class InferenceEngine:
     def get_model(self, name, version=""):
         with self._lock:
             model = self._models.get(name)
-            if model is None:
+            if model is None or not self._ready.get(name):
                 raise InferenceServerException(
                     f"Request for unknown model: '{name}' is not found",
                     status="400",
@@ -179,7 +369,11 @@ class InferenceEngine:
     def model_ready(self, name, version=""):
         with self._lock:
             model = self._models.get(name)
-            return bool(model and (not version or version in model.versions))
+            return bool(
+                model
+                and self._ready.get(name)
+                and (not version or version in model.versions)
+            )
 
     def ready(self):
         """Server-level readiness (no drain in this slice: always True)."""
@@ -199,6 +393,30 @@ class InferenceEngine:
             )
         return stats
 
+    def _batcher_for(self, model):
+        with self._lock:
+            batcher = self._batchers.get(model.name)
+            if batcher is None:
+                batcher = ModelBatcher(
+                    model,
+                    self._stats[model.name],
+                    max_queue_delay_s=model.max_queue_delay_us / 1e6,
+                    max_queue_depth=model.max_queue_depth,
+                    registry=self.metrics,
+                    prof=self.prof,
+                )
+                self._batchers[model.name] = batcher
+            return batcher
+
+    def _pipeline_runner(self):
+        """The engine's ensemble DAG scheduler (one per engine, stateless
+        across requests: see serve/pipeline.PipelineRunner)."""
+        runner = self._pipeline
+        if runner is None:
+            runner = PipelineRunner(self)
+            self._pipeline = runner
+        return runner
+
     # execution ------------------------------------------------------------
 
     def execute(self, model_name, model_version, request, binary_section):
@@ -207,31 +425,64 @@ class InferenceEngine:
         *request* is the JSON-form header dict; *binary_section* the raw
         bytes after the header.  Returns ``(response_dict, binary_blobs)``,
         or for a decoupled model a generator of such tuples, one per
-        response the model produces.
+        response the model produces.  A batchable request waits in its
+        model's dynamic batcher; an ensemble runs through the DAG
+        scheduler; everything else calls the model directly.
         """
+        t0 = time.monotonic_ns()
         model = self.get_model(model_name, model_version)
         stats = self._stats[model_name]
         try:
             inputs = self._gather_inputs(model, request, binary_section)
             params = request.get("parameters", {}) or {}
+            t_in1 = time.monotonic_ns()
+            if model.ensemble_steps:
+                # work_ns, the summed per-step durations, is recorded as
+                # the ensemble's compute_infer, so composing statistics
+                # reconcile with the ensemble's
+                result, work_ns = self._pipeline_runner().run(
+                    model, inputs, params
+                )
+                t_inf1 = time.monotonic_ns()
+                rendered = self._render_response(
+                    model, model_version, request, result
+                )
+                t1 = time.monotonic_ns()
+                stats.record(True, t1 - t0, work_ns, t_in1 - t0,
+                             t1 - t_inf1, batch=_batch_of(model, request))
+                return rendered
+            if batchable_request(model, inputs, params, None, request):
+                # the batcher records the execution; the request's success
+                # is recorded here, and a failure (batched execution or
+                # rendering) falls through to the except clauses below
+                result = self._batcher_for(model).submit(inputs)
+                rendered = self._render_response(
+                    model, model_version, request, result
+                )
+                stats.record_request_success(time.monotonic_ns() - t0)
+                return rendered
             if model.decoupled:
                 return self._decoupled_stream(
                     model, model_version, request, inputs, params, stats
                 )
-            result = model.fn(inputs, params, None)
-            rendered = self._render_response(
-                model, model_version, request, result
-            )
+            with device_stream(model.device):
+                result = model.fn(inputs, params, None)
+                t_inf1 = time.monotonic_ns()
+                rendered = self._render_response(
+                    model, model_version, request, result
+                )
+            t1 = time.monotonic_ns()
         except InferenceServerException:
-            stats.record(False)
+            stats.record(False, time.monotonic_ns() - t0)
             raise
         except Exception as e:
-            stats.record(False)
+            stats.record(False, time.monotonic_ns() - t0)
             raise InferenceServerException(
                 f"{model_name}: execution failed: {e}", status="500",
                 debug_details=e,
             ) from e
-        stats.record(True)
+        stats.record(True, t1 - t0, t_inf1 - t_in1, t_in1 - t0, t1 - t_inf1,
+                     batch=_batch_of(model, request))
         return rendered
 
     def _decoupled_stream(self, model, model_version, request, inputs,
@@ -361,7 +612,10 @@ class InferenceEngine:
                     f"'{model.name}'",
                     status="400",
                 )
-            arr = np.asarray(result_arrays[name])
+            arr = result_arrays[name]
+            if isinstance(arr, torch.Tensor):
+                arr = arr.detach().cpu().numpy()
+            arr = np.asarray(arr)
             datatype = specs[name].datatype
             entry = {"name": name, "datatype": datatype, "shape": list(arr.shape)}
             if "shared_memory_region" in params:
@@ -393,3 +647,12 @@ class InferenceEngine:
         if request.get("id"):
             response["id"] = request["id"]
         return response, blobs
+
+
+def _batch_of(model, request):
+    if model.max_batch_size <= 0:
+        return 1
+    inputs = request.get("inputs", [])
+    if inputs and inputs[0].get("shape"):
+        return int(inputs[0]["shape"][0])
+    return 1

@@ -814,3 +814,94 @@ def test_engine_capture_writes_no_live_row(cuda_device, dtype):
     finally:
         eng.close()
     assert eng.decode_executables() == 0  # close() released the graphs
+
+
+# -- the vision path: the dynamic batcher's bucket graphs ---------------------
+
+
+def _vision_engine(cuda_device, max_batch_size=8, image_size=64):
+    from client_tpu_torch.serve.model_runtime import InferenceEngine
+    from client_tpu_torch.serve.models import vision
+
+    model = vision.cnn_classifier_model(
+        image_size=image_size, max_batch_size=max_batch_size, warmup=True,
+        device=cuda_device)
+    return model, InferenceEngine([model])
+
+
+@pytest.mark.cuda
+def test_vision_bucket_graphs_equal_eager(cuda_device):
+    """Warmup captures one CUDA graph per bucket up to max_batch_size;
+    each replayed on seeded images equals the eager forward bit for bit."""
+    from client_tpu_torch.serve.dynamic_batcher import _buckets_up_to
+
+    model, engine = _vision_engine(cuda_device)
+    try:
+        batcher = engine._batchers[model.name]
+        progs = batcher.programs()
+        assert sorted(progs) == _buckets_up_to(8)
+        assert batcher.graph_stats()["graphs"] == len(progs)
+        gen = torch.Generator().manual_seed(0)
+        for b, prog in progs.items():
+            assert prog.graph is not None
+            x = torch.randn(b, 3, 64, 64, generator=gen).to(cuda_device)
+            prog.inputs["INPUT0"].copy_(x)
+            prog.run()
+            want = model.fn({"INPUT0": x}, {}, None)["OUTPUT0"]
+            assert torch.equal(prog.outputs["OUTPUT0"], want)
+    finally:
+        engine.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_group", [True, False])
+def test_vision_back_to_back_groups_keep_their_rows(cuda_device,
+                                                    device_group):
+    """Two groups through bucket 3's graph back to back: the second replay
+    overwrites the static output, and the first group's rows (copied out
+    on the stream before it) are untouched."""
+    model, engine = _vision_engine(cuda_device)
+    try:
+        batcher = engine._batchers[model.name]
+        gen = torch.Generator().manual_seed(1)
+        xs = [torch.randn(3, 3, 64, 64, generator=gen) for _ in range(2)]
+        outs = [batcher.submit(
+            {"INPUT0": x.to(cuda_device) if device_group else x.numpy()})
+            for x in xs]
+        for x, out in zip(xs, outs):
+            want = model.fn({"INPUT0": x.to(cuda_device)}, {}, None)
+            got = torch.as_tensor(out["OUTPUT0"]).to(cuda_device)
+            assert torch.equal(got, want["OUTPUT0"])
+    finally:
+        engine.close()
+
+
+@pytest.mark.cuda
+def test_vision_pipeline_hands_cuda_tensors_over(cuda_device):
+    """The tiny vision ensemble on the card: 0 host hops, 2 device
+    handoffs, SCORES equal to the three steps called in turn."""
+    from client_tpu_torch.serve.model_runtime import InferenceEngine
+    from client_tpu_torch.serve.models import vision
+
+    models = vision.vision_pipeline_models(device=cuda_device)
+    engine = InferenceEngine(models)
+    try:
+        img = np.random.default_rng(0).integers(0, 256, (3, 32, 32, 3),
+                                                dtype=np.uint8)
+        response, blobs = engine.execute("vision_pipeline", "", {
+            "inputs": [{"name": "IMAGE", "datatype": "UINT8",
+                        "shape": [3, 32, 32, 3], "data": img.ravel().tolist()}],
+            "outputs": [{"name": "SCORES",
+                         "parameters": {"binary_data": True}}]}, b"")
+        got = np.frombuffer(blobs[0], dtype=np.float32).reshape(3, 16)
+        h = {"IMAGE": img}
+        for m in models[:3]:
+            h = m.fn(h, {}, None)
+        assert h["SCORES"].is_cuda
+        np.testing.assert_array_equal(got, h["SCORES"].cpu().numpy())
+        assert not engine.metrics.get("ctpu_ensemble_host_hops_total",
+                                      {"model": "vision_pipeline"})
+        assert engine.metrics.get("ctpu_ensemble_device_handoffs_total",
+                                  {"model": "vision_pipeline"}) == 2
+    finally:
+        engine.close()

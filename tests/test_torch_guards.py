@@ -115,7 +115,7 @@ def _engine(**kw):
 
 def _lm_entry_points():
     from client_tpu_torch.serve import Server
-    from client_tpu_torch.serve.models import language, model_sets
+    from client_tpu_torch.serve.models import language, model_sets, vision
 
     return {
         "_LmRunner": lambda **kw: language._LmRunner(**kw),
@@ -126,13 +126,21 @@ def _lm_entry_points():
         "lm_streaming_batched_model":
             lambda **kw: language.lm_streaming_batched_model(**kw),
         "LmEngine": _engine,
+        "resnet50_model": lambda **kw: vision.resnet50_model(
+            image_size=32, **kw),
+        "cnn_classifier_model": lambda **kw: vision.cnn_classifier_model(
+            image_size=32, **kw),
+        "vision_pipeline_models":
+            lambda **kw: vision.vision_pipeline_models(**kw),
+        "model_sets(resnet)": lambda **kw: model_sets("resnet", **kw),
     }
 
 
 @pytest.mark.parametrize(
     "entry", ["_LmRunner", "language_models", "model_sets", "Server",
               "make_train_step+init_params", "lm_streaming_batched_model",
-              "LmEngine"]
+              "LmEngine", "resnet50_model", "cnn_classifier_model",
+              "vision_pipeline_models", "model_sets(resnet)"]
 )
 def test_entry_points_refuse_to_run_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="no.*available|device='cpu'"):
@@ -153,6 +161,13 @@ def test_cpu_runs_when_asked(no_cuda):
     assert eng.device == torch.device("cpu")
     model = language.lm_streaming_batched_model(device="cpu")
     model.closer()
+    from client_tpu_torch.serve.models import model_sets, vision
+
+    for m in (vision.resnet50_model(image_size=32, device="cpu"),
+              vision.cnn_classifier_model(image_size=32, device="cpu"),
+              *vision.vision_pipeline_models(device="cpu")[:3],
+              *model_sets("resnet", device="cpu")):
+        assert m.device == torch.device("cpu")
 
 
 def test_kernel_wrapper_never_falls_back(no_cuda, monkeypatch):
