@@ -3,9 +3,9 @@
 holds each against its plain PyTorch version, serves the LM over
 KServe-v2 HTTP through the continuous-batching engine, trains the flagship
 LM through the flash-attention kernels, serves ResNet-50 and the CNN
-through the dynamic batcher and the vision ensemble, and times the
-kernels, the serial decode, the engine, the train step and the vision
-models.
+through the dynamic batcher and the vision ensemble, serves ResNet-50
+again from CUDA shared memory of another process, and times the kernels,
+the serial decode, the engine, the train step and the vision models.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,8 @@ Phases, one line each or more; any failure exits non-zero:
   1 device      CUDA present; the card's name and power limit
   2 build       the CUDA kernels, from the sources in this checkout; each
                 kernel's registers, stack and spills (cuobjdump -res-usage
-                on the built library)
+                on the built library); beside them, in a process of its
+                own, the CUDA shared-memory extension (cudashm.cpp)
   3 kernel      int8_matmul (kernel) against int8_matmul_reference on the
                 card, on every route (bf16 from M = 5 on the tensor cores,
                 and forced onto the CUDA-core tiled kernel and, at M 5-8,
@@ -126,12 +127,34 @@ Phases, one line each or more; any failure exits non-zero:
                 memory_reserved; batch-1 binary requests over HTTP at
                 concurrency 1, 8 and 32 (infer/s, p50/p99, the mean
                 fused batch), then the device-busy share of a served
-                window (torch.profiler); the launch counts reset before
+                window and its H2D and D2H bytes a request
+                (torch.profiler); the launch counts reset before
                 the serving and read after it: the vision path launches
                 none of the hand-written kernels; the vision ensemble at
                 224 (SCORES equal to its three steps called in turn, 0
                 host hops, 2 device handoffs a request)
- 14 kernels     one JSON line: every kernel of the served and trained
+ 14 cuda shm    ResNet-50 on phase 13's server with its tensors in CUDA
+                shared memory: a client process of its own (SHM_CLIENT)
+                makes one 602,112-byte input and one 4,000-byte output
+                region a client thread, and one pair for a batch-64
+                stream, registers them over HTTP (cudasharedmemory; the
+                server opens each over CUDA IPC), and sends requests
+                whose JSON names the regions: batch-1 at concurrency 1, 8
+                and 32 (infer/s, p50/p99, mean fused batch, server ms a
+                request) beside phase 13's wire figures, the answers read
+                from the regions against the eager forward and, at
+                concurrency 1, bit-equal to the wire's; the same three
+                with no answer read back (perf_analyzer's own mode); a
+                batch-64 stream (38,535,168 bytes a request) beside the
+                same stream over the wire, bit-equal; profiled windows
+                (after the same traffic, unprofiled) at 1, 8 and 32 of
+                both paths: device-busy share and H2D / D2H bytes a
+                request (under 1 KB from CUDA regions, at least the image
+                and the scores over the wire); one request of the 224
+                vision ensemble with its UINT8 images and SCORES in CUDA
+                regions (0 host hops, SCORES equal to its steps in turn);
+                the launch counts reset before and read after: none
+ 15 kernels     one JSON line: every kernel of the served and trained
                 paths (the int8 GEMV and tensor-core routes, the three
                 flash kernels, paged attention's CUDA-core and tensor-core
                 split routes; an entry is named by its wrapper, with the
@@ -148,6 +171,7 @@ import itertools
 import json
 import os
 import re
+import select
 import shutil
 import subprocess
 import sys
@@ -1329,10 +1353,11 @@ def replay_timings(model, batcher, weight_bytes):
 
 # the load generator of phase 13: its own process (as perf_analyzer is),
 # so the clients do not share the server's interpreter lock.  argv: one
-# JSON object {addr, model, concurrency, requests, images, out}; it sends
-# batch-1 binary requests from `concurrency` threads, one keep-alive
-# connection each, and saves each request's image index, latency and
-# output to `out` (.npz); stdout: {"wall_s", "errors"}
+# JSON object {addr, model, concurrency, requests, batch, images, out}; it
+# sends binary requests of `batch` images from `concurrency` threads, one
+# keep-alive connection each (request body k holds images k, k+1, ...,
+# cycling), and saves each request's body index, latency and output to
+# `out` (.npz); stdout: {"wall_s", "errors"}
 VISION_CLIENT = r"""
 import http.client, json, sys, threading, time
 import numpy as np
@@ -1340,11 +1365,13 @@ import numpy as np
 args = json.loads(sys.argv[1])
 host, port = args["addr"].split(":")
 images = np.load(args["images"])
+batch = args["batch"]
 bodies = []
-for img in images:
-    raw = np.ascontiguousarray(img[None], dtype=np.float32).tobytes()
+for k in range(len(images) if batch == 1 else 1):
+    rows = images[[(k + r) % len(images) for r in range(batch)]]
+    raw = np.ascontiguousarray(rows, dtype=np.float32).tobytes()
     header = json.dumps({
-        "inputs": [{"name": "INPUT0", "shape": [1] + list(img.shape),
+        "inputs": [{"name": "INPUT0", "shape": list(rows.shape),
                     "datatype": "FP32",
                     "parameters": {"binary_data_size": len(raw)}}],
         "outputs": [{"name": "OUTPUT0",
@@ -1398,38 +1425,255 @@ print(json.dumps({"wall_s": wall, "errors": errors[:3]}))
 """
 
 
-def served_rate(addr, engine, name, images, want, concurrency, requests):
-    """``requests`` batch-1 binary requests over HTTP from ``concurrency``
-    clients in a process of their own (VISION_CLIENT): infer/s, p50/p99
-    latency (client clock), the mean fused batch (inferences over
-    executions in the window), and each response against the eager
-    forward of its image (within twice the bf16 tolerance of its largest
-    score: both are bf16, at other batch sizes)."""
+# the CUDA-shm load generator of phase 14, a process of its own that
+# stays up across runs.  argv: one JSON object {addr, model, images,
+# threads, big, classes}.  It makes, fills once and registers over HTTP
+# (cudasharedmemory) one input and one output region for each of
+# `threads` batch-1 clients (client c's holds image c) and one pair for
+# a batch-`big` stream (images 0, 1, ..., cycling), then prints
+# {"ready": ...}.  Each stdin line {concurrency, requests, batch, out} is
+# one run: requests whose tensors are in the regions (a JSON body, no
+# tensor bytes), each answer read from the client's output region after
+# its response (outside the latency); it saves (latency, client index,
+# answer) to `out` (.npz) and prints {"wall_s", "errors"}.  An empty
+# line or EOF: unregister, destroy the regions, exit.  One reader
+# thread copies the answers to the host, a batch of them at a time, with
+# one CUDA wait that blocks (a spinning wait on every client thread
+# would take the cores the server runs on).
+SHM_CLIENT = r"""
+import base64, http.client, json, queue, sys, threading, time
+import numpy as np
+import torch
+from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+args = json.loads(sys.argv[1])
+host, port = args["addr"].split(":")
+images = np.load(args["images"])
+classes = args["classes"]
+path = "/v2/models/%s/infer" % args["model"]
+JSON = {"Content-Type": "application/json"}
+
+
+def post(conn, url, body):
+    conn.request("POST", url, body=body, headers=JSON)
+    resp = conn.getresponse()
+    data = resp.read()
+    if resp.status != 200:
+        raise RuntimeError("HTTP %d %s: %r" % (resp.status, url, data[:300]))
+    return data
+
+
+conn = http.client.HTTPConnection(host, int(port), timeout=120)
+slots = {}
+for batch, clients in ((1, args["threads"]), (args["big"], 1)):
+    for c in range(clients):
+        rows = images[[(c + r) % len(images) for r in range(batch)]]
+        name = "shm%d_%d" % (batch, c)
+        h_in = cudashm.create_shared_memory_region(name + "_in", rows.nbytes)
+        h_out = cudashm.create_shared_memory_region(name + "_out",
+                                                    4 * classes * batch)
+        cudashm.set_shared_memory_region(h_in, [rows])
+        for h in (h_in, h_out):
+            post(conn, "/v2/cudasharedmemory/region/%s/register" % h.name,
+                 json.dumps({"raw_handle": {"b64": base64.b64encode(
+                     cudashm.get_raw_handle(h)).decode()},
+                     "device_id": 0, "byte_size": h.byte_size}).encode())
+        body = json.dumps({
+            "inputs": [{"name": "INPUT0", "shape": list(rows.shape),
+                        "datatype": "FP32", "parameters": {
+                            "shared_memory_region": h_in.name,
+                            "shared_memory_byte_size": h_in.byte_size}}],
+            "outputs": [{"name": "OUTPUT0", "parameters": {
+                "shared_memory_region": h_out.name,
+                "shared_memory_byte_size": h_out.byte_size}}],
+        }).encode()
+        slots[batch, c] = (h_in, h_out, body)
+print(json.dumps({"ready": len(slots)}), flush=True)
+reads = queue.Queue()
+
+
+def reader():
+    while True:
+        batch = [reads.get()]
+        while not reads.empty():
+            batch.append(reads.get())
+        try:
+            hosts = []
+            for h_out, box, done in batch:
+                src = h_out.span(0, h_out.byte_size)
+                host = torch.empty(src.shape, dtype=src.dtype,
+                                   pin_memory=src.is_cuda)
+                host.copy_(src, non_blocking=src.is_cuda)
+                hosts.append(host)
+            if src.is_cuda:
+                done = torch.cuda.Event(blocking=True)
+                done.record()
+                done.synchronize()
+            for (h_out, box, done), host in zip(batch, hosts):
+                box.append(host.numpy().view(np.float32).copy())
+        except Exception as e:
+            for h_out, box, done in batch:
+                box.append(e)
+        for h_out, box, done in batch:
+            done.set()
+
+
+threading.Thread(target=reader, daemon=True).start()
+
+
+def client(c, batch, per_client, read, lat, index, outs, errors):
+    h_in, h_out, body = slots[batch, c]
+    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+    try:
+        for i in range(per_client):
+            j = c * per_client + i
+            t0 = time.monotonic()
+            post(conn, path, body)
+            lat[j] = time.monotonic() - t0
+            index[j] = c
+            if not read:
+                continue
+            # the next request overwrites the region: read it first
+            box, done = [], threading.Event()
+            reads.put((h_out, box, done))
+            done.wait()
+            if isinstance(box[0], Exception):
+                raise box[0]
+            outs[j] = box[0]
+    except Exception as e:
+        errors.append(repr(e))
+    finally:
+        conn.close()
+
+
+for line in sys.stdin:
+    if not line.strip():
+        break
+    run = json.loads(line)
+    batch, concurrency = run["batch"], run["concurrency"]
+    per_client = run["requests"] // concurrency
+    n = per_client * concurrency
+    lat, index = np.zeros(n), np.zeros(n, np.int64)
+    outs, errors = [None] * n, []
+    threads = [threading.Thread(target=client, args=(
+        c, batch, per_client, run["read"], lat, index, outs, errors))
+        for c in range(concurrency)]
+    t0 = time.monotonic()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.monotonic() - t0
+    if not errors:
+        np.savez(run["out"], lat=lat, index=index,
+                 outs=np.stack(outs) if run["read"] else np.zeros(0))
+    print(json.dumps({"wall_s": wall, "errors": errors[:3]}), flush=True)
+post(conn, "/v2/cudasharedmemory/unregister", b"")
+conn.close()
+for h_in, h_out, _ in slots.values():
+    cudashm.destroy_shared_memory_region(h_in)
+    cudashm.destroy_shared_memory_region(h_out)
+print(json.dumps({"closed": len(slots)}), flush=True)
+"""
+
+
+class ShmClient:
+    """SHM_CLIENT in a process of its own (spawned: this process has CUDA
+    up, so no fork).  Each ``run`` is one stream; ``close`` unregisters
+    and destroys its regions and waits for the process."""
+
+    def __init__(self, addr, model, images, tmp, threads, big):
+        img_path = os.path.join(tmp, "shm_images.npy")
+        np.save(img_path, images)
+        self.stderr = open(os.path.join(tmp, "shm_client.err"), "w+")
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", SHM_CLIENT, json.dumps({
+                "addr": addr, "model": model, "images": img_path,
+                "threads": threads, "big": big, "classes": 1000})],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self.stderr, text=True,
+            env={**os.environ, "PYTHONPATH": here})
+        self.ready = self._reply(300)
+
+    def _reply(self, timeout):
+        ready, _, _ = select.select([self.proc.stdout], [], [], timeout)
+        line = self.proc.stdout.readline() if ready else ""
+        if not line:
+            self.proc.kill()
+            self.stderr.seek(0)
+            fail(f"shm client: no reply: {self.stderr.read()[-3000:]}")
+        return json.loads(line)
+
+    def run(self, args):
+        self.proc.stdin.write(json.dumps(args) + "\n")
+        self.proc.stdin.flush()
+        return self._reply(600)
+
+    def close(self):
+        try:
+            if self.proc.poll() is None:
+                self.proc.stdin.write("\n")
+                self.proc.stdin.flush()
+                closed = self._reply(120)
+                self.proc.wait(timeout=60)
+                return closed
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.stderr.close()
+
+
+def served_rate(addr, engine, name, images, want, concurrency, requests,
+                batch=1, shm_client=None, read=True):
+    """``requests`` requests of ``batch`` images over HTTP from
+    ``concurrency`` clients in a process of their own: binary wire
+    requests (VISION_CLIENT), or with ``shm_client`` requests whose
+    tensors are in CUDA regions (SHM_CLIENT).  Returns infer/s, images/s,
+    p50/p99 latency (client clock), the mean fused batch (inferences over
+    executions in the window), where a request's time goes on the server,
+    and each answer against the eager forward of its image (within twice
+    the bf16 tolerance of its largest score: both are bf16, at other
+    batch sizes); under ``_answers`` the last answer of each body or
+    client index.  With ``read=False`` (CUDA regions only) the clients
+    read no answer back, as perf_analyzer does not: nothing is checked
+    but the counts."""
     before = engine.statistics(name)[0]
     with tempfile.TemporaryDirectory() as tmp:
-        img_path = os.path.join(tmp, "images.npy")
         out_path = os.path.join(tmp, "out.npz")
-        np.save(img_path, images)
-        run = subprocess.run(
-            [sys.executable, "-c", VISION_CLIENT, json.dumps({
-                "addr": addr, "model": name, "concurrency": concurrency,
-                "requests": requests, "images": img_path,
-                "out": out_path})],
-            capture_output=True, text=True, timeout=600)
-        check(run.returncode == 0, f"load generator: {run.stderr[-2000:]}")
-        report = json.loads(run.stdout.strip().splitlines()[-1])
+        run = {"concurrency": concurrency, "requests": requests,
+               "batch": batch, "out": out_path, "read": read}
+        if shm_client is not None:
+            report = shm_client.run(run)
+        else:
+            img_path = os.path.join(tmp, "images.npy")
+            np.save(img_path, images)
+            proc = subprocess.run(
+                [sys.executable, "-c", VISION_CLIENT, json.dumps({
+                    "addr": addr, "model": name, "images": img_path,
+                    **run})],
+                capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0,
+                  f"load generator: {proc.stderr[-2000:]}")
+            report = json.loads(proc.stdout.strip().splitlines()[-1])
         check(not report["errors"], f"served {name}: {report['errors']}")
         got = np.load(out_path)
-        lat, index, outs = got["lat"], got["index"], got["outs"]
+        lat, index = got["lat"], got["index"]
+        outs = got["outs"] if read else []
     after = engine.statistics(name)[0]
     n = len(lat)
-    worst = max(float(np.abs(o - want[k]).max() / np.abs(want[k]).max())
-                for o, k in zip(outs, index))
-    check(worst <= 2 * VISION_BF16_TOL,
+    worst = 0.0 if read else "not read"
+    for o, k in zip(outs, index):
+        for r, row in enumerate(o.reshape(batch, -1)):
+            w = want[(k + r) % len(want)]
+            worst = max(worst, float(np.abs(row - w).max() / np.abs(w).max()))
+    check(not read or worst <= 2 * VISION_BF16_TOL,
           f"served {name}: response off its eager forward by {worst}")
     inferences = after["inference_count"] - before["inference_count"]
     executions = after["execution_count"] - before["execution_count"]
-    check(inferences == n, f"served {name}: {inferences} inferences for {n}")
+    check(inferences == n * batch,
+          f"served {name}: {inferences} inferences for {n * batch}")
     lat_ms = lat * 1e3
 
     def ms(key, per):  # server-side ns of one statistics entry, in ms
@@ -1437,8 +1681,9 @@ def served_rate(addr, engine, name, images, want, concurrency, requests):
               - before["inference_stats"][key]["ns"])
         return ns / max(per, 1) / 1e6
 
-    return {"concurrency": concurrency, "requests": n,
+    return {"concurrency": concurrency, "requests": n, "batch": batch,
             "infer_per_s": n / report["wall_s"],
+            "images_per_s": n * batch / report["wall_s"],
             "latency_ms_p50": float(np.percentile(lat_ms, 50)),
             "latency_ms_p99": float(np.percentile(lat_ms, 99)),
             "latency_ms_mean": float(lat_ms.mean()),
@@ -1452,27 +1697,77 @@ def served_rate(addr, engine, name, images, want, concurrency, requests):
             "execution_ms": (ms("compute_input", executions)
                              + ms("compute_infer", executions)
                              + ms("compute_output", executions)),
-            "max_err_of_largest_score": worst}
+            "max_err_of_largest_score": worst,
+            "_answers": {int(k): o for o, k in zip(outs, index)}}
+
+
+def public(row):
+    """A result without its private (underscored) entries."""
+    return {k: v for k, v in row.items() if not k.startswith("_")}
+
+
+def memcpy_bytes(prof, window):
+    """Bytes and copies the device made by direction inside the user
+    annotation ``window`` of a torch.profiler trace (the memcpy records
+    of the exported trace, each with its byte count); "not measured" if
+    a copy has no count."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    win = next(e for e in events if e.get("cat") == "user_annotation"
+               and e.get("name") == window)
+    lo, hi = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+    out = {f"{kind}_{what}": 0 for kind in ("HtoD", "DtoH", "DtoD")
+           for what in ("bytes", "copies")}
+    for e in events:
+        if e.get("cat") != "gpu_memcpy" or not lo <= float(e["ts"]) <= hi:
+            continue
+        nbytes = (e.get("args") or {}).get("bytes")
+        if nbytes is None:
+            return "not measured"
+        for kind in ("HtoD", "DtoH", "DtoD"):
+            if kind in e.get("name", ""):
+                out[f"{kind}_bytes"] += int(nbytes)
+                out[f"{kind}_copies"] += 1
+    return out
 
 
 def served_busy_share(addr, engine, name, images, want, concurrency=32,
-                      requests=256):
+                      requests=256, shm_client=None):
     """The device-busy share of a served window at ``concurrency``
-    clients: torch.profiler switched on before the clients start and off
-    after they end, the window a ``record_function`` span around them."""
+    clients, and the bytes the device copied a request by direction:
+    torch.profiler switched on before the clients start and off after
+    they end (no graph is launched then), the window a
+    ``record_function`` span around them."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the same traffic before the window, so records the tracer drops
+        # as it starts are not the window's
+        served_rate(addr, engine, name, images, want, concurrency,
+                    2 * concurrency, shm_client=shm_client)
         with record_function("served_window"):
             rate = served_rate(addr, engine, name, images, want,
-                               concurrency, requests)
+                               concurrency, requests, shm_client=shm_client)
         torch.cuda.synchronize()
     win = next(e for e in prof.events() if e.name == "served_window")
     lo, hi = win.time_range.start, win.time_range.end
-    share = busy_share(prof, hi - lo, window=(lo, hi))
-    return {"concurrency": concurrency, "requests": rate["requests"],
-            "infer_per_s_under_profiler": rate["infer_per_s"], **share}
+    # the share of the clients' own run: the window also holds the start
+    # of a one-shot load generator's process, when the device idles
+    n = rate["requests"]
+    run_us = n / rate["infer_per_s"] * 1e6
+    share = busy_share(prof, run_us, window=(lo, hi))
+    copies = memcpy_bytes(prof, "served_window")
+    per_request = ({f"{kind}_bytes_per_request": copies[f"{kind}_bytes"] / n
+                    for kind in ("HtoD", "DtoH", "DtoD")}
+                   if isinstance(copies, dict) else {"copies": copies})
+    return {"concurrency": concurrency, "requests": n,
+            "infer_per_s_under_profiler": rate["infer_per_s"],
+            "executions": rate["executions"], **per_request,
+            "copies": copies, "window_ms": (hi - lo) / 1e3, **share}
 
 
 def vision_pipeline_run(pipeline_models, InferenceEngine):
@@ -1559,24 +1854,185 @@ def vision_phase(card):
         images = vision_images(8, 1).numpy()
         want = model.fn({"INPUT0": images}, {}, None)["OUTPUT0"].cpu()
         want = [w.numpy() for w in want]  # the eager forward at batch 8
+        wire = {}
         for concurrency, requests in VISION_CONCURRENCY:
+            wire[concurrency] = served_rate(
+                vserver.http_address, engine, "resnet50", images, want,
+                concurrency, requests)
             phase(13, "vision_served", model="resnet50",
                   request_bytes=VISION_BYTES_PER_REQUEST,
-                  **served_rate(vserver.http_address, engine, "resnet50",
-                                images, want, concurrency, requests),
-                  **card)
+                  **public(wire[concurrency]), **card)
+        wire["profile"] = served_busy_share(vserver.http_address, engine,
+                                           "resnet50", images, want)
         phase(13, "vision_served_profile", model="resnet50",
-              **served_busy_share(vserver.http_address, engine, "resnet50",
-                                  images, want), **card)
-    vision_launches = dict(ops.LAUNCHES)
-    # the vision path runs library calls only: none of the hand-written
-    # kernels (rows 1-5 of the kernel table) may have launched
-    check(not any(vision_launches.values()),
-          f"the vision path launched {vision_launches}")
-    phase(13, "vision_pipeline",
-          **vision_pipeline_run(pipeline_models, InferenceEngine))
-    phase(13, "vision_done", launches=vision_launches,
-          seconds=time.monotonic() - t_vision)
+              **wire["profile"], **card)
+        vision_launches = dict(ops.LAUNCHES)
+        # the vision path runs library calls only: none of the hand-written
+        # kernels (rows 1-5 of the kernel table) may have launched
+        check(not any(vision_launches.values()),
+              f"the vision path launched {vision_launches}")
+        phase(13, "vision_pipeline",
+              **vision_pipeline_run(pipeline_models, InferenceEngine))
+        phase(13, "vision_done", launches=vision_launches,
+              seconds=time.monotonic() - t_vision)
+        # -- 14: the same server, its inputs and outputs in CUDA regions
+        shm_phase(card, vserver, model, images, want, wire)
+
+
+# -- CUDA shared memory (phase 14) ------------------------------------------
+
+# the batch-1 concurrencies and request counts are phase 13's
+SHM_PROFILE = ((1, 64), (8, 128), (32, 256))  # profiled windows
+SHM_BIG = 64  # the bucket-64 stream (perf_analyzer -b 64 --shared-memory)
+SHM_BIG_REQUESTS = 16
+SHM_COPY_LIMIT = 1024  # H2D and D2H bytes a request on the CUDA-shm path
+
+
+def copy_bytes(row, kind):
+    value = row.get(f"{kind}_bytes_per_request")
+    check(isinstance(value, float), f"{kind} bytes not measured: {row}")
+    return value
+
+
+def pipeline_shm_run(pipeline_models, InferenceEngine, cudashm, rows=3):
+    """One request of the vision ensemble at 224 with its UINT8 images in
+    a CUDA region and SCORES written to another (regions of this process,
+    resolved through the broker): SCORES equal to the three composing
+    models called in turn, 0 host hops, 2 device handoffs."""
+    engine = InferenceEngine(pipeline_models(device="cuda"))
+    img = np.random.default_rng(5).integers(
+        0, 256, (rows, VISION_IMAGE, VISION_IMAGE, 3), dtype=np.uint8)
+    h_in = cudashm.create_shared_memory_region("pipe_in", img.nbytes)
+    h_out = cudashm.create_shared_memory_region("pipe_out", rows * 4000)
+    try:
+        cudashm.set_shared_memory_region(h_in, [img])
+        for h in (h_in, h_out):
+            engine.shm.register_cuda(h.name, cudashm.get_raw_handle(h), 0,
+                                     h.byte_size)
+        response, blobs = engine.execute("vision_pipeline", "", {
+            "inputs": [{"name": "IMAGE", "datatype": "UINT8",
+                        "shape": list(img.shape), "parameters": {
+                            "shared_memory_region": "pipe_in",
+                            "shared_memory_byte_size": img.nbytes}}],
+            "outputs": [{"name": "SCORES", "parameters": {
+                "shared_memory_region": "pipe_out",
+                "shared_memory_byte_size": rows * 4000}}]}, b"")
+        check(not blobs, "the ensemble answered tensor bytes")
+        got = cudashm.get_contents_as_numpy(h_out, "FP32", [rows, 1000])
+        h = {"IMAGE": img}
+        for s in ("preprocess", "backbone", "postprocess"):
+            h = engine.get_model(f"vision_{s}").fn(h, {}, None)
+        want = h["SCORES"].cpu().numpy()
+        check(np.array_equal(got, want),
+              f"pipeline SCORES from the region differ from the steps in "
+              f"turn by {np.abs(got - want).max()}")
+        hops = engine.metrics.get("ctpu_ensemble_host_hops_total",
+                                  {"model": "vision_pipeline"}) or 0
+        handoffs = engine.metrics.get("ctpu_ensemble_device_handoffs_total",
+                                      {"model": "vision_pipeline"}) or 0
+        check(hops == 0, f"{hops} host hops")
+        check(handoffs == 2, f"{handoffs} device handoffs for one request")
+    finally:
+        engine.close()
+        cudashm.destroy_shared_memory_region(h_in)
+        cudashm.destroy_shared_memory_region(h_out)
+    return {"config": "224, _RESNET50_STAGES, 1000 classes", "rows": rows,
+            "input": f"UINT8 {list(img.shape)} in a CUDA region",
+            "output": "SCORES in a CUDA region",
+            "scores": "equal to the steps in turn", "host_hops": hops,
+            "device_handoffs": handoffs}
+
+
+def shm_phase(card, vserver, model, images, want, wire):
+    """Phase 14: ResNet-50 on phase 13's server, its inputs and outputs in
+    CUDA regions of a client process of its own (SHM_CLIENT): batch-1
+    requests at concurrency 1, 8 and 32 beside phase 13's wire figures,
+    a batch-64 stream beside the same stream over the wire, profiled
+    windows (device-busy share, H2D and D2H bytes a request) of both
+    paths, then one ensemble request from a CUDA region."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.serve.model_runtime import InferenceEngine
+    from client_tpu_torch.serve.models import pipeline_models
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+    from client_tpu_torch.utils.cuda_shared_memory import _build as shm_build
+
+    t_shm = time.monotonic()
+    # built in phase 2; loaded here before the client process starts, so
+    # the two processes never wait on one build's lock
+    shm_build.extension()
+    addr, engine, name = vserver.http_address, vserver.engine, model.name
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        client = ShmClient(addr, name, images, tmp,
+                           threads=max(c for c, _ in VISION_CONCURRENCY),
+                           big=SHM_BIG)
+        try:
+            regions = engine.shm.cuda_status()
+            check(len(regions) == 2 * client.ready["ready"],
+                  f"{len(regions)} regions registered")
+            check(all(e["opened"] for e in engine.shm._cuda.values()),
+                  "a client process's region did not open over CUDA IPC")
+            for concurrency, requests in VISION_CONCURRENCY:
+                rate = served_rate(addr, engine, name, images, want,
+                                   concurrency, requests, shm_client=client)
+                if concurrency == 1:
+                    for k, got in rate["_answers"].items():
+                        check(np.array_equal(got, wire[1]["_answers"][k]),
+                              f"CUDA-shm answer {k} differs from the wire's "
+                              "at concurrency 1")
+                phase(14, "cuda_shm_served", model=name,
+                      request_bytes=VISION_BYTES_PER_REQUEST,
+                      **public(rate), wire=public(wire[concurrency]),
+                      **card)
+            for concurrency, requests in VISION_CONCURRENCY:
+                # perf_analyzer's own mode: no answer read back
+                phase(14, "cuda_shm_served_unread", model=name,
+                      **public(served_rate(addr, engine, name, images, want,
+                                           concurrency, requests,
+                                           shm_client=client, read=False)),
+                      **card)
+            big = served_rate(addr, engine, name, images, want, 1,
+                              SHM_BIG_REQUESTS, batch=SHM_BIG,
+                              shm_client=client)
+            big_wire = served_rate(addr, engine, name, images, want, 1,
+                                   SHM_BIG_REQUESTS, batch=SHM_BIG)
+            check(np.array_equal(big["_answers"][0], big_wire["_answers"][0]),
+                  "batch-64 CUDA-shm answers differ from the wire's")
+            phase(14, "cuda_shm_batch64", model=name,
+                  request_bytes=SHM_BIG * VISION_BYTES_PER_REQUEST,
+                  **public(big), wire=public(big_wire), **card)
+            for concurrency, requests in SHM_PROFILE:
+                prof = served_busy_share(addr, engine, name, images, want,
+                                         concurrency, requests,
+                                         shm_client=client)
+                wprof = (wire["profile"] if concurrency == 32 else
+                         served_busy_share(addr, engine, name, images, want,
+                                           concurrency, requests))
+                phase(14, "cuda_shm_profile", model=name, **prof,
+                      wire=wprof, **card)
+                for kind in ("HtoD", "DtoH"):
+                    check(copy_bytes(prof, kind) < SHM_COPY_LIMIT,
+                          f"the CUDA-shm path copied {kind} "
+                          f"{prof[f'{kind}_bytes_per_request']} bytes a "
+                          "request")
+                # the wire's image and scores in its copies; the tracer
+                # can lose a copy record in a window (one in 64 on an
+                # H100), so one request's worth may be missing
+                seen = (wprof["requests"] - 1) / wprof["requests"]
+                check(copy_bytes(wprof, "HtoD")
+                      >= VISION_BYTES_PER_REQUEST * seen
+                      and copy_bytes(wprof, "DtoH") >= 4000 * seen,
+                      f"the wire path's copies were not counted: {wprof}")
+        finally:
+            closed = client.close()
+    pipeline = pipeline_shm_run(pipeline_models, InferenceEngine, cudashm)
+    phase(14, "cuda_shm_pipeline", **pipeline)
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()),
+          f"the CUDA-shm path launched {launches}")
+    check(engine.shm.cuda_status() == {}, "regions left registered")
+    phase(14, "cuda_shm_done", launches=launches,
+          regions_closed=closed, seconds=time.monotonic() - t_shm)
 
 
 def main():
@@ -1607,12 +2063,33 @@ def main():
           count=torch.cuda.device_count(), **card)
 
     # -- 2 build ---------------------------------------------------------
-    library = _build.kernels().__file__
+    # the shared-memory extension (cudashm.cpp) builds beside the kernels,
+    # in a process of its own; phase 14 loads it
+    here = os.path.dirname(os.path.abspath(__file__))
+    shm_build = subprocess.Popen(
+        [sys.executable, "-c",
+         "from client_tpu_torch.utils.cuda_shared_memory import _build\n"
+         "_build.extension()\nprint(_build.build_seconds)"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": here})
+    try:
+        library = _build.kernels().__file__
+        shm_out, shm_err = shm_build.communicate(timeout=900)
+    finally:
+        if shm_build.poll() is None:
+            shm_build.kill()
+            shm_build.wait()
+    check(shm_build.returncode == 0,
+          f"the shared-memory extension did not build: {shm_err[-3000:]}")
     phase(2, "build", kernels=["int8_matmul (gemv, tiled, mma routes)",
                                *FLASH_KERNELS,
                                "paged_attention (split, mma routes, combine)"],
           seconds=round(_build.build_seconds, 3), flags=_build.CUDA_FLAGS,
-          resources=kernel_resources(library))
+          resources=kernel_resources(library),
+          shm_extension={
+              "source": "client_tpu_torch/utils/cuda_shared_memory/"
+                        "cudashm.cpp",
+              "seconds": round(float(shm_out.split()[-1]), 3)})
 
     # -- 3 kernel against its plain version -------------------------------
     gen = torch.Generator().manual_seed(1234)
@@ -2082,9 +2559,10 @@ def main():
           **card)
 
     # -- 13 vision: ResNet-50 and the CNN through the dynamic batcher ------
+    # -- 14 the same, from CUDA shared memory of another process ----------
     vision_phase(card)
 
-    # -- 14 kernels ----------------------------------------------------------
+    # -- 15 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
 
     def layer_total(m):
@@ -2094,7 +2572,7 @@ def main():
                             "eager_ms")}
 
     total, prefill = layer_total(1), layer_total(64)
-    phase(14, "kernels", held_against_plain_in="phases 3, 7 and 10")
+    phase(15, "kernels", held_against_plain_in="phases 3, 7 and 10")
     kernels = [{
         "name": "int8_matmul",
         "kernel_route": "all",

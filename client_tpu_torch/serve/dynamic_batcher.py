@@ -118,6 +118,29 @@ def _device_batch(parts, padded, out=None):
     return out
 
 
+def _device_rows(out, group, rows):
+    """Each part's rows of a fused device group's static outputs,
+    ``[{name: tensor}]``: copied into the part's sink where it has one
+    that holds them, else a view of one copy of the group's rows."""
+    sizes = [p.rows for p in group]
+    per_part = [{} for _ in group]
+    for name, arr in out.items():
+        live = arr[:rows].split(sizes)
+        sinks = [p.sinks.get(name) for p in group]
+        sinks = [s[:part.numel()].view(part.shape)
+                 if s is not None and s.numel() >= part.numel() else None
+                 for s, part in zip(sinks, live)]
+        copies = (arr[:rows].clone().split(sizes)
+                  if any(s is None for s in sinks) else None)
+        for i, (part, sink) in enumerate(zip(live, sinks)):
+            if sink is None:
+                per_part[i][name] = copies[i]
+            else:
+                sink.copy_(part)
+                per_part[i][name] = sink
+    return per_part
+
+
 def _device_split(arr, offset, rows):
     """One request's row slice of an eager batch output (a view: the
     output is the request's own)."""
@@ -218,12 +241,14 @@ class _BucketProgram:
 
 class _Pending:
     __slots__ = ("inputs", "rows", "signature", "event", "result", "error",
-                 "t_enq", "tenant", "weight", "vfinish")
+                 "t_enq", "tenant", "weight", "vfinish", "sinks")
 
-    def __init__(self, inputs, rows, signature, tenant="", weight=1.0):
+    def __init__(self, inputs, rows, signature, tenant="", weight=1.0,
+                 sinks=None):
         self.inputs = inputs
         self.rows = rows
         self.signature = signature
+        self.sinks = sinks or {}
         self.event = threading.Event()
         self.result = None
         self.error = None
@@ -447,10 +472,13 @@ class ModelBatcher:
 
     def _run_program(self, group, names, rows):
         """Copy the group into its bucket's static inputs, run the
-        program, and copy each request's rows out before returning: device
-        groups get a clone each, host groups one pinned copy of the live
-        rows (an event after it).  Everything runs on the device's default
-        stream, in this order, before any later replay is issued."""
+        program, and copy each request's rows out before returning: a
+        device request's into its sink where it gave one (its CUDA
+        shared-memory output, written in place) and otherwise into one copy
+        of the group's rows (a view of it each), host groups one pinned
+        copy of the rows (an event after it).  Everything runs on the
+        device's default stream, in this order, before any later replay is
+        issued."""
         padded = _bucket(rows, cap=self.max_batch)
         parts = {name: [p.inputs[name] for p in group] for name in names}
         shapes = {
@@ -477,12 +505,7 @@ class ModelBatcher:
             prog.run()
             out = prog.outputs
             if group[0].signature[0]:
-                offs = np.cumsum([0] + [p.rows for p in group])
-                return ("fused", {
-                    name: tuple(arr[offs[i]:offs[i + 1]].clone()
-                                for i in range(len(group)))
-                    for name, arr in out.items()
-                })
+                return ("fused", _device_rows(out, group, rows))
             tensors = {}
             for name, arr in out.items():
                 host = torch.empty((rows,) + tuple(arr.shape[1:]),
@@ -545,11 +568,18 @@ class ModelBatcher:
         with self._cond:
             return self._queue.depths()
 
-    def submit(self, inputs, tenant="", weight=1.0):
+    def submit(self, inputs, tenant="", weight=1.0, sinks=None):
         """Block until the batched execution finishes; return this request's
         slice of the outputs: host numpy arrays for wire groups, device
         tensors (its own) for device groups.  ``tenant``/``weight`` select
-        and weight the fair-queue lane this request waits in."""
+        and weight the fair-queue lane this request waits in.
+
+        ``sinks`` ``{output: flat tensor}``: where a device request's rows
+        of that output go (its CUDA shared-memory region, viewed as the
+        output's dtype).  A fused program copies them there at dispatch,
+        on the batcher's thread; the result then holds that view, and
+        returns once the copy is done on the device.  Other paths ignore
+        sinks."""
         rows = _leading_rows(inputs)
         # device-resident requests batch on the device and must never mix
         # with host groups: the signature's device flag keeps them apart
@@ -559,7 +589,7 @@ class ModelBatcher:
             for name, arr in sorted(inputs.items())
         )
         pending = _Pending(inputs, rows, signature, tenant=tenant,
-                           weight=weight)
+                           weight=weight, sinks=sinks)
         with self._cond:
             if self._closed:
                 raise InferenceServerException(
@@ -659,16 +689,25 @@ class ModelBatcher:
             with self._cond:
                 self._inflight += 1
             if device:
-                result = self._handoff_device(*dispatched)
-                if result is None:  # handoff failed; group already notified
+                handed = self._handoff_device(*dispatched)
+                if handed is None:  # handoff failed; group already notified
                     self._finish_one(sem)
                 else:
+                    watch, in_sinks = handed
                     with device_stream(self.model.device):
                         self._observer.watch(
-                            result, lambda s=sem: self._finish_one(s)
+                            watch,
+                            lambda s=sem, w=in_sinks: self._finish_sinks(s, w)
                         )
             else:
                 self._submit_host(dispatched)
+
+    def _finish_sinks(self, sem, waiting):
+        """A device group's work is done: release the requests whose rows
+        went to their sinks, then the group's pipeline slot."""
+        for p in waiting:
+            p.event.set()
+        self._finish_one(sem)
 
     def _finish_one(self, sem):
         with self._cond:
@@ -745,8 +784,8 @@ class ModelBatcher:
         return rows
 
     def _max_arity(self, first):
-        # fused device groups cap the part count (one clone a part at
-        # dispatch)
+        # fused device groups cap the part count (one copy a part into
+        # the bucket at dispatch)
         return (
             self.max_fused_arity
             if first.signature[0] and self.model.fused_batching
@@ -867,18 +906,23 @@ class ModelBatcher:
     def _handoff_device(self, group, result, rows, t0, t_in):
         """Hand a device group's results to its waiters at dispatch time
         (the device work may still be running: every consumer is ordered
-        after it on the default stream).  Returns what the watcher should
-        observe for completion, or None on failure (the group is already
-        notified)."""
+        after it on the default stream), except a request whose rows went
+        to its sinks: another process reads those, so it is released once
+        the work is done.  Returns what the watcher should observe for
+        completion and the requests it releases then, or None on failure
+        (the group is already notified)."""
+        in_sinks = []
         try:
             if isinstance(result, tuple) and result[0] == "fused":
-                # each request's own copy of its rows, made at dispatch
+                # each request's rows, copied at dispatch: into its sinks
+                # or a view of the group's own copy
                 per_part = result[1]
-                for i, p in enumerate(group):
-                    p.result = {
-                        name: parts[i] for name, parts in per_part.items()
-                    }
-                    p.event.set()
+                for p, rows_of in zip(group, per_part):
+                    p.result = rows_of
+                    if p.sinks:
+                        in_sinks.append(p)
+                    else:
+                        p.event.set()
                 watch = per_part
             else:
                 # batch-wide response parameters replicate, never slice
@@ -914,7 +958,7 @@ class ModelBatcher:
                 queue_ns=sum(t_in - p.t_enq for p in group),
             )
             self._prof_commit(rows, t0, t_in, t1 - t_in, 0)
-            return watch
+            return watch, in_sinks
         except Exception as e:  # noqa: BLE001 - failure propagates per-request
             self._fail(group, e)
             return None

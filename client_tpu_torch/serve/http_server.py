@@ -2,11 +2,14 @@
 
 Counterpart of client_tpu/serve/http_server.py on the stdlib
 ``ThreadingHTTPServer``: health, server and model metadata, model config
-and readiness, and infer (binary tensor extension + compression).  Other
-endpoints (repository control, statistics, trace/log settings, shared
-memory) answer 404 until a later slice of the port.
+and readiness, infer (binary tensor extension + compression), and the
+shared-memory verbs: system and CUDA regions (``tpusharedmemory``
+register answers 400, as the JAX server answers for CUDA).  Other
+endpoints (repository control, statistics, trace/log settings) answer 404
+until a later slice of the port.
 """
 
+import base64
 import json
 import re
 import threading
@@ -19,6 +22,10 @@ from client_tpu_torch.utils import InferenceServerException
 
 _MODEL_URI = re.compile(
     r"^/v2/models/(?P<model>[^/]+)(?:/versions/(?P<version>[^/]+))?(?P<rest>/.*)?$"
+)
+_SHM_URI = re.compile(
+    r"^/v2/(?P<kind>systemsharedmemory|cudasharedmemory|tpusharedmemory)"
+    r"(?:/region/(?P<region>[^/]+))?/(?P<verb>status|register|unregister)$"
 )
 
 
@@ -114,6 +121,9 @@ class _Handler(BaseHTTPRequestHandler):
                     "extensions": model_runtime.SERVER_EXTENSIONS,
                 }
             )
+        shm = _SHM_URI.match(path)
+        if shm and shm.group("verb") == "status":
+            return self._shm_status(shm)
         m = _MODEL_URI.match(path)
         if m:
             model = unquote(m.group("model"))
@@ -133,6 +143,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _route_post(self):
         path = self.path.split("?", 1)[0]
+        shm = _SHM_URI.match(path)
+        if shm and shm.group("verb") != "status":
+            return self._shm_action(shm)
         m = _MODEL_URI.match(path)
         if m and (m.group("rest") or "") == "/infer":
             return self._infer(
@@ -142,6 +155,48 @@ class _Handler(BaseHTTPRequestHandler):
         raise InferenceServerException(f"unknown endpoint {path}", status="404")
 
     # -- handlers ------------------------------------------------------------
+
+    def _shm_status(self, match):
+        kind = match.group("kind")
+        region = unquote(match.group("region") or "")
+        shm = self.engine.shm
+        if kind == "systemsharedmemory":
+            regions = shm.system_status(region or None)
+        elif kind == "cudasharedmemory":
+            regions = shm.cuda_status(region or None)
+        else:
+            regions = {}
+        return self._send_json(list(regions.values()))
+
+    def _shm_action(self, match):
+        kind = match.group("kind")
+        region = unquote(match.group("region") or "")
+        verb = match.group("verb")
+        shm = self.engine.shm
+        if kind == "tpusharedmemory":
+            if verb == "register":
+                raise InferenceServerException(
+                    "TPU shared memory is not supported by this server "
+                    "(use cudasharedmemory)",
+                    status="400",
+                )
+            return self._send_json({})  # unregister: a no-op, for symmetry
+        body = self._post_body
+        payload = json.loads(body.decode("utf-8")) if body else {}
+        if kind == "systemsharedmemory":
+            if verb == "register":
+                shm.register_system(region, payload["key"],
+                                    payload.get("offset", 0),
+                                    payload["byte_size"])
+            else:
+                shm.unregister_system(region or None)
+        elif verb == "register":
+            raw = base64.b64decode(payload["raw_handle"]["b64"])
+            shm.register_cuda(region, raw, payload.get("device_id", 0),
+                              payload["byte_size"])
+        else:
+            shm.unregister_cuda(region or None)
+        return self._send_json({})
 
     def _infer(self, model, version):
         header_length = self.headers.get("Inference-Header-Content-Length")

@@ -5,13 +5,20 @@ language and vision models needs: ``TensorSpec``, ``Model``, and an
 ``InferenceEngine`` with the repository verbs (add, load, unload),
 request execution for unary and decoupled models, dynamic batching
 (serve/dynamic_batcher.py), ensembles through the DAG scheduler
-(serve/pipeline.py) and per-model statistics.  The front door (response cache, coalescing, tenant QoS),
-sequences, shared memory and tracing wait for later slices of the port.
+(serve/pipeline.py), per-model statistics and the shared-memory registry
+(system regions by key, CUDA regions by IPC handle).  The front door
+(response cache, coalescing, tenant QoS), sequences and tracing wait for
+later slices of the port.
 
-Request inputs are numpy arrays decoded from the wire; device tensors
-appear only between the steps of an ensemble.
+Request inputs are numpy arrays decoded from the wire or read from a
+system region, or tensors: views of a CUDA region (zero-copy) and the
+device tensors between the steps of an ensemble.  An output stays a
+tensor until its disposition is known: one bound for a CUDA region is
+copied on the device, never through the host.
 """
 
+import mmap
+import os
 import threading
 import time
 
@@ -32,10 +39,13 @@ from client_tpu_torch.utils import (
     from_wire_bytes,
     to_wire_bytes,
 )
+from client_tpu_torch.utils import cuda_shared_memory as cudashm
+from client_tpu_torch.utils.shared_memory import shm_path
 
 SERVER_NAME = "client_tpu_torch.serve"
 SERVER_VERSION = "0.1.0"
-SERVER_EXTENSIONS = ["binary_tensor_data", "parameters", "statistics"]
+SERVER_EXTENSIONS = ["binary_tensor_data", "parameters", "statistics",
+                     "system_shared_memory", "cuda_shared_memory"]
 
 
 class TensorSpec:
@@ -248,6 +258,291 @@ class ModelStats:
             }
 
 
+class SharedMemoryRegistry:
+    """Server-side registry of system and CUDA shared-memory regions
+    (counterpart of the JAX runtime's, with CUDA regions in place of TPU
+    ones).
+
+    System regions attach by POSIX shm key (``/dev/shm``).  A CUDA region
+    carries a 64-byte ``cudaIpcMemHandle_t``: a handle this process made
+    resolves to the live region through the broker of
+    utils/cuda_shared_memory (``cudaIpcOpenMemHandle`` refuses those);
+    another process's handle is opened over CUDA IPC, and a refused open
+    answers 400 with cudart's message.  An input is a typed view of its
+    region (zero-copy); an output is copied into its region on the device
+    and waited for before the response goes out.  Unregistering drops
+    the registry's hold on a mapping: a view a request still holds keeps
+    it open until the request is done.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._system = {}
+        self._cuda = {}
+
+    # system ---------------------------------------------------------------
+
+    def register_system(self, name, key, offset, byte_size):
+        with self._lock:
+            if name in self._system:
+                old = self._system[name]
+                if (old["key"], old["offset"], old["byte_size"]) != (
+                    key,
+                    offset,
+                    byte_size,
+                ):
+                    raise InferenceServerException(
+                        f"shared memory region '{name}' already registered "
+                        "with different attributes",
+                        status="400",
+                    )
+                return
+            mm = _attach_posix_shm(key, offset + byte_size)
+            self._system[name] = {
+                "key": key,
+                "offset": offset,
+                "byte_size": byte_size,
+                "mmap": mm,
+            }
+
+    def unregister_system(self, name=None):
+        with self._lock:
+            names = [name] if name else list(self._system)
+            for n in names:
+                region = self._system.pop(n, None)
+                if region is not None:
+                    region["mmap"].close()
+
+    def system_status(self, name=None):
+        with self._lock:
+            regions = {}
+            for n, r in self._system.items():
+                if name and n != name:
+                    continue
+                regions[n] = {
+                    "name": n,
+                    "key": r["key"],
+                    "offset": r["offset"],
+                    "byte_size": r["byte_size"],
+                }
+            if name and not regions:
+                raise InferenceServerException(
+                    f"shared memory region '{name}' is not registered",
+                    status="400",
+                )
+            return regions
+
+    # cuda -----------------------------------------------------------------
+
+    def register_cuda(self, name, raw_handle, device_id, byte_size):
+        raw_handle = bytes(raw_handle)
+        attrs = (raw_handle, device_id, byte_size)
+        with self._lock:
+            old = self._cuda.get(name)
+        if old is None:
+            region = cudashm.resolve_inprocess(raw_handle)
+            opened = region is None
+            if opened:
+                # outside the lock: the first open may build the extension
+                region = cudashm.open_region(name, raw_handle, byte_size,
+                                             device_id)
+            elif byte_size > region.byte_size:
+                raise InferenceServerException(
+                    f"CUDA shared memory region '{name}' holds "
+                    f"{region.byte_size} bytes, not {byte_size}",
+                    status="400")
+            with self._lock:
+                old = self._cuda.setdefault(name, {
+                    "attrs": attrs, "region": region, "opened": opened})
+            if old["region"] is region:
+                return
+            if opened:  # registered meanwhile under this name
+                region.close()
+        if old["attrs"] != attrs:
+            raise InferenceServerException(
+                f"CUDA shared memory region '{name}' already registered "
+                "with different attributes",
+                status="400",
+            )
+
+    def unregister_cuda(self, name=None):
+        with self._lock:
+            names = [name] if name else list(self._cuda)
+            removed = [self._cuda.pop(n, None) for n in names]
+        for entry in removed:
+            # a region this server opened is its own to close (views a
+            # request holds keep the mapping); a region of this process's
+            # client belongs to that client
+            if entry is not None and entry["opened"]:
+                entry["region"].close()
+
+    def cuda_status(self, name=None):
+        with self._lock:
+            regions = {}
+            for n, entry in self._cuda.items():
+                if name and n != name:
+                    continue
+                _, device_id, byte_size = entry["attrs"]
+                regions[n] = {"name": n, "device_id": device_id,
+                              "byte_size": byte_size}
+            if name and not regions:
+                raise InferenceServerException(
+                    f"CUDA shared memory region '{name}' is not registered",
+                    status="400",
+                )
+            return regions
+
+    # data access ----------------------------------------------------------
+
+    def _cuda_region(self, region_name, offset, nbytes):
+        """The CUDA region registered as *region_name* if there is one,
+        after checking that the span lies inside its registered size."""
+        with self._lock:
+            entry = self._cuda.get(region_name)
+        if entry is None:
+            return None
+        size = entry["attrs"][2]
+        if offset < 0 or offset + nbytes > size:
+            raise InferenceServerException(
+                f"{nbytes} bytes at offset {offset} overrun CUDA shared "
+                f"memory region '{region_name}' ({size} bytes)",
+                status="400",
+            )
+        return entry["region"]
+
+    def read_tensor(self, region_name, offset, byte_size, datatype, shape):
+        """An input tensor from a region: a typed view on the region's
+        device for a CUDA region (BYTES copied to the host and decoded),
+        a numpy array decoded from the bytes of a system region."""
+        region = self._cuda_region(region_name, offset, byte_size)
+        if region is None:
+            raw = self.read(region_name, offset, byte_size)
+            return from_wire_bytes(raw, datatype, shape)
+        if datatype == "BYTES":
+            return from_wire_bytes(region.read(offset, byte_size), datatype,
+                                   shape)
+        tensor = region.tensor
+        if tensor is None:
+            raise InferenceServerException(
+                f"CUDA shared memory region '{region_name}' is closed",
+                status="400")
+        return cudashm.typed_view(tensor, offset, byte_size, datatype, shape)
+
+    def write_tensor(self, region_name, offset, arr, datatype, max_byte_size):
+        """Write an output tensor into a region; returns bytes written.
+        Into a CUDA region a tensor is copied on the device (cast to the
+        output's datatype there), and the copy is complete on return."""
+        with self._lock:
+            cuda = region_name in self._cuda
+        if cuda and datatype != "BYTES" and isinstance(arr, torch.Tensor):
+            want = cudashm.TORCH_DTYPES[datatype]
+            src = arr if arr.dtype == want else arr.to(want)
+            nbytes = src.numel() * src.element_size()
+        else:
+            src = to_wire_bytes(_host_array(arr), datatype)
+            nbytes = len(src)
+        if nbytes > max_byte_size:
+            raise InferenceServerException(
+                f"output needs {nbytes} bytes but region '{region_name}' "
+                f"mapping holds {max_byte_size}",
+                status="400",
+            )
+        region = self._cuda_region(region_name, offset, nbytes)
+        if region is None:
+            self.write(region_name, offset, src)
+            return nbytes
+        if (isinstance(src, torch.Tensor)
+                and src.data_ptr() == region.span(offset, nbytes).data_ptr()):
+            # written in place by the batcher (a sink), and complete
+            return nbytes
+        region.write(offset, src)
+        # the client reads the region once the response arrives, and its
+        # stream is not ordered after this one: wait for this copy
+        region.sync()
+        return nbytes
+
+    def output_sink(self, region_name, offset, byte_size, datatype):
+        """The bytes of a CUDA region an output of *datatype* is bound for,
+        as a flat tensor of that dtype that the batcher can write the
+        output's rows into at dispatch; None where it cannot (not a CUDA
+        region, BYTES, an offset the dtype does not divide)."""
+        dtype = cudashm.TORCH_DTYPES.get(datatype)
+        region = self._cuda_region(region_name, offset, byte_size)
+        if region is None or dtype is None:
+            return None
+        itemsize = torch.empty(0, dtype=dtype).element_size()
+        span = region.span(offset, byte_size - byte_size % itemsize)
+        if span.storage_offset() % itemsize:
+            return None
+        return span.view(dtype)
+
+    def _find(self, region_name):
+        """A system region or a 400."""
+        region = self._system.get(region_name)
+        if region is None:
+            raise InferenceServerException(
+                f"shared memory region '{region_name}' is not registered",
+                status="400",
+            )
+        return region, region["offset"]
+
+    def read(self, region_name, offset, byte_size):
+        with self._lock:
+            region, base = self._find(region_name)
+            if offset < 0 or offset + byte_size > region["byte_size"]:
+                raise InferenceServerException(
+                    f"read of {byte_size} bytes at offset {offset} overruns "
+                    f"region '{region_name}'",
+                    status="400",
+                )
+            mm = region["mmap"]
+            return bytes(mm[base + offset : base + offset + byte_size])
+
+    def write(self, region_name, offset, data):
+        with self._lock:
+            region, base = self._find(region_name)
+            if offset < 0 or offset + len(data) > region["byte_size"]:
+                raise InferenceServerException(
+                    f"write of {len(data)} bytes at offset {offset} overruns "
+                    f"region '{region_name}'",
+                    status="400",
+                )
+            mm = region["mmap"]
+            mm[base + offset : base + offset + len(data)] = data
+
+    def close(self):
+        self.unregister_system()
+        self.unregister_cuda()
+
+
+def _host_array(arr):
+    """An output as a numpy array (a bf16 tensor widened to float32, the
+    dtype BF16 decodes to)."""
+    if not isinstance(arr, torch.Tensor):
+        return np.asarray(arr)
+    arr = arr.detach().cpu()
+    return (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
+
+
+def _attach_posix_shm(key, length):
+    try:
+        fd = os.open(shm_path(key), os.O_RDWR)
+    except OSError as e:
+        raise InferenceServerException(
+            f"unable to open shared memory region key '{key}': {e}",
+            status="400",
+        ) from e
+    try:
+        return mmap.mmap(fd, length)
+    except ValueError as e:
+        raise InferenceServerException(
+            f"unable to map {length} bytes of region key '{key}': {e}",
+            status="400"
+        ) from e
+    finally:
+        os.close(fd)
+
+
 class InferenceEngine:
     """Model repository + request execution shared by the frontends."""
 
@@ -258,6 +553,7 @@ class InferenceEngine:
         self._stats = {}
         self._batchers = {}
         self._pipeline = None
+        self.shm = SharedMemoryRegistry()
         # series written by model-owned subsystems (the LM engine's lane,
         # KV and prefix gauges, bound through Model.binder), the batcher's
         # sheds and the ensemble scheduler's counters
@@ -349,6 +645,7 @@ class InferenceEngine:
         for model in models:
             if model.closer is not None:
                 model.closer()
+        self.shm.close()
 
     def get_model(self, name, version=""):
         with self._lock:
@@ -454,8 +751,13 @@ class InferenceEngine:
             if batchable_request(model, inputs, params, None, request):
                 # the batcher records the execution; the request's success
                 # is recorded here, and a failure (batched execution or
-                # rendering) falls through to the except clauses below
-                result = self._batcher_for(model).submit(inputs)
+                # rendering) falls through to the except clauses below.
+                # A device request's outputs bound for CUDA regions are
+                # written there by the batcher, which returns once they
+                # are: no device call on this thread, which would hold the
+                # interpreter lock while a graph launch holds the driver
+                result = self._batcher_for(model).submit(
+                    inputs, sinks=self._output_sinks(model, request, inputs))
                 rendered = self._render_response(
                     model, model_version, request, result
                 )
@@ -484,6 +786,26 @@ class InferenceEngine:
         stats.record(True, t1 - t0, t_inf1 - t_in1, t_in1 - t0, t1 - t_inf1,
                      batch=_batch_of(model, request))
         return rendered
+
+    def _output_sinks(self, model, request, inputs):
+        """``{output: flat tensor}`` of a device request's outputs bound
+        for CUDA regions (``SharedMemoryRegistry.output_sink``)."""
+        if not all(isinstance(a, torch.Tensor) for a in inputs.values()):
+            return None
+        specs = {t.name: t for t in model.outputs}
+        sinks = {}
+        for out in request.get("outputs") or []:
+            params = out.get("parameters") or {}
+            spec = specs.get(out["name"])
+            if "shared_memory_region" not in params or spec is None:
+                continue
+            sink = self.shm.output_sink(
+                params["shared_memory_region"],
+                params.get("shared_memory_offset", 0),
+                params["shared_memory_byte_size"], spec.datatype)
+            if sink is not None:
+                sinks[out["name"]] = sink
+        return sinks
 
     def _decoupled_stream(self, model, model_version, request, inputs,
                           params, stats):
@@ -534,9 +856,10 @@ class InferenceEngine:
                 stats.record(False)
 
     def _gather_inputs(self, model, request, binary_section):
-        """Resolve request inputs to numpy arrays: binary-extension tensors
-        (back to back in *binary_section*, decoded as zero-copy views) or
-        JSON ``data``."""
+        """Resolve request inputs: tensors in shared-memory regions (views
+        of a CUDA region, numpy arrays from a system region),
+        binary-extension tensors (back to back in *binary_section*,
+        decoded as zero-copy views) or JSON ``data``."""
         specs = {t.name: t for t in model.inputs}
         arrays = {}
         offset = 0
@@ -559,12 +882,14 @@ class InferenceEngine:
                 )
             params = entry.get("parameters", {}) or {}
             if "shared_memory_region" in params:
-                raise InferenceServerException(
-                    f"input '{name}': shared-memory inputs are not served "
-                    "yet by this server",
-                    status="400",
+                arrays[name] = self.shm.read_tensor(
+                    params["shared_memory_region"],
+                    params.get("shared_memory_offset", 0),
+                    params["shared_memory_byte_size"],
+                    datatype,
+                    shape,
                 )
-            if "binary_data_size" in params:
+            elif "binary_data_size" in params:
                 size = params["binary_data_size"]
                 raw = memoryview(binary_section)[offset : offset + size]
                 offset += size
@@ -612,18 +937,28 @@ class InferenceEngine:
                     f"'{model.name}'",
                     status="400",
                 )
+            # a tensor stays where it is until its disposition is known:
+            # the CUDA-shm path copies it on the device, with no D2H
             arr = result_arrays[name]
-            if isinstance(arr, torch.Tensor):
-                arr = arr.detach().cpu().numpy()
-            arr = np.asarray(arr)
+            if not isinstance(arr, torch.Tensor):
+                arr = np.asarray(arr)
             datatype = specs[name].datatype
             entry = {"name": name, "datatype": datatype, "shape": list(arr.shape)}
             if "shared_memory_region" in params:
-                raise InferenceServerException(
-                    f"output '{name}': shared-memory outputs are not served "
-                    "yet by this server",
-                    status="400",
+                written = self.shm.write_tensor(
+                    params["shared_memory_region"],
+                    params.get("shared_memory_offset", 0),
+                    arr,
+                    datatype,
+                    params["shared_memory_byte_size"],
                 )
+                entry["parameters"] = {
+                    "shared_memory_region": params["shared_memory_region"],
+                    "shared_memory_byte_size": written,
+                }
+                outputs_json.append(entry)
+                continue
+            arr = _host_array(arr)
             if params.get("binary_data", False):
                 raw = to_wire_bytes(arr, datatype)
                 entry["parameters"] = {"binary_data_size": len(raw)}

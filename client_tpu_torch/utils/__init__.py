@@ -121,14 +121,15 @@ def serialize_byte_tensor(input_tensor):
     return np.frombuffer(b"".join(parts), dtype=np.uint8)
 
 
-def deserialize_bytes_tensor(encoded_tensor):
+def deserialize_bytes_tensor(encoded_tensor, max_elements=None):
     """Inverse of serialize_byte_tensor: wire payload -> 1-D object array of
-    bytes."""
+    bytes.  ``max_elements`` stops after that many elements: a shared-memory
+    region's tail beyond the tensor is arbitrary bytes."""
     strs = []
     offset = 0
     view = memoryview(encoded_tensor)
     n = len(view)
-    while offset < n:
+    while offset < n and (max_elements is None or len(strs) < max_elements):
         if offset + 4 > n:
             raise_error("malformed BYTES tensor: truncated length prefix")
         (length,) = struct.unpack_from("<I", view, offset)

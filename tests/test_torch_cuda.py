@@ -9,6 +9,9 @@ of the suite.)
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -905,3 +908,205 @@ def test_vision_pipeline_hands_cuda_tensors_over(cuda_device):
                                   {"model": "vision_pipeline"}) == 2
     finally:
         engine.close()
+
+
+# -- CUDA shared memory: regions over CUDA IPC --------------------------------
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# a process of its own that makes a CUDA region, fills it with
+# arange(n) float32, prints its handle (hex) and waits for one line on
+# stdin before it exits (its region lives until then)
+_OWNER = r"""
+import sys
+import numpy as np
+from client_tpu_torch.utils import cuda_shared_memory as cudashm
+n = int(sys.argv[1])
+h = cudashm.create_shared_memory_region("owner", 4 * n)
+cudashm.set_shared_memory_region(h, [np.arange(n, dtype=np.float32)])
+print(cudashm.get_raw_handle(h).hex(), flush=True)
+sys.stdin.readline()
+print(cudashm.get_contents_as_numpy(h, np.float32, [n]).tolist(), flush=True)
+"""
+
+
+def _spawn_owner(n):
+    """The _OWNER process and the 64 handle bytes it printed (the shm
+    extension is built in this process first: the two never race load's
+    lock)."""
+    from client_tpu_torch.utils.cuda_shared_memory import _build
+
+    _build.extension()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _OWNER, str(n)], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": _ROOT})
+    line = proc.stdout.readline().strip()
+    assert len(line) == 128, (line, proc.poll())
+    return proc, bytes.fromhex(line)
+
+
+def _finish_owner(proc):
+    """Let the owner go; it prints its region's contents on the way."""
+    out, _ = proc.communicate("\n", timeout=120)
+    assert proc.returncode == 0
+    return out.strip().splitlines()[-1]
+
+
+@pytest.mark.cuda
+def test_cuda_shm_two_process_round_trip(cuda_device):
+    """Another process's region, opened here over CUDA IPC: this side
+    reads what it wrote and writes at an offset what it then reads."""
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    proc, handle = _spawn_owner(16)
+    try:
+        assert cudashm.resolve_inprocess(handle) is None
+        region = cudashm.open_region("peer", handle, 64)
+        assert region.tensor.is_cuda and region._mapping.imported
+        got = cudashm.get_contents_as_numpy(region, "FP32", [16])
+        np.testing.assert_array_equal(got, np.arange(16, dtype=np.float32))
+        live = cudashm.get_contents_as_torch(region, "FP32", [4], offset=16)
+        assert live.data_ptr() == region.tensor.data_ptr() + 16
+        cudashm.set_shared_memory_region(
+            region, [torch.full((4,), 7.0, device=cuda_device)], offset=32)
+        # the same handle again: the one mapping, not a second open
+        again = cudashm.open_region("peer2", handle, 64)
+        assert again.tensor.data_ptr() == region.tensor.data_ptr()
+        region.close()
+        again.close()
+    finally:
+        seen = _finish_owner(proc)
+    want = list(range(16))
+    want[8:12] = [7.0] * 4
+    assert seen == str([float(v) for v in want])
+
+
+@pytest.mark.cuda
+def test_cuda_shm_inprocess_register_uses_the_broker(cuda_device):
+    """A region of this process registered with this process's server:
+    the broker hands over the live region (no IPC open), and a served
+    CNN request through it equals the wire path's answer."""
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    model, engine = _vision_engine(cuda_device, image_size=32)
+    x = np.random.default_rng(3).standard_normal((1, 3, 32, 32)).astype(
+        np.float32)
+    h_in = cudashm.create_shared_memory_region("in", x.nbytes)
+    h_out = cudashm.create_shared_memory_region("out", 4000)
+    try:
+        cudashm.set_shared_memory_region(h_in, [x])
+        engine.shm.register_cuda("in", cudashm.get_raw_handle(h_in), 0,
+                                 x.nbytes)
+        engine.shm.register_cuda("out", cudashm.get_raw_handle(h_out), 0,
+                                 4000)
+        assert engine.shm._cuda["in"]["region"] is h_in
+        assert not engine.shm._cuda["in"]["opened"]
+        engine.execute(model.name, "", {
+            "inputs": [{"name": "INPUT0", "datatype": "FP32",
+                        "shape": [1, 3, 32, 32], "parameters": {
+                            "shared_memory_region": "in",
+                            "shared_memory_byte_size": x.nbytes}}],
+            "outputs": [{"name": "OUTPUT0", "parameters": {
+                "shared_memory_region": "out",
+                "shared_memory_byte_size": 4000}}]}, b"")
+        raw = x.tobytes()
+        _, blobs = engine.execute(model.name, "", {
+            "inputs": [{"name": "INPUT0", "datatype": "FP32",
+                        "shape": [1, 3, 32, 32],
+                        "parameters": {"binary_data_size": len(raw)}}],
+            "outputs": [{"name": "OUTPUT0",
+                         "parameters": {"binary_data": True}}]}, raw)
+        np.testing.assert_array_equal(
+            cudashm.get_contents_as_numpy(h_out, "FP32", [1, 1000]),
+            np.frombuffer(blobs[0], dtype=np.float32).reshape(1, 1000))
+    finally:
+        engine.close()
+        cudashm.destroy_shared_memory_region(h_in)
+        cudashm.destroy_shared_memory_region(h_out)
+
+
+@pytest.mark.cuda
+def test_cuda_shm_region_unregistered_mid_flight(cuda_device):
+    """Another process's input region unregistered while a request that
+    read it is in flight: the request's view keeps the IPC mapping open,
+    the answer is right, and nothing crashes."""
+    import gc
+    import threading
+
+    from client_tpu_torch.serve.model_runtime import (
+        InferenceEngine,
+        Model,
+        TensorSpec,
+    )
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    entered, release = threading.Event(), threading.Event()
+
+    def fn(inputs, params, ctx):
+        entered.set()
+        assert release.wait(60)
+        return {"OUT": inputs["IN"] * 2.0}
+
+    model = Model("gated", inputs=[TensorSpec("IN", "FP32", [16])],
+                  outputs=[TensorSpec("OUT", "FP32", [16])], fn=fn,
+                  platform="torch", backend="torch", device=cuda_device)
+    engine = InferenceEngine([model])
+    proc, handle = _spawn_owner(16)
+    h_out = cudashm.create_shared_memory_region("out", 64)
+    result = {}
+    try:
+        engine.shm.register_cuda("in", handle, 0, 64)
+        assert engine.shm._cuda["in"]["opened"]
+        engine.shm.register_cuda("out", cudashm.get_raw_handle(h_out), 0, 64)
+        request = {
+            "inputs": [{"name": "IN", "datatype": "FP32", "shape": [16],
+                        "parameters": {"shared_memory_region": "in",
+                                       "shared_memory_byte_size": 64}}],
+            "outputs": [{"name": "OUT", "parameters": {
+                "shared_memory_region": "out",
+                "shared_memory_byte_size": 64}}]}
+
+        def run():
+            result["response"] = engine.execute("gated", "", request, b"")
+
+        thread = threading.Thread(target=run)
+        thread.start()
+        assert entered.wait(60)
+        engine.shm.unregister_cuda("in")
+        assert engine.shm.cuda_status() == {"out": {
+            "name": "out", "device_id": 0, "byte_size": 64}}
+        gc.collect()
+        release.set()
+        thread.join(timeout=60)
+        assert not thread.is_alive()
+        np.testing.assert_array_equal(
+            cudashm.get_contents_as_numpy(h_out, np.float32, [16]),
+            2.0 * np.arange(16, dtype=np.float32))
+    finally:
+        release.set()
+        engine.close()
+        cudashm.destroy_shared_memory_region(h_out)
+        _finish_owner(proc)
+    assert "response" in result
+
+
+@pytest.mark.cuda
+def test_cuda_shm_refused_handle_raises_cudart_message(cuda_device):
+    """A handle no process exported: the open raises (a 400 through the
+    registry) with cudart's own message, and CUDA keeps working."""
+    from client_tpu_torch.serve.model_runtime import SharedMemoryRegistry
+    from client_tpu_torch.utils import InferenceServerException
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    with pytest.raises(InferenceServerException,
+                       match="cudaIpcOpenMemHandle failed: ") as info:
+        cudashm.open_region("bogus", bytes(64), 64)
+    assert info.value.status() == "400"
+    registry = SharedMemoryRegistry()
+    with pytest.raises(InferenceServerException, match="cudaIpcOpenMemHandle"):
+        registry.register_cuda("bogus", bytes(64), 0, 64)
+    assert registry.cuda_status() == {}
+    x = torch.arange(8.0, device=cuda_device) * 2
+    torch.cuda.synchronize()
+    assert x.sum().item() == 56.0

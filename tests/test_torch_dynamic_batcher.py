@@ -372,6 +372,142 @@ def test_device_requests_fuse_on_device():
         batcher.close()
 
 
+def _shm_request(in_region, out_region, offset=0):
+    """One [1, 4] FP32 request with input and output in regions."""
+    return {
+        "id": "",
+        "parameters": {},
+        "inputs": [{"name": "IN", "datatype": "FP32", "shape": [1, 4],
+                    "parameters": {"shared_memory_region": in_region,
+                                   "shared_memory_offset": offset,
+                                   "shared_memory_byte_size": 16}}],
+        "outputs": [{"name": "OUT", "parameters": {
+            "shared_memory_region": out_region,
+            "shared_memory_offset": offset,
+            "shared_memory_byte_size": 16}}],
+    }
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_device_requests_fuse_on_device_with_shm_outputs(fused):
+    """CUDA-shm requests (inputs views of their regions, outputs written
+    to regions) batch on the device path: fewer executions than requests,
+    each output in its own region (the JAX test of the same name, with
+    the port's CPU regions in place of TPU ones)."""
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    record = []
+    model = (_fused_model(record) if fused
+             else _echo_model(record, batch_device_inputs=True))
+    entered, release = _hold_first_forward(model)
+    engine = InferenceEngine(models=[model])
+    n = 4
+    h_in = cudashm.create_shared_memory_region("dev_in", 16 * n,
+                                               device="cpu")
+    h_out = cudashm.create_shared_memory_region("dev_out", 16 * n,
+                                                device="cpu")
+    try:
+        cudashm.set_shared_memory_region(h_in, [
+            np.full((1, 4), float(i + 1), dtype=np.float32)
+            for i in range(n)])
+        for name, h in (("dev_in", h_in), ("dev_out", h_out)):
+            engine.shm.register_cuda(name, cudashm.get_raw_handle(h), 0,
+                                     16 * n)
+        _fused_run(
+            n, lambda i: engine.execute(
+                "echo2x", "", _shm_request("dev_in", "dev_out", 16 * i), b""),
+            engine._batcher_for(model).queue_depth, entered, release)
+        # fewer executions than requests proves device-side fusion
+        assert len(record) < n
+        stats = engine.statistics("echo2x")[0]
+        assert stats["inference_count"] == n
+        assert stats["execution_count"] == 2
+        got = cudashm.get_contents_as_numpy(h_out, np.float32, [n, 4])
+        np.testing.assert_array_equal(
+            got, 2.0 * np.arange(1, n + 1, dtype=np.float32)[:, None]
+            * np.ones((1, 4), np.float32))
+    finally:
+        engine.close()
+        cudashm.destroy_shared_memory_region(h_in)
+        cudashm.destroy_shared_memory_region(h_out)
+
+
+def test_fused_device_groups_write_into_sinks():
+    """A fused device group copies each request's rows into its sink (its
+    CUDA-shm output, in place) at dispatch; a request without one, or
+    with one too small for its rows, gets a view of the group's own copy.
+    Values exact, the static output untouched by either."""
+    record = []
+    model = _fused_model(record)
+    entered, release = _hold_first_forward(model)
+    batcher = ModelBatcher(model, _Stats(record), max_queue_delay_s=0.05)
+    region = torch.zeros(64)
+    sinks = {1: {"OUT": region[:4]}, 2: {"OUT": region[8:10]},
+             3: {"OUT": region[16:]}}
+    results = [None] * 4
+    try:
+        def run(i):
+            results[i] = batcher.submit(
+                {"IN": torch.full((1, 4), float(i + 1))}, sinks=sinks.get(i))
+
+        _fused_run(4, run, batcher.queue_depth, entered, release)
+        for i, res in enumerate(results):
+            torch.testing.assert_close(
+                res["OUT"], torch.full((1, 4), 2.0 * (i + 1)))
+        # requests 1 and 3 answered in their sinks; 2's is too small
+        assert results[1]["OUT"].data_ptr() == region.data_ptr()
+        assert results[3]["OUT"].data_ptr() == region[16:].data_ptr()
+        assert results[2]["OUT"].data_ptr() != region[8:].data_ptr()
+        np.testing.assert_array_equal(region[:4].numpy(), [4.0] * 4)
+        np.testing.assert_array_equal(region[16:20].numpy(), [8.0] * 4)
+        assert not region[4:16].any() and not region[20:].any()
+        static = {p.outputs["OUT"].data_ptr()
+                  for p in batcher._programs.values()}
+        assert not static & {r["OUT"].data_ptr() for r in results}
+    finally:
+        batcher.close()
+
+
+@pytest.mark.parametrize("kind", ["system", "cuda"])
+def test_wire_request_with_shm_output_runs_direct(kind):
+    """A wire request whose output goes to a region keeps the direct path
+    (one unpadded execution of its own) and its answer lands in the
+    region."""
+    import os
+
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+    from client_tpu_torch.utils import shared_memory as sysshm
+
+    record = []
+    engine = InferenceEngine(models=[_echo_model(record)])
+    arr = np.arange(12, dtype=np.float32).reshape(3, 4)
+    if kind == "system":
+        key = f"/ctpu_torch_batcher_{os.getpid()}"
+        h = sysshm.create_shared_memory_region("out", key, arr.nbytes)
+        engine.shm.register_system("out", key, 0, arr.nbytes)
+    else:
+        h = cudashm.create_shared_memory_region("out", arr.nbytes,
+                                                device="cpu")
+        engine.shm.register_cuda("out", cudashm.get_raw_handle(h), 0,
+                                 arr.nbytes)
+    try:
+        req, raw = _request(arr, shm_output="out")
+        response, blobs = engine.execute("echo2x", "", req, raw)
+        assert blobs == [] and record == [3]
+        assert response["outputs"][0]["parameters"] == {
+            "shared_memory_region": "out",
+            "shared_memory_byte_size": arr.nbytes}
+        mod = sysshm if kind == "system" else cudashm
+        np.testing.assert_array_equal(
+            mod.get_contents_as_numpy(h, np.float32, [3, 4]), 2.0 * arr)
+    finally:
+        engine.close()
+        if kind == "system":
+            sysshm.destroy_shared_memory_region(h)
+        else:
+            cudashm.destroy_shared_memory_region(h)
+
+
 def test_fused_device_groups_correct_splits():
     """fused_batching: a device group runs through its bucket's program;
     per-request outputs come back as tensors of their own, values exact,

@@ -42,6 +42,11 @@ def test_port_sources_exist():
     assert {"quant.py", "flash_attention.py", "transformer.py", "language.py",
             "http_server.py", "chip_smoke.py", "engine.py", "kv.py",
             "paged_attention.py"} <= names
+    # the import guard below walks the shared-memory packages too
+    paths = {str(p.relative_to(ROOT)) for p in PORT_SOURCES}
+    assert {"client_tpu_torch/utils/shared_memory/__init__.py",
+            "client_tpu_torch/utils/cuda_shared_memory/__init__.py",
+            "client_tpu_torch/utils/cuda_shared_memory/_build.py"} <= paths
 
 
 def test_build_compiles_every_kernel_source():
@@ -60,6 +65,24 @@ def test_build_compiles_every_kernel_source():
     for p in built:
         for name in re.findall(r'^#include "([^"]+)"', p.read_text(), re.M):
             assert (csrc / name).is_file(), f"{p.name} includes {name}"
+
+
+def test_cuda_shm_build_compiles_the_source_beside_it():
+    """The shared-memory extension is a second build: exactly the .cpp
+    beside its _build.py, into a build directory of its own."""
+    from client_tpu_torch.ops import _build as kernels_build
+    from client_tpu_torch.utils.cuda_shared_memory import _build
+
+    here = ROOT / "client_tpu_torch" / "utils" / "cuda_shared_memory"
+    on_disk = {p.name for p in here.iterdir()
+               if p.suffix in (".cu", ".cpp", ".cuh", ".h")}
+    built = [pathlib.Path(p) for p in _build.SOURCES]
+    assert all(p.is_file() for p in built)
+    assert {p.name for p in built} == on_disk == {"cudashm.cpp"}
+    assert pathlib.Path(_build.BUILD_DIR) == ROOT / "build" / (
+        "client_tpu_torch_cudashm")
+    assert _build.BUILD_DIR != kernels_build.BUILD_DIR
+    assert _build._ext is None  # nothing was built on this machine
 
 
 @pytest.mark.parametrize(
@@ -116,6 +139,7 @@ def _engine(**kw):
 def _lm_entry_points():
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import language, model_sets, vision
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
 
     return {
         "_LmRunner": lambda **kw: language._LmRunner(**kw),
@@ -133,6 +157,9 @@ def _lm_entry_points():
         "vision_pipeline_models":
             lambda **kw: vision.vision_pipeline_models(**kw),
         "model_sets(resnet)": lambda **kw: model_sets("resnet", **kw),
+        "cuda_shared_memory.create_shared_memory_region":
+            lambda **kw: cudashm.create_shared_memory_region(
+                "guard", 64, **kw),
     }
 
 
@@ -140,7 +167,8 @@ def _lm_entry_points():
     "entry", ["_LmRunner", "language_models", "model_sets", "Server",
               "make_train_step+init_params", "lm_streaming_batched_model",
               "LmEngine", "resnet50_model", "cnn_classifier_model",
-              "vision_pipeline_models", "model_sets(resnet)"]
+              "vision_pipeline_models", "model_sets(resnet)",
+              "cuda_shared_memory.create_shared_memory_region"]
 )
 def test_entry_points_refuse_to_run_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="no.*available|device='cpu'"):
@@ -168,6 +196,11 @@ def test_cpu_runs_when_asked(no_cuda):
               *vision.vision_pipeline_models(device="cpu")[:3],
               *model_sets("resnet", device="cpu")):
         assert m.device == torch.device("cpu")
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    region = cudashm.create_shared_memory_region("guard", 64, device="cpu")
+    assert region.tensor.device == torch.device("cpu")
+    cudashm.destroy_shared_memory_region(region)
 
 
 def test_kernel_wrapper_never_falls_back(no_cuda, monkeypatch):
