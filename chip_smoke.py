@@ -4,8 +4,11 @@ holds each against its plain PyTorch version, serves the LM over
 KServe-v2 HTTP through the continuous-batching engine, trains the flagship
 LM through the flash-attention kernels, serves ResNet-50 and the CNN
 through the dynamic batcher and the vision ensemble, serves ResNet-50
-again from CUDA shared memory of another process, and times the kernels,
-the serial decode, the engine, the train step and the vision models.
+again from CUDA shared memory of another process, serves the LM engines
+and ResNet-50 once more behind the server's operational surface (every
+hook on: tracing, flight recorder, SLO watchdog, tenant QoS, response
+cache, coalescing, admission, drain), and times the kernels, the serial
+decode, the engine, the train step and the vision models.
 
     python3 chip_smoke.py
 
@@ -154,17 +157,46 @@ Phases, one line each or more; any failure exits non-zero:
                 vision ensemble with its UINT8 images and SCORES in CUDA
                 regions (0 host hops, SCORES equal to its steps in turn);
                 the launch counts reset before and read after: none
- 15 kernels     one JSON line: every kernel of the served and trained
+ 15 ops         the language set (lm_streaming_batched bf16,
+                lm_streaming_int8) and a float32 lm_streaming_f32, all
+                on the graph-captured engine at DEFAULT_LM_CONFIG, with
+                ResNet-50, behind Server(response_cache, coalescing,
+                TenantQoS(default_max_inflight=2, hi priority 10), an SLO
+                objective every request breaches (p99 0.001 ms),
+                max_inflight 64), tracing at trace_rate 1 into a file;
+                every request over HTTP.  The launch counts reset before
+                the server starts and read after 16 traced LM requests
+                (tenants lo and hi, MAX_TOKENS=1: 8 float32 against
+                serial generate, 4 bf16 and 4 int8 against their
+                engines' own streams), which must launch int8 and paged
+                attention; each request's server span carries its
+                client's trace id, and decode and prefill tick spans are
+                in the file; a third concurrent request of tenant lo: 429
+                with an integer Retry-After; 16 identical ResNet-50
+                requests from 8 threads: bit-equal, fewer executions,
+                cache hits in the statistics and /metrics; one image from
+                a CUDA region twice: no cache hit; /metrics (HELP, TYPE,
+                contiguous, successes per model, GPU memory, the lm,
+                prof and slo families); /v2/debug/prof (MFU of the
+                adopted lm profilers against 989 TFLOP/s), flight (spans,
+                prof_tick, ?dump=1), slo (the breach, its dump); the
+                cost of the hooks, printed only: engine tokens/s at 8
+                streams with and without the hooks and ResNet-50 infer/s
+                at concurrency 8 with and without the front door, in
+                turns; then drain: ready 503, infer 503 with Retry-After,
+                ctpu_draining 1
+ 16 kernels     one JSON line: every kernel of the served and trained
                 paths (the int8 GEMV and tensor-core routes, the three
                 flash kernels, paged attention's CUDA-core and tensor-core
                 split routes; an entry is named by its wrapper, with the
                 route in kernel_route), its launches on its path (phase 5
-                or 8), its route's own error (phase 3, 7 or 10) and its
-                times (phase 6, 9 or 12)
+                or 8, and phase 15's), its route's own error (phase 3, 7
+                or 10) and its times (phase 6, 9 or 12)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
 
+import base64
 import dataclasses
 import gzip
 import itertools
@@ -931,11 +963,14 @@ def distinct_prompts(prompt, n):
     return out
 
 
-def engine_rate(LmEngine, params, cfg, prompt, n_streams):
+def engine_rate(LmEngine, params, cfg, prompt, n_streams, hooks=None):
     """Aggregate tokens/s and TTFT of n_streams concurrent greedy streams of
     ENGINE_TOKENS tokens each, after a warm-up run; host clock from the
-    first submit to the last token."""
+    first submit to the last token.  ``hooks(eng)``, when given, binds the
+    server's observability and QoS hooks to the engine first."""
     eng = LmEngine(params, cfg, device="cuda", **ENGINE_KW)
+    if hooks is not None:
+        hooks(eng)
 
     def run(n, tokens):
         stamps = [[] for _ in range(n)]
@@ -2035,6 +2070,457 @@ def shm_phase(card, vserver, model, images, want, wire):
           regions_closed=closed, seconds=time.monotonic() - t_shm)
 
 
+# -- the operational surface (phase 15) -------------------------------------
+
+OPS_SLO = {"*": {"p99_ms": 0.001}}  # an objective every request breaches
+OPS_RATE_IMAGES = 128  # distinct images: the front door finds no repeat
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_metrics(text):
+    """A /metrics payload as {family: {"help", "type", "samples":
+    [(name, labels, value)]}} and the family of each sample line in
+    order."""
+    meta, order = {}, []
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            name, help_ = line[7:].split(" ", 1)
+            meta.setdefault(name, {"samples": []})["help"] = help_
+        elif line.startswith("# TYPE "):
+            name, type_ = line[7:].split(" ", 1)
+            meta.setdefault(name, {"samples": []})["type"] = type_
+        elif line.strip():
+            name_part, _, value = line.rpartition(" ")
+            name = name_part.split("{")[0]
+            family = name
+            for suffix in ("_bucket", "_sum", "_count"):
+                if name.endswith(suffix) and name[:-len(suffix)] in meta:
+                    family = name[:-len(suffix)]
+            check(family in meta, f"/metrics sample {line!r} has no TYPE")
+            meta[family]["samples"].append(
+                (name, dict(_LABEL_RE.findall(name_part)), float(value)))
+            order.append(family)
+    return meta, order
+
+
+def metric(meta, family, **labels):
+    """The sum of a family's samples whose labels include *labels*."""
+    return sum(v for _, got, v in meta.get(family, {"samples": []})["samples"]
+               if all(got.get(k) == str(w) for k, w in labels.items()))
+
+
+def binary_request(x):
+    """(body, headers) of a binary ResNet-50 request for images *x*."""
+    raw = np.ascontiguousarray(x, np.float32).tobytes()
+    header = json.dumps({
+        "inputs": [{"name": "INPUT0", "shape": list(x.shape),
+                    "datatype": "FP32",
+                    "parameters": {"binary_data_size": len(raw)}}],
+        "outputs": [{"name": "OUTPUT0",
+                     "parameters": {"binary_data": True}}],
+    }).encode()
+    return header + raw, {"Inference-Header-Content-Length": str(len(header))}
+
+
+def client_trace(i):
+    """The trace id and span id a client sends for request *i*."""
+    return f"{0x5e7a0000 + i:032x}", f"{0x5ba0 + i:016x}"
+
+
+def ops_lm(addr):
+    """16 LM requests over HTTP from 4 client threads (2 a tenant, so no
+    tenant passes its cap of 2), each with a traceparent: 8 to the float32
+    model, 4 each to the bf16 and int8 models.  MAX_TOKENS=1, the
+    decoupled rule over HTTP (decode ticks still run: the scheduler
+    dispatches them before the first token's readback).  Returns {i:
+    (model, tenant, prompt, token)}."""
+    prompts, _ = engine_prompts()
+    models = ("lm_streaming_f32", "lm_streaming_int8", "lm_streaming_f32",
+              "lm_streaming_batched")
+    plan = {t: [(i, models[i // 4], prompts[i % len(prompts)])
+                for i in range(t, 16, 4)] for t in range(4)}
+    answers, errors = {}, []
+
+    def client(t):
+        tenant = "lo" if t % 2 == 0 else "hi"
+        try:
+            for i, model, prompt in plan[t]:
+                trace_id, span_id = client_trace(i)
+                _, body, _ = http(
+                    addr, f"/v2/models/{model}/infer", lm_request(prompt, 1),
+                    {"x-tenant-id": tenant,
+                     "traceparent": f"00-{trace_id}-{span_id}-01"})
+                token = json.loads(body)["outputs"][0]["data"][0]
+                answers[i] = (model, tenant, prompt, token)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in plan]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    check(not errors and len(answers) == 16, f"LM requests: {errors}")
+    return answers
+
+
+def ops_check_lm(answers, engines, tfm, p32, cfg32, LmEngine):
+    """Each answer against the same request with every hook off: the
+    float32 model's against serial generate (the phase 11 rule), the bf16
+    and int8 models' against their engines' own streams (phase 5's)."""
+    for i, (model, _, prompt, got) in sorted(answers.items()):
+        if model == "lm_streaming_f32":
+            want = list(tfm.generate(p32, cfg32, prompt, 1,
+                                     readback_depth=0))[0]
+        else:
+            want = collect(engines[model].submit(prompt, 1)[0],
+                           LmEngine.CLOSE)[0]
+        check(got == want, f"traced request {i} to {model} answered "
+                           f"{got}, with the hooks off {want}")
+    return {"requests": len(answers), "equal_to_hooks_off": True,
+            "float32_vs_serial_generate": 8, "bf16_int8_vs_own_engine": 8}
+
+
+def ops_trace_file(path, answers):
+    """Every traced request's server span carries its client's trace id
+    and span, its model and tenant; the tick spans are there."""
+    records = [json.loads(line) for line in open(path)]
+    by_trace = {r["trace_id"]: r for r in records
+                if r.get("source") == "server"}
+    for i, (model, tenant, _, _) in answers.items():
+        trace_id, span_id = client_trace(i)
+        span = by_trace.get(trace_id)
+        check(span is not None, f"request {i}: no server span of trace "
+                                f"{trace_id} in the trace file")
+        names = [e["name"] for e in span["timestamps"]]
+        check(span["parent_span_id"] == span_id
+              and span["model_name"] == model
+              and span.get("tenant") == tenant
+              and names[0] == "REQUEST_START"
+              and names[-1] == "RESPONSE_SENT",
+              f"request {i}: server span {span}")
+    ticks = {}
+    for r in records:
+        if r["model_name"].startswith("__lm_"):
+            ticks[r["model_name"]] = ticks.get(r["model_name"], 0) + 1
+    check(ticks.get("__lm_decode__", 0) > 0
+          and ticks.get("__lm_prefill_chunk__", 0) > 0,
+          f"tick spans in the trace file: {ticks}")
+    return {"records": len(records), "request_spans": len(answers),
+            "tick_spans": ticks}
+
+
+def ops_resnet(addr, engine, model, cudashm):
+    """16 identical batch-1 requests from 8 threads through the front door
+    (bit-equal answers, fewer executions than requests, cache hits), then
+    one image from a CUDA region twice, its answer into another: the
+    cache is bypassed.  Returns (report, cache hits)."""
+    x = vision_images(1, 77).numpy()
+    want = model.fn({"INPUT0": x}, {}, None)["OUTPUT0"].float().cpu().numpy()
+    body, headers = binary_request(x)
+    before = engine.statistics("resnet50")[0]
+    outs, errors = [], []
+
+    def client():
+        try:
+            for _ in range(2):
+                _, got, h = http(addr, "/v2/models/resnet50/infer", body,
+                                 headers)
+                outs.append(got[int(h["Inference-Header-Content-Length"]):])
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    check(not errors and len(outs) == 16, f"resnet50 requests: {errors}")
+    check(len(set(outs)) == 1, "16 identical requests, answers not equal")
+    answer = np.frombuffer(outs[0], np.float32).reshape(want.shape)
+    err = float(np.abs(answer - want).max() / np.abs(want).max())
+    check(err <= 2 * VISION_BF16_TOL, f"resnet50 answer off eager by {err}")
+    mid = engine.statistics("resnet50")[0]
+    _, stats_body, _ = http(addr, "/v2/models/resnet50/stats")
+    http_stats = json.loads(stats_body)["model_stats"][0]
+    executions = mid["execution_count"] - before["execution_count"]
+    hits = (http_stats["inference_stats"]["cache_hit"]["count"]
+            - before["inference_stats"]["cache_hit"]["count"])
+    check(executions < 16, f"{executions} executions for 16 requests")
+    check(hits >= 1, f"{hits} cache hits on 16 identical requests")
+    n_in, n_out = x.nbytes, want.nbytes
+    regions = {name: cudashm.create_shared_memory_region(name, n)
+               for name, n in (("ops_in", n_in), ("ops_out", n_out))}
+    shm_answers = []
+    try:
+        cudashm.set_shared_memory_region(regions["ops_in"], [x])
+        for name, region in regions.items():
+            http(addr, f"/v2/cudasharedmemory/region/{name}/register",
+                 json.dumps({"raw_handle": {"b64": base64.b64encode(
+                     cudashm.get_raw_handle(region)).decode()},
+                     "device_id": 0,
+                     "byte_size": region.byte_size}).encode())
+        shm_body = json.dumps({
+            "inputs": [{"name": "INPUT0", "shape": list(x.shape),
+                        "datatype": "FP32", "parameters": {
+                            "shared_memory_region": "ops_in",
+                            "shared_memory_byte_size": n_in}}],
+            "outputs": [{"name": "OUTPUT0", "parameters": {
+                "shared_memory_region": "ops_out",
+                "shared_memory_byte_size": n_out}}]}).encode()
+        for _ in range(2):
+            http(addr, "/v2/models/resnet50/infer", shm_body)
+            shm_answers.append(cudashm.get_contents_as_numpy(
+                regions["ops_out"], "FP32", list(want.shape)))
+    finally:
+        for name, region in regions.items():
+            http(addr, f"/v2/cudasharedmemory/region/{name}/unregister",
+                 b"{}")
+            cudashm.destroy_shared_memory_region(region)
+    after = engine.statistics("resnet50")[0]
+    shm_hits = (after["inference_stats"]["cache_hit"]["count"]
+                - mid["inference_stats"]["cache_hit"]["count"])
+    shm_execs = after["execution_count"] - mid["execution_count"]
+    check(shm_hits == 0 and shm_execs == 2,
+          f"CUDA-region requests: {shm_hits} cache hits, {shm_execs} "
+          "executions")
+    for got in shm_answers:
+        e = float(np.abs(got - want).max() / np.abs(want).max())
+        check(e <= 2 * VISION_BF16_TOL, f"CUDA-region answer off by {e}")
+    return {"requests": 16, "threads": 8, "executions": executions,
+            "cache_hits": hits, "answers_bit_equal": True,
+            "max_err_of_largest_score": err,
+            "cuda_region": {"requests": 2, "cache_hits": shm_hits,
+                            "executions": shm_execs,
+                            "bit_equal_to_wire": all(
+                                np.array_equal(g, answer)
+                                for g in shm_answers)}}, hits
+
+
+def ops_hook_cost(addr, engine, LmEngine, pbf, cfg, prompt, card):
+    """The cost of the hooks, printed only: engine tokens/s at 8 streams
+    with every hook bound (tracing each tick into the phase's trace file),
+    with the hooks bound and tracing off, and with none, in turns; served
+    ResNet-50 infer/s at concurrency 8 with the front door on and off, in
+    turns (on, off, off, on), tracing on in both.  ResNet-50 gets distinct images and the cache is emptied before
+    each turn, so the front door pays its digest, lookup and fill and
+    finds no repeat; its tenant cap is lifted (8 clients of one
+    tenant)."""
+    from client_tpu_torch.serve.frontdoor import Coalescer, TenantQoS
+    from client_tpu_torch.serve.model_runtime import InferenceEngine
+
+    sources = {}
+    for hooks in ("traced", "untraced"):
+        sources[hooks] = InferenceEngine(qos=TenantQoS(
+            default_max_inflight=2, tenants={"hi": {"priority": 10.0}}))
+    sources["traced"].update_trace_settings(dict(engine.trace_settings))
+
+    def binder(source):
+        def bind(eng):  # what the served model's binder does
+            eng.set_registry(source.metrics)
+            eng.tracer = source.tracer
+            eng.flight = source.flight
+            source.prof.adopt(eng.prof)
+            eng.tenant_lane_share = source.qos.lane_share
+            eng.tenant_priority = source.qos.priority
+        return bind
+
+    lm = []
+    for hooks in ("traced", "none", "untraced", "untraced", "none",
+                  "traced"):
+        row = engine_rate(LmEngine, pbf, cfg, prompt, 8, hooks=(
+            binder(sources[hooks]) if hooks in sources else None))
+        lm.append({"hooks": hooks, "tokens_per_s": row["tokens_per_s"],
+                   "ttft_ms_mean": row["ttft_ms_mean"],
+                   "host_ms_per_tick": row["host_ms_per_tick"],
+                   "dispatch_ms_per_tick": row["dispatch_ms_per_tick"]})
+    model = engine.get_model("resnet50")
+    images = vision_images(OPS_RATE_IMAGES, 78).numpy()
+    want = [w.float().cpu().numpy()
+            for lo in range(0, OPS_RATE_IMAGES, 32)
+            for w in model.fn({"INPUT0": images[lo:lo + 32]}, {},
+                              None)["OUTPUT0"]]
+    front = (engine.response_cache, engine._coalescer, engine.qos)
+    uncapped = TenantQoS(registry=engine.metrics)
+    served = []
+    try:
+        for on in (True, False, False, True):
+            engine.response_cache, engine._coalescer, engine.qos = (
+                (front[0], front[1] or Coalescer(), uncapped) if on
+                else (None, None, None))
+            front[0].clear()  # no turn may answer from an earlier one
+            row = served_rate(addr, engine, "resnet50", images, want, 8,
+                              OPS_RATE_IMAGES)
+            served.append({"front_door": on,
+                           "infer_per_s": row["infer_per_s"],
+                           "latency_ms_p50": row["latency_ms_p50"],
+                           "latency_ms_p99": row["latency_ms_p99"],
+                           "mean_fused_batch": row["mean_fused_batch"]})
+    finally:
+        engine.response_cache, engine._coalescer, engine.qos = front
+    phase(15, "ops_hook_cost", lm_streams=8, lm_tokens_each=ENGINE_TOKENS,
+          lm=lm, resnet50_concurrency=8, resnet50_requests=OPS_RATE_IMAGES,
+          resnet50=served,
+          note="printed only: no claim, no limit; traced: every hook "
+               "bound and every tick traced into a file (trace_rate 1); "
+               "untraced: the hooks bound, tracing off; ResNet-50 traced "
+               "at trace_rate 1 in every turn",
+          **card)
+
+
+def ops_phase(card, p32, cfg32, pbf, cfg, prompt):
+    """Phase 15: the server's operational surface around the served LM
+    engines and ResNet-50 with every hook on, its cost, then a drain.
+    Returns the launch counts and routes of the traced LM requests (reset
+    just before the server starts, read just after them)."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.serve import Server
+    from client_tpu_torch.serve.frontdoor import ResponseCache, TenantQoS
+    from client_tpu_torch.serve.lm import LmEngine
+    from client_tpu_torch.serve.models import language, vision
+    from client_tpu_torch.serve.models import transformer as tfm
+    from client_tpu_torch.serve.slo import SloWatchdog
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+    from client_tpu_torch.utils.cuda_shared_memory import _build as shm_build
+
+    t_ops = time.monotonic()
+    shm_build.extension()  # built in phase 2
+    models = language.language_models(device="cuda")
+    models.append(language.lm_streaming_batched_model(
+        name="lm_streaming_f32",
+        runner=language._LmRunner(cfg=cfg32, params=p32, device="cuda")))
+    resnet = vision.resnet50_model(warmup=True)
+    engines = {m.name: m.closer.__self__ for m in models
+               if m.closer is not None}
+    qos = TenantQoS(default_max_inflight=2,
+                    tenants={"hi": {"priority": 10.0}})
+    slo = SloWatchdog(objectives=OPS_SLO, min_samples=1, check_every=1)
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp, Server(
+            models=models + [resnet], response_cache=ResponseCache(),
+            coalescing=True, qos=qos, slo=slo, max_inflight=64) as server:
+        addr, engine = server.http_address, server.engine
+        engine.flight.dump_dir = tmp
+        trace_path = os.path.join(tmp, "trace.jsonl")
+        _, body, _ = http(addr, "/v2/trace/setting", json.dumps({
+            "trace_level": ["TIMESTAMPS"], "trace_rate": "1",
+            "trace_file": trace_path}).encode())
+        check(json.loads(body)["trace_rate"] == "1", f"settings {body}")
+        # -- traced LM streams, split over tenants lo and hi
+        answers = ops_lm(addr)
+        sent = {"resnet50": 16 + 2}  # model -> requests answered 200
+        for model, *_ in answers.values():
+            sent[model] = sent.get(model, 0) + 1
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        routes = {name: dict(r) for name, r in ops.ROUTES.items()}
+        check(launches["int8_matmul"] > 0 and launches["paged_attention"] > 0,
+              f"the traced LM requests launched {launches}")
+        lm = ops_check_lm(answers, engines, tfm, p32, cfg32, LmEngine)
+        # -- a third concurrent request of tenant lo: 429
+        held = [engine.execute("lm_streaming_batched", "",
+                               json.loads(lm_request(prompt, 1)), b"",
+                               tenant="lo") for _ in range(2)]
+        try:
+            http(addr, "/v2/models/lm_streaming_batched/infer",
+                 lm_request(prompt, 1), {"x-tenant-id": "lo"})
+            fail("a third concurrent request of tenant lo was admitted")
+        except urllib.error.HTTPError as e:
+            retry_after = e.headers.get("Retry-After")
+            check(e.code == 429 and retry_after is not None
+                  and retry_after.isdigit() and int(retry_after) >= 1,
+                  f"over the tenant cap: {e.code}, Retry-After "
+                  f"{retry_after!r}")
+        finally:
+            for stream in held:
+                stream.close()
+        # -- ResNet-50 through the front door, and from a CUDA region
+        front, hits = ops_resnet(addr, engine, resnet, cudashm)
+        # -- /metrics
+        engine.slo.check_now()
+        time.sleep(0.3)  # the LM schedulers' last drain pass
+        engine.prof.report()  # flushes every profiler's series
+        _, text, _ = http(addr, "/metrics")
+        meta, order = parse_metrics(text.decode())
+        runs = [k for k, _ in itertools.groupby(order)]
+        check(len(runs) == len(set(runs)), "interleaved /metrics families")
+        check(all(info.get("help") and info.get("type")
+                  for info in meta.values()), "a family without HELP/TYPE")
+        for model, n in sent.items():
+            got = metric(meta, "ctpu_inference_request_success", model=model)
+            check(got == n, f"ctpu_inference_request_success {model}: {got}, "
+                            f"{n} answered")
+        used = metric(meta, "ctpu_gpu_memory_used_bytes")
+        total = metric(meta, "ctpu_gpu_memory_total_bytes")
+        check(0 < used <= total, f"GPU memory used {used} of {total}")
+        check(metric(meta, "ctpu_cache_hits_total") >= hits,
+              "ctpu_cache_hits_total below the statistics' hits")
+        for prefix in ("ctpu_lm_", "ctpu_prof_", "ctpu_slo_"):
+            check(any(f.startswith(prefix) for f in meta),
+                  f"no {prefix}* family on /metrics")
+        # -- debug endpoints
+        _, body, _ = http(addr, "/v2/debug/prof?window=0")
+        lm_prof = [e for e in json.loads(body)["engines"]
+                   if e["engine"] == "lm" and e["kinds"].get("decode")]
+        mfu = [e["models"]["lm"]["mfu_pct"] for e in lm_prof
+               if "mfu_pct" in e["models"].get("lm", {})
+               and e["peak_tflops"] == 989.0]
+        check(mfu, f"/v2/debug/prof: adopted lm profilers {lm_prof}")
+        _, body, _ = http(addr, "/v2/debug/flight")
+        kinds = {json.loads(line)["kind"] for line in body.splitlines()}
+        check({"span", "prof_tick", "slo_breach"} <= kinds,
+              f"/v2/debug/flight kinds {kinds}")
+        _, body, _ = http(addr, "/v2/debug/flight?dump=1")
+        dumped = json.loads(body)["dumped"]
+        check(dumped and os.path.isfile(dumped), f"?dump=1 wrote {dumped}")
+        _, body, _ = http(addr, "/v2/debug/slo")
+        slo_view = json.loads(body)
+        breaches = metric(meta, "ctpu_slo_breaches_total")
+        slo_dumps = [p for p in engine.flight.dumps if "slo_breach" in p]
+        check(any(v["breaches"] >= 1 for v in slo_view.values())
+              and breaches >= 1 and slo_dumps
+              and all(os.path.isfile(p) for p in slo_dumps),
+              f"SLO breach: {breaches} counted, dumps {slo_dumps}")
+        engine.tracer.flush()
+        traces = ops_trace_file(trace_path, answers)
+        phase(15, "ops", models=[e["name"] for e in
+                                 engine.repository_index()],
+              lm=lm, traces=traces,
+              tenant_cap={"tenant": "lo", "cap": 2, "third": 429,
+                          "retry_after_s": retry_after},
+              resnet50=front, metrics_families=len(meta),
+              gpu_memory={"used_bytes": used, "total_bytes": total},
+              lm_prof={"profilers": len(lm_prof), "mfu_pct": mfu,
+                       "peak_tflops": 989.0},
+              slo={"objective": OPS_SLO, "breaches": breaches,
+                   "dumps": len(slo_dumps)},
+              launches=launches, launches_by_route=routes)
+        # -- the cost of the hooks (printed only)
+        ops_hook_cost(addr, engine, LmEngine, pbf, cfg, prompt, card)
+        # -- drain
+        check(engine.drain(timeout_s=30), "drain did not finish in 30 s")
+        try:
+            http(addr, "/v2/health/ready")
+            fail("ready answered 200 after the drain")
+        except urllib.error.HTTPError as e:
+            check(e.code == 503, f"ready answered {e.code} after the drain")
+        try:
+            http(addr, "/v2/models/resnet50/infer",
+                 *binary_request(vision_images(1, 79).numpy()))
+            fail("a drained server admitted a request")
+        except urllib.error.HTTPError as e:
+            drained_retry = e.headers.get("Retry-After")
+            check(e.code == 503 and drained_retry == "1",
+                  f"drained infer: {e.code}, Retry-After {drained_retry!r}")
+        _, text, _ = http(addr, "/metrics")
+        draining = metric(parse_metrics(text.decode())[0], "ctpu_draining")
+        check(draining == 1, f"ctpu_draining {draining}")
+        phase(15, "ops_drain", drained=True, ready=503, infer=503,
+              retry_after_s=drained_retry, ctpu_draining=draining,
+              seconds=time.monotonic() - t_ops)
+    return launches, routes
+
+
 def main():
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2562,7 +3048,10 @@ def main():
     # -- 14 the same, from CUDA shared memory of another process ----------
     vision_phase(card)
 
-    # -- 15 kernels ----------------------------------------------------------
+    # -- 15 the operational surface around the served engines -------------
+    ops_launches, ops_routes = ops_phase(card, p32, cfg32, pbf, cfg, prompt)
+
+    # -- 16 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
 
     def layer_total(m):
@@ -2572,7 +3061,7 @@ def main():
                             "eager_ms")}
 
     total, prefill = layer_total(1), layer_total(64)
-    phase(15, "kernels", held_against_plain_in="phases 3, 7 and 10")
+    phase(16, "kernels", held_against_plain_in="phases 3, 7 and 10")
     kernels = [{
         "name": "int8_matmul",
         "kernel_route": "all",
@@ -2582,6 +3071,7 @@ def main():
         "source": "client_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "client_tpu/ops/quant.py:51",
         "launches": main_launches["int8_matmul"],
+        "launches_phase_15": ops_launches["int8_matmul"],
         "max_abs_err": max(worst.values()),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -2605,6 +3095,7 @@ def main():
         "source": "client_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "client_tpu/ops/quant.py:51",
         "launches": main_routes["int8_matmul"]["mma"],
+        "launches_phase_15": ops_routes["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
         "ms": prefill["ms"],
         "plain_ms": prefill["plain_ms"],
@@ -2663,6 +3154,7 @@ def main():
             "replaces": "client_tpu/serve/models/transformer.py:357 (jnp in "
                         "the reference, not Pallas)",
             "launches": main_routes["paged_attention"][route],
+            "launches_phase_15": ops_routes["paged_attention"][route],
             "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},

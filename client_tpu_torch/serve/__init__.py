@@ -23,15 +23,27 @@ class Server:
     """Convenience wrapper starting the HTTP frontend over an engine.
 
     With ``models=None`` it serves the language set on *device* (``cuda``
-    unless the caller passes ``device="cpu"``)."""
+    unless the caller passes ``device="cpu"``).  ``max_inflight``,
+    ``response_cache``, ``coalescing``, ``qos``, ``slo`` and ``flight``
+    go to the :class:`InferenceEngine`."""
 
     def __init__(self, models=None, http_port=0, host="127.0.0.1",
-                 verbose=False, device=None):
+                 verbose=False, device=None, max_inflight=None,
+                 response_cache=None, coalescing=False, qos=None, slo=None,
+                 flight=None):
         if models is None:
             from client_tpu_torch.serve.models import model_sets
 
             models = model_sets("language", device=device)
-        self.engine = InferenceEngine(list(models))
+        self.engine = InferenceEngine(
+            list(models),
+            max_inflight=max_inflight,
+            response_cache=response_cache,
+            coalescing=coalescing,
+            qos=qos,
+            slo=slo,
+            flight=flight,
+        )
         self._http = None
         self._http_port = http_port
         self._host = host
@@ -55,6 +67,15 @@ class Server:
         if self._http:
             self._http.stop()
         self.engine.close()
+
+    def drain(self, timeout_s=None):
+        """Graceful shutdown: flip ``/v2/health/ready`` to not-ready,
+        reject new inference with retryable 503s, finish in-flight work,
+        then stop.  Returns True when every in-flight request finished
+        within *timeout_s*."""
+        drained = self.engine.drain(timeout_s)
+        self.stop()
+        return drained
 
     def __enter__(self):
         return self.start()

@@ -23,17 +23,88 @@ def main():
         help="device the models run on (default: cuda; cpu runs the plain "
              "PyTorch versions of the kernels)",
     )
+    parser.add_argument(
+        "--response-cache-entries", type=int, default=0,
+        help="enable the content-addressed response cache with this many "
+             "LRU entries (0 = off)",
+    )
+    parser.add_argument(
+        "--response-cache-ttl", type=float, default=None,
+        help="response-cache entry TTL in seconds (default: no expiry)",
+    )
+    parser.add_argument(
+        "--coalescing", action="store_true",
+        help="collapse identical concurrent requests into one dispatch",
+    )
+    parser.add_argument(
+        "--tenant-inflight", type=int, default=None,
+        help="per-tenant concurrent-request cap (429 + Retry-After beyond)",
+    )
+    parser.add_argument(
+        "--tenant-rate", type=float, default=None,
+        help="per-tenant request-rate quota in req/s (429 + Retry-After "
+             "beyond)",
+    )
+    parser.add_argument(
+        "--max-inflight", type=int, default=None,
+        help="global concurrent-request cap (retryable 503 beyond)",
+    )
+    parser.add_argument(
+        "--slo-p99-ms", type=float, default=None,
+        help="arm the SLO watchdog: windowed p99 objective in ms for "
+             "every model (breach increments ctpu_slo_breaches_total "
+             "and dumps the flight recorder)",
+    )
+    parser.add_argument(
+        "--slo-error-rate", type=float, default=None,
+        help="SLO error-rate objective as a fraction (server faults only)",
+    )
+    parser.add_argument(
+        "--flight-dir", default=None,
+        help="directory for flight-recorder dumps (default: "
+             "$TPU_FLIGHT_DIR, else the system temp dir)",
+    )
     args = parser.parse_args()
 
     from client_tpu_torch.serve import Server
+    from client_tpu_torch.serve.frontdoor import ResponseCache, TenantQoS
     from client_tpu_torch.serve.models import model_sets
+    from client_tpu_torch.serve.slo import SloWatchdog
+
+    cache = None
+    if args.response_cache_entries > 0:
+        cache = ResponseCache(
+            max_entries=args.response_cache_entries,
+            ttl_s=args.response_cache_ttl,
+        )
+    qos = None
+    if args.tenant_inflight is not None or args.tenant_rate is not None:
+        qos = TenantQoS(
+            default_max_inflight=args.tenant_inflight,
+            default_rate_per_s=args.tenant_rate,
+        )
+    slo = None
+    if args.slo_p99_ms is not None or args.slo_error_rate is not None:
+        objective = {}
+        if args.slo_p99_ms is not None:
+            objective["p99_ms"] = args.slo_p99_ms
+        if args.slo_error_rate is not None:
+            objective["error_rate"] = args.slo_error_rate
+        slo = SloWatchdog(objectives={"*": objective})
 
     server = Server(
         models=model_sets(args.models, device=args.device),
         http_port=args.http_port,
         host=args.host,
         verbose=args.verbose,
+        max_inflight=args.max_inflight,
+        response_cache=cache,
+        coalescing=args.coalescing,
+        qos=qos,
+        slo=slo,
     ).start()
+    if args.flight_dir:
+        server.engine.flight.dump_dir = args.flight_dir
     print(f"client_tpu_torch.serve: HTTP on {server.http_address}", flush=True)
 
     stop = threading.Event()

@@ -29,6 +29,11 @@ to the next.  Every hop runs on its device's default stream
 (:func:`device_stream`), so each is ordered after the work that made its
 input, with no event to forget.
 
+Observability: a request's trace (serve/tracing.py) gets QUEUE_END and
+COMPUTE_START at dispatch and COMPUTE_END when its rows are handed over,
+host clock, as the reference's batcher stamps them; the engine's
+``BusyTracker`` span runs from dispatch to the group's completion.
+
 Eligibility: stateless, non-decoupled models with ``max_batch_size > 1``
 and host-resident (wire) inputs, or device tensors for models that opt in
 with ``batch_device_inputs``.
@@ -241,10 +246,10 @@ class _BucketProgram:
 
 class _Pending:
     __slots__ = ("inputs", "rows", "signature", "event", "result", "error",
-                 "t_enq", "tenant", "weight", "vfinish", "sinks")
+                 "t_enq", "trace", "tenant", "weight", "vfinish", "sinks")
 
-    def __init__(self, inputs, rows, signature, tenant="", weight=1.0,
-                 sinks=None):
+    def __init__(self, inputs, rows, signature, trace=None, tenant="",
+                 weight=1.0, sinks=None):
         self.inputs = inputs
         self.rows = rows
         self.signature = signature
@@ -253,6 +258,7 @@ class _Pending:
         self.result = None
         self.error = None
         self.t_enq = time.monotonic_ns()
+        self.trace = trace  # optional RequestTrace (queue/compute events)
         self.tenant = tenant  # fair-queue lane (see _FairQueue)
         self.weight = max(float(weight), 1e-3)
         self.vfinish = 0.0  # virtual finish time, stamped at push
@@ -359,10 +365,11 @@ class ModelBatcher:
     """One background batcher per model: gathers concurrent requests into a
     single padded forward pass and splits the outputs back per request."""
 
-    def __init__(self, model, stats, max_queue_delay_s=0.003,
+    def __init__(self, model, stats, max_queue_delay_s=0.003, busy=None,
                  max_queue_depth=None, registry=None, prof=None):
         self.model = model
         self.stats = stats
+        self._busy = busy  # engine BusyTracker (duty-cycle metric), optional
         self._registry = registry  # engine metrics Registry (shed counters)
         self.prof = prof  # engine PhaseProfiler: one "batch" tick per group
         self.max_batch = max(int(model.max_batch_size), 1)
@@ -568,11 +575,13 @@ class ModelBatcher:
         with self._cond:
             return self._queue.depths()
 
-    def submit(self, inputs, tenant="", weight=1.0, sinks=None):
+    def submit(self, inputs, trace=None, tenant="", weight=1.0, sinks=None):
         """Block until the batched execution finishes; return this request's
         slice of the outputs: host numpy arrays for wire groups, device
-        tensors (its own) for device groups.  ``tenant``/``weight`` select
-        and weight the fair-queue lane this request waits in.
+        tensors (its own) for device groups.  ``trace`` (a RequestTrace)
+        gets QUEUE_END and COMPUTE_START at dispatch and COMPUTE_END when
+        the results are handed over.  ``tenant``/``weight`` select and
+        weight the fair-queue lane this request waits in.
 
         ``sinks`` ``{output: flat tensor}``: where a device request's rows
         of that output go (its CUDA shared-memory region, viewed as the
@@ -588,7 +597,7 @@ class ModelBatcher:
             (name, _dtype_key(arr), tuple(arr.shape[1:]))
             for name, arr in sorted(inputs.items())
         )
-        pending = _Pending(inputs, rows, signature, tenant=tenant,
+        pending = _Pending(inputs, rows, signature, trace, tenant=tenant,
                            weight=weight, sinks=sinks)
         with self._cond:
             if self._closed:
@@ -691,6 +700,7 @@ class ModelBatcher:
             if device:
                 handed = self._handoff_device(*dispatched)
                 if handed is None:  # handoff failed; group already notified
+                    self._busy_end()
                     self._finish_one(sem)
                 else:
                     watch, in_sinks = handed
@@ -705,9 +715,14 @@ class ModelBatcher:
     def _finish_sinks(self, sem, waiting):
         """A device group's work is done: release the requests whose rows
         went to their sinks, then the group's pipeline slot."""
+        self._busy_end()
         for p in waiting:
             p.event.set()
         self._finish_one(sem)
+
+    def _busy_end(self):
+        if self._busy is not None:
+            self._busy.end()
 
     def _finish_one(self, sem):
         with self._cond:
@@ -861,8 +876,19 @@ class ModelBatcher:
     def _dispatch(self, group):
         """Pad the group to its bucket and issue the (asynchronous)
         forward.  Returns state for the completion, or None if the
-        dispatch failed (the group is already notified)."""
+        dispatch failed (the group is already notified).
+
+        The engine duty-cycle span opens here and closes when the group's
+        results are complete (the completion observer for device groups,
+        the host copy for wire groups) or it fails."""
         t0 = time.monotonic_ns()
+        w_dispatch = time.time_ns()
+        for p in group:
+            if p.trace is not None:
+                p.trace.event("QUEUE_END", w_dispatch)
+                p.trace.event("COMPUTE_START", w_dispatch)
+        if self._busy is not None:
+            self._busy.begin()
         try:
             device = group[0].signature[0]
             names = [e[0] for e in group[0].signature[1:]]
@@ -900,6 +926,7 @@ class ModelBatcher:
                 result = self.model.fn(batched, {}, None)
             return group, result, rows, t0, t_in
         except Exception as e:  # noqa: BLE001 - failure propagates per-request
+            self._busy_end()
             self._fail(group, e)
             return None
 
@@ -913,12 +940,17 @@ class ModelBatcher:
         (the group is already notified)."""
         in_sinks = []
         try:
+            w_done = time.time_ns()
             if isinstance(result, tuple) and result[0] == "fused":
                 # each request's rows, copied at dispatch: into its sinks
                 # or a view of the group's own copy
                 per_part = result[1]
                 for p, rows_of in zip(group, per_part):
                     p.result = rows_of
+                    # trace events land BEFORE the waiter wakes: the
+                    # request thread completes the trace once it runs
+                    if p.trace is not None:
+                        p.trace.event("COMPUTE_END", w_done)
                     if p.sinks:
                         in_sinks.append(p)
                     else:
@@ -945,6 +977,8 @@ class ModelBatcher:
                     if extra_params is not None:
                         p.result["__parameters__"] = extra_params
                     offset += p.rows
+                    if p.trace is not None:
+                        p.trace.event("COMPUTE_END", w_done)
                     p.event.set()
                 watch = result
             with self._cond:
@@ -956,6 +990,7 @@ class ModelBatcher:
                 input_ns=t_in - t0,
                 output_ns=0,
                 queue_ns=sum(t_in - p.t_enq for p in group),
+                queue_ns_each=[t_in - p.t_enq for p in group],
             )
             self._prof_commit(rows, t0, t_in, t1 - t_in, 0)
             return watch, in_sinks
@@ -965,15 +1000,21 @@ class ModelBatcher:
 
     def _complete_host(self, group, result, rows, t0, t_in):
         """Wire-group completion (runs on the completion pool): the
-        batch's rows reach the host, then split back to requests."""
+        batch's rows reach the host, then split back to requests.  The
+        busy span closes when they have: real completion."""
+        busy_open = self._busy is not None
         try:
             with device_stream(self.model.device):
                 host = _to_host(result)
+            if busy_open:
+                self._busy.end()  # wire results landed host-side
+                busy_open = False
             t_inf = time.monotonic_ns()
             # response-level parameters (reserved "__parameters__" result
             # key) are batch-wide, not row-sliceable: replicate them onto
             # every request's split instead of slicing a dict
             extra_params = host.pop("__parameters__", None)
+            w_done = time.time_ns()
             offset = 0
             for p in group:
                 p.result = {
@@ -983,6 +1024,8 @@ class ModelBatcher:
                 if extra_params is not None:
                     p.result["__parameters__"] = extra_params
                 offset += p.rows
+                if p.trace is not None:
+                    p.trace.event("COMPUTE_END", w_done)
                 p.event.set()
             with self._cond:
                 self._active.difference_update(group)
@@ -993,9 +1036,12 @@ class ModelBatcher:
                 input_ns=t_in - t0,
                 output_ns=t1 - t_inf,
                 queue_ns=sum(t_in - p.t_enq for p in group),
+                queue_ns_each=[t_in - p.t_enq for p in group],
             )
             self._prof_commit(rows, t0, t_in, t_inf - t_in, t1 - t_inf)
         except Exception as e:  # noqa: BLE001 - failure propagates per-request
+            if busy_open:
+                self._busy.end()  # the copy raised before the span closed
             self._fail(group, e)
 
     def _fail(self, group, e):

@@ -749,10 +749,9 @@ class LmEngine:
         self.check_prompt = check_prompt  # optional prompt validator
         self.registry = registry
         self.tracer = tracer
-        # flight recorder (bound by the model binder once the port has
-        # one):
-        # preemptions and a wedged scheduler loop land in the server's
-        # postmortem ring — a wedge also dumps it automatically
+        # flight recorder (bound by the model binder): preemptions and a
+        # wedged scheduler loop land in the server's postmortem ring — a
+        # wedge also dumps it automatically
         self.flight = None
         self.tenant_lane_share = tenant_lane_share
         self.block_size = int(block_size)

@@ -1,19 +1,32 @@
-"""Prometheus-style metrics registry for the port's serving stack.
+"""Prometheus-style metrics for the port's in-process server.
 
-Counterpart of client_tpu/serve/metrics.py, cut to what the
-continuous-batching LM engine writes: the thread-safe :class:`Registry`
-(counters and gauges rendered in the exposition format) and the help
-catalogs of the series the engine, its prefix cache, speculative verify
-and phase profiler register (``LM_PREFIX_HELP``, ``LM_SPEC_HELP``,
-``PROF_HELP``).  The rest of the module (histograms, the per-model and
-device series, ``render_metrics``) waits for the slice that ports the
-server's ``/metrics`` endpoint, and ``FLEET_HELP`` for the fleet tier.
+Counterpart of client_tpu/serve/metrics.py: the thread-safe
+:class:`Registry` (counters and gauges), the fixed-bucket
+:class:`Histogram` behind the per-model latency and batch-size
+distributions, the help catalogs of the series the LM engine, its prefix
+cache, speculative verify, the phase profiler, the SLO watchdog and the
+flight recorder register (``LM_PREFIX_HELP``, ``LM_SPEC_HELP``,
+``PROF_HELP``, ``SLO_HELP``), and :func:`render_metrics`, the ``/metrics``
+payload: per-model counters and histograms, live gauges (batcher queue
+depth per model and tenant, in-flight requests, draining, the duty
+cycle), per-GPU memory, then every series in the engine's registry.
+
+Where the JAX package reports ``ctpu_tpu_memory_*`` from PJRT's
+``memory_stats``, the port reports ``ctpu_gpu_memory_*`` from
+``torch.cuda.memory_stats``, and only once CUDA is initialized in the
+process: a scrape never creates a CUDA context.  The client-side
+resilience and balancer observers (and their ``RESILIENCE`` registry),
+and ``FLEET_HELP``, come with the client libraries and the fleet tier.
 
 Every label value passes through :func:`escape_label`: the exposition
 format reserves ``\\``, ``"`` and newline inside quoted label values.
 """
 
+import bisect
 import threading
+import time
+
+import torch
 
 
 def escape_label(value):
@@ -25,6 +38,13 @@ def escape_label(value):
         .replace("\n", "\\n")
     )
 
+
+# Request/queue duration buckets (microseconds) and batch-size buckets.
+DURATION_BUCKETS_US = (
+    50, 100, 250, 500, 1000, 2500, 5000, 10000, 25000, 50000,
+    100000, 250000, 500000, 1000000, 2500000, 10000000,
+)
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 # LM prefix-cache + preemption series (written by serve/lm/prefix.py and
 # serve/lm/engine.py into whichever registry the engine is bound to; the
@@ -81,6 +101,25 @@ PROF_HELP = {
 }
 
 
+# SLO watchdog + flight recorder series (written by serve/slo.py and
+# serve/flight.py into the engine registry; one help catalog so
+# /metrics, README and tests agree).
+SLO_HELP = {
+    "ctpu_slo_p50_ms":
+        "Windowed p50 request latency per model/tenant (sketch quantile)",
+    "ctpu_slo_p95_ms":
+        "Windowed p95 request latency per model/tenant (sketch quantile)",
+    "ctpu_slo_p99_ms":
+        "Windowed p99 request latency per model/tenant (sketch quantile)",
+    "ctpu_slo_error_rate":
+        "Windowed server-fault rate per model/tenant (5xx/transport only)",
+    "ctpu_slo_breaches_total":
+        "SLO objective breaches (by model/tenant and objective kind)",
+    "ctpu_flight_dumps_total":
+        "Flight-recorder dumps written (by trigger reason)",
+}
+
+
 def format_labels(labels):
     """{'model': 'm'} -> '{model="m"}' with every value escaped."""
     if not labels:
@@ -91,13 +130,40 @@ def format_labels(labels):
     return "{" + inner + "}"
 
 
+class Histogram:
+    """Fixed-bucket histogram (Prometheus semantics: cumulative buckets at
+    render time, plus sum and count).  Not internally locked — callers
+    (ModelStats) guard observations with their own lock."""
+
+    __slots__ = ("buckets", "counts", "sum", "count")
+
+    def __init__(self, buckets=DURATION_BUCKETS_US):
+        self.buckets = tuple(buckets)
+        self.counts = [0] * (len(self.buckets) + 1)  # +Inf tail
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value):
+        self.counts[bisect.bisect_left(self.buckets, value)] += 1
+        self.sum += value
+        self.count += 1
+
+    def snapshot(self):
+        """(bucket_bounds, cumulative_counts, sum, count)."""
+        cumulative = []
+        total = 0
+        for c in self.counts:
+            total += c
+            cumulative.append(total)
+        return self.buckets, cumulative, self.sum, self.count
+
+
 class Registry:
     """Thread-safe counter/gauge registry rendering to exposition format.
 
-    One instance per engine holds server-side series (sheds, drain); the
-    module-level :data:`RESILIENCE` registry holds client-side series fed
-    by :class:`ResilienceMetricsObserver` so in-process clients' retry and
-    circuit activity is scrapeable from the same /metrics payload.
+    One instance per engine holds its server-side series: sheds, drain,
+    the front door's, the SLO watchdog's, the profiler's and the LM
+    engine's (bound through ``Model.binder``).
     """
 
     def __init__(self):
@@ -150,9 +216,201 @@ class Registry:
                     lines.append(f"{name}{labels} {_fmt(value)}")
 
 
-
 def _fmt(value):
     if isinstance(value, float) and not value.is_integer():
         return f"{value:.6f}"
     return str(int(value))
 
+
+class _FamilyBuffer:
+    """Groups samples per metric family so the exposition output keeps all
+    lines of one family contiguous (required by the text format — parsers
+    keying families by name reject or drop interleaved groups)."""
+
+    def __init__(self):
+        self._families = {}  # name -> [type, help, [sample lines]]
+
+    def declare(self, name, type_, help_):
+        self._families.setdefault(name, [type_, help_, []])
+
+    def add(self, name, labels, value):
+        self._families[name][2].append(
+            f"{name}{format_labels(labels)} {_fmt(value)}"
+        )
+
+    def add_raw(self, name, line):
+        self._families[name][2].append(line)
+
+    def emit(self, lines):
+        for name, (type_, help_, samples) in self._families.items():
+            lines.append(f"# HELP {name} {help_}")
+            lines.append(f"# TYPE {name} {type_}")
+            lines.extend(samples)
+
+
+def _device_lines(buf):
+    """Per-GPU memory gauges from the caching allocator.  Only once CUDA is
+    initialized in this process: a server serving on the card has done
+    that; forcing it inside the /metrics handler would create a CUDA
+    context (hundreds of MB, seconds) in a CPU-served process.  Reads the
+    allocator's host-side counters: no device work, no sync."""
+    if not torch.cuda.is_initialized():
+        return
+    buf.declare(
+        "ctpu_gpu_memory_used_bytes", "gauge",
+        "GPU memory bytes allocated by tensors",
+    )
+    buf.declare(
+        "ctpu_gpu_memory_total_bytes", "gauge", "GPU memory byte capacity",
+    )
+    buf.declare(
+        "ctpu_gpu_memory_peak_bytes", "gauge",
+        "Peak GPU memory bytes allocated by tensors",
+    )
+    for i in range(torch.cuda.device_count()):
+        props = torch.cuda.get_device_properties(i)
+        stats = torch.cuda.memory_stats(i)
+        labels = {"device": i, "kind": props.name}
+        buf.add("ctpu_gpu_memory_used_bytes", labels,
+                stats.get("allocated_bytes.all.current", 0))
+        buf.add("ctpu_gpu_memory_total_bytes", labels, props.total_memory)
+        buf.add("ctpu_gpu_memory_peak_bytes", labels,
+                stats.get("allocated_bytes.all.peak", 0))
+
+
+def _histogram_lines(buf, name, labels, snapshot):
+    buckets, cumulative, total, count = snapshot
+    for bound, c in zip(buckets, cumulative[:-1]):
+        le = format_labels(dict(labels, le=bound))
+        buf.add_raw(name, f"{name}_bucket{le} {c}")
+    inf = format_labels(dict(labels, le="+Inf"))
+    buf.add_raw(name, f"{name}_bucket{inf} {cumulative[-1]}")
+    lbl = format_labels(labels)
+    buf.add_raw(name, f"{name}_sum{lbl} {_fmt(total)}")
+    buf.add_raw(name, f"{name}_count{lbl} {count}")
+
+
+_COUNTER_HELP = [
+    ("ctpu_inference_request_success", "Successful inference requests"),
+    ("ctpu_inference_request_failure", "Failed inference requests"),
+    ("ctpu_inference_count", "Inferences performed (batch aware)"),
+    ("ctpu_inference_exec_count", "Model executions (batches count once)"),
+    ("ctpu_inference_duration_us",
+     "Cumulative successful request duration"),
+    ("ctpu_inference_fail_duration_us",
+     "Cumulative failed request duration"),
+    ("ctpu_inference_queue_duration_us",
+     "Cumulative scheduling-queue wait"),
+    ("ctpu_inference_compute_input_duration_us",
+     "Cumulative input-preparation time"),
+    ("ctpu_inference_compute_infer_duration_us",
+     "Cumulative model-execution time"),
+    ("ctpu_inference_compute_output_duration_us",
+     "Cumulative output-rendering time"),
+]
+
+_HISTOGRAM_HELP = [
+    ("ctpu_request_duration_us",
+     "Per-request end-to-end duration distribution"),
+    ("ctpu_queue_duration_us",
+     "Per-request dynamic-batcher queue-time distribution"),
+    ("ctpu_batch_size", "Execution batch-size (rows) distribution"),
+]
+
+
+def render_metrics(engine):
+    """The /metrics payload (Prometheus text exposition format).
+
+    All samples of one metric family are emitted as a single contiguous
+    block (HELP/TYPE then every sample) — the text format requires it, and
+    family-keyed parsers drop or reject interleaved groups.  Reads host
+    state only: counters, histograms, gauges and the allocator's
+    counters."""
+    buf = _FamilyBuffer()
+    for name, help_ in _COUNTER_HELP:
+        buf.declare(name, "counter", help_)
+    for ms in engine.statistics():
+        labels = {"model": ms.get("name", ""), "version": ms.get("version", "")}
+        agg = ms.get("inference_stats", {})
+        success = agg.get("success", {})
+        fail = agg.get("fail", {})
+        buf.add(
+            "ctpu_inference_request_success", labels,
+            int(success.get("count", 0)),
+        )
+        buf.add(
+            "ctpu_inference_request_failure", labels,
+            int(fail.get("count", 0)),
+        )
+        buf.add("ctpu_inference_count", labels, int(ms.get("inference_count", 0)))
+        buf.add(
+            "ctpu_inference_exec_count", labels,
+            int(ms.get("execution_count", 0)),
+        )
+        buf.add(
+            "ctpu_inference_duration_us", labels,
+            int(success.get("ns", 0)) // 1000,
+        )
+        buf.add(
+            "ctpu_inference_fail_duration_us", labels,
+            int(fail.get("ns", 0)) // 1000,
+        )
+        for phase in ("queue", "compute_input", "compute_infer",
+                      "compute_output"):
+            buf.add(
+                f"ctpu_inference_{phase}_duration_us", labels,
+                int(agg.get(phase, {}).get("ns", 0)) // 1000,
+            )
+    # per-model histograms (request/queue durations, batch sizes)
+    for name, help_ in _HISTOGRAM_HELP:
+        buf.declare(name, "histogram", help_)
+    for name, version, model_stats_obj in engine.stats_objects():
+        labels = {"model": name, "version": version}
+        request_us, queue_us, batch_rows = model_stats_obj.histograms()
+        _histogram_lines(buf, "ctpu_request_duration_us", labels, request_us)
+        _histogram_lines(buf, "ctpu_queue_duration_us", labels, queue_us)
+        _histogram_lines(buf, "ctpu_batch_size", labels, batch_rows)
+    # live gauges: scheduler queue depth, in-flight work, drain state
+    buf.declare(
+        "ctpu_queue_depth", "gauge",
+        "Requests waiting in the dynamic batcher",
+    )
+    for name, depth in sorted(engine.queue_depths().items()):
+        buf.add("ctpu_queue_depth", {"model": name}, depth)
+    buf.declare(
+        "ctpu_tenant_queue_depth", "gauge",
+        "Requests waiting per tenant fair-queue lane",
+    )
+    for (model, tenant), depth in sorted(engine.tenant_queue_depths().items()):
+        buf.add(
+            "ctpu_tenant_queue_depth",
+            {"model": model, "tenant": tenant}, depth,
+        )
+    buf.declare(
+        "ctpu_inflight_requests", "gauge", "Requests currently executing"
+    )
+    buf.add("ctpu_inflight_requests", None, engine.inflight_count())
+    buf.declare("ctpu_draining", "gauge", "1 once graceful drain has begun")
+    buf.add("ctpu_draining", None, 0 if engine.ready() else 1)
+    _device_lines(buf)
+    buf.declare(
+        "ctpu_server_busy_ns", "counter",
+        "Wall-clock ns with >=1 model execution in flight (duty cycle: "
+        "rate(ctpu_server_busy_ns)/1e9 = utilization)",
+    )
+    buf.add("ctpu_server_busy_ns", None, engine.busy.busy_ns())
+    buf.declare(
+        "ctpu_scrape_timestamp_seconds", "gauge",
+        "Wall time of this scrape",
+    )
+    buf.add_raw(
+        "ctpu_scrape_timestamp_seconds",
+        f"ctpu_scrape_timestamp_seconds {time.time():.3f}",
+    )
+    lines = []
+    buf.emit(lines)
+    # the engine's own series (sheds, drain, front door, SLO, profiler,
+    # the LM engine's): a registry renders its families as contiguous
+    # blocks of its own
+    engine.metrics.render_into(lines)
+    return "\n".join(lines) + "\n"

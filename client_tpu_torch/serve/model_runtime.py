@@ -1,14 +1,23 @@
 """In-process KServe-v2 model runtime: repository + request execution.
 
-Counterpart of client_tpu/serve/model_runtime.py, cut to what serving the
-language and vision models needs: ``TensorSpec``, ``Model``, and an
-``InferenceEngine`` with the repository verbs (add, load, unload),
-request execution for unary and decoupled models, dynamic batching
+Counterpart of client_tpu/serve/model_runtime.py: ``TensorSpec``,
+``Model``, and an ``InferenceEngine`` with the repository verbs (add,
+load with config and file overrides, unload, index), request execution
+for unary and decoupled models, dynamic batching
 (serve/dynamic_batcher.py), ensembles through the DAG scheduler
-(serve/pipeline.py), per-model statistics and the shared-memory registry
-(system regions by key, CUDA regions by IPC handle).  The front door
-(response cache, coalescing, tenant QoS), sequences and tracing wait for
-later slices of the port.
+(serve/pipeline.py), per-model statistics with their histograms, the
+shared-memory registry (system regions by key, CUDA regions by IPC
+handle), and the operational layer: the multi-tenant front door
+(response cache, coalescing, tenant QoS: serve/frontdoor.py), global
+admission (``max_inflight``) and graceful drain, request tracing and
+trace settings (serve/tracing.py), the flight recorder
+(serve/flight.py), the SLO watchdog (serve/slo.py), the duty-cycle
+tracker and the phase profilers (serve/prof.py).  Sequences, the fleet
+tier and the classification extension come with later slices.
+
+Every hook reads and writes host state only: no device sync, no tensor
+op.  A request that reads from or writes to a shared-memory region
+bypasses the response cache and the coalescer.
 
 Request inputs are numpy arrays decoded from the wire or read from a
 system region, or tensors: views of a CUDA region (zero-copy) and the
@@ -31,9 +40,18 @@ from client_tpu_torch.serve.dynamic_batcher import (
     batchable_request,
     device_stream,
 )
-from client_tpu_torch.serve.metrics import Registry
+from client_tpu_torch.serve.flight import FlightRecorder
+from client_tpu_torch.serve.frontdoor import Coalescer, request_digest
+from client_tpu_torch.serve.metrics import BATCH_BUCKETS, Histogram, Registry
 from client_tpu_torch.serve.pipeline import PipelineRunner, build_dag
 from client_tpu_torch.serve.prof import PhaseProfiler
+from client_tpu_torch.serve.slo import SloWatchdog
+from client_tpu_torch.serve.tracing import (
+    TRACE_SETTING_DEFAULTS,
+    Tracer,
+    normalize_trace_settings,
+    push_trace,
+)
 from client_tpu_torch.utils import (
     InferenceServerException,
     from_wire_bytes,
@@ -44,8 +62,15 @@ from client_tpu_torch.utils.shared_memory import shm_path
 
 SERVER_NAME = "client_tpu_torch.serve"
 SERVER_VERSION = "0.1.0"
-SERVER_EXTENSIONS = ["binary_tensor_data", "parameters", "statistics",
-                     "system_shared_memory", "cuda_shared_memory"]
+SERVER_EXTENSIONS = ["model_repository", "model_configuration",
+                     "binary_tensor_data", "parameters", "statistics",
+                     "trace", "logging", "system_shared_memory",
+                     "cuda_shared_memory"]
+
+_FLEET_LATER = (
+    "the fleet tier (cross-replica response cache, prefix tier and "
+    "sequence replication) comes with a later slice of the port"
+)
 
 
 class TensorSpec:
@@ -84,10 +109,16 @@ class Model:
     DAG scheduler (``fn`` is ignored).  ``device`` is the device a
     torch-backed model runs on.
 
+    ``response_cache`` is the per-model cache-hint block (the
+    reference's config block): ``{"cacheable"/"enable": bool, "ttl_s":
+    float}``, and for LM models a ``prefix_cache`` sub-block; None =
+    cacheable whenever the server runs a ResponseCache, no per-model TTL.
+
     ``closer`` (optional) releases model-owned resources (the batched LM
     engine's scheduler thread and KV pool) when the engine closes;
     ``binder`` (optional) is called by ``InferenceEngine.add_model`` with
-    the engine, so model-owned subsystems pick up its metrics registry.
+    the engine, so model-owned subsystems pick up its metrics registry,
+    tracer, flight recorder, profiler and tenant QoS.
     """
 
     versions = ["1"]
@@ -98,7 +129,8 @@ class Model:
                  max_queue_delay_us=3000, warmup=False,
                  batch_device_inputs=False, fused_batching=False,
                  max_fused_arity=8, max_queue_depth=None,
-                 ensemble_steps=None, flops_per_item=None):
+                 ensemble_steps=None, flops_per_item=None,
+                 response_cache=None):
         self.name = name
         self.inputs = list(inputs)
         self.outputs = list(outputs)
@@ -117,6 +149,9 @@ class Model:
         self.max_queue_depth = max_queue_depth
         self.ensemble_steps = list(ensemble_steps or [])
         self.flops_per_item = flops_per_item
+        self.response_cache = dict(response_cache or {}) or None
+        self.config_override = None  # set by a repository load with config
+        self.file_overrides = {}
         self.closer = None
         self.binder = None
         # validated ensemble DAG (serve/pipeline.py), built at add/load time
@@ -132,6 +167,14 @@ class Model:
         }
 
     def config(self):
+        if self.config_override is not None:
+            merged = dict(self._base_config())
+            merged.update(self.config_override)
+            merged["name"] = self.name
+            return merged
+        return self._base_config()
+
+    def _base_config(self):
         cfg = {
             "name": self.name,
             "platform": self.platform,
@@ -172,7 +215,26 @@ class Model:
                     for s in self.ensemble_steps
                 ]
             }
+        if self.response_cache is not None:
+            cacheable, ttl_s = self.cache_hints()
+            block = {"enable": cacheable}
+            if ttl_s is not None:
+                block["ttl_s"] = ttl_s
+            if self.response_cache.get("prefix_cache") is not None:
+                block["prefix_cache"] = dict(
+                    self.response_cache["prefix_cache"]
+                )
+            cfg["response_cache"] = block
         return cfg
+
+    def cache_hints(self):
+        """(cacheable, ttl_s) from the model's ``response_cache`` block:
+        the per-model front-door policy the engine consults before the
+        all-models response cache (absent block = cacheable, no TTL
+        override).  ``cacheable`` and ``enable`` are synonyms."""
+        rc = self.response_cache or {}
+        cacheable = rc.get("cacheable", rc.get("enable", True))
+        return bool(cacheable), rc.get("ttl_s")
 
 
 def _cfg_type(datatype):
@@ -183,7 +245,8 @@ class ModelStats:
     """Per-model cumulative statistics in the statistics extension's shape:
     request outcomes apart from executions (a batched execution serves
     several requests, so ``inference_count`` counts batch rows and
-    ``execution_count`` forward passes)."""
+    ``execution_count`` forward passes), response-cache hits and misses,
+    and the distributions behind the /metrics histograms."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -198,11 +261,23 @@ class ModelStats:
         self.compute_input_ns = 0
         self.compute_output_ns = 0
         self.queue_ns = 0
+        # response-cache accounting (the statistics extension's
+        # cache_hit / cache_miss durations)
+        self.cache_hit_count = 0
+        self.cache_hit_ns = 0
+        self.cache_miss_count = 0
+        self.cache_miss_ns = 0
+        # per-request end-to-end duration (success AND failure),
+        # per-request batcher queue time, and execution batch size
+        self.request_us = Histogram()
+        self.queue_us = Histogram()
+        self.batch_rows = Histogram(BATCH_BUCKETS)
 
     def record(self, ok, total_ns=0, infer_ns=0, input_ns=0, output_ns=0,
                batch=1):
         """One request executed on its own (or its failure)."""
         with self.lock:
+            self.request_us.observe(total_ns / 1000)
             if ok:
                 self.inference_count += batch
                 self.execution_count += 1
@@ -211,12 +286,14 @@ class ModelStats:
                 self.compute_infer_ns += infer_ns
                 self.compute_input_ns += input_ns
                 self.compute_output_ns += output_ns
+                self.batch_rows.observe(batch)
                 self.last_inference_ms = int(time.time() * 1000)
             else:
                 self.fail_count += 1
                 self.fail_ns += total_ns
 
-    def record_batched(self, rows, infer_ns, input_ns, output_ns, queue_ns):
+    def record_batched(self, rows, infer_ns, input_ns, output_ns, queue_ns,
+                       queue_ns_each=None):
         """One dynamic-batched execution.  Per-request success outcomes are
         recorded by record_request_success once rendering finishes;
         failures go through record(False, ...) in execute()."""
@@ -227,13 +304,44 @@ class ModelStats:
             self.compute_input_ns += input_ns
             self.compute_output_ns += output_ns
             self.queue_ns += queue_ns
+            self.batch_rows.observe(rows)
+            for q_ns in queue_ns_each or ():
+                self.queue_us.observe(q_ns / 1000)
             self.last_inference_ms = int(time.time() * 1000)
 
     def record_request_success(self, total_ns):
-        """One successful request served through the batched path."""
+        """One successful request served through the batched path (or a
+        coalesced follower)."""
         with self.lock:
             self.success_count += 1
             self.success_ns += total_ns
+            self.request_us.observe(total_ns / 1000)
+
+    def record_cache_hit(self, total_ns):
+        """One request answered from the response cache: a request success
+        with zero inferences executed (inference_count untouched)."""
+        with self.lock:
+            self.success_count += 1
+            self.success_ns += total_ns
+            self.request_us.observe(total_ns / 1000)
+            self.cache_hit_count += 1
+            self.cache_hit_ns += total_ns
+
+    def record_cache_miss(self, lookup_ns):
+        """One cacheable request that had to execute (the lookup cost is
+        what the statistics extension's cache_miss duration measures)."""
+        with self.lock:
+            self.cache_miss_count += 1
+            self.cache_miss_ns += lookup_ns
+
+    def histograms(self):
+        """Snapshots of (request_us, queue_us, batch_rows) for /metrics."""
+        with self.lock:
+            return (
+                self.request_us.snapshot(),
+                self.queue_us.snapshot(),
+                self.batch_rows.snapshot(),
+            )
 
     def to_json(self, name, version):
         with self.lock:
@@ -254,6 +362,10 @@ class ModelStats:
                                       "ns": self.compute_infer_ns},
                     "compute_output": {"count": count,
                                        "ns": self.compute_output_ns},
+                    "cache_hit": {"count": self.cache_hit_count,
+                                  "ns": self.cache_hit_ns},
+                    "cache_miss": {"count": self.cache_miss_count,
+                                   "ns": self.cache_miss_ns},
                 },
             }
 
@@ -543,30 +655,175 @@ def _attach_posix_shm(key, length):
         os.close(fd)
 
 
-class InferenceEngine:
-    """Model repository + request execution shared by the frontends."""
+class BusyTracker:
+    """Wall-clock union of model-execution intervals (server duty cycle).
 
-    def __init__(self, models=None):
+    Overlapping executions are unioned, so busy_ns/elapsed is the fraction
+    of wall time the server had at least one model execution in flight —
+    "is the card being fed?" as a counter.  Host clock only."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._active = 0
+        self._since = 0
+        self._busy_ns = 0
+
+    def begin(self):
+        with self._lock:
+            if self._active == 0:
+                self._since = time.monotonic_ns()
+            self._active += 1
+
+    def end(self):
+        with self._lock:
+            self._active -= 1
+            if self._active == 0:
+                self._busy_ns += time.monotonic_ns() - self._since
+
+    def busy_ns(self):
+        with self._lock:
+            busy = self._busy_ns
+            if self._active:
+                busy += time.monotonic_ns() - self._since
+            return busy
+
+
+class _InflightStream:
+    """Iterator adapter releasing one in-flight slot exactly once, when
+    the wrapped decoupled-response generator is exhausted, fails, is
+    closed, or is garbage-collected.  A plain wrapper generator would leak
+    the slot when never started (its ``finally`` would not run) — e.g. a
+    frontend that rejects the request before iterating."""
+
+    def __init__(self, gen, release):
+        self._gen = gen
+        self._release = release
+        self._done = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self._gen)
+        except BaseException:  # StopIteration included: stream is over
+            self._finish()
+            raise
+
+    def close(self):
+        try:
+            self._gen.close()
+        finally:
+            self._finish()
+
+    def _finish(self):
+        if not self._done:
+            self._done = True
+            self._release()
+
+    def __del__(self):
+        try:
+            self._finish()
+        except Exception:  # pragma: no cover - interpreter teardown
+            pass
+
+
+class InferenceEngine:
+    """Model repository + request execution shared by the frontends.
+
+    Overload admission control (``max_inflight``) and graceful drain
+    (:meth:`drain`) both shed work with a *retryable* 503, so client
+    retry policies and server-side shedding compose: a shed request backs
+    off and lands once capacity returns or on another replica.  The
+    multi-tenant front door (``response_cache``, ``coalescing``, ``qos``:
+    serve/frontdoor.py), the SLO watchdog (``slo``: serve/slo.py; None
+    builds the observation-only default, False turns it off) and the
+    flight recorder (``flight``: serve/flight.py) are the reference's.
+    ``fleet`` raises: the fleet tier comes with a later slice.
+    """
+
+    def __init__(self, models=None, max_inflight=None, response_cache=None,
+                 coalescing=False, qos=None, fleet=None, slo=None,
+                 flight=None):
+        if fleet is not None:
+            raise NotImplementedError(_FLEET_LATER)
         self._lock = threading.Lock()
         self._models = {}
         self._ready = {}
         self._stats = {}
         self._batchers = {}
         self._pipeline = None
+        # Admission control: cap on concurrently executing requests (None =
+        # unbounded).  Work beyond the cap is rejected retryably (503).
+        self.max_inflight = max_inflight
+        self._inflight = 0
+        self._draining = False
+        self._flight_cv = threading.Condition()
+        self.busy = BusyTracker()
         self.shm = SharedMemoryRegistry()
-        # series written by model-owned subsystems (the LM engine's lane,
-        # KV and prefix gauges, bound through Model.binder), the batcher's
-        # sheds and the ensemble scheduler's counters
+        self.trace_settings = {
+            k: (list(v) if isinstance(v, list) else v)
+            for k, v in TRACE_SETTING_DEFAULTS.items()
+        }
+        # request tracing (trace extension): the tracer reads
+        # trace_settings live.  The registry holds the series written by
+        # model-owned subsystems (the LM engine's lane, KV and prefix
+        # gauges, bound through Model.binder), the batcher's sheds, the
+        # ensemble scheduler's counters and the front door's
+        self.tracer = Tracer(self.trace_settings)
         self.metrics = Registry()
-        # one "batch" tick per batched execution, with the per-model
-        # FLOPs behind the MFU series
+        # Flight recorder: a bounded ring of recent spans + anomaly events
+        # dumped on demand (/v2/debug/flight) and automatically on SLO
+        # breach or engine wedge
+        self.flight = flight if flight is not None else FlightRecorder(
+            registry=self.metrics
+        )
+        self.tracer.on_complete = self.flight.note_span
+        # Continuous profiler: one tick per unary, ensemble or batched
+        # execution with the per-model FLOPs behind the MFU series; LM
+        # schedulers keep their own profiler and are adopted through
+        # Model.binder, so /v2/debug/prof and flight dumps cover them
         self.prof = PhaseProfiler(name="serve", registry=self.metrics)
+        # the frontend's wire-path ticks (deserialize/wait/serialize/send)
+        # keep their own ring: their "wait" CONTAINS the engine's execute
+        # ticks, so sharing a ring would double-count
+        self.wire_prof = PhaseProfiler(name="wire", registry=self.metrics)
+        self.prof.adopt(self.wire_prof)
+        if self.flight.prof is None:
+            self.flight.prof = self.prof
+        if slo is None:
+            slo = SloWatchdog()
+        self.slo = slo or None
+        if self.slo is not None:
+            if self.slo.registry is None:
+                self.slo.registry = self.metrics
+            if self.slo.flight is None:
+                self.slo.flight = self.flight
+        # Multi-tenant front door, all opt-in; its metrics land in this
+        # engine's registry unless already bound elsewhere
+        self.response_cache = response_cache
+        if response_cache is not None and response_cache.registry is None:
+            response_cache.registry = self.metrics
+        self.qos = qos
+        if qos is not None and qos.registry is None:
+            qos.registry = self.metrics
+        self._coalescer = (
+            Coalescer(registry=self.metrics) if coalescing else None
+        )
+        self.log_settings = {
+            "log_file": "",
+            "log_info": True,
+            "log_warning": True,
+            "log_error": True,
+            "log_verbose_level": 0,
+            "log_format": "default",
+        }
         for model in models or []:
             self.add_model(model)
 
     # repository -----------------------------------------------------------
 
-    def add_model(self, model):
+    def add_model(self, model, ready=True):
         # Validation and installation are ONE critical section: a DAG
         # validated against a snapshot that mutates before the install
         # could leave a READY ensemble describing a replaced model.
@@ -593,33 +850,50 @@ class InferenceEngine:
                 except InferenceServerException:
                     self._ready[n] = False
             self._models[model.name] = model
-            self._ready[model.name] = True
+            self._ready[model.name] = ready
             self._stats.setdefault(model.name, ModelStats())
             # a replaced model must not keep serving through the old batcher
             stale = self._batchers.pop(model.name, None)
         if stale is not None:
             stale.close()
+        self._invalidate_cache()
         # outside the repository lock: binders may take their own locks
+        # (registry/QoS) and must never nest under self._lock
         if model.binder is not None:
             model.binder(self)
         if model.dynamic_batching and model.warmup:
             self._batcher_for(model).warmup(model.inputs)
 
-    def load_model(self, name):
-        """Mark *name* ready again; an ensemble revalidates against the
-        current repository first (a broken one fails the load with a 400
-        and stays unready)."""
-        from client_tpu_torch.serve.pipeline import build_dag
+    def _invalidate_cache(self):
+        """Repository mutations (add/load/unload) drop the whole response
+        cache: the digest keys on request CONTENT, so a model swapped with
+        new weights or a config/file override would keep answering from
+        its pre-mutation cache forever."""
+        if self.response_cache is not None:
+            self.response_cache.clear()
 
+    def load_model(self, name, config_override=None, files=None):
+        """Mark *name* ready again, with an optional config override (and
+        file overrides, which need one); an ensemble revalidates against
+        the current repository first (a broken one fails the load with a
+        400 and stays unready)."""
         with self._lock:
             if name not in self._models:
                 raise InferenceServerException(
                     f"failed to load '{name}', no such model", status="400"
                 )
+            if files and config_override is None:
+                raise InferenceServerException(
+                    "load with file override requires a config override too",
+                    status="400",
+                )
             model = self._models[name]
             if model.ensemble_steps:
                 model._dag = build_dag(model, dict(self._models).get)
+            model.config_override = config_override
+            model.file_overrides = files or {}
             self._ready[name] = True
+        self._invalidate_cache()
 
     def unload_model(self, name):
         with self._lock:
@@ -631,6 +905,22 @@ class InferenceEngine:
             batcher = self._batchers.pop(name, None)
         if batcher is not None:
             batcher.close()
+        self._invalidate_cache()
+
+    def repository_index(self, ready_only=False):
+        with self._lock:
+            index = []
+            for name, model in sorted(self._models.items()):
+                is_ready = self._ready.get(name, False)
+                if ready_only and not is_ready:
+                    continue
+                index.append({
+                    "name": name,
+                    "version": model.versions[-1],
+                    "state": "READY" if is_ready else "UNAVAILABLE",
+                    "reason": "",
+                })
+            return index
 
     def close(self):
         """Close the batchers, then release model-owned resources (e.g.
@@ -645,6 +935,7 @@ class InferenceEngine:
         for model in models:
             if model.closer is not None:
                 model.closer()
+        self.tracer.flush()  # buffered trace records reach trace_file
         self.shm.close()
 
     def get_model(self, name, version=""):
@@ -672,10 +963,6 @@ class InferenceEngine:
                 and (not version or version in model.versions)
             )
 
-    def ready(self):
-        """Server-level readiness (no drain in this slice: always True)."""
-        return True
-
     def statistics(self, name="", version=""):
         with self._lock:
             stats = [
@@ -690,6 +977,115 @@ class InferenceEngine:
             )
         return stats
 
+    def stats_objects(self):
+        """(name, version, ModelStats) per model, for /metrics histograms."""
+        with self._lock:
+            return [
+                (n, model.versions[-1], self._stats[n])
+                for n, model in sorted(self._models.items())
+            ]
+
+    # observability: trace settings / live gauges ---------------------------
+
+    def update_trace_settings(self, updates):
+        """Apply a trace-settings update through the canonical schema
+        (serve/tracing.normalize_trace_settings) and return the settings."""
+        normalized = normalize_trace_settings(updates)
+        with self._lock:
+            self.trace_settings.update(normalized)
+        if "trace_count" in normalized:
+            # the reference trace API restarts the budget on update
+            self.tracer.reset_budget()
+        return self.trace_settings
+
+    def queue_depths(self):
+        """Dynamic-batcher queue depth per model (live gauge)."""
+        with self._lock:
+            batchers = dict(self._batchers)
+        return {name: b.queue_depth() for name, b in batchers.items()}
+
+    def tenant_queue_depths(self):
+        """{(model, tenant): queued count} across batcher fair-queue lanes
+        (the per-tenant /metrics queue gauge)."""
+        with self._lock:
+            batchers = dict(self._batchers)
+        out = {}
+        for name, batcher in batchers.items():
+            for tenant, depth in batcher.queue_depths_by_tenant().items():
+                out[(name, tenant)] = depth
+        return out
+
+    def inflight_count(self):
+        with self._flight_cv:
+            return self._inflight
+
+    # lifecycle: readiness / drain ------------------------------------------
+
+    def ready(self):
+        """Server-level readiness: False once drain() has begun (the load
+        balancer's signal to stop routing here)."""
+        with self._flight_cv:
+            return not self._draining
+
+    def drain(self, timeout_s=None):
+        """Graceful drain: stop admitting new work (readiness flips false,
+        new requests are rejected with retryable 503), then wait for every
+        in-flight request — a decoupled stream until it is consumed or
+        closed — to finish.  Returns True when fully drained within
+        *timeout_s* (None = wait indefinitely)."""
+        deadline = (
+            time.monotonic() + timeout_s if timeout_s is not None else None
+        )
+        self.metrics.inc(
+            "ctpu_drain_total",
+            help_="Graceful drains initiated",
+        )
+        with self._flight_cv:
+            self._draining = True
+            while self._inflight:
+                remaining = None
+                if deadline is not None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return False
+                self._flight_cv.wait(timeout=remaining)
+        return True
+
+    def _admit(self):
+        """One request enters execution, or is shed with a retryable 503."""
+        shed_reason = None
+        with self._flight_cv:
+            if self._draining:
+                shed_reason = "draining"
+            elif (
+                self.max_inflight is not None
+                and self._inflight >= self.max_inflight
+            ):
+                shed_reason = "overload"
+            else:
+                self._inflight += 1
+        if shed_reason is None:
+            return
+        self.metrics.inc(
+            "ctpu_requests_shed_total", {"reason": shed_reason},
+            help_="Requests shed with a retryable 503",
+        )
+        if shed_reason == "draining":
+            raise InferenceServerException(
+                "server is draining and not accepting new requests",
+                status="503",
+            )
+        raise InferenceServerException(
+            f"server overloaded: {self._inflight} requests in flight "
+            f"(limit {self.max_inflight}); retry after backoff",
+            status="503",
+        )
+
+    def _release(self):
+        with self._flight_cv:
+            self._inflight -= 1
+            self._flight_cv.notify_all()
+
     def _batcher_for(self, model):
         with self._lock:
             batcher = self._batchers.get(model.name)
@@ -698,6 +1094,7 @@ class InferenceEngine:
                     model,
                     self._stats[model.name],
                     max_queue_delay_s=model.max_queue_delay_us / 1e6,
+                    busy=self.busy,
                     max_queue_depth=model.max_queue_depth,
                     registry=self.metrics,
                     prof=self.prof,
@@ -716,24 +1113,298 @@ class InferenceEngine:
 
     # execution ------------------------------------------------------------
 
-    def execute(self, model_name, model_version, request, binary_section):
-        """Run one inference request.
+    def execute(self, model_name, model_version, request, binary_section,
+                trace=None, tenant=""):
+        """Run one inference request through the front door + admission.
 
         *request* is the JSON-form header dict; *binary_section* the raw
         bytes after the header.  Returns ``(response_dict, binary_blobs)``,
-        or for a decoupled model a generator of such tuples, one per
-        response the model produces.  A batchable request waits in its
-        model's dynamic batcher; an ensemble runs through the DAG
-        scheduler; everything else calls the model directly.
+        or for a decoupled model an iterator of such tuples, one per
+        response the model produces (it holds its admission and tenant
+        slots until it is exhausted or closed).  *trace* is an optional
+        RequestTrace the frontend sampled; the engine (and the dynamic
+        batcher) record the queue/compute timeline onto it.  *tenant* is
+        the caller identity from the ``x-tenant-id`` header (empty = the
+        default tenant).
+
+        Order of the front door: response-cache lookup → in-flight
+        coalescing → per-tenant QoS admission (429 with Retry-After) →
+        global admission (503) → execution.  Cache hits and coalesced
+        followers never consume an execution slot OR a tenant quota slot
+        (they still count in the per-tenant request series).  The SLO
+        watchdog observes every completion; 4xx rejections count as
+        latency only (the client's fault, not a server error).
         """
+        # on the untraced hot path the thread-local needs no touch at all
+        if trace is None:
+            return self._execute_measured(
+                model_name, model_version, request, binary_section,
+                trace, tenant,
+            )
+        with push_trace(trace):
+            return self._execute_measured(
+                model_name, model_version, request, binary_section,
+                trace, tenant,
+            )
+
+    def _execute_measured(self, model_name, model_version, request,
+                          binary_section, trace, tenant):
+        """SLO accounting bracket: every completion (or failure) of one
+        request lands in the watchdog's sketch; 5xx/transport count
+        against the error-rate objective, 4xx as latency only.  A
+        decoupled request is observed when its stream is handed out."""
+        t0 = time.monotonic_ns()
+        status = ""
+        try:
+            return self._execute_request(
+                model_name, model_version, request, binary_section,
+                trace, tenant, t0,
+            )
+        except InferenceServerException as e:
+            status = str(e.status())
+            raise
+        except BaseException:
+            status = "500"
+            raise
+        finally:
+            slo = self.slo
+            if slo is not None:
+                slo.observe(
+                    model_name, tenant,
+                    (time.monotonic_ns() - t0) / 1e9,
+                    error=bool(status) and not status.startswith("4"),
+                )
+
+    def _execute_request(self, model_name, model_version, request,
+                         binary_section, trace, tenant, t0):
+        if trace is not None:
+            trace.tenant = tenant
+            trace.event("QUEUE_START")
+        front = self._front_key(model_name, model_version, request,
+                                binary_section)
+        if front is not None:
+            key, cacheable, ttl_s = front
+            return self._front_door(
+                key, model_name, model_version, request, binary_section,
+                trace, tenant, t0, cacheable, ttl_s,
+            )
+        qos_release = self.qos.admit(tenant) if self.qos is not None else None
+        try:
+            result = self._execute_slot(
+                model_name, model_version, request, binary_section,
+                trace, tenant, extra_release=qos_release,
+            )
+            if isinstance(result, _InflightStream):
+                qos_release = None  # the stream owns the QoS slot now
+            return result
+        finally:
+            if qos_release is not None:
+                qos_release()
+
+    def _front_key(self, model_name, model_version, request, binary_section):
+        """``(digest, cacheable, ttl_s)`` for this request, or None when
+        the front door does not apply: no cache or coalescer configured;
+        decoupled model; unknown model (the normal path raises the proper
+        error); or a request that reads from or writes to a shared-memory
+        region, system or CUDA (``request_digest`` returns None): its
+        tensors are the region's, and an output sink written on the
+        device can never be replayed from a cached answer.
+
+        ``cacheable``/``ttl_s`` come from the model's ``response_cache``
+        config block: a model that opts out of caching still coalesces,
+        and a model with a freshness bound caches with its own TTL."""
+        if self.response_cache is None and self._coalescer is None:
+            return None
+        with self._lock:
+            model = self._models.get(model_name)
+            if model is None or not self._ready.get(model_name):
+                return None
+        if model.decoupled:
+            return None
+        cacheable, ttl_s = model.cache_hints()
+        if not cacheable and self._coalescer is None:
+            return None  # nothing left for the front door to do
+        key = request_digest(model_name, model_version, request,
+                             binary_section)
+        if key is None:
+            return None
+        return key, cacheable, ttl_s
+
+    def _front_door(self, key, model_name, model_version, request,
+                    binary_section, trace, tenant, t0, cacheable=True,
+                    ttl_s=None):
+        """Serve one cacheable unary request: cache hit, coalesced follower,
+        or (leader / uncoalesced) QoS-admitted execution + cache fill.  A
+        shared rendering is host data (JSON and wire bytes): the leader's
+        device tensors became bytes in its render, before publication."""
+        stats = self._stats[model_name]
+        use_cache = self.response_cache is not None and cacheable
+        lookup_ns = 0
+        if use_cache:
+            lookup0 = time.monotonic_ns()
+            cached = self.response_cache.get(key)
+            lookup_ns = time.monotonic_ns() - lookup0
+            if cached is not None:
+                if trace is not None:
+                    trace.event("CACHE_HIT")
+                if self.qos is not None:
+                    self.qos.note(tenant)
+                response, blobs = cached
+                stats.record_cache_hit(time.monotonic_ns() - t0)
+                return _stamp_id(response, request), blobs
+        if self._coalescer is None:
+            result = self._front_dispatch(
+                model_name, model_version, request, binary_section, trace,
+                tenant,
+            )
+            if not isinstance(result, tuple):
+                # the model was hot-swapped to a decoupled shape between
+                # the front-key check and execution: a stream is not
+                # cacheable — hand it straight to the caller
+                return result
+            # a miss is a request that EXECUTED after missing: coalesced
+            # followers and shed requests never dispatched
+            if use_cache:
+                stats.record_cache_miss(lookup_ns)
+                self._cache_fill(key, (_strip_id(result[0]), result[1]),
+                                 ttl_s)
+            return result
+        while True:
+            is_leader, flight = self._coalescer.join(key)
+            if not is_leader:
+                # identical request already dispatching: wait for its
+                # result (the leader ALWAYS completes the flight — so
+                # this wait is bounded by the leader's execution)
+                flight.event.wait()
+                if flight.retry:
+                    # the leader was shed by ITS OWN tenant's admission:
+                    # that 429 is tenant identity, not request content —
+                    # re-contend so a compliant tenant's request becomes
+                    # the next leader under its own quota
+                    continue
+                if trace is not None:
+                    trace.event("COALESCED")
+                if self.qos is not None:
+                    self.qos.note(tenant)
+                if flight.error is not None:
+                    stats.record(False, time.monotonic_ns() - t0, 0, 0, 0)
+                    raise flight.error
+                response, blobs = flight.result
+                stats.record_request_success(time.monotonic_ns() - t0)
+                return _stamp_id(response, request), blobs
+            try:
+                result = self._front_dispatch(
+                    model_name, model_version, request, binary_section,
+                    trace, tenant,
+                )
+            except InferenceServerException as e:
+                if e.status() == "429" or _connection_level(e):
+                    # tenant-scoped QoS rejection — or a leader that died
+                    # with its transport: neither says anything about the
+                    # request CONTENT, so followers re-contend instead of
+                    # inheriting the error
+                    self._coalescer.retry_followers(key, flight)
+                    raise
+                # content-scoped errors fan out to every follower: a
+                # byte-identical request would have failed identically
+                self._coalescer.fail(key, flight, e)
+                raise
+            except BaseException as e:
+                self._coalescer.fail(key, flight, e)
+                raise
+            if not isinstance(result, tuple):
+                # hot-swap TOCTOU (see the uncoalesced branch): nothing
+                # shareable was produced — followers re-contend
+                self._coalescer.retry_followers(key, flight)
+                return result
+            # publish/cache the id-less rendering: followers and later
+            # hits stamp their own request id — under a guard, because a
+            # flight left incomplete here would strand every follower on
+            # an untimed wait
+            try:
+                if use_cache:
+                    stats.record_cache_miss(lookup_ns)  # leader executed
+                shared = (_strip_id(result[0]), result[1])
+            except BaseException as e:  # pragma: no cover - defensive
+                self._coalescer.fail(key, flight, e)
+                raise
+            self._coalescer.publish(key, flight, shared)
+            if use_cache:
+                self._cache_fill(key, shared, ttl_s)
+            return result
+
+    def _front_dispatch(self, model_name, model_version, request,
+                        binary_section, trace, tenant):
+        """One front-door request that missed every fast path: per-tenant
+        QoS admission (429) then a real execution slot.  Always unary —
+        the front door never applies to decoupled models."""
+        qos_release = self.qos.admit(tenant) if self.qos is not None else None
+        try:
+            return self._execute_slot(
+                model_name, model_version, request, binary_section, trace,
+                tenant,
+            )
+        finally:
+            if qos_release is not None:
+                qos_release()
+
+    def _cache_fill(self, key, shared, ttl_s=None):
+        """Store one id-less ``(response, blobs)`` rendering, under the
+        model's own TTL when its config block sets one."""
+        if self.response_cache is not None:
+            self.response_cache.put(key, shared[0], shared[1], ttl_s=ttl_s)
+
+    def _execute_slot(self, model_name, model_version, request,
+                      binary_section, trace, tenant, extra_release=None):
+        """Global admission + execution.  ``extra_release`` (the QoS slot)
+        transfers to the returned stream for decoupled results."""
+        self._admit()
+        streamed = False
+        try:
+            result = self._execute_admitted(
+                model_name, model_version, request, binary_section, trace,
+                tenant,
+            )
+            if not isinstance(result, tuple):  # decoupled generator
+                streamed = True
+
+                # the stream stays counted as in-flight (engine slot AND
+                # tenant slot) until the consumer exhausts, closes, or
+                # drops it — drain must not cut a stream mid-generation
+                def release(engine=self, extra=extra_release):
+                    engine._release()
+                    if extra is not None:
+                        extra()
+
+                return _InflightStream(result, release)
+            return result
+        finally:
+            if not streamed:
+                self._release()
+
+    def _execute_admitted(self, model_name, model_version, request,
+                          binary_section, trace=None, tenant=""):
+        """Execute one admitted request.  A batchable request waits in its
+        model's dynamic batcher; an ensemble runs through the DAG
+        scheduler; a decoupled model streams; everything else calls the
+        model directly."""
         t0 = time.monotonic_ns()
         model = self.get_model(model_name, model_version)
         stats = self._stats[model_name]
         try:
+            # trace timestamps use the wall clock (comparable with client
+            # spans); queue/compute events are emitted once the scheduling
+            # path is known — the batcher owns them on the batched path
+            w_in0 = time.time_ns() if trace is not None else 0
             inputs = self._gather_inputs(model, request, binary_section)
             params = request.get("parameters", {}) or {}
             t_in1 = time.monotonic_ns()
+            w_in1 = time.time_ns() if trace is not None else 0
             if model.ensemble_steps:
+                if trace is not None:
+                    trace.event("QUEUE_END", w_in0)
+                    trace.event("COMPUTE_START", w_in0)
+                    trace.event("COMPUTE_INPUT_END", w_in1)
                 # work_ns, the summed per-step durations, is recorded as
                 # the ensemble's compute_infer, so composing statistics
                 # reconcile with the ensemble's
@@ -741,39 +1412,77 @@ class InferenceEngine:
                     model, inputs, params
                 )
                 t_inf1 = time.monotonic_ns()
+                if trace is not None:
+                    trace.event("COMPUTE_OUTPUT_START")
                 rendered = self._render_response(
                     model, model_version, request, result
                 )
                 t1 = time.monotonic_ns()
+                if trace is not None:
+                    trace.event("COMPUTE_END")
                 stats.record(True, t1 - t0, work_ns, t_in1 - t0,
                              t1 - t_inf1, batch=_batch_of(model, request))
+                # the profiler reuses the timestamps stats already took
+                self.prof.commit(
+                    "ensemble", (t1 - t0) / 1e9,
+                    phases={
+                        "host": (t_in1 - t0) / 1e9,
+                        "compute": work_ns / 1e9,
+                        "render": (t1 - t_inf1) / 1e9,
+                    },
+                    model=model.name,
+                    items=_batch_of(model, request),
+                    flops_per_item=model.flops_per_item,
+                )
                 return rendered
             if batchable_request(model, inputs, params, None, request):
-                # the batcher records the execution; the request's success
-                # is recorded here, and a failure (batched execution or
+                # the batcher records the execution (and the trace's
+                # QUEUE_END/COMPUTE_* events); the request's success is
+                # recorded here, and a failure (batched execution or
                 # rendering) falls through to the except clauses below.
                 # A device request's outputs bound for CUDA regions are
                 # written there by the batcher, which returns once they
                 # are: no device call on this thread, which would hold the
                 # interpreter lock while a graph launch holds the driver
+                weight = (
+                    self.qos.weight(tenant) if self.qos is not None else 1.0
+                )
                 result = self._batcher_for(model).submit(
-                    inputs, sinks=self._output_sinks(model, request, inputs))
+                    inputs, trace=trace, tenant=tenant, weight=weight,
+                    sinks=self._output_sinks(model, request, inputs))
                 rendered = self._render_response(
                     model, model_version, request, result
                 )
                 stats.record_request_success(time.monotonic_ns() - t0)
                 return rendered
+            if trace is not None:
+                trace.event("QUEUE_END", w_in0)
+                trace.event("COMPUTE_START", w_in0)
+                trace.event("COMPUTE_INPUT_END", w_in1)
             if model.decoupled:
+                # LAZY stream: responses render as the model produces them,
+                # so the first token reaches the wire at first-token time
                 return self._decoupled_stream(
-                    model, model_version, request, inputs, params, stats
+                    model, model_version, request, inputs, params, stats,
+                    t0, t_in1, trace, tenant,
                 )
-            with device_stream(model.device):
-                result = model.fn(inputs, params, None)
-                t_inf1 = time.monotonic_ns()
-                rendered = self._render_response(
-                    model, model_version, request, result
-                )
+            # direct path: the busy span closes after rendering, which
+            # has the outputs on the host (or written into their regions)
+            self.busy.begin()
+            try:
+                with device_stream(model.device):
+                    result = model.fn(inputs, params, None)
+                    t_inf1 = time.monotonic_ns()
+                    if trace is not None:
+                        trace.event("COMPUTE_OUTPUT_START")
+                    rendered = self._render_response(
+                        model, model_version, request, result
+                    )
+            finally:
+                self.busy.end()
             t1 = time.monotonic_ns()
+            if trace is not None:
+                trace.event("COMPUTE_END")
         except InferenceServerException:
             stats.record(False, time.monotonic_ns() - t0)
             raise
@@ -785,6 +1494,19 @@ class InferenceEngine:
             ) from e
         stats.record(True, t1 - t0, t_inf1 - t_in1, t_in1 - t0, t1 - t_inf1,
                      batch=_batch_of(model, request))
+        # pre-measured splits (same timestamps stats used) fold into the
+        # continuous profiler without touching another clock
+        self.prof.commit(
+            "unary", (t1 - t0) / 1e9,
+            phases={
+                "host": (t_in1 - t0) / 1e9,
+                "compute": (t_inf1 - t_in1) / 1e9,
+                "render": (t1 - t_inf1) / 1e9,
+            },
+            model=model.name,
+            items=_batch_of(model, request),
+            flops_per_item=model.flops_per_item,
+        )
         return rendered
 
     def _output_sinks(self, model, request, inputs):
@@ -808,25 +1530,54 @@ class InferenceEngine:
         return sinks
 
     def _decoupled_stream(self, model, model_version, request, inputs,
-                          params, stats):
+                          params, stats, t0, t_in1, trace=None, tenant=""):
         """Generator of (response_dict, blobs) for a decoupled model.
 
-        Exactly one count per request: success at exhaustion, failure on a
-        model error or an abandoned stream (the consumer closes or drops
-        the generator mid-flight)."""
+        Exactly one statistics entry per request: success at exhaustion,
+        failure on a model error or an abandoned stream (the consumer
+        closes or drops the generator mid-flight).  The busy span covers
+        only the model's production time (each next() + render), never
+        the suspension at yield — a slow-reading client must not inflate
+        the duty cycle."""
         # Triton's decoupled completion protocol: every response carries
         # triton_final_response=false; with triton_enable_empty_final_response
         # the stream ends with one empty response marked final
         want_final = bool(params.get("triton_enable_empty_final_response"))
+        # Decoupled models bypass the front door, so the tenant identity
+        # (x-tenant-id) reaches them through the RESERVED __tenant__
+        # parameter on a COPY of the request params — stamped by the
+        # engine, never trusted from the client (a spoofed value would
+        # let one tenant bill its decode lanes to another)
+        params = dict(params)
+        params.pop("__tenant__", None)
+        if tenant:
+            params["__tenant__"] = tenant
         recorded = False
         try:
-            for partial in model.fn(inputs, params, None):
-                rendered = self._render_response(
-                    model, model_version, request, partial
-                )
-                rendered[0].setdefault("parameters", {})[
-                    "triton_final_response"
-                ] = False
+            gen = model.fn(inputs, params, None)
+            while True:
+                self.busy.begin()
+                try:
+                    try:
+                        # generator bodies run at next(), often on the
+                        # consumer's thread, outside execute()'s bracket:
+                        # the request trace is pushed again around each
+                        # step (untraced streams skip the thread-local)
+                        if trace is None:
+                            partial = next(gen)
+                        else:
+                            with push_trace(trace):
+                                partial = next(gen)
+                    except StopIteration:
+                        break
+                    rendered = self._render_response(
+                        model, model_version, request, partial
+                    )
+                    rendered[0].setdefault("parameters", {})[
+                        "triton_final_response"
+                    ] = False
+                finally:
+                    self.busy.end()
                 yield rendered
             if want_final:
                 final = {
@@ -838,14 +1589,17 @@ class InferenceEngine:
                 if request.get("id"):
                     final["id"] = request["id"]
                 yield final, []
-            stats.record(True)
+            t1 = time.monotonic_ns()
+            if trace is not None:
+                trace.event("COMPUTE_END")
+            stats.record(True, t1 - t0, t1 - t_in1, t_in1 - t0, 0)
             recorded = True
         except InferenceServerException:
-            stats.record(False)
+            stats.record(False, time.monotonic_ns() - t0)
             recorded = True
             raise
         except Exception as e:
-            stats.record(False)
+            stats.record(False, time.monotonic_ns() - t0)
             recorded = True
             raise InferenceServerException(
                 f"{model.name}: execution failed: {e}",
@@ -853,7 +1607,7 @@ class InferenceEngine:
             ) from e
         finally:
             if not recorded:  # abandoned mid-stream (GeneratorExit/GC)
-                stats.record(False)
+                stats.record(False, time.monotonic_ns() - t0)
 
     def _gather_inputs(self, model, request, binary_section):
         """Resolve request inputs: tensors in shared-memory regions (views
@@ -991,3 +1745,33 @@ def _batch_of(model, request):
     if inputs and inputs[0].get("shape"):
         return int(inputs[0]["shape"][0])
     return 1
+
+
+def _strip_id(response):
+    """The id-less rendering shared via cache/coalescing (the request id is
+    caller identity, not content; every reader stamps its own)."""
+    if "id" in response:
+        return {k: v for k, v in response.items() if k != "id"}
+    return response
+
+
+def _stamp_id(response, request):
+    """A shallow per-caller copy of a shared response with this request's
+    id (nested structures stay shared — readers only serialize them)."""
+    out = dict(response)
+    if request.get("id"):
+        out["id"] = request["id"]
+    return out
+
+
+def _connection_level(exc):
+    """Whether *exc* wraps a connection-level transport failure (the
+    endpoint never answered), as opposed to an answered error: the
+    reference's ``resilience.is_connection_level``."""
+    details = exc.debug_details()
+    if details is None:
+        return False
+    if isinstance(details, (OSError, EOFError)):  # timeouts included
+        return True
+    return (type(details).__module__ or "").startswith(
+        ("urllib3", "aiohttp", "http.client", "grpc"))

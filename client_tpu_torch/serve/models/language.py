@@ -228,15 +228,28 @@ def lm_streaming_batched_model(name="lm_streaming_batched", runner=None,
         check_prompt=base.check_prompt, device=base.device, **engine_kwargs,
     )
     model = lm_streaming_model(name=name, runner=batched)
+    model.response_cache = dict(response_cache or {}) or None
     # the scheduler's thread + paged KV pool release with the engine
     model.closer = batched.scheduler.close
 
     def bind(engine):
-        """Late-bind the owning InferenceEngine's metrics registry
-        (add_model calls this): the lane, KV and prefix gauges land in
-        it.  The tracer, flight recorder, tenant QoS and fleet hooks of
-        the JAX package wait for the slices that port them."""
-        batched.scheduler.set_registry(engine.metrics)
+        """Late-bind the owning InferenceEngine's observability + QoS
+        (add_model calls this; it only sets attributes, so no device work
+        and nothing inside a graph capture): lane/KV/
+        prefix gauges land in the server's /metrics registry, per-tick
+        spans ride its tracer, preemptions and wedges its flight recorder,
+        the scheduler's profiler joins the server's (so /v2/debug/prof
+        and flight dumps cover the LM engine), and tenant decode-lane
+        quotas + preemption priority classes come from the front door's
+        TenantQoS.  The fleet hook comes with the fleet tier."""
+        sched = batched.scheduler
+        sched.set_registry(engine.metrics)
+        sched.tracer = engine.tracer
+        sched.flight = engine.flight
+        engine.prof.adopt(sched.prof)
+        if engine.qos is not None:
+            sched.tenant_lane_share = engine.qos.lane_share
+            sched.tenant_priority = engine.qos.priority
 
     model.binder = bind
     return model

@@ -1,7 +1,7 @@
 """Datatype mapping and tensor (de)serialization for the KServe-v2 protocol.
 
 Counterpart of client_tpu/utils/__init__.py (the exception, the dtype
-tables and the BYTES/BF16 wire codecs).  numpy has no bfloat16, so BF16
+tables, the BYTES/BF16 wire codecs and the tenant header name).  numpy has no bfloat16, so BF16
 tensors decode to float32 (exact: every bf16 value is a float32) and
 encode from any float array by rounding to nearest even through torch.
 """
@@ -22,7 +22,13 @@ __all__ = [
     "deserialize_bf16_tensor",
     "to_wire_bytes",
     "from_wire_bytes",
+    "TENANT_HEADER",
 ]
+
+# The wire key tenant identity rides on (HTTP header name / gRPC metadata
+# key).  Lives here, not in serve/frontdoor, because both sides speak it:
+# the serving front door reads it and the clients stamp it.
+TENANT_HEADER = "x-tenant-id"
 
 
 class InferenceServerException(Exception):

@@ -214,9 +214,9 @@ def test_tokenizer_and_detokenizer_over_http(server):
     ("/v2/models/lm_streaming_int8/ready", 200),
     ("/v2/models/lm_streaming_int8/versions/1/ready", 200),
     ("/v2/models/nope/ready", 400),
-    ("/v2/models/lm_streaming_int8/stats", 404),
-    ("/v2/repository/index", 404),
-    ("/metrics", 404),
+    ("/v2/models/lm_streaming_int8/stats", 200),
+    ("/v2/repository/index", 404),  # POST only, as in the JAX server
+    ("/metrics", 200),
 ])
 def test_health_and_unported_endpoints(server, path, status):
     try:
