@@ -7,8 +7,10 @@ through the dynamic batcher and the vision ensemble, serves ResNet-50
 again from CUDA shared memory of another process, serves the LM engines
 and ResNet-50 once more behind the server's operational surface (every
 hook on: tracing, flight recorder, SLO watchdog, tenant QoS, response
-cache, coalescing, admission, drain), and times the kernels, the serial
-decode, the engine, the train step and the vision models.
+cache, coalescing, admission, drain), runs the mixture-of-experts LM
+through training and the engine, serves the builtin model set, and
+times the kernels, the serial decode, the engine, the train step and the
+vision models.
 
     python3 chip_smoke.py
 
@@ -30,7 +32,8 @@ Phases, one line each or more; any failure exits non-zero:
                 on cuda (kernel) against the same weights on cpu (plain),
                 24 kernel launches per decode step
   5 server      the serving path: the language set behind
-                Server(http_port=0), driven over HTTP with urllib
+                Server(models=..., with_default_models=False), driven
+                over HTTP with urllib
                 (MAX_TOKENS=1 to lm_streaming_int8 and lm_streaming_batched,
                 both on the continuous-batching engine, and to the serial
                 lm_streaming), then engine.execute streams 32 tokens from
@@ -185,18 +188,46 @@ Phases, one line each or more; any failure exits non-zero:
                 at concurrency 8 with and without the front door, in
                 turns; then drain: ready 503, infer 503 with Retry-After,
                 ctpu_draining 1
- 16 kernels     one JSON line: every kernel of the served and trained
+ 16 moe         the mixture-of-experts LM at MOE (the flagship's full
+                width, 8 experts, top 2, bf16): the forward flash against
+                plain (bf16, and f32 at 2 layers) with the router aux
+                loss; 10 flash Adam steps on tokens [8, 513] (launch
+                counts reset before and read after: 4/4/4 flash a step)
+                beside 10 plain steps, the aux loss of every step; 16
+                concurrent engine streams (phase 11's requests): float32
+                equal to serial generate, bf16 and int8 from captured
+                graphs equal to the same engine's programs run eagerly
+                (each run's launches reset before and read after: int8
+                4 x n_layers + the LM head a tick, paged attention
+                n_layers; the expert stacks stay bf16), each stream's
+                first divergence from serial generate, which a router
+                near-tie may cause in bf16; every bf16 program replayed
+                against its eager function, bit-equal; then, in turns
+                with the dense flagship (dense, moe, moe, dense) in this
+                process: engine tokens/s and TTFT at 1, 4 and 8 streams
+                with MFU on the reference's FLOP count, the decode
+                graph's device time at 8 lanes against its bound, the
+                kernels a decode tick and the device-busy share
+ 17 builtin     the builtin set behind Server() (its default models, on
+                the card): simple, simple_sequence (two interleaved
+                sequences, an end and a restart), classifier with
+                classification 2, a refused sequence_durable (400), the
+                tiny vision pipeline; the launch counts reset before and
+                read after: none
+ 18 kernels     one JSON line: every kernel of the served and trained
                 paths (the int8 GEMV and tensor-core routes, the three
                 flash kernels, paged attention's CUDA-core and tensor-core
                 split routes; an entry is named by its wrapper, with the
                 route in kernel_route), its launches on its path (phase 5
-                or 8, and phase 15's), its route's own error (phase 3, 7
-                or 10) and its times (phase 6, 9 or 12)
+                or 8, phase 15's, and launches_moe: phase 16's MoE engine
+                streams and MoE training), its route's own error (phase 3,
+                7 or 10) and its times (phase 6, 9 or 12)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
 
 import base64
+import contextlib
 import dataclasses
 import gzip
 import itertools
@@ -249,6 +280,9 @@ INT8_ROUTE_IDS = {"gemv": 1, "tiled": 2, "mma": 3}
 # (16, 32, 64), a verify tick (8 lanes x width 5), the served prompt, 128
 TIMED_M = (1, 8, 16, 32, 40, 63, 64, 128)
 SERVED_KN = ((256, 256), (256, 128), (256, 768))
+# the MoE config's (MOE, phase 16) int8 shapes: wq and wo, wk and wv, the
+# 8192-wide LM head (the expert stacks stay bf16)
+MOE_KN = ((512, 512), (512, 256), (512, 8192))
 # one layer's six kernel projections: wq, wk, wv, wo, w_gate, w_up
 LAYER_KN = ((256, 256), (256, 128), (256, 128), (256, 256), (256, 768),
             (256, 768))
@@ -274,6 +308,24 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_LOSS0_ATOL = 2e-3
 TRAIN_LOSS_STEP_ATOL = 0.03
 TRAIN_LOSS_LAST_ATOL = 2e-3
+# - the MoE config (MOE), bf16, flash against plain: the limits above,
+#   with the plain run routed at every step as the flash run was (a token
+#   whose router logits lie near a tie would otherwise take other experts
+#   on either side, and move both trajectories apart).  On an H100 80GB
+#   HBM3 (700 W) the losses (9.540 and 9.518 falling to 0.0725 and 0.0677,
+#   seeds 0 and 1) differed by 1.9e-4 and 4.2e-5 at step 1, by at most
+#   3.8e-3 and 7.0e-3, and by 1.4e-5 and 3.2e-4 at step 10
+MOE_TRAIN_SEEDS = (TRAIN_SEED, TRAIN_SEED + 1)  # the weights' and tokens'
+#   (the forward: flash against plain on one routing, the flash run's;
+#   where the plain run's own top-k differs at more than this share of
+#   the decisions, that is a fault, not a near-tie)
+MOE_ROUTING_DIFF = 0.1
+#   The logits of that forward, at every position: 4 bf16 ulps (1/32) at
+#   logits of 4..8, where LOGIT_ATOL's 0.1 is 3.2.  On an H100 80GB HBM3
+#   (700 W) the MoE forward (logits up to 5.97) read 0.1016 and 0.0957
+#   (seeds 0, 1) at its worst of 33.5M logits, the dense flagship's 0.078
+#   (phase 8): the expert combine rounds once more than the dense MLP
+MOE_LOGIT_ATOL = 0.125
 # - float32 (TF32 off), flash against plain: sums in another order
 F32_LOSS_ATOL = 1e-4
 F32_LOGIT_ATOL = 1e-4
@@ -937,12 +989,27 @@ def graph_bounds(eng):
             "prefill": len(eng.buckets)}
 
 
-def check_launches(launches, ticks, cfg, int8):
+def int8_per_tick(params):
+    """The int8 kernel's launches in one device tick: one for each
+    quantized projection whose dims tile (``quant.kernel_takes``; the
+    others dequantize and multiply): 6 a layer at DEFAULT_LM_CONFIG
+    (w_down's K = 768 and the 258-wide LM head do not tile), 4 a layer and
+    the LM head at the MoE config (the expert stacks stay bf16)."""
+    from client_tpu_torch.ops.quant import kernel_takes
+
+    weights = [params["lm_head"]] + [
+        w for layer in params["layers"]
+        for block in ("attn", "mlp") for w in layer.get(block, {}).values()]
+    return sum(1 for w in weights
+               if isinstance(w, dict) and kernel_takes(*w["q"].shape))
+
+
+def check_launches(launches, ticks, cfg, params):
     """paged attention n_layers a device tick (decode, verify or prefill
-    chunk); int8 6 x n_layers a tick when the weights are int8."""
+    chunk); int8 ``int8_per_tick(params)`` a tick."""
     device_ticks = sum(n for kind, n in ticks.items() if kind != "draft")
     want = {"paged_attention": cfg.n_layers * device_ticks,
-            "int8_matmul": 6 * cfg.n_layers * device_ticks if int8 else 0}
+            "int8_matmul": int8_per_tick(params) * device_ticks}
     for name, n in want.items():
         check(launches[name] == n,
               f"{name} launched {launches[name]} times in {ticks} ticks, "
@@ -968,6 +1035,13 @@ def engine_rate(LmEngine, params, cfg, prompt, n_streams, hooks=None):
     ENGINE_TOKENS tokens each, after a warm-up run; host clock from the
     first submit to the last token.  ``hooks(eng)``, when given, binds the
     server's observability and QoS hooks to the engine first."""
+    return engine_rates(LmEngine, params, cfg, prompt, (n_streams,),
+                        hooks)[0]
+
+
+def engine_rates(LmEngine, params, cfg, prompt, counts, hooks=None):
+    """``engine_rate`` at each stream count of ``counts``, in turn, on one
+    engine (its graphs captured once)."""
     eng = LmEngine(params, cfg, device="cuda", **ENGINE_KW)
     if hooks is not None:
         hooks(eng)
@@ -989,27 +1063,35 @@ def engine_rate(LmEngine, params, cfg, prompt, n_streams, hooks=None):
             th.join(timeout=600)
         return t0, stamps
 
+    rows = []
     try:
         run(8, 8)  # warm-up: every lane count and the prefill width
-        t0, stamps = run(n_streams, ENGINE_TOKENS)
-        ticks = [r for r in eng.tick_trace()
-                 if r["kind"] == "decode" and r["t0"] >= t0]
+        for n_streams in counts:
+            t0, stamps = run(n_streams, ENGINE_TOKENS)
+            t_end = time.monotonic()
+            ticks = [r for r in eng.tick_trace()
+                     if r["kind"] == "decode" and t0 <= r["t0"] < t_end]
+            total = sum(len(s) for s in stamps)
+            check(total == n_streams * ENGINE_TOKENS,
+                  f"{total} tokens delivered")
+            end = max(s[-1] for s in stamps)
+            ttft = [(s[0] - t0) * 1e3 for s in stamps]
+            starts = [r["t0"] for r in ticks]
+            rows.append({
+                "streams": n_streams, "tokens_each": ENGINE_TOKENS,
+                "tokens_per_s": total / (end - t0),
+                "ttft_ms_mean": float(np.mean(ttft)),
+                "ttft_ms_max": max(ttft),
+                "decode_ticks": len(ticks),
+                # host clock: one scheduler pass from decode tick to
+                # decode tick, and the tick's dispatch alone (pack, copy,
+                # replay)
+                "host_ms_per_tick": float(np.mean(np.diff(starts)) * 1e3),
+                "dispatch_ms_per_tick": float(np.mean(
+                    [r["t1"] - r["t0"] for r in ticks]) * 1e3)})
     finally:
         eng.close()
-    total = sum(len(s) for s in stamps)
-    check(total == n_streams * ENGINE_TOKENS, f"{total} tokens delivered")
-    end = max(s[-1] for s in stamps)
-    ttft = [(s[0] - t0) * 1e3 for s in stamps]
-    starts = [r["t0"] for r in ticks]
-    return {"streams": n_streams, "tokens_each": ENGINE_TOKENS,
-            "tokens_per_s": total / (end - t0),
-            "ttft_ms_mean": float(np.mean(ttft)), "ttft_ms_max": max(ttft),
-            "decode_ticks": len(ticks),
-            # host clock: one scheduler pass from decode tick to decode
-            # tick, and the tick's dispatch alone (pack, copy, replay)
-            "host_ms_per_tick": float(np.mean(np.diff(starts)) * 1e3),
-            "dispatch_ms_per_tick": float(np.mean(
-                [r["t1"] - r["t0"] for r in ticks]) * 1e3)}
+    return rows
 
 
 def busy_share(prof, wall_us, window=None):
@@ -1869,7 +1951,8 @@ def vision_phase(card):
     forwards = {"resnet50": vision._resnet_forward,
                 "cnn_classifier": vision._cnn_forward}
     ops.reset_launches()
-    with Server(models=list(served.values()), http_port=0) as vserver:
+    with Server(models=list(served.values()), http_port=0,
+                with_default_models=False) as vserver:
         engine = vserver.engine
         for name, model in served.items():
             batcher = engine._batchers[name]
@@ -2397,7 +2480,8 @@ def ops_phase(card, p32, cfg32, pbf, cfg, prompt):
     slo = SloWatchdog(objectives=OPS_SLO, min_samples=1, check_every=1)
     ops.reset_launches()
     with tempfile.TemporaryDirectory() as tmp, Server(
-            models=models + [resnet], response_cache=ResponseCache(),
+            models=models + [resnet], with_default_models=False,
+            response_cache=ResponseCache(),
             coalescing=True, qos=qos, slo=slo, max_inflight=64) as server:
         addr, engine = server.http_address, server.engine
         engine.flight.dump_dir = tmp
@@ -2521,6 +2605,424 @@ def ops_phase(card, p32, cfg32, pbf, cfg, prompt):
     return launches, routes
 
 
+# -- the mixture-of-experts LM (phase 16) ------------------------------------
+
+# the card's MoE config: the flagship at full width with 8 experts, top 2
+# (Mixtral's routing); bf16 weights, the expert stacks never quantized
+MOE = dict(FLAGSHIP, n_experts=8, top_k=2)
+MOE_RATE_STREAMS = (1, 4, 8)
+DECODE_CONTEXT = 128  # the context of the timed decode replay
+
+
+@contextlib.contextmanager
+def aux_recorded(tfm, out):
+    """Record the router aux loss of every ``forward(..., with_aux=True)``
+    (the train step's loss_fn calls it so) into ``out``: the step itself
+    runs unchanged."""
+    forward = tfm.forward
+
+    def observed(*args, **kwargs):
+        result = forward(*args, **kwargs)
+        if kwargs.get("with_aux"):
+            out.append(result[1].detach())
+        return result
+
+    tfm.forward = observed
+    try:
+        yield out
+    finally:
+        tfm.forward = forward
+
+
+@contextlib.contextmanager
+def routing_recorded(tfm, out, forced=None):
+    """Record, for every MoE block a forward runs, each token's top-k
+    expert set (sorted) and its router's gap between the k-th and the
+    next logit, recomputed from the block's own input.  With ``forced``
+    (what an earlier run recorded), the i-th block routes its tokens to
+    the experts recorded for the i-th block there, in place of its own
+    top-k; otherwise the block runs unchanged."""
+    moe_block = tfm._moe_block
+
+    def observed(layer, x, cfg, with_aux=True):
+        with torch.no_grad():
+            h = tfm._rms_norm(x, layer["ln_mlp"])
+            logits = h.float() @ layer["moe"]["router"].float()
+            top, idx = torch.topk(logits, cfg.top_k + 1, dim=-1)
+        route = None if forced is None else forced[len(out)][0]
+        out.append((idx[..., :cfg.top_k].sort(dim=-1).values,
+                    top[..., cfg.top_k - 1] - top[..., cfg.top_k]))
+        return moe_block(layer, x, cfg, with_aux, route=route)
+
+    tfm._moe_block = observed
+    try:
+        yield out
+    finally:
+        tfm._moe_block = moe_block
+
+
+def routed_vs(tfm, params, tokens, cfg, atol):
+    """The MoE forward, flash against plain attention on the same weights
+    and on one routing: the plain run routes every token of every layer to
+    the experts the flash run chose (a token whose router logits lie near
+    a tie may otherwise take another expert on either side, and its
+    changed state reaches every later token of its sequence through
+    attention).  The logits are held to ``atol`` and their argmax
+    agreement to MIN_AGREE at every position.  Fails otherwise, or if the
+    plain run's own top-k differs from the flash run's at more than
+    MOE_ROUTING_DIFF of the (token, layer) decisions."""
+    routes = {}
+    outs = {}
+    for impl in ("flash", "plain"):
+        rec = []
+        with routing_recorded(tfm, rec, routes.get("flash")):
+            outs[impl] = tfm.forward(params, tokens, cfg, attn_impl=impl,
+                                     with_aux=True)
+        routes[impl] = rec
+    (lf, aux_f), (lp, aux_p) = outs["flash"], outs["plain"]
+    diff = (lf - lp).abs()
+    worst = int(diff.argmax())
+    err, at = diff.flatten()[worst].item(), lp.flatten()[worst].item()
+    agree = (lf.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    flips = [(a != b).any(dim=-1)
+             for (a, _), (b, _) in zip(routes["flash"], routes["plain"])]
+    decisions = torch.stack(flips).float().mean().item()
+    gaps = torch.cat([g[f] for (_, g), f in zip(routes["plain"], flips)])
+    check(bool(torch.isfinite(lf).all()) and err <= atol
+          and agree >= MIN_AGREE and decisions <= MOE_ROUTING_DIFF,
+          f"MoE {cfg.dtype} forward flash against plain on one routing: "
+          f"max abs err {err} (atol {atol}) at a logit of {at}, argmax "
+          f"agreement {agree}; the plain run's own top-k differs at "
+          f"{decisions} of the decisions (at most {MOE_ROUTING_DIFF})")
+    return {"layers": cfg.n_layers, "positions": lf.shape[0] * lf.shape[1],
+            "max_abs_err": err, "logit_at_max_err": at,
+            "max_abs_logit": lp.abs().max().item(), "atol": atol,
+            "argmax_agree": agree,
+            "routing_diff_max": MOE_ROUTING_DIFF,
+            "own_routing_differs_share": decisions,
+            "router_gap_where_it_differs_max":
+                gaps.max().item() if gaps.numel() else None,
+            "aux_flash": float(aux_f), "aux_plain": float(aux_p)}
+
+
+@contextlib.contextmanager
+def eager_programs(lm_engine):
+    """Engines built inside run every program eagerly (the capture is
+    skipped, so ``_Program.run`` calls its body): the eager side of a
+    graph-against-eager stream comparison."""
+    capture = lm_engine._Program.capture
+    lm_engine._Program.capture = lambda self, pool, stream: None
+    try:
+        yield
+    finally:
+        lm_engine._Program.capture = capture
+
+
+def first_divergence(got, want):
+    """Where two greedy streams first differ (None: equal)."""
+    if got == want:
+        return None
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                min(len(got), len(want)))
+
+
+def decode_bound(params, cfg, lanes=8, context=DECODE_CONTEXT):
+    """The least device time of one decode tick at ``lanes`` lanes, each at
+    ``context``: every weight read once (the embedding: ``lanes`` rows;
+    the MoE stacks in full, as the dense formulation reads them), each
+    lane's K/V read once, the logits written once; the operations are
+    2 a weight element a lane (every expert's) at the bf16 peak."""
+    weight_bytes = param_bytes(params) - param_bytes(params["embed"])
+    weight_bytes += lanes * cfg.d_model * params["embed"].element_size()
+    from client_tpu_torch.serve.models.transformer import _leaves
+
+    weight_elems = sum(w.numel() for w in _leaves(params)) \
+        - params["embed"].numel()
+    elt = torch.finfo(cfg.tdtype).bits // 8
+    kv = lanes * context * cfg.n_kv_heads * cfg.head_dim * 2 * elt \
+        * cfg.n_layers
+    logits = lanes * cfg.vocab_size * 4
+    total = weight_bytes + kv + logits
+    flops = 2 * lanes * weight_elems
+    bytes_ms = total / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": total, "weight_bytes": weight_bytes}
+
+
+def moe_tokens(seed):
+    """The MoE train batch [TRAIN_BATCH, TRAIN_SEQ + 1] from ``seed``."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, MOE["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+
+
+def moe_phase(card, prompt):
+    """Phase 16: the MoE LM at the card's MoE config (MOE), through every
+    LM path of the port: forward, training, the engine's captured ticks;
+    timed in turns with the dense flagship.  Returns the launches of its
+    counted runs: {"train": ..., "bfloat16": ..., "int8": ...}, each
+    {"launches": ..., "routes": ...}."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.serve.lm import LmEngine
+    from client_tpu_torch.serve.lm import engine as lm_engine
+    from client_tpu_torch.serve.models import transformer as tfm
+
+    t_phase = time.monotonic()
+    cfg = tfm.TransformerConfig(**MOE)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    dense = tfm.TransformerConfig(**FLAGSHIP)
+    init = lambda c: tfm.init_params(  # noqa: E731
+        torch.Generator().manual_seed(0), c, "cuda")
+    tokens = moe_tokens(TRAIN_SEED)
+
+    # forward: flash against plain, bf16 at 4 layers from each seed's
+    # weights and tokens, f32 at 2
+    forward = {}
+    cfg32_2 = dataclasses.replace(cfg32, n_layers=2)
+    with torch.no_grad():
+        for seed in MOE_TRAIN_SEEDS:
+            forward[f"bfloat16_seed{seed}"] = routed_vs(
+                tfm, tfm.init_params(torch.Generator().manual_seed(seed),
+                                     cfg, "cuda"),
+                moe_tokens(seed)[:, :-1], cfg, MOE_LOGIT_ATOL)
+        forward["float32"] = routed_vs(tfm, init(cfg32_2), tokens[:, :-1],
+                                       cfg32_2, F32_LOGIT_ATOL)
+
+    # training: 10 flash Adam steps against plain attention, from the
+    # weights and tokens of each seed (the first seed's flash run counted),
+    # the plain run routed at every step as the flash run was
+    train = {}
+    for seed in MOE_TRAIN_SEEDS:
+        run, routes = {}, {}
+        seed_tokens = moe_tokens(seed)
+        for impl in ("flash", "plain"):
+            counted = impl == "flash" and seed == MOE_TRAIN_SEEDS[0]
+            auxes = []
+            params = tfm.init_params(torch.Generator().manual_seed(seed),
+                                     cfg, "cuda")
+            if counted:
+                ops.reset_launches()
+            forced = routes.get("flash")
+            routes[impl] = []
+            with aux_recorded(tfm, auxes), routing_recorded(
+                    tfm, routes[impl], forced):
+                t0 = time.monotonic()
+                _, _, losses = train_run(tfm, cfg, impl, seed_tokens,
+                                         TRAIN_STEPS, params)
+                torch.cuda.synchronize()
+                seconds = time.monotonic() - t0
+            if counted:
+                train_launches = {"launches": dict(ops.LAUNCHES),
+                                  "routes": {k: dict(v) for k, v
+                                             in ops.ROUTES.items()}}
+            auxes = [float(a) for a in auxes]
+            check(len(auxes) == TRAIN_STEPS and all(np.isfinite(auxes))
+                  and all(a > 0 for a in auxes),
+                  f"MoE {impl} router aux losses {auxes} (seed {seed})")
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  f"MoE {impl} training losses {losses} (seed {seed})")
+            run[impl] = {"losses": losses, "aux": auxes,
+                         "seconds_10_steps": seconds}
+        diffs = [abs(a - b) for a, b in zip(run["flash"]["losses"],
+                                            run["plain"]["losses"])]
+        check(diffs[0] <= TRAIN_LOSS0_ATOL
+              and max(diffs) <= TRAIN_LOSS_STEP_ATOL
+              and diffs[-1] <= TRAIN_LOSS_LAST_ATOL,
+              f"MoE flash losses {run['flash']['losses']} against plain "
+              f"{run['plain']['losses']} (seed {seed})")
+        check(len(routes["plain"]) == len(routes["flash"])
+              == TRAIN_STEPS * cfg.n_layers,
+              f"MoE training ran {len(routes['flash'])} flash and "
+              f"{len(routes['plain'])} plain MoE blocks (seed {seed})")
+        own = torch.stack([(a != b).any(dim=-1).float().mean()
+                           for (a, _), (b, _)
+                           in zip(routes["flash"], routes["plain"])])
+        train[seed] = {**run, "loss0_diff": diffs[0],
+                       "max_loss_diff": max(diffs),
+                       "last_loss_diff": diffs[-1],
+                       "plain_own_routing_differs_share": own.mean().item()}
+    per_step = {n: c / TRAIN_STEPS
+                for n, c in train_launches["launches"].items()}
+    check(per_step == {"int8_matmul": 0, "paged_attention": 0,
+                       **{n: cfg.n_layers for n in FLASH_KERNELS}},
+          f"MoE flash training launched {train_launches['launches']} in "
+          f"{TRAIN_STEPS} steps, expected {cfg.n_layers} of each flash "
+          f"kernel a step")
+    phase(16, "moe_training", config=MOE, dtype=cfg.dtype,
+          tokens=[TRAIN_BATCH, TRAIN_SEQ + 1], steps=TRAIN_STEPS, lr=TRAIN_LR,
+          router_aux_coef=cfg.router_aux_coef, forward_flash_vs_plain=forward,
+          launches=train_launches["launches"], launches_per_step=per_step,
+          seeds=train, loss0_atol=TRAIN_LOSS0_ATOL,
+          max_loss_atol=TRAIN_LOSS_STEP_ATOL,
+          last_loss_atol=TRAIN_LOSS_LAST_ATOL, **card)
+
+    # the engine: float32 streams equal to serial generate; bf16 and int8
+    # graph streams equal to the same engine's programs run eagerly
+    prompts, lengths = engine_prompts()
+    p32, pbf = init(cfg32), init(cfg)
+    p8 = tfm.quantize_params(pbf)
+    check(all(w is pbf["layers"][i]["moe"][k]
+              for i, layer in enumerate(p8["layers"])
+              for k, w in layer["moe"].items()),
+          "quantize_params changed an MoE expert stack")
+    report, counted = {}, {"train": train_launches}
+    got, launches, ticks, stats = engine_run(LmEngine, ops, p32, cfg32,
+                                             prompts, lengths)
+    for p, n, g in zip(prompts, lengths, got):
+        s = list(tfm.generate(p32, cfg32, p, n, readback_depth=0))
+        check(g == s, f"MoE float32 engine stream of a {len(p)}-token "
+                      f"prompt {g} != serial generate {s}")
+    report["float32"] = {"streams": len(prompts), "equal_to_serial": True,
+                         **check_launches(launches, ticks, cfg32, p32),
+                         "graphs": stats["graphs"]}
+    for name, params in (("bfloat16", pbf), ("int8", p8)):
+        got, launches, ticks, stats = engine_run(LmEngine, ops, params, cfg,
+                                                 prompts, lengths)
+        routes = {k: dict(v) for k, v in ops.ROUTES.items()}
+        with eager_programs(lm_engine):
+            eager, eager_launches, eager_ticks, _ = engine_run(
+                LmEngine, ops, params, cfg, prompts, lengths)
+        for p, g, e in zip(prompts, got, eager):
+            check(g == e, f"MoE {name} graph stream of a {len(p)}-token "
+                          f"prompt {g} != the eager programs' {e}")
+        serial = [list(tfm.generate(params, cfg, p, n, readback_depth=0))
+                  for p, n in zip(prompts, lengths)]
+        divergent = [{"prompt_tokens": len(p), "first_divergence": i}
+                     for p, g, s in zip(prompts, got, serial)
+                     if (i := first_divergence(g, s)) is not None]
+        report[name] = {
+            "streams": len(prompts), "graph_equal_to_eager": True,
+            "eager_launches": eager_launches,
+            "equal_to_serial": len(prompts) - len(divergent),
+            "divergent_from_serial": divergent,
+            **check_launches(launches, ticks, cfg, params),
+            "launches_by_route": routes, "graphs": stats["graphs"]}
+        counted[name] = {"launches": launches, "routes": routes}
+    check(counted["int8"]["launches"]["int8_matmul"] > 0
+          and all(counted[n]["launches"]["paged_attention"] > 0
+                  for n in ("bfloat16", "int8")),
+          f"the MoE engine launched {counted}")
+    graphs = engine_graphs(LmEngine, ops, pbf, cfg, cfg.vocab_size)
+    phase(16, "moe_engine", config=MOE, engine=ENGINE_KW,
+          prompt_tokens=[len(p) for p in prompts], tokens=lengths,
+          graphs_bfloat16=graphs, **report)
+
+    # timings, in turns with the dense flagship in this process
+    models = {"dense": (init(dense), dense), "moe": (pbf, cfg)}
+    flops_factor = cfg.n_experts / cfg.top_k
+    for name in ("dense", "moe", "moe", "dense"):
+        params, c = models[name]
+        context = len(prompt) + ENGINE_TOKENS // 2
+        for row in engine_rates(LmEngine, params, c, prompt,
+                                MOE_RATE_STREAMS):
+            # MFU on the reference's count (lm_flops_per_token: the
+            # top_k experts a token is routed to, not the dense
+            # formulation's n_experts / top_k times that FFN work)
+            row["mfu_reference_count"] = (
+                row["tokens_per_s"] * tfm.lm_flops_per_token(c, context)
+                / BF16_FLOPS_PER_S)
+            phase(16, "moe_engine_rate", model=name, weights="bfloat16",
+                  **row, **card)
+    for name in ("dense", "moe"):
+        params, c = models[name]
+        replay_ms = decode_replay_ms(LmEngine, params, c,
+                                     context=DECODE_CONTEXT)
+        profile = engine_profile(LmEngine, params, c, prompt)
+        phase(16, "moe_engine_profile", model=name, weights="bfloat16",
+              lanes=8, context=DECODE_CONTEXT, decode_replay_ms=replay_ms,
+              **decode_bound(params, c),
+              ffn_flops_factor=flops_factor if name == "moe" else 1.0,
+              **profile, **card)
+    phase(16, "moe_done", seconds=time.monotonic() - t_phase)
+    return counted
+
+
+# -- the builtin model set (phase 17) -----------------------------------------
+
+
+def builtin_phase(card):
+    """Phase 17: the builtin set behind Server() (its default models, the
+    tiny vision pipeline on the card) over HTTP: simple, simple_sequence,
+    the classification extension on classifier.  The launch counts reset
+    before the server starts and read after: this path launches none of
+    the hand-written kernels."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.serve import Server
+
+    t0 = time.monotonic()
+    ops.reset_launches()
+    with Server(http_port=0) as server:
+        addr = server.http_address
+        _, body, _ = http(addr, "/v2")
+        extensions = json.loads(body)["extensions"]
+        check("classification" in extensions and "sequence" in extensions,
+              f"server extensions {extensions}")
+        a = np.arange(16, dtype=np.int32)
+        b = np.full(16, 3, np.int32)
+        _, body, _ = http(addr, "/v2/models/simple/infer", json.dumps({
+            "inputs": [{"name": n, "shape": [1, 16], "datatype": "INT32",
+                        "data": x.tolist()}
+                       for n, x in (("INPUT0", a), ("INPUT1", b))]}).encode())
+        out = {o["name"]: o["data"] for o in json.loads(body)["outputs"]}
+        check(out == {"OUTPUT0": (a + b).tolist(),
+                      "OUTPUT1": (a - b).tolist()}, f"simple answered {out}")
+        steps = ((10, 42, {"sequence_start": True}), (5, 42, {}),
+                 (100, 43, {"sequence_start": True}),
+                 (1, 42, {"sequence_end": True}),
+                 (2, 42, {"sequence_start": True}))
+        sums = []
+        for value, seq, extra in steps:
+            _, body, _ = http(addr, "/v2/models/simple_sequence/infer",
+                              json.dumps({
+                                  "inputs": [{"name": "INPUT", "shape": [1],
+                                              "datatype": "INT32",
+                                              "data": [value]}],
+                                  "parameters": {"sequence_id": seq,
+                                                 **extra}}).encode())
+            sums.append(json.loads(body)["outputs"][0]["data"][0])
+        check(sums == [10, 15, 100, 16, 2], f"simple_sequence sums {sums}")
+        _, body, _ = http(addr, "/v2/models/classifier/infer", json.dumps({
+            "inputs": [{"name": "INPUT0", "shape": [1, 4],
+                        "datatype": "FP32", "data": [0.1, 3.0, 0.5, 1.0]}],
+            "outputs": [{"name": "OUTPUT0",
+                         "parameters": {"classification": 2}}]}).encode())
+        top = json.loads(body)["outputs"][0]
+        check(top["datatype"] == "BYTES" and top["shape"] == [1, 2]
+              and top["data"][0].split(":")[1:] == ["1", "dog"],
+              f"classifier answered {top}")
+        try:
+            http(addr, "/v2/models/simple_sequence/infer", json.dumps({
+                "inputs": [{"name": "INPUT", "shape": [1],
+                            "datatype": "INT32", "data": [1]}],
+                "parameters": {"sequence_id": 44,
+                               "sequence_durable": True}}).encode())
+            fail("sequence_durable was not refused")
+        except urllib.error.HTTPError as e:
+            check(e.code == 400, f"sequence_durable answered {e.code}")
+        images = np.random.default_rng(17).integers(
+            0, 256, (2, 32, 32, 3)).astype(np.uint8)
+        _, body, _ = http(addr, "/v2/models/vision_pipeline/infer",
+                          json.dumps({"inputs": [{
+                              "name": "IMAGE", "shape": [2, 32, 32, 3],
+                              "datatype": "UINT8",
+                              "data": images.ravel().tolist()}]}).encode())
+        scores = json.loads(body)["outputs"][0]
+        rows = np.array(scores["data"], np.float32).reshape(scores["shape"])
+        check(scores["shape"] == [2, 16]
+              and np.allclose(rows.sum(axis=1), 1.0, atol=1e-3),
+              f"vision_pipeline answered {scores['shape']}")
+        models = [m["name"] for m in server.engine.repository_index()]
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()),
+          f"the builtin path launched a hand-written kernel: {launches}")
+    phase(17, "builtin", models=models, simple=out, sequence_sums=sums,
+          classification=top["data"], durable_refused=400,
+          vision_pipeline_shape=scores["shape"], launches=launches,
+          seconds=time.monotonic() - t0, **card)
+
+
 def main():
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2585,7 +3087,7 @@ def main():
         atol, rtol = TOL[dt]
         key = dtype_name(dt)
         for m in M_LIST:
-            for k, n in SERVED_KN:
+            for k, n in SERVED_KN + MOE_KN:
                 x = torch.randn(m, k, generator=gen).to(dt).cuda()
                 w = torch.randn(k, n, generator=gen) * k ** -0.5
                 qw = tree_to(quant.quantize_int8(w), "cuda")
@@ -2615,6 +3117,7 @@ def main():
                     cases += 1
     torch.cuda.synchronize()
     phase(3, "kernel_vs_plain", kernel="int8_matmul", cases=cases,
+          m=list(M_LIST), kn=[list(kn) for kn in SERVED_KN + MOE_KN],
           max_abs_err=worst, max_abs_err_by_route=worst_route,
           tolerance={"float32": TOL[torch.float32],
                      "bfloat16": TOL[torch.bfloat16]})
@@ -2672,7 +3175,8 @@ def main():
                if m.closer is not None}
     check(set(engines) == {"lm_streaming_int8", "lm_streaming_batched"},
           f"batched models {sorted(engines)}")
-    with Server(models=served_models, http_port=0) as server:
+    with Server(models=served_models, http_port=0,
+                with_default_models=False) as server:
         addr = server.http_address
         status, _, _ = http(addr, "/v2/health/ready")
         check(status == 200, f"ready answered {status}")
@@ -2973,7 +3477,7 @@ def main():
                 sum(a["equal"] for a in agree),
             "divergent": [dict(a, prompt_tokens=len(p))
                           for a, p in zip(agree, prompts) if not a["equal"]],
-            **check_launches(launches, ticks, c, int8), **stats}
+            **check_launches(launches, ticks, c, params), **stats}
     # one preempted stream: 'lo' holds 26 of the 32 blocks when 'hi' comes
     eng = LmEngine(p32, cfg32, device="cuda", pool_tokens=512,
                    tenant_priority={"hi": 10.0}, **ENGINE_KW)
@@ -3012,7 +3516,7 @@ def main():
     engine_report["speculative"] = {
         "streams": len(spec_prompts), "tokens_each": 64,
         "equal_to_greedy": True, **check_launches(launches, ticks, cfg32,
-                                                  False), **stats}
+                                                  p32), **stats}
     graph_report = {name: engine_graphs(LmEngine, ops, params, c,
                                         cfg.vocab_size)
                     for name, params, c in (("float32", p32, cfg32),
@@ -3051,7 +3555,13 @@ def main():
     # -- 15 the operational surface around the served engines -------------
     ops_launches, ops_routes = ops_phase(card, p32, cfg32, pbf, cfg, prompt)
 
-    # -- 16 kernels ----------------------------------------------------------
+    # -- 16 the mixture-of-experts LM, every LM path ---------------------------
+    moe_counts = moe_phase(card, prompt)
+
+    # -- 17 the builtin model set -------------------------------------------
+    builtin_phase(card)
+
+    # -- 18 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
 
     def layer_total(m):
@@ -3061,7 +3571,11 @@ def main():
                             "eager_ms")}
 
     total, prefill = layer_total(1), layer_total(64)
-    phase(16, "kernels", held_against_plain_in="phases 3, 7 and 10")
+    phase(18, "kernels", held_against_plain_in="phases 3, 7 and 10")
+    moe_int8 = moe_counts["int8"]
+    moe_paged = {route: sum(moe_counts[w]["routes"]["paged_attention"][route]
+                            for w in ("bfloat16", "int8"))
+                 for route in ("split", "mma")}
     kernels = [{
         "name": "int8_matmul",
         "kernel_route": "all",
@@ -3072,6 +3586,7 @@ def main():
         "replaces": "client_tpu/ops/quant.py:51",
         "launches": main_launches["int8_matmul"],
         "launches_phase_15": ops_launches["int8_matmul"],
+        "launches_moe": moe_int8["launches"]["int8_matmul"],
         "max_abs_err": max(worst.values()),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -3085,7 +3600,8 @@ def main():
                 "(wq, wk, wv, wo, w_gate, w_up)",
         "launches_in": "phase 5 (serving, counted at each CUDA-graph "
                        "replay); all routes, the GEMV's "
-                       f"{main_routes['int8_matmul']['gemv']}",
+                       f"{main_routes['int8_matmul']['gemv']}; launches_moe: "
+                       "phase 16's int8 MoE engine streams",
         "checked_in": "phase 3",
     }, {
         "name": "int8_matmul",
@@ -3096,6 +3612,7 @@ def main():
         "replaces": "client_tpu/ops/quant.py:51",
         "launches": main_routes["int8_matmul"]["mma"],
         "launches_phase_15": ops_routes["int8_matmul"]["mma"],
+        "launches_moe": moe_int8["routes"]["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
         "ms": prefill["ms"],
         "plain_ms": prefill["plain_ms"],
@@ -3108,7 +3625,8 @@ def main():
         "work": "one prefill chunk's six int8 projections at M=64, bf16 "
                 "(wq, wk, wv, wo, w_gate, w_up)",
         "launches_in": "phase 5 (serving: prefill chunks, counted at "
-                       "each CUDA-graph replay)",
+                       "each CUDA-graph replay); launches_moe: phase 16's "
+                       "int8 MoE engine streams",
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -3125,13 +3643,16 @@ def main():
             "source": sources[name],
             "replaces": replaces[name],
             "launches": train_launches[name],
+            "launches_moe": moe_counts["train"]["launches"][name],
             "max_abs_err": max(flash_worst[name].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
             "timing": "device time from CUDA-graph replay",
             "work": f"one layer's attention at the training shape: "
                     f"[{bh}, {t}, {d}] bf16, causal",
-            "launches_in": f"phase 8 ({TRAIN_STEPS} flash train steps)",
+            "launches_in": f"phase 8 ({TRAIN_STEPS} flash train steps); "
+                           f"launches_moe: phase 16's {TRAIN_STEPS} MoE "
+                           f"flash steps",
             "checked_in": "phase 7",
         })
     for route, device_kernels, shape, ctx, work in (
@@ -3155,6 +3676,7 @@ def main():
                         "the reference, not Pallas)",
             "launches": main_routes["paged_attention"][route],
             "launches_phase_15": ops_routes["paged_attention"][route],
+            "launches_moe": moe_paged[route],
             "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -3162,7 +3684,8 @@ def main():
             "work": work,
             "launches_in": "phase 5 (serving, counted at each CUDA-graph "
                            "replay; one count a call: a split kernel and "
-                           "the combine)",
+                           "the combine); launches_moe: phase 16's bf16 "
+                           "and int8 MoE engine streams",
             "checked_in": "phase 10",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,9 +2,9 @@
 
 Counterpart of client_tpu/ops/quant.py.  Weights quantize per output
 channel, symmetric (int8 value x f32 scale); activations stay unquantized.
-``int8_matmul`` keeps the JAX package's dispatch rule: weights whose dims
-do not tile (``n % min(128, n)`` or ``k % min(512, k)``) take the
-dequantize-then-matmul fallback, the rest take the kernel.  On a CUDA
+``int8_matmul`` keeps the JAX package's dispatch rule (``kernel_takes``):
+weights whose dims do not tile (``n % min(128, n)`` or ``k % min(512, k)``)
+take the dequantize-then-matmul fallback, the rest take the kernel.  On a CUDA
 tensor the kernel is ``csrc/int8_matmul.cu`` (replacing the Pallas
 ``_int8_mm_kernel``), which picks one of three routes by dtype and shape:
 bf16 from M = 5 on the tensor cores, a GEMV below that (and for f32 up
@@ -55,6 +55,12 @@ def _launch(x2, q, s):
     return out
 
 
+def kernel_takes(k, n, block_n=128, block_k=512):
+    """True where a [K, N] weight takes the kernel: the JAX package's tile
+    clamps (``min(block, dim)``) divide both dims; the rest dequantize."""
+    return n % min(block_n, n) == 0 and k % min(block_k, k) == 0
+
+
 def int8_matmul(x, qw, block_n=128, block_k=512):
     """``x @ (q * s)`` for x [..., K] (leading dims fold into M).
 
@@ -69,10 +75,7 @@ def int8_matmul(x, qw, block_n=128, block_k=512):
         m *= d
     x2 = x.reshape(m, k)
 
-    # the JAX package's tile clamps decide kernel versus fallback
-    bn = min(block_n, n)
-    bk = min(block_k, k)
-    if n % bn or k % bk:
+    if not kernel_takes(k, n, block_n, block_k):
         # ragged weight dims: dequantize in x's dtype, then a plain matmul
         # (the JAX package computes this outside Pallas too)
         w = q.to(x.dtype) * s.to(x.dtype)

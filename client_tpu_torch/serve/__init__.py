@@ -6,8 +6,8 @@ frontend comes with a later slice of the port).  Typical use:
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models.language import language_models
 
-    with Server(models=language_models()) as server:
-        ...  # KServe-v2 HTTP on server.http_address
+    with Server(models=language_models(), with_default_models=False) as s:
+        ...  # KServe-v2 HTTP on s.http_address
 
 or standalone: ``python -m client_tpu_torch.serve --models language``.
 """
@@ -22,21 +22,24 @@ from client_tpu_torch.serve.model_runtime import (  # noqa: F401
 class Server:
     """Convenience wrapper starting the HTTP frontend over an engine.
 
-    With ``models=None`` it serves the language set on *device* (``cuda``
-    unless the caller passes ``device="cpu"``).  ``max_inflight``,
-    ``response_cache``, ``coalescing``, ``qos``, ``slo`` and ``flight``
-    go to the :class:`InferenceEngine`."""
+    It serves *models* and, with ``with_default_models`` (the default, as
+    in the reference), the builtin set (serve/builtins.py) beside them,
+    whose vision pipeline runs on *device* (``cuda`` unless the caller
+    passes ``device="cpu"``).  ``max_inflight``, ``response_cache``,
+    ``coalescing``, ``qos``, ``slo`` and ``flight`` go to the
+    :class:`InferenceEngine`."""
 
     def __init__(self, models=None, http_port=0, host="127.0.0.1",
-                 verbose=False, device=None, max_inflight=None,
-                 response_cache=None, coalescing=False, qos=None, slo=None,
-                 flight=None):
-        if models is None:
-            from client_tpu_torch.serve.models import model_sets
+                 verbose=False, device=None, with_default_models=True,
+                 max_inflight=None, response_cache=None, coalescing=False,
+                 qos=None, slo=None, flight=None):
+        all_models = list(models or [])
+        if with_default_models:
+            from client_tpu_torch.serve.builtins import default_models
 
-            models = model_sets("language", device=device)
+            all_models.extend(default_models(device=device))
         self.engine = InferenceEngine(
-            list(models),
+            all_models,
             max_inflight=max_inflight,
             response_cache=response_cache,
             coalescing=coalescing,

@@ -14,8 +14,9 @@ def main():
     parser.add_argument("-v", "--verbose", action="store_true")
     parser.add_argument(
         "--models", default="language",
-        help="comma-separated model sets: jax (the CNN classifier), "
-             "resnet (resnet50), language, pipeline (the resnet50 vision "
+        help="comma-separated model sets: builtin (the numpy models and "
+             "the tiny vision pipeline), jax (the CNN classifier), resnet "
+             "(resnet50), language, pipeline (the resnet50 vision "
              "ensemble) (default: language)",
     )
     parser.add_argument(
@@ -94,6 +95,7 @@ def main():
 
     server = Server(
         models=model_sets(args.models, device=args.device),
+        with_default_models=False,
         http_port=args.http_port,
         host=args.host,
         verbose=args.verbose,

@@ -267,7 +267,7 @@ def _decode_tick(params, tokens_full, pools, tables, lens, temps, topks,
         )
         out = _mm(attn.reshape(n, 1, cfg.n_heads * hd), layer["attn"]["wo"])
         x = x + out.to(x.dtype)
-        x = _ffn_block(layer, x)
+        x, _ = _ffn_block(layer, x, cfg, with_aux=False)
     x = _rms_norm(x, params["ln_f"])
     logits = _mm(x[:, 0], params["lm_head"]).float()  # [n,V]
     nxt = _select_token(logits, rng_full[:n], temps, topks)
@@ -387,7 +387,7 @@ def _verify_tick(params, tokens_full, pools, tables, lens, temps, topks,
         )
         out = _mm(attn.reshape(n, w, cfg.n_heads * hd), layer["attn"]["wo"])
         x = x + out.to(x.dtype)
-        x = _ffn_block(layer, x)
+        x, _ = _ffn_block(layer, x, cfg, with_aux=False)
     x = _rms_norm(x, params["ln_f"])
     logits = _mm(x, params["lm_head"]).float()  # [n,w,V]
     n_acc, corr = _accept_lanes(
@@ -438,7 +438,7 @@ def _prefill_chunk(params, chunk, pools, table, start, prompt_len, rng,
         )
         out = _mm(attn.reshape(1, c, cfg.n_heads * hd), layer["attn"]["wo"])
         x = x + out.to(x.dtype)
-        x = _ffn_block(layer, x)
+        x, _ = _ffn_block(layer, x, cfg, with_aux=False)
     x = _rms_norm(x, params["ln_f"])
     # the row of position prompt_len - 1, clipped into the chunk (JAX's
     # jnp.clip then take), picked on the device

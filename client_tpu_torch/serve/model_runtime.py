@@ -1,19 +1,22 @@
 """In-process KServe-v2 model runtime: repository + request execution.
 
 Counterpart of client_tpu/serve/model_runtime.py: ``TensorSpec``,
-``Model``, and an ``InferenceEngine`` with the repository verbs (add,
-load with config and file overrides, unload, index), request execution
-for unary and decoupled models, dynamic batching
-(serve/dynamic_batcher.py), ensembles through the DAG scheduler
-(serve/pipeline.py), per-model statistics with their histograms, the
-shared-memory registry (system regions by key, CUDA regions by IPC
-handle), and the operational layer: the multi-tenant front door
-(response cache, coalescing, tenant QoS: serve/frontdoor.py), global
-admission (``max_inflight``) and graceful drain, request tracing and
-trace settings (serve/tracing.py), the flight recorder
+``Model``, ``SequenceContext`` and an ``InferenceEngine`` with the
+repository verbs (add, load with config and file overrides, unload,
+index), request execution for unary, decoupled and stateful models
+(sequences: per-sequence state, created on ``sequence_start`` or a miss,
+dropped on ``sequence_end``, reaped past ``max_sequence_idle_s``), dynamic
+batching (serve/dynamic_batcher.py), ensembles through the DAG scheduler
+(serve/pipeline.py), the classification extension, per-model statistics
+with their histograms, the shared-memory registry (system regions by key,
+CUDA regions by IPC handle), and the operational layer: the multi-tenant
+front door (response cache, coalescing, tenant QoS: serve/frontdoor.py),
+global admission (``max_inflight``) and graceful drain, request tracing
+and trace settings (serve/tracing.py), the flight recorder
 (serve/flight.py), the SLO watchdog (serve/slo.py), the duty-cycle
-tracker and the phase profilers (serve/prof.py).  Sequences, the fleet
-tier and the classification extension come with later slices.
+tracker and the phase profilers (serve/prof.py).  The fleet tier comes
+with a later slice, and with it durable sequences: a request that asks
+for ``sequence_durable`` or ``sequence_step`` is refused with a 400.
 
 Every hook reads and writes host state only: no device sync, no tensor
 op.  A request that reads from or writes to a shared-memory region
@@ -65,11 +68,16 @@ SERVER_VERSION = "0.1.0"
 SERVER_EXTENSIONS = ["model_repository", "model_configuration",
                      "binary_tensor_data", "parameters", "statistics",
                      "trace", "logging", "system_shared_memory",
-                     "cuda_shared_memory"]
+                     "cuda_shared_memory", "classification", "sequence"]
 
 _FLEET_LATER = (
     "the fleet tier (cross-replica response cache, prefix tier and "
     "sequence replication) comes with a later slice of the port"
+)
+_SEQ_FLEET_LATER = (
+    "sequence_durable and sequence_step (replicated sequence state and "
+    "idempotent step replay) need the fleet tier, which comes with a "
+    "later slice of the port"
 )
 
 
@@ -87,6 +95,24 @@ class TensorSpec:
         return {"name": self.name, "datatype": self.datatype, "shape": self.dims}
 
 
+class SequenceContext:
+    """Per-sequence state handed to stateful model functions.
+
+    ``state`` is the model's own dict; ``step`` counts the sequence's
+    successfully executed unary requests and ``last_response`` keeps the
+    last one's ``(step, id-less response, blobs)``; ``last_used`` (the
+    monotonic clock) drives idle reaping.  The reference's snapshot half
+    (``export``/``restore``, epochs, durability, step replay) belongs to
+    the fleet tier and comes with it."""
+
+    def __init__(self, sequence_id):
+        self.sequence_id = sequence_id
+        self.state = {}
+        self.step = 0
+        self.last_response = None
+        self.last_used = time.monotonic()
+
+
 class Model:
     """A servable model: tensor specs + a python callable.
 
@@ -94,8 +120,10 @@ class Model:
     between the steps of an ensemble and inside the dynamic batcher, of
     tensors on ``device``) and returns a dict of arrays or tensors, or,
     for ``decoupled=True`` models, an iterator of such dicts (the LLM
-    token-streaming shape).  ``context`` is always None here (sequences
-    come with a later slice).  Every model has the one version "1".
+    token-streaming shape).  ``context`` is a :class:`SequenceContext`
+    when the request carries a ``sequence_id``, else None; ``stateful``
+    advertises the ``sequence_batching`` config block.  Every model has
+    the one version "1".
 
     The batching fields are the reference's: ``max_batch_size`` (> 0: the
     first dim is the batch), ``dynamic_batching`` with
@@ -125,7 +153,7 @@ class Model:
 
     def __init__(self, name, inputs, outputs, fn, platform="python",
                  backend="python", device=None, max_batch_size=0,
-                 decoupled=False, dynamic_batching=False,
+                 decoupled=False, stateful=False, dynamic_batching=False,
                  max_queue_delay_us=3000, warmup=False,
                  batch_device_inputs=False, fused_batching=False,
                  max_fused_arity=8, max_queue_depth=None,
@@ -140,6 +168,7 @@ class Model:
         self.device = device
         self.max_batch_size = max_batch_size
         self.decoupled = decoupled
+        self.stateful = stateful
         self.dynamic_batching = dynamic_batching
         self.max_queue_delay_us = max_queue_delay_us
         self.warmup = warmup
@@ -197,6 +226,9 @@ class Model:
             }
         if self.decoupled:
             cfg["model_transaction_policy"] = {"decoupled": True}
+        if self.stateful:
+            cfg["sequence_batching"] = {
+                "max_sequence_idle_microseconds": 60000000}
         if self.flops_per_item:
             # Triton-style config parameters map (string_value entries)
             cfg["parameters"] = {
@@ -739,12 +771,13 @@ class InferenceEngine:
     serve/frontdoor.py), the SLO watchdog (``slo``: serve/slo.py; None
     builds the observation-only default, False turns it off) and the
     flight recorder (``flight``: serve/flight.py) are the reference's.
-    ``fleet`` raises: the fleet tier comes with a later slice.
+    Sequences idle past ``max_sequence_idle_s`` are dropped.  ``fleet``
+    raises: the fleet tier comes with a later slice.
     """
 
-    def __init__(self, models=None, max_inflight=None, response_cache=None,
-                 coalescing=False, qos=None, fleet=None, slo=None,
-                 flight=None):
+    def __init__(self, models=None, max_sequence_idle_s=60.0,
+                 max_inflight=None, response_cache=None, coalescing=False,
+                 qos=None, fleet=None, slo=None, flight=None):
         if fleet is not None:
             raise NotImplementedError(_FLEET_LATER)
         self._lock = threading.Lock()
@@ -761,6 +794,8 @@ class InferenceEngine:
         self._flight_cv = threading.Condition()
         self.busy = BusyTracker()
         self.shm = SharedMemoryRegistry()
+        self._sequences = {}
+        self.max_sequence_idle_s = max_sequence_idle_s
         self.trace_settings = {
             k: (list(v) if isinstance(v, list) else v)
             for k, v in TRACE_SETTING_DEFAULTS.items()
@@ -1204,7 +1239,7 @@ class InferenceEngine:
     def _front_key(self, model_name, model_version, request, binary_section):
         """``(digest, cacheable, ttl_s)`` for this request, or None when
         the front door does not apply: no cache or coalescer configured;
-        decoupled model; unknown model (the normal path raises the proper
+        decoupled or stateful model; unknown model (the normal path raises the proper
         error); or a request that reads from or writes to a shared-memory
         region, system or CUDA (``request_digest`` returns None): its
         tensors are the region's, and an output sink written on the
@@ -1219,7 +1254,7 @@ class InferenceEngine:
             model = self._models.get(model_name)
             if model is None or not self._ready.get(model_name):
                 return None
-        if model.decoupled:
+        if model.decoupled or model.stateful:
             return None
         cacheable, ttl_s = model.cache_hints()
         if not cacheable and self._coalescer is None:
@@ -1386,8 +1421,8 @@ class InferenceEngine:
                           binary_section, trace=None, tenant=""):
         """Execute one admitted request.  A batchable request waits in its
         model's dynamic batcher; an ensemble runs through the DAG
-        scheduler; a decoupled model streams; everything else calls the
-        model directly."""
+        scheduler; a decoupled model streams; everything else, a sequence
+        request included, calls the model directly."""
         t0 = time.monotonic_ns()
         model = self.get_model(model_name, model_version)
         stats = self._stats[model_name]
@@ -1398,6 +1433,7 @@ class InferenceEngine:
             w_in0 = time.time_ns() if trace is not None else 0
             inputs = self._gather_inputs(model, request, binary_section)
             params = request.get("parameters", {}) or {}
+            context = self._sequence_context(params)
             t_in1 = time.monotonic_ns()
             w_in1 = time.time_ns() if trace is not None else 0
             if model.ensemble_steps:
@@ -1435,7 +1471,7 @@ class InferenceEngine:
                     flops_per_item=model.flops_per_item,
                 )
                 return rendered
-            if batchable_request(model, inputs, params, None, request):
+            if batchable_request(model, inputs, params, context, request):
                 # the batcher records the execution (and the trace's
                 # QUEUE_END/COMPUTE_* events); the request's success is
                 # recorded here, and a failure (batched execution or
@@ -1463,15 +1499,15 @@ class InferenceEngine:
                 # LAZY stream: responses render as the model produces them,
                 # so the first token reaches the wire at first-token time
                 return self._decoupled_stream(
-                    model, model_version, request, inputs, params, stats,
-                    t0, t_in1, trace, tenant,
+                    model, model_version, request, inputs, params, context,
+                    stats, t0, t_in1, trace, tenant,
                 )
             # direct path: the busy span closes after rendering, which
             # has the outputs on the host (or written into their regions)
             self.busy.begin()
             try:
                 with device_stream(model.device):
-                    result = model.fn(inputs, params, None)
+                    result = model.fn(inputs, params, context)
                     t_inf1 = time.monotonic_ns()
                     if trace is not None:
                         trace.event("COMPUTE_OUTPUT_START")
@@ -1507,11 +1543,59 @@ class InferenceEngine:
             items=_batch_of(model, request),
             flops_per_item=model.flops_per_item,
         )
+        if context is not None:
+            self._sequence_commit(context, rendered)
         return rendered
+
+    def _sequence_context(self, params):
+        """The request's :class:`SequenceContext`, or None without a
+        ``sequence_id``.  ``sequence_durable`` and ``sequence_step`` need
+        the fleet tier and are refused (400), never ignored."""
+        for key in ("sequence_durable", "sequence_step"):
+            if params.get(key):
+                raise InferenceServerException(
+                    f"{key}: {_SEQ_FLEET_LATER}", status="400")
+        seq_id = params.get("sequence_id", 0)
+        if not seq_id:
+            return None
+        return self._sequence_context_local(seq_id, params)
+
+    def _sequence_context_local(self, seq_id, params):
+        """Under the lock: drop the sequences idle past
+        ``max_sequence_idle_s`` (a client that never sent sequence_end
+        leaks no state), create the context on ``sequence_start`` or a
+        miss, and drop it from the table on ``sequence_end`` (this
+        request still runs with it)."""
+        now = time.monotonic()
+        with self._lock:
+            expired = [
+                sid
+                for sid, ctx in self._sequences.items()
+                if now - ctx.last_used > self.max_sequence_idle_s
+            ]
+            for sid in expired:
+                del self._sequences[sid]
+            if params.get("sequence_start") or seq_id not in self._sequences:
+                self._sequences[seq_id] = SequenceContext(seq_id)
+            ctx = self._sequences[seq_id]
+            ctx.last_used = now
+            if params.get("sequence_end"):
+                self._sequences.pop(seq_id, None)
+            return ctx
+
+    def _sequence_commit(self, context, rendered):
+        """Count the applied step and keep its id-less rendering."""
+        response, blobs = rendered
+        with self._lock:
+            context.step += 1
+            context.last_response = (
+                context.step, _strip_id(response), list(blobs),
+            )
 
     def _output_sinks(self, model, request, inputs):
         """``{output: flat tensor}`` of a device request's outputs bound
-        for CUDA regions (``SharedMemoryRegistry.output_sink``)."""
+        for CUDA regions (``SharedMemoryRegistry.output_sink``); a
+        classified output is rendered first (BYTES), so it has no sink."""
         if not all(isinstance(a, torch.Tensor) for a in inputs.values()):
             return None
         specs = {t.name: t for t in model.outputs}
@@ -1519,7 +1603,8 @@ class InferenceEngine:
         for out in request.get("outputs") or []:
             params = out.get("parameters") or {}
             spec = specs.get(out["name"])
-            if "shared_memory_region" not in params or spec is None:
+            if ("shared_memory_region" not in params or spec is None
+                    or params.get("classification")):
                 continue
             sink = self.shm.output_sink(
                 params["shared_memory_region"],
@@ -1530,7 +1615,8 @@ class InferenceEngine:
         return sinks
 
     def _decoupled_stream(self, model, model_version, request, inputs,
-                          params, stats, t0, t_in1, trace=None, tenant=""):
+                          params, context, stats, t0, t_in1, trace=None,
+                          tenant=""):
         """Generator of (response_dict, blobs) for a decoupled model.
 
         Exactly one statistics entry per request: success at exhaustion,
@@ -1554,7 +1640,7 @@ class InferenceEngine:
             params["__tenant__"] = tenant
         recorded = False
         try:
-            gen = model.fn(inputs, params, None)
+            gen = model.fn(inputs, params, context)
             while True:
                 self.busy.begin()
                 try:
@@ -1692,11 +1778,18 @@ class InferenceEngine:
                     status="400",
                 )
             # a tensor stays where it is until its disposition is known:
-            # the CUDA-shm path copies it on the device, with no D2H
+            # the CUDA-shm path copies it on the device, with no D2H; a
+            # classified output is read on the host
             arr = result_arrays[name]
             if not isinstance(arr, torch.Tensor):
                 arr = np.asarray(arr)
             datatype = specs[name].datatype
+            class_count = params.get("classification", 0)
+            if class_count:
+                arr = _classify(
+                    _host_array(arr), class_count, specs[name].labels
+                )
+                datatype = "BYTES"
             entry = {"name": name, "datatype": datatype, "shape": list(arr.shape)}
             if "shared_memory_region" in params:
                 written = self.shm.write_tensor(
@@ -1736,6 +1829,26 @@ class InferenceEngine:
         if request.get("id"):
             response["id"] = request["id"]
         return response, blobs
+
+
+def _classify(arr, class_count, labels):
+    """Classification extension: top-N "score:index[:label]" BYTES strings."""
+    def topk_strings(vec):
+        k = min(class_count, vec.size)
+        idx = np.argsort(vec)[::-1][:k]
+        out = []
+        for i in idx:
+            s = f"{float(vec[i]):f}:{int(i)}"
+            if labels and int(i) < len(labels):
+                s += f":{labels[int(i)]}"
+            out.append(s.encode("utf-8"))
+        return out
+
+    if arr.ndim <= 1:
+        return np.array(topk_strings(np.atleast_1d(arr)), dtype=np.object_)
+    flat = arr.reshape(arr.shape[0], -1)
+    rows = [topk_strings(row) for row in flat]
+    return np.array(rows, dtype=np.object_)
 
 
 def _batch_of(model, request):

@@ -1,9 +1,11 @@
 """Model sets for the port's in-process server.
 
-``model_sets("jax,resnet,language,pipeline")`` is the set-name resolver of
-the serve CLI (counterpart of client_tpu/serve/models/__init__.py), under
-the reference's set names, so the same ``--models`` string serves the same
-models on both servers: ``jax`` is the small-CNN vision set, ``resnet``
+``model_sets("builtin,jax,resnet,language,pipeline")`` is the set-name
+resolver of the serve CLI (counterpart of
+client_tpu/serve/models/__init__.py), under the reference's set names, so
+the same ``--models`` string serves the same models on both servers:
+``builtin`` is serve/builtins.py's numpy models and the tiny vision
+pipeline, ``jax`` is the small-CNN vision set, ``resnet``
 the resnet50 of BASELINE config 3, ``language`` the tokenizer ->
 streaming-LM stack, and ``pipeline`` the full-size vision ensemble DAG
 (preprocess -> resnet50 backbone -> classification postprocess).  Every
@@ -46,10 +48,13 @@ def pipeline_models(device=None, warmup=False):
 
 
 def model_sets(names, device=None):
-    """Resolve a comma-separated set list (jax,resnet,language,pipeline);
-    the models run on *device* (``cuda`` unless the caller says
-    otherwise)."""
+    """Resolve a comma-separated set list
+    (builtin,jax,resnet,language,pipeline); the models run on *device*
+    (``cuda`` unless the caller says otherwise)."""
+    from client_tpu_torch.serve.builtins import default_models
+
     loaders = {
+        "builtin": default_models,
         "jax": jax_models,
         "resnet": resnet_models,
         "language": language_models,

@@ -1,8 +1,9 @@
 """Decoder-only transformer LM, the served flagship model, in PyTorch.
 
-Counterpart of client_tpu/serve/models/transformer.py, dense path only:
-RMSNorm, rotary embeddings, grouped-query attention, SwiGLU MLP, untied
-LM head.  Params are the JAX package's pytree as nested dicts of tensors,
+Counterpart of client_tpu/serve/models/transformer.py on one device:
+RMSNorm, rotary embeddings, grouped-query attention, a SwiGLU MLP or a
+top-k-routed mixture of SwiGLU experts (``n_experts > 0``), untied LM
+head.  Params are the JAX package's pytree as nested dicts of tensors,
 weights in its ``[in, out]`` layout (the port computes ``x @ w``); int8
 weights are ``{"q", "s"}`` dicts that ``_mm`` sends to the CUDA kernel.
 
@@ -17,11 +18,13 @@ weights are ``{"q", "s"}`` dicts that ``_mm`` sends to the CUDA kernel.
 - ``paged_attention``: attention against the continuous-batching engine's
   paged KV pool (client_tpu_torch.serve.lm), through the paged-attention
   kernel (client_tpu_torch.ops.paged_attention)
-- ``loss_fn`` / ``make_train_step``: next-token cross-entropy and the
-  single-device Adam train step
+- ``loss_fn`` / ``make_train_step``: next-token cross-entropy (plus the
+  router's load-balance term for MoE configs) and the single-device Adam
+  train step
 
-Ring attention (``"ring"``, ``"ring_flash"``) and mixture-of-experts FFNs
-need a mesh of several GPUs and wait for the multi-GPU slice of the port.
+Ring attention (``"ring"``, ``"ring_flash"``) needs a sequence-parallel
+mesh of several GPUs and waits for the multi-GPU slice of the port; the
+MoE FFN runs every expert on the one device.
 """
 
 import collections
@@ -63,26 +66,16 @@ class TransformerConfig:
         return _DTYPES[self.dtype]
 
 
-_MOE_LATER = (
-    "mixture-of-experts FFNs (n_experts > 0) are expert-parallel over a "
-    "mesh and come with the multi-GPU slice of the port"
-)
 _RING_LATER = (
     "attn_impl={!r}: ring attention runs over a sequence-parallel mesh and "
     "comes with the multi-GPU slice of the port"
 )
 
 
-def _dense_only(cfg):
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_LATER)
-
-
 def init_params(generator, cfg, device=None):
     """Random params (the JAX package's layout) from a seeded CPU
     ``torch.Generator``, then moved to *device*: one seed gives the same
     weights on every device."""
-    _dense_only(cfg)
     device = resolve_device(device)
     dt = cfg.tdtype
 
@@ -96,7 +89,7 @@ def init_params(generator, cfg, device=None):
     hd = cfg.head_dim
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        entry = {
             "attn": {
                 "wq": dense((cfg.d_model, cfg.n_heads * hd), cfg.d_model),
                 "wk": dense((cfg.d_model, cfg.n_kv_heads * hd), cfg.d_model),
@@ -105,12 +98,22 @@ def init_params(generator, cfg, device=None):
             },
             "ln_attn": ones(cfg.d_model),
             "ln_mlp": ones(cfg.d_model),
-            "mlp": {
+        }
+        if cfg.n_experts > 0:
+            e = cfg.n_experts
+            entry["moe"] = {
+                "router": dense((cfg.d_model, e), cfg.d_model),
+                "w_gate": dense((e, cfg.d_model, cfg.d_ff), cfg.d_model),
+                "w_up": dense((e, cfg.d_model, cfg.d_ff), cfg.d_model),
+                "w_down": dense((e, cfg.d_ff, cfg.d_model), cfg.d_ff),
+            }
+        else:
+            entry["mlp"] = {
                 "w_gate": dense((cfg.d_model, cfg.d_ff), cfg.d_model),
                 "w_up": dense((cfg.d_model, cfg.d_ff), cfg.d_model),
                 "w_down": dense((cfg.d_ff, cfg.d_model), cfg.d_ff),
-            },
-        })
+            }
+        layers.append(entry)
     return {
         "embed": dense((cfg.vocab_size, cfg.d_model), cfg.d_model),
         "layers": layers,
@@ -178,32 +181,78 @@ def _mlp_block(layer, x):
     return x + _mm(gate * up, layer["mlp"]["w_down"])
 
 
-def _ffn_block(layer, x):
-    """The layer's FFN sublayer (dense only; the router aux loss of the
-    MoE FFN comes with it in the training slice)."""
+def _moe_block(layer, x, cfg, with_aux=True, route=None):
+    """Top-k-routed mixture-of-experts FFN, the JAX package's dense
+    formulation: every expert computes on every token (stacked-weight
+    einsums in the params' dtype) and the router's top-k weights, a
+    softmax over the k selected f32 logits, zero the unselected experts in
+    an f32 combine.  Static shapes and no host read: it captures in a CUDA
+    graph.
+
+    Returns ``(x + out, aux)``: aux is the Switch load-balance loss, E ·
+    Σ_e (fraction of the B·T·K routed slots on e) · (mean router
+    probability of e), 1 at uniform routing; None with
+    ``with_aux=False`` (the engine's ticks, which discard it: a captured
+    graph would replay what XLA drops as dead code).  ``route`` ([B, T, k]
+    expert indices), where given, takes the router's top-k's place, so
+    that two runs can be compared on one routing."""
+    moe = layer["moe"]
+    h = _rms_norm(x, layer["ln_mlp"])
+    logits = h.float() @ moe["router"].float()  # [B,T,E], true f32
+    if route is None:
+        top_w, top_idx = torch.topk(logits, cfg.top_k, dim=-1)
+    else:
+        top_idx = route
+        top_w = logits.gather(-1, top_idx)
+    top_w = torch.softmax(top_w, dim=-1)  # renormalized over the k chosen
+    # [B,T,E]: each token's k weights at their experts, 0 elsewhere (the
+    # gradient reaches top_w, none the integer indices)
+    combine = torch.zeros_like(logits).scatter_add(-1, top_idx, top_w)
+    g = torch.einsum("btd,edf->ebtf", h, moe["w_gate"])
+    u = torch.einsum("btd,edf->ebtf", h, moe["w_up"])
+    expert_out = torch.einsum(
+        "ebtf,efd->ebtd", F.silu(g) * u, moe["w_down"])  # [E,B,T,D]
+    out = torch.einsum(
+        "ebtd,bte->btd", expert_out.float(), combine).to(x.dtype)
+    if not with_aux:
+        return x + out, None
+    probs = torch.softmax(logits, dim=-1)
+    frac = F.one_hot(top_idx, cfg.n_experts).float().mean(dim=(0, 1, 2))
+    aux = cfg.n_experts * torch.sum(frac * probs.mean(dim=(0, 1)))
+    return x + out, aux
+
+
+def _ffn_block(layer, x, cfg, with_aux=True):
+    """FFN (dense or MoE) -> (residual output, router aux loss): 0 for a
+    dense layer; None with ``with_aux=False``, where the caller discards
+    it (prefill, decode and the engine's ticks)."""
     if "moe" in layer:
-        raise NotImplementedError(_MOE_LATER)
-    return _mlp_block(layer, x)
+        return _moe_block(layer, x, cfg, with_aux)
+    out = _mlp_block(layer, x)
+    if not with_aux:
+        return out, None
+    return out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward(params, tokens, cfg, attn_impl="plain", with_aux=False):
     """Full-sequence causal LM: tokens [B,T] int -> logits [B,T,V] f32.
 
     With ``with_aux=True`` returns ``(logits, aux)``, aux being the mean
-    per-layer router load-balance loss: 0 for the dense configs the port
-    runs.
+    per-layer router load-balance loss (0 for dense configs).
     """
-    _dense_only(cfg)
     t = tokens.shape[1]
     x = params["embed"][tokens.long()]
     positions = torch.arange(t, device=x.device)
+    aux_total = 0.0
     for layer in params["layers"]:
         x, _ = _attention_block(layer, x, cfg, positions, attn_impl)
-        x = _ffn_block(layer, x)
+        x, aux = _ffn_block(layer, x, cfg, with_aux)
+        if with_aux:
+            aux_total = aux_total + aux
     x = _rms_norm(x, params["ln_f"])
     logits = _mm(x, params["lm_head"]).float()
     if with_aux:
-        return logits, logits.new_zeros(())
+        return logits, aux_total / len(params["layers"])
     return logits
 
 
@@ -223,7 +272,6 @@ def init_cache(cfg, batch, device=None):
 def prefill(params, tokens, cfg, cache):
     """Run the prompt through the model, filling the cache from position 0
     (in place).  Returns (last-token logits [B,V], cache)."""
-    _dense_only(cfg)
     b, t = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(t, device=x.device)
@@ -231,7 +279,7 @@ def prefill(params, tokens, cfg, cache):
         x, (k, v) = _attention_block(layer, x, cfg, positions)
         cache["k"][i][:, :t] = k
         cache["v"][i][:, :t] = v
-        x = _ffn_block(layer, x)
+        x, _ = _ffn_block(layer, x, cfg, with_aux=False)
     x = _rms_norm(x, params["ln_f"])
     logits = _mm(x[:, -1], params["lm_head"]).float()
     cache["len"] = torch.full((b,), t, dtype=torch.int32, device=x.device)
@@ -243,7 +291,6 @@ def decode_step(params, token, cfg, cache):
 
     Writes this step's k/v into the cache in place at each row's position
     (the JAX package rebuilds the cache functionally)."""
-    _dense_only(cfg)
     b = token.shape[0]
     x = params["embed"][token.long()][:, None, :]  # [B,1,D]
     pos = cache["len"]  # [B]
@@ -272,7 +319,7 @@ def decode_step(params, token, cfg, cache):
         attn = torch.einsum("bhqk,bkhd->bqhd", p.to(vv.dtype), vv)
         out = _mm(attn.reshape(b, 1, cfg.n_heads * hd), layer["attn"]["wo"])
         x = x + out.to(x.dtype)
-        x = _ffn_block(layer, x)
+        x, _ = _ffn_block(layer, x, cfg, with_aux=False)
     x = _rms_norm(x, params["ln_f"])
     logits = _mm(x[:, 0], params["lm_head"]).float()
     cache["len"] = pos + 1
@@ -326,10 +373,13 @@ def _next_token_nll(logits, targets):
 
 
 def loss_fn(params, tokens, cfg, attn_impl="plain"):
-    """Next-token cross-entropy over tokens [B,T] (dense configs: no router
-    aux term)."""
-    logits = forward(params, tokens[:, :-1], cfg, attn_impl)
-    return _next_token_nll(logits, tokens[:, 1:])
+    """Next-token cross-entropy over tokens [B,T] (+ router aux for MoE)."""
+    logits, aux = forward(params, tokens[:, :-1], cfg, attn_impl,
+                          with_aux=True)
+    loss = _next_token_nll(logits, tokens[:, 1:])
+    if cfg.n_experts > 0:
+        loss = loss + cfg.router_aux_coef * aux
+    return loss
 
 
 def _leaves(tree):
@@ -406,7 +456,6 @@ def make_train_step(cfg, attn_impl="plain", learning_rate=1e-3):
     """
     if attn_impl in ("ring", "ring_flash"):
         raise NotImplementedError(_RING_LATER.format(attn_impl))
-    _dense_only(cfg)
     return _make_adam_step(
         lambda params, tokens: loss_fn(params, tokens, cfg, attn_impl),
         learning_rate,
@@ -415,18 +464,25 @@ def make_train_step(cfg, attn_impl="plain", learning_rate=1e-3):
 
 def quantize_params(params):
     """Int8 weight-only quantization of the serving weights: every 2D
-    projection (attention, MLP, LM head) becomes a {"q": int8, "s": f32}
-    pair for the dequant-matmul kernel; the embedding (a gather) stays in
-    full precision.  Quantized params are serving-only."""
+    projection (attention, dense MLP, LM head) becomes a {"q": int8, "s":
+    f32} pair for the dequant-matmul kernel; the embedding (a gather)
+    stays in full precision and MoE expert stacks keep their einsum path.
+    Quantized params are serving-only."""
     from client_tpu_torch.ops.quant import quantize_int8
 
     def q_layer(layer):
-        return {
+        out = {
             "attn": {k: quantize_int8(w) for k, w in layer["attn"].items()},
             "ln_attn": layer["ln_attn"],
             "ln_mlp": layer["ln_mlp"],
-            "mlp": {k: quantize_int8(w) for k, w in layer["mlp"].items()},
         }
+        if "mlp" in layer:
+            out["mlp"] = {
+                k: quantize_int8(w) for k, w in layer["mlp"].items()
+            }
+        if "moe" in layer:
+            out["moe"] = layer["moe"]
+        return out
 
     return {
         "embed": params["embed"],

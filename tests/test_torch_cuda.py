@@ -51,11 +51,13 @@ def _weights(seed, k, n):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_version(cuda_device, dtype):
     """The CUDA kernel against int8_matmul_reference on the card, at the
-    served shapes and ragged M; one counted launch per call."""
+    served shapes, the MoE LM's (d_model 512: wq and wo, wk and wv, the
+    8192-wide LM head) and ragged M; one counted launch per call."""
     atol, rtol = _TOL[dtype]
     rng = np.random.default_rng(11)
     for m in (1, 7, 37, 128):
-        for k, n in ((256, 256), (256, 128), (256, 768), (64, 128)):
+        for k, n in ((256, 256), (256, 128), (256, 768), (64, 128),
+                     (512, 512), (512, 256), (512, 8192)):
             x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
             x = x.to(_DT[dtype]).to(cuda_device)
             qw = quant.quantize_int8(_weights(m * k, k, n).to(cuda_device))
@@ -667,17 +669,19 @@ _GRAPH_BS = 16
 _GRAPH_WIDTH = _GRAPH_CFG.max_seq // _GRAPH_BS  # table width
 
 
-def _graph_engine(cuda_device, dtype, poison=False):
+def _graph_engine(cuda_device, dtype, poison=False, n_experts=0):
     """An engine on the card with its device state allocated and every
     program captured (8 slots, lane counts {2, 8}, prefill widths {16,
     32, 64}, verify widths {2, 4, 5}), the scheduler not started.  With
     ``poison`` every pool row but the trash block's is NaN and the lane
-    buffers hold sentinels while it captures."""
+    buffers hold sentinels while it captures; ``n_experts`` > 0 makes
+    every FFN a mixture of experts (top 2)."""
     from client_tpu_torch.serve.lm import LmEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(
-        _GRAPH_CFG, dtype="float32" if dtype == "float32" else "bfloat16")
+        _GRAPH_CFG, dtype="float32" if dtype == "float32" else "bfloat16",
+        n_experts=n_experts)
     params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
                              cuda_device)
     if dtype == "int8":
@@ -784,6 +788,52 @@ def test_engine_graph_replays_its_eager_program(cuda_device, dtype, kind,
                               _program_values(kind, shape, rng, 200), 1)
     finally:
         eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kind,shape", [("decode", 8), ("verify", (8, 5)),
+                                        ("prefill", 64)])
+def test_moe_engine_graph_replays_its_eager_program(cuda_device, dtype,
+                                                    kind, shape):
+    """The same with every FFN a mixture of 4 experts (top 2): the router,
+    its top-k and the dense expert einsums capture, and each replay is
+    bit-equal to the eager program (int8: the attention projections
+    only; the expert stacks stay bf16)."""
+    eng = _graph_engine(cuda_device, dtype, n_experts=4)
+    try:
+        assert "moe" in eng.params["layers"][0]
+        rng = np.random.default_rng(len(str(shape)) + len(kind) + 7)
+        _replay_against_eager(eng, kind, shape,
+                              _program_values(kind, shape, rng, 200), 2)
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_moe_forward_on_the_card_matches_the_cpu(cuda_device):
+    """A float32 MoE forward (TF32 off) and its router aux loss on the
+    card against the same weights on the CPU: logits at 1e-4, aux at
+    rtol 1e-5; every gradient of one loss_fn at 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(_TINY, n_experts=4, top_k=2)
+    cpu = tfm.init_params(torch.Generator().manual_seed(3), cfg, "cpu")
+    gpu = _to(cpu, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 17)))
+    want, want_aux = tfm.forward(cpu, toks[:, :-1], cfg, with_aux=True)
+    got, got_aux = tfm.forward(gpu, toks[:, :-1].to(cuda_device), cfg,
+                               with_aux=True)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=1e-5)
+    for params, t in ((cpu, toks), (gpu, toks.to(cuda_device))):
+        for w in tfm._leaves(params):
+            w.requires_grad_(True)
+        tfm.loss_fn(params, t, cfg).backward()
+    for a, b in zip(tfm._leaves(gpu), tfm._leaves(cpu)):
+        np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.numpy(),
+                                   atol=1e-4, rtol=1e-3)
 
 
 @pytest.mark.cuda

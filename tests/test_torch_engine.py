@@ -795,6 +795,38 @@ def test_concurrent_streams_match_serial(params, check):
         sched.close()
 
 
+def test_moe_streams_match_jax_engine_and_serial():
+    """An MoE config (4 experts, top-2) through the engine: four
+    concurrent greedy float32 streams equal the port's serial generate
+    and the JAX LmEngine's streams on the same weights, token for token
+    (every tick runs the dense MoE FFN without its aux loss)."""
+    jcfg = dataclasses.replace(_JCFG, n_experts=4, top_k=2)
+    cfg = tfm.TransformerConfig(**dataclasses.asdict(jcfg))
+    jparams = jtfm.init_params(jax.random.PRNGKey(2), jcfg)
+    params = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    prompts = [[1, 2, 3], [7, 9], list(range(1, 21)), [11, 3, 2, 8]]
+    lengths = [12, 9, 6, 10]
+    jeng = JaxLmEngine(jparams, jcfg, max_slots=4, lane_counts=(4,),
+                       block_size=8, prefill_chunk=16, min_bucket=4)
+    try:
+        qs = [jeng.submit(p, n)[0] for p, n in zip(prompts, lengths)]
+        want = [_collect(q) for q in qs]
+    finally:
+        jeng.close()
+    eng = LmEngine(params, cfg, max_slots=4, lane_counts=(2, 4), **SMALL)
+    try:
+        qs = [eng.submit(p, n)[0] for p, n in zip(prompts, lengths)]
+        got = [_collect(q) for q in qs]
+    finally:
+        eng.close()
+    assert eng.kv.used_blocks == 0
+    for p, n, g, w in zip(prompts, lengths, got, want):
+        assert len(g) == n
+        assert g == w, (p, g, w)
+        assert g == list(tfm.generate(params, cfg, p, n, readback_depth=0))
+
+
 class _GatedPrefill:
     """Holds the engine's prefill dispatch open (test_continuous.py's)."""
 
@@ -954,7 +986,8 @@ def test_served_batched_model_streams_the_jax_tokens():
          "data": prompt.tolist()},
         {"name": "MAX_TOKENS", "shape": [1], "datatype": "INT32",
          "data": [1]}]}
-    with Server(models=[model], http_port=0) as server:
+    with Server(models=[model], http_port=0,
+                with_default_models=False) as server:
         req = urllib.request.Request(
             f"http://{server.http_address}/v2/models/lm_streaming_batched/"
             "infer", data=json.dumps(body).encode(), method="POST")

@@ -389,7 +389,7 @@ def test_shared_memory_request_bypasses_the_cache():
     x = np.arange(4, dtype=np.float32)
     wire = {"inputs": [{"name": "IN", "shape": [4], "datatype": "FP32",
                         "data": x.tolist()}]}
-    with Server(models=[_double_model(calls)],
+    with Server(models=[_double_model(calls)], with_default_models=False,
                 response_cache=tfd.ResponseCache(), coalescing=True) as s:
         addr = s.http_address
         for _ in range(3):

@@ -46,7 +46,9 @@ def test_port_sources_exist():
     paths = {str(p.relative_to(ROOT)) for p in PORT_SOURCES}
     assert {"client_tpu_torch/utils/shared_memory/__init__.py",
             "client_tpu_torch/utils/cuda_shared_memory/__init__.py",
-            "client_tpu_torch/utils/cuda_shared_memory/_build.py"} <= paths
+            "client_tpu_torch/utils/cuda_shared_memory/_build.py",
+            # the port's own copy of the JAX package's jax-free builtins
+            "client_tpu_torch/serve/builtins.py"} <= paths
 
 
 def test_build_compiles_every_kernel_source():
@@ -157,6 +159,7 @@ def _lm_entry_points():
         "vision_pipeline_models":
             lambda **kw: vision.vision_pipeline_models(**kw),
         "model_sets(resnet)": lambda **kw: model_sets("resnet", **kw),
+        "model_sets(builtin)": lambda **kw: model_sets("builtin", **kw),
         "cuda_shared_memory.create_shared_memory_region":
             lambda **kw: cudashm.create_shared_memory_region(
                 "guard", 64, **kw),
@@ -168,6 +171,7 @@ def _lm_entry_points():
               "make_train_step+init_params", "lm_streaming_batched_model",
               "LmEngine", "resnet50_model", "cnn_classifier_model",
               "vision_pipeline_models", "model_sets(resnet)",
+              "model_sets(builtin)",
               "cuda_shared_memory.create_shared_memory_region"]
 )
 def test_entry_points_refuse_to_run_without_cuda(no_cuda, entry):

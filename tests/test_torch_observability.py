@@ -87,7 +87,8 @@ def _server(pkg, **kw):
             slo=jslo.SloWatchdog(objectives={"*": {"p99_ms": 1e-3}},
                                  min_samples=1, check_every=1), **kw)
     return Server(
-        models=_models("torch"), response_cache=tfd.ResponseCache(),
+        models=_models("torch"), with_default_models=False,
+        response_cache=tfd.ResponseCache(),
         coalescing=True, qos=tfd.TenantQoS(default_max_inflight=4),
         slo=tslo.SloWatchdog(objectives={"*": {"p99_ms": 1e-3}},
                              min_samples=1, check_every=1), **kw)
@@ -351,7 +352,8 @@ def _blocking_server(**kw):
 
     model = Model("slow", inputs=[TensorSpec("IN", "FP32", [-1])],
                   outputs=[TensorSpec("OUT", "FP32", [-1])], fn=slow)
-    return Server(models=[model], **kw).start(), gate
+    return Server(models=[model], with_default_models=False,
+                  **kw).start(), gate
 
 
 def _hold(addr, headers, n):
@@ -457,7 +459,7 @@ def test_engine_hooks_and_lane_quota_reach_the_engine_through_bind():
     model = language.lm_streaming_batched_model(
         runner=runner, max_slots=2, lane_counts=(2,), block_size=8,
         prefill_chunk=16, min_bucket=4)
-    with Server(models=[model],
+    with Server(models=[model], with_default_models=False,
                 qos=tfd.TenantQoS(default_lane_share=0.5)) as server:
         engine = server.engine
         sched = model.closer.__self__

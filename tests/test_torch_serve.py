@@ -68,7 +68,7 @@ def server(jax_params):
         language.lm_streaming_model(name="lm_streaming_int8", runner=int8),
         language.text_ensemble_model(runner=runner),
     ]
-    with Server(models=models, http_port=0) as s:
+    with Server(models=models, http_port=0, with_default_models=False) as s:
         yield s
 
 

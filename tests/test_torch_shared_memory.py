@@ -77,7 +77,8 @@ def server(jax_cnn):
                                         device="cpu")
     model.fn.params = convert.params_from_numpy(
         jax.tree_util.tree_map(np.asarray, jax_cnn.fn.params), "cpu")
-    with Server(models=[model], http_port=0) as s:
+    with Server(models=[model], http_port=0,
+                with_default_models=False) as s:
         yield s
 
 

@@ -197,13 +197,23 @@ def test_lm_flops_per_token_matches_jax(context):
 
 
 def test_unported_paths_raise(weights):
-    """Ring attention and MoE name the later slice instead of running
-    something else."""
+    """Ring attention names the later slice instead of running something
+    else; an MoE config builds client_tpu's init_params layout (the expert
+    stacks' shapes and dtypes, leaf for leaf)."""
     _, params = weights[("float32", False)]
     toks = torch.zeros((1, 4), dtype=torch.int32)
     for impl in ("ring", "ring_flash"):
         with pytest.raises(NotImplementedError, match="slice"):
             tfm.forward(params, toks, _TINY, attn_impl=impl)
     moe = dataclasses.replace(_TINY, n_experts=4)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tfm.init_params(torch.Generator().manual_seed(0), moe, "cpu")
+    got = tfm.init_params(torch.Generator().manual_seed(0), moe, "cpu")
+    want = jax.eval_shape(
+        lambda: jtfm.init_params(jax.random.PRNGKey(0),
+                                 dataclasses.replace(_JTINY, n_experts=4)))
+    shapes = jax.tree_util.tree_map(lambda a: (tuple(a.shape), a.dtype.name),
+                                    want)
+    got_shapes = jax.tree_util.tree_map(
+        lambda t: (tuple(t.shape), str(t.dtype).removeprefix("torch.")), got)
+    assert got_shapes == shapes
+    assert "mlp" not in got["layers"][0]
+    assert tuple(got["layers"][0]["moe"]["w_down"].shape) == (4, 128, 64)

@@ -347,7 +347,8 @@ def test_cnn_served_over_http_through_the_batcher():
     want = [model.fn({"INPUT0": x}, {}, None)["OUTPUT0"].numpy()
             for x in images]
     got = [None] * len(images)
-    with Server(models=[model], http_port=0) as server:
+    with Server(models=[model], http_port=0,
+                with_default_models=False) as server:
         def run(i):
             raw = to_wire_bytes(images[i], "FP32")
             header = json.dumps({
@@ -377,3 +378,47 @@ def test_cnn_served_over_http_through_the_batcher():
         _close_to_scale(g, w, FORWARD_BF16_TOL)
     assert stats["inference_count"] == len(images)
     assert 1 <= stats["execution_count"] <= len(images)
+
+
+def test_cnn_classification_matches_the_jax_server(cnn, promoting_jax_conv):
+    """The classification extension on ``cnn_classifier`` (the fault the
+    port had: it answered the FP32 scores): the same ``classification: 3``
+    request to both servers, the JAX CNN's parameters carried as float32
+    into both, returns BYTES [1, 3] with the same top-3 indices and labels
+    and scores within 1e-4 relative."""
+    import json
+    import urllib.request
+
+    from client_tpu.serve import Server as JaxServer
+    from client_tpu_torch.serve import Server
+
+    jparams, _ = cnn
+    p32 = _jax_tree(jparams, jnp.float32)
+    jmodel = jvision.cnn_classifier_model(image_size=32, max_batch_size=8)
+    jmodel.fn.params = jax.tree_util.tree_map(jnp.asarray, p32)
+    model = vision.cnn_classifier_model(image_size=32, max_batch_size=8,
+                                        device="cpu")
+    model.fn.params = convert.params_from_numpy(p32, "cpu")
+    x = _rng(21).standard_normal((1, 3, 32, 32)).astype(np.float32)
+    body = json.dumps({
+        "inputs": [{"name": "INPUT0", "shape": [1, 3, 32, 32],
+                    "datatype": "FP32", "data": x.ravel().tolist()}],
+        "outputs": [{"name": "OUTPUT0",
+                     "parameters": {"classification": 3}}]}).encode()
+    answers = {}
+    with JaxServer(models=[jmodel], with_default_models=False) as js, \
+            Server(models=[model], with_default_models=False) as ts:
+        for name, srv in (("jax", js), ("torch", ts)):
+            req = urllib.request.Request(
+                f"http://{srv.http_address}/v2/models/cnn_classifier/infer",
+                data=body, headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                answers[name] = json.loads(resp.read())["outputs"][0]
+    for out in answers.values():
+        assert out["datatype"] == "BYTES" and out["shape"] == [1, 3]
+    got = [s.split(":") for s in answers["torch"]["data"]]
+    want = [s.split(":") for s in answers["jax"]["data"]]
+    assert [g[1:] for g in got] == [w[1:] for w in want]
+    assert got[0][2] == f"class_{got[0][1]}"
+    np.testing.assert_allclose([float(g[0]) for g in got],
+                               [float(w[0]) for w in want], rtol=1e-4)

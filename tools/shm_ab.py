@@ -70,7 +70,8 @@ def main():
     images = cs.vision_images(8, 1).numpy()
     want = [w.numpy() for w in
             model.fn({"INPUT0": images}, {}, None)["OUTPUT0"].cpu()]
-    with Server(models=[model], http_port=0) as server, \
+    with Server(models=[model], http_port=0,
+                with_default_models=False) as server, \
             tempfile.TemporaryDirectory() as tmp:
         addr, engine = server.http_address, server.engine
         client = cs.ShmClient(addr, model.name, images, tmp, threads=32,
