@@ -8,7 +8,8 @@ again from CUDA shared memory of another process, serves the LM engines
 and ResNet-50 once more behind the server's operational surface (every
 hook on: tracing, flight recorder, SLO watchdog, tenant QoS, response
 cache, coalescing, admission, drain), runs the mixture-of-experts LM
-through training and the engine, serves the builtin model set, and
+through training and the engine, serves the builtin model set, runs
+two engine replicas that share one cache through the fleet tier, and
 times the kernels, the serial decode, the engine, the train step and the
 vision models.
 
@@ -211,16 +212,36 @@ Phases, one line each or more; any failure exits non-zero:
  17 builtin     the builtin set behind Server() (its default models, on
                 the card): simple, simple_sequence (two interleaved
                 sequences, an end and a restart), classifier with
-                classification 2, a refused sequence_durable (400), the
+                classification 2, a durable sequence with a repeated
+                sequence_step (kept locally, the repeat replayed), the
                 tiny vision pipeline; the launch counts reset before and
                 read after: none
- 18 kernels     one JSON line: every kernel of the served and trained
+ 18 fleet       two replicas in this process at DEFAULT_LM_CONFIG, each
+                an LmEngine with graphs on a FleetTier bound to loopback,
+                peered.  Prefix tier: A serves 16 prompts of 256 tokens
+                one at a time (8 sharing prefixes of 64, 128 and 192
+                tokens, 8 of 80, 176 and 240), then B: B installs A's
+                exported blocks into its pool and its captured prefill
+                starts past them; float32 streams equal serial generate
+                on both, bf16 and int8 streams of B equal A's where B ran
+                chunks A ran over the same KV, else held by NEAR_TIE;
+                the KV audit clean on both.  Migration (float32): B parks
+                a stream by preemption and drain()s, A resumes prompt +
+                delivered tokens from the exported chain, equal to serial
+                generate.  The launch counts reset before those runs and
+                read after: int8 and paged attention.  Then bytes a block
+                on the wire, the peer fetch's and the install's host ms,
+                the prefill step's host ms with the tier (its export) and
+                without, B's TTFT with the tier against an engine without
+                one at 1 and 8 streams (bf16), in turns
+ 19 kernels     one JSON line: every kernel of the served and trained
                 paths (the int8 GEMV and tensor-core routes, the three
                 flash kernels, paged attention's CUDA-core and tensor-core
                 split routes; an entry is named by its wrapper, with the
                 route in kernel_route), its launches on its path (phase 5
-                or 8, phase 15's, and launches_moe: phase 16's MoE engine
-                streams and MoE training), its route's own error (phase 3,
+                or 8, phase 15's, launches_moe: phase 16's MoE engine
+                streams and MoE training, launches_fleet: phase 18's
+                replicas), its route's own error (phase 3,
                 7 or 10) and its times (phase 6, 9 or 12)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
@@ -2991,15 +3012,21 @@ def builtin_phase(card):
         check(top["datatype"] == "BYTES" and top["shape"] == [1, 2]
               and top["data"][0].split(":")[1:] == ["1", "dog"],
               f"classifier answered {top}")
-        try:
-            http(addr, "/v2/models/simple_sequence/infer", json.dumps({
-                "inputs": [{"name": "INPUT", "shape": [1],
-                            "datatype": "INT32", "data": [1]}],
-                "parameters": {"sequence_id": 44,
-                               "sequence_durable": True}}).encode())
-            fail("sequence_durable was not refused")
-        except urllib.error.HTTPError as e:
-            check(e.code == 400, f"sequence_durable answered {e.code}")
+        durable = []
+        for value, step in ((1, 1), (4, 2), (4, 2)):
+            _, body, _ = http(addr, "/v2/models/simple_sequence/infer",
+                              json.dumps({
+                                  "inputs": [{"name": "INPUT", "shape": [1],
+                                              "datatype": "INT32",
+                                              "data": [value]}],
+                                  "parameters": {
+                                      "sequence_id": 44,
+                                      "sequence_start": step == 1,
+                                      "sequence_durable": True,
+                                      "sequence_step": step}}).encode())
+            durable.append(json.loads(body)["outputs"][0]["data"][0])
+        # no tier: durable state kept locally, the repeated step replayed
+        check(durable == [1, 5, 5], f"durable sequence sums {durable}")
         images = np.random.default_rng(17).integers(
             0, 256, (2, 32, 32, 3)).astype(np.uint8)
         _, body, _ = http(addr, "/v2/models/vision_pipeline/infer",
@@ -3018,9 +3045,331 @@ def builtin_phase(card):
     check(not any(launches.values()),
           f"the builtin path launched a hand-written kernel: {launches}")
     phase(17, "builtin", models=models, simple=out, sequence_sums=sums,
-          classification=top["data"], durable_refused=400,
+          classification=top["data"], durable_sums=durable,
           vision_pipeline_shape=scores["shape"], launches=launches,
           seconds=time.monotonic() - t0, **card)
+
+
+
+# -- the fleet tier (phase 18) ------------------------------------------------
+
+# a fleet stream's tokens; the shared prefixes of phase 18's prompts: on the
+# engine's 64-token chunk boundaries, and off them (240 is where a peer's
+# chain ends for a 256-token prompt: (256 - 1) // 16 full blocks)
+FLEET_TOKENS = 16
+FLEET_PROMPT_LEN = 256
+FLEET_PREFIXES = ((64, 128, 192), (80, 176, 240))
+FLEET_TIMED = 8  # prompts a TTFT run: 1 stream each in turn, then 8 at once
+
+
+def fleet_prompts(seed=12):
+    """Phase 18's 16 prompts of 256 tokens, in serving order: for each
+    prefix set of FLEET_PREFIXES, 8 prompts in three groups, a group's
+    prompts sharing that group's prefix, each with a tail of its own."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for lengths in FLEET_PREFIXES:
+        bases = [rng.integers(0, 256, n).tolist() for n in lengths]
+        for i in range(8):
+            base = bases[i % 3]
+            out.append(base + rng.integers(
+                0, 256, FLEET_PROMPT_LEN - len(base)).tolist())
+    return out
+
+
+def timed(obj, name, sink):
+    """Wrap ``obj.name`` so every call appends its host ms to *sink*."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            sink.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(obj, name, wrapper)
+
+
+def fleet_pair(LmEngine, FleetTier, params, cfg, a_kw=None, b_kw=None):
+    """Two replicas in this process: engines A and B at ENGINE_KW, each on
+    a started FleetTier bound to loopback, the tiers peered."""
+    from client_tpu_torch.serve.metrics import Registry
+
+    tiers = [FleetTier(gossip_interval_s=0).start() for _ in range(2)]
+    tiers[0].set_peers([tiers[1].address])
+    tiers[1].set_peers([tiers[0].address])
+    engines = [LmEngine(params, cfg, device="cuda", fleet=tier,
+                        registry=Registry(), **{**ENGINE_KW, **kw})
+               for tier, kw in zip(tiers, (a_kw or {}, b_kw or {}))]
+    return engines, tiers
+
+
+def close_pair(engines, tiers, label):
+    for eng in engines:
+        eng.close()
+    for tier in tiers:
+        tier.close()
+    for eng in engines:
+        if eng.kv is None:  # never started
+            continue
+        check(eng.kv.used_blocks == 0 and eng.kv.ref_counts() == {},
+              f"{label}: KV audit after close: {eng.kv.used_blocks} blocks "
+              f"used, refs {eng.kv.ref_counts()}")
+
+
+def serve_each(eng, prompts, n, LmEngine):
+    """Serve *prompts* one at a time (every decode tick at one lane of the
+    same lane count on either replica); returns the streams and, for each,
+    where its prefill started: the blocks it adopted from the local trie
+    and installed from the peer, in tokens."""
+    got, starts = [], []
+    for p in prompts:
+        hits = eng.prefix_stats().get("hits", 0)
+        remote = eng.fleet_stats()["remote_blocks"]
+        got.append(collect(eng.submit(p, n)[0], LmEngine.CLOSE))
+        starts.append(eng.block_size * (
+            eng.prefix_stats()["hits"] - hits
+            + eng.fleet_stats()["remote_blocks"] - remote))
+    return got, starts
+
+
+def fleet_streams(LmEngine, FleetTier, tfm, name, params, cfg, prompts):
+    """A serves the prompts, then B: B installs A's exported blocks and
+    its graph-captured prefill starts past them.  float32: B's streams
+    equal serial generate.  bf16 and int8: B's stream equals A's where B's
+    prefill ran chunks A's prefill ran too (the same plan from B's start,
+    over the same installed KV); elsewhere the NEAR_TIE rule against A's."""
+    from client_tpu_torch.serve.lm.policy import chunk_plan
+
+    (eng_a, eng_b), tiers = fleet_pair(LmEngine, FleetTier, params, cfg)
+    fetch_ms, install_ms, export_ms = [], [], []
+    timed(tiers[1], "prefix_lookup", fetch_ms)
+    timed(eng_b, "_install_remote", install_ms)
+    timed(eng_a, "_export_prefix", export_ms)
+    try:
+        got_a, starts_a = serve_each(eng_a, prompts, FLEET_TOKENS, LmEngine)
+        got_b, starts_b = serve_each(eng_b, prompts, FLEET_TOKENS, LmEngine)
+        fleet_b = eng_b.fleet_stats()
+        saved = eng_b.registry.get("ctpu_fleet_prefix_tokens_saved_total")
+        store_blocks = tiers[0].stats()["store_blocks"]
+        buckets = eng_b.buckets
+    finally:
+        close_pair((eng_a, eng_b), tiers, f"fleet {name}")
+    check(fleet_b["remote_blocks"] > 0 and (saved or 0) > 0,
+          f"{name}: B installed no block from A: {fleet_b}, saved {saved}")
+    equal, near = 0, []
+    for p, a, b, sa, sb in zip(prompts, got_a, got_b, starts_a, starts_b):
+        if name == "float32":
+            want = list(tfm.generate(params, cfg, p, FLEET_TOKENS,
+                                     readback_depth=0))
+            check(a == want and b == want,
+                  f"float32 fleet streams from {sa}/{sb}: A {a}, B {b}, "
+                  f"serial {want}")
+            equal += 1
+            continue
+        plan_a = chunk_plan(len(p), buckets, start=sa)
+        plan_b = chunk_plan(len(p), buckets, start=sb)
+        if plan_a[-len(plan_b):] == plan_b:
+            check(b == a, f"{name}: B's stream from {sb} ran A's chunks "
+                          f"{plan_b} over A's KV but differs: {b} != {a}")
+            equal += 1
+        else:
+            verdict = agreement(tfm, params, cfg, p, b, a)
+            equal += verdict["equal"]
+            near.append(dict(verdict, start_a=sa, start_b=sb))
+    return {"streams": len(prompts), "equal_streams": equal,
+            "near_tie_held": near, "starts_a": starts_a,
+            "starts_b": starts_b, "remote": fleet_b,
+            "prefix_tokens_saved": saved, "store_blocks_a": store_blocks,
+            "fetch_host_ms": fetch_ms, "install_ms": install_ms,
+            "export_host_ms": export_ms}
+
+
+def fleet_migration(LmEngine, FleetTier, tfm, p32, cfg32):
+    """B parks a stream by preemption ('lo' holds 25 of B's 32 blocks when
+    'hi' asks for 19) and drain()s; A resumes prompt + delivered tokens,
+    its prefill from B's exported swap chain (the 40-token prompt's two
+    full blocks at least), byte-exact against serial generate
+    (float32)."""
+    (eng_a, eng_b), tiers = fleet_pair(
+        LmEngine, FleetTier, p32, cfg32,
+        b_kw={"pool_tokens": 512, "tenant_priority": {"hi": 10.0}})
+    prompt = [256] + np.random.default_rng(19).integers(0, 256, 39).tolist()
+    n = 360
+    try:
+        q_lo, _ = eng_b.submit(prompt, n, tenant="lo")
+        first = q_lo.get(timeout=300)
+        q_hi, _ = eng_b.submit([256, 7], 300, tenant="hi")
+        deadline = time.monotonic() + 120
+        while (eng_b.preempt_stats()["swapped_streams"] == 0
+               and time.monotonic() < deadline):
+            time.sleep(0.002)
+        check(eng_b.preempt_stats()["swapped_streams"] == 1,
+              f"no parked stream on B: {eng_b.preempt_stats()}")
+        migrated = eng_b.drain()
+        delivered = [first] + collect(q_lo, LmEngine.CLOSE)
+        collect(q_hi, LmEngine.CLOSE)
+        check(migrated == 1, f"drain migrated {migrated} streams")
+        sessions = eng_b.registry.get("ctpu_fleet_sessions_migrated_total")
+        rest = collect(eng_a.submit(prompt + delivered,
+                                    n - len(delivered))[0], LmEngine.CLOSE)
+        resumed = eng_a.fleet_stats()
+    finally:
+        close_pair((eng_a, eng_b), tiers, "fleet migration")
+    want = list(tfm.generate(p32, cfg32, prompt, n, readback_depth=0))
+    check(delivered + rest == want,
+          f"migrated stream ({len(delivered)} delivered on B) differs from "
+          f"serial generate")
+    check(resumed["remote_blocks"] > 0,
+          f"A's resumed prefill installed no block: {resumed}")
+    return {"delivered_on_b": len(delivered), "resumed_on_a": len(rest),
+            "tokens": n, "equal_to_serial": True, "migrated": migrated,
+            "sessions_migrated_metric": sessions, "remote_on_a": resumed}
+
+
+def ttft_runs(eng, singles, together, LmEngine):
+    """TTFT of each of *singles* alone, in turn, then of *together* all at
+    once (host clock from submit to the first token)."""
+    single = []
+    for p in singles:
+        t0 = time.monotonic()
+        q, _ = eng.submit(p, FLEET_TOKENS)
+        q.get(timeout=300)
+        single.append((time.monotonic() - t0) * 1e3)
+        collect(q, LmEngine.CLOSE)
+    firsts = [None] * len(together)
+    t0 = time.monotonic()
+    qs = [eng.submit(p, FLEET_TOKENS)[0] for p in together]
+
+    def drain(i):
+        qs[i].get(timeout=300)
+        firsts[i] = (time.monotonic() - t0) * 1e3
+        collect(qs[i], LmEngine.CLOSE)
+
+    threads = [threading.Thread(target=drain, args=(i,), daemon=True)
+               for i in range(len(together))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return single, firsts
+
+
+def fleet_ttft(LmEngine, FleetTier, pbf, cfg):
+    """bf16: B's TTFT with the tier (its prefill from A's exported blocks)
+    against an engine without a tier, on 256-token prompts A served, in
+    turns without, with, with, without, every turn on prompts neither
+    engine has seen: 4 one at a time, then 8 at once.  The prefill step's
+    host ms with the tier attached (A, which exports) and without."""
+    rng = np.random.default_rng(18)
+    turns = [(label, [[256] + rng.integers(
+        0, 256, FLEET_PROMPT_LEN - 1).tolist() for _ in range(4 + 8)])
+        for label in ("without", "with", "with", "without")]
+    (eng_a, eng_b), tiers = fleet_pair(LmEngine, FleetTier, pbf, cfg)
+    plain = LmEngine(pbf, cfg, device="cuda", **ENGINE_KW)
+    with_tier, without_tier, fetch_ms, install_ms = [], [], [], []
+    timed(eng_a, "_prefill_step", with_tier)
+    timed(plain, "_prefill_step", without_tier)
+    timed(tiers[1], "prefix_lookup", fetch_ms)
+    timed(eng_b, "_install_remote", install_ms)
+    rows = []
+    try:
+        for eng in (eng_a, eng_b, plain):  # capture every graph first
+            collect(eng.submit([256, 9, 9], 4)[0], LmEngine.CLOSE)
+        for _, prompts in turns:
+            for p in prompts:
+                collect(eng_a.submit(p, 1)[0], LmEngine.CLOSE)
+        for label, prompts in turns:
+            eng = eng_b if label == "with" else plain
+            single, together = ttft_runs(eng, prompts[:4], prompts[4:],
+                                         LmEngine)
+            rows.append({"tier": label,
+                         "ttft_ms_1_stream": single,
+                         "ttft_ms_1_stream_mean": float(np.mean(single)),
+                         "ttft_ms_8_streams_mean": float(np.mean(together)),
+                         "ttft_ms_8_streams_max": max(together)})
+        remote = eng_b.fleet_stats()
+    finally:
+        plain.close()
+        close_pair((eng_a, eng_b), tiers, "fleet ttft")
+    check(plain.kv.used_blocks == 0 and plain.kv.ref_counts() == {},
+          "fleet ttft: KV audit of the engine without a tier")
+    check(remote["remote_blocks"] == 2 * 12 * 15,
+          f"the timed prefills did not install A's chains: {remote}")
+    return rows, {"prefill_step_host_ms_with_tier": float(
+                      np.mean(with_tier)),
+                  "prefill_step_host_ms_without_tier": float(
+                      np.mean(without_tier)),
+                  "fetch_host_ms_15_blocks": float(np.mean(fetch_ms)),
+                  "install_ms_15_blocks": float(np.mean(install_ms))}
+
+
+def fleet_wire(FleetTier, pbf, cfg):
+    """Bytes of one bf16 block on the wire, raw and in the JSON frame a
+    15-block fetch answers with (base64)."""
+    kv = [torch.randn((15, 16, cfg.n_kv_heads, cfg.d_model // cfg.n_heads),
+                      generator=torch.Generator().manual_seed(i))
+          .to(torch.bfloat16) for i in range(cfg.n_layers)]
+    tier = FleetTier(gossip_interval_s=0)
+    row = list(range(FLEET_PROMPT_LEN))
+    tier.export_prefix(row, 15, 16, kv, kv)
+    reply = tier._handle_prefix_get({"tokens": row, "block_size": 16,
+                                     "max_blocks": 15, "start": 0})
+    raw = 2 * sum(t[0].numel() * t.element_size() for t in kv)
+    return {"block_bytes_raw": raw,
+            "frame_bytes_15_blocks": len(json.dumps(reply)),
+            "frame_bytes_a_block": len(json.dumps(reply)) / 15}
+
+
+def fleet_phase(card, p32, cfg32, pbf, cfg, p8):
+    """Phase 18: two replicas in this process on the one card, each an
+    LmEngine with graphs on a FleetTier bound to loopback, peered: the
+    prefix tier in float32, bf16 and int8 (16 prompts of 256 tokens, A
+    then B), parked-stream migration, then the costs: bytes a block on
+    the wire, the peer RPC's host ms a fetch, the install's ms, the
+    export's host ms a prefill, B's TTFT with the tier against without.
+    The launch counts reset before the prefix-tier and migration runs and
+    read after them: int8 (the int8 run) and paged attention."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.serve.fleet import FleetTier
+    from client_tpu_torch.serve.lm import LmEngine
+    from client_tpu_torch.serve.models import transformer as tfm
+
+    t0 = time.monotonic()
+    prompts = fleet_prompts()
+    ops.reset_launches()
+    report = {name: fleet_streams(LmEngine, FleetTier, tfm, name, params, c,
+                                  prompts)
+              for name, params, c in (("float32", p32, cfg32),
+                                      ("bfloat16", pbf, cfg),
+                                      ("int8", p8, cfg))}
+    migration = fleet_migration(LmEngine, FleetTier, tfm, p32, cfg32)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    routes = {name: dict(r) for name, r in ops.ROUTES.items()}
+    for name in ("int8_matmul", "paged_attention"):
+        check(launches[name] > 0,
+              f"the fleet phase launched {name} no time")
+    for name, r in report.items():
+        for key in ("fetch_host_ms", "install_ms", "export_host_ms"):
+            ms = r.pop(key)
+            r[key] = {"n": len(ms), "mean": float(np.mean(ms)) if ms else None,
+                      "max": max(ms) if ms else None}
+    phase(18, "fleet_prefix_tier", config="DEFAULT_LM_CONFIG",
+          engine=ENGINE_KW, prompt_tokens=FLEET_PROMPT_LEN,
+          shared_prefixes=FLEET_PREFIXES, tokens=FLEET_TOKENS,
+          near_tie=NEAR_TIE, kv_audit_after_close="clean", **report, **card)
+    phase(18, "fleet_migration", kv_audit_after_close="clean", **migration,
+          launches=launches, launches_by_route=routes, **card)
+    rows, host = fleet_ttft(LmEngine, FleetTier, pbf, cfg)
+    for row in rows:
+        phase(18, "fleet_ttft", weights="bfloat16", prompt_tokens=
+              FLEET_PROMPT_LEN, **row, **card)
+    phase(18, "fleet_costs", weights="bfloat16", **fleet_wire(
+              FleetTier, pbf, cfg), **host,
+          seconds=time.monotonic() - t0, **card)
+    return launches, routes
 
 
 def main():
@@ -3561,7 +3910,10 @@ def main():
     # -- 17 the builtin model set -------------------------------------------
     builtin_phase(card)
 
-    # -- 18 kernels ----------------------------------------------------------
+    # -- 18 the fleet tier: two replicas sharing one cache ------------------
+    fleet_launches, fleet_routes = fleet_phase(card, p32, cfg32, pbf, cfg, p8)
+
+    # -- 19 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
 
     def layer_total(m):
@@ -3571,7 +3923,7 @@ def main():
                             "eager_ms")}
 
     total, prefill = layer_total(1), layer_total(64)
-    phase(18, "kernels", held_against_plain_in="phases 3, 7 and 10")
+    phase(19, "kernels", held_against_plain_in="phases 3, 7 and 10")
     moe_int8 = moe_counts["int8"]
     moe_paged = {route: sum(moe_counts[w]["routes"]["paged_attention"][route]
                             for w in ("bfloat16", "int8"))
@@ -3587,6 +3939,7 @@ def main():
         "launches": main_launches["int8_matmul"],
         "launches_phase_15": ops_launches["int8_matmul"],
         "launches_moe": moe_int8["launches"]["int8_matmul"],
+        "launches_fleet": fleet_launches["int8_matmul"],
         "max_abs_err": max(worst.values()),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -3601,7 +3954,8 @@ def main():
         "launches_in": "phase 5 (serving, counted at each CUDA-graph "
                        "replay); all routes, the GEMV's "
                        f"{main_routes['int8_matmul']['gemv']}; launches_moe: "
-                       "phase 16's int8 MoE engine streams",
+                       "phase 16's int8 MoE engine streams; launches_fleet: "
+                       "phase 18's int8 replicas",
         "checked_in": "phase 3",
     }, {
         "name": "int8_matmul",
@@ -3613,6 +3967,7 @@ def main():
         "launches": main_routes["int8_matmul"]["mma"],
         "launches_phase_15": ops_routes["int8_matmul"]["mma"],
         "launches_moe": moe_int8["routes"]["int8_matmul"]["mma"],
+        "launches_fleet": fleet_routes["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
         "ms": prefill["ms"],
         "plain_ms": prefill["plain_ms"],
@@ -3626,7 +3981,8 @@ def main():
                 "(wq, wk, wv, wo, w_gate, w_up)",
         "launches_in": "phase 5 (serving: prefill chunks, counted at "
                        "each CUDA-graph replay); launches_moe: phase 16's "
-                       "int8 MoE engine streams",
+                       "int8 MoE engine streams; launches_fleet: phase 18's "
+                       "int8 replicas",
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -3677,6 +4033,7 @@ def main():
             "launches": main_routes["paged_attention"][route],
             "launches_phase_15": ops_routes["paged_attention"][route],
             "launches_moe": moe_paged[route],
+            "launches_fleet": fleet_routes["paged_attention"][route],
             "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -3685,7 +4042,8 @@ def main():
             "launches_in": "phase 5 (serving, counted at each CUDA-graph "
                            "replay; one count a call: a split kernel and "
                            "the combine); launches_moe: phase 16's bf16 "
-                           "and int8 MoE engine streams",
+                           "and int8 MoE engine streams; launches_fleet: "
+                           "phase 18's replicas, float32, bf16 and int8",
             "checked_in": "phase 10",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,13 +26,14 @@ class Server:
     in the reference), the builtin set (serve/builtins.py) beside them,
     whose vision pipeline runs on *device* (``cuda`` unless the caller
     passes ``device="cpu"``).  ``max_inflight``, ``response_cache``,
-    ``coalescing``, ``qos``, ``slo`` and ``flight`` go to the
+    ``coalescing``, ``qos``, ``fleet`` (a started serve/fleet.py
+    ``FleetTier``), ``slo`` and ``flight`` go to the
     :class:`InferenceEngine`."""
 
     def __init__(self, models=None, http_port=0, host="127.0.0.1",
                  verbose=False, device=None, with_default_models=True,
                  max_inflight=None, response_cache=None, coalescing=False,
-                 qos=None, slo=None, flight=None):
+                 qos=None, fleet=None, slo=None, flight=None):
         all_models = list(models or [])
         if with_default_models:
             from client_tpu_torch.serve.builtins import default_models
@@ -44,6 +45,7 @@ class Server:
             response_cache=response_cache,
             coalescing=coalescing,
             qos=qos,
+            fleet=fleet,
             slo=slo,
             flight=flight,
         )

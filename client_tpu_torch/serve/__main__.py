@@ -65,6 +65,27 @@ def main():
         help="directory for flight-recorder dumps (default: "
              "$TPU_FLIGHT_DIR, else the system temp dir)",
     )
+    parser.add_argument(
+        "--fleet-bind", default=None,
+        help="join the cross-replica fleet tier: host:port for the peer "
+             "server (host:0 picks a free port; printed at startup)",
+    )
+    parser.add_argument(
+        "--fleet-peers", default="",
+        help="comma-separated host:port peer fleet addresses",
+    )
+    parser.add_argument(
+        "--replicate-k", type=int, default=1,
+        help="peers each durable sequence snapshot / hot item is pushed "
+             "to (0 = replication off)",
+    )
+    parser.add_argument(
+        "--seq-quorum", choices=("any", "majority"), default="any",
+        help="durable-sequence ack discipline: 'any' acks on best-effort "
+             "push (a partition degrades to local-only durability), "
+             "'majority' acks only after ceil((K+1)/2) peers stored the "
+             "snapshot (quorum unreachable = retryable 503)",
+    )
     args = parser.parse_args()
 
     from client_tpu_torch.serve import Server
@@ -92,6 +113,17 @@ def main():
         if args.slo_error_rate is not None:
             objective["error_rate"] = args.slo_error_rate
         slo = SloWatchdog(objectives={"*": objective})
+    fleet = None
+    if args.fleet_bind:
+        from client_tpu_torch.serve.fleet import FleetTier
+
+        peers = [p.strip() for p in args.fleet_peers.split(",") if p.strip()]
+        fleet = FleetTier(
+            bind=args.fleet_bind,
+            peers=peers,
+            replicate_k=args.replicate_k,
+            quorum=args.seq_quorum,
+        ).start()
 
     server = Server(
         models=model_sets(args.models, device=args.device),
@@ -103,17 +135,26 @@ def main():
         response_cache=cache,
         coalescing=args.coalescing,
         qos=qos,
+        fleet=fleet,
         slo=slo,
     ).start()
     if args.flight_dir:
         server.engine.flight.dump_dir = args.flight_dir
     print(f"client_tpu_torch.serve: HTTP on {server.http_address}", flush=True)
+    if fleet is not None:
+        print(
+            f"client_tpu_torch.serve: fleet peer port on {fleet.address} "
+            f"(quorum={fleet.quorum}, replicate_k={fleet.replicate_k})",
+            flush=True,
+        )
 
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     stop.wait()
     server.stop()
+    if fleet is not None:
+        fleet.close()
 
 
 if __name__ == "__main__":

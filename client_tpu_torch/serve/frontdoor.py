@@ -1,7 +1,9 @@
 """Multi-tenant front door: response cache, request coalescing, tenant QoS.
 
-Counterpart of client_tpu/serve/frontdoor.py (the fleet tier's peer
-read, digest listing and quota gossip come with the fleet tier).
+Counterpart of client_tpu/serve/frontdoor.py, with the fleet tier's
+hooks: ``ResponseCache.peek``/``keys`` (a peer's read and the gossip
+summary) and ``TenantQoS.delta_counts``/``absorb_remote`` (fleet-wide
+quota accounting).
 
 "Millions of users" traffic is not uniform — it has hot keys (the same
 request sent by thousands of clients at once) and unfair tenants (one
@@ -226,6 +228,28 @@ class ResponseCache:
                 self._inc("ctpu_cache_evictions_total", {"reason": "lru"})
             self._gauges_locked()
 
+    def peek(self, key):
+        """Read *key* WITHOUT touching hit/miss counters or LRU order —
+        the fleet peer-serving path: a peer's lookup must not skew this
+        replica's own hit-rate accounting (its miss already counted on
+        the replica that asked) nor keep entries hot that only remote
+        traffic touches.  TTL still applies (a stale entry is stale for
+        peers too), but expiry is left to the owning ``get`` path."""
+        now = time.monotonic()
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                return None
+            ttl = entry[3] if entry[3] is not None else self.ttl_s
+            if ttl is not None and now - entry[2] > ttl:
+                return None
+            return entry[0]
+
+    def keys(self):
+        """Digest-key snapshot (the routing-gossip summary source)."""
+        with self._lock:
+            return list(self._entries)
+
     def clear(self):
         with self._lock:
             self._entries.clear()
@@ -358,13 +382,17 @@ class _TokenBucket:
 
 
 class _TenantState:
-    __slots__ = ("inflight", "bucket", "requests", "shed")
+    __slots__ = ("inflight", "bucket", "requests", "shed", "gossip_delta")
 
     def __init__(self):
         self.inflight = 0
         self.bucket = None
         self.requests = 0
         self.shed = 0
+        # admissions since the last fleet-gossip collection: what peers
+        # drain from THEIR buckets so a flooder spraying N replicas
+        # converges on ~1x its quota fleet-wide, not N x
+        self.gossip_delta = 0
 
 
 class TenantQoS:
@@ -485,6 +513,7 @@ class TenantQoS:
                     retry_after = wait
             if reason is None:
                 state.inflight += 1
+                state.gossip_delta += 1
                 # gauge written under the SAME lock as the count: a
                 # read-then-set outside it lets a preempted thread park
                 # the gauge on a stale value
@@ -538,6 +567,43 @@ class TenantQoS:
                 "ctpu_tenant_inflight", {"tenant": tenant}, inflight,
                 help_="Requests currently executing per tenant",
             )
+
+    # -- fleet-wide accounting ----------------------------------------------
+
+    def delta_counts(self):
+        """{tenant: admissions since the last call} — collected by the
+        fleet gossip loop and pushed to peers, then reset.  Only tenants
+        with activity appear (the payload stays compact)."""
+        with self._lock:
+            out = {}
+            for tenant, state in self._states.items():
+                if state.gossip_delta:
+                    out[tenant] = state.gossip_delta
+                    state.gossip_delta = 0
+            return out
+
+    def absorb_remote(self, counts):
+        """Drain each tenant's local token bucket by the admissions a
+        PEER replica reported (fleet gossip): the rate quota becomes
+        approximately fleet-wide instead of per-process, so a flooder
+        cannot collect N x its quota by spraying N replicas.  Convergence
+        is eventual (one gossip interval of slack); tenants without a
+        bucket, or unknown here, are ignored — remote evidence must never
+        fabricate local state."""
+        with self._lock:
+            for tenant, n in (counts or {}).items():
+                state = self._states.get(tenant)
+                if state is None and tenant in self.tenants:
+                    # operator-configured tenant this replica just hasn't
+                    # served yet: materialize its bucket so the remote
+                    # consumption isn't forgotten (arbitrary gossip names
+                    # stay ignored — a peer must not grow the state map)
+                    state = self._state_locked(tenant)
+                if state is None or state.bucket is None:
+                    continue
+                state.bucket.tokens = max(
+                    state.bucket.tokens - float(n), 0.0
+                )
 
     # -- introspection -------------------------------------------------------
 

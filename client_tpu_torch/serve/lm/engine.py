@@ -51,8 +51,16 @@ device dispatch happens outside ``_cv``.  What differs:
   every static shape, at most ``len(lane_counts)`` decode,
   ``len(verify_widths) * len(lane_counts)`` verify and ``len(buckets)``
   prefill programs;
-- the fleet prefix tier is not ported yet: ``fleet=`` and ``set_fleet``
-  raise.
+- the fleet prefix tier (serve/fleet.py) is the JAX engine's: a peer
+  lookup on the submit caller's thread with no lock held, the fetched
+  tail installed by the first prefill step, prefill completion exported
+  into the tier's host store, and drain migrating parked streams.  The
+  install writes the fetched blocks into the pool IN PLACE, on the
+  scheduler thread's stream, before that chunk's replay: the captured
+  graphs read the pool at the addresses they recorded, so a rebind (the
+  JAX engine's ``pool.at[idx].set``) would leave them reading the old
+  tensors.  The export reads the blocks back to the host (``.cpu()``)
+  on the scheduler thread, as a swap-out does.
 
 Scheduling model (one scheduler thread, every device dispatch outside
 the condition lock):
@@ -123,7 +131,11 @@ from client_tpu_torch.serve.lm.policy import (
 )
 from client_tpu_torch.serve.lm.prefix import PrefixCache
 from client_tpu_torch.serve.lm.spec import LaneSpec, SpecConfig
-from client_tpu_torch.serve.metrics import LM_PREFIX_HELP, LM_SPEC_HELP
+from client_tpu_torch.serve.metrics import (
+    FLEET_HELP,
+    LM_PREFIX_HELP,
+    LM_SPEC_HELP,
+)
 from client_tpu_torch.serve.models.transformer import (
     _ffn_block,
     _mm,
@@ -151,11 +163,6 @@ _LANE_HELP = {
     "ctpu_lm_lanes": "Configured decode lane count (autoscaled)",
     "ctpu_lm_active_lanes": "Decode lanes currently streaming",
 }
-
-_FLEET_LATER = (
-    "the fleet prefix tier (cross-replica KV prefix lookups, exports and "
-    "parked-stream migration) comes with a later slice of the port"
-)
 
 # -- per-lane counter-based random numbers ---------------------------------
 #
@@ -634,7 +641,7 @@ class _Handle:
     _CANCELLED, or (slot, gen) once streaming."""
 
     __slots__ = ("prompt", "prompt_len", "max_tokens", "queue", "tenant",
-                 "temperature", "top_k", "seed", "placed")
+                 "temperature", "top_k", "seed", "placed", "remote_kv")
 
     def __init__(self, prompt, max_tokens, q, tenant, temperature, top_k,
                  seed):
@@ -647,11 +654,15 @@ class _Handle:
         self.top_k = int(top_k)
         self.seed = int(seed)
         self.placed = None
+        # (covered_blocks, host_k, host_v, start) fetched from the fleet
+        # prefix tier on the submit caller's thread (never under _cv);
+        # _admit adopts whatever still beats the local trie at admission
+        self.remote_kv = None
 
 
 class _PrefillJob:
     __slots__ = ("handle", "slot", "blocks", "table", "plan", "chunk_idx",
-                 "resume")
+                 "resume", "remote")
 
     def __init__(self, handle, slot, blocks, table, plan):
         self.handle = handle
@@ -664,6 +675,11 @@ class _PrefillJob:
         # admissions): activation restores its produced/remaining state
         # and the saved token/RNG carry instead of the chunk's sample
         self.resume = None
+        # [lo, hi, host_k, host_v, rstart]: fleet-fetched KV content
+        # destined for blocks[lo:hi]; installed by the FIRST _prefill_step
+        # (outside _cv), cleared once on device — abort before install
+        # must not cache those blocks as valid content
+        self.remote = None
 
 
 class _Swapped:
@@ -729,8 +745,6 @@ class LmEngine:
                  prefix_cache=True, min_prefix_blocks=1,
                  tenant_priority=None, swap_block_limit=None, fleet=None,
                  speculative=None, device=None):
-        if fleet is not None:
-            raise NotImplementedError(_FLEET_LATER)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -801,6 +815,13 @@ class LmEngine:
         self._preempt = None        # (slot, gen) chosen by _admit
         self._preemptions = 0
         self._resume_ms = []        # swap-out -> reactivation latencies
+
+        # fleet prefix tier (serve/fleet.py): peer lookups run on the
+        # SUBMIT caller's thread and exports on the scheduler thread,
+        # both strictly outside _cv (the PEER-CALL-UNDER-LOCK gate)
+        self.fleet = fleet
+        self._fleet_lookups = 0     # peer prefix lookups issued
+        self._fleet_blocks = 0      # blocks installed from peers
 
         # device state allocates lazily with the thread
         self.kv = None
@@ -906,8 +927,20 @@ class LmEngine:
         self.prof.set_registry(registry)
 
     def set_fleet(self, fleet):
-        """The cross-replica prefix tier is not ported yet: raises."""
-        raise NotImplementedError(_FLEET_LATER)
+        """Late-bind the cross-replica prefix tier (add_model wiring):
+        submit consults it on local-trie shortfall, prefill completion
+        exports into it, drain migrates parked streams through it."""
+        with self._cv:
+            self.fleet = fleet
+
+    def fleet_stats(self):
+        """Fleet prefix-tier counters: peer lookups issued at submit and
+        KV blocks installed from peers (zeros when no tier is bound)."""
+        with self._cv:
+            return {
+                "remote_lookups": self._fleet_lookups,
+                "remote_blocks": self._fleet_blocks,
+            }
 
     def pressure(self):
         """Autoscaling signal: queued submissions + parked (swapped)
@@ -946,6 +979,32 @@ class LmEngine:
             return q, None
         handle = _Handle(prompt, max_tokens, q, str(tenant or ""),
                          temperature, top_k, seed)
+        fleet = self.fleet
+        if fleet is not None and self._prefix_enabled:
+            shareable = (handle.prompt_len - 1) // self.block_size
+            if shareable > 0:
+                with self._cv:
+                    if self._closed:
+                        q.put(_CLOSE)
+                        return q, None
+                    self._ensure_thread_locked()
+                    local = len(
+                        self.prefix.match(handle.prompt[0], shareable)[0]
+                    )
+                    if local < shareable:
+                        self._fleet_lookups += 1
+                if local < shareable:
+                    # peer RPC on the CALLER's thread with no engine lock
+                    # held: a slow/dead peer delays only this submit, by
+                    # at most the tier's bounded fan-out x timeout — the
+                    # scheduler keeps ticking throughout.  Only the tail
+                    # past the local match travels (start_blocks).
+                    got = fleet.prefix_lookup(
+                        handle.prompt[0], self.block_size, shareable,
+                        start_blocks=local,
+                    )
+                    if got is not None and got[0] > local:
+                        handle.remote_kv = got
         with self._cv:
             if self._closed:
                 q.put(_CLOSE)
@@ -1210,6 +1269,12 @@ class LmEngine:
                 if job.chunk_idx < len(job.plan)
                 else job.handle.prompt_len
             )
+            if job.remote is not None:
+                # fleet-fetched blocks were never installed on device:
+                # only the locally adopted prefix below them is real
+                # content — caching the uninstalled range would poison
+                # the trie with garbage KV
+                written = min(written, job.remote[0] * self.block_size)
             self._release_blocks_locked(job.handle.prompt, written, blocks)
         if job.resume is not None:
             if not job.resume.cancelled:
@@ -1446,6 +1511,40 @@ class LmEngine:
             )
             table[:len(blocks)] = blocks
             start = len(matched_blocks) * self.block_size
+            job_remote = None
+            if handle.remote_kv is not None:
+                # fleet-tier adoption beyond the local trie: blocks
+                # [local..covered) are FRESH pool blocks whose content the
+                # first _prefill_step installs from the peer's host tensors
+                # (outside _cv); the chunk plan starts past them.  The
+                # fetched tensors cover blocks [rstart, covered) — if the
+                # trie shrank below rstart since the submit-time probe
+                # (eviction under pressure), the fetch cannot bridge the
+                # gap and is dropped: prefill is always correct, just
+                # slower.
+                covered = min(int(handle.remote_kv[0]), shareable)
+                rstart = handle.remote_kv[3]
+                if rstart <= len(matched_blocks) < covered:
+                    job_remote = [
+                        len(matched_blocks), covered,
+                        handle.remote_kv[1], handle.remote_kv[2], rstart,
+                    ]
+                    start = covered * self.block_size
+                    self._fleet_blocks += covered - len(matched_blocks)
+                    if self.registry is not None:
+                        self.registry.inc(
+                            "ctpu_fleet_prefix_blocks_total", None,
+                            value=covered - len(matched_blocks),
+                            help_=FLEET_HELP[
+                                "ctpu_fleet_prefix_blocks_total"],
+                        )
+                        self.registry.inc(
+                            "ctpu_fleet_prefix_tokens_saved_total", None,
+                            value=(covered - len(matched_blocks))
+                            * self.block_size,
+                            help_=FLEET_HELP[
+                                "ctpu_fleet_prefix_tokens_saved_total"],
+                        )
             if self.prefix is not None and shareable:
                 self.prefix.note_lookup(
                     len(matched_blocks), shareable - len(matched_blocks)
@@ -1459,6 +1558,7 @@ class LmEngine:
                 handle, slot, blocks, table,
                 chunk_plan(handle.prompt_len, self.buckets, start=start),
             )
+            self._job.remote = job_remote
             self._scaler.note_ok(False, self._max_active_locked())
 
     def _job_cancelled_locked(self, job):
@@ -1483,7 +1583,18 @@ class LmEngine:
                 self._job = None
                 return
             start, width = job.plan[job.chunk_idx]
+            # snapshot the remote-install plan under the lock: a close()
+            # racing this step nulls job.blocks in _abort_job_locked, and
+            # the consumed job.remote marks the blocks as real content
+            # for the eventual give_back
+            remote, job.remote = job.remote, None
+            remote_blocks = (
+                list(job.blocks[remote[0]:remote[1]])
+                if remote is not None else None
+            )
         handle = job.handle
+        if remote is not None:
+            self._install_remote(remote, remote_blocks)
         chunk = pad_prompt(
             handle.prompt[:, start:start + width], width,
             pad_id=0,
@@ -1513,6 +1624,7 @@ class LmEngine:
             )
         if job.chunk_idx < len(job.plan):
             return
+        export = None
         with self._cv:
             self._job = None
             if self._closed or self._job_cancelled_locked(job):
@@ -1524,6 +1636,14 @@ class LmEngine:
             lane.active = True
             lane.table[:] = job.table
             lane.blocks, job.blocks = job.blocks, None
+            if resume is None and self.fleet is not None:
+                nfull = handle.prompt_len // self.block_size
+                if nfull:
+                    export = (
+                        handle.prompt[0],
+                        [int(b) for b in lane.blocks[:nfull]],
+                        nfull,
+                    )
             if resume is None:
                 lane.queue = handle.queue
                 lane.remaining = handle.max_tokens
@@ -1559,6 +1679,8 @@ class LmEngine:
                 self._restore_lane_locked(lane, resume, job.slot)
             snapshot = ((job.slot, lane.gen),)
             self._lane_gauges_locked()
+        if export is not None:
+            self._export_prefix(export)
         if resume is not None:
             # install the saved next-tick input token + RNG carry; nothing
             # streams (everything up to `produced` was already delivered)
@@ -1570,13 +1692,91 @@ class LmEngine:
         self._adopt(job.slot, tok, carry)
         self._inflight.append((_start_readback(tok), snapshot))
 
+    def _install_remote(self, remote, blocks):
+        """Install fleet-fetched KV content into the reservation's fresh
+        blocks (scheduler thread, outside _cv).  The host tensors cover
+        chain blocks [rstart, covered); the destination is blocks
+        [lo, hi) of the reservation.  The pools are written IN PLACE on
+        the scheduler thread's stream, so the copy orders before this
+        job's chunk replay, and the captured graphs, which read the pool
+        at the addresses they recorded, see the peer-computed content.
+        Each host slice goes to the device by a blocking copy: the host
+        tensor has been read before the call returns."""
+        lo, hi, host_k, host_v, rstart = remote
+        idx = _to_device(np.asarray(blocks, np.int64), self.device)
+        sel = slice(lo - rstart, hi - rstart)
+        for layer in range(len(host_k)):
+            for pools, host in ((self.kv.pools["k"], host_k),
+                                (self.kv.pools["v"], host_v)):
+                pool = pools[layer]
+                pool[idx] = host[layer][sel].to(self.device, pool.dtype)
+
+    def _export_prefix(self, export):
+        """Publish freshly prefilled full prompt blocks into the fleet
+        tier's host store (scheduler thread, OUTSIDE _cv: the gather is
+        a device read ordered after this job's chunk writes, and the
+        store insert is host-side only).  One device->host copy per
+        layer and pool at each prefill — the price of making the prefix
+        fleet-visible, paid only while a tier is attached; the first
+        copy waits for every tick dispatched before it."""
+        row, blocks, nfull = export
+        idx = _to_device(np.asarray(blocks, np.int64), self.device)
+        host_k = [p[idx].cpu() for p in self.kv.pools["k"]]
+        host_v = [p[idx].cpu() for p in self.kv.pools["v"]]
+        self.fleet.export_prefix(
+            row, nfull, self.block_size, host_k, host_v
+        )
+
     def drain(self):
-        """Planned retire: close the engine.  Returns the number of parked
-        streams exported to the fleet tier — 0 until the port has the
-        tier (their queues close cleanly and the swap store drops with
-        the close, audited: no leaked blocks)."""
+        """Planned retire: migrate what can migrate, then close.
+
+        Active lanes' prompt prefixes were already exported to the fleet
+        tier at prefill completion, so a client replaying
+        prompt + delivered tokens on a surviving replica resumes
+        byte-exact with its prefill largely served from the tier.
+        Parked (preempted) streams are the case with otherwise-stranded
+        state: their host-swapped KV chains — prompt AND generated-token
+        blocks — are exported here, and the swap store drops with the
+        close (audited: no leaked blocks).  Returns the number of parked
+        streams exported."""
+        exports = []
+        with self._cv:
+            fleet = self.fleet if self.prefix is not None else None
+            if fleet is not None:
+                for entry in self._swapped:
+                    if entry.cancelled or entry.host_k is None:
+                        continue
+                    nfull = entry.length // self.block_size
+                    if not nfull:
+                        continue
+                    row = entry.prompt[0]
+                    if entry.produced > 1:
+                        # the written sequence is prompt + every delivered
+                        # token except the last (which is the NEXT tick's
+                        # input): exactly `length` tokens
+                        row = np.concatenate([
+                            row,
+                            np.asarray(
+                                entry.tokens[:entry.produced - 1], np.int32
+                            ),
+                        ])
+                    exports.append(
+                        (row, nfull, entry.host_k, entry.host_v)
+                    )
+        for row, nfull, host_k, host_v in exports:
+            fleet.export_prefix(
+                row, nfull, self.block_size,
+                [a[:nfull] for a in host_k],
+                [a[:nfull] for a in host_v],
+            )
+        if exports and self.registry is not None:
+            self.registry.inc(
+                "ctpu_fleet_sessions_migrated_total", None,
+                value=len(exports),
+                help_=FLEET_HELP["ctpu_fleet_sessions_migrated_total"],
+            )
         self.close()
-        return 0
+        return len(exports)
 
     def _decode_pass(self):
         """One batched decode tick over the active lanes (dispatch

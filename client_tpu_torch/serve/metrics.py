@@ -6,7 +6,9 @@ Counterpart of client_tpu/serve/metrics.py: the thread-safe
 distributions, the help catalogs of the series the LM engine, its prefix
 cache, speculative verify, the phase profiler, the SLO watchdog and the
 flight recorder register (``LM_PREFIX_HELP``, ``LM_SPEC_HELP``,
-``PROF_HELP``, ``SLO_HELP``), and :func:`render_metrics`, the ``/metrics``
+``PROF_HELP``, ``SLO_HELP``), the fleet tier's and the autoscaler's
+(``FLEET_HELP``, ``AUTOSCALE_HELP``: the JAX package's series names,
+so dashboards read both servers alike), and :func:`render_metrics`, the ``/metrics``
 payload: per-model counters and histograms, live gauges (batcher queue
 depth per model and tenant, in-flight requests, draining, the duty
 cycle), per-GPU memory, then every series in the engine's registry.
@@ -15,8 +17,8 @@ Where the JAX package reports ``ctpu_tpu_memory_*`` from PJRT's
 ``memory_stats``, the port reports ``ctpu_gpu_memory_*`` from
 ``torch.cuda.memory_stats``, and only once CUDA is initialized in the
 process: a scrape never creates a CUDA context.  The client-side
-resilience and balancer observers (and their ``RESILIENCE`` registry),
-and ``FLEET_HELP``, come with the client libraries and the fleet tier.
+resilience and balancer observers (and their ``RESILIENCE`` registry)
+stay with the JAX package's client libraries.
 
 Every label value passes through :func:`escape_label`: the exposition
 format reserves ``\\``, ``"`` and newline inside quoted label values.
@@ -117,6 +119,66 @@ SLO_HELP = {
         "SLO objective breaches (by model/tenant and objective kind)",
     "ctpu_flight_dumps_total":
         "Flight-recorder dumps written (by trigger reason)",
+}
+
+
+# Fleet cache-tier series (written by serve/fleet.py and the fleet hooks
+# in serve/lm/engine.py + model_runtime into whichever registry the tier
+# is bound to; one help catalog so /metrics, README and tests agree).
+FLEET_HELP = {
+    "ctpu_fleet_peer_hits_total":
+        "Peer lookups answered with content (by op: cache/prefix)",
+    "ctpu_fleet_peer_misses_total":
+        "Peer lookups every reachable peer missed (by op)",
+    "ctpu_fleet_peer_errors_total":
+        "Peer RPCs that failed or timed out (circuit strikes)",
+    "ctpu_fleet_peer_skips_total":
+        "Peer lookups skipped behind an open per-peer circuit",
+    "ctpu_fleet_prefix_blocks_total":
+        "KV prefix blocks installed from a peer replica's cache tier",
+    "ctpu_fleet_prefix_tokens_saved_total":
+        "Prefill tokens skipped via peer-fetched KV prefix blocks",
+    "ctpu_fleet_cache_hits_total":
+        "Unary responses served from a peer replica's response cache",
+    "ctpu_fleet_store_blocks":
+        "KV blocks exported into this replica's host-side fleet store",
+    "ctpu_fleet_gossip_rounds_total":
+        "Fleet gossip rounds pushed (tenant counters + digest summaries)",
+    "ctpu_fleet_sessions_migrated_total":
+        "Parked LM streams exported to the fleet tier at planned retire",
+    "ctpu_fleet_seq_snapshots_total":
+        "Durable sequence snapshots pushed to peer replicas",
+    "ctpu_fleet_seq_resumes_total":
+        "Sequences resumed from a fleet-replicated snapshot",
+    "ctpu_fleet_seq_stale_total":
+        "Stale sequence snapshots rejected by the replicated store",
+    "ctpu_fleet_seq_heals_total":
+        "Skips-ahead gaps healed by re-looking up a fresher snapshot",
+    "ctpu_fleet_replicated_items_total":
+        "Anti-entropy items proactively pushed to peers (by kind)",
+    "ctpu_fleet_replicated_bytes_total":
+        "Anti-entropy payload bytes proactively pushed to peers",
+    "ctpu_fleet_pressure_queue_depth":
+        "Gossiped per-replica queued+inflight work (autoscaling signal)",
+    "ctpu_fleet_pressure_prefix":
+        "Gossiped per-replica prefix-affinity pressure (hot chains held)",
+    "ctpu_fleet_seq_quorum_acks_total":
+        "Durable sequence steps acked with write quorum satisfied",
+    "ctpu_fleet_seq_quorum_refusals_total":
+        "Durable sequence steps refused (503) for unreachable quorum",
+}
+
+# Autoscaler control-loop series (written by serve/autoscale.py into the
+# registry it is constructed with).
+AUTOSCALE_HELP = {
+    "ctpu_autoscale_scale_ups_total":
+        "Autoscaler scale-up actions taken (replicas spawned)",
+    "ctpu_autoscale_scale_downs_total":
+        "Autoscaler scale-down actions taken (replicas drained+retired)",
+    "ctpu_autoscale_flap_suppressed_total":
+        "Autoscaler decisions suppressed by cooldown/hysteresis",
+    "ctpu_autoscale_replicas":
+        "Current replica count the autoscaler is steering",
 }
 
 

@@ -14,9 +14,13 @@ front door (response cache, coalescing, tenant QoS: serve/frontdoor.py),
 global admission (``max_inflight``) and graceful drain, request tracing
 and trace settings (serve/tracing.py), the flight recorder
 (serve/flight.py), the SLO watchdog (serve/slo.py), the duty-cycle
-tracker and the phase profilers (serve/prof.py).  The fleet tier comes
-with a later slice, and with it durable sequences: a request that asks
-for ``sequence_durable`` or ``sequence_step`` is refused with a 400.
+tracker and the phase profilers (serve/prof.py), and the fleet tier's
+server half (serve/fleet.py): the response cache across replicas,
+durable sequences (versioned snapshots replicated before a step acks,
+resumed on a survivor, under a write quorum), idempotent step replay,
+and drain's export of every live sequence.  Durable sequences and step
+replay work with no tier attached, as in the JAX server: the state is
+then local, and a declared step is still replayed exactly once.
 
 Every hook reads and writes host state only: no device sync, no tensor
 op.  A request that reads from or writes to a shared-memory region
@@ -29,6 +33,7 @@ tensor until its disposition is known: one bound for a CUDA region is
 copied on the device, never through the host.
 """
 
+import base64
 import mmap
 import os
 import threading
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from client_tpu_torch._infer_types import _np_from_json_data
+from client_tpu_torch.resilience import is_connection_level
 from client_tpu_torch.serve.dynamic_batcher import (
     ModelBatcher,
     batchable_request,
@@ -45,19 +51,27 @@ from client_tpu_torch.serve.dynamic_batcher import (
 )
 from client_tpu_torch.serve.flight import FlightRecorder
 from client_tpu_torch.serve.frontdoor import Coalescer, request_digest
-from client_tpu_torch.serve.metrics import BATCH_BUCKETS, Histogram, Registry
+from client_tpu_torch.serve.metrics import (
+    BATCH_BUCKETS,
+    FLEET_HELP,
+    Histogram,
+    Registry,
+)
 from client_tpu_torch.serve.pipeline import PipelineRunner, build_dag
 from client_tpu_torch.serve.prof import PhaseProfiler
 from client_tpu_torch.serve.slo import SloWatchdog
 from client_tpu_torch.serve.tracing import (
     TRACE_SETTING_DEFAULTS,
     Tracer,
+    current_trace,
     normalize_trace_settings,
     push_trace,
 )
 from client_tpu_torch.utils import (
     InferenceServerException,
     from_wire_bytes,
+    tensor_from_raw,
+    tensor_raw_bytes,
     to_wire_bytes,
 )
 from client_tpu_torch.utils import cuda_shared_memory as cudashm
@@ -69,16 +83,6 @@ SERVER_EXTENSIONS = ["model_repository", "model_configuration",
                      "binary_tensor_data", "parameters", "statistics",
                      "trace", "logging", "system_shared_memory",
                      "cuda_shared_memory", "classification", "sequence"]
-
-_FLEET_LATER = (
-    "the fleet tier (cross-replica response cache, prefix tier and "
-    "sequence replication) comes with a later slice of the port"
-)
-_SEQ_FLEET_LATER = (
-    "sequence_durable and sequence_step (replicated sequence state and "
-    "idempotent step replay) need the fleet tier, which comes with a "
-    "later slice of the port"
-)
 
 
 class TensorSpec:
@@ -95,22 +99,156 @@ class TensorSpec:
         return {"name": self.name, "datatype": self.datatype, "shape": self.dims}
 
 
+def _seq_encode(value):
+    """JSON-safe encoding of one sequence-state value (numpy arrays and
+    torch tensors become tagged base64 dicts under the same ``__nd__`` tag
+    and dtype names as the JAX package's, numpy scalars tagged item
+    dicts; containers recurse; anything else must already be
+    JSON-serializable — the fleet tier ships these snapshots as JSON
+    frames)."""
+    if isinstance(value, torch.Tensor):
+        name, raw = tensor_raw_bytes(value)
+        return {
+            "__nd__": [
+                name, list(value.shape),
+                base64.b64encode(raw).decode("ascii"),
+            ]
+        }
+    if isinstance(value, np.ndarray):
+        return {
+            "__nd__": [
+                str(value.dtype),
+                list(value.shape),
+                base64.b64encode(
+                    np.ascontiguousarray(value).tobytes()
+                ).decode("ascii"),
+            ]
+        }
+    if isinstance(value, (np.integer, np.floating, np.bool_)):
+        return {"__np__": [str(value.dtype), value.item()]}
+    if isinstance(value, bytes):
+        return {"__b__": base64.b64encode(value).decode("ascii")}
+    if isinstance(value, dict):
+        return {k: _seq_encode(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_seq_encode(v) for v in value]
+    return value
+
+
+def _seq_decode(value, device=None):
+    """Inverse of :func:`_seq_encode` (and the reader of the JAX
+    package's snapshots).  An ``__nd__`` array comes back as a tensor on
+    *device* (the context's), or as a numpy array when there is none —
+    bf16, which numpy alone lacks, as a CPU tensor."""
+    if isinstance(value, dict):
+        if "__nd__" in value and len(value) == 1:
+            dtype, shape, data = value["__nd__"]
+            raw = base64.b64decode(data)
+            if device is not None or dtype == "bfloat16":
+                out = tensor_from_raw(raw, dtype, shape)
+                return out.to(device) if device is not None else out
+            return np.frombuffer(
+                raw, dtype=np.dtype(dtype)
+            ).reshape(shape).copy()
+        if "__np__" in value and len(value) == 1:
+            dtype, item = value["__np__"]
+            return np.dtype(dtype).type(item)
+        if "__b__" in value and len(value) == 1:
+            return base64.b64decode(value["__b__"])
+        return {k: _seq_decode(v, device) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_seq_decode(v, device) for v in value]
+    return value
+
+
 class SequenceContext:
     """Per-sequence state handed to stateful model functions.
 
-    ``state`` is the model's own dict; ``step`` counts the sequence's
-    successfully executed unary requests and ``last_response`` keeps the
-    last one's ``(step, id-less response, blobs)``; ``last_used`` (the
-    monotonic clock) drives idle reaping.  The reference's snapshot half
-    (``export``/``restore``, epochs, durability, step replay) belongs to
-    the fleet tier and comes with it."""
+    ``step`` is the monotonic applied-step counter: the engine bumps it
+    once per successfully executed request of the sequence, and requests
+    that declare their own ``sequence_step`` parameter are replayed
+    idempotently when the counter already covers them (the retained
+    ``last_response`` rendering answers the duplicate without
+    re-applying).  ``export()``/``restore()`` are the versioned snapshot
+    pair the fleet tier replicates: versions order by ``(epoch, step)``
+    and a snapshot that does not beat the stored version is stale and
+    rejected, so replication can never move a sequence backwards.
+    ``epoch`` stamps the sequence INCARNATION (wall clock at creation;
+    restores keep the original): a client that restarts a sequence id
+    with ``sequence_start`` mints a new, higher epoch, so the fresh
+    incarnation's step-1 snapshot overwrites the dead incarnation's
+    higher-step leftovers on every peer instead of being rejected as
+    stale.  ``device`` is the serving model's (None for a host model):
+    a restored tensor comes back there.
+    """
 
-    def __init__(self, sequence_id):
+    def __init__(self, sequence_id, durable=False, device=None):
         self.sequence_id = sequence_id
         self.state = {}
         self.step = 0
+        # incarnation stamp, NOT a deadline: wall time so a restart on
+        # any replica orders after the previous incarnation
+        self.epoch = time.time()
+        self.durable = bool(durable)
+        self.device = device
+        # (step, id-less response dict, blobs) of the last applied step —
+        # what an idempotent duplicate replay returns
         self.last_response = None
         self.last_used = time.monotonic()
+        # traceparent of the last committed step's request trace: rides
+        # the replicated snapshot so a survivor resuming this sequence
+        # can CONTINUE the dead replica's trace id (serve/tracing.py
+        # resume_span) — a failover reads as one trace
+        self.trace_ctx = None
+        # set when a quorum-mode publish could not reach its peer-ack
+        # floor: the step is applied locally but was answered 503, and
+        # the idempotent replay path must re-attempt the publish before
+        # releasing the retained rendering (a 200 always implies the
+        # snapshot reached quorum)
+        self.quorum_deficit = False
+
+    def export(self):
+        """Serializable snapshot: JSON-safe through the fleet tier's
+        frame transport (array and tensor state base64-tagged)."""
+        last = None
+        if self.last_response is not None:
+            step, response, blobs = self.last_response
+            last = {
+                "step": int(step),
+                "response": response,
+                "blobs": [
+                    base64.b64encode(bytes(b)).decode("ascii")
+                    for b in blobs
+                ],
+            }
+        return {
+            "sequence_id": self.sequence_id,
+            "step": int(self.step),
+            "epoch": float(self.epoch),
+            "durable": self.durable,
+            "state": _seq_encode(self.state),
+            "last_response": last,
+            "traceparent": self.trace_ctx,
+        }
+
+    @classmethod
+    def restore(cls, snapshot, device=None):
+        """Rebuild a context from an exported snapshot (the survivor-side
+        half of sequence migration); tensors land on *device*."""
+        ctx = cls(snapshot["sequence_id"],
+                  durable=snapshot.get("durable", False), device=device)
+        ctx.step = int(snapshot.get("step", 0))
+        ctx.epoch = float(snapshot.get("epoch", 0.0))
+        ctx.state = _seq_decode(snapshot.get("state") or {}, device)
+        ctx.trace_ctx = snapshot.get("traceparent")
+        last = snapshot.get("last_response")
+        if last is not None:
+            ctx.last_response = (
+                int(last["step"]),
+                last["response"],
+                [base64.b64decode(b) for b in last.get("blobs") or ()],
+            )
+        return ctx
 
 
 class Model:
@@ -772,14 +910,14 @@ class InferenceEngine:
     builds the observation-only default, False turns it off) and the
     flight recorder (``flight``: serve/flight.py) are the reference's.
     Sequences idle past ``max_sequence_idle_s`` are dropped.  ``fleet``
-    raises: the fleet tier comes with a later slice.
+    (a started serve/fleet.py ``FleetTier``) attaches the cross-replica
+    tier: the response cache, the LM engines' prefix tier (through each
+    model's binder), durable sequences and fleet-wide tenant quotas.
     """
 
     def __init__(self, models=None, max_sequence_idle_s=60.0,
                  max_inflight=None, response_cache=None, coalescing=False,
                  qos=None, fleet=None, slo=None, flight=None):
-        if fleet is not None:
-            raise NotImplementedError(_FLEET_LATER)
         self._lock = threading.Lock()
         self._models = {}
         self._ready = {}
@@ -845,6 +983,13 @@ class InferenceEngine:
         self._coalescer = (
             Coalescer(registry=self.metrics) if coalescing else None
         )
+        # Cross-replica cache tier (serve/fleet.py): a local response-
+        # cache miss consults peer replicas before dispatching, the LM
+        # engine's prefix cache spans the fleet (wired per-model through
+        # Model.binder), and tenant quotas account fleet-wide via gossip.
+        self.fleet = None
+        if fleet is not None:
+            fleet.attach(self)
         self.log_settings = {
             "log_file": "",
             "log_info": True,
@@ -1075,6 +1220,7 @@ class InferenceEngine:
             "ctpu_drain_total",
             help_="Graceful drains initiated",
         )
+        drained = True
         with self._flight_cv:
             self._draining = True
             while self._inflight:
@@ -1082,9 +1228,21 @@ class InferenceEngine:
                 if deadline is not None:
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:
-                        return False
+                        drained = False
+                        break
                 self._flight_cv.wait(timeout=remaining)
-        return True
+        # Planned retire: replicate every live sequence into the fleet
+        # tier (timed-out drains included — stranded sequence state is
+        # exactly what the tier exists to carry).  Peer pushes run with
+        # no engine lock held.
+        fleet = self.fleet
+        if fleet is not None:
+            for snapshot in self.export_sequences():
+                try:
+                    fleet.publish_sequence(snapshot)
+                except Exception:  # pragma: no cover - defensive
+                    pass
+        return drained
 
     def _admit(self):
         """One request enters execution, or is shed with a retryable 503."""
@@ -1284,10 +1442,21 @@ class InferenceEngine:
                     trace.event("CACHE_HIT")
                 if self.qos is not None:
                     self.qos.note(tenant)
+                fleet = self.fleet
+                if fleet is not None:
+                    # hot-entry signal for proactive replication: a pure
+                    # host-side counter bump, never a peer RPC
+                    fleet.note_cache_hit(key)
                 response, blobs = cached
                 stats.record_cache_hit(time.monotonic_ns() - t0)
                 return _stamp_id(response, request), blobs
         if self._coalescer is None:
+            if use_cache:
+                fleet_hit = self._fleet_cached(key, ttl_s)
+                if fleet_hit is not None:
+                    return self._serve_fleet_hit(
+                        fleet_hit, request, trace, tenant, stats, t0
+                    )
             result = self._front_dispatch(
                 model_name, model_version, request, binary_section, trace,
                 tenant,
@@ -1327,13 +1496,23 @@ class InferenceEngine:
                 response, blobs = flight.result
                 stats.record_request_success(time.monotonic_ns() - t0)
                 return _stamp_id(response, request), blobs
+            if use_cache:
+                # LEADER-only fleet lookup (followers coalesce onto it):
+                # a hot key's peer fan-out stays one lookup per flight,
+                # not one per request in the herd
+                fleet_hit = self._fleet_cached(key, ttl_s)
+                if fleet_hit is not None:
+                    self._coalescer.publish(key, flight, fleet_hit)
+                    return self._serve_fleet_hit(
+                        fleet_hit, request, trace, tenant, stats, t0
+                    )
             try:
                 result = self._front_dispatch(
                     model_name, model_version, request, binary_section,
                     trace, tenant,
                 )
             except InferenceServerException as e:
-                if e.status() == "429" or _connection_level(e):
+                if e.status() == "429" or is_connection_level(e):
                     # tenant-scoped QoS rejection — or a leader that died
                     # with its transport: neither says anything about the
                     # request CONTENT, so followers re-contend instead of
@@ -1382,6 +1561,37 @@ class InferenceEngine:
         finally:
             if qos_release is not None:
                 qos_release()
+
+    def _fleet_cached(self, key, ttl_s):
+        """Peer-replica response-cache lookup for a local miss: the
+        id-less ``(response, blobs)`` rendering, filled into the local
+        cache, or None.  The peer RPC runs on the request thread with NO
+        engine lock held and is bounded by the tier's fan-out x timeout
+        (breaker-gated: a dead fleet degrades to local-only)."""
+        fleet = self.fleet
+        if fleet is None or self.response_cache is None:
+            return None
+        remote = fleet.cache_lookup(key)
+        if remote is None:
+            return None
+        response, blobs = remote
+        self.response_cache.put(key, response, blobs, ttl_s=ttl_s)
+        self.metrics.inc(
+            "ctpu_fleet_cache_hits_total",
+            help_=FLEET_HELP["ctpu_fleet_cache_hits_total"],
+        )
+        return response, blobs
+
+    def _serve_fleet_hit(self, shared, request, trace, tenant, stats, t0):
+        """Render one fleet cache hit exactly like a local hit: own
+        request id stamped, tenant request counted, no execution slot."""
+        if trace is not None:
+            trace.event("CACHE_HIT")
+        if self.qos is not None:
+            self.qos.note(tenant)
+        response, blobs = shared
+        stats.record_cache_hit(time.monotonic_ns() - t0)
+        return _stamp_id(response, request), blobs
 
     def _cache_fill(self, key, shared, ttl_s=None):
         """Store one id-less ``(response, blobs)`` rendering, under the
@@ -1433,7 +1643,28 @@ class InferenceEngine:
             w_in0 = time.time_ns() if trace is not None else 0
             inputs = self._gather_inputs(model, request, binary_section)
             params = request.get("parameters", {}) or {}
-            context = self._sequence_context(params)
+            context = self._sequence_context(params, model.device)
+            if context is not None:
+                if model.decoupled and (
+                    params.get("sequence_durable")
+                    or params.get("sequence_step")
+                ):
+                    # the commit path (step counter, retained rendering,
+                    # snapshot push) only exists on the unary direct
+                    # path: pretending otherwise would silently drop the
+                    # durability the client asked for
+                    raise InferenceServerException(
+                        f"{model.name}: sequence_durable/sequence_step "
+                        "apply to unary stateful models only — decoupled "
+                        "streams do not replicate sequence state",
+                        status="400",
+                    )
+                replayed = self._sequence_replay(context, params, request)
+                if replayed is not None:
+                    # duplicate declared step: answer from the retained
+                    # rendering without re-applying (exactly-once resume)
+                    stats.record_request_success(time.monotonic_ns() - t0)
+                    return replayed
             t_in1 = time.monotonic_ns()
             w_in1 = time.time_ns() if trace is not None else 0
             if model.ensemble_steps:
@@ -1544,30 +1775,44 @@ class InferenceEngine:
             flops_per_item=model.flops_per_item,
         )
         if context is not None:
-            self._sequence_commit(context, rendered)
+            # applied-step accounting + durable snapshot replication
+            # (peer push BEFORE the response leaves this method)
+            self._sequence_commit(context, params, rendered)
         return rendered
 
-    def _sequence_context(self, params):
-        """The request's :class:`SequenceContext`, or None without a
-        ``sequence_id``.  ``sequence_durable`` and ``sequence_step`` need
-        the fleet tier and are refused (400), never ignored."""
-        for key in ("sequence_durable", "sequence_step"):
-            if params.get(key):
-                raise InferenceServerException(
-                    f"{key}: {_SEQ_FLEET_LATER}", status="400")
+    def _sequence_context(self, params, device=None):
+        """The request's :class:`SequenceContext` (its tensors on the
+        serving model's *device*), or None without a ``sequence_id``."""
         seq_id = params.get("sequence_id", 0)
         if not seq_id:
             return None
-        return self._sequence_context_local(seq_id, params)
+        durable = bool(params.get("sequence_durable"))
+        ctx = self._sequence_context_local(seq_id, params, durable, device)
+        if ctx is not None:
+            return ctx
+        # Local miss mid-sequence with a fleet tier attached: the replica
+        # that held this sequence may have died, and its replicated
+        # snapshot lives in the tier.  The peer RPC runs on the REQUEST
+        # thread with no engine lock held (the PEER-CALL-UNDER-LOCK
+        # shape) and is bounded by the tier's fan-out x timeout.
+        snapshot = None
+        fleet = self.fleet
+        if fleet is not None:
+            lookup = getattr(fleet, "sequence_lookup", None)
+            if lookup is not None:
+                snapshot = lookup(seq_id)
+        return self._install_sequence(seq_id, params, durable,
+                                      snapshot, device)
 
-    def _sequence_context_local(self, seq_id, params):
-        """Under the lock: drop the sequences idle past
-        ``max_sequence_idle_s`` (a client that never sent sequence_end
-        leaks no state), create the context on ``sequence_start`` or a
-        miss, and drop it from the table on ``sequence_end`` (this
-        request still runs with it)."""
+    def _sequence_context_local(self, seq_id, params, durable, device=None):
+        """Fast path under the lock: the context when it exists locally
+        (or must be created fresh), None when a fleet recovery attempt
+        should run first."""
         now = time.monotonic()
         with self._lock:
+            # Expire sequences idle past the advertised
+            # max_sequence_idle_microseconds so abandoned sequences (client
+            # crashed before sequence_end) don't leak state forever.
             expired = [
                 sid
                 for sid, ctx in self._sequences.items()
@@ -1575,22 +1820,295 @@ class InferenceEngine:
             ]
             for sid in expired:
                 del self._sequences[sid]
-            if params.get("sequence_start") or seq_id not in self._sequences:
-                self._sequences[seq_id] = SequenceContext(seq_id)
+            missing = seq_id not in self._sequences
+            if missing and not params.get("sequence_start") \
+                    and self.fleet is not None:
+                return None  # try the tier before forking fresh state
+            if params.get("sequence_start") or missing:
+                self._sequences[seq_id] = SequenceContext(
+                    seq_id, durable=durable, device=device
+                )
             ctx = self._sequences[seq_id]
+            ctx.durable = ctx.durable or durable
             ctx.last_used = now
             if params.get("sequence_end"):
                 self._sequences.pop(seq_id, None)
             return ctx
 
-    def _sequence_commit(self, context, rendered):
-        """Count the applied step and keep its id-less rendering."""
+    def _install_sequence(self, seq_id, params, durable, snapshot,
+                          device=None):
+        """Install the recovered (or fresh) context after a fleet lookup.
+        A context another thread installed meanwhile wins unless the
+        snapshot is strictly newer — replication must never move a
+        sequence backwards."""
+        resumed = False
+        with self._lock:
+            ctx = self._sequences.get(seq_id)
+            if snapshot is not None and (
+                ctx is None
+                or (float(snapshot.get("epoch", 0.0)),
+                    int(snapshot.get("step", 0))) > (ctx.epoch, ctx.step)
+            ):
+                ctx = SequenceContext.restore(snapshot, device)
+                resumed = True
+                self.metrics.inc(
+                    "ctpu_fleet_seq_resumes_total",
+                    help_=FLEET_HELP["ctpu_fleet_seq_resumes_total"],
+                )
+            elif ctx is None:
+                if durable:
+                    # a DURABLE mid-sequence request whose snapshot is
+                    # nowhere in the fleet must fail LOUDLY: executing
+                    # against a silently forked fresh context would
+                    # return wrong answers with no error — the exact
+                    # state split SequenceRestartError exists to prevent
+                    raise InferenceServerException(
+                        f"durable sequence {seq_id!r} has no local state "
+                        "and no replicated snapshot in the fleet — its "
+                        "replica died before any step was replicated; "
+                        "restart the sequence (sequence_start=True)",
+                        status="409",
+                    )
+                ctx = SequenceContext(seq_id, durable=durable, device=device)
+            ctx.durable = ctx.durable or durable
+            ctx.last_used = time.monotonic()
+            self._sequences[seq_id] = ctx
+            if params.get("sequence_end"):
+                self._sequences.pop(seq_id, None)
+        if resumed:
+            # record the resume AFTER releasing the engine lock (span
+            # completion may flush to the trace file).  The marker span
+            # CONTINUES the dead replica's trace id (the snapshot's
+            # traceparent); the current request's own trace is tagged so
+            # both directions of the join are explicit in traceview.
+            trace = current_trace()
+            span = self.tracer.resume_span(
+                ctx.trace_ctx, seq_id, step=ctx.step,
+                resumed_by=(trace.trace_id if trace is not None else ""),
+            )
+            if trace is not None:
+                trace.event("SEQ_RESUME")
+                trace.tags["resumed_sequence"] = seq_id
+                if span is not None:
+                    trace.tags["resumed_trace"] = span.trace_id
+            self.flight.note(
+                "seq_resume", sequence_id=seq_id, step=ctx.step,
+                trace=ctx.trace_ctx,
+            )
+        return ctx
+
+    def _sequence_replay(self, context, params, request):
+        """Idempotent duplicate-step short-circuit.
+
+        Requests may declare a monotonic ``sequence_step`` parameter
+        (1-based).  A declared step the context already applied returns
+        the retained rendering re-stamped with this request's id — the
+        retried step after a failover lands exactly once, never twice.
+        A declared step AHEAD of the applied counter means intermediate
+        steps were lost (a non-durable sequence resumed from a stale
+        snapshot): that is the state fork ``SequenceRestartError``
+        exists to prevent, so it is rejected with a restartable 409.
+        Returns None when the step is fresh and must execute."""
+        declared = params.get("sequence_step")
+        if not declared:
+            return None
+        declared = int(declared)
+        with self._lock:
+            step = context.step
+            last = context.last_response
+        if declared > step + 1:
+            # The client saw step declared-1 acked somewhere, so this
+            # context is provably stale (a failover resumed from an old
+            # snapshot while the newest one was briefly unreachable).
+            # Re-look the fleet up, bounded, before declaring a fork.
+            step, last = self._heal_seq_gap(context, declared)
+        if declared == step + 1:
+            return None  # the expected next step: apply it
+        if declared > step:
+            raise InferenceServerException(
+                f"sequence {context.sequence_id}: declared step {declared} "
+                f"skips ahead of the applied counter ({step}) — "
+                "intermediate steps were never applied here; restart the "
+                "sequence (sequence_start=True)",
+                status="409",
+            )
+        if last is not None and last[0] == declared:
+            self._retry_seq_quorum(context)
+            response, blobs = last[1], last[2]
+            return _stamp_id(response, request), list(blobs)
+        raise InferenceServerException(
+            f"sequence {context.sequence_id}: step {declared} was already "
+            f"applied (counter at {step}) and its response is no longer "
+            "retained",
+            status="409",
+        )
+
+    def _heal_seq_gap(self, context, declared, timeout_s=2.0):
+        """Bounded fleet re-lookup when a declared step skips ahead of
+        the applied counter.  A declared step N means the client holds
+        an ack for step N-1, so a counter below N-1 is not a client
+        bug — it is this replica resuming from a stale snapshot while
+        the replica (or peer copy) holding the newest one was briefly
+        unreachable.  Retrying the lookup for a short window turns that
+        transient miss into a clean resume; only when the window closes
+        without finding step >= N-1 does the caller raise the
+        restartable 409 (the snapshot really is gone).  Peer RPCs run
+        with no engine lock held.  Returns the refreshed
+        ``(step, last_response)`` pair."""
+        fleet = self.fleet
+        with self._lock:
+            durable = context.durable
+            step, last = context.step, context.last_response
+        lookup = getattr(fleet, "sequence_lookup", None)
+        if lookup is None or not durable:
+            return step, last
+        deadline = time.monotonic() + timeout_s
+        while True:
+            try:
+                snapshot = lookup(context.sequence_id)
+            except Exception:  # pragma: no cover - defensive
+                snapshot = None
+            if snapshot is not None:
+                fresh = SequenceContext.restore(snapshot, context.device)
+                with self._lock:
+                    if (fresh.epoch, fresh.step) > (
+                        context.epoch, context.step
+                    ):
+                        context.step = fresh.step
+                        context.epoch = fresh.epoch
+                        context.state = fresh.state
+                        context.last_response = fresh.last_response
+                        context.trace_ctx = fresh.trace_ctx
+                    step, last = context.step, context.last_response
+                if step + 1 >= declared:
+                    self.metrics.inc(
+                        "ctpu_fleet_seq_heals_total",
+                        help_=FLEET_HELP["ctpu_fleet_seq_heals_total"],
+                    )
+                    return step, last
+            if time.monotonic() >= deadline:
+                return step, last
+            time.sleep(0.05)
+
+    def _retry_seq_quorum(self, context):
+        """Replay-path half of the quorum gate: a retried step whose
+        original commit was refused for quorum deficit re-attempts the
+        publish before the retained rendering is released.  Success
+        clears the deficit (the retry acks 200, now quorum-durable);
+        another shortfall refuses again, so no response ever reaches the
+        wire without its snapshot at quorum.  No-op when the context is
+        not in deficit — the common replay path costs one flag read."""
+        with self._lock:
+            deficit = context.quorum_deficit
+        if not deficit:
+            return
+        fleet = self.fleet
+        if fleet is None or not context.durable:
+            return
+        acked = fleet.publish_sequence(context.export())
+        self._enforce_seq_quorum(fleet, context, acked)
+
+    def _sequence_commit(self, context, params, rendered):
+        """Advance the applied-step counter, retain the rendering for
+        idempotent replay, and — for durable sequences with a fleet tier
+        attached — push the snapshot to peer replicas BEFORE the response
+        reaches the wire: an acked step must survive this replica's
+        unplanned death.  The peer push runs with no engine lock held and
+        is bounded by the tier's fan-out x timeout x per-peer breakers
+        (an unreachable fleet degrades to local-only durability)."""
         response, blobs = rendered
+        ended = bool(params.get("sequence_end"))
+        trace = current_trace()
         with self._lock:
             context.step += 1
             context.last_response = (
                 context.step, _strip_id(response), list(blobs),
             )
+            if trace is not None:
+                # the snapshot carries the committing request's trace
+                # context: a survivor resuming this sequence after our
+                # death continues the SAME trace id (resume_span)
+                context.trace_ctx = trace.traceparent()
+        fleet = self.fleet
+        if fleet is None or not context.durable:
+            return
+        if not ended:
+            # export OUTSIDE the engine lock: encoding multi-MB numpy
+            # state under the repository-wide _lock would stall every
+            # concurrent admission.  Steps of ONE sequence are serial by
+            # contract, so the context is stable while we encode.
+            acked = fleet.publish_sequence(context.export())
+            self._enforce_seq_quorum(fleet, context, acked)
+        else:
+            # the sequence is complete: peers can drop their snapshots
+            fleet.forget_sequence(context.sequence_id)
+
+    def _enforce_seq_quorum(self, fleet, context, acked):
+        """Quorum gate for a durable step's ack.
+
+        Under ``quorum="majority"`` a step whose snapshot reached fewer
+        than ceil((K+1)/2) peers must NOT ack: the step stays applied
+        locally (with its retained rendering), the context is flagged
+        ``quorum_deficit``, and the client gets a retryable 503 carrying
+        breaker evidence.  The retry declares the SAME ``sequence_step``;
+        the idempotent replay path re-attempts the publish and only
+        releases the retained rendering once quorum is met — so a 200
+        always implies the snapshot is quorum-durable, and the model
+        never re-applies the step (exactly-once holds).  If this replica
+        dies while in deficit, the step was never acked, so losing it is
+        a correct (unacked) loss, not acks-then-loses."""
+        required = fleet.seq_quorum_required()
+        if required <= 0:
+            return
+        ok = acked >= required
+        fleet.note_quorum(ok)
+        with self._lock:
+            context.quorum_deficit = not ok
+        if ok:
+            return
+        evidence = fleet.quorum_evidence()
+        raise InferenceServerException(
+            f"sequence {context.sequence_id} step {context.step}: write "
+            f"quorum unreachable ({acked}/{required} peer acks, "
+            f"replicate_k={fleet.replicate_k}); step applied locally but "
+            "not acked — retry the same sequence_step "
+            f"(open breakers: {evidence or 'none'})",
+            status="503",
+        )
+
+    def export_sequence(self, seq_id):
+        """One live sequence's snapshot (the fleet tier's ``seq_get``
+        handler reads this so a survivor can pull live state during a
+        planned handoff), or None.  The encode runs OUTSIDE the
+        engine-wide lock (see _sequence_commit) — only the context
+        reference is taken under it."""
+        with self._lock:
+            ctx = self._sequences.get(seq_id)
+        return ctx.export() if ctx is not None else None
+
+    def export_sequences(self):
+        """Snapshots of every live sequence (the planned-drain export).
+        Encoding runs outside the lock; by drain time no request is
+        mutating these contexts."""
+        with self._lock:
+            contexts = list(self._sequences.values())
+        return [ctx.export() for ctx in contexts]
+
+    def pressure(self):
+        """Autoscaling signal: queued + in-flight work on this replica.
+        Gossiped on fleet probes (``FleetTier.local_summary``) and
+        surfaced per-endpoint through ``EndpointPool.pressures()``."""
+        with self._flight_cv:
+            inflight = self._inflight
+        with self._lock:
+            batchers = list(self._batchers.values())
+        depth = 0
+        for batcher in batchers:
+            try:
+                depth += batcher.queue_depth()
+            except Exception:  # pragma: no cover - defensive
+                pass
+        return {"queue_depth": depth + inflight, "inflight": inflight}
 
     def _output_sinks(self, model, request, inputs):
         """``{output: flat tensor}`` of a device request's outputs bound
@@ -1875,16 +2393,3 @@ def _stamp_id(response, request):
     if request.get("id"):
         out["id"] = request["id"]
     return out
-
-
-def _connection_level(exc):
-    """Whether *exc* wraps a connection-level transport failure (the
-    endpoint never answered), as opposed to an answered error: the
-    reference's ``resilience.is_connection_level``."""
-    details = exc.debug_details()
-    if details is None:
-        return False
-    if isinstance(details, (OSError, EOFError)):  # timeouts included
-        return True
-    return (type(details).__module__ or "").startswith(
-        ("urllib3", "aiohttp", "http.client", "grpc"))

@@ -241,7 +241,8 @@ def lm_streaming_batched_model(name="lm_streaming_batched", runner=None,
         the scheduler's profiler joins the server's (so /v2/debug/prof
         and flight dumps cover the LM engine), and tenant decode-lane
         quotas + preemption priority classes come from the front door's
-        TenantQoS.  The fleet hook comes with the fleet tier."""
+        TenantQoS; an attached fleet tier becomes the scheduler's
+        cross-replica prefix tier."""
         sched = batched.scheduler
         sched.set_registry(engine.metrics)
         sched.tracer = engine.tracer
@@ -250,6 +251,10 @@ def lm_streaming_batched_model(name="lm_streaming_batched", runner=None,
         if engine.qos is not None:
             sched.tenant_lane_share = engine.qos.lane_share
             sched.tenant_priority = engine.qos.priority
+        if getattr(engine, "fleet", None) is not None:
+            # cross-replica prefix tier: submit-side peer lookups,
+            # prefill-completion exports, parked-stream migration
+            sched.set_fleet(engine.fleet)
 
     model.binder = bind
     return model

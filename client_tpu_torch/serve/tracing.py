@@ -24,7 +24,10 @@ trace).
 Every timestamp is the host's clock.  A span around work on the card
 times its dispatch (a CUDA graph replay, a kernel launch), not the
 device's execution, which may still run when the span ends.  The fleet
-tier's peer, serve and resume spans come with the fleet tier.
+tier's spans are the reference's: a peer RPC's span (``peer_span``) as a
+child of the request it serves, the peer server's (``serve_span``) under
+the traceparent the frame carried, and a resumed sequence's marker
+(``resume_span``) continuing the trace id its snapshot carried.
 """
 
 import collections
@@ -35,6 +38,7 @@ import time
 from client_tpu_torch.tracing import (
     SpanBase,
     append_trace_record,
+    format_traceparent,
     gen_span_id,
     gen_trace_id,
     parse_traceparent,
@@ -51,8 +55,9 @@ __all__ = [
 ]
 
 # The request trace active on THIS thread (the engine brackets execute()
-# with push_trace), so code serving a traced request can reach its trace
-# without the trace object being passed through every call layer.
+# with push_trace).  The fleet tier reads it so a peer RPC issued while
+# serving a traced request records a child span under the request's trace
+# id — no plumbing of the trace object through every call layer.
 _ACTIVE = threading.local()
 
 
@@ -148,8 +153,12 @@ class RequestTrace(SpanBase):
         # step, tagged with the step label and the owning ensemble
         self.step = step
         self.ensemble = ensemble
-        # free-form key/value tags, exported verbatim
+        # free-form key/value tags (peer url, bytes, breaker state,
+        # hit/miss, resume provenance), exported verbatim
         self.tags = {}
+
+    def traceparent(self):
+        return format_traceparent(self.trace_id, self.span_id)
 
     def to_json(self):
         record = {
@@ -196,6 +205,11 @@ class Tracer:
         # hundreds of times a second and must not evict request spans
         self._tick_seen = 0
         self.tick_completed = collections.deque(maxlen=max_traces)
+        # fleet peer-RPC child spans (client side of prefix/cache/seq
+        # lookups, durability pushes, anti-entropy) and the peer-server
+        # side's serve spans — bounded apart from request spans for the
+        # same reason as ticks
+        self.peer_completed = collections.deque(maxlen=max_traces)
         # completion hook (the engine points it at the flight recorder so
         # every finished span lands in the postmortem ring even when no
         # trace_file is configured); called OUTSIDE the tracer lock
@@ -313,6 +327,115 @@ class Tracer:
         span.event("COMPUTE_START", now - int((t1 - t0) * 1e9))
         span.event("COMPUTE_END", now)
         self._complete_into(span, self.tick_completed)
+
+    def _span_seq(self):
+        with self._lock:
+            self._seq += 1
+            return self._seq
+
+    @contextlib.contextmanager
+    def peer_span(self, op, peer="", **tags):
+        """Bracket one fleet peer RPC with PEER_START/PEER_END.
+
+        A request-thread peer call (prefix/cache/sequence lookup, the
+        synchronous durability push) records a CHILD span under the
+        thread's active request trace, so a peer fetch shows inside the
+        originating request's timeline.  Off-request callers (the
+        anti-entropy thread) get a standalone span with its own trace id,
+        subsampled on ``trace_rate`` with the tick counter so background
+        pushes never drain the request budget.  Yields the span (or None
+        when nothing records); callers stamp result tags onto
+        ``span.tags`` before the block exits."""
+        parent = current_trace()
+        if parent is not None:
+            span = RequestTrace(
+                parent.trace_id, gen_span_id(),
+                parent_span_id=parent.span_id,
+                model_name=f"__peer_{op}__", protocol="fleet",
+                seq=self._span_seq(),
+            )
+        elif self.enabled():
+            rate = max(
+                self._int_setting(self._settings, "trace_rate", 1), 1
+            )
+            with self._lock:
+                seen = self._tick_seen
+                self._tick_seen += 1
+            if seen % rate:
+                span = None
+            else:
+                span = RequestTrace(
+                    gen_trace_id(), gen_span_id(),
+                    model_name=f"__peer_{op}__", protocol="fleet",
+                    seq=self._span_seq(),
+                )
+        else:
+            span = None
+        if span is None:
+            yield None
+            return
+        span.tags["op"] = op
+        if peer:
+            span.tags["peer"] = peer
+        span.tags.update(tags)
+        span.event("PEER_START")
+        try:
+            yield span
+        except Exception as e:
+            span.error = str(e)
+            raise
+        finally:
+            span.event("PEER_END")
+            self._complete_into(span, self.peer_completed)
+
+    @contextlib.contextmanager
+    def serve_span(self, op, traceparent=None, **tags):
+        """The peer-server half of a fleet RPC: a span under the CALLING
+        replica's trace id when the frame carried a traceparent — the
+        receipt that joins a cross-replica fetch into one trace spanning
+        both processes.  Frames with no trace context record nothing
+        (the caller decided not to sample)."""
+        parent = parse_traceparent(traceparent)
+        if parent is None:
+            yield None
+            return
+        span = RequestTrace(
+            parent[0], gen_span_id(), parent_span_id=parent[1],
+            model_name=f"__peer_{op}__", protocol="fleet",
+            seq=self._span_seq(),
+        )
+        span.tags["op"] = op
+        span.tags["side"] = "serve"
+        span.tags.update(tags)
+        span.event("COMPUTE_START")
+        try:
+            yield span
+        except Exception as e:
+            span.error = str(e)
+            raise
+        finally:
+            span.event("COMPUTE_END")
+            self._complete_into(span, self.peer_completed)
+
+    def resume_span(self, traceparent, seq_id, **tags):
+        """One SEQ_RESUME marker span CONTINUING a replicated snapshot's
+        trace id: a survivor resuming a dead replica's durable sequence
+        stamps the resume into the ORIGINATING trace, so the failover
+        reads as one trace spanning the dead and surviving processes.
+        No-op (returns None) when the snapshot carried no trace context."""
+        parent = parse_traceparent(traceparent)
+        if parent is None:
+            return None
+        span = RequestTrace(
+            parent[0], gen_span_id(), parent_span_id=parent[1],
+            model_name="__seq_resume__", protocol="fleet",
+            seq=self._span_seq(),
+        )
+        span.tags["sequence_id"] = seq_id
+        span.tags.update(tags)
+        span.event("SEQ_RESUME")
+        self._complete_into(span, self.peer_completed)
+        return span
 
     def flush(self):
         """Force any buffered records to the trace file (engine close)."""

@@ -4,6 +4,13 @@ Counterpart of client_tpu/utils/__init__.py (the exception, the dtype
 tables, the BYTES/BF16 wire codecs and the tenant header name).  numpy has no bfloat16, so BF16
 tensors decode to float32 (exact: every bf16 value is a float32) and
 encode from any float array by rounding to nearest even through torch.
+
+:func:`tensor_raw_bytes` and :func:`tensor_from_raw` carry a tensor's
+raw little-endian bytes under the numpy dtype names the JAX package
+writes (``"float32"``, ``"bfloat16"``, ...): the fleet tier's KV blocks
+and the sequence snapshots travel in that form, so each package reads
+the other's.  bf16 goes through a 16-bit integer view, never through a
+numpy bf16 dtype, which numpy alone does not have.
 """
 
 import struct
@@ -22,6 +29,8 @@ __all__ = [
     "deserialize_bf16_tensor",
     "to_wire_bytes",
     "from_wire_bytes",
+    "tensor_raw_bytes",
+    "tensor_from_raw",
     "TENANT_HEADER",
 ]
 
@@ -203,3 +212,51 @@ def from_wire_bytes(buf, datatype, shape):
             raise_error(f"unsupported datatype {datatype}")
         arr = np.frombuffer(buf, dtype=np_dtype)
     return arr.reshape(shape)
+
+
+# torch dtype <-> the numpy dtype name the JAX package writes for it
+_TORCH_DTYPE_NAMES = {
+    torch.bool: "bool",
+    torch.int8: "int8",
+    torch.uint8: "uint8",
+    torch.int16: "int16",
+    torch.int32: "int32",
+    torch.int64: "int64",
+    torch.float16: "float16",
+    torch.bfloat16: "bfloat16",
+    torch.float32: "float32",
+    torch.float64: "float64",
+}
+_TORCH_DTYPES = {name: dt for dt, name in _TORCH_DTYPE_NAMES.items()}
+
+
+def tensor_raw_bytes(tensor):
+    """``(dtype name, raw little-endian bytes)`` of a tensor (copied to
+    the host when it lies on a device)."""
+    t = tensor.detach().to("cpu").contiguous()
+    name = _TORCH_DTYPE_NAMES.get(t.dtype)
+    if name is None:
+        raise_error(f"no wire name for dtype {t.dtype}")
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return name, t.numpy().tobytes()
+
+
+def tensor_from_raw(raw, dtype_name, shape):
+    """A CPU tensor of *shape* from raw bytes written under *dtype_name*
+    (the inverse of :func:`tensor_raw_bytes`, and the reader of the JAX
+    package's ``str(array.dtype)`` + ``tobytes()``).  Raises ValueError on
+    an unknown name or a size that does not match the shape."""
+    dtype = _TORCH_DTYPES.get(str(dtype_name))
+    if dtype is None:
+        raise ValueError(f"unknown dtype name {dtype_name!r}")
+    carrier = torch.int16 if dtype == torch.bfloat16 else dtype
+    shape = [int(d) for d in shape]
+    try:
+        if not raw:
+            flat = torch.empty((0,), dtype=carrier)
+        else:
+            flat = torch.frombuffer(bytearray(raw), dtype=carrier)
+        return flat.view(dtype).reshape(shape)
+    except RuntimeError as e:
+        raise ValueError(f"{dtype_name} payload does not fit {shape}: {e}")

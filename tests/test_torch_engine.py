@@ -706,7 +706,7 @@ def test_cancel_while_swapped_closes_cleanly(params, check):
 
 def test_drain_with_parked_stream_never_leaks_swap_blocks(params):
     """Mirrors test_lm.py::test_retire_with_parked_stream_never_leaks_swap_blocks
-    (no fleet tier in the port yet: drain() closes and migrates 0)."""
+    (no fleet tier attached: drain() closes and migrates 0)."""
     eng = _engine(params, max_slots=2, lane_counts=(2,), pool_tokens=80,
                   tenant_priority={"hi": 10.0})
     q_lo, _ = eng.submit([1, 2, 3], 60, tenant="lo")
@@ -725,12 +725,40 @@ def test_drain_with_parked_stream_never_leaks_swap_blocks(params):
     assert delivered == _serial(params, [1, 2, 3], 60)[:len(delivered)]
 
 
-def test_fleet_tier_refused_until_ported(params):
-    eng = _engine(params)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.set_fleet(object())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _engine(params, fleet=object())
+@pytest.mark.parametrize("bind", ["constructor", "set_fleet"])
+def test_fleet_tier_accepted_like_jax(weights, bind):
+    """``LmEngine(fleet=)`` and ``set_fleet`` take a port FleetTier, as the
+    JAX engine takes a JAX one (client_tpu/serve/lm/engine.py set_fleet,
+    fleet_stats, _export_prefix): the same prompt on both engines streams
+    the same tokens, exports the same chain (digests and block count) into
+    its tier, and reports the same fleet counters (a lookup, nothing
+    installed: the peerless tier misses); exact, float32."""
+    from client_tpu.serve.fleet import FleetTier as JaxFleetTier
+    from client_tpu_torch.serve.fleet import FleetTier
+
+    prompt, n = list(range(1, 33)), 8
+    results = []
+    for engine_cls, p, cfg, tier_cls, extra in (
+            (JaxLmEngine, weights[0], _JCFG, JaxFleetTier, {}),
+            (LmEngine, weights[1], CFG, FleetTier, {"device": "cpu"})):
+        tier = tier_cls(gossip_interval_s=0).start()
+        kw = dict(max_slots=2, lane_counts=(2,), block_size=8,
+                  prefill_chunk=16, min_bucket=4, **extra)
+        if bind == "constructor":
+            eng = engine_cls(p, cfg, fleet=tier, **kw)
+        else:
+            eng = engine_cls(p, cfg, **kw)
+            eng.set_fleet(tier)
+        try:
+            got = _collect(eng.submit(prompt, n)[0])
+            results.append((got, eng.fleet_stats(), tier.store.blocks,
+                            tier.store.digests()))
+        finally:
+            eng.close()
+            tier.close()
+    assert results[0] == results[1]
+    assert results[1][1] == {"remote_lookups": 1, "remote_blocks": 0}
+    assert results[1][2] == 4
 
 
 # -- speculative decoding through the engine ---------------------------------

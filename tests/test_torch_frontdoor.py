@@ -184,8 +184,26 @@ def _cache_entry_ttl(pkg, clock):
     return out, _lines(reg)
 
 
+def _cache_peek_keys(pkg, clock):
+    """The fleet tier's reads: peek touches no counter and no LRU order
+    (the next eviction still takes the peeked key), honors the TTL
+    without expiring; keys lists the digests in LRU order."""
+    module, reg_cls = PACKAGES[pkg]
+    reg = reg_cls()
+    cache = module.ResponseCache(max_entries=2, ttl_s=0.05, registry=reg)
+    cache.put("a", {"outputs": [], "id": "1"}, [b"1"])
+    cache.put("b", {"outputs": [], "id": "2"}, [b"2"])
+    out = [cache.peek("a"), cache.peek("zz"), cache.keys(), cache.stats()]
+    cache.put("c", {"outputs": [], "id": "3"}, [b"3"])  # evicts a: peek kept no LRU
+    out += [cache.keys(), cache.peek("a")]
+    clock.t += 0.08
+    out += [cache.peek("b"), len(cache), cache.stats()]
+    return out, _lines(reg)
+
+
 CACHE_CASES = {"lru": _cache_lru, "byte_bound": _cache_bytes,
-               "ttl": _cache_ttl, "per_entry_ttl": _cache_entry_ttl}
+               "ttl": _cache_ttl, "per_entry_ttl": _cache_entry_ttl,
+               "peek_keys": _cache_peek_keys}
 
 
 @pytest.mark.parametrize("case", sorted(CACHE_CASES))
@@ -331,9 +349,30 @@ def _qos_note(pkg, clock):
     return [qos.snapshot()], _lines(reg)
 
 
+def _qos_gossip(pkg, clock):
+    """Fleet-wide accounting: delta_counts hands out (and resets) the
+    admissions since the last call; absorb_remote drains the buckets by a
+    peer's, floored at zero, materializing configured tenants and
+    ignoring unknown ones."""
+    module, reg_cls = PACKAGES[pkg]
+    reg = reg_cls()
+    qos = module.TenantQoS(
+        tenants={"t": {"rate_per_s": 1.0, "burst": 4.0},
+                 "idle": {"rate_per_s": 1.0, "burst": 2.0}},
+        default_max_inflight=8, registry=reg)
+    for _ in range(3):
+        _admit(qos, "t")[1]()
+    _admit(qos, "u")[1]()
+    out = [qos.delta_counts(), qos.delta_counts()]
+    qos.absorb_remote({"t": 0.5, "idle": 5, "martian": 3})
+    out += [_admit(qos, "t"), _admit(qos, "idle"), qos.snapshot()]
+    out.append(qos.delta_counts())
+    return out, _lines(reg)
+
+
 QOS_CASES = {"inflight_cap": _qos_inflight, "token_bucket": _qos_bucket,
              "weights_priority_lane_share": _qos_classes,
-             "note": _qos_note}
+             "note": _qos_note, "fleet_gossip": _qos_gossip}
 
 
 @pytest.mark.parametrize("case", sorted(QOS_CASES))

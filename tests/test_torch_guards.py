@@ -48,7 +48,13 @@ def test_port_sources_exist():
             "client_tpu_torch/utils/cuda_shared_memory/__init__.py",
             "client_tpu_torch/utils/cuda_shared_memory/_build.py",
             # the port's own copy of the JAX package's jax-free builtins
-            "client_tpu_torch/serve/builtins.py"} <= paths
+            "client_tpu_torch/serve/builtins.py",
+            # the fleet tier and its own copies of the jax-free modules
+            # it needs: the frame transport and the circuit breakers
+            "client_tpu_torch/serve/fleet.py",
+            "client_tpu_torch/serve/autoscale.py",
+            "client_tpu_torch/resilience.py",
+            "client_tpu_torch/perf/rendezvous.py"} <= paths
 
 
 def test_build_compiles_every_kernel_source():

@@ -4,10 +4,10 @@ and the engine's sequence table) held against client_tpu's, on the CPU.
 The stateful model is the builtin ``simple_sequence`` accumulator (a copy
 of client_tpu/serve/builtins.py's), served by the port's ``Server`` and
 driven by the JAX package's HTTP client; the same steps go to the JAX
-server and the answers must be equal, exactly (integer sums).  The
-fleet's half of sequences (durable snapshots, step replay) is not ported:
-``sequence_durable`` and ``sequence_step`` are refused with a 400 that
-names the fleet slice.
+server and the answers must be equal, exactly (integer sums), with
+``sequence_durable`` and ``sequence_step`` on servers with no fleet tier
+too (local durability, idempotent step replay, the 409s).  The
+replicated half is held in tests/test_torch_fleet.py.
 """
 
 import json
@@ -131,22 +131,48 @@ def test_idle_sequences_are_reaped(pkg):
         srv.stop()
 
 
+def _answer(addr, value, params):
+    """(HTTP status, the step's sum or the error's status word)."""
+    try:
+        return 200, _step(addr, value, params)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())["error"].split("]")[0]
+
+
 @pytest.mark.parametrize("param", ["sequence_durable", "sequence_step"])
-def test_fleet_parameters_are_refused(server, param):
-    """sequence_durable and sequence_step need the fleet tier: a 400 that
-    names it, never silently ignored; the sequence is left as it was."""
-    addr = server.http_address
-    assert _step(addr, 2, {"sequence_id": 77, "sequence_start": True}) == 2
-    value = True if param == "sequence_durable" else 2
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _step(addr, 5, {"sequence_id": 77, param: value})
-    assert e.value.code == 400
-    message = json.loads(e.value.read())["error"]
-    assert param in message and "fleet" in message
-    assert _step(addr, 1, {"sequence_id": 77, "sequence_end": True}) == 3
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _step(addr, 5, {param: value})
-    assert e.value.code == 400
+def test_durable_and_step_parameters_answer_as_jax(server, param):
+    """sequence_durable and sequence_step on servers with no fleet tier:
+    the port answers every request as the JAX server does
+    (client_tpu/serve/model_runtime.py _sequence_context,
+    _sequence_replay): durable state kept locally, a duplicate declared
+    step replayed from the retained answer without re-applying, a step
+    that skips ahead or one no longer retained refused with a 409."""
+    if param == "sequence_durable":
+        plan = [(2, {"sequence_id": 77, "sequence_start": True,
+                     "sequence_durable": True}),
+                (5, {"sequence_id": 77, "sequence_durable": True}),
+                (1, {"sequence_id": 78, "sequence_durable": True}),
+                (3, {"sequence_id": 77, "sequence_end": True}),
+                (4, {"sequence_id": 77, "sequence_durable": True})]
+    else:
+        plan = [(2, {"sequence_id": 79, "sequence_start": True,
+                     "sequence_step": 1}),
+                (5, {"sequence_id": 79, "sequence_step": 2}),
+                (5, {"sequence_id": 79, "sequence_step": 2}),
+                (9, {"sequence_id": 79, "sequence_step": 4}),
+                (9, {"sequence_id": 79, "sequence_step": 1}),
+                (1, {"sequence_id": 79, "sequence_step": 3,
+                     "sequence_end": True}),
+                (7, {"sequence_id": 80, "sequence_step": 2})]
+    with JaxServer() as jax_server:
+        got = [_answer(server.http_address, v, p) for v, p in plan]
+        want = [_answer(jax_server.http_address, v, p) for v, p in plan]
+    assert got == want
+    if param == "sequence_step":
+        assert [code for code, _ in got] == [200, 200, 200, 409, 409,
+                                             200, 409]
+        assert got[2] == got[1]  # the replayed step, not applied twice
+        assert got[5] == (200, 8)
 
 
 def test_stateful_config_and_extension(client):
@@ -186,3 +212,37 @@ def test_sequence_requests_bypass_the_front_door_and_the_batcher():
         assert "batched_seq" not in s.engine._batchers
         stats = {m["name"]: m for m in s.engine.statistics()}
         assert stats["simple_sequence"]["execution_count"] == 3
+
+
+@pytest.mark.parametrize("param", ["sequence_durable", "sequence_step"])
+def test_decoupled_model_refuses_durable_and_step_as_jax(param):
+    """A decoupled stateful model refuses sequence_durable and
+    sequence_step with the JAX runtime's 400: the commit path exists on
+    the unary direct path only (client_tpu/serve/model_runtime.py
+    _execute_admitted)."""
+    from client_tpu.serve import model_runtime as jrt
+
+    def stream(inputs, params, ctx):
+        yield {"OUT": np.zeros((1,), np.int32)}
+
+    request = {"inputs": [{"name": "IN", "shape": [1], "datatype": "INT32",
+                           "data": [1]}],
+               "parameters": {"sequence_id": 5, "sequence_start": True,
+                              param: True if param == "sequence_durable"
+                              else 1}}
+    answers = []
+    for model_cls, spec, engine_cls in (
+            (jrt.Model, jrt.TensorSpec, jrt.InferenceEngine),
+            (Model, TensorSpec, InferenceEngine)):
+        model = model_cls("dec", [spec("IN", "INT32", [1])],
+                          [spec("OUT", "INT32", [1])], stream,
+                          decoupled=True, stateful=True)
+        engine = engine_cls([model])
+        try:
+            with pytest.raises(Exception) as e:
+                engine.execute("dec", "", request, b"")
+            answers.append((e.value.status(), e.value.message()))
+        finally:
+            engine.close()
+    assert answers[0] == answers[1]
+    assert answers[1][0] == "400"
