@@ -9,9 +9,10 @@ and ResNet-50 once more behind the server's operational surface (every
 hook on: tracing, flight recorder, SLO watchdog, tenant QoS, response
 cache, coalescing, admission, drain), runs the mixture-of-experts LM
 through training and the engine, serves the builtin model set, runs
-two engine replicas that share one cache through the fleet tier, and
-times the kernels, the serial decode, the engine, the train step and the
-vision models.
+two engine replicas that share one cache through the fleet tier, trains
+the flagship on a one-rank device mesh through the flash kernels' ring and
+runs that ring over two ranks on the one card, and times the kernels, the
+serial decode, the engine, the train step and the vision models.
 
     python3 chip_smoke.py
 
@@ -58,8 +59,10 @@ Phases, one line each or more; any failure exits non-zero:
                 _fa_forward_reference / _fa_backward_reference on the
                 card: T in {128,512,100}, D in {32,64,128}, causal and not,
                 f32 and bf16, BH in {2,5}, a zero and a nonzero lse
-                cotangent, and the main path's own shape (BH=64, T=512,
-                D=64, bf16, causal); flash_attention at T=100 (padded by
+                cotangent, the main path's own shape (BH=64, T=512,
+                D=64, bf16, causal) and the two-rank ring's shard shape
+                (BH=64, T=256, D=64, bf16, causal and not: the diagonal
+                and the past step of phase 19b); flash_attention at T=100 (padded by
                 the wrapper) against plain_attention, forward and gradients.
                 On an H100 80GB HBM3 (700 W) every bf16 error was at most
                 one ulp of the output: 0.0156 for the forward and dQ,
@@ -234,14 +237,33 @@ Phases, one line each or more; any failure exits non-zero:
                 the prefill step's host ms with the tier (its export) and
                 without, B's TTFT with the tier against an engine without
                 one at 1 and 8 streams (bf16), in turns
- 19 kernels     one JSON line: every kernel of the served and trained
+ 19 parallel    several devices.  (a) A one-rank NCCL world, make_mesh()
+                with every dim 1: 3 Adam steps of the flagship config
+                (phase 8's tokens) with attn_impl="ring_flash" on params
+                laid out by param_specs (DTensors), against 3 single-device
+                flash steps from the same weights: losses within phase 8's
+                limits, params bit-equal; the launch counts
+                reset before the ring steps and read after (4/4/4 flash a
+                step); ms a step in turns (flash, ring_flash, ring_flash,
+                flash).  (b) Two gloo ranks on this one card, each a
+                process loading the kernels this process built:
+                make_mesh(sp=2) over gloo and ring_attention_sharded(
+                impl="flash") forward and backward on DTensors at
+                [8, 512, 8, 64] bf16 causal (256-token shards);
+                out, dQ, dK, dV against one-rank flash_attention within
+                TOL; each rank's launches of the three flash kernels
+                (above 0), the largest |lse cotangent| its backward took
+                (above 0: the ring's merge), the bytes its permutes staged
+                through host memory and its ms a step
+ 20 kernels     one JSON line: every kernel of the served and trained
                 paths (the int8 GEMV and tensor-core routes, the three
                 flash kernels, paged attention's CUDA-core and tensor-core
                 split routes; an entry is named by its wrapper, with the
                 route in kernel_route), its launches on its path (phase 5
                 or 8, phase 15's, launches_moe: phase 16's MoE engine
                 streams and MoE training, launches_fleet: phase 18's
-                replicas), its route's own error (phase 3,
+                replicas, launches_ring_flash and launches_ring_2rank:
+                phase 19's), its route's own error (phase 3,
                 7 or 10) and its times (phase 6, 9 or 12)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
@@ -518,11 +540,13 @@ def flash_bounds(bh, t, d, causal, elt=2):
     return out
 
 
-def flash_vs_plain(fa, gen, main_shape):
+def flash_vs_plain(fa, gen, main_shape, ring_shape):
     """Phase 7: every flash kernel against its plain version on the card,
-    over a grid of shapes and at ``main_shape`` ([BH, T, D] of the training
-    step, bf16, causal).  Returns ({kernel: {dtype: max abs err}}, cases,
-    {kernel: max abs err} at ``main_shape``)."""
+    over a grid of shapes, at ``main_shape`` ([BH, T, D] of the training
+    step, bf16, causal) and at ``ring_shape`` (a shard of phase 19b's ring,
+    bf16, causal and not).  Returns ({kernel: {dtype: max abs err}}, cases,
+    {kernel: max abs err} at ``main_shape``, {"causal" / "past": {kernel:
+    max abs err}} at ``ring_shape``)."""
     worst = {name: {} for name in FLASH_KERNELS}
 
     def hold(name, dt, got, want, what, tol=None):
@@ -572,8 +596,10 @@ def flash_vs_plain(fa, gen, main_shape):
     for args in grid:
         case(*args)
     main = case(torch.bfloat16, *main_shape, True)
+    ring = {name: case(torch.bfloat16, *ring_shape, causal)
+            for name, causal in (("causal", True), ("past", False))}
     torch.cuda.synchronize()
-    return worst, len(grid) + 1, main
+    return worst, len(grid) + 3, main, ring
 
 
 def wrapper_vs_plain(fa, plain_attention, gen):
@@ -2665,7 +2691,7 @@ def routing_recorded(tfm, out, forced=None):
     top-k; otherwise the block runs unchanged."""
     moe_block = tfm._moe_block
 
-    def observed(layer, x, cfg, with_aux=True):
+    def observed(layer, x, cfg, with_aux=True, region=tfm._ONE_DEVICE):
         with torch.no_grad():
             h = tfm._rms_norm(x, layer["ln_mlp"])
             logits = h.float() @ layer["moe"]["router"].float()
@@ -2673,7 +2699,8 @@ def routing_recorded(tfm, out, forced=None):
         route = None if forced is None else forced[len(out)][0]
         out.append((idx[..., :cfg.top_k].sort(dim=-1).values,
                     top[..., cfg.top_k - 1] - top[..., cfg.top_k]))
-        return moe_block(layer, x, cfg, with_aux, route=route)
+        return moe_block(layer, x, cfg, with_aux, route=route,
+                         region=region)
 
     tfm._moe_block = observed
     try:
@@ -3372,6 +3399,275 @@ def fleet_phase(card, p32, cfg32, pbf, cfg, p8):
     return launches, routes
 
 
+# -- several devices (phase 19) ---------------------------------------------
+
+# 19a: the flagship training config on a one-rank mesh (every dim 1),
+# attn_impl="ring_flash", against phase 8's single-device flash steps from
+# the same weights and tokens, TRAIN_LR, this many Adam steps
+RING_STEPS = 3
+# stated tolerance, 19a's updated params (bf16) against the flash steps':
+# none.  On one rank the ring's merge is exact (its lse cotangent is
+# exactly 0 and its weights exp(0) = 1), so the ring_flash step runs the
+# flash step's kernels on the same bf16 inputs and gives its gradients bit
+# for bit; an H100 80GB HBM3 (700 W) read 0.0 in every run
+RING_PARAM_ATOL = 0.0
+# 19b: ring_attention_sharded(impl="flash") on make_mesh(sp=2) over two
+# gloo ranks on the one card, at the flagship's attention shape [B, T, H,
+# D], causal (shards of 256 tokens, which tile the kernels' blocks); held
+# against one-rank flash_attention within phase 7's bf16 tolerance (TOL).
+# Phase 7 holds the kernels against their plain versions at this shard's
+# shape, causal (the diagonal step) and not (the past step).
+RING_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 8, 64)
+RING_SEED = 19
+RING_TIMED = 10  # timed forward+backward steps a rank, after one warm-up
+
+
+def ring_inputs(device):
+    """19b's q, k, v and output cotangent, bf16, from RING_SEED (the same
+    on every rank and in the parent)."""
+    gen = torch.Generator().manual_seed(RING_SEED)
+    return [torch.randn(RING_SHAPE, generator=gen).to(device, torch.bfloat16)
+            for _ in range(4)]
+
+
+def ring_rank(rank, n, out_path):
+    """One rank of phase 19b: its sequence shard of ring_inputs, as a
+    DTensor on make_mesh(sp=2) over the world's gloo group, through
+    ring_attention_sharded(impl="flash"), forward and backward; writes its
+    shard's out and gradients, its launch counts, the largest |lse
+    cotangent| the flash backward took, the bytes staged through host
+    memory and the ms a step."""
+    import pickle
+
+    from torch.distributed.tensor import DTensor
+
+    from client_tpu_torch import ops, parallel
+    from client_tpu_torch.ops import _build
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import collectives
+    from client_tpu_torch.parallel.ring_attention import (
+        ring_attention_sharded,
+    )
+
+    _build.kernels()  # the parent built it: this loads it
+    mesh = parallel.make_mesh(sp=n)
+    layout = parallel.placements(mesh, parallel.P("dp", "sp", "tp", None))
+    q, k, v, g = ring_inputs("cuda")
+    t = RING_SHAPE[1] // n
+    shard = slice(rank * t, (rank + 1) * t)
+    g = g[:, shard].contiguous()
+    g_lse_max = []
+    backward = fa._fa_backward
+
+    def recorded(*args):  # args[6] is the lse cotangent
+        g_lse_max.append(args[6].abs().max().item())
+        return backward(*args)
+
+    def step():
+        ql, kl, vl = (x[:, shard].clone().requires_grad_()
+                      for x in (q, k, v))
+        dq, dk, dv = (DTensor.from_local(x, mesh, layout, run_check=False,
+                                         shape=q.shape, stride=q.stride())
+                      for x in (ql, kl, vl))
+        out = ring_attention_sharded(dq, dk, dv, mesh, causal=True,
+                                     impl="flash").to_local()
+        out.backward(g)
+        return out, ql.grad, kl.grad, vl.grad
+
+    fa._fa_backward = recorded
+    try:
+        ops.reset_launches()
+        collectives.reset_stats()
+        out, dq, dk, dv = step()
+        torch.cuda.synchronize()
+        launches, stats = dict(ops.LAUNCHES), dict(collectives.STATS)
+    finally:
+        fa._fa_backward = backward
+    step()  # warm
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    for _ in range(RING_TIMED):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / RING_TIMED
+    timed_stats = dict(collectives.STATS)
+    with open(f"{out_path}.{rank}", "wb") as f:
+        pickle.dump({
+            "shard": [shard.start, shard.stop],
+            **{name: x.detach().float().cpu().numpy() for name, x in
+               (("out", out), ("dq", dq), ("dk", dk), ("dv", dv))},
+            "launches": launches, "permutes": stats["ppermute"],
+            "bytes_staged_per_step": timed_stats["bytes_staged"] / RING_TIMED,
+            "g_lse_max_abs": max(g_lse_max), "ms_per_step": ms}, f)
+
+
+def ring_vs_one_rank(world_out, n):
+    """19b's shards against one-rank flash_attention on the same inputs:
+    {name: max abs err}, each within TOL[bf16]."""
+    import pickle
+
+    from client_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v, g = ring_inputs("cuda")
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = flash_attention(q, k, v)
+    out.backward(g)
+    want = {"out": out, "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    atol, rtol = TOL[torch.bfloat16]
+    errs, ranks = {}, []
+    for rank in range(n):
+        with open(f"{world_out}.{rank}", "rb") as f:
+            got = pickle.load(f)
+        shard = slice(*got["shard"])
+        for name, ref in want.items():
+            ref = ref[:, shard].detach().float().cpu().numpy()
+            err = np.abs(got[name] - ref)
+            check(bool((err <= atol + rtol * np.abs(ref)).all()),
+                  f"phase 19b rank {rank}: {name} differs from one-rank "
+                  f"flash_attention by {err.max()} (atol {atol}, rtol "
+                  f"{rtol})")
+            errs[name] = max(errs.get(name, 0.0), float(err.max()))
+        ranks.append({k: got[k] for k in (
+            "launches", "permutes", "bytes_staged_per_step",
+            "g_lse_max_abs", "ms_per_step")})
+    return errs, ranks
+
+
+def mesh_train(tfm, cfg, params, tokens, steps, mesh=None):
+    """``steps`` Adam steps at TRAIN_LR: ring_flash on ``mesh``, or the
+    single-device flash step; returns (params, losses)."""
+    impl = "flash" if mesh is None else "ring_flash"
+    opt, step = tfm.make_train_step(cfg, attn_impl=impl,
+                                    learning_rate=TRAIN_LR, mesh=mesh)
+    state = opt.init(params)
+    losses = []
+    for _ in range(steps):
+        params, state, loss = step(params, state, tokens)
+        losses.append(float(loss))
+    return params, losses
+
+
+def mesh_step_ms(tfm, cfg, tokens, mesh, steps=10, warmup=2):
+    """Train-step wall time (host clock around synchronized steps) from
+    fresh weights: ring_flash on ``mesh``, or flash on one device."""
+    from client_tpu_torch import parallel
+
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    if mesh is not None:
+        params = parallel.device_put(params, parallel.named_shardings(
+            mesh, parallel.param_specs(cfg)))
+    impl = "flash" if mesh is None else "ring_flash"
+    opt, step = tfm.make_train_step(cfg, attn_impl=impl,
+                                    learning_rate=TRAIN_LR, mesh=mesh)
+    state = opt.init(params)
+    for _ in range(warmup):
+        params, state, _ = step(params, state, tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, state, loss = step(params, state, tokens)
+    torch.cuda.synchronize()
+    return {"attn_impl": impl, "mesh": mesh is not None,
+            "ms_per_step": (time.perf_counter() - t0) * 1e3 / steps,
+            "steps": steps, "last_loss": float(loss)}
+
+
+def parallel_phase(card, tokens):
+    """Phase 19: (a) the flagship's ring_flash training on a one-rank NCCL
+    mesh against the single-device flash steps; (b) a two-rank ring of the
+    flash kernels on this one card over gloo.  Returns the launch counts:
+    19a's (whole run) and each 19b rank's."""
+    import torch.distributed as dist
+
+    from client_tpu_torch import ops, parallel
+    from client_tpu_torch.ops import _build
+    from client_tpu_torch.serve.models import transformer as tfm
+
+    t_phase = time.monotonic()
+    cfg = tfm.TransformerConfig(**FLAGSHIP)
+    _build.kernels()
+    # -- 19a: one rank, NCCL, every mesh dim 1 --------------------------
+    store = dist.TCPStore("127.0.0.1", 0, world_size=1, is_master=True)
+    backend = parallel.init_world(0, 1, store, device="cuda")
+    try:
+        check(backend == "nccl", f"19a's one-rank world took {backend}")
+        mesh = parallel.make_mesh()
+        check(tuple(mesh.shape) == (1,) * 5
+              and mesh.mesh_dim_names == parallel.AXES,
+              f"make_mesh() gave {mesh}")
+        fresh = lambda: tfm.init_params(  # noqa: E731
+            torch.Generator().manual_seed(0), cfg, "cuda")
+        flat, flash_losses = mesh_train(tfm, cfg, fresh(), tokens,
+                                        RING_STEPS)
+        sharded = parallel.device_put(fresh(), parallel.named_shardings(
+            mesh, parallel.param_specs(cfg)))
+        ops.reset_launches()
+        sharded, ring_losses = mesh_train(tfm, cfg, sharded, tokens,
+                                          RING_STEPS, mesh)
+        torch.cuda.synchronize()
+        ring_launches = dict(ops.LAUNCHES)
+        per_step = {n: c / RING_STEPS for n, c in ring_launches.items()}
+        check(per_step == {"int8_matmul": 0, "paged_attention": 0,
+                           **{n: cfg.n_layers for n in FLASH_KERNELS}},
+              f"ring_flash training launched {ring_launches} in "
+              f"{RING_STEPS} steps, expected {cfg.n_layers} of each flash "
+              f"kernel a step")
+        diffs = [abs(a - b) for a, b in zip(ring_losses, flash_losses)]
+        check(all(np.isfinite(ring_losses)) and diffs[0] <= TRAIN_LOSS0_ATOL
+              and max(diffs) <= TRAIN_LOSS_STEP_ATOL
+              and diffs[-1] <= TRAIN_LOSS_LAST_ATOL,
+              f"ring_flash losses {ring_losses} against flash "
+              f"{flash_losses}")
+        param_err = max(
+            (a.full_tensor().float() - b.float()).abs().max().item()
+            for a, b in zip(tfm._leaves(sharded), tfm._leaves(flat)))
+        check(param_err <= RING_PARAM_ATOL,
+              f"ring_flash params differ from flash's by {param_err} > "
+              f"{RING_PARAM_ATOL}")
+        del flat, sharded
+        times = [mesh_step_ms(tfm, cfg, tokens, m)
+                 for m in (None, mesh, mesh, None)]
+        phase(19, "mesh_ring_flash", config=FLAGSHIP, dtype=cfg.dtype,
+              mesh={n: 1 for n in parallel.AXES}, backend=backend,
+              tokens=list(tokens.shape), steps=RING_STEPS, lr=TRAIN_LR,
+              ring_flash_losses=ring_losses, flash_losses=flash_losses,
+              loss_diffs=diffs, loss_atol={"first": TRAIN_LOSS0_ATOL,
+                                           "any": TRAIN_LOSS_STEP_ATOL,
+                                           "last": TRAIN_LOSS_LAST_ATOL},
+              param_max_abs_err=param_err, param_atol=RING_PARAM_ATOL,
+              launches=ring_launches, launches_per_step=per_step,
+              step_ms_in_turns=times, **card)
+    finally:
+        dist.destroy_process_group()
+    # -- 19b: two gloo ranks on this card -------------------------------
+    t0 = time.monotonic()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        world_out = os.path.join(d, "ring")
+        parallel.spawn_world("chip_smoke:ring_rank", 2, args=(world_out,),
+                             device="cuda", backend="gloo", timeout_s=300)
+        world_s = time.monotonic() - t0
+        errs, ranks = ring_vs_one_rank(world_out, 2)
+    for r, got in enumerate(ranks):
+        for name in FLASH_KERNELS:
+            check(got["launches"][name] > 0,
+                  f"phase 19b rank {r} launched {name} no time")
+        check(got["bytes_staged_per_step"] > 0,
+              f"phase 19b rank {r} staged nothing through host memory")
+    g_lse = max(got["g_lse_max_abs"] for got in ranks)
+    check(g_lse > 0, "phase 19b: every lse cotangent was 0")
+    phase(19, "two_rank_ring_flash", shape=list(RING_SHAPE),
+          dtype="bfloat16", causal=True, sp=2, backend="gloo",
+          shard_tokens=RING_SHAPE[1] // 2, max_abs_err=errs,
+          tolerance=TOL[torch.bfloat16], g_lse_max_abs=g_lse, ranks=ranks,
+          world_seconds=world_s, **card)
+    phase(19, "parallel_done", seconds=time.monotonic() - t_phase)
+    return ring_launches, [got["launches"] for got in ranks]
+
+
 def main():
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3659,12 +3955,18 @@ def main():
     # -- 7 flash kernels against their plain versions ----------------------
     tcfg = tfm.TransformerConfig(**FLAGSHIP)
     main_shape = [TRAIN_BATCH * tcfg.n_heads, TRAIN_SEQ, tcfg.head_dim]
-    flash_worst, flash_cases, main_err = flash_vs_plain(fa, gen, main_shape)
+    # a shard of 19b's ring: [B * H, T / sp, D]
+    ring_shard = [RING_SHAPE[0] * RING_SHAPE[2], RING_SHAPE[1] // 2,
+                  RING_SHAPE[3]]
+    flash_worst, flash_cases, main_err, ring_err = flash_vs_plain(
+        fa, gen, main_shape, ring_shard)
     wrapper_err = wrapper_vs_plain(fa, plain_attention, gen)
     phase(7, "flash_vs_plain", kernels=list(FLASH_KERNELS),
           cases=flash_cases, max_abs_err=flash_worst,
           main_path_case={"shape": main_shape, "dtype": "bfloat16",
                           "causal": True, "max_abs_err": main_err},
+          ring_shard_cases={"shape": ring_shard, "dtype": "bfloat16",
+                            "max_abs_err": ring_err},
           tolerance={"float32": TOL[torch.float32],
                      "bfloat16": TOL[torch.bfloat16],
                      "lse": TOL[torch.float32]},
@@ -3913,7 +4215,10 @@ def main():
     # -- 18 the fleet tier: two replicas sharing one cache ------------------
     fleet_launches, fleet_routes = fleet_phase(card, p32, cfg32, pbf, cfg, p8)
 
-    # -- 19 kernels ----------------------------------------------------------
+    # -- 19 several devices: a one-rank mesh, a two-rank ring -----------------
+    ring_launches, ring_rank_launches = parallel_phase(card, tokens)
+
+    # -- 20 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
 
     def layer_total(m):
@@ -3923,7 +4228,7 @@ def main():
                             "eager_ms")}
 
     total, prefill = layer_total(1), layer_total(64)
-    phase(19, "kernels", held_against_plain_in="phases 3, 7 and 10")
+    phase(20, "kernels", held_against_plain_in="phases 3, 7, 10 and 19")
     moe_int8 = moe_counts["int8"]
     moe_paged = {route: sum(moe_counts[w]["routes"]["paged_attention"][route]
                             for w in ("bfloat16", "int8"))
@@ -4000,6 +4305,8 @@ def main():
             "replaces": replaces[name],
             "launches": train_launches[name],
             "launches_moe": moe_counts["train"]["launches"][name],
+            "launches_ring_flash": ring_launches[name],
+            "launches_ring_2rank": [r[name] for r in ring_rank_launches],
             "max_abs_err": max(flash_worst[name].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -4008,7 +4315,10 @@ def main():
                     f"[{bh}, {t}, {d}] bf16, causal",
             "launches_in": f"phase 8 ({TRAIN_STEPS} flash train steps); "
                            f"launches_moe: phase 16's {TRAIN_STEPS} MoE "
-                           f"flash steps",
+                           f"flash steps; launches_ring_flash: phase "
+                           f"19a's {RING_STEPS} ring_flash steps on a "
+                           f"one-rank mesh; launches_ring_2rank: each "
+                           f"phase 19b rank's forward and backward",
             "checked_in": "phase 7",
         })
     for route, device_kernels, shape, ctx, work in (

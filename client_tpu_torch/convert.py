@@ -1,9 +1,11 @@
 """Carry weights across: a JAX params pytree, given as numpy arrays, becomes
 the port's tensors.
 
-The tree keeps its structure (dicts, lists, and the ``{"q", "s"}`` dicts
-of ``quantize_params``) and every leaf its dtype: bfloat16 leaves (numpy
-arrays of the ``bfloat16`` extension dtype) are carried bit for bit.
+The tree keeps its structure (dicts, lists, the ``{"q", "s"}`` dicts of
+``quantize_params`` and the pipeline-stacked tree of
+``stack_pipeline_params``, leaves ``[S, L/S, ...]``) and every leaf its
+dtype: bfloat16 leaves (numpy arrays of the ``bfloat16`` extension dtype)
+are carried bit for bit.
 """
 
 import numpy as np

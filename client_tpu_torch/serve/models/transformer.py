@@ -1,6 +1,6 @@
 """Decoder-only transformer LM, the served flagship model, in PyTorch.
 
-Counterpart of client_tpu/serve/models/transformer.py on one device:
+Counterpart of client_tpu/serve/models/transformer.py:
 RMSNorm, rotary embeddings, grouped-query attention, a SwiGLU MLP or a
 top-k-routed mixture of SwiGLU experts (``n_experts > 0``), untied LM
 head.  Params are the JAX package's pytree as nested dicts of tensors,
@@ -19,12 +19,27 @@ weights are ``{"q", "s"}`` dicts that ``_mm`` sends to the CUDA kernel.
   paged KV pool (client_tpu_torch.serve.lm), through the paged-attention
   kernel (client_tpu_torch.ops.paged_attention)
 - ``loss_fn`` / ``make_train_step``: next-token cross-entropy (plus the
-  router's load-balance term for MoE configs) and the single-device Adam
-  train step
+  router's load-balance term for MoE configs) and the Adam train step
+- ``stack_pipeline_params`` / ``forward_pipelined`` /
+  ``make_pipeline_train_step``: the layer stack as GPipe stages over the
+  mesh's ``pp`` dim (client_tpu_torch.parallel.pipeline)
 
-Ring attention (``"ring"``, ``"ring_flash"``) needs a sequence-parallel
-mesh of several GPUs and waits for the multi-GPU slice of the port; the
-MoE FFN runs every expert on the one device.
+With ``mesh=`` (a ``parallel.make_mesh`` DeviceMesh) ``forward``,
+``loss_fn`` and ``make_train_step`` run sharded, the params DTensors laid
+out by ``parallel.param_specs`` (JAX's Megatron layout): each rank runs
+its local shards in a local region with the collectives written out
+(``parallel.collectives``): q/k/v and the MLP's gate/up column-parallel
+over ``tp`` with the cotangent of their input all-reduced, o and down
+row-parallel with their output all-reduced, the embedding, LM head and
+cross-entropy vocab-parallel, MoE experts over ``ep`` (each expert's
+hidden dim over ``tp``), activations ``("dp","sp",None)`` and logits
+``("dp","sp","tp")``.  The single-device blocks are the same code: with
+no mesh every group has one rank and the collectives do nothing.
+``attn_impl="ring"`` / ``"ring_flash"`` attend through
+``parallel.ring_attention`` on the local shards over the ``sp`` group
+(plain blocks or the flash kernels each ring step).  The gradients land on
+the params' local shards, partial over ``dp`` and ``sp``; the optimizer
+sums them over those dims before Adam (``_MeshAdam``).
 """
 
 import collections
@@ -37,7 +52,12 @@ from client_tpu_torch import resolve_device
 from client_tpu_torch.ops import paged_attention as _paged
 from client_tpu_torch.ops.flash_attention import flash_attention
 from client_tpu_torch.ops.quant import matmul as _mm
-from client_tpu_torch.parallel.ring_attention import _NEG, plain_attention
+from client_tpu_torch.parallel import AXES, collectives
+from client_tpu_torch.parallel.ring_attention import (
+    _NEG,
+    plain_attention,
+    ring_attention,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -64,12 +84,6 @@ class TransformerConfig:
     @property
     def tdtype(self):
         return _DTYPES[self.dtype]
-
-
-_RING_LATER = (
-    "attn_impl={!r}: ring attention runs over a sequence-parallel mesh and "
-    "comes with the multi-GPU slice of the port"
-)
 
 
 def init_params(generator, cfg, device=None):
@@ -151,37 +165,83 @@ def _repeat_kv(x, n_rep):
     return torch.repeat_interleave(x, n_rep, dim=2)
 
 
-def _attention_block(layer, x, cfg, positions, attn_impl="plain"):
+class _Region:
+    """A rank's view of the mesh: each dim's size, this rank's index along
+    it and its process group.  With no mesh, one device: every size 1 and
+    no group, so the collectives in the blocks below do nothing."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        names = AXES if mesh is None else mesh.mesh_dim_names
+        self.size = {a: 1 if mesh is None else mesh.size(i)
+                     for i, a in enumerate(names)}
+        self.rank = {a: 0 if mesh is None else mesh.get_local_rank(a)
+                     for a in names}
+        self.group = {a: None if mesh is None else mesh.get_group(a)
+                      for a in names}
+
+    def groups(self, *axes):
+        return tuple(self.group[a] for a in axes)
+
+
+_ONE_DEVICE = _Region()
+
+
+def _attention_block(layer, x, cfg, positions, attn_impl="plain",
+                     region=_ONE_DEVICE):
     """Full-sequence causal self-attention sublayer; returns (x, (k, v)) so
-    prefill can capture the per-layer KV blocks for the cache."""
-    if attn_impl in ("ring", "ring_flash"):
-        raise NotImplementedError(_RING_LATER.format(attn_impl))
+    prefill can capture the per-layer KV blocks for the cache.  In a mesh
+    ``region``: heads over tp (the input's cotangent all-reduced, the
+    output all-reduced), the sequence over sp through the ring."""
+    r = region
+    if r.mesh is None and attn_impl in ("ring", "ring_flash"):
+        raise ValueError(
+            f"attn_impl={attn_impl!r} runs over a sequence-parallel mesh: "
+            "pass mesh=")
     b, t, _ = x.shape
     hd = cfg.head_dim
+    tp = r.size["tp"]
+    if cfg.n_kv_heads % tp:
+        raise ValueError(
+            f"{cfg.n_kv_heads} KV heads do not split over tp={tp}")
     h = _rms_norm(x, layer["ln_attn"])
-    q = _mm(h, layer["attn"]["wq"]).reshape(b, t, cfg.n_heads, hd)
-    k = _mm(h, layer["attn"]["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
-    v = _mm(h, layer["attn"]["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
+    h = collectives.pbroadcast([h], r.groups("tp"))[0]
+    q = _mm(h, layer["attn"]["wq"]).reshape(b, t, cfg.n_heads // tp, hd)
+    k = _mm(h, layer["attn"]["wk"]).reshape(b, t, cfg.n_kv_heads // tp, hd)
+    v = _mm(h, layer["attn"]["wv"]).reshape(b, t, cfg.n_kv_heads // tp, hd)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
+    # a tp rank's q heads read exactly its own KV heads
     n_rep = cfg.n_heads // cfg.n_kv_heads
+    kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     if attn_impl == "flash":
         # the flash kernels: no [T, T] scores in device memory
-        attn = flash_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep))
+        attn = flash_attention(q, kr, vr)
+    elif attn_impl in ("ring", "ring_flash") or r.size["sp"] > 1:
+        # "plain" over several sp ranks is the plain ring: the same
+        # attention of the whole sequence
+        attn = ring_attention(q, kr, vr, r.group["sp"],
+                              impl="flash" if attn_impl == "ring_flash"
+                              else "plain")
     else:
-        attn = plain_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep))
-    out = _mm(attn.reshape(b, t, cfg.n_heads * hd), layer["attn"]["wo"])
-    return x + out, (k, v)
+        attn = plain_attention(q, kr, vr)
+    out = _mm(attn.reshape(b, t, -1), layer["attn"]["wo"])
+    return x + collectives.psum([out], r.groups("tp"))[0], (k, v)
 
 
-def _mlp_block(layer, x):
+def _mlp_block(layer, x, region=_ONE_DEVICE):
+    """SwiGLU MLP; in a mesh region gate/up column- and down row-parallel
+    over tp."""
     h = _rms_norm(x, layer["ln_mlp"])
+    h = collectives.pbroadcast([h], region.groups("tp"))[0]
     gate = F.silu(_mm(h, layer["mlp"]["w_gate"]))
     up = _mm(h, layer["mlp"]["w_up"])
-    return x + _mm(gate * up, layer["mlp"]["w_down"])
+    out = _mm(gate * up, layer["mlp"]["w_down"])
+    return x + collectives.psum([out], region.groups("tp"))[0]
 
 
-def _moe_block(layer, x, cfg, with_aux=True, route=None):
+def _moe_block(layer, x, cfg, with_aux=True, route=None,
+               region=_ONE_DEVICE):
     """Top-k-routed mixture-of-experts FFN, the JAX package's dense
     formulation: every expert computes on every token (stacked-weight
     einsums in the params' dtype) and the router's top-k weights, a
@@ -195,7 +255,13 @@ def _moe_block(layer, x, cfg, with_aux=True, route=None):
     ``with_aux=False`` (the engine's ticks, which discard it: a captured
     graph would replay what XLA drops as dead code).  ``route`` ([B, T, k]
     expert indices), where given, takes the router's top-k's place, so
-    that two runs can be compared on one routing."""
+    that two runs can be compared on one routing.
+
+    In a mesh ``region`` every rank routes each of its tokens (the router
+    is replicated); its experts (over ep) run their hidden slice (over
+    tp); the combine sums over tp and ep; the aux loss's token means run
+    over the whole batch (dp and sp)."""
+    r = region
     moe = layer["moe"]
     h = _rms_norm(x, layer["ln_mlp"])
     logits = h.float() @ moe["router"].float()  # [B,T,E], true f32
@@ -208,52 +274,192 @@ def _moe_block(layer, x, cfg, with_aux=True, route=None):
     # [B,T,E]: each token's k weights at their experts, 0 elsewhere (the
     # gradient reaches top_w, none the integer indices)
     combine = torch.zeros_like(logits).scatter_add(-1, top_idx, top_w)
-    g = torch.einsum("btd,edf->ebtf", h, moe["w_gate"])
-    u = torch.einsum("btd,edf->ebtf", h, moe["w_up"])
+    groups = r.groups("tp", "ep")
+    hx, combine_x = collectives.pbroadcast([h, combine], groups)
+    e_loc = moe["w_gate"].shape[0]
+    g = torch.einsum("btd,edf->ebtf", hx, moe["w_gate"])
+    u = torch.einsum("btd,edf->ebtf", hx, moe["w_up"])
     expert_out = torch.einsum(
-        "ebtf,efd->ebtd", F.silu(g) * u, moe["w_down"])  # [E,B,T,D]
+        "ebtf,efd->ebtd", F.silu(g) * u, moe["w_down"])  # [E/ep,B,T,D]
     out = torch.einsum(
-        "ebtd,bte->btd", expert_out.float(), combine).to(x.dtype)
+        "ebtd,bte->btd", expert_out.float(),
+        combine_x.narrow(-1, r.rank["ep"] * e_loc, e_loc))
+    out = collectives.psum([out], groups)[0].to(x.dtype)
     if not with_aux:
         return x + out, None
     probs = torch.softmax(logits, dim=-1)
     frac = F.one_hot(top_idx, cfg.n_experts).float().mean(dim=(0, 1, 2))
-    aux = cfg.n_experts * torch.sum(frac * probs.mean(dim=(0, 1)))
+    mean_p = probs.mean(dim=(0, 1))
+    # every rank holds as many tokens: the batch's mean is the ranks' mean
+    n = r.size["dp"] * r.size["sp"]
+    frac, mean_p = (s / n for s in collectives.psum(
+        [frac, mean_p], r.groups("dp", "sp")))
+    aux = cfg.n_experts * torch.sum(frac * mean_p)
     return x + out, aux
 
 
-def _ffn_block(layer, x, cfg, with_aux=True):
+def _ffn_block(layer, x, cfg, with_aux=True, region=_ONE_DEVICE):
     """FFN (dense or MoE) -> (residual output, router aux loss): 0 for a
     dense layer; None with ``with_aux=False``, where the caller discards
     it (prefill, decode and the engine's ticks)."""
     if "moe" in layer:
-        return _moe_block(layer, x, cfg, with_aux)
-    out = _mlp_block(layer, x)
+        return _moe_block(layer, x, cfg, with_aux, region=region)
+    out = _mlp_block(layer, x, region)
     if not with_aux:
         return out, None
     return out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def forward(params, tokens, cfg, attn_impl="plain", with_aux=False):
+def forward(params, tokens, cfg, attn_impl="plain", with_aux=False, *,
+            mesh=None):
     """Full-sequence causal LM: tokens [B,T] int -> logits [B,T,V] f32.
 
     With ``with_aux=True`` returns ``(logits, aux)``, aux being the mean
-    per-layer router load-balance loss (0 for dense configs).
+    per-layer router load-balance loss (0 for dense configs).  With
+    ``mesh`` the logits are a DTensor laid out ``("dp","sp","tp")`` (see
+    the module docstring; tokens the same on every rank, or a DTensor).
     """
+    if mesh is None:
+        logits, aux = _forward_local(params, tokens, cfg, attn_impl,
+                                     with_aux)
+    else:
+        rows = _local_rows(tokens, mesh)
+        logits, aux = _forward_local(params, _sp_chunk(rows, mesh), cfg,
+                                     attn_impl, with_aux, mesh)
+        logits = _logits_dtensor(logits, mesh, tokens.shape)
+    return (logits, aux) if with_aux else logits
+
+
+def _forward_local(params, tokens, cfg, attn_impl, with_aux, mesh=None):
+    """Logits f32 of this rank's tokens [b, t] and the mean router aux
+    loss (None without ``with_aux``).  With ``mesh``: the tokens are its dp
+    rows and sp chunk, the logits [b, t, V/tp], and the params' gradients
+    land on their local shards, partial over dp and sp."""
+    r = _ONE_DEVICE
+    if mesh is not None:
+        from client_tpu_torch.parallel import param_specs
+
+        _check_mesh(params, attn_impl)
+        r = _Region(mesh)
+        params = _local_params(params, param_specs(cfg), mesh, ("dp", "sp"))
+    x = _embed(params["embed"], tokens, r)
     t = tokens.shape[1]
-    x = params["embed"][tokens.long()]
-    positions = torch.arange(t, device=x.device)
+    start = r.rank["sp"] * t
+    positions = torch.arange(start, start + t, device=x.device)
     aux_total = 0.0
     for layer in params["layers"]:
-        x, _ = _attention_block(layer, x, cfg, positions, attn_impl)
-        x, aux = _ffn_block(layer, x, cfg, with_aux)
+        x, _ = _attention_block(layer, x, cfg, positions, attn_impl, r)
+        x, aux = _ffn_block(layer, x, cfg, with_aux, r)
         if with_aux:
             aux_total = aux_total + aux
     x = _rms_norm(x, params["ln_f"])
+    x = collectives.pbroadcast([x], r.groups("tp"))[0]
     logits = _mm(x, params["lm_head"]).float()
-    if with_aux:
-        return logits, aux_total / len(params["layers"])
-    return logits
+    return logits, aux_total / len(params["layers"]) if with_aux else None
+
+
+# -- the sharded forward's pieces ------------------------------------------
+
+def _check_mesh(params, attn_impl):
+    """JAX's two refusals on a mesh (its transformer.py:170 and :251)."""
+    from client_tpu_torch.ops.quant import is_quantized
+
+    if is_quantized(params["lm_head"]):
+        # the int8 kernel runs on one device's weights; JAX refuses too
+        raise ValueError(
+            "quantized params are single-device serving weights; "
+            "dequantize or drop the mesh"
+        )
+    if attn_impl == "flash":
+        raise ValueError(
+            "attn_impl='flash' is single-shard; use attn_impl='ring' "
+            "with a mesh"
+        )
+
+
+def _local_params(tree, specs, mesh, partial):
+    """Each param's local shard, by ``specs``' layout
+    (``parallel.local_shard``); its gradient is partial over the mesh dims
+    in ``partial`` (the ones whose ranks see other tokens)."""
+    from client_tpu_torch.parallel import local_shard, tree_map
+
+    return tree_map(lambda x, spec: local_shard(x, mesh, spec, partial),
+                    tree, specs)
+
+
+def _local_rows(tokens, mesh):
+    """This rank's rows of the batch ([B/dp, T], dp-contiguous) from
+    tokens the same on every rank, or from a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    from client_tpu_torch.parallel import P, placements
+
+    if isinstance(tokens, DTensor):
+        return tokens.redistribute(
+            mesh, placements(mesh, P("dp", None))).to_local()
+    return _chunk(tokens, 0, mesh, "dp")
+
+
+def _chunk(x, dim, mesh, axis):
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    if x.shape[dim] % n:
+        raise ValueError(
+            f"dim {dim} of size {x.shape[dim]} does not split over "
+            f"{axis}={n}")
+    return x.chunk(n, dim)[mesh.get_local_rank(axis)]
+
+
+def _sp_chunk(rows, mesh):
+    return _chunk(rows, 1, mesh, "sp")
+
+
+def _logits_dtensor(logits, mesh, token_shape):
+    from torch.distributed.tensor import DTensor
+
+    from client_tpu_torch.parallel import logit_spec, placements
+
+    b, t = token_shape
+    v = logits.shape[-1] * mesh.size(mesh.mesh_dim_names.index("tp"))
+    return DTensor.from_local(
+        logits, mesh, placements(mesh, logit_spec()), run_check=False,
+        shape=torch.Size((b, t, v)), stride=(t * v, v, 1))
+
+
+def _embed(embed, tokens, r):
+    """Vocab-parallel lookup: each tp rank answers the tokens in its rows
+    of the table, zeros elsewhere; the all-reduce sums the one answer."""
+    if r.size["tp"] == 1:
+        return embed[tokens.long()]
+    rows = embed.shape[0]
+    local = tokens.long() - r.rank["tp"] * rows
+    inside = (local >= 0) & (local < rows)
+    x = embed[local.clamp(0, rows - 1)] * inside[..., None].to(embed.dtype)
+    return collectives.psum([x], r.groups("tp"))[0]
+
+
+def _sharded_nll(logits, targets, r, batch_axes, vocab_parallel=True):
+    """Mean next-token cross-entropy over the whole batch from this rank's
+    logits [b, t, V/tp] (vocab-parallel over tp; whole rows with
+    ``vocab_parallel=False``) and targets [b, t]; the token sum runs over
+    ``batch_axes``."""
+    if not vocab_parallel or r.size["tp"] == 1:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None].long()).sum()
+    else:
+        tp = r.groups("tp")
+        shift = collectives.pmax(logits.amax(dim=-1, keepdim=True), tp)
+        sumexp = torch.exp(logits - shift).sum(dim=-1, keepdim=True)
+        cols = logits.shape[-1]
+        local = targets.long()[..., None] - r.rank["tp"] * cols
+        inside = (local >= 0) & (local < cols)
+        picked = torch.gather(logits, -1, local.clamp(0, cols - 1)) * inside
+        sumexp, picked = collectives.psum([sumexp, picked], tp)
+        nll = (torch.log(sumexp) + shift - picked).sum()
+    nll = collectives.psum([nll], r.groups(*batch_axes))[0]
+    n = targets.numel()
+    for axis in batch_axes:
+        n *= r.size[axis]
+    return nll / n
 
 
 def init_cache(cfg, batch, device=None):
@@ -372,11 +578,21 @@ def _next_token_nll(logits, targets):
     return torch.mean(-torch.gather(logp, -1, targets[..., None].long()))
 
 
-def loss_fn(params, tokens, cfg, attn_impl="plain"):
-    """Next-token cross-entropy over tokens [B,T] (+ router aux for MoE)."""
-    logits, aux = forward(params, tokens[:, :-1], cfg, attn_impl,
-                          with_aux=True)
-    loss = _next_token_nll(logits, tokens[:, 1:])
+def loss_fn(params, tokens, cfg, attn_impl="plain", *, mesh=None):
+    """Next-token cross-entropy over tokens [B,T] (+ router aux for MoE).
+    With ``mesh``: the mean over the whole batch, the same value on every
+    rank, its gradients partial over ``dp`` and ``sp``."""
+    if mesh is not None:
+        rows = _local_rows(tokens, mesh)
+        logits, aux = _forward_local(
+            params, _sp_chunk(rows[:, :-1], mesh), cfg, attn_impl, True,
+            mesh)
+        loss = _sharded_nll(logits, _sp_chunk(rows[:, 1:], mesh),
+                            _Region(mesh), ("dp", "sp"))
+    else:
+        logits, aux = forward(params, tokens[:, :-1], cfg, attn_impl,
+                              with_aux=True)
+        loss = _next_token_nll(logits, tokens[:, 1:])
     if cfg.n_experts > 0:
         loss = loss + cfg.router_aux_coef * aux
     return loss
@@ -396,7 +612,8 @@ def _leaves(tree):
 class _Adam:
     """The counterpart of ``optax.adam(learning_rate)``: ``init(params)``
     returns the optimizer state, a ``torch.optim.Adam`` over the params'
-    leaves (optax's formula and defaults: b1 0.9, b2 0.999, eps 1e-8)."""
+    leaves (optax's formula and defaults: b1 0.9, b2 0.999, eps 1e-8);
+    for params laid out on a mesh (DTensors), a ``_MeshAdam``."""
 
     def __init__(self, learning_rate):
         self.learning_rate = learning_rate
@@ -405,6 +622,8 @@ class _Adam:
         """Mark every leaf ``requires_grad`` and build the optimizer.  Its
         moments exist from step 0, as optax's do, so ``state_dict()`` has
         every tensor of the state (a checkpoint template needs them)."""
+        from torch.distributed.tensor import DTensor
+
         leaves = list(_leaves(params))
         if not all(torch.is_floating_point(w) for w in leaves):
             raise ValueError(
@@ -413,15 +632,97 @@ class _Adam:
             )
         for w in leaves:
             w.requires_grad_(True)
-        opt = torch.optim.Adam(leaves, lr=self.learning_rate,
-                               betas=(0.9, 0.999), eps=1e-8)
-        for w in leaves:
-            opt.state[w] = {
-                "step": torch.tensor(0.0),
-                "exp_avg": torch.zeros_like(w),
-                "exp_avg_sq": torch.zeros_like(w),
-            }
+        kw = dict(lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        on_mesh = [isinstance(w, DTensor) for w in leaves]
+        if any(on_mesh):
+            if not all(on_mesh):
+                raise ValueError(
+                    "params mix DTensors and plain tensors; lay every leaf "
+                    "out on the mesh (parallel.device_put)")
+            opt = _MeshAdam(leaves, **kw)
+        else:
+            opt = torch.optim.Adam(leaves, **kw)
+        for group in opt.param_groups:
+            for w in group["params"]:
+                opt.state[w] = {
+                    "step": torch.tensor(0.0),
+                    "exp_avg": torch.zeros_like(w),
+                    "exp_avg_sq": torch.zeros_like(w),
+                }
         return opt
+
+
+class _MeshAdam(torch.optim.Adam):
+    """Adam over the local shards of DTensor params: each rank updates its
+    shard with its moments, plain tensors (DTensor dispatch would look up
+    a sharding rule for every op of the update on every step).
+
+    The model's local regions compute on these same shards
+    (``parallel.local_shard``), so the gradients land on them; ``step()``
+    first sums each one over the mesh dims where it is partial
+    (``shard.partial_over``: an all-reduce a dim, in one order on every
+    rank).  ``state_dict()`` gives the moments as DTensors of their
+    params' layouts, sharing the shards' memory; ``load_state_dict``
+    takes them back (or plain full tensors, which each rank slices)."""
+
+    def __init__(self, params, **kw):
+        self._mesh_params = list(params)
+        with torch.no_grad():
+            shards = [w.to_local() for w in self._mesh_params]
+        for shard in shards:
+            shard.requires_grad_(True)
+        super().__init__(shards, **kw)
+
+    def _pairs(self):
+        return zip(self._mesh_params, self.param_groups[0]["params"])
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        import torch.distributed as dist
+
+        for w, shard in self._pairs():
+            if shard.grad is None:
+                continue
+            mesh = w.device_mesh
+            for dim, name in enumerate(mesh.mesh_dim_names):
+                if (name in getattr(shard, "partial_over", ())
+                        and mesh.size(dim) > 1):
+                    dist.all_reduce(shard.grad, group=mesh.get_group(dim))
+        return super().step(closure)
+
+    def state_dict(self):
+        from torch.distributed.tensor import DTensor
+
+        out = super().state_dict()
+        for i, w in enumerate(self._mesh_params):
+            if i not in out["state"]:
+                continue
+            # a copy: the packed dicts are the optimizer's own
+            st = out["state"][i] = dict(out["state"][i])
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in st:
+                    st[key] = DTensor.from_local(
+                        st[key], w.device_mesh, w.placements,
+                        run_check=False, shape=w.shape, stride=w.stride())
+        return out
+
+    def load_state_dict(self, state_dict):
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        state_dict = {**state_dict, "state": {
+            i: dict(st) for i, st in state_dict["state"].items()}}
+        for i, st in state_dict["state"].items():
+            w = self._mesh_params[i]
+            for key in ("exp_avg", "exp_avg_sq"):
+                x = st.get(key)
+                if isinstance(x, DTensor):
+                    st[key] = x.redistribute(w.device_mesh,
+                                             w.placements).to_local()
+                elif isinstance(x, torch.Tensor) and x.shape == w.shape:
+                    st[key] = distribute_tensor(
+                        x, w.device_mesh, w.placements,
+                        src_data_rank=None).to_local()
+        super().load_state_dict(state_dict)
 
 
 def _make_adam_step(loss, learning_rate):
@@ -444,20 +745,24 @@ def _make_adam_step(loss, learning_rate):
     return opt, step
 
 
-def make_train_step(cfg, attn_impl="plain", learning_rate=1e-3):
-    """Single-device Adam train step on next-token cross-entropy::
+def make_train_step(cfg, attn_impl="plain", learning_rate=1e-3, *,
+                    mesh=None):
+    """Adam train step on next-token cross-entropy::
 
         opt, step = make_train_step(cfg, attn_impl="flash")
         opt_state = opt.init(params)
         params, opt_state, loss = step(params, opt_state, tokens)
 
     tokens [B, T+1] on the params' device; the forward sees T of them.
-    Quantized params are serving-only: ``opt.init`` refuses them.
+    Quantized params are serving-only: ``opt.init`` refuses them.  With
+    ``mesh``, params are DTensors laid out by ``parallel.param_specs``
+    (``parallel.device_put``), tokens the same on every rank (or a DTensor),
+    and every rank runs the step; ``attn_impl`` "ring" or "ring_flash"
+    shards the sequence over ``sp``.
     """
-    if attn_impl in ("ring", "ring_flash"):
-        raise NotImplementedError(_RING_LATER.format(attn_impl))
     return _make_adam_step(
-        lambda params, tokens: loss_fn(params, tokens, cfg, attn_impl),
+        lambda params, tokens: loss_fn(params, tokens, cfg, attn_impl,
+                                       mesh=mesh),
         learning_rate,
     )
 
@@ -490,6 +795,110 @@ def quantize_params(params):
         "ln_f": params["ln_f"],
         "lm_head": quantize_int8(params["lm_head"]),
     }
+
+
+def stack_pipeline_params(params, n_stages):
+    """Re-lay the per-layer list as pipeline stages (parallel.pipeline);
+    ``pipeline_param_specs`` gives the layout on a mesh."""
+    from client_tpu_torch.parallel.pipeline import stack_stage_params
+
+    return {
+        "embed": params["embed"],
+        "stages": stack_stage_params(params["layers"], n_stages),
+        "ln_f": params["ln_f"],
+        "lm_head": params["lm_head"],
+    }
+
+
+def pipeline_param_specs(pparams, axis="pp"):
+    """The layout of ``stack_pipeline_params``' tree: the stage dim over
+    ``axis``, embedding, final norm and LM head replicated (they run
+    outside the pipeline region, as in JAX)."""
+    from client_tpu_torch.parallel import P
+    from client_tpu_torch.parallel.pipeline import stage_specs
+
+    return {"embed": P(), "stages": stage_specs(pparams["stages"], axis),
+            "ln_f": P(), "lm_head": P()}
+
+
+def _pipelined_local(pparams, rows, cfg, mesh, n_microbatches):
+    """Logits [b, T, V] f32 of this rank's dp rows [b, T] through the
+    pipelined stack; the params' gradients partial over dp."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from client_tpu_torch.parallel import P
+    from client_tpu_torch.parallel.pipeline import pipeline_apply
+
+    outside = {k: pparams[k] for k in ("embed", "ln_f", "lm_head")}
+    lp = _local_params(outside, {k: P() for k in outside}, mesh, ("dp",))
+    t = rows.shape[1]
+    x = lp["embed"][rows.long()]
+    positions = torch.arange(t, device=x.device)
+
+    def stage_fn(stage_layers, h):
+        for i in range(next(iter(_leaves(stage_layers))).shape[0]):
+            layer = _index_tree(stage_layers, i)
+            h, _ = _attention_block(layer, h, cfg, positions, "plain")
+            h, _ = _ffn_block(layer, h, cfg, with_aux=False)
+        return h
+
+    names = mesh.mesh_dim_names
+    n_dp = mesh.size(names.index("dp"))
+    layout = [Shard(0) if name == "dp" else Replicate() for name in names]
+    x = DTensor.from_local(x, mesh, layout, run_check=False,
+                           shape=torch.Size((x.shape[0] * n_dp,
+                                             *x.shape[1:])),
+                           stride=x.stride())
+    x = pipeline_apply(stage_fn, pparams["stages"], x, mesh,
+                       n_microbatches).to_local()
+    x = _rms_norm(x, lp["ln_f"])
+    return _mm(x, lp["lm_head"]).float()
+
+
+def _index_tree(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def forward_pipelined(pparams, tokens, cfg, mesh, n_microbatches):
+    """Full-sequence logits with the layer stack pipelined over ``pp``.
+
+    Embedding and LM head run outside the pipeline region (replicated);
+    each stage runs its local layer block over the incoming microbatch,
+    whose rows split over ``dp`` (parallel.pipeline's batch_axis).
+    Returns a DTensor [B, T, V]: rows over dp, replicated elsewhere."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    _check_mesh(pparams, "plain")
+    rows = _local_rows(tokens, mesh)
+    logits = _pipelined_local(pparams, rows, cfg, mesh, n_microbatches)
+    b, t = tokens.shape
+    v = logits.shape[-1]
+    layout = [Shard(0) if name == "dp" else Replicate()
+              for name in mesh.mesh_dim_names]
+    return DTensor.from_local(logits, mesh, layout, run_check=False,
+                              shape=torch.Size((b, t, v)),
+                              stride=(t * v, v, 1))
+
+
+def make_pipeline_train_step(cfg, mesh, n_microbatches, learning_rate=1e-3):
+    """Adam train step over pipeline-stacked params laid out by
+    ``pipeline_param_specs``: gradients flow back through the schedule
+    (the reverse permute).  Pipeline composes with data parallelism (each
+    dp rank pipelines its rows); stage weights are replicated over tp/ep
+    within the region, and the MoE router aux loss is not collected on
+    this path (as in JAX)."""
+
+    def loss(pparams, tokens):
+        _check_mesh(pparams, "plain")
+        rows = _local_rows(tokens, mesh)
+        logits = _pipelined_local(pparams, rows[:, :-1], cfg, mesh,
+                                  n_microbatches)
+        return _sharded_nll(logits, rows[:, 1:], _Region(mesh), ("dp",),
+                            vocab_parallel=False)
+
+    return _make_adam_step(loss, learning_rate)
 
 
 def _start_readback(token):

@@ -3,8 +3,11 @@
 Counterpart of client_tpu/train/__init__.py (which wraps orbax), with the
 same surface and the two properties training needs:
 
-- **device- and dtype-aware restore**: pass the live state as ``template``
-  and each leaf comes back on its template leaf's device and dtype;
+- **device-, dtype- and layout-aware restore**: pass the live state as
+  ``template`` and each leaf comes back on its template leaf's device and
+  dtype; a DTensor template leaf (params laid out on a mesh by
+  ``parallel.device_put``) comes back as a DTensor of its mesh and
+  placements, each rank slicing its own shard, with no gather;
 - **atomic, retention-managed steps**: each step is written to a temporary
   file, synced and renamed into place with ``os.replace``, so a killed run
   never leaves a torn checkpoint; ``max_to_keep`` bounds the disk.
@@ -18,6 +21,7 @@ import re
 import tempfile
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -39,7 +43,13 @@ def _restore_like(tree, template):
                 f"match the template's {tuple(template.shape)}"
             )
         # a leaf, whatever the saved tensor's requires_grad
-        return tree.detach().to(device=template.device, dtype=template.dtype)
+        leaf = tree.detach().to(device=template.device, dtype=template.dtype)
+        if isinstance(template, DTensor):
+            # every rank read the whole leaf: each keeps its own shard,
+            # with no collective and no gather
+            return distribute_tensor(leaf, template.device_mesh,
+                                     template.placements, src_data_rank=None)
+        return leaf
     return tree
 
 
@@ -97,9 +107,9 @@ class CheckpointManager:
     def restore(self, template, step=None):
         """Restore ``step`` (default: latest) shaped like ``template``.
 
-        Every tensor comes back on the template leaf's device and dtype; a
-        checkpoint whose structure or shapes differ from the template's
-        raises ValueError.
+        Every tensor comes back on the template leaf's device and dtype (a
+        DTensor on its mesh and placements); a checkpoint whose structure
+        or shapes differ from the template's raises ValueError.
         """
         if step is None:
             step = self.latest_step()

@@ -232,11 +232,15 @@ def test_retention_latest_and_template(tmp_path):
 
 
 def test_quantized_params_and_ring_raise():
-    """Quantized params are serving-only; ring attention names its slice."""
+    """Quantized params are serving-only; ring attention without a mesh
+    names the mesh it needs (tests/test_torch_parallel.py trains it on
+    one)."""
     params = _port(_jparams(2))
     opt, _ = tfm.make_train_step(_CFG)
     with pytest.raises(ValueError, match="serving"):
         opt.init(tfm.quantize_params(params))
+    toks = torch.from_numpy(_tokens(3, b=2, t=9))
     for impl in ("ring", "ring_flash"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tfm.make_train_step(_CFG, attn_impl=impl)
+        ring_opt, step = tfm.make_train_step(_CFG, attn_impl=impl)
+        with pytest.raises(ValueError, match="mesh"):
+            step(params, ring_opt.init(params), toks)

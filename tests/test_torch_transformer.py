@@ -197,13 +197,14 @@ def test_lm_flops_per_token_matches_jax(context):
 
 
 def test_unported_paths_raise(weights):
-    """Ring attention names the later slice instead of running something
-    else; an MoE config builds client_tpu's init_params layout (the expert
+    """Ring attention without a mesh names the mesh it needs instead of
+    running something else (tests/test_torch_parallel.py runs it on one);
+    an MoE config builds client_tpu's init_params layout (the expert
     stacks' shapes and dtypes, leaf for leaf)."""
     _, params = weights[("float32", False)]
     toks = torch.zeros((1, 4), dtype=torch.int32)
     for impl in ("ring", "ring_flash"):
-        with pytest.raises(NotImplementedError, match="slice"):
+        with pytest.raises(ValueError, match="mesh"):
             tfm.forward(params, toks, _TINY, attn_impl=impl)
     moe = dataclasses.replace(_TINY, n_experts=4)
     got = tfm.init_params(torch.Generator().manual_seed(0), moe, "cpu")
