@@ -11,8 +11,10 @@ cache, coalescing, admission, drain), runs the mixture-of-experts LM
 through training and the engine, serves the builtin model set, runs
 two engine replicas that share one cache through the fleet tier, trains
 the flagship on a one-rank device mesh through the flash kernels' ring and
-runs that ring over two ranks on the one card, and times the kernels, the
-serial decode, the engine, the train step and the vision models.
+runs that ring over two ranks on the one card, streams the LM over the
+gRPC frontend (and checks its clean refusal where grpcio is absent), and
+times the kernels, the serial decode, the engine, the train step and the
+vision models.
 
     python3 chip_smoke.py
 
@@ -263,8 +265,21 @@ Phases, one line each or more; any failure exits non-zero:
                 or 8, phase 15's, launches_moe: phase 16's MoE engine
                 streams and MoE training, launches_fleet: phase 18's
                 replicas, launches_ring_flash and launches_ring_2rank:
-                phase 19's), its route's own error (phase 3,
-                7 or 10) and its times (phase 6, 9 or 12)
+                phase 19's, launches_grpc: phase 21's), its route's own
+                error (phase 3, 7 or 10) and its times (phase 6, 9 or 12)
+ 21 grpc        the gRPC frontend (runs before phase 20's line; needs
+                grpcio).  The language set behind Server(grpc_port=0),
+                driven with raw stubs over the port's method table: ready,
+                metadata and config of every model, the tokenizer, a
+                decoupled ModelInfer refused (INVALID_ARGUMENT), a lone
+                stream of lm_streaming_int8 and lm_streaming_batched equal
+                to its engine's own, 4 concurrent streams of each against
+                the serial runner (equal, or first diverging at a
+                near-tie), a stream stopped after 2 tokens giving its KV
+                blocks back within GRPC_STOP_SLACK tokens of the stop; the
+                launch counts reset just before the first gRPC call and
+                read just after the last, the references run outside
+                that window (launches_grpc in phase 20)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -3668,6 +3683,207 @@ def parallel_phase(card, tokens):
     return ring_launches, [got["launches"] for got in ranks]
 
 
+def grpc_stubs(address):
+    """(channel, name -> multicallable) over the port's method table."""
+    import grpc
+
+    from client_tpu_torch._grpc_service import METHODS, SERVICE
+
+    channel = grpc.insecure_channel(address)
+    stubs = {}
+    for name, (req_cls, resp_cls, cstream, sstream) in METHODS.items():
+        make = {(True, True): channel.stream_stream,
+                (False, True): channel.unary_stream,
+                (True, False): channel.stream_unary,
+                (False, False): channel.unary_unary}[(cstream, sstream)]
+        stubs[name] = make(f"/{SERVICE}/{name}",
+                           request_serializer=req_cls.SerializeToString,
+                           response_deserializer=resp_cls.FromString)
+    return channel, stubs
+
+
+def grpc_lm_request(model, tokens, max_tokens):
+    from client_tpu_torch._proto import inference_pb2 as pb
+
+    request = pb.ModelInferRequest(model_name=model)
+    for name, arr in (("TOKENS", np.asarray(tokens, np.int32)),
+                      ("MAX_TOKENS", np.array([max_tokens], np.int32))):
+        t = request.inputs.add()
+        t.name, t.datatype = name, "INT32"
+        t.shape.extend(arr.shape)
+        request.raw_input_contents.append(arr.tobytes())
+    return request
+
+
+def grpc_stream(stubs, model, tokens, max_tokens, stop_after=None):
+    """One ModelStreamInfer request's tokens; with *stop_after* the client
+    cancels the call after that many."""
+    call = stubs["ModelStreamInfer"](
+        iter([grpc_lm_request(model, tokens, max_tokens)]), timeout=300)
+    toks = []
+    for response in call:
+        check(not response.error_message,
+              f"{model} streamed an error: {response.error_message}")
+        out = response.infer_response
+        toks.append(int(np.frombuffer(out.raw_output_contents[0],
+                                      np.int32)[0]))
+        if stop_after is not None and len(toks) == stop_after:
+            call.cancel()
+            break
+    return toks
+
+
+GRPC_TOKENS = 32   # tokens a gRPC stream in phase 21
+GRPC_STREAMS = 4   # concurrent gRPC streams a batched model
+GRPC_STOP_MAX = 256  # MAX_TOKENS of the stream the client stops
+GRPC_STOP_AFTER = 2  # tokens the client reads before it stops
+# decode ticks the engine may run past the client's stop: the server
+# notices the cancel at its next yield and closes the stream there (3
+# tokens made in all on the H100)
+GRPC_STOP_SLACK = 8
+
+
+def grpc_phase(card, prompt):
+    """Phase 21: the gRPC frontend on the card.  The language set behind
+    ``Server(grpc_port=0)``, driven over gRPC with raw stubs from the
+    port's method table: ready, metadata, every served model's config, the
+    tokenizer, a decoupled ModelInfer refused, a lone stream of each
+    batched model, four concurrent streams each and a stream the client
+    stops after two tokens, which gives its KV blocks back having made at
+    most GRPC_STOP_SLACK tokens past the stop.  The launch counts are
+    reset just before the first gRPC call and read just after the last;
+    what the streams are held against (each engine's own stream, the
+    serial runner, the near-tie rule's forwards) runs after that window.
+    Returns (launches, routes)."""
+    try:
+        import grpc
+    except ImportError as e:
+        fail(f"phase 21 needs grpcio on the card: {e}")
+    from client_tpu_torch import ops
+    from client_tpu_torch._proto import inference_pb2 as pb
+    from client_tpu_torch.serve import Server
+    from client_tpu_torch.serve.lm import LmEngine
+    from client_tpu_torch.serve.models import language
+    from client_tpu_torch.serve.models import transformer as tfm
+    from client_tpu_torch.utils import serialize_byte_tensor
+
+    t0 = time.monotonic()
+    served_models = language.language_models(device="cuda")
+    engines = {m.name: m.closer.__self__ for m in served_models
+               if m.closer is not None}
+    with Server(models=served_models, http_port=0, grpc_port=0,
+                with_default_models=False) as server:
+        channel, stubs = grpc_stubs(server.grpc_address)
+        with channel:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            check(stubs["ServerReady"](pb.ServerReadyRequest()).ready,
+                  "ServerReady answered false")
+            name = stubs["ServerMetadata"](pb.ServerMetadataRequest()).name
+            check(name == "client_tpu_torch.serve", f"server name {name}")
+            configs = {}
+            for m in served_models:
+                config = stubs["ModelConfig"](
+                    pb.ModelConfigRequest(name=m.name)).config
+                meta = stubs["ModelMetadata"](
+                    pb.ModelMetadataRequest(name=m.name))
+                check(config.name == meta.name == m.name,
+                      f"{m.name}: config {config.name}, metadata {meta.name}")
+                configs[m.name] = config.model_transaction_policy.decoupled
+            request = pb.ModelInferRequest(model_name="tokenizer")
+            t = request.inputs.add()
+            t.name, t.datatype = "TEXT", "BYTES"
+            t.shape.append(1)
+            request.raw_input_contents.append(serialize_byte_tensor(
+                np.array([PROMPT.encode()], dtype=np.object_)).tobytes())
+            out = stubs["ModelInfer"](request, timeout=60)
+            check(np.frombuffer(out.raw_output_contents[0],
+                                np.int32).tolist() == prompt.tolist(),
+                  "tokenizer over gRPC differs from encode_text")
+            try:
+                stubs["ModelInfer"](
+                    grpc_lm_request("lm_streaming_int8", prompt, 4),
+                    timeout=60)
+                fail("ModelInfer on a decoupled model was answered")
+            except grpc.RpcError as e:
+                check(e.code() == grpc.StatusCode.INVALID_ARGUMENT
+                      and "use ModelStreamInfer" in e.details(),
+                      f"decoupled ModelInfer answered {e.code()}: "
+                      f"{e.details()}")
+            lone, concurrent = {}, {}
+            prompts = distinct_prompts(prompt, GRPC_STREAMS)
+            for model_name in engines:
+                lone[model_name] = grpc_stream(stubs, model_name, prompt,
+                                               GRPC_TOKENS)
+                streams = [None] * GRPC_STREAMS
+                threads = [threading.Thread(
+                    target=lambda i=i, p=p: streams.__setitem__(
+                        i, grpc_stream(stubs, model_name, p, GRPC_TOKENS)))
+                    for i, p in enumerate(prompts)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=300)
+                concurrent[model_name] = streams
+            # under one KV block (16 tokens): the prefix cache keeps none
+            # of its blocks, so the pool goes back to where it was
+            eng = engines["lm_streaming_batched"]
+            used = eng.kv.used_blocks
+            made = server.engine.metrics.get("ctpu_lm_tokens_total") or 0
+            stopped = grpc_stream(stubs, "lm_streaming_batched", prompt[:8],
+                                  GRPC_STOP_MAX, stop_after=GRPC_STOP_AFTER)
+            deadline = time.monotonic() + 30
+            while (eng.kv.used_blocks != used
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            made = server.engine.metrics.get("ctpu_lm_tokens_total") - made
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            routes = {name: dict(r) for name, r in ops.ROUTES.items()}
+        check(len(stopped) == GRPC_STOP_AFTER and eng.kv.used_blocks == used,
+              f"a stopped stream left {eng.kv.used_blocks} blocks used, "
+              f"{used} before it")
+        check(made <= GRPC_STOP_AFTER + GRPC_STOP_SLACK,
+              f"the stopped stream ran on: {made} tokens made, "
+              f"{GRPC_STOP_AFTER} read")
+        near = {}
+        for model_name, eng in engines.items():
+            got = lone[model_name]
+            own = collect(eng.submit(prompt, GRPC_TOKENS)[0], LmEngine.CLOSE)
+            check(got == own and len(got) == GRPC_TOKENS,
+                  f"{model_name}: gRPC stream {got} != its engine's {own}")
+            ref = language._LmRunner(
+                device="cuda", quantize=model_name == "lm_streaming_int8")
+            near[model_name] = [
+                agreement(tfm, ref.params, ref.cfg, p, got,
+                          list(ref.stream(p, GRPC_TOKENS)))
+                for p, got in zip(prompts, concurrent[model_name])]
+            del ref
+        _, body, _ = http(server.http_address, "/v2/debug/prof?window=0")
+        wire = {e["engine"]: e for e in json.loads(body)["engines"]}["wire"]
+    check(all(not e._thread.is_alive() for e in engines.values()),
+          "Server.stop left an engine's scheduler thread running")
+    for name in ("int8_matmul", "paged_attention"):
+        check(launches[name] > 0, f"the gRPC path launched {name} no time")
+    check(wire["kinds"].get("grpc", 0) >= 2,
+          f"ModelInfer left no grpc wire ticks: {wire['kinds']}")
+    phase(21, "grpc", grpc_version=grpc.__version__,
+          configs_parsed=len(configs),
+          decoupled=sorted(k for k, v in configs.items() if v),
+          lone_stream_equals_engine={k: len(v) for k, v in lone.items()},
+          concurrent_vs_serial=near, near_tie=NEAR_TIE,
+          stopped_stream={"tokens_read": GRPC_STOP_AFTER,
+                          "tokens_made": made,
+                          "tokens_made_max": GRPC_STOP_AFTER
+                          + GRPC_STOP_SLACK,
+                          "max_tokens": GRPC_STOP_MAX,
+                          "blocks_back_to": used},
+          wire_ticks=wire["kinds"], launches=launches,
+          launches_by_route=routes,
+          seconds=time.monotonic() - t0, **card)
+    return launches, routes
+
+
 def main():
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4218,6 +4434,9 @@ def main():
     # -- 19 several devices: a one-rank mesh, a two-rank ring -----------------
     ring_launches, ring_rank_launches = parallel_phase(card, tokens)
 
+    # -- 21 the gRPC frontend ----------------------------------------------
+    grpc_launches, grpc_routes = grpc_phase(card, prompt)
+
     # -- 20 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
 
@@ -4245,6 +4464,7 @@ def main():
         "launches_phase_15": ops_launches["int8_matmul"],
         "launches_moe": moe_int8["launches"]["int8_matmul"],
         "launches_fleet": fleet_launches["int8_matmul"],
+        "launches_grpc": grpc_launches["int8_matmul"],
         "max_abs_err": max(worst.values()),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -4260,7 +4480,8 @@ def main():
                        "replay); all routes, the GEMV's "
                        f"{main_routes['int8_matmul']['gemv']}; launches_moe: "
                        "phase 16's int8 MoE engine streams; launches_fleet: "
-                       "phase 18's int8 replicas",
+                       "phase 18's int8 replicas; launches_grpc: phase "
+                       "21's gRPC calls",
         "checked_in": "phase 3",
     }, {
         "name": "int8_matmul",
@@ -4273,6 +4494,7 @@ def main():
         "launches_phase_15": ops_routes["int8_matmul"]["mma"],
         "launches_moe": moe_int8["routes"]["int8_matmul"]["mma"],
         "launches_fleet": fleet_routes["int8_matmul"]["mma"],
+        "launches_grpc": grpc_routes["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
         "ms": prefill["ms"],
         "plain_ms": prefill["plain_ms"],
@@ -4287,7 +4509,8 @@ def main():
         "launches_in": "phase 5 (serving: prefill chunks, counted at "
                        "each CUDA-graph replay); launches_moe: phase 16's "
                        "int8 MoE engine streams; launches_fleet: phase 18's "
-                       "int8 replicas",
+                       "int8 replicas; launches_grpc: phase 21's gRPC "
+                       "calls",
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -4344,6 +4567,7 @@ def main():
             "launches_phase_15": ops_routes["paged_attention"][route],
             "launches_moe": moe_paged[route],
             "launches_fleet": fleet_routes["paged_attention"][route],
+            "launches_grpc": grpc_routes["paged_attention"][route],
             "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -4353,7 +4577,8 @@ def main():
                            "replay; one count a call: a split kernel and "
                            "the combine); launches_moe: phase 16's bf16 "
                            "and int8 MoE engine streams; launches_fleet: "
-                           "phase 18's replicas, float32, bf16 and int8",
+                           "phase 18's replicas, float32, bf16 and int8; "
+                           "launches_grpc: phase 21's gRPC calls",
             "checked_in": "phase 10",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,6 +11,11 @@ def main():
     )
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--http-port", type=int, default=8000)
+    parser.add_argument(
+        "--grpc-port", type=int, default=None,
+        help="also serve KServe-v2 gRPC on this port (0 picks a free port; "
+             "needs grpcio and protobuf)",
+    )
     parser.add_argument("-v", "--verbose", action="store_true")
     parser.add_argument(
         "--models", default="language",
@@ -129,6 +134,7 @@ def main():
         models=model_sets(args.models, device=args.device),
         with_default_models=False,
         http_port=args.http_port,
+        grpc_port=args.grpc_port,
         host=args.host,
         verbose=args.verbose,
         max_inflight=args.max_inflight,
@@ -141,6 +147,9 @@ def main():
     if args.flight_dir:
         server.engine.flight.dump_dir = args.flight_dir
     print(f"client_tpu_torch.serve: HTTP on {server.http_address}", flush=True)
+    if server.grpc_address:
+        print(f"client_tpu_torch.serve: gRPC on {server.grpc_address}",
+              flush=True)
     if fleet is not None:
         print(
             f"client_tpu_torch.serve: fleet peer port on {fleet.address} "

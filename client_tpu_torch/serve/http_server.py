@@ -10,8 +10,9 @@ statistics, trace and log settings, ``/metrics``, the debug endpoints
 (``/v2/debug/flight``, ``/v2/debug/prof``, ``/v2/debug/slo``), and the
 shared-memory verbs: system and CUDA regions (``tpusharedmemory``
 register answers 400, as the JAX server answers for CUDA).  A 429 or 503
-carries an integer ``Retry-After``.  The gRPC frontend and the fleet
-endpoints come with later slices.
+carries an integer ``Retry-After``.  Its sibling over gRPC is
+serve/grpc_server.py; the fleet tier answers on a peer port of its own
+(serve/fleet.py).
 """
 
 import base64

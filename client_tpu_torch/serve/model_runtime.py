@@ -1311,7 +1311,8 @@ class InferenceEngine:
         """Run one inference request through the front door + admission.
 
         *request* is the JSON-form header dict; *binary_section* the raw
-        bytes after the header.  Returns ``(response_dict, binary_blobs)``,
+        bytes after the header (from gRPC, the list of per-tensor
+        buffers).  Returns ``(response_dict, binary_blobs)``,
         or for a decoupled model an iterator of such tuples, one per
         response the model produces (it holds its admission and tenant
         slots until it is exhausted or closed).  *trace* is an optional
@@ -2216,11 +2217,19 @@ class InferenceEngine:
     def _gather_inputs(self, model, request, binary_section):
         """Resolve request inputs: tensors in shared-memory regions (views
         of a CUDA region, numpy arrays from a system region),
-        binary-extension tensors (back to back in *binary_section*,
-        decoded as zero-copy views) or JSON ``data``."""
+        binary-extension tensors or JSON ``data``.
+
+        *binary_section* is either one contiguous bytes object (the HTTP
+        binary extension: tensors back to back after the JSON header) or a
+        list of per-tensor buffers (the gRPC frontend hands over the
+        proto's ``raw_input_contents`` untouched).  Both decode as
+        zero-copy views: no tensor bytes are copied between the transport
+        and the model."""
         specs = {t.name: t for t in model.inputs}
         arrays = {}
         offset = 0
+        part_cursor = 0
+        sectioned = not isinstance(binary_section, (list, tuple))
         for entry in request.get("inputs", []):
             name = entry["name"]
             spec = specs.get(name)
@@ -2249,8 +2258,17 @@ class InferenceEngine:
                 )
             elif "binary_data_size" in params:
                 size = params["binary_data_size"]
-                raw = memoryview(binary_section)[offset : offset + size]
-                offset += size
+                if sectioned:
+                    raw = memoryview(binary_section)[offset : offset + size]
+                    offset += size
+                else:
+                    if part_cursor >= len(binary_section):
+                        raise InferenceServerException(
+                            f"input '{name}' binary section underrun",
+                            status="400",
+                        )
+                    raw = binary_section[part_cursor]
+                    part_cursor += 1
                 if len(raw) != size:
                     raise InferenceServerException(
                         f"input '{name}' binary section underrun", status="400"
