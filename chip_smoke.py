@@ -14,7 +14,9 @@ the flagship on a one-rank device mesh through the flash kernels' ring and
 runs that ring over two ranks on the one card, streams the LM over the
 gRPC frontend (and checks its clean refusal where grpcio is absent), and
 times the kernels, the serial decode, the engine, the train step and the
-vision models.
+vision models, then runs the port's perf_analyzer in process over the LM
+engines and over gRPC against ResNet-50 from wire, system and CUDA
+shared-memory inputs.
 
     python3 chip_smoke.py
 
@@ -265,11 +267,13 @@ Phases, one line each or more; any failure exits non-zero:
                 or 8, phase 15's, launches_moe: phase 16's MoE engine
                 streams and MoE training, launches_fleet: phase 18's
                 replicas, launches_ring_flash and launches_ring_2rank:
-                phase 19's, launches_grpc: phase 21's), its route's own
+                phase 19's, launches_grpc: phase 21's, launches_perf:
+                phase 22's in-process legs), its route's own
                 error (phase 3, 7 or 10) and its times (phase 6, 9 or 12)
  21 grpc        the gRPC frontend (runs before phase 20's line; needs
                 grpcio).  The language set behind Server(grpc_port=0),
-                driven with raw stubs over the port's method table: ready,
+                driven through the port's gRPC client (client_tpu_torch.
+                grpc; a stream each by start_stream): ready,
                 metadata and config of every model, the tokenizer, a
                 decoupled ModelInfer refused (INVALID_ARGUMENT), a lone
                 stream of lm_streaming_int8 and lm_streaming_batched equal
@@ -280,6 +284,35 @@ Phases, one line each or more; any failure exits non-zero:
                 launch counts reset just before the first gRPC call and
                 read just after the last, the references run outside
                 that window (launches_grpc in phase 20)
+ 22 perf        the port's perf_analyzer (client_tpu_torch.perf; runs
+                after phase 21, before phase 20's line).  (a) In this
+                process, --hermetic --hermetic-models language:
+                lm_streaming_batched (bf16) at concurrency 1 and 8 with
+                --prefix-share 0.5 --shape TOKENS:1,128 (MAX_TOKENS 16,
+                the prefix-share budget; the prefix columns must be
+                non-zero), and lm_streaming_int8 at concurrency 8 with
+                --speculative 4 on a JSON prompt (MAX_TOKENS 32; the
+                speculative columns must be there); the launch counts
+                reset just before each run's perf main and read just
+                after it returns (launches_perf in phase 20).  (b) ResNet-50
+                behind this process's Server(grpc_port=0), driven by
+                python -m client_tpu_torch.perf -i grpc subprocesses at
+                concurrency 1 and 8 with --shared-memory none, system and
+                cuda (and cuda with --cuda-shm-sync), each with
+                --collect-metrics --collect-local-gpu-metrics
+                --probe-device-utilization: the server's success count
+                equals the client's count of the run, no failure on
+                either side, the CUDA regions seen over
+                CudaSharedMemoryStatus and opened over CUDA IPC, the
+                ctpu_gpu_memory_* and ctpu_probe_* gauges in the export;
+                then a client process's request from CUDA regions equal
+                to the wire's bit for bit, and the device probe
+                calibrated under a known load, in this process and from
+                the client's (from the client's, more samples must read
+                busy under the load than without it: the time slice; in
+                this process it reads the kernels' occupancy, recorded
+                and not checked).  Every leg prints infer/s, p50/p99 and the
+                harness's JSON export record
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -3683,53 +3716,40 @@ def parallel_phase(card, tokens):
     return ring_launches, [got["launches"] for got in ranks]
 
 
-def grpc_stubs(address):
-    """(channel, name -> multicallable) over the port's method table."""
-    import grpc
-
-    from client_tpu_torch._grpc_service import METHODS, SERVICE
-
-    channel = grpc.insecure_channel(address)
-    stubs = {}
-    for name, (req_cls, resp_cls, cstream, sstream) in METHODS.items():
-        make = {(True, True): channel.stream_stream,
-                (False, True): channel.unary_stream,
-                (True, False): channel.stream_unary,
-                (False, False): channel.unary_unary}[(cstream, sstream)]
-        stubs[name] = make(f"/{SERVICE}/{name}",
-                           request_serializer=req_cls.SerializeToString,
-                           response_deserializer=resp_cls.FromString)
-    return channel, stubs
-
-
-def grpc_lm_request(model, tokens, max_tokens):
-    from client_tpu_torch._proto import inference_pb2 as pb
-
-    request = pb.ModelInferRequest(model_name=model)
+def grpc_lm_inputs(grpcclient, tokens, max_tokens):
+    inputs = []
     for name, arr in (("TOKENS", np.asarray(tokens, np.int32)),
                       ("MAX_TOKENS", np.array([max_tokens], np.int32))):
-        t = request.inputs.add()
-        t.name, t.datatype = name, "INT32"
-        t.shape.extend(arr.shape)
-        request.raw_input_contents.append(arr.tobytes())
-    return request
+        inp = grpcclient.InferInput(name, list(arr.shape), "INT32")
+        inp.set_data_from_numpy(arr)
+        inputs.append(inp)
+    return inputs
 
 
-def grpc_stream(stubs, model, tokens, max_tokens, stop_after=None):
-    """One ModelStreamInfer request's tokens; with *stop_after* the client
-    cancels the call after that many."""
-    call = stubs["ModelStreamInfer"](
-        iter([grpc_lm_request(model, tokens, max_tokens)]), timeout=300)
-    toks = []
-    for response in call:
-        check(not response.error_message,
-              f"{model} streamed an error: {response.error_message}")
-        out = response.infer_response
-        toks.append(int(np.frombuffer(out.raw_output_contents[0],
-                                      np.int32)[0]))
-        if stop_after is not None and len(toks) == stop_after:
-            call.cancel()
-            break
+def grpc_stream(grpcclient, address, model, tokens, max_tokens,
+                stop_after=None):
+    """One ModelStreamInfer request's tokens, on a client of its own
+    (start_stream, async_stream_infer, stop_stream); with *stop_after* the
+    client cancels the stream once it has read that many."""
+    toks, errors, enough = [], [], threading.Event()
+
+    def on_response(result, error):
+        if error is not None:
+            errors.append(error)
+            enough.set()
+        elif not enough.is_set():
+            toks.append(int(result.as_numpy("TOKEN")[0]))
+            if stop_after is not None and len(toks) == stop_after:
+                enough.set()
+
+    with grpcclient.InferenceServerClient(address) as client:
+        client.start_stream(on_response, stream_timeout=300)
+        client.async_stream_infer(
+            model, grpc_lm_inputs(grpcclient, tokens, max_tokens))
+        if stop_after is not None:
+            enough.wait(timeout=300)
+        client.stop_stream(cancel_requests=stop_after is not None)
+    check(not errors, f"{model} streamed an error: {errors}")
     return toks
 
 
@@ -3745,8 +3765,9 @@ GRPC_STOP_SLACK = 8
 
 def grpc_phase(card, prompt):
     """Phase 21: the gRPC frontend on the card.  The language set behind
-    ``Server(grpc_port=0)``, driven over gRPC with raw stubs from the
-    port's method table: ready, metadata, every served model's config, the
+    ``Server(grpc_port=0)``, driven through the port's gRPC client (each
+    stream on a client of its own): ready, metadata, every served model's
+    config, the
     tokenizer, a decoupled ModelInfer refused, a lone stream of each
     batched model, four concurrent streams each and a stream the client
     stops after two tokens, which gives its KV blocks back having made at
@@ -3759,13 +3780,13 @@ def grpc_phase(card, prompt):
         import grpc
     except ImportError as e:
         fail(f"phase 21 needs grpcio on the card: {e}")
+    from client_tpu_torch import grpc as grpcclient
     from client_tpu_torch import ops
-    from client_tpu_torch._proto import inference_pb2 as pb
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.lm import LmEngine
     from client_tpu_torch.serve.models import language
     from client_tpu_torch.serve.models import transformer as tfm
-    from client_tpu_torch.utils import serialize_byte_tensor
+    from client_tpu_torch.utils import InferenceServerException
 
     t0 = time.monotonic()
     served_models = language.language_models(device="cuda")
@@ -3773,52 +3794,47 @@ def grpc_phase(card, prompt):
                if m.closer is not None}
     with Server(models=served_models, http_port=0, grpc_port=0,
                 with_default_models=False) as server:
-        channel, stubs = grpc_stubs(server.grpc_address)
-        with channel:
+        addr = server.grpc_address
+        with grpcclient.InferenceServerClient(addr) as client:
             torch.cuda.synchronize()
             ops.reset_launches()
-            check(stubs["ServerReady"](pb.ServerReadyRequest()).ready,
-                  "ServerReady answered false")
-            name = stubs["ServerMetadata"](pb.ServerMetadataRequest()).name
+            check(client.is_server_ready(), "ServerReady answered false")
+            name = client.get_server_metadata().name
             check(name == "client_tpu_torch.serve", f"server name {name}")
             configs = {}
             for m in served_models:
-                config = stubs["ModelConfig"](
-                    pb.ModelConfigRequest(name=m.name)).config
-                meta = stubs["ModelMetadata"](
-                    pb.ModelMetadataRequest(name=m.name))
+                config = client.get_model_config(m.name).config
+                meta = client.get_model_metadata(m.name)
                 check(config.name == meta.name == m.name,
                       f"{m.name}: config {config.name}, metadata {meta.name}")
                 configs[m.name] = config.model_transaction_policy.decoupled
-            request = pb.ModelInferRequest(model_name="tokenizer")
-            t = request.inputs.add()
-            t.name, t.datatype = "TEXT", "BYTES"
-            t.shape.append(1)
-            request.raw_input_contents.append(serialize_byte_tensor(
-                np.array([PROMPT.encode()], dtype=np.object_)).tobytes())
-            out = stubs["ModelInfer"](request, timeout=60)
-            check(np.frombuffer(out.raw_output_contents[0],
-                                np.int32).tolist() == prompt.tolist(),
+            text = grpcclient.InferInput("TEXT", [1], "BYTES")
+            text.set_data_from_numpy(np.array([PROMPT.encode()],
+                                              dtype=np.object_))
+            out = client.infer("tokenizer", [text], client_timeout=60)
+            check(out.as_numpy("TOKENS").reshape(-1).tolist()
+                  == prompt.tolist(),
                   "tokenizer over gRPC differs from encode_text")
             try:
-                stubs["ModelInfer"](
-                    grpc_lm_request("lm_streaming_int8", prompt, 4),
-                    timeout=60)
+                client.infer("lm_streaming_int8",
+                             grpc_lm_inputs(grpcclient, prompt, 4),
+                             client_timeout=60)
                 fail("ModelInfer on a decoupled model was answered")
-            except grpc.RpcError as e:
-                check(e.code() == grpc.StatusCode.INVALID_ARGUMENT
-                      and "use ModelStreamInfer" in e.details(),
-                      f"decoupled ModelInfer answered {e.code()}: "
-                      f"{e.details()}")
+            except InferenceServerException as e:
+                check(e.status() == grpc.StatusCode.INVALID_ARGUMENT.name
+                      and "use ModelStreamInfer" in e.message(),
+                      f"decoupled ModelInfer answered {e.status()}: "
+                      f"{e.message()}")
             lone, concurrent = {}, {}
             prompts = distinct_prompts(prompt, GRPC_STREAMS)
             for model_name in engines:
-                lone[model_name] = grpc_stream(stubs, model_name, prompt,
-                                               GRPC_TOKENS)
+                lone[model_name] = grpc_stream(grpcclient, addr, model_name,
+                                               prompt, GRPC_TOKENS)
                 streams = [None] * GRPC_STREAMS
                 threads = [threading.Thread(
                     target=lambda i=i, p=p: streams.__setitem__(
-                        i, grpc_stream(stubs, model_name, p, GRPC_TOKENS)))
+                        i, grpc_stream(grpcclient, addr, model_name, p,
+                                       GRPC_TOKENS)))
                     for i, p in enumerate(prompts)]
                 for th in threads:
                     th.start()
@@ -3830,8 +3846,9 @@ def grpc_phase(card, prompt):
             eng = engines["lm_streaming_batched"]
             used = eng.kv.used_blocks
             made = server.engine.metrics.get("ctpu_lm_tokens_total") or 0
-            stopped = grpc_stream(stubs, "lm_streaming_batched", prompt[:8],
-                                  GRPC_STOP_MAX, stop_after=GRPC_STOP_AFTER)
+            stopped = grpc_stream(grpcclient, addr, "lm_streaming_batched",
+                                  prompt[:8], GRPC_STOP_MAX,
+                                  stop_after=GRPC_STOP_AFTER)
             deadline = time.monotonic() + 30
             while (eng.kv.used_blocks != used
                    and time.monotonic() < deadline):
@@ -3880,6 +3897,357 @@ def grpc_phase(card, prompt):
                           "blocks_back_to": used},
           wire_ticks=wire["kinds"], launches=launches,
           launches_by_route=routes,
+          seconds=time.monotonic() - t0, **card)
+    return launches, routes
+
+
+# -- perf_analyzer (phase 22) -------------------------------------------------
+
+PERF_WINDOW_MS = {"hermetic": 1000, "socket": 500}  # measurement windows
+PERF_TRIALS = 3        # windows a level at most
+PERF_STABILITY = "25"  # percent; a level that does not settle still reports
+PERF_LM_MAX_TOKENS = 16   # the prefix-share workload's scalar budget
+PERF_SPEC_MAX_TOKENS = 32  # MAX_TOKENS of the speculative leg's prompt
+PERF_SHM_LEGS = (("none", False), ("system", False), ("cuda", False),
+                 ("cuda", True))  # (--shared-memory, --cuda-shm-sync)
+PERF_PROBE_SAMPLES = 32
+# the probe's calibration load: bf16 [8192, 8192] matmuls queued on the
+# default stream (1.1 TFLOP each: a second or so of the card's time)
+PERF_LOAD = (8192, 600)
+PERF_GAUGES = ("ctpu_gpu_memory_used_bytes", "ctpu_gpu_memory_total_bytes",
+               "ctpu_gpu_memory_peak_bytes", "ctpu_probe_queue_delay_us",
+               "ctpu_probe_utilization_pct")
+
+# A client process of phase 22's own: one ResNet-50 request whose input
+# and output lie in CUDA regions of this process (the server opens them
+# over CUDA IPC) against the same request over the wire, then the
+# utilization probe from this process: idle samples, then, once the
+# parent has queued its load (a line on stdin), samples under it.
+PERF_CHECK_CLIENT = r"""
+import json, sys
+import numpy as np
+import client_tpu_torch.grpc as grpcclient
+from client_tpu_torch.perf.metrics_manager import DeviceUtilizationProbe
+from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+addr, samples = sys.argv[1], int(sys.argv[2])
+x = np.random.default_rng(22).random((1, 3, 224, 224), dtype=np.float32)
+h_in = cudashm.create_shared_memory_region("check_in", x.nbytes)
+h_out = cudashm.create_shared_memory_region("check_out", 4000)
+with grpcclient.InferenceServerClient(addr) as c:
+    try:
+        cudashm.set_shared_memory_region(h_in, [x])
+        c.register_cuda_shared_memory(
+            "check_in", cudashm.get_raw_handle(h_in), 0, x.nbytes)
+        c.register_cuda_shared_memory(
+            "check_out", cudashm.get_raw_handle(h_out), 0, 4000)
+        inp = grpcclient.InferInput("INPUT0", list(x.shape), "FP32")
+        inp.set_shared_memory("check_in", x.nbytes)
+        out = grpcclient.InferRequestedOutput("OUTPUT0")
+        out.set_shared_memory("check_out", 4000)
+        c.infer("resnet50", [inp], outputs=[out])
+        region = cudashm.get_contents_as_numpy(h_out, "FP32", [1, 1000])
+        status = c.get_cuda_shared_memory_status(as_json=True)
+        wire_in = grpcclient.InferInput("INPUT0", list(x.shape), "FP32")
+        wire_in.set_data_from_numpy(x)
+        wire = c.infer("resnet50", [wire_in]).as_numpy("OUTPUT0")
+    finally:
+        c.unregister_cuda_shared_memory()
+        cudashm.destroy_shared_memory_region(h_in)
+        cudashm.destroy_shared_memory_region(h_out)
+probe = DeviceUtilizationProbe()
+idle = [probe.sample() for _ in range(samples)]
+print(json.dumps({
+    "region_equals_wire": bool(np.array_equal(region, wire)),
+    "max_abs_diff": float(np.abs(region - wire).max()),
+    "regions_registered": sorted(status.get("regions", {})),
+    "baseline_us": probe.baseline_s * 1e6,
+    "idle_us": [d for d, _ in idle], "idle_flags": [b for _, b in idle]}),
+    flush=True)
+sys.stdin.readline()
+busy = [probe.sample() for _ in range(samples)]
+print(json.dumps({"busy_us": [d for d, _ in busy],
+                  "busy_flags": [b for _, b in busy]}), flush=True)
+"""
+
+
+def perf_levels(doc):
+    return [{"level": r["level_value"],
+             "infer_per_s": r["throughput_infer_per_sec"],
+             "p50_us": r["percentiles_us"].get("50"),
+             "p99_us": r["percentiles_us"].get("99"),
+             "requests_in_windows": r["completed_requests"],
+             "stable": r["stable"]} for r in doc["results"]]
+
+
+def perf_run_inprocess(argv, out):
+    """One ``client_tpu_torch.perf`` run in this process; its summary text
+    is kept off this script's output.  The launch counts are reset just
+    before the run and read just after it (building the engine launches
+    neither kernel; a graph's launches count at its replays).  Returns
+    (the JSON export, launches, routes)."""
+    import io
+
+    from client_tpu_torch import ops
+    from client_tpu_torch.perf.__main__ import main as perf_main
+
+    text = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with contextlib.redirect_stdout(text):
+        rc = perf_main(argv + ["--json-export", out])
+    launches = dict(ops.LAUNCHES)
+    routes = {n: dict(r) for n, r in ops.ROUTES.items()}
+    check(rc == 0, f"perf {' '.join(argv)} exited {rc}: "
+                   f"{text.getvalue()[-2000:]}")
+    with open(out) as f:
+        return json.load(f), launches, routes
+
+
+def perf_hermetic_legs(card, tmp):
+    """Phase 22a: perf_analyzer's in-process legs over the language set
+    on the card.  Returns (launches, routes) summed over both legs'
+    windows."""
+    from client_tpu_torch.serve.models import language
+
+    windows = []
+    common = ["--hermetic", "--hermetic-models", "language",
+              "--measurement-interval", str(PERF_WINDOW_MS["hermetic"]),
+              "--max-trials", str(PERF_TRIALS), "-s", PERF_STABILITY]
+    spec_data = os.path.join(tmp, "spec_input.json")
+    tokens = language.encode_text(PROMPT * 2).tolist()
+    with open(spec_data, "w") as f:
+        json.dump({"data": [{"TOKENS": {"content": tokens,
+                                        "shape": [len(tokens)]},
+                             "MAX_TOKENS": [PERF_SPEC_MAX_TOKENS]}]}, f)
+    legs = {
+        "lm_streaming_batched prefix-share": (
+            ["-m", "lm_streaming_batched", "--prefix-share", "0.5",
+             "--shape", "TOKENS:1,128", "--concurrency-range", "1:8:7"],
+            {"prompt_tokens": 128, "shared_tokens": 64,
+             "max_tokens": PERF_LM_MAX_TOKENS, "weights": "bfloat16"}),
+        "lm_streaming_int8 speculative": (
+            ["-m", "lm_streaming_int8", "--speculative", "4",
+             "--input-data", spec_data, "--concurrency-range", "8"],
+            {"prompt_tokens": len(tokens),
+             "max_tokens": PERF_SPEC_MAX_TOKENS, "weights": "int8",
+             "speculative": {"k": 4, "drafter": "ngram"}}),
+    }
+    for i, (leg, (argv, workload)) in enumerate(legs.items()):
+        t0 = time.monotonic()
+        doc, *window = perf_run_inprocess(
+            argv + common, os.path.join(tmp, f"hermetic{i}.json"))
+        windows.append(window)
+        for r in doc["results"]:
+            check(r["error_count"] == 0 and r["completed_requests"] > 0,
+                  f"{leg}: {r['error_count']} failed, "
+                  f"{r['completed_requests']} completed")
+            if "prefix" in leg:
+                p = r["lm_prefix"]
+                check(p.get("hits", 0) > 0
+                      and p.get("saved_tokens", 0) > 0
+                      and p["prefix_hit_pct"] > 0,
+                      f"{leg} at {r['level_value']}: prefix columns {p}")
+            else:
+                s = r["lm_spec"]
+                check({"spec_acceptance_pct", "spec_tokens_per_sec"}
+                      <= set(s) and s.get("proposed", 0) > 0,
+                      f"{leg}: speculative columns {s}")
+        phase(22, "perf_hermetic", leg=leg, workload=workload,
+              levels=perf_levels(doc),
+              seconds=time.monotonic() - t0, export=doc, **card)
+    check(len(windows) == 2, f"{len(windows)} launch windows, not 2")
+    launches = {n: sum(w[0][n] for w in windows) for n in windows[0][0]}
+    routes = {n: {r: sum(w[1][n][r] for w in windows) for r in rs}
+              for n, rs in windows[0][1].items()}
+    for name in ("int8_matmul", "paged_attention"):
+        check(launches[name] > 0,
+              f"the hermetic perf legs launched {name} no time")
+    return launches, routes
+
+
+def perf_probe_samples(probe, n):
+    return [probe.sample() for _ in range(n)]
+
+
+def perf_load():
+    """Queue PERF_LOAD's matmuls on the default stream (returns at once)."""
+    n, count = PERF_LOAD
+    a = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    out = torch.empty_like(a)
+    torch.cuda.synchronize()
+    for _ in range(count):
+        torch.matmul(a, b, out=out)
+    return out
+
+
+def perf_delays(idle, busy):
+    """The probe's samples, (delay us, busy flag) each, with no load and
+    under the load."""
+    idle_us, delays = [d for d, _ in idle], [d for d, _ in busy]
+    return {"idle_p50_us": float(np.percentile(idle_us, 50)),
+            "idle_max_us": float(np.max(idle_us)),
+            "idle_busy_share": float(np.mean([b for _, b in idle])),
+            "busy_p50_us": float(np.percentile(delays, 50)),
+            "busy_max_us": float(np.max(delays)),
+            "busy_share": float(np.mean([b for _, b in busy]))}
+
+
+def perf_socket_legs(card, tmp):
+    """Phase 22b: ``python -m client_tpu_torch.perf -i grpc`` subprocesses
+    against ResNet-50 behind this process's Server, wire, system and CUDA
+    regions; a CUDA-region answer against the wire's; the probe calibrated
+    in this process and from another."""
+    from client_tpu_torch import ops
+    from client_tpu_torch import grpc as grpcclient
+    from client_tpu_torch.perf.metrics_manager import DeviceUtilizationProbe
+    from client_tpu_torch.serve import Server
+    from client_tpu_torch.serve.models import vision
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here}
+    model = vision.resnet50_model(warmup=True)
+    ops.reset_launches()
+    with Server(models=[model], http_port=0, grpc_port=0,
+                with_default_models=False) as server:
+        addr = server.grpc_address
+
+        def counts():
+            stats = server.engine.statistics("resnet50")[0]["inference_stats"]
+            return stats["success"]["count"], stats["fail"]["count"]
+
+        for shm, sync in PERF_SHM_LEGS:
+            leg = f"resnet50 grpc {shm}" + (" --cuda-shm-sync" if sync
+                                            else "")
+            out = os.path.join(tmp, f"socket_{shm}_{int(sync)}.json")
+            argv = [sys.executable, "-m", "client_tpu_torch.perf",
+                    "-i", "grpc", "-m", "resnet50", "-u", addr,
+                    "--shared-memory", shm,
+                    "--output-shared-memory-size", "4000",
+                    "--concurrency-range", "1:8:7",
+                    "--measurement-interval", str(PERF_WINDOW_MS["socket"]),
+                    "--max-trials", str(PERF_TRIALS), "-s", PERF_STABILITY,
+                    "--collect-metrics", "--metrics-interval", "100",
+                    "--metrics-url", f"http://{server.http_address}/metrics",
+                    "--collect-local-gpu-metrics",
+                    "--probe-device-utilization", "--json-export", out]
+            if sync:
+                argv.append("--cuda-shm-sync")
+            seen, opened, stop = set(), {}, threading.Event()
+
+            def poll():
+                with grpcclient.InferenceServerClient(addr) as c:
+                    while not stop.is_set():
+                        status = c.get_cuda_shared_memory_status(as_json=True)
+                        seen.update(status.get("regions", {}))
+                        for name, entry in list(
+                                server.engine.shm._cuda.items()):
+                            opened[name] = entry["opened"]
+                        stop.wait(0.05)
+
+            poller = threading.Thread(target=poll, daemon=True)
+            before = counts()
+            t0 = time.monotonic()
+            poller.start()
+            try:
+                proc = subprocess.run(argv, capture_output=True, text=True,
+                                      timeout=300, env=env, cwd=here)
+            finally:
+                stop.set()
+                poller.join(timeout=30)
+            seconds = time.monotonic() - t0
+            check(proc.returncode == 0,
+                  f"{leg} exited {proc.returncode}: {proc.stderr[-3000:]}")
+            after = counts()
+            with open(out) as f:
+                doc = json.load(f)
+            served = after[0] - before[0]
+            check(doc["requests"] == {"completed": served, "failed": 0}
+                  and after[1] == before[1],
+                  f"{leg}: the client counted {doc['requests']}, the server "
+                  f"{served} successes and {after[1] - before[1]} failures")
+            for r in doc["results"]:
+                missing = [g for g in PERF_GAUGES if g not in r["tpu_metrics"]]
+                check(not missing and r["error_count"] == 0,
+                      f"{leg} at {r['level_value']}: gauges {missing} "
+                      f"missing, {r['error_count']} failed")
+            regions = sorted(n for n in seen if n.startswith("perf_cudashm"))
+            if shm == "cuda":
+                check(regions and all(opened.get(n) for n in regions),
+                      f"{leg}: regions {regions} seen over "
+                      f"CudaSharedMemoryStatus, opened over IPC: {opened}")
+            phase(22, "perf_grpc", leg=leg, levels=perf_levels(doc),
+                  requests=doc["requests"], server_successes=served,
+                  cuda_regions_opened_over_ipc=regions,
+                  seconds=seconds, export=doc, **card)
+
+        # one answer from CUDA regions against the wire's, and the probe
+        # across processes (the client samples while this process loads)
+        probe = DeviceUtilizationProbe()
+        idle_here = perf_probe_samples(probe, PERF_PROBE_SAMPLES)
+        proc = subprocess.Popen(
+            [sys.executable, "-c", PERF_CHECK_CLIENT, addr,
+             str(PERF_PROBE_SAMPLES)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=here)
+        try:
+            first = proc.stdout.readline()
+            if not first:
+                fail(f"the check client died: {proc.stderr.read()[-3000:]}")
+            answer = json.loads(first)
+            perf_load()
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+            across = json.loads(proc.stdout.readline())
+            torch.cuda.synchronize()
+            perf_load()
+            busy_here = perf_probe_samples(probe, PERF_PROBE_SAMPLES)
+            torch.cuda.synchronize()
+            proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(answer["region_equals_wire"],
+              f"a CUDA-region answer differs from the wire's by "
+              f"{answer['max_abs_diff']}")
+        launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()),
+          f"the ResNet-50 perf legs launched {launches}")
+    n, count = PERF_LOAD
+    phase(22, "perf_cuda_region_vs_wire", model="resnet50",
+          region_equals_wire=True, regions=answer["regions_registered"])
+    across_processes = {
+        "baseline_us": answer["baseline_us"],
+        **perf_delays(list(zip(answer["idle_us"], answer["idle_flags"])),
+                      list(zip(across["busy_us"], across["busy_flags"])))}
+    # across processes the probe waits out the loaded context's time
+    # slice: the one reading that separates load from no load
+    check(across_processes["busy_share"]
+          > across_processes["idle_busy_share"],
+          f"the probe from another process read no more busy samples "
+          f"under the load than without it: {across_processes}")
+    phase(22, "perf_probe_calibration",
+          load=f"{count} bf16 [{n}, {n}] matmuls queued on the default "
+               "stream of the phase's process",
+          in_process={"baseline_us": probe.baseline_s * 1e6,
+                      **perf_delays(idle_here, busy_here)},
+          across_processes=across_processes,
+          samples=PERF_PROBE_SAMPLES, **card)
+
+
+def perf_phase(card):
+    """Phase 22: perf_analyzer on the card.  Returns the launch counts of
+    the in-process legs (launches_perf in phase 20)."""
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_perf_")
+    try:
+        launches, routes = perf_hermetic_legs(card, tmp)
+        perf_socket_legs(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase(22, "perf_done", launches=launches, launches_by_route=routes,
           seconds=time.monotonic() - t0, **card)
     return launches, routes
 
@@ -4437,6 +4805,9 @@ def main():
     # -- 21 the gRPC frontend ----------------------------------------------
     grpc_launches, grpc_routes = grpc_phase(card, prompt)
 
+    # -- 22 perf_analyzer: in process, and over gRPC from other processes --
+    perf_launches, perf_routes = perf_phase(card)
+
     # -- 20 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
 
@@ -4465,6 +4836,7 @@ def main():
         "launches_moe": moe_int8["launches"]["int8_matmul"],
         "launches_fleet": fleet_launches["int8_matmul"],
         "launches_grpc": grpc_launches["int8_matmul"],
+        "launches_perf": perf_launches["int8_matmul"],
         "max_abs_err": max(worst.values()),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -4481,7 +4853,8 @@ def main():
                        f"{main_routes['int8_matmul']['gemv']}; launches_moe: "
                        "phase 16's int8 MoE engine streams; launches_fleet: "
                        "phase 18's int8 replicas; launches_grpc: phase "
-                       "21's gRPC calls",
+                       "21's gRPC calls; launches_perf: phase 22's "
+                       "in-process perf_analyzer legs",
         "checked_in": "phase 3",
     }, {
         "name": "int8_matmul",
@@ -4495,6 +4868,7 @@ def main():
         "launches_moe": moe_int8["routes"]["int8_matmul"]["mma"],
         "launches_fleet": fleet_routes["int8_matmul"]["mma"],
         "launches_grpc": grpc_routes["int8_matmul"]["mma"],
+        "launches_perf": perf_routes["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
         "ms": prefill["ms"],
         "plain_ms": prefill["plain_ms"],
@@ -4510,7 +4884,8 @@ def main():
                        "each CUDA-graph replay); launches_moe: phase 16's "
                        "int8 MoE engine streams; launches_fleet: phase 18's "
                        "int8 replicas; launches_grpc: phase 21's gRPC "
-                       "calls",
+                       "calls; launches_perf: phase 22's in-process "
+                       "perf_analyzer legs",
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -4568,6 +4943,7 @@ def main():
             "launches_moe": moe_paged[route],
             "launches_fleet": fleet_routes["paged_attention"][route],
             "launches_grpc": grpc_routes["paged_attention"][route],
+            "launches_perf": perf_routes["paged_attention"][route],
             "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -4578,7 +4954,9 @@ def main():
                            "the combine); launches_moe: phase 16's bf16 "
                            "and int8 MoE engine streams; launches_fleet: "
                            "phase 18's replicas, float32, bf16 and int8; "
-                           "launches_grpc: phase 21's gRPC calls",
+                           "launches_grpc: phase 21's gRPC calls; "
+                           "launches_perf: phase 22's in-process "
+                           "perf_analyzer legs",
             "checked_in": "phase 10",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

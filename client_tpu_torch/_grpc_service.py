@@ -3,7 +3,9 @@
 Counterpart of client_tpu/_grpc_service.py.  grpcio-tools is not a
 dependency, so no ``*_pb2_grpc.py`` stubs exist; the server
 (serve/grpc_server.py) registers generic method handlers from this table,
-which mirrors the service definition in proto/inference.proto.
+which mirrors the service definition in proto/inference.proto, and the
+client (client_tpu_torch/grpc) builds its stubs from it
+(:func:`build_stubs`).
 """
 
 from client_tpu_torch._proto import inference_pb2 as pb
@@ -116,3 +118,27 @@ METHODS = {
         False,
     ),
 }
+
+
+def method_path(name):
+    return f"/{SERVICE}/{name}"
+
+
+def build_stubs(channel):
+    """Create name -> multicallable map over a (sync or aio) grpc channel."""
+    stubs = {}
+    for name, (req_cls, resp_cls, cstream, sstream) in METHODS.items():
+        kwargs = {
+            "request_serializer": req_cls.SerializeToString,
+            "response_deserializer": resp_cls.FromString,
+        }
+        path = method_path(name)
+        if cstream and sstream:
+            stubs[name] = channel.stream_stream(path, **kwargs)
+        elif sstream:
+            stubs[name] = channel.unary_stream(path, **kwargs)
+        elif cstream:
+            stubs[name] = channel.stream_unary(path, **kwargs)
+        else:
+            stubs[name] = channel.unary_unary(path, **kwargs)
+    return stubs

@@ -1,0 +1,592 @@
+"""perf CLI — the perf_analyzer command-line surface of the port.
+
+Counterpart of client_tpu/perf/__main__.py.  Option names follow the
+reference CLI (reference src/c++/perf_analyzer/command_line_parser.h:44-160)
+where the concept carries over; the port's additions: ``--shared-memory
+cuda`` stages inputs and outputs in CUDA device memory, ``--hermetic``
+benchmarks the in-process server without sockets (the TRITON_C_API
+analog), and ``--device`` says where the hermetic models, the CUDA
+regions and the device probe run (``cuda`` unless ``cpu``).
+
+Options the port does not have yet (``-i http``, ``--async``,
+``--native-loadgen``, the non-KServe ``--service-kind``s, ``--world-size``
+above 1, a ``--url`` replica list, SSL) are refused with a message, never
+ignored.
+
+    python -m client_tpu_torch.perf -m resnet50 -u localhost:8001 \\
+        --shared-memory cuda --output-shared-memory-size 4000
+    python -m client_tpu_torch.perf -m simple --hermetic --device cpu
+"""
+
+import argparse
+import sys
+
+from client_tpu_torch import resolve_device
+from client_tpu_torch.perf import (
+    BackendKind,
+    ClientBackendFactory,
+    ConcurrencyManager,
+    CustomLoadManager,
+    DataLoader,
+    InferenceProfiler,
+    RequestRateManager,
+    SequenceManager,
+    create_infer_data_manager,
+    print_summary,
+    write_csv,
+    write_json,
+)
+from client_tpu_torch.perf.metrics_manager import (
+    DeviceUtilizationProbe,
+    MetricsManager,
+    local_device_snapshot,
+)
+from client_tpu_torch.perf.model_parser import ModelParser
+from client_tpu_torch.utils import InferenceServerException
+
+
+def _parse_tenants(spec):
+    """'gold:3,bronze:1' -> ['gold','gold','gold','bronze']: the slot
+    assignment list worker i indexes with i % len (a bare name counts as
+    weight 1).  Interleaving is by expansion order, which is fine — slots
+    are homogeneous."""
+    if not spec:
+        return []
+    slots = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, weight = part.partition(":")
+        try:
+            count = int(weight) if weight else 1
+        except ValueError:
+            raise SystemExit(
+                f"error: bad --tenants entry {part!r} (want name[:weight])"
+            ) from None
+        if count < 1:
+            raise SystemExit(
+                f"error: --tenants weight must be >= 1 in {part!r}"
+            )
+        slots.extend([name] * count)
+    return slots
+
+
+def _parse_range(text, cast):
+    """start[:end[:step]] (reference concurrency-range format)."""
+    parts = text.split(":")
+    start = cast(parts[0])
+    end = cast(parts[1]) if len(parts) > 1 else start
+    step = cast(parts[2]) if len(parts) > 2 else cast(1)
+    return start, end, step
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="python -m client_tpu_torch.perf",
+        description="perf_analyzer for the PyTorch/CUDA port: load "
+                    "generation + measurement",
+    )
+    p.add_argument("-m", "--model-name", required=True)
+    p.add_argument("-x", "--model-version", default="")
+    p.add_argument("-u", "--url", default="localhost:8001",
+                   help="gRPC server address (a comma-separated replica "
+                        "list is not in the port yet)")
+    p.add_argument("-i", "--protocol", choices=["grpc", "http"], default="grpc",
+                   help="grpc (http is not in the port yet)")
+    p.add_argument("-a", "--async", dest="async_mode", action="store_true",
+                   help="not in the port yet")
+    p.add_argument("--native-loadgen", action="store_true",
+                   help="not in the port yet")
+    p.add_argument("--service-kind",
+                   choices=["triton", "torchserve", "tfserve",
+                            "tfserve_rest"],
+                   default="triton",
+                   help="triton (the others are not in the port yet)")
+    p.add_argument("--hermetic", action="store_true",
+                   help="benchmark the in-process server (no sockets)")
+    p.add_argument("--hermetic-models", default="builtin",
+                   help="model sets for --hermetic: "
+                        "builtin,jax,resnet,language,pipeline")
+    p.add_argument("--device", default=None,
+                   help="where the --hermetic models, the CUDA shared-"
+                        "memory regions and the device probe run: "
+                        "cuda (the default) or cpu")
+    p.add_argument("-b", "--batch-size", type=int, default=1)
+    p.add_argument("--concurrency-range", default=None,
+                   help="start[:end[:step]]")
+    p.add_argument("--request-rate-range", default=None,
+                   help="start[:end[:step]] in req/sec")
+    p.add_argument("--request-intervals", default=None,
+                   help="file of inter-request intervals (ns per line)")
+    p.add_argument("--request-distribution", choices=["constant", "poisson"],
+                   default="constant")
+    p.add_argument("--measurement-interval", type=int, default=2000,
+                   help="window length in msec (-p)")
+    p.add_argument("--measurement-mode",
+                   choices=["time_windows", "count_windows"],
+                   default="time_windows",
+                   help="close windows on elapsed time or on completed "
+                        "request count (reference --measurement-mode)")
+    p.add_argument("--measurement-request-count", type=int, default=50,
+                   help="requests per window for count_windows mode")
+    p.add_argument("--max-trials", type=int, default=10)
+    p.add_argument("-s", "--stability-percentage", type=float, default=10.0)
+    p.add_argument("--percentile", type=int, default=None,
+                   help="use this latency percentile for stability checks")
+    p.add_argument("-l", "--latency-threshold", type=float, default=0,
+                   help="stop the sweep past this avg latency (msec)")
+    p.add_argument("--binary-search", action="store_true")
+    p.add_argument("--max-threads", type=int, default=16)
+    p.add_argument("--shared-memory", choices=["none", "system", "cuda"],
+                   default="none")
+    p.add_argument("--output-shared-memory-size", type=int, default=0)
+    p.add_argument("--cuda-device-id", type=int, default=0)
+    p.add_argument("--cuda-shm-sync", action="store_true",
+                   help="record completion latency (every output region "
+                        "read back to the host per request) instead of "
+                        "ack latency for CUDA shm outputs")
+    p.add_argument("--input-data", default=None,
+                   help="'random', 'zero', a JSON file, or a directory")
+    p.add_argument("--shape", action="append", default=[],
+                   help="NAME:d1,d2,... override for dynamic dims")
+    p.add_argument("--string-length", type=int, default=16)
+    p.add_argument("--prefix-share", type=float, default=None,
+                   help="LM workload knob: generate prompts whose leading "
+                        "FRAC of tokens comes from a small shared prefix "
+                        "pool (see --prefix-pool), so the KV prefix "
+                        "cache's prefill savings are measurable; with "
+                        "--hermetic the summary/CSV/JSON gain per-sweep "
+                        "prefix_hit_pct + prefill_tokens_saved_pct from "
+                        "the engine's counters")
+    p.add_argument("--prefix-pool", type=int, default=4,
+                   help="number of distinct shared prefixes --prefix-share "
+                        "draws from (smaller pool = hotter prefixes)")
+    p.add_argument("--prefix-prompts", type=int, default=16,
+                   help="distinct prompts generated for --prefix-share "
+                        "(workers rotate over them)")
+    p.add_argument("--speculative", type=int, default=None, metavar="K",
+                   help="LM engine knob (requires --hermetic): enable "
+                        "speculative decoding with up to K draft tokens "
+                        "per verify tick on the batched LM engines; the "
+                        "summary/CSV/JSON gain per-sweep "
+                        "spec_acceptance_pct + spec tokens/s from the "
+                        "engine's counters")
+    p.add_argument("--drafter", choices=["ngram", "bigram"],
+                   default="ngram",
+                   help="drafter for --speculative: 'ngram' "
+                        "(prompt-lookup) or 'bigram' (static greedy-"
+                        "bigram table seeded from the prompt)")
+    p.add_argument("--tenants", default=None,
+                   help="tenant mix for the worker slots: "
+                        "'gold:3,bronze:1' assigns slots to tenants "
+                        "proportionally to the weights (a bare name means "
+                        "weight 1); requests carry x-tenant-id and the "
+                        "summary adds a per-tenant latency split")
+    p.add_argument("--hermetic-cache-entries", type=int, default=0,
+                   help="with --hermetic: enable the in-process engine's "
+                        "response cache (N LRU entries) + coalescing, so "
+                        "cache-hit rates show in the summary")
+    p.add_argument("--sequence", action="store_true",
+                   help="stateful sequence workload")
+    p.add_argument("--sequence-length", type=int, default=20)
+    p.add_argument("--sequence-length-variation", type=float, default=0.0)
+    p.add_argument("--start-sequence-id", type=int, default=1)
+    p.add_argument("--sequence-id-range", type=int, default=2**32 - 1)
+    p.add_argument("--churn-soak", type=float, default=None,
+                   metavar="SECONDS",
+                   help="needs a --url replica list (not in the port yet)")
+    p.add_argument("-f", "--filename", default=None, help="CSV output path")
+    p.add_argument("--json-export", default=None,
+                   help="per-sweep-point JSON report path (the full "
+                        "record CSV columns cannot hold: all percentiles, "
+                        "per-tenant splits, server stats deltas)")
+    p.add_argument("--collect-metrics", action="store_true",
+                   help="scrape the server /metrics during measurement")
+    p.add_argument("--metrics-url", default=None,
+                   help="metrics endpoint (default: http://<url>/metrics)")
+    p.add_argument("--metrics-interval", type=float, default=1000.0,
+                   help="scrape interval in msec")
+    p.add_argument("--collect-local-gpu-metrics", action="store_true",
+                   help="also read this host's GPU memory gauges (used/"
+                        "total/peak, torch.cuda) each scrape — device "
+                        "telemetry when the server under test exposes no "
+                        "GPU metrics (requires colocation with the card "
+                        "and CUDA)")
+    p.add_argument("--probe-device-utilization", action="store_true",
+                   help="time a one-element add on a stream of its own "
+                        "on the local card each scrape (trusts nothing the "
+                        "server reports; requires colocation with the card) "
+                        "— its delay and the busy share of its samples, "
+                        "ctpu_probe_utilization_pct in the report/CSV.  "
+                        "Not a utilization figure: in the server's process "
+                        "it reads the running kernels' occupancy, from "
+                        "another process the GPU's context time slice")
+    # SSL/TLS (reference command_line_parser.h SSL option block; names
+    # match): not in the port yet, refused
+    p.add_argument("--ssl-grpc-use-ssl", action="store_true")
+    p.add_argument("--ssl-grpc-root-certifications-file", default=None)
+    p.add_argument("--ssl-grpc-private-key-file", default=None)
+    p.add_argument("--ssl-grpc-certificate-chain-file", default=None)
+    p.add_argument("--ssl-https-verify-peer", type=int, choices=[0, 1],
+                   default=1)
+    p.add_argument("--ssl-https-ca-certificates-file", default=None)
+    p.add_argument("--ssl-https-client-certificate-file", default=None)
+    p.add_argument("--ssl-https-private-key-file", default=None)
+    # trace control plane: pushed to the server before profiling (reference
+    # command_line_parser.h trace options → TraceSetting RPC)
+    p.add_argument("--trace-level", action="append", default=None,
+                   choices=["OFF", "TIMESTAMPS", "TENSORS"],
+                   help="may repeat; OFF clears")
+    p.add_argument("--trace-rate", type=int, default=None,
+                   help="trace 1 of every N requests")
+    p.add_argument("--trace-count", type=int, default=None,
+                   help="stop tracing after N traces (-1 = unlimited)")
+    p.add_argument("--log-frequency", type=int, default=None,
+                   help="flush the trace log every N traces")
+    p.add_argument("--world-size", type=int, default=1,
+                   help="coordinated perf ranks (above 1 is not in the port "
+                        "yet)")
+    p.add_argument("--rank", type=int, default=0)
+    p.add_argument("--rendezvous-addr", default="127.0.0.1:29400")
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+def _not_ported(args, urls):
+    """The first option given that the port does not have yet, or None
+    (the order of ROADMAP.md's queue)."""
+    ssl = (args.ssl_grpc_use_ssl or args.ssl_grpc_root_certifications_file
+           or args.ssl_grpc_private_key_file
+           or args.ssl_grpc_certificate_chain_file
+           or not args.ssl_https_verify_peer
+           or args.ssl_https_ca_certificates_file
+           or args.ssl_https_client_certificate_file
+           or args.ssl_https_private_key_file)
+    for name, given in (
+            ("-i http (the reference's HTTP client needs urllib3)",
+             args.protocol == "http"),
+            ("--async (a grpc.aio client)", args.async_mode),
+            ("--native-loadgen", args.native_loadgen),
+            (f"--service-kind {args.service_kind}",
+             args.service_kind != "triton"),
+            ("--world-size > 1 (the rendezvous barrier)",
+             args.world_size > 1),
+            ("a --url replica list (and --churn-soak)",
+             len(urls) > 1 or args.churn_soak is not None),
+            ("SSL (the --ssl-* options)", ssl)):
+        if given:
+            return name
+    return None
+
+
+def _device(args):
+    """The device the run's hermetic models, CUDA regions and probe use;
+    exits with a message where CUDA is implied and absent."""
+    try:
+        return resolve_device(args.device)
+    except RuntimeError as e:
+        sys.exit(f"error: {e} (here: --device cpu)")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    urls = [u.strip() for u in args.url.split(",") if u.strip()]
+    refused = _not_ported(args, urls)
+    if refused is not None:
+        sys.exit(f"error: {refused} is not in the port yet "
+                 "(queued in ROADMAP.md, Queue 1)")
+
+    shape_overrides = {}
+    for item in args.shape:
+        name, _, dims = item.partition(":")
+        shape_overrides[name] = [int(d) for d in dims.split(",")]
+
+    if args.speculative is not None:
+        if args.speculative < 1:
+            sys.exit("error: --speculative K must be >= 1")
+        if not args.hermetic:
+            sys.exit("error: --speculative configures the in-process LM "
+                     "engine; add --hermetic")
+
+    device = None
+    if (args.hermetic or args.shared_memory == "cuda"
+            or args.collect_local_gpu_metrics
+            or args.probe_device_utilization):
+        device = _device(args)
+
+    # the local device parts of --collect-metrics refuse to run without
+    # CUDA (the probe: unless --device cpu) before anything starts
+    probe = None
+    if ((args.collect_local_gpu_metrics or args.probe_device_utilization)
+            and not args.collect_metrics):
+        print("warning: --collect-local-gpu-metrics/"
+              "--probe-device-utilization have no effect without "
+              "--collect-metrics", file=sys.stderr)
+    if args.collect_metrics and args.hermetic:
+        print("warning: --collect-metrics needs a socket server; "
+              "ignored with --hermetic", file=sys.stderr)
+    elif args.collect_metrics:
+        try:
+            if args.collect_local_gpu_metrics:
+                local_device_snapshot()
+            if args.probe_device_utilization:
+                probe = DeviceUtilizationProbe(device=device)
+        except RuntimeError as e:
+            sys.exit(f"error: {e}")
+
+    engine = None
+    if args.hermetic:
+        from client_tpu_torch.serve import InferenceEngine
+        from client_tpu_torch.serve.models import model_sets
+
+        cache = None
+        if args.hermetic_cache_entries > 0:
+            from client_tpu_torch.serve.frontdoor import ResponseCache
+
+            cache = ResponseCache(max_entries=args.hermetic_cache_entries)
+        speculative = None
+        if args.speculative is not None:
+            speculative = {"k": args.speculative, "drafter": args.drafter}
+        engine = InferenceEngine(  # no sockets
+            model_sets(args.hermetic_models, device=device,
+                       speculative=speculative),
+            response_cache=cache,
+            coalescing=args.hermetic_cache_entries > 0,
+        )
+        kind = BackendKind.INPROCESS
+    else:
+        kind = BackendKind.TRITON_GRPC
+
+    def backend_factory():
+        return ClientBackendFactory.create(
+            kind, url=args.url, engine=engine, verbose=False
+        )
+
+    control = backend_factory()
+    try:
+        trace_settings = {}
+        if args.trace_level is not None:
+            trace_settings["trace_level"] = args.trace_level
+        if args.trace_rate is not None:
+            trace_settings["trace_rate"] = str(args.trace_rate)
+        if args.trace_count is not None:
+            trace_settings["trace_count"] = str(args.trace_count)
+        if args.log_frequency is not None:
+            trace_settings["log_frequency"] = str(args.log_frequency)
+        if trace_settings:
+            control.update_trace_settings(
+                model_name=args.model_name, settings=trace_settings
+            )
+            if args.verbose:
+                print(f"trace settings applied: {trace_settings}",
+                      file=sys.stderr)
+        parser_obj = ModelParser.create(
+            control, args.model_name, args.model_version,
+            batch_size=args.batch_size,
+        )
+        inputs_meta = parser_obj.inputs
+        outputs_meta = parser_obj.outputs
+        if parser_obj.requires_sequence_flags() and not args.sequence:
+            print(
+                f"note: model '{args.model_name}' uses the "
+                f"{parser_obj.scheduler_type} scheduler; consider --sequence",
+                file=sys.stderr,
+            )
+
+        loader = DataLoader(
+            inputs_meta, batch_size=args.batch_size,
+            shape_overrides=shape_overrides,
+        )
+        if args.prefix_share is not None:
+            if args.input_data not in (None, "random"):
+                sys.exit("error: --prefix-share generates its own prompt "
+                         "workload; drop --input-data")
+            loader.generate_prefix_share(
+                args.prefix_share, num_prompts=args.prefix_prompts,
+                shared_pool=args.prefix_pool,
+            )
+        elif args.input_data in (None, "random"):
+            loader.generate_data(string_length=args.string_length)
+        elif args.input_data == "zero":
+            loader.generate_data(zero_data=True,
+                                 string_length=args.string_length)
+        elif args.input_data.endswith(".json"):
+            loader.read_data_from_json(args.input_data)
+        else:
+            loader.read_data_from_dir(args.input_data)
+
+        data_manager = create_infer_data_manager(
+            control, loader, inputs_meta, outputs_meta,
+            shared_memory=args.shared_memory,
+            output_shm_byte_size=args.output_shared_memory_size,
+            device_id=args.cuda_device_id,
+            cuda_completion_sync=args.cuda_shm_sync,
+            device=device,
+        )
+        data_manager.init()
+
+        sequences = None
+        if args.sequence:
+            sequences = SequenceManager(
+                start_sequence_id=args.start_sequence_id,
+                sequence_id_range=args.sequence_id_range,
+                sequence_length=args.sequence_length,
+                sequence_length_variation=args.sequence_length_variation,
+                sequence_length_specified=True,
+                num_streams=loader.num_streams,
+            )
+
+        common = dict(
+            backend_factory=backend_factory,
+            data_loader=loader,
+            data_manager=data_manager,
+            model_name=args.model_name,
+            model_version=args.model_version,
+            sequence_manager=sequences,
+            max_threads=args.max_threads,
+            tenants=_parse_tenants(args.tenants),
+        )
+        latency_limit_us = args.latency_threshold * 1e3 or None
+
+        if args.request_intervals:
+            manager = CustomLoadManager(
+                intervals_file=args.request_intervals, **common
+            )
+        elif args.request_rate_range:
+            manager = RequestRateManager(
+                distribution=args.request_distribution, **common
+            )
+        else:
+            manager = ConcurrencyManager(**common)
+
+        metrics = None
+        if args.collect_metrics and not args.hermetic:
+            url = args.metrics_url or f"http://{args.url}/metrics"
+            metrics = MetricsManager(
+                url, interval_s=args.metrics_interval / 1e3,
+                include_local_devices=args.collect_local_gpu_metrics,
+                utilization_probe=probe,
+            ).start()
+
+        profiler = InferenceProfiler(
+            manager,
+            backend=control,
+            measurement_window_s=args.measurement_interval / 1e3,
+            max_trials=args.max_trials,
+            stability_threshold=args.stability_percentage / 100.0,
+            percentile=args.percentile,
+            verbose=args.verbose,
+            metrics_manager=metrics,
+            measurement_mode=args.measurement_mode,
+            measurement_request_count=args.measurement_request_count,
+        )
+        if engine is not None:
+            # hermetic runs read the LM engine's prefix and speculative
+            # counters straight from the in-process registry as deltas a
+            # level; socket runs have no per-level counter deltas to offer
+            registry = engine.metrics
+
+            def count(name):
+                return int(registry.get(name) or 0)
+
+            if args.prefix_share is not None:
+                profiler.prefix_probe = lambda: {
+                    "hits": count("ctpu_lm_prefix_hits_total"),
+                    "misses": count("ctpu_lm_prefix_misses_total"),
+                    "prefill_tokens": count("ctpu_lm_prefill_tokens_total"),
+                    "saved_tokens": count(
+                        "ctpu_lm_prefill_tokens_saved_total"
+                    ),
+                }
+            if args.speculative is not None:
+                # delivered = accepted + one correction per verify
+                profiler.spec_probe = lambda: {
+                    "proposed": count("ctpu_lm_spec_proposed_tokens_total"),
+                    "accepted": count("ctpu_lm_spec_accepted_tokens_total"),
+                    "lm_tokens": count("ctpu_lm_tokens_total"),
+                }
+
+        json_extra = {}
+        try:
+            if args.request_intervals:
+                manager.start()
+                results = [profiler.profile_level("custom_intervals", 0)]
+            elif args.request_rate_range:
+                start, end, step = _parse_range(args.request_rate_range, float)
+                if args.binary_search and latency_limit_us:
+                    # SLO-seeking capacity search: max sustainable QPS
+                    # under the latency limit (open-loop arrivals)
+                    results, best = profiler.profile_request_rate_binary(
+                        start, end, latency_limit_us,
+                        resolution=step if len(
+                            args.request_rate_range.split(":")) > 2 else None,
+                    )
+                    # the search's verdict rides the JSON export
+                    json_extra["slo_search"] = {
+                        "latency_limit_us": latency_limit_us,
+                        "percentile": args.percentile,
+                        "best_request_rate": (
+                            None if best is None else best.level_value
+                        ),
+                        "best_throughput_infer_per_sec": (
+                            None if best is None else best.throughput
+                        ),
+                    }
+                    if best is not None:
+                        print(
+                            f"Max sustainable rate under SLO: "
+                            f"{best.level_value} req/s "
+                            f"({best.throughput:.1f} infer/sec)"
+                        )
+                    else:
+                        print("SLO violated at every probed rate")
+                else:
+                    results = profiler.profile_request_rate_range(
+                        start, end, step, latency_limit_us
+                    )
+            else:
+                start, end, step = _parse_range(
+                    args.concurrency_range or "1", int
+                )
+                if args.binary_search and latency_limit_us:
+                    results, _ = profiler.profile_concurrency_binary(
+                        start, end, latency_limit_us
+                    )
+                else:
+                    results = profiler.profile_concurrency_range(
+                        start, end, step, latency_limit_us
+                    )
+        finally:
+            manager.cleanup()
+            if metrics is not None:
+                metrics.stop()
+
+        print_summary(results, percentile=args.percentile)
+        # every request of the run, windows or not: what the server's
+        # statistics count
+        completed, failed = manager.request_totals()
+        json_extra["requests"] = {"completed": completed, "failed": failed}
+        print(f"Requests: {completed} completed, {failed} failed")
+        if args.filename:
+            write_csv(args.filename, results, verbose=args.verbose)
+            print(f"wrote {args.filename}")
+        if args.json_export:
+            write_json(args.json_export, results, extra=json_extra)
+            print(f"wrote {args.json_export}")
+        return 0 if results and all(r.error_count == 0 for r in results) else 1
+    except InferenceServerException as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    finally:
+        try:
+            control.close()
+        except Exception:
+            pass
+        if engine is not None:
+            engine.close()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,14 +1,27 @@
-"""Circuit breakers and connection-level error classification.
+"""Circuit breakers, retry policies and connection-level error
+classification.
 
-Counterpart of the breaker half of client_tpu/resilience.py:
+Counterpart of client_tpu/resilience.py less its failover half (the
+replica-set router's ``call_with_failover``) and its asyncio twins:
 :class:`CircuitBreaker` (per-endpoint closed -> open -> half-open),
 :class:`CircuitBreakerRegistry`, :class:`CircuitOpenError`,
-:func:`is_connection_error` and :func:`is_connection_level`, copied from
-the reference onto the port's own ``InferenceServerException``.  The
-fleet tier (serve/fleet.py) puts every peer behind one breaker, and the
-server's coalescer tells a dead leader's transport error from an
-answered one with :func:`is_connection_level`.  The retry, deadline and
-failover policies stay with the JAX package's clients.
+:func:`is_connection_error` and :func:`is_connection_level`, and the
+retry half the gRPC client (client_tpu_torch/grpc) routes its unary
+calls through: :func:`combine_timeouts`, :class:`Deadline`,
+:class:`RetryPolicy`, :func:`backoff_delays` and :func:`call_with_retry`,
+copied from the reference onto the port's own
+``InferenceServerException``.  The fleet tier (serve/fleet.py) puts
+every peer behind one breaker, and the server's coalescer tells a dead
+leader's transport error from an answered one with
+:func:`is_connection_level`.
+
+**Retry**: exponential backoff with full jitter (attempt ``k`` sleeps
+``uniform(0, min(max_backoff, initial * multiplier**k))``); connection
+failures and overload statuses (HTTP 429/503, gRPC
+``UNAVAILABLE``/``RESOURCE_EXHAUSTED``/``DEADLINE_EXCEEDED``) retry,
+application errors never do; a server's Retry-After hint overrides the
+backoff, capped at ``max_backoff_s``; one :class:`Deadline` caps the
+total wall time across attempts.
 
 **Circuit breaker**: per-endpoint closed -> open -> half-open.  After
 ``failure_threshold`` consecutive failures the breaker opens and calls
@@ -21,18 +34,42 @@ All deadlines are computed from ``time.monotonic()``.
 
 import asyncio
 import collections
+import random
 import threading
 import time
 
 from client_tpu_torch.utils import InferenceServerException
 
 __all__ = [
+    "RetryPolicy",
+    "Deadline",
     "CircuitBreaker",
     "CircuitBreakerRegistry",
     "CircuitOpenError",
+    "call_with_retry",
     "is_connection_error",
     "is_connection_level",
+    "backoff_delays",
+    "combine_timeouts",
 ]
+
+
+def combine_timeouts(a, b):
+    """Tighter of two optional timeouts in seconds (None = unbounded)."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return min(a, b)
+
+
+# Overload / transient statuses worth retrying.  HTTP codes arrive as
+# decimal strings; gRPC codes as StatusCode names.  DEADLINE_EXCEEDED is
+# the gRPC spelling of a per-attempt timeout: retryable, with the attempt
+# budget and the policy Deadline bounding the total spend.
+RETRYABLE_STATUSES = frozenset(
+    {"429", "503", "UNAVAILABLE", "RESOURCE_EXHAUSTED", "DEADLINE_EXCEEDED"}
+)
 
 
 # Transport exception types whose module marks them as connection-level.
@@ -80,6 +117,34 @@ class CircuitOpenError(InferenceServerException):
 
     def __init__(self, msg):
         super().__init__(msg=msg, status="503")
+
+
+class Deadline:
+    """A monotonic wall-time budget shared across retry attempts.
+
+    ``remaining()`` is what is left; ``attempt_timeout(cap)`` derives one
+    attempt's transport timeout (never exceeding the budget, optionally
+    capped by the caller's own per-try timeout).
+    """
+
+    def __init__(self, budget_s):
+        if budget_s is None or budget_s <= 0:
+            raise ValueError(f"deadline budget must be positive, got {budget_s!r}")
+        self.budget_s = float(budget_s)
+        self._expires = time.monotonic() + self.budget_s
+
+    def remaining(self):
+        return self._expires - time.monotonic()
+
+    def expired(self):
+        return self.remaining() <= 0
+
+    def attempt_timeout(self, cap=None):
+        """Per-attempt transport timeout from the remaining budget."""
+        remaining = max(self.remaining(), 0.0)
+        if cap is not None:
+            return min(remaining, cap)
+        return remaining
 
 
 def _notify(observer, method, *args):
@@ -313,3 +378,171 @@ class CircuitBreakerRegistry:
         with self._lock:
             breakers = dict(self._breakers)
         return {endpoint: b.state for endpoint, b in breakers.items()}
+
+
+class RetryPolicy:
+    """Retry/backoff/deadline policy for one client's unary calls.
+
+    Parameters
+    ----------
+    max_attempts : total tries including the first (1 = no retry).
+    initial_backoff_s, backoff_multiplier, max_backoff_s : the exponential
+        schedule jittered by ``jitter``.
+    jitter : True for full jitter (uniform(0, delay)); False for the bare
+        exponential (deterministic — useful in tests).
+    retryable_statuses : status strings (HTTP codes / gRPC code names)
+        classified retryable in addition to connection errors.
+    deadline_s : total wall-time budget across attempts (None = unbounded).
+    circuit_breaker : optional CircuitBreaker shared by calls through this
+        policy.
+    observer : optional hook object; any subset of ``on_backoff(attempt,
+        delay_s, exc)`` (a retry is about to sleep), ``on_giveup(attempt,
+        exc)`` (the policy stopped retrying), and ``on_success(attempt)``
+        is called — best-effort, never on the raising path's stack state.
+    """
+
+    def __init__(
+        self,
+        max_attempts=4,
+        initial_backoff_s=0.05,
+        backoff_multiplier=2.0,
+        max_backoff_s=2.0,
+        jitter=True,
+        retryable_statuses=RETRYABLE_STATUSES,
+        deadline_s=None,
+        circuit_breaker=None,
+        rng=None,
+        observer=None,
+    ):
+        if max_attempts < 1:
+            raise ValueError(f"max_attempts must be >= 1, got {max_attempts}")
+        self.max_attempts = int(max_attempts)
+        self.initial_backoff_s = float(initial_backoff_s)
+        self.backoff_multiplier = float(backoff_multiplier)
+        self.max_backoff_s = float(max_backoff_s)
+        self.jitter = bool(jitter)
+        self.retryable_statuses = frozenset(retryable_statuses)
+        self.deadline_s = deadline_s
+        self.circuit_breaker = circuit_breaker
+        self.observer = observer
+        self._rng = rng or random.Random()
+
+    # -- classification ----------------------------------------------------
+
+    def retryable(self, exc):
+        """Whether one failed attempt is worth retrying."""
+        if isinstance(exc, CircuitOpenError):
+            return False  # fast-fail is the point; do not spin on the breaker
+        if isinstance(exc, InferenceServerException):
+            status = exc.status()
+            if status is not None:
+                return str(status) in self.retryable_statuses
+        return is_connection_level(exc)
+
+    # -- schedule ----------------------------------------------------------
+
+    def backoff_s(self, attempt):
+        """Sleep before retry number *attempt* (0-based)."""
+        delay = min(
+            self.max_backoff_s,
+            self.initial_backoff_s * (self.backoff_multiplier ** attempt),
+        )
+        if self.jitter:
+            delay = self._rng.uniform(0.0, delay)
+        return delay
+
+    def delay_for(self, exc, attempt):
+        """Backoff for this retry, honoring the server's Retry-After hint
+        (capped at max_backoff_s — a bad hint must not park the client)."""
+        hint = getattr(exc, "retry_after_s", None)
+        if hint is not None:
+            try:
+                return min(float(hint), self.max_backoff_s)
+            except (TypeError, ValueError):
+                pass
+        return self.backoff_s(attempt)
+
+    def new_deadline(self):
+        return Deadline(self.deadline_s) if self.deadline_s else None
+
+
+def backoff_delays(initial_s=0.05, multiplier=2.0, max_s=2.0, rng=None):
+    """Infinite generator of full-jitter exponential delays.
+
+    The reusable loop shape for ad-hoc retry sites (e.g. the perf
+    rendezvous connect loop) that don't need the full policy object.
+    """
+    rng = rng or random.Random()
+    delay = initial_s
+    while True:
+        yield rng.uniform(0.0, delay)
+        delay = min(delay * multiplier, max_s)
+
+
+def _record_outcome(breaker, retryable):
+    """Breaker accounting for one failed attempt: only transport/overload
+    failures count against the circuit.  A non-retryable application error
+    (bad input, unknown model) means the endpoint answered — that is
+    evidence of health, and must not open the circuit against a healthy
+    server (or strand a half-open probe)."""
+    if breaker is None:
+        return
+    if retryable:
+        breaker.record_failure()
+    else:
+        breaker.record_success()
+
+
+def _next_step(policy, deadline, exc, attempt, retryable):
+    """Shared retry decision: returns the backoff sleep, or raises *exc*
+    when the classification, attempt budget, or deadline budget says stop."""
+    if not retryable or attempt + 1 >= policy.max_attempts:
+        _notify(policy.observer, "on_giveup", attempt, exc)
+        raise exc
+    delay = policy.delay_for(exc, attempt)
+    if deadline is not None:
+        remaining = deadline.remaining()
+        # a backoff that would outlive the budget is a guaranteed-dead
+        # retry: surface the real error now instead of sleeping into it
+        if remaining <= 0 or delay >= remaining:
+            _notify(policy.observer, "on_giveup", attempt, exc)
+            raise exc
+    _notify(policy.observer, "on_backoff", attempt, delay, exc)
+    return delay
+
+
+def call_with_retry(fn, policy):
+    """Run ``fn(attempt_timeout_s_or_None)`` under *policy* (sync).
+
+    *fn* receives the per-attempt transport timeout derived from the
+    policy's deadline (None when the policy has no deadline) and must raise
+    on failure — including application-level retryable statuses the caller
+    wants retried (e.g. an HTTP 503 response mapped to an exception).
+    """
+    deadline = policy.new_deadline()
+    breaker = policy.circuit_breaker
+    attempt = 0
+    while True:
+        if breaker is not None:
+            breaker.before_attempt()
+        try:
+            result = fn(deadline.attempt_timeout() if deadline else None)
+        except CircuitOpenError:
+            raise
+        except Exception as exc:
+            retryable = policy.retryable(exc)
+            _record_outcome(breaker, retryable)
+            if breaker is not None and breaker.state == CircuitBreaker.OPEN:
+                # this failure opened (or re-opened) the circuit: further
+                # retries would only fast-fail after a pointless backoff —
+                # surface the real error now
+                _notify(policy.observer, "on_giveup", attempt, exc)
+                raise
+            delay = _next_step(policy, deadline, exc, attempt, retryable)
+            attempt += 1
+            time.sleep(delay)
+        else:
+            if breaker is not None:
+                breaker.record_success()
+            _notify(policy.observer, "on_success", attempt)
+            return result

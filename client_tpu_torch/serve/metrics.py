@@ -30,15 +30,7 @@ import time
 
 import torch
 
-
-def escape_label(value):
-    """Escape a Prometheus label value (backslash, quote, newline)."""
-    return (
-        str(value)
-        .replace("\\", "\\\\")
-        .replace('"', '\\"')
-        .replace("\n", "\\n")
-    )
+from client_tpu_torch.utils import escape_label
 
 
 # Request/queue duration buckets (microseconds) and batch-size buckets.

@@ -27,10 +27,10 @@ def resnet_models(device=None):
     return [resnet50_model(device=device)]
 
 
-def language_models(device=None):
+def language_models(device=None, speculative=None):
     from client_tpu_torch.serve.models.language import language_models as _lm
 
-    return _lm(device=device)
+    return _lm(device=device, speculative=speculative)
 
 
 def pipeline_models(device=None, warmup=False):
@@ -47,17 +47,21 @@ def pipeline_models(device=None, warmup=False):
     )
 
 
-def model_sets(names, device=None):
+def model_sets(names, device=None, speculative=None):
     """Resolve a comma-separated set list
     (builtin,jax,resnet,language,pipeline); the models run on *device*
-    (``cuda`` unless the caller says otherwise)."""
+    (``cuda`` unless the caller says otherwise).  ``speculative`` (a
+    SpecConfig-shaped dict) applies to the ``language`` set's batched
+    engines only — perf's ``--speculative K --drafter ngram`` threads
+    through here."""
     from client_tpu_torch.serve.builtins import default_models
 
     loaders = {
         "builtin": default_models,
         "jax": jax_models,
         "resnet": resnet_models,
-        "language": language_models,
+        "language": lambda device: language_models(
+            device=device, speculative=speculative),
         "pipeline": pipeline_models,
     }
     models = []

@@ -31,13 +31,38 @@ __all__ = [
     "from_wire_bytes",
     "tensor_raw_bytes",
     "tensor_from_raw",
+    "escape_label",
+    "serialized_byte_size",
+    "SERVER_READY",
+    "SERVER_NOT_READY",
+    "SERVER_UNREACHABLE",
     "TENANT_HEADER",
+    "stamp_tenant",
 ]
 
 # The wire key tenant identity rides on (HTTP header name / gRPC metadata
 # key).  Lives here, not in serve/frontdoor, because both sides speak it:
 # the serving front door reads it and the clients stamp it.
 TENANT_HEADER = "x-tenant-id"
+
+
+def stamp_tenant(headers, tenant):
+    """Merge a client's tenant identity into *headers* for one request
+    (an explicitly passed x-tenant-id, any case, wins)."""
+    if tenant is None:
+        return headers
+    if headers and any(k.lower() == TENANT_HEADER for k in headers):
+        return headers
+    merged = dict(headers or {})
+    merged[TENANT_HEADER] = tenant
+    return merged
+
+
+# Server health states reported by the client's ``server_state()`` verb:
+# a draining server answers not-ready, a dead one never answers.
+SERVER_READY = "READY"
+SERVER_NOT_READY = "NOT_READY"
+SERVER_UNREACHABLE = "UNREACHABLE"
 
 
 class InferenceServerException(Exception):
@@ -71,6 +96,17 @@ class InferenceServerException(Exception):
 def raise_error(msg):
     """Raise an InferenceServerException with *msg* and no status."""
     raise InferenceServerException(msg=msg)
+
+
+def escape_label(value):
+    """Escape a Prometheus label value (backslash, quote, newline): the
+    server's /metrics renderer and the perf scraper share it."""
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
 
 
 # KServe-v2 datatype string <-> numpy dtype tables (the protocol's names)
@@ -175,6 +211,16 @@ def deserialize_bf16_tensor(encoded_tensor):
     """Inverse of serialize_bf16_tensor -> 1-D float32 array (exact)."""
     words = np.frombuffer(bytes(encoded_tensor), dtype="<u2").astype(np.uint32)
     return (words << 16).view(np.float32)
+
+
+def serialized_byte_size(np_array):
+    """Wire size in bytes of *np_array* (length-prefixed accounting for BYTES)."""
+    if np_array.dtype == np.object_ or np_array.dtype.type in (np.bytes_, np.str_):
+        total = 0
+        for b in _iter_elements_as_bytes(np_array):
+            total += 4 + len(b)
+        return total
+    return np_array.nbytes
 
 
 def to_wire_bytes(array, datatype):

@@ -56,7 +56,13 @@ def test_port_sources_exist():
             "client_tpu_torch/serve/fleet.py",
             "client_tpu_torch/serve/autoscale.py",
             "client_tpu_torch/resilience.py",
-            "client_tpu_torch/perf/rendezvous.py"} <= paths
+            "client_tpu_torch/perf/rendezvous.py",
+            # perf_analyzer and the gRPC client it drives
+            "client_tpu_torch/grpc/__init__.py",
+            "client_tpu_torch/perf/__main__.py",
+            "client_tpu_torch/perf/client_backend.py",
+            "client_tpu_torch/perf/infer_data.py",
+            "client_tpu_torch/perf/metrics_manager.py"} <= paths
 
 
 def test_build_compiles_every_kernel_source():
@@ -335,9 +341,10 @@ def test_paged_attention_wrapper_never_falls_back(no_cuda, monkeypatch):
 # -- the card has no grpcio and no protobuf -----------------------------------
 
 # only these import grpc or google.protobuf; everything else must import on
-# a machine without them (the card's)
+# a machine without them
 GRPC_MODULES = ("client_tpu_torch.serve.grpc_server",
-                "client_tpu_torch._grpc_service", "client_tpu_torch._proto")
+                "client_tpu_torch._grpc_service", "client_tpu_torch._proto",
+                "client_tpu_torch._grpc_infer", "client_tpu_torch.grpc")
 
 _BLOCK_GRPC = '''
 import importlib.abc, sys
@@ -437,3 +444,28 @@ print(json.dumps({
 ''')
     assert got == {"refused": "grpc", "http_address": None,
                    "new_threads": [], "new_sockets": 0}
+
+
+def test_perf_and_grpc_client_import_no_jax_client_tpu_or_urllib3():
+    """In a fresh interpreter, importing the port's perf harness (its CLI
+    module too) and gRPC client loads neither jax, nor any module of
+    client_tpu, nor urllib3 (the reference's HTTP client needs it and the
+    card has none)."""
+    import json
+    import subprocess
+    import sys
+
+    src = f"""
+import json, sys
+sys.path.insert(0, {str(ROOT)!r})
+import client_tpu_torch.perf, client_tpu_torch.perf.__main__
+import client_tpu_torch.grpc
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "client_tpu",
+                                       "urllib3"))
+print(json.dumps(loaded))
+"""
+    out = subprocess.run([sys.executable, "-c", src], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
