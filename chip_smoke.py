@@ -16,7 +16,9 @@ gRPC frontend (and checks its clean refusal where grpcio is absent), and
 times the kernels, the serial decode, the engine, the train step and the
 vision models, then runs the port's perf_analyzer in process over the LM
 engines and over gRPC against ResNet-50 from wire, system and CUDA
-shared-memory inputs.
+shared-memory inputs, and last holds ResNet-50's direct path (requests
+the server does not batch) to the batcher's captured graphs and runs
+perf_analyzer over HTTP through the port's own HTTP client.
 
     python3 chip_smoke.py
 
@@ -268,7 +270,8 @@ Phases, one line each or more; any failure exits non-zero:
                 streams and MoE training, launches_fleet: phase 18's
                 replicas, launches_ring_flash and launches_ring_2rank:
                 phase 19's, launches_grpc: phase 21's, launches_perf:
-                phase 22's in-process legs), its route's own
+                phase 22's in-process legs, launches_http: phase 23's
+                -i http LM leg), its route's own
                 error (phase 3, 7 or 10) and its times (phase 6, 9 or 12)
  21 grpc        the gRPC frontend (runs before phase 20's line; needs
                 grpcio).  The language set behind Server(grpc_port=0),
@@ -313,6 +316,40 @@ Phases, one line each or more; any failure exits non-zero:
                 this process it reads the kernels' occupancy, recorded
                 and not checked).  Every leg prints infer/s, p50/p99 and the
                 harness's JSON export record
+ 23 http        the direct path and perf_analyzer over HTTP (runs after
+                phase 22, before phase 20's line): ResNet-50 (warmup: a
+                graph a bucket) and the language set behind one
+                Server(grpc_port=0).  (a) Host requests through the port's
+                HTTP client (client_tpu_torch.http) whose output lies in a
+                system region, which the server does not batch: 8 each on
+                a new connection (a new server thread), 8 on one kept
+                connection, one of 3 rows, one with a request parameter,
+                one whose input lies in a CUDA region on the card and
+                that carries a parameter (the program's device route);
+                each must replay the batcher's bucket graph
+                (direct_runs, one a request) and run no eager forward
+                (model.fn counted from after the capture), launch none of
+                the hand-written kernels, and equal the same images'
+                answer through the batcher bit for bit; the server's
+                compute ms of each request on a new thread and on the kept
+                one.  (b) Phase 22's ResNet-50 wire and system-region legs
+                over gRPC again, at concurrency 1 and 8, side by side;
+                then both at once, each at concurrency 8 in a process of
+                its own (the system-region clients on request threads,
+                the wire clients on the batcher thread, sharing each
+                program's lock): the wire leg's p50/p99 and infer/s beside
+                its solo run, the server's successes equal to the two
+                clients' counts, the system leg still running when the
+                wire leg ends.
+                (c) python -m client_tpu_torch.perf -i http subprocesses
+                against ResNet-50 with --shared-memory none, system and
+                cuda, and against lm_streaming_int8 with MAX_TOKENS 1 (a
+                decoupled model answers over HTTP with one response): the
+                server's success count equals the client's, no failure,
+                the gauges in the export, the CUDA regions opened over
+                IPC; the LM leg's launch counts reset just before its
+                client starts and read just after it exits must hold
+                int8 and paged attention (launches_http in phase 20)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -4094,13 +4131,108 @@ def perf_delays(idle, busy):
             "busy_share": float(np.mean([b for _, b in busy]))}
 
 
+def perf_argv(server, protocol, model, shm, out, levels="1:8:7",
+              window_ms=PERF_WINDOW_MS["socket"], extra=()):
+    """The argv of one ``python -m client_tpu_torch.perf -i <protocol>``
+    run against *model* behind *server*, exporting JSON to *out*."""
+    addr = server.grpc_address if protocol == "grpc" else server.http_address
+    return [sys.executable, "-m", "client_tpu_torch.perf",
+            "-i", protocol, "-m", model, "-u", addr,
+            "--shared-memory", shm,
+            "--output-shared-memory-size", "4000",
+            "--concurrency-range", levels,
+            "--measurement-interval", str(window_ms),
+            "--max-trials", str(PERF_TRIALS), "-s", PERF_STABILITY,
+            "--collect-metrics", "--metrics-interval", "100",
+            "--metrics-url", f"http://{server.http_address}/metrics",
+            "--collect-local-gpu-metrics",
+            "--probe-device-utilization", "--json-export", out, *extra]
+
+
+def success_counts(server, model):
+    """The server's (success, fail) counts of *model*."""
+    stats = server.engine.statistics(model)[0]["inference_stats"]
+    return stats["success"]["count"], stats["fail"]["count"]
+
+
+def perf_socket_leg(server, tmp, protocol, model, shm, sync=False,
+                    extra=(), env=None):
+    """One ``python -m client_tpu_torch.perf -i <protocol>`` subprocess
+    against *model* behind this process's *server*, at concurrency 1 and
+    8, with --collect-metrics --collect-local-gpu-metrics
+    --probe-device-utilization: the server's success count must equal the
+    client's count of the run, with no failure on either side, the gauges
+    in every record and, from CUDA regions, the regions seen over
+    CudaSharedMemoryStatus and opened over CUDA IPC.  Returns (leg, JSON
+    export, the server's successes, the CUDA regions, seconds)."""
+    from client_tpu_torch import grpc as grpcclient
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    leg = f"{model} {protocol} {shm}" + (" --cuda-shm-sync" if sync else "")
+    out = os.path.join(tmp, f"socket_{protocol}_{model}_{shm}_{int(sync)}"
+                            ".json")
+    argv = perf_argv(server, protocol, model, shm, out, extra=extra)
+    if sync:
+        argv.append("--cuda-shm-sync")
+
+    def counts():
+        return success_counts(server, model)
+
+    seen, opened, stop = set(), {}, threading.Event()
+
+    def poll():
+        with grpcclient.InferenceServerClient(server.grpc_address) as c:
+            while not stop.is_set():
+                status = c.get_cuda_shared_memory_status(as_json=True)
+                seen.update(status.get("regions", {}))
+                for name, entry in list(server.engine.shm._cuda.items()):
+                    opened[name] = entry["opened"]
+                stop.wait(0.05)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    before = counts()
+    t0 = time.monotonic()
+    poller.start()
+    try:
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=300, env=env or {
+                                  **os.environ, "PYTHONPATH": here},
+                              cwd=here)
+    finally:
+        stop.set()
+        poller.join(timeout=30)
+    seconds = time.monotonic() - t0
+    check(proc.returncode == 0,
+          f"{leg} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    after = counts()
+    with open(out) as f:
+        doc = json.load(f)
+    served = after[0] - before[0]
+    check(doc["requests"] == {"completed": served, "failed": 0}
+          and after[1] == before[1],
+          f"{leg}: the client counted {doc['requests']}, the server "
+          f"{served} successes and {after[1] - before[1]} failures")
+    for r in doc["results"]:
+        missing = [g for g in PERF_GAUGES if g not in r["tpu_metrics"]]
+        check(not missing and r["error_count"] == 0
+              and r["completed_requests"] > 0,
+              f"{leg} at {r['level_value']}: gauges {missing} "
+              f"missing, {r['error_count']} failed, "
+              f"{r['completed_requests']} completed")
+    regions = sorted(n for n in seen if n.startswith("perf_cudashm"))
+    if shm == "cuda":
+        check(regions and all(opened.get(n) for n in regions),
+              f"{leg}: regions {regions} seen over "
+              f"CudaSharedMemoryStatus, opened over IPC: {opened}")
+    return leg, doc, served, regions, seconds
+
+
 def perf_socket_legs(card, tmp):
     """Phase 22b: ``python -m client_tpu_torch.perf -i grpc`` subprocesses
     against ResNet-50 behind this process's Server, wire, system and CUDA
     regions; a CUDA-region answer against the wire's; the probe calibrated
     in this process and from another."""
     from client_tpu_torch import ops
-    from client_tpu_torch import grpc as grpcclient
     from client_tpu_torch.perf.metrics_manager import DeviceUtilizationProbe
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import vision
@@ -4112,71 +4244,9 @@ def perf_socket_legs(card, tmp):
     with Server(models=[model], http_port=0, grpc_port=0,
                 with_default_models=False) as server:
         addr = server.grpc_address
-
-        def counts():
-            stats = server.engine.statistics("resnet50")[0]["inference_stats"]
-            return stats["success"]["count"], stats["fail"]["count"]
-
         for shm, sync in PERF_SHM_LEGS:
-            leg = f"resnet50 grpc {shm}" + (" --cuda-shm-sync" if sync
-                                            else "")
-            out = os.path.join(tmp, f"socket_{shm}_{int(sync)}.json")
-            argv = [sys.executable, "-m", "client_tpu_torch.perf",
-                    "-i", "grpc", "-m", "resnet50", "-u", addr,
-                    "--shared-memory", shm,
-                    "--output-shared-memory-size", "4000",
-                    "--concurrency-range", "1:8:7",
-                    "--measurement-interval", str(PERF_WINDOW_MS["socket"]),
-                    "--max-trials", str(PERF_TRIALS), "-s", PERF_STABILITY,
-                    "--collect-metrics", "--metrics-interval", "100",
-                    "--metrics-url", f"http://{server.http_address}/metrics",
-                    "--collect-local-gpu-metrics",
-                    "--probe-device-utilization", "--json-export", out]
-            if sync:
-                argv.append("--cuda-shm-sync")
-            seen, opened, stop = set(), {}, threading.Event()
-
-            def poll():
-                with grpcclient.InferenceServerClient(addr) as c:
-                    while not stop.is_set():
-                        status = c.get_cuda_shared_memory_status(as_json=True)
-                        seen.update(status.get("regions", {}))
-                        for name, entry in list(
-                                server.engine.shm._cuda.items()):
-                            opened[name] = entry["opened"]
-                        stop.wait(0.05)
-
-            poller = threading.Thread(target=poll, daemon=True)
-            before = counts()
-            t0 = time.monotonic()
-            poller.start()
-            try:
-                proc = subprocess.run(argv, capture_output=True, text=True,
-                                      timeout=300, env=env, cwd=here)
-            finally:
-                stop.set()
-                poller.join(timeout=30)
-            seconds = time.monotonic() - t0
-            check(proc.returncode == 0,
-                  f"{leg} exited {proc.returncode}: {proc.stderr[-3000:]}")
-            after = counts()
-            with open(out) as f:
-                doc = json.load(f)
-            served = after[0] - before[0]
-            check(doc["requests"] == {"completed": served, "failed": 0}
-                  and after[1] == before[1],
-                  f"{leg}: the client counted {doc['requests']}, the server "
-                  f"{served} successes and {after[1] - before[1]} failures")
-            for r in doc["results"]:
-                missing = [g for g in PERF_GAUGES if g not in r["tpu_metrics"]]
-                check(not missing and r["error_count"] == 0,
-                      f"{leg} at {r['level_value']}: gauges {missing} "
-                      f"missing, {r['error_count']} failed")
-            regions = sorted(n for n in seen if n.startswith("perf_cudashm"))
-            if shm == "cuda":
-                check(regions and all(opened.get(n) for n in regions),
-                      f"{leg}: regions {regions} seen over "
-                      f"CudaSharedMemoryStatus, opened over IPC: {opened}")
+            leg, doc, served, regions, seconds = perf_socket_leg(
+                server, tmp, "grpc", "resnet50", shm, sync, env=env)
             phase(22, "perf_grpc", leg=leg, levels=perf_levels(doc),
                   requests=doc["requests"], server_successes=served,
                   cuda_regions_opened_over_ipc=regions,
@@ -4249,6 +4319,322 @@ def perf_phase(card):
         shutil.rmtree(tmp, ignore_errors=True)
     phase(22, "perf_done", launches=launches, launches_by_route=routes,
           seconds=time.monotonic() - t0, **card)
+    return launches, routes
+
+
+# -- the direct path and perf_analyzer over HTTP (phase 23) -------------------
+
+DIRECT_FRESH = 8  # direct requests, each on a new connection: a new thread
+DIRECT_WARM = 8   # then on one kept connection: one thread, warm
+DIRECT_ROWS = 3   # the rows of one multi-row direct request
+HTTP_SHM_LEGS = ("none", "system", "cuda")
+HTTP_LM = "lm_streaming_int8"  # the LM leg's model: int8 and paged kernels
+
+
+def direct_requests(server, model, images):
+    """Phase 23a's requests to *model* (ResNet-50) behind *server*, through
+    the port's HTTP client: host requests whose output lies in a system
+    region (not batched: the direct path), each of DIRECT_FRESH on a
+    new connection (a server thread's first request), DIRECT_WARM on one
+    kept connection, one of DIRECT_ROWS rows, one wire request with a
+    request parameter and one whose input lies in a CUDA region on the
+    card and that carries a parameter (both the direct path, the second
+    through the program's device route); then the same images as wire
+    requests without parameters, which the batcher takes.  Returns
+    (direct answers, batched answers, (fresh ms, warm ms), the CUDA-input
+    request's direct_runs): the answers keyed alike; the server's compute
+    ms of each single-image direct request on a new thread and on the
+    kept one."""
+    from client_tpu_torch import http as httpclient
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+    from client_tpu_torch.utils import shared_memory as sysshm
+
+    tag = f"direct_{os.getpid()}"
+    out_bytes = DIRECT_ROWS * 4000
+    region = sysshm.create_shared_memory_region(tag, f"/{tag}", out_bytes)
+
+    def compute_ns():
+        stats = server.engine.statistics(model)[0]["inference_stats"]
+        return stats["compute_infer"]["ns"]
+
+    def shm_infer(c, x):
+        inp = httpclient.InferInput("INPUT0", list(x.shape), "FP32")
+        inp.set_data_from_numpy(x)
+        out = httpclient.InferRequestedOutput("OUTPUT0")
+        out.set_shared_memory(tag, x.shape[0] * 4000)
+        before = compute_ns()
+        c.infer(model, [inp], outputs=[out])
+        ms = (compute_ns() - before) / 1e6
+        return sysshm.get_contents_as_numpy(
+            region, "FP32", [x.shape[0], 1000]).copy(), ms
+
+    def wire_infer(c, x, **kw):
+        inp = httpclient.InferInput("INPUT0", list(x.shape), "FP32")
+        inp.set_data_from_numpy(x)
+        return c.infer(model, [inp], **kw).as_numpy("OUTPUT0")
+
+    k = DIRECT_FRESH + DIRECT_WARM
+    inputs = {i: images[i:i + 1] for i in range(k)}
+    inputs["rows"] = images[k:k + DIRECT_ROWS]
+    inputs["param"] = images[:1]
+    inputs["cuda_param"] = images[1:2]
+    batcher = server.engine._batchers[model]
+    direct, fresh, warm = {}, [], []
+    addr = server.http_address
+    try:
+        with httpclient.InferenceServerClient(addr) as c:
+            c.register_system_shared_memory(tag, f"/{tag}", out_bytes)
+        for i in range(DIRECT_FRESH):
+            with httpclient.InferenceServerClient(addr) as c:
+                direct[i], ms = shm_infer(c, inputs[i])
+                fresh.append(ms)
+        with httpclient.InferenceServerClient(addr) as c:
+            for i in range(DIRECT_FRESH, k):
+                direct[i], ms = shm_infer(c, inputs[i])
+                warm.append(ms)
+            direct["rows"], _ = shm_infer(c, inputs["rows"])
+            direct["param"] = wire_infer(c, inputs["param"],
+                                         parameters={"direct": "param"})
+            x = inputs["cuda_param"]
+            h = cudashm.create_shared_memory_region(f"{tag}_in", x.nbytes)
+            try:
+                cudashm.set_shared_memory_region(h, [x])
+                c.register_cuda_shared_memory(
+                    f"{tag}_in", cudashm.get_raw_handle(h), 0, x.nbytes)
+                inp = httpclient.InferInput("INPUT0", list(x.shape), "FP32")
+                inp.set_shared_memory(f"{tag}_in", x.nbytes)
+                runs = batcher.graph_stats()["direct_runs"]
+                direct["cuda_param"] = c.infer(
+                    model, [inp], parameters={"direct": "cuda"}
+                ).as_numpy("OUTPUT0")
+                cuda_runs = batcher.graph_stats()["direct_runs"] - runs
+            finally:
+                c.unregister_cuda_shared_memory(f"{tag}_in")
+                cudashm.destroy_shared_memory_region(h)
+            c.unregister_system_shared_memory(tag)
+            batched = {key: wire_infer(c, x) for key, x in inputs.items()}
+    finally:
+        sysshm.destroy_shared_memory_region(region)
+    return direct, batched, (fresh, warm), cuda_runs
+
+
+def direct_path_leg(card, server, model):
+    """Phase 23a: ResNet-50's direct path on the card runs through the
+    batcher's captured bucket graphs: no eager forward (``model.fn`` is
+    counted from after the graphs were captured; a replay calls no
+    Python), a ``direct_runs`` a direct request, every answer bit-equal to
+    the same images' answer through the batcher (the same graph on the
+    same values: tolerance 0)."""
+    from client_tpu_torch import ops
+
+    name = model.name
+    batcher = server.engine._batchers[name]
+    programs = batcher.programs()
+    check(programs and all(p.graph is not None for p in programs.values()),
+          f"{name}: buckets {sorted(programs)} without a captured graph")
+    eager = []
+    fn = model.fn
+
+    def counted(inputs, params, ctx):
+        eager.append(threading.get_ident())
+        return fn(inputs, params, ctx)
+
+    images = vision_images(DIRECT_FRESH + DIRECT_WARM + DIRECT_ROWS,
+                           seed=23).numpy()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    runs = batcher.graph_stats()["direct_runs"]
+    model.fn = counted
+    try:
+        direct, batched, (fresh, warm), cuda_runs = direct_requests(
+            server, name, images)
+    finally:
+        model.fn = fn
+    direct_runs = batcher.graph_stats()["direct_runs"] - runs
+    launches = dict(ops.LAUNCHES)
+    check(not eager, f"{len(eager)} direct requests ran the eager forward "
+                     f"(threads {sorted(set(eager))})")
+    check(direct_runs == len(direct),
+          f"{direct_runs} bucket-graph replays on the direct path for "
+          f"{len(direct)} direct requests")
+    check(cuda_runs == 1,
+          f"the CUDA-region request with a parameter made {cuda_runs} "
+          f"bucket-graph replays on the direct path")
+    check(not any(launches.values()),
+          f"the direct path launched {launches}")
+    diffs = {str(k): float(np.abs(direct[k] - batched[k]).max())
+             for k in direct}
+    check(all(d == 0.0 for d in diffs.values()),
+          f"direct answers differ from the batcher's: {diffs}")
+    phase(23, "direct_path", model=name, direct_requests=len(direct),
+          direct_graph_replays=direct_runs, eager_forwards=len(eager),
+          cuda_region_input_with_parameter_replays=cuda_runs,
+          tolerance="bit-equal to the batcher's answer for the same images",
+          max_abs_diff=max(diffs.values()),
+          server_compute_ms_first_on_new_thread=fresh,
+          server_compute_ms_first_on_new_thread_median=float(
+              np.median(fresh)),
+          server_compute_ms_warm_thread=warm,
+          server_compute_ms_warm_thread_median=float(np.median(warm)),
+          **card)
+
+
+MIXED_LEVEL = 8
+MIXED_WINDOW_MS = 5000  # the system leg's windows: it outlasts the wire leg
+
+
+def mixed_socket_leg(card, server, tmp, solo):
+    """Phase 23b, both at once: a system-region perf client (the direct
+    path, on the server's request threads) and a wire one (the batcher
+    thread), each at MIXED_LEVEL over gRPC against ResNet-50.  The wire
+    client starts once the system client's requests reach the server; the
+    system client, with longer windows, must still be running when the
+    wire client ends, so the wire leg's windows all lie under the mixed
+    load.  The server's successes equal the two clients' counts, with no
+    failure.  Prints the wire leg's p50/p99 and infer/s beside *solo*
+    (its phase 23b levels)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here}
+    outs = {shm: os.path.join(tmp, f"mixed_{shm}.json")
+            for shm in ("system", "none")}
+    before = success_counts(server, "resnet50")
+    t0 = time.monotonic()
+    bg = subprocess.Popen(
+        perf_argv(server, "grpc", "resnet50", "system", outs["system"],
+                  levels=str(MIXED_LEVEL), window_ms=MIXED_WINDOW_MS),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=here)
+    try:
+        while (success_counts(server, "resnet50")[0] == before[0]
+               and bg.poll() is None and time.monotonic() - t0 < 120):
+            time.sleep(0.05)
+        wire = subprocess.run(
+            perf_argv(server, "grpc", "resnet50", "none", outs["none"],
+                      levels=str(MIXED_LEVEL)),
+            capture_output=True, text=True, timeout=300, env=env, cwd=here)
+        overlapped = bg.poll() is None
+        _, bg_err = bg.communicate(timeout=300)
+    finally:
+        if bg.poll() is None:
+            bg.kill()
+            bg.wait()
+    check(wire.returncode == 0 and bg.returncode == 0,
+          f"the mixed legs exited {wire.returncode} (wire) and "
+          f"{bg.returncode} (system): {wire.stderr[-2000:]} {bg_err[-2000:]}")
+    check(overlapped, "the system-region client ended before the wire "
+                      "client: the wire leg's windows were not all mixed")
+    docs = {}
+    for shm, out in outs.items():
+        with open(out) as f:
+            docs[shm] = json.load(f)
+    after = success_counts(server, "resnet50")
+    completed = sum(d["requests"]["completed"] for d in docs.values())
+    check(after[0] - before[0] == completed and after[1] == before[1]
+          and all(d["requests"]["failed"] == 0 for d in docs.values()),
+          f"mixed legs: the clients counted "
+          f"{[d['requests'] for d in docs.values()]}, the server "
+          f"{after[0] - before[0]} successes, {after[1] - before[1]} "
+          f"failures")
+    mixed = {shm: perf_levels(d)[0] for shm, d in docs.items()}
+    alone = next(w for w in solo if w["level"] == MIXED_LEVEL)
+    phase(23, "perf_grpc_mixed", model="resnet50", level=MIXED_LEVEL,
+          wire_alone={k: alone[k] for k in ("infer_per_s", "p50_us",
+                                            "p99_us")},
+          wire_mixed={k: mixed["none"][k] for k in ("infer_per_s", "p50_us",
+                                                    "p99_us", "stable")},
+          system_mixed={k: mixed["system"][k] for k in (
+              "infer_per_s", "p50_us", "p99_us", "stable")},
+          seconds=time.monotonic() - t0, **card)
+
+
+def http_lm_leg(card, server, tmp):
+    """Phase 23c's LM leg: ``perf -i http`` on HTTP_LM with MAX_TOKENS 1
+    (a decoupled model answers over HTTP with one response, as in the
+    reference), after one request of the same prompt (the engine captures
+    its graphs at its first request, which would otherwise fill the first
+    level's windows); the launch counts reset just before the client
+    process starts and read just after it exits.  Returns (launches,
+    routes)."""
+    from client_tpu_torch import http as httpclient
+    from client_tpu_torch import ops
+    from client_tpu_torch.serve.models import language
+
+    data = os.path.join(tmp, "lm_http_input.json")
+    tokens = language.encode_text(PROMPT).tolist()
+    with open(data, "w") as f:
+        json.dump({"data": [{"TOKENS": {"content": tokens,
+                                        "shape": [len(tokens)]},
+                             "MAX_TOKENS": [1]}]}, f)
+    with httpclient.InferenceServerClient(server.http_address) as c:
+        inputs = [httpclient.InferInput("TOKENS", [len(tokens)], "INT32"),
+                  httpclient.InferInput("MAX_TOKENS", [1], "INT32")]
+        inputs[0].set_data_from_numpy(np.asarray(tokens, np.int32))
+        inputs[1].set_data_from_numpy(np.ones(1, np.int32))
+        c.infer(HTTP_LM, inputs)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    leg, doc, served, _, seconds = perf_socket_leg(
+        server, tmp, "http", HTTP_LM, "none", extra=["--input-data", data])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    routes = {n: dict(r) for n, r in ops.ROUTES.items()}
+    for kernel in ("int8_matmul", "paged_attention"):
+        check(launches[kernel] > 0,
+              f"{leg} launched {kernel} no time: {launches}")
+    phase(23, "perf_http", leg=leg, levels=perf_levels(doc),
+          requests=doc["requests"], server_successes=served,
+          workload={"prompt_tokens": len(tokens), "max_tokens": 1},
+          launches=launches, launches_by_route=routes, seconds=seconds,
+          export=doc, **card)
+    return launches, routes
+
+
+def http_phase(card):
+    """Phase 23: ResNet-50 (warmup: every bucket's graph) and the
+    language set behind one Server with HTTP and gRPC.  (a) The direct
+    path on the captured graphs (direct_path_leg); (b) phase 22's
+    ResNet-50 wire and system-region legs over gRPC again, side by side;
+    (c) ``python -m client_tpu_torch.perf -i http`` against ResNet-50 with
+    --shared-memory none, system and cuda, and against HTTP_LM.  Returns
+    the LM leg's (launches, routes) (launches_http in phase 20)."""
+    from client_tpu_torch.serve import Server
+    from client_tpu_torch.serve.models import language, vision
+
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_http_")
+    resnet = vision.resnet50_model(warmup=True)
+    models = [resnet] + language.language_models(device="cuda")
+    try:
+        with Server(models=models, http_port=0, grpc_port=0,
+                    with_default_models=False) as server:
+            direct_path_leg(card, server, resnet)
+            side = {}
+            for shm in ("none", "system"):
+                leg, doc, served, _, seconds = perf_socket_leg(
+                    server, tmp, "grpc", "resnet50", shm)
+                side[shm] = perf_levels(doc)
+                phase(23, "perf_grpc_again", leg=leg, levels=side[shm],
+                      requests=doc["requests"], seconds=seconds, **card)
+            phase(23, "perf_grpc_side_by_side", model="resnet50",
+                  levels=[{"level": w["level"],
+                           "wire_infer_per_s": w["infer_per_s"],
+                           "system_infer_per_s": s["infer_per_s"],
+                           "wire_p50_us": w["p50_us"],
+                           "system_p50_us": s["p50_us"]}
+                          for w, s in zip(side["none"], side["system"])],
+                  **card)
+            mixed_socket_leg(card, server, tmp, side["none"])
+            for shm in HTTP_SHM_LEGS:
+                leg, doc, served, regions, seconds = perf_socket_leg(
+                    server, tmp, "http", "resnet50", shm)
+                phase(23, "perf_http", leg=leg, levels=perf_levels(doc),
+                      requests=doc["requests"], server_successes=served,
+                      cuda_regions_opened_over_ipc=regions,
+                      seconds=seconds, export=doc, **card)
+            launches, routes = http_lm_leg(card, server, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase(23, "http_done", seconds=time.monotonic() - t0, **card)
     return launches, routes
 
 
@@ -4808,6 +5194,9 @@ def main():
     # -- 22 perf_analyzer: in process, and over gRPC from other processes --
     perf_launches, perf_routes = perf_phase(card)
 
+    # -- 23 the direct path on the captured graphs; perf_analyzer over HTTP -
+    http_launches, http_routes = http_phase(card)
+
     # -- 20 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
 
@@ -4837,6 +5226,7 @@ def main():
         "launches_fleet": fleet_launches["int8_matmul"],
         "launches_grpc": grpc_launches["int8_matmul"],
         "launches_perf": perf_launches["int8_matmul"],
+        "launches_http": http_launches["int8_matmul"],
         "max_abs_err": max(worst.values()),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -4854,7 +5244,8 @@ def main():
                        "phase 16's int8 MoE engine streams; launches_fleet: "
                        "phase 18's int8 replicas; launches_grpc: phase "
                        "21's gRPC calls; launches_perf: phase 22's "
-                       "in-process perf_analyzer legs",
+                       "in-process perf_analyzer legs; launches_http: "
+                       "phase 23's perf_analyzer -i http LM leg",
         "checked_in": "phase 3",
     }, {
         "name": "int8_matmul",
@@ -4869,6 +5260,7 @@ def main():
         "launches_fleet": fleet_routes["int8_matmul"]["mma"],
         "launches_grpc": grpc_routes["int8_matmul"]["mma"],
         "launches_perf": perf_routes["int8_matmul"]["mma"],
+        "launches_http": http_routes["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
         "ms": prefill["ms"],
         "plain_ms": prefill["plain_ms"],
@@ -4885,7 +5277,8 @@ def main():
                        "int8 MoE engine streams; launches_fleet: phase 18's "
                        "int8 replicas; launches_grpc: phase 21's gRPC "
                        "calls; launches_perf: phase 22's in-process "
-                       "perf_analyzer legs",
+                       "perf_analyzer legs; launches_http: phase 23's "
+                       "perf_analyzer -i http LM leg",
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -4944,6 +5337,7 @@ def main():
             "launches_fleet": fleet_routes["paged_attention"][route],
             "launches_grpc": grpc_routes["paged_attention"][route],
             "launches_perf": perf_routes["paged_attention"][route],
+            "launches_http": http_routes["paged_attention"][route],
             "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -4956,7 +5350,8 @@ def main():
                            "phase 18's replicas, float32, bf16 and int8; "
                            "launches_grpc: phase 21's gRPC calls; "
                            "launches_perf: phase 22's in-process "
-                           "perf_analyzer legs",
+                           "perf_analyzer legs; launches_http: phase "
+                           "23's perf_analyzer -i http LM leg",
             "checked_in": "phase 10",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,6 +27,7 @@ import dataclasses
 import datetime
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -239,7 +240,10 @@ def init_world(rank, world_size, store, device=None, backend=None,
 
 
 _CHILD = (
-    "import json, os\n"
+    "import faulthandler, json, os\n"
+    "import signal\n"
+    "faulthandler.enable(all_threads=True)\n"
+    "faulthandler.register(signal.SIGUSR1, all_threads=True)\n"
     "from client_tpu_torch.parallel import _world_child\n"
     "_world_child(json.loads(os.environ['CTPU_WORLD']))\n"
 )
@@ -305,10 +309,16 @@ def spawn_world(target, n, args=(), device=None, backend=None,
                 break
             time.sleep(0.05)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        # the ranks still running write their Python stacks (their
+        # faulthandler's SIGUSR1) before they are stopped
+        alive = [p for p in procs if p.poll() is None]
+        for p in alive:
+            p.send_signal(signal.SIGUSR1)
+        if alive:
+            time.sleep(0.5)
+        for p in alive:
+            p.kill()
+            p.wait()
     outs, errs = [], []
     for out, err in logs:
         out.seek(0)
@@ -319,9 +329,21 @@ def spawn_world(target, n, args=(), device=None, backend=None,
         err.close()
     codes = [p.returncode for p in procs]
     if any(codes):
-        tails = "\n".join(f"--- rank {r} (exit {c}):\n{e[-3000:]}"
-                          for r, (c, e) in enumerate(zip(codes, errs)) if c)
+        tails = "\n".join(
+            f"--- rank {r} (exit {_exit_name(c)}):\n{e[-3000:]}"
+            for r, (c, e) in enumerate(zip(codes, errs)) if c)
         raise RuntimeError(
             f"world of {n} ranks running {target} failed or outlasted "
             f"{timeout_s} s: exit codes {codes}\n{tails}")
     return outs
+
+
+def _exit_name(code):
+    """A rank's exit code, with the signal's name where a signal ended it
+    (``-11`` is ``-11 (SIGSEGV)``)."""
+    if code < 0:
+        try:
+            return f"{code} ({signal.Signals(-code).name})"
+        except ValueError:
+            pass
+    return str(code)

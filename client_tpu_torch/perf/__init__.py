@@ -1,8 +1,9 @@
 """perf — the port's perf_analyzer-class load & measurement harness.
 
 Counterpart of client_tpu/perf (the reference perf_analyzer, reference
-src/c++/perf_analyzer/): pluggable client backends (gRPC over the port's
-own client, the in-process InferenceEngine, a mock), data loading
+src/c++/perf_analyzer/): pluggable client backends (gRPC and HTTP over
+the port's own clients, the in-process InferenceEngine, a mock), data
+loading
 (generated / directory / JSON), shared-memory input staging (system or
 CUDA device memory), concurrency and request-rate load managers with
 Poisson/constant/custom schedules, stateful sequence workloads, a

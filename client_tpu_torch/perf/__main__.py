@@ -8,7 +8,8 @@ benchmarks the in-process server without sockets (the TRITON_C_API
 analog), and ``--device`` says where the hermetic models, the CUDA
 regions and the device probe run (``cuda`` unless ``cpu``).
 
-Options the port does not have yet (``-i http``, ``--async``,
+``-i http`` drives the port's own HTTP client (client_tpu_torch/http).
+Options the port does not have yet (``--async``,
 ``--native-loadgen``, the non-KServe ``--service-kind``s, ``--world-size``
 above 1, a ``--url`` replica list, SSL) are refused with a message, never
 ignored.
@@ -90,10 +91,9 @@ def build_parser():
     p.add_argument("-m", "--model-name", required=True)
     p.add_argument("-x", "--model-version", default="")
     p.add_argument("-u", "--url", default="localhost:8001",
-                   help="gRPC server address (a comma-separated replica "
+                   help="server address (a comma-separated replica "
                         "list is not in the port yet)")
-    p.add_argument("-i", "--protocol", choices=["grpc", "http"], default="grpc",
-                   help="grpc (http is not in the port yet)")
+    p.add_argument("-i", "--protocol", choices=["grpc", "http"], default="grpc")
     p.add_argument("-a", "--async", dest="async_mode", action="store_true",
                    help="not in the port yet")
     p.add_argument("--native-loadgen", action="store_true",
@@ -264,8 +264,6 @@ def _not_ported(args, urls):
            or args.ssl_https_client_certificate_file
            or args.ssl_https_private_key_file)
     for name, given in (
-            ("-i http (the reference's HTTP client needs urllib3)",
-             args.protocol == "http"),
             ("--async (a grpc.aio client)", args.async_mode),
             ("--native-loadgen", args.native_loadgen),
             (f"--service-kind {args.service_kind}",
@@ -357,7 +355,11 @@ def main(argv=None):
         )
         kind = BackendKind.INPROCESS
     else:
-        kind = BackendKind.TRITON_GRPC
+        kind = (
+            BackendKind.TRITON_GRPC
+            if args.protocol == "grpc"
+            else BackendKind.TRITON_HTTP
+        )
 
     def backend_factory():
         return ClientBackendFactory.create(

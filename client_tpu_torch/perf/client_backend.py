@@ -5,13 +5,15 @@ src/c++/perf_analyzer/client_backend/client_backend.h:134-139
 BackendKind, :250-307 factory, :335-455 unified API): one interface over the
 transport variants so the load engine never touches protocol details.
 
-The port's copy of client_tpu/perf/client_backend.py, less the HTTP and
-non-KServe backends (the reference's HTTP client needs urllib3; the
-TorchServe and TF-Serving kinds wait with it).  Backends:
+The port's copy of client_tpu/perf/client_backend.py, less the
+non-KServe backends (the TorchServe and TF-Serving kinds).  Backends:
 
 - ``triton_grpc`` — the port's KServe-v2 gRPC client
   (client_tpu_torch/grpc) over the network (any Triton-compatible server);
   CUDA regions register by their 64-byte IPC handle.
+- ``triton_http`` — the port's KServe-v2 HTTP client
+  (client_tpu_torch/http, on ``http.client``), the same surface as the
+  gRPC backend; system and CUDA regions register through its verbs.
 - ``inprocess`` — the port's in-process InferenceEngine, no sockets (the
   analog of the reference's TRITON_C_API dlopen backend).  Its CUDA
   regions are this process's own, so the engine's registry resolves them
@@ -41,6 +43,7 @@ CLIENT_PROF = PhaseProfiler(name="perf_client")
 
 class BackendKind:
     TRITON_GRPC = "triton_grpc"
+    TRITON_HTTP = "triton_http"
     INPROCESS = "inprocess"
     MOCK = "mock"
 
@@ -105,6 +108,8 @@ class ClientBackendFactory:
     def create(kind, url=None, engine=None, verbose=False, **kwargs):
         if kind == BackendKind.TRITON_GRPC:
             return _GrpcBackend(url, verbose)
+        if kind == BackendKind.TRITON_HTTP:
+            return _HttpBackend(url, verbose)
         if kind == BackendKind.INPROCESS:
             if engine is None:
                 raise InferenceServerException(
@@ -179,6 +184,53 @@ class _GrpcBackend(ClientBackend):
 
     def close(self):
         self._client.close()
+
+
+class _HttpBackend(_GrpcBackend):
+    kind = BackendKind.TRITON_HTTP
+
+    def __init__(self, url, verbose=False):
+        import client_tpu_torch.http as httpclient
+
+        self.endpoint = url
+        self._client = httpclient.InferenceServerClient(url, verbose=verbose)
+
+    # the HTTP client returns parsed JSON natively (no as_json kwarg); its
+    # `timeout` is the KServe per-request server-side timeout in MICROSECONDS
+    # (request parameter), not a client deadline like gRPC's client_timeout
+    def model_metadata(self, model_name, model_version=""):
+        return self._client.get_model_metadata(model_name, model_version)
+
+    def model_config(self, model_name, model_version=""):
+        cfg = self._client.get_model_config(model_name, model_version)
+        return cfg.get("config", cfg)
+
+    def infer(self, model_name, inputs, outputs=None, request_id="",
+              sequence_id=0, sequence_start=False, sequence_end=False,
+              model_version="", priority=0, timeout_us=None, headers=None):
+        with CLIENT_PROF.start_tick("http_client") as ptick:
+            with ptick.phase("wait"):  # serialize+rtt+parse live in the lib
+                return self._client.infer(
+                    model_name,
+                    inputs,
+                    model_version=model_version,
+                    outputs=outputs,
+                    request_id=request_id,
+                    sequence_id=sequence_id,
+                    sequence_start=sequence_start,
+                    sequence_end=sequence_end,
+                    priority=priority,
+                    timeout=int(timeout_us) if timeout_us else None,
+                    headers=headers,
+                )
+
+    def statistics(self, model_name="", model_version=""):
+        return self._client.get_inference_statistics(model_name, model_version)
+
+    def update_trace_settings(self, model_name="", settings=None):
+        return self._client.update_trace_settings(
+            model_name=model_name, settings=settings or {}
+        )
 
 
 class _EngineResult:

@@ -18,7 +18,11 @@ the device half is rewritten for PyTorch:
   copies each request's rows out of the static output before anything
   else runs on the stream: the next replay of that bucket overwrites it.
   On the CPU the same programs run eagerly.  A failed capture raises;
-  nothing falls back to eager on the card;
+  nothing falls back to eager on the card.  A fused model's request
+  that is not batched runs through the same program on its own thread
+  (:meth:`ModelBatcher.run_direct`, the reference's direct path calling
+  its batcher's executable); each program's lock gives its static
+  buffers one owner at a time;
 - other models keep the reference's eager paths: host groups concatenate
   and pad on the host, device groups assemble a zero-padded bucket buffer
   (``_device_batch``) and narrow the output (``_device_split``).
@@ -206,6 +210,10 @@ class _BucketProgram:
         self.outputs = None
         self.graph = None
         self.launches = {}  # {(kernel, route): launches} of one replay
+        # the static buffers' one owner at a time: the batcher thread and
+        # a direct request's thread each hold it from filling the inputs
+        # until the outputs' copies are issued (the stream orders the rest)
+        self.lock = threading.Lock()
 
     def _forward(self):
         out = self.fn(self.inputs, {}, None)
@@ -382,7 +390,8 @@ class ModelBatcher:
         # fused models: {(bucket, input signature): _BucketProgram}
         self._programs = {}
         self._programs_lock = threading.Lock()
-        self._graph_stats = {"graphs": 0, "capture_s": 0.0}
+        self._graph_stats = {"graphs": 0, "capture_s": 0.0,
+                             "direct_runs": 0}
         # Dispatch and completion are decoupled: the batcher thread only
         # gathers and issues batches; completion waits run off the
         # dispatch path.  HOST (wire) groups end in a real batch-wide D2H,
@@ -472,7 +481,8 @@ class ModelBatcher:
             return {prog.bucket: prog for prog in self._programs.values()}
 
     def graph_stats(self):
-        """Graphs captured, capture seconds, ``memory_reserved`` before the
+        """Graphs captured, capture seconds, direct-path requests run
+        through a program (``direct_runs``), ``memory_reserved`` before the
         first capture and after the last (CUDA only)."""
         with self._programs_lock:
             return dict(self._graph_stats)
@@ -497,7 +507,7 @@ class ModelBatcher:
         prog = self._program(padded, shapes)
         device = prog.device
         cuda = device.type == "cuda"
-        with device_stream(device):
+        with prog.lock, device_stream(device):
             for name, ps in parts.items():
                 buf = prog.inputs[name]
                 if _is_device_array(ps[0]):
@@ -524,6 +534,25 @@ class ModelBatcher:
                 event = torch.cuda.Event()
                 event.record()
             return _HostRows(tensors, event)
+
+    def run_direct(self, inputs):
+        """Run one request that is not batched (the direct path: a host
+        request with shared-memory outputs, or one with parameters) through
+        its bucket's program on the calling thread, as the reference's
+        direct path calls the jitted executable its batcher calls.  The
+        request is not queued and joins no group.  Returns its outputs:
+        host numpy arrays for host inputs (copied out before the program
+        is free), for device inputs a device copy of its rows.  A failed
+        run or capture raises; nothing falls back to the eager forward."""
+        rows = _leading_rows(inputs)
+        device = _is_device_array(next(iter(inputs.values())))
+        part = _Pending(inputs, rows, (device,))
+        result = self._run_program([part], list(inputs), rows)
+        with self._programs_lock:
+            self._graph_stats["direct_runs"] += 1
+        if device:
+            return result[1][0]
+        return result.numpy()
 
     def warmup(self, input_specs):
         """Prepare every padded bucket (the reference's ``model_warmup``)
@@ -1072,6 +1101,36 @@ def _leading_rows(inputs):
     raise InferenceServerException("request has no inputs", status="400")
 
 
+def _fits_a_bucket(model, inputs):
+    """Whether the inputs are all host arrays (no BYTES) or all device
+    tensors, with one leading row count no larger than the largest
+    bucket."""
+    if len({_is_device_array(a) for a in inputs.values()}) != 1:
+        return False  # none, or host and device mixed
+    rows = set()
+    for arr in inputs.values():
+        if isinstance(arr, np.ndarray):
+            if arr.dtype == np.object_:
+                return False  # BYTES inputs: direct path
+        elif not _is_device_array(arr):
+            return False
+        if arr.ndim == 0:
+            return False
+        rows.add(int(arr.shape[0]))
+    return len(rows) == 1 and rows.pop() <= model.max_batch_size
+
+
+def direct_program_request(model, inputs, context):
+    """Whether a request that is not batched runs through its bucket's
+    program (:meth:`ModelBatcher.run_direct`) instead of ``model.fn``:
+    a ``fused_batching`` model's stateless request that a bucket holds.
+    A fused ``fn`` is torch-pure and sets no per-response parameters, so
+    the program gives its outputs whatever the request's parameters."""
+    return (model.fused_batching and model.dynamic_batching
+            and not model.decoupled and context is None
+            and model.max_batch_size > 1 and _fits_a_bucket(model, inputs))
+
+
 def batchable_request(model, inputs, params, context, request):
     """Whether this request may take the dynamic-batching path."""
     if not model.dynamic_batching or model.decoupled:
@@ -1098,21 +1157,6 @@ def batchable_request(model, inputs, params, context, request):
             # shm outputs of host groups stay on the direct path
             if "shared_memory_region" in (out.get("parameters") or {}):
                 return False
-    rows = None
-    for arr in inputs.values():
-        if isinstance(arr, np.ndarray):
-            if arr.dtype == np.object_:
-                return False  # BYTES inputs: direct path
-        elif not _is_device_array(arr):
-            return False
-        if arr.ndim == 0:
-            return False
-        if rows is None:
-            rows = arr.shape[0]
-        elif arr.shape[0] != rows:
-            return False
     # mixed host/device inputs in one request keep the direct path (a device
     # concat would silently copy the host parts or vice versa)
-    if not device and any(_is_device_array(a) for a in inputs.values()):
-        return False
-    return rows is not None and rows <= model.max_batch_size
+    return _fits_a_bucket(model, inputs)

@@ -6,7 +6,9 @@ repository verbs (add, load with config and file overrides, unload,
 index), request execution for unary, decoupled and stateful models
 (sequences: per-sequence state, created on ``sequence_start`` or a miss,
 dropped on ``sequence_end``, reaped past ``max_sequence_idle_s``), dynamic
-batching (serve/dynamic_batcher.py), ensembles through the DAG scheduler
+batching (serve/dynamic_batcher.py; a fused model's request that is not
+batched runs through its batcher's bucket program, as the reference's
+direct path calls its batcher's jitted executable), ensembles through the DAG scheduler
 (serve/pipeline.py), the classification extension, per-model statistics
 with their histograms, the shared-memory registry (system regions by key,
 CUDA regions by IPC handle), and the operational layer: the multi-tenant
@@ -48,6 +50,7 @@ from client_tpu_torch.serve.dynamic_batcher import (
     ModelBatcher,
     batchable_request,
     device_stream,
+    direct_program_request,
 )
 from client_tpu_torch.serve.flight import FlightRecorder
 from client_tpu_torch.serve.frontdoor import Coalescer, request_digest
@@ -1735,11 +1738,17 @@ class InferenceEngine:
                     stats, t0, t_in1, trace, tenant,
                 )
             # direct path: the busy span closes after rendering, which
-            # has the outputs on the host (or written into their regions)
+            # has the outputs on the host (or written into their regions).
+            # A fused model replays its batcher's bucket program (on the
+            # card a CUDA graph: no eager forward, so no cuDNN plan on this
+            # thread); others, and requests no bucket holds, call fn
             self.busy.begin()
             try:
                 with device_stream(model.device):
-                    result = model.fn(inputs, params, context)
+                    if direct_program_request(model, inputs, context):
+                        result = self._batcher_for(model).run_direct(inputs)
+                    else:
+                        result = model.fn(inputs, params, context)
                     t_inf1 = time.monotonic_ns()
                     if trace is not None:
                         trace.event("COMPUTE_OUTPUT_START")
@@ -2362,6 +2371,12 @@ class InferenceEngine:
             "model_version": model_version or model.versions[-1],
             "outputs": outputs_json,
         }
+        # reserved result key: a model sets response-level parameters by
+        # including "__parameters__": {...} beside its output tensors (a
+        # fused model's program drops it: it replays no python)
+        extra_params = result_arrays.get("__parameters__")
+        if extra_params:
+            response["parameters"] = dict(extra_params)
         if request.get("id"):
             response["id"] = request["id"]
         return response, blobs

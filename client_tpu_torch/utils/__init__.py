@@ -23,6 +23,7 @@ __all__ = [
     "raise_error",
     "np_to_triton_dtype",
     "triton_to_np_dtype",
+    "triton_dtype_element_size",
     "serialize_byte_tensor",
     "deserialize_bytes_tensor",
     "serialize_bf16_tensor",
@@ -127,6 +128,23 @@ _NP_TO_TRITON = {
 _TRITON_TO_NP = {v: k for k, v in _NP_TO_TRITON.items()}
 _TRITON_TO_NP["BYTES"] = np.dtype(np.object_)
 
+# sizeof on the wire for fixed-width types (BYTES is length-prefixed)
+_TRITON_ELEMENT_SIZE = {
+    "BOOL": 1,
+    "INT8": 1,
+    "INT16": 2,
+    "INT32": 4,
+    "INT64": 8,
+    "UINT8": 1,
+    "UINT16": 2,
+    "UINT32": 4,
+    "UINT64": 8,
+    "FP16": 2,
+    "BF16": 2,
+    "FP32": 4,
+    "FP64": 8,
+}
+
 
 def np_to_triton_dtype(np_dtype):
     """Map a numpy dtype to its KServe datatype string (None if unknown)."""
@@ -144,6 +162,12 @@ def triton_to_np_dtype(dtype):
     if dtype == "BF16":
         return np.dtype(np.float32)
     return _TRITON_TO_NP.get(dtype, None)
+
+
+def triton_dtype_element_size(dtype):
+    """Bytes per element on the wire for fixed-width datatypes; None for
+    BYTES."""
+    return _TRITON_ELEMENT_SIZE.get(dtype, None)
 
 
 def _iter_elements_as_bytes(input_tensor):

@@ -414,6 +414,22 @@ def test_refusals_match_jax(world):
     assert got == {"flash": str(flash.value), "quantized": str(quant.value)}
 
 
+def test_rank_killed_by_signal_leaves_its_stack():
+    """A rank that dies by a signal makes spawn_world raise with the
+    signal's name and the rank's Python stack (its faulthandler); the
+    rank still running writes its stack before it is stopped."""
+    with pytest.raises(RuntimeError) as err:
+        spawn_world("torch_world_cases:segfault_rank", 2, device="cpu",
+                    paths=(TESTS,), timeout_s=WORLD_TIMEOUT_S)
+    text = str(err.value)
+    rank0, rank1 = text.split("--- rank 1 ")
+    assert rank1.startswith("(exit -11 (SIGSEGV))")
+    assert "Fatal Python error: Segmentation fault" in rank1
+    assert "in segfault_rank" in rank1
+    assert "--- rank 0 (exit -9 (SIGKILL))" in rank0
+    assert "in segfault_rank" in rank0
+
+
 def test_dryrun_multichip(world):
     """graft.dryrun_multichip(8) ran the reference's four phases on 8 gloo
     ranks: its lines, each with a finite loss."""

@@ -886,7 +886,8 @@ def test_cli_refuses_without_cuda_unless_asked_for_the_cpu(no_cuda):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-i", "http"], ["--async"], ["--native-loadgen"],
+    ["-i", "http", "--ssl-https-ca-certificates-file", "ca.pem"],
+    ["--async"], ["--native-loadgen"],
     ["--service-kind", "torchserve"], ["--service-kind", "tfserve"],
     ["--service-kind", "tfserve_rest"], ["--world-size", "2"],
     ["-u", "localhost:1,localhost:2"], ["--churn-soak", "1"],
@@ -932,6 +933,47 @@ def test_cli_grpc_legs_with_shared_memory(cnn_models, shm, tmp_path):
             == doc["requests"]["completed"]
             >= record["completed_requests"] > 0)
     assert "ctpu_probe_utilization_pct" in record["tpu_metrics"]
+
+
+@pytest.mark.parametrize("shm", ["none", "system"])
+def test_cli_http_legs_equal_jax_report_fields(cnn_models, shm, tmp_path):
+    """-i http through the port's HTTP client against an in-process
+    Server(device="cpu"), and the JAX CLI's -i http against the JAX
+    server, on the same CNN weights: each run completes with no error and
+    no failed request on either side; the port's server counts every
+    request of its run (the export's ``requests``, which the port adds to
+    JAX's fields); the records and CSV headers carry the same fields."""
+    docs, headers, successes = [], [], []
+    for run, server_cls, model, kw in (
+            (main, Server, cnn_models[0], {"device": "cpu"}),
+            (jmain, JaxServer, cnn_models[1], {})):
+        json_path = tmp_path / f"{run.__module__}.json"
+        csv_path = tmp_path / f"{run.__module__}.csv"
+        argv = ["-m", "cnn_classifier", "-i", "http",
+                "--shared-memory", shm, "--output-shared-memory-size",
+                "4000", "--concurrency-range", "2", *_COUNT,
+                "-f", str(csv_path), "--json-export", str(json_path)]
+        with server_cls(models=[model], http_port=0,
+                        with_default_models=False, **kw) as s:
+            rc = run(["-u", s.http_address, *argv]
+                     + (["--device", "cpu"] if run is main else []))
+            stats = s.engine.statistics("cnn_classifier")[0]
+            assert s.engine.shm.system_status() == {}
+        assert rc == 0
+        doc = json.loads(json_path.read_text())
+        (record,) = doc["results"]
+        assert record["error_count"] == 0
+        assert stats["inference_stats"]["fail"]["count"] == 0
+        assert (stats["inference_stats"]["success"]["count"]
+                >= record["completed_requests"] > 0)
+        docs.append(doc)
+        headers.append(csv_path.read_text().splitlines()[0])
+        successes.append(stats["inference_stats"]["success"]["count"])
+    assert docs[0]["requests"]["failed"] == 0
+    assert successes[0] == docs[0]["requests"]["completed"]
+    assert set(docs[0]) == set(docs[1]) | {"requests"}
+    assert set(docs[0]["results"][0]) == set(docs[1]["results"][0])
+    assert headers[0] == headers[1]
 
 
 def test_cli_speculative_and_prefix_share_report_their_columns(tmp_path,

@@ -10,6 +10,8 @@ of numpy results.  Every case runs in one world per test module.
 
 import os
 import pickle
+import signal
+import time
 import traceback
 
 import torch
@@ -356,3 +358,12 @@ def parallel_cases(rank, n, in_path, out_path, ckpt_dir):
         ("refusals", _refusals(mesh)),
     ]
     _run_cases(rank, cases, inputs, out_path)
+
+
+def segfault_rank(rank, n):
+    """Rank 1 dies by SIGSEGV; the others sleep until they are stopped
+    (the world's error must name the signal and hold each rank's Python
+    stack)."""
+    if rank == 1:
+        os.kill(os.getpid(), signal.SIGSEGV)
+    time.sleep(600)

@@ -1,7 +1,8 @@
 """Where a served ResNet-50 request's time goes when it takes the direct
-path (a host request whose outputs lie in shared memory is not batched,
-so the server calls the model's eager forward on its gRPC thread), on the
-card.
+path (a host request whose outputs lie in shared memory is not batched),
+on the card.  The server replays the batcher's bucket graph for it on
+the gRPC thread that took it; a server that calls the model's eager
+forward there instead shows each call under ``direct_calls``.
 
     python3 tools/direct_path_profile.py [OUT_JSON]
 
@@ -19,8 +20,9 @@ line a measurement, and writes them all to OUT_JSON when given:
   graph) and from system shared-memory regions (the direct path); then 16
   clients at once over the wire, which grow gRPC's worker pool, and the
   system-shm requests again: the client's ms a request, the server's
-  compute ms a request, and on the direct path the ms of each forward
-  call with the thread it ran on and whether it was that thread's first.
+  compute ms a request, and on the direct path the ms of each eager
+  forward call with the thread it ran on and whether it was that
+  thread's first (none where the direct path replays the graph).
 """
 
 import json
