@@ -16,9 +16,11 @@ gRPC frontend (and checks its clean refusal where grpcio is absent), and
 times the kernels, the serial decode, the engine, the train step and the
 vision models, then runs the port's perf_analyzer in process over the LM
 engines and over gRPC against ResNet-50 from wire, system and CUDA
-shared-memory inputs, and last holds ResNet-50's direct path (requests
-the server does not batch) to the batcher's captured graphs and runs
-perf_analyzer over HTTP through the port's own HTTP client.
+shared-memory inputs, holds ResNet-50's direct path (requests the
+server does not batch) to the batcher's captured graphs and runs
+perf_analyzer over HTTP through the port's own HTTP client, and last
+drives the same server through the port's asyncio clients and
+perf_analyzer's --async, two-rank and non-KServe modes.
 
     python3 chip_smoke.py
 
@@ -271,7 +273,8 @@ Phases, one line each or more; any failure exits non-zero:
                 replicas, launches_ring_flash and launches_ring_2rank:
                 phase 19's, launches_grpc: phase 21's, launches_perf:
                 phase 22's in-process legs, launches_http: phase 23's
-                -i http LM leg), its route's own
+                -i http LM leg, launches_aio: phase 24's aio calls), its
+                route's own
                 error (phase 3, 7 or 10) and its times (phase 6, 9 or 12)
  21 grpc        the gRPC frontend (runs before phase 20's line; needs
                 grpcio).  The language set behind Server(grpc_port=0),
@@ -350,10 +353,41 @@ Phases, one line each or more; any failure exits non-zero:
                 IPC; the LM leg's launch counts reset just before its
                 client starts and read just after it exits must hold
                 int8 and paged attention (launches_http in phase 20)
+ 24 aio         the asyncio clients and perf_analyzer's remaining
+                single-endpoint modes, on phase 23's server before it
+                stops (runs before phase 20's line).  (a) 8 concurrent
+                grpc.aio stream_infer streams on one event loop for
+                lm_streaming_int8 and for lm_streaming_batched, each
+                equal to the sync client's stream of its prompt
+                (grpc_stream) or first diverging at a near-tie, and one
+                stream closed after 2 tokens (the call cancelled) giving
+                its KV blocks back within GRPC_STOP_SLACK tokens;
+                (b) 16 concurrent http.aio calls of lm_streaming_int8
+                with MAX_TOKENS 1 against the sync HTTP client's answers
+                (the near-tie rule), a binary ResNet-50 request bit-equal
+                to the sync client's, and the CUDA verbs: a region on the
+                card registered, listed, read by a request (bit-equal to
+                the wire) and unregistered; the launch counts are reset
+                just before (a)'s and (b)'s aio calls and read just after
+                them (launches_aio in phase 20); (c) python -m
+                client_tpu_torch.perf -i grpc --max-threads 64 against
+                ResNet-50 at concurrency 8 and 64, the thread engine and
+                --async from the wire in turns (threads, async, threads),
+                then --async from CUDA regions, each with phase 22's
+                checks (server successes equal the client's count, no
+                failure, the gauges), the perf process's OS threads
+                sampled from /proc (the async runs must have fewer than
+                the thread engine's); (d) two ranks, --world-size 2
+                through the rendezvous, at concurrency 8: both exit 0,
+                rank 0 alone prints the aggregate, their counts sum to
+                the server's successes; (e) --service-kind torchserve,
+                tfserve and tfserve_rest --hermetic against the port's
+                host fakes, beside the other legs
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
 
+import asyncio
 import base64
 import contextlib
 import dataclasses
@@ -364,6 +398,7 @@ import os
 import re
 import select
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -4156,22 +4191,26 @@ def success_counts(server, model):
 
 
 def perf_socket_leg(server, tmp, protocol, model, shm, sync=False,
-                    extra=(), env=None):
+                    extra=(), env=None, levels="1:8:7", tag="", watch=None):
     """One ``python -m client_tpu_torch.perf -i <protocol>`` subprocess
-    against *model* behind this process's *server*, at concurrency 1 and
-    8, with --collect-metrics --collect-local-gpu-metrics
+    against *model* behind this process's *server*, at concurrency
+    *levels* (1 and 8), with --collect-metrics --collect-local-gpu-metrics
     --probe-device-utilization: the server's success count must equal the
     client's count of the run, with no failure on either side, the gauges
     in every record and, from CUDA regions, the regions seen over
-    CudaSharedMemoryStatus and opened over CUDA IPC.  Returns (leg, JSON
-    export, the server's successes, the CUDA regions, seconds)."""
+    CudaSharedMemoryStatus and opened over CUDA IPC.  *watch*, if given,
+    runs on a thread of its own as ``watch(pid, stop)`` while the
+    subprocess runs.  Returns (leg, JSON export, the server's successes,
+    the CUDA regions, seconds)."""
     from client_tpu_torch import grpc as grpcclient
 
     here = os.path.dirname(os.path.abspath(__file__))
-    leg = f"{model} {protocol} {shm}" + (" --cuda-shm-sync" if sync else "")
+    leg = (f"{model} {protocol} {shm}" + (" --cuda-shm-sync" if sync else "")
+           + (f" {tag}" if tag else ""))
     out = os.path.join(tmp, f"socket_{protocol}_{model}_{shm}_{int(sync)}"
-                            ".json")
-    argv = perf_argv(server, protocol, model, shm, out, extra=extra)
+                            f"{tag}.json")
+    argv = perf_argv(server, protocol, model, shm, out, levels=levels,
+                     extra=extra)
     if sync:
         argv.append("--cuda-shm-sync")
 
@@ -4193,17 +4232,28 @@ def perf_socket_leg(server, tmp, protocol, model, shm, sync=False,
     before = counts()
     t0 = time.monotonic()
     poller.start()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=env or {**os.environ, "PYTHONPATH": here},
+                            cwd=here)
+    watcher = (None if watch is None else
+               threading.Thread(target=watch, args=(proc.pid, stop),
+                                daemon=True))
     try:
-        proc = subprocess.run(argv, capture_output=True, text=True,
-                              timeout=300, env=env or {
-                                  **os.environ, "PYTHONPATH": here},
-                              cwd=here)
+        if watcher is not None:
+            watcher.start()
+        _, stderr = proc.communicate(timeout=300)
     finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
         stop.set()
         poller.join(timeout=30)
+        if watcher is not None:
+            watcher.join(timeout=30)
     seconds = time.monotonic() - t0
     check(proc.returncode == 0,
-          f"{leg} exited {proc.returncode}: {proc.stderr[-3000:]}")
+          f"{leg} exited {proc.returncode}: {stderr[-3000:]}")
     after = counts()
     with open(out) as f:
         doc = json.load(f)
@@ -4595,8 +4645,10 @@ def http_phase(card):
     path on the captured graphs (direct_path_leg); (b) phase 22's
     ResNet-50 wire and system-region legs over gRPC again, side by side;
     (c) ``python -m client_tpu_torch.perf -i http`` against ResNet-50 with
-    --shared-memory none, system and cuda, and against HTTP_LM.  Returns
-    the LM leg's (launches, routes) (launches_http in phase 20)."""
+    --shared-memory none, system and cuda, and against HTTP_LM; then
+    phase 24 on the same server (aio_phase).  Returns the LM leg's
+    (launches, routes) (launches_http in phase 20) and phase 24's
+    (launches_aio)."""
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import language, vision
 
@@ -4604,6 +4656,8 @@ def http_phase(card):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_http_")
     resnet = vision.resnet50_model(warmup=True)
     models = [resnet] + language.language_models(device="cuda")
+    engines = {m.name: m.closer.__self__ for m in models
+               if m.closer is not None and m.name.startswith("lm_")}
     try:
         with Server(models=models, http_port=0, grpc_port=0,
                     with_default_models=False) as server:
@@ -4632,9 +4686,377 @@ def http_phase(card):
                       cuda_regions_opened_over_ipc=regions,
                       seconds=seconds, export=doc, **card)
             launches, routes = http_lm_leg(card, server, tmp)
+            phase(23, "http_done", seconds=time.monotonic() - t0, **card)
+            aio = aio_phase(card, server, engines, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase(23, "http_done", seconds=time.monotonic() - t0, **card)
+    return launches, routes, aio
+
+
+# -- the asyncio clients, --async, two ranks, the service kinds (phase 24) ----
+
+AIO_STREAMS = 8       # concurrent grpc.aio streams a batched LM, one loop
+AIO_HTTP_CALLS = 16   # concurrent http.aio MAX_TOKENS-1 calls, one loop
+AIO_LEVELS = "8:64:56"  # --async against the thread engine at 8 and 64
+AIO_TOP = 64
+# ResNet-50 runs of 24c, in this order: the thread engine and --async from
+# the wire in turns, then --async from CUDA regions
+AIO_RUNS = (("threads", "none"), ("async", "none"), ("threads", "none"),
+            ("async", "cuda"))
+AIO_RANK_LEVEL = "8"
+# 24e's hermetic service kinds: (kind, model, --shape)
+AIO_SERVICE_KINDS = (("torchserve", "resnet", "data:1,8"),
+                     ("tfserve", "half_plus_two", "input:1,8"),
+                     ("tfserve_rest", "half_plus_two", "instances:1,4"))
+
+
+def aio_streams(addr, model, prompts, max_tokens, stop_after=None):
+    """Phase 24a: one ``stream_infer`` a prompt over the port's grpc.aio
+    client, all on one event loop and one channel.  Returns each stream's
+    tokens; with *stop_after* (one prompt) the client closes the stream
+    once it has read that many, which cancels the call."""
+    from client_tpu_torch.grpc import aio as aiogrpc
+
+    async def one(client, p):
+        async def requests():
+            yield {"model_name": model,
+                   "inputs": grpc_lm_inputs(aiogrpc, p, max_tokens)}
+
+        toks = []
+        stream = client.stream_infer(requests(), stream_timeout=300)
+        async for result, error in stream:
+            check(error is None, f"{model} streamed an error over grpc.aio: "
+                                 f"{error}")
+            toks.append(int(result.as_numpy("TOKEN")[0]))
+            if stop_after is not None and len(toks) == stop_after:
+                break
+        await stream.aclose()
+        return toks
+
+    async def run():
+        async with aiogrpc.InferenceServerClient(addr) as client:
+            return await asyncio.gather(*(one(client, p) for p in prompts))
+
+    return asyncio.run(run())
+
+
+def aio_http_lm(addr, model, prompts):
+    """Phase 24b: one ``infer`` a prompt with MAX_TOKENS 1 over the port's
+    http.aio client, all at once on one event loop.  Returns the tokens."""
+    from client_tpu_torch.http import aio as aiohttpclient
+
+    async def run():
+        async with aiohttpclient.InferenceServerClient(addr) as c:
+            results = await asyncio.gather(*(
+                c.infer(model, grpc_lm_inputs(aiohttpclient, p, 1))
+                for p in prompts))
+        return [int(r.as_numpy("TOKEN")[0]) for r in results]
+
+    return asyncio.run(run())
+
+
+def aio_http_resnet(addr, x):
+    """Phase 24b: ResNet-50 over the port's http.aio client: a binary wire
+    request, then the CUDA shared-memory verbs (a region on the card of
+    this process, which the server resolves through its broker): register,
+    status, a request whose input lies in the region, unregister, status.
+    Returns (wire answer, region answer, status while registered, status
+    after)."""
+    from client_tpu_torch.http import aio as aiohttpclient
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    name = f"aio_in_{os.getpid()}"
+    h = cudashm.create_shared_memory_region(name, x.nbytes)
+    cudashm.set_shared_memory_region(h, [x])
+
+    async def run():
+        async with aiohttpclient.InferenceServerClient(addr) as c:
+            inp = aiohttpclient.InferInput("INPUT0", list(x.shape), "FP32")
+            inp.set_data_from_numpy(x)
+            out = aiohttpclient.InferRequestedOutput("OUTPUT0",
+                                                     binary_data=True)
+            wire = (await c.infer("resnet50", [inp], outputs=[out])
+                    ).as_numpy("OUTPUT0")
+            await c.register_cuda_shared_memory(
+                name, cudashm.get_raw_handle(h), 0, x.nbytes)
+            try:
+                status = await c.get_cuda_shared_memory_status()
+                inp = aiohttpclient.InferInput("INPUT0", list(x.shape),
+                                               "FP32")
+                inp.set_shared_memory(name, x.nbytes)
+                region = (await c.infer("resnet50", [inp], outputs=[out])
+                          ).as_numpy("OUTPUT0")
+            finally:
+                await c.unregister_cuda_shared_memory(name)
+            return wire, region, status, (
+                await c.get_cuda_shared_memory_status())
+
+    try:
+        return asyncio.run(run())
+    finally:
+        cudashm.destroy_shared_memory_region(h)
+
+
+def os_thread_watch(samples):
+    """A perf_socket_leg watcher: the OS thread count of the perf process
+    (/proc/<pid>/status, Threads:) every 20 ms until it ends."""
+    def watch(pid, stop):
+        while not stop.is_set():
+            try:
+                with open(f"/proc/{pid}/status") as f:
+                    for line in f:
+                        if line.startswith("Threads:"):
+                            samples.append(int(line.split()[1]))
+            except OSError:
+                pass
+            stop.wait(0.02)
+
+    return watch
+
+
+def free_port():
+    with contextlib.closing(socket.socket()) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def service_kind_runs(tmp):
+    """Phase 24e, started: ``python -m client_tpu_torch.perf
+    --service-kind <kind> --hermetic`` for each of AIO_SERVICE_KINDS, a
+    process each, at once (each starts only its host fake)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for kind, model, shape in AIO_SERVICE_KINDS:
+        out = os.path.join(tmp, f"service_{kind}.json")
+        procs[kind] = (out, subprocess.Popen(
+            [sys.executable, "-m", "client_tpu_torch.perf", "-m", model,
+             "--service-kind", kind, "--hermetic", "--shape", shape,
+             "--concurrency-range", "1:2:1",
+             "--measurement-interval", str(PERF_WINDOW_MS["socket"]),
+             "--max-trials", str(PERF_TRIALS), "-s", PERF_STABILITY,
+             "--json-export", out],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": here}, cwd=here))
+    return procs
+
+
+def service_kind_results(card, procs, t0):
+    """Phase 24e, ended: every service-kind run exits 0 with no failed
+    request."""
+    runs = {}
+    try:
+        for kind, (out, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            check(proc.returncode == 0,
+                  f"--service-kind {kind} --hermetic exited "
+                  f"{proc.returncode}: {stderr[-3000:]}")
+            with open(out) as f:
+                doc = json.load(f)
+            check(doc["requests"]["failed"] == 0
+                  and doc["requests"]["completed"] > 0
+                  and "Best: concurrency=" in stdout,
+                  f"--service-kind {kind}: requests {doc['requests']}")
+            runs[kind] = {"levels": perf_levels(doc),
+                          "requests": doc["requests"]}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    phase(24, "aio_service_kinds", runs=runs,
+          note="host only: each run against its in-process fake endpoint",
+          seconds=time.monotonic() - t0, **card)
+
+
+def aio_phase(card, server, engines, tmp):
+    """Phase 24 on phase 23's server (ResNet-50 and the language set on
+    the card).  (a) grpc.aio streams of both batched LMs against the sync
+    client's, and one cancelled; (b) http.aio on lm_streaming_int8 with
+    MAX_TOKENS 1, a binary ResNet-50 request and the CUDA verbs; the
+    launch counts are reset just before each leg's aio calls and read
+    just after them, and summed (launches_aio in phase 20); (c) perf
+    --async against the thread engine on ResNet-50 with their OS threads;
+    (d) two perf ranks through the rendezvous; (e) the three hermetic
+    service kinds (run beside the others).  Returns (launches, routes)."""
+    from client_tpu_torch import grpc as grpcclient
+    from client_tpu_torch import http as httpclient
+    from client_tpu_torch import ops
+    from client_tpu_torch.serve.lm import LmEngine
+    from client_tpu_torch.serve.models import language
+    from client_tpu_torch.serve.models import transformer as tfm
+
+    t0 = time.monotonic()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here}
+    services = service_kind_runs(tmp)
+    grpc_addr, http_addr = server.grpc_address, server.http_address
+    prompt = language.encode_text(PROMPT)
+    windows = []
+
+    def window(fn, *args, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        windows.append((dict(ops.LAUNCHES),
+                        {n: dict(r) for n, r in ops.ROUTES.items()}))
+        return out
+
+    # -- 24a grpc.aio streams ------------------------------------------------
+    prompts = distinct_prompts(prompt, AIO_STREAMS)
+    streams, near = {}, {}
+    for model in ("lm_streaming_int8", "lm_streaming_batched"):
+        streams[model] = window(aio_streams, grpc_addr, model, prompts,
+                                GRPC_TOKENS)
+    eng = engines["lm_streaming_batched"]
+    used = eng.kv.used_blocks
+    made = server.engine.metrics.get("ctpu_lm_tokens_total") or 0
+    (stopped,) = window(aio_streams, grpc_addr, "lm_streaming_batched",
+                        [prompt[:8]], GRPC_STOP_MAX,
+                        stop_after=GRPC_STOP_AFTER)
+    deadline = time.monotonic() + 30
+    while eng.kv.used_blocks != used and time.monotonic() < deadline:
+        time.sleep(0.01)
+    made = server.engine.metrics.get("ctpu_lm_tokens_total") - made
+    check(len(stopped) == GRPC_STOP_AFTER and eng.kv.used_blocks == used,
+          f"a cancelled grpc.aio stream left {eng.kv.used_blocks} blocks "
+          f"used, {used} before it")
+    check(made <= GRPC_STOP_AFTER + GRPC_STOP_SLACK,
+          f"the cancelled grpc.aio stream ran on: {made} tokens made, "
+          f"{GRPC_STOP_AFTER} read")
+    for model, got in streams.items():
+        own = engines[model]
+        sync = [grpc_stream(grpcclient, grpc_addr, model, p, GRPC_TOKENS)
+                for p in prompts]
+        near[model] = [agreement(tfm, own.params, own.cfg, p, g, w)
+                       for p, g, w in zip(prompts, got, sync)]
+    phase(24, "aio_grpc_streams", streams=AIO_STREAMS, tokens=GRPC_TOKENS,
+          aio_vs_sync_client=near, near_tie=NEAR_TIE,
+          cancelled_stream={"tokens_read": GRPC_STOP_AFTER,
+                            "tokens_made": made,
+                            "tokens_made_max": GRPC_STOP_AFTER
+                            + GRPC_STOP_SLACK,
+                            "max_tokens": GRPC_STOP_MAX,
+                            "blocks_back_to": used},
+          **card)
+
+    # -- 24b http.aio ----------------------------------------------------------
+    prompts = distinct_prompts(prompt, AIO_HTTP_CALLS)
+    got = window(aio_http_lm, http_addr, "lm_streaming_int8", prompts)
+    with httpclient.InferenceServerClient(http_addr) as c:
+        want = [int(c.infer("lm_streaming_int8",
+                            grpc_lm_inputs(httpclient, p, 1))
+                    .as_numpy("TOKEN")[0]) for p in prompts]
+    int8 = engines["lm_streaming_int8"]
+    lm_near = [agreement(tfm, int8.params, int8.cfg, p, [g], [w])
+               for p, g, w in zip(prompts, got, want)]
+    x = vision_images(1, seed=24).numpy()
+    wire, region, status, after = aio_http_resnet(http_addr, x)
+    with httpclient.InferenceServerClient(http_addr) as c:
+        inp = httpclient.InferInput("INPUT0", list(x.shape), "FP32")
+        inp.set_data_from_numpy(x)
+        sync = c.infer("resnet50", [inp]).as_numpy("OUTPUT0")
+    check(np.array_equal(wire, sync),
+          f"ResNet-50 over http.aio differs from the sync client's by "
+          f"{np.abs(wire - sync).max()}")
+    check(np.array_equal(region, wire),
+          f"ResNet-50 from a CUDA region over http.aio differs from the "
+          f"wire's by {np.abs(region - wire).max()}")
+    name = f"aio_in_{os.getpid()}"
+    check(name in [r["name"] for r in status]
+          and name not in [r["name"] for r in after],
+          f"CUDA regions over http.aio: {status}, then {after}")
+    phase(24, "aio_http", lm_calls=AIO_HTTP_CALLS, model="lm_streaming_int8",
+          max_tokens=1, aio_vs_sync_client=lm_near, near_tie=NEAR_TIE,
+          resnet50_wire_equals_sync=True,
+          resnet50_cuda_region_equals_wire=True, cuda_region=name, **card)
+    launches = {n: sum(w[0][n] for w in windows) for n in windows[0][0]}
+    routes = {n: {r: sum(w[1][n][r] for w in windows) for r in rs}
+              for n, rs in windows[0][1].items()}
+
+    # -- 24c --async against the thread engine ---------------------------------
+    runs, threads = [], {}
+    for i, (engine_kind, shm) in enumerate(AIO_RUNS):
+        samples = []
+        extra = ["--max-threads", str(AIO_TOP)] + (
+            ["--async"] if engine_kind == "async" else [])
+        leg, doc, served, regions, seconds = perf_socket_leg(
+            server, tmp, "grpc", "resnet50", shm, extra=extra, env=env,
+            levels=AIO_LEVELS, tag=f"{engine_kind}{i}",
+            watch=os_thread_watch(samples))
+        check(samples, f"{leg}: no OS thread count read")
+        threads.setdefault(engine_kind, []).append(max(samples))
+        runs.append({"engine": engine_kind, "shared_memory": shm,
+                     "levels": perf_levels(doc), "requests": doc["requests"],
+                     "server_successes": served, "os_threads_max":
+                     max(samples), "cuda_regions_opened_over_ipc": regions,
+                     "seconds": seconds})
+        phase(24, "aio_perf", leg=leg, engine=engine_kind,
+              levels=perf_levels(doc), requests=doc["requests"],
+              server_successes=served, os_threads_max=max(samples),
+              seconds=seconds, export=doc, **card)
+    check(max(threads["async"]) < min(threads["threads"]),
+          f"the --async runs had {threads['async']} OS threads at most, "
+          f"the thread engine's {threads['threads']}")
+    phase(24, "aio_perf_vs_threads", model="resnet50",
+          os_threads_max=threads,
+          os_threads_note="the most the perf process had over its run "
+                          f"(levels {AIO_LEVELS}); the thread engine's is "
+                          f"its level-{AIO_TOP} window",
+          levels={f"{r['engine']} {r['shared_memory']} {i}": [
+              {k: lv[k] for k in ("level", "infer_per_s", "p50_us",
+                                  "p99_us")} for lv in r["levels"]]
+              for i, r in enumerate(runs)}, **card)
+
+    # -- 24d two ranks through the rendezvous ----------------------------------
+    addr = f"127.0.0.1:{free_port()}"
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+    before = success_counts(server, "resnet50")
+    procs = [subprocess.Popen(
+        perf_argv(server, "grpc", "resnet50", "none", outs[r],
+                  levels=AIO_RANK_LEVEL,
+                  extra=["--world-size", "2", "--rank", str(r),
+                         "--rendezvous-addr", addr]),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=here) for r in range(2)]
+    try:
+        ends = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    after = success_counts(server, "resnet50")
+    for r, (p, (_, err)) in enumerate(zip(procs, ends)):
+        check(p.returncode == 0, f"rank {r} exited {p.returncode}: "
+                                 f"{err[-3000:]}")
+    check("Aggregate across ranks:" in ends[0][0]
+          and "Aggregate" not in ends[1][0],
+          "the aggregate is not rank 0's alone")
+    docs = []
+    for out in outs:
+        with open(out) as f:
+            docs.append(json.load(f))
+    completed = sum(d["requests"]["completed"] for d in docs)
+    check(completed == after[0] - before[0] and after[1] == before[1]
+          and all(d["requests"]["failed"] == 0 for d in docs),
+          f"the ranks counted {[d['requests'] for d in docs]}, the server "
+          f"{after[0] - before[0]} successes and {after[1] - before[1]} "
+          "failures")
+    aggregate = ends[0][0][ends[0][0].index("Aggregate across ranks:"):]
+    phase(24, "aio_two_ranks", model="resnet50", level=int(AIO_RANK_LEVEL),
+          requests=[d["requests"] for d in docs],
+          server_successes=after[0] - before[0],
+          levels=[perf_levels(d) for d in docs],
+          aggregate=aggregate.strip().splitlines(), **card)
+
+    # -- 24e the service kinds ---------------------------------------------------
+    service_kind_results(card, services, t0)
+    for name in ("int8_matmul", "paged_attention"):
+        check(launches[name] > 0,
+              f"the aio calls launched {name} no time: {launches}")
+    phase(24, "aio_done", launches=launches, launches_by_route=routes,
+          seconds=time.monotonic() - t0, **card)
     return launches, routes
 
 
@@ -5195,7 +5617,8 @@ def main():
     perf_launches, perf_routes = perf_phase(card)
 
     # -- 23 the direct path on the captured graphs; perf_analyzer over HTTP -
-    http_launches, http_routes = http_phase(card)
+    # -- 24 the asyncio clients, --async, two ranks, the service kinds -----
+    http_launches, http_routes, (aio_launches, aio_routes) = http_phase(card)
 
     # -- 20 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
@@ -5227,6 +5650,7 @@ def main():
         "launches_grpc": grpc_launches["int8_matmul"],
         "launches_perf": perf_launches["int8_matmul"],
         "launches_http": http_launches["int8_matmul"],
+        "launches_aio": aio_launches["int8_matmul"],
         "max_abs_err": max(worst.values()),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -5245,7 +5669,9 @@ def main():
                        "phase 18's int8 replicas; launches_grpc: phase "
                        "21's gRPC calls; launches_perf: phase 22's "
                        "in-process perf_analyzer legs; launches_http: "
-                       "phase 23's perf_analyzer -i http LM leg",
+                       "phase 23's perf_analyzer -i http LM leg; "
+                       "launches_aio: phase 24's grpc.aio streams and "
+                       "http.aio calls",
         "checked_in": "phase 3",
     }, {
         "name": "int8_matmul",
@@ -5261,6 +5687,7 @@ def main():
         "launches_grpc": grpc_routes["int8_matmul"]["mma"],
         "launches_perf": perf_routes["int8_matmul"]["mma"],
         "launches_http": http_routes["int8_matmul"]["mma"],
+        "launches_aio": aio_routes["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
         "ms": prefill["ms"],
         "plain_ms": prefill["plain_ms"],
@@ -5278,7 +5705,8 @@ def main():
                        "int8 replicas; launches_grpc: phase 21's gRPC "
                        "calls; launches_perf: phase 22's in-process "
                        "perf_analyzer legs; launches_http: phase 23's "
-                       "perf_analyzer -i http LM leg",
+                       "perf_analyzer -i http LM leg; launches_aio: "
+                       "phase 24's grpc.aio streams and http.aio calls",
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -5338,6 +5766,7 @@ def main():
             "launches_grpc": grpc_routes["paged_attention"][route],
             "launches_perf": perf_routes["paged_attention"][route],
             "launches_http": http_routes["paged_attention"][route],
+            "launches_aio": aio_routes["paged_attention"][route],
             "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -5351,7 +5780,9 @@ def main():
                            "launches_grpc: phase 21's gRPC calls; "
                            "launches_perf: phase 22's in-process "
                            "perf_analyzer legs; launches_http: phase "
-                           "23's perf_analyzer -i http LM leg",
+                           "23's perf_analyzer -i http LM leg; "
+                           "launches_aio: phase 24's grpc.aio streams "
+                           "and http.aio calls",
             "checked_in": "phase 10",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,16 +2,17 @@
 
 Counterpart of client_tpu/perf (the reference perf_analyzer, reference
 src/c++/perf_analyzer/): pluggable client backends (gRPC and HTTP over
-the port's own clients, the in-process InferenceEngine, a mock), data
-loading
-(generated / directory / JSON), shared-memory input staging (system or
-CUDA device memory), concurrency and request-rate load managers with
-Poisson/constant/custom schedules, stateful sequence workloads, a
-windowed stability-seeking profiler, server /metrics scraping with local
-GPU gauges and a device probe, and stdout/CSV/JSON reporting.  CLI:
-``python -m client_tpu_torch.perf``; it runs on ``cuda`` unless the
-caller passes ``--device cpu``.  The rendezvous module keeps only the
-frame transport the fleet tier speaks.
+the port's own clients, the in-process InferenceEngine, TorchServe and
+TF-Serving with their hermetic fakes, a mock), data loading (generated /
+directory / JSON), shared-memory input staging (system or CUDA device
+memory), concurrency and request-rate load managers with
+Poisson/constant/custom schedules, the asyncio concurrency manager over
+the port's grpc.aio client (``--async``), stateful sequence workloads, a
+windowed stability-seeking profiler, the rendezvous that coordinates
+ranks (``--world-size``), server /metrics scraping with local GPU gauges
+and a device probe, and stdout/CSV/JSON reporting.  CLI: ``python -m
+client_tpu_torch.perf``; its in-process models, CUDA regions and probe
+run on ``cuda`` unless the caller passes ``--device cpu``.
 """
 
 from client_tpu_torch.perf.client_backend import (
@@ -27,6 +28,7 @@ from client_tpu_torch.perf.infer_data import (
     create_infer_data_manager,
 )
 from client_tpu_torch.perf.load_manager import (
+    AsyncConcurrencyManager,
     ConcurrencyManager,
     CustomLoadManager,
     LoadManager,
@@ -34,10 +36,12 @@ from client_tpu_torch.perf.load_manager import (
 )
 from client_tpu_torch.perf.model_parser import ModelParser, SchedulerType
 from client_tpu_torch.perf.profiler import InferenceProfiler, PerfStatus
+from client_tpu_torch.perf.rendezvous import Rendezvous
 from client_tpu_torch.perf.report import print_summary, write_csv, write_json
 from client_tpu_torch.perf.sequence_manager import SequenceManager
 
 __all__ = [
+    "AsyncConcurrencyManager",
     "BackendKind",
     "ClientBackend",
     "ClientBackendFactory",
@@ -49,6 +53,7 @@ __all__ = [
     "MockClientBackend",
     "MockStats",
     "PerfStatus",
+    "Rendezvous",
     "RequestRateManager",
     "SequenceManager",
     "SharedMemoryType",

@@ -8,14 +8,17 @@ benchmarks the in-process server without sockets (the TRITON_C_API
 analog), and ``--device`` says where the hermetic models, the CUDA
 regions and the device probe run (``cuda`` unless ``cpu``).
 
-``-i http`` drives the port's own HTTP client (client_tpu_torch/http).
-Options the port does not have yet (``--async``,
-``--native-loadgen``, the non-KServe ``--service-kind``s, ``--world-size``
-above 1, a ``--url`` replica list, SSL) are refused with a message, never
-ignored.
+``-i http`` drives the port's own HTTP client (client_tpu_torch/http),
+``--async`` the load as asyncio slots over its grpc.aio client,
+``--world-size N`` coordinated ranks through the rendezvous barrier
+(perf/rendezvous.py), and ``--service-kind torchserve|tfserve|
+tfserve_rest`` the non-KServe backends (with ``--hermetic``, against the
+in-process fakes of perf/fake_endpoints.py, which need no device).
+Options the port does not have yet (``--native-loadgen``, a ``--url``
+replica list, SSL) are refused with a message, never ignored.
 
     python -m client_tpu_torch.perf -m resnet50 -u localhost:8001 \\
-        --shared-memory cuda --output-shared-memory-size 4000
+        --shared-memory cuda --output-shared-memory-size 4000 --async
     python -m client_tpu_torch.perf -m simple --hermetic --device cpu
 """
 
@@ -24,6 +27,7 @@ import sys
 
 from client_tpu_torch import resolve_device
 from client_tpu_torch.perf import (
+    AsyncConcurrencyManager,
     BackendKind,
     ClientBackendFactory,
     ConcurrencyManager,
@@ -43,6 +47,7 @@ from client_tpu_torch.perf.metrics_manager import (
     local_device_snapshot,
 )
 from client_tpu_torch.perf.model_parser import ModelParser
+from client_tpu_torch.perf.rendezvous import Rendezvous
 from client_tpu_torch.utils import InferenceServerException
 
 
@@ -95,16 +100,21 @@ def build_parser():
                         "list is not in the port yet)")
     p.add_argument("-i", "--protocol", choices=["grpc", "http"], default="grpc")
     p.add_argument("-a", "--async", dest="async_mode", action="store_true",
-                   help="not in the port yet")
+                   help="async concurrency slots on one event loop over "
+                        "grpc.aio (reference -a; stateless gRPC only)")
     p.add_argument("--native-loadgen", action="store_true",
                    help="not in the port yet")
     p.add_argument("--service-kind",
                    choices=["triton", "torchserve", "tfserve",
                             "tfserve_rest"],
                    default="triton",
-                   help="triton (the others are not in the port yet)")
+                   help="target service protocol family (reference "
+                        "--service-kind; non-KServe kinds declare the input "
+                        "tensor via --shape)")
     p.add_argument("--hermetic", action="store_true",
-                   help="benchmark the in-process server (no sockets)")
+                   help="benchmark the in-process server (no sockets); with "
+                        "--service-kind torchserve/tfserve spins the "
+                        "matching in-process fake endpoint")
     p.add_argument("--hermetic-models", default="builtin",
                    help="model sets for --hermetic: "
                         "builtin,jax,resnet,language,pipeline")
@@ -245,10 +255,10 @@ def build_parser():
     p.add_argument("--log-frequency", type=int, default=None,
                    help="flush the trace log every N traces")
     p.add_argument("--world-size", type=int, default=1,
-                   help="coordinated perf ranks (above 1 is not in the port "
-                        "yet)")
+                   help="number of coordinated perf ranks (MPI-mode analog)")
     p.add_argument("--rank", type=int, default=0)
-    p.add_argument("--rendezvous-addr", default="127.0.0.1:29400")
+    p.add_argument("--rendezvous-addr", default="127.0.0.1:29400",
+                   help="rank-0 coordinator host:port")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -264,12 +274,7 @@ def _not_ported(args, urls):
            or args.ssl_https_client_certificate_file
            or args.ssl_https_private_key_file)
     for name, given in (
-            ("--async (a grpc.aio client)", args.async_mode),
             ("--native-loadgen", args.native_loadgen),
-            (f"--service-kind {args.service_kind}",
-             args.service_kind != "triton"),
-            ("--world-size > 1 (the rendezvous barrier)",
-             args.world_size > 1),
             ("a --url replica list (and --churn-soak)",
              len(urls) > 1 or args.churn_soak is not None),
             ("SSL (the --ssl-* options)", ssl)):
@@ -308,8 +313,10 @@ def main(argv=None):
             sys.exit("error: --speculative configures the in-process LM "
                      "engine; add --hermetic")
 
+    # a hermetic non-KServe run starts only a host fake: no device
+    service = args.service_kind != "triton"
     device = None
-    if (args.hermetic or args.shared_memory == "cuda"
+    if ((args.hermetic and not service) or args.shared_memory == "cuda"
             or args.collect_local_gpu_metrics
             or args.probe_device_utilization):
         device = _device(args)
@@ -335,7 +342,45 @@ def main(argv=None):
             sys.exit(f"error: {e}")
 
     engine = None
-    if args.hermetic:
+    fake = None
+    backend_kwargs = {}
+    if service:
+        kind = {
+            "torchserve": BackendKind.TORCHSERVE,
+            "tfserve": BackendKind.TFSERVE,  # gRPC PredictionService
+            "tfserve_rest": BackendKind.TFSERVE_REST,
+        }[args.service_kind]
+        # --shape stays tensor-name-keyed: these services declare one input
+        # ("data" / "instances" / "input" — the names their backends
+        # synthesize)
+        tensor = {
+            "torchserve": "data",
+            "tfserve": "input",
+            "tfserve_rest": "instances",
+        }[args.service_kind]
+        if tensor in shape_overrides:
+            backend_kwargs["input_shape"] = shape_overrides[tensor]
+        for key in shape_overrides:
+            if key != tensor:
+                print(
+                    f"warning: --shape '{key}' does not match this service "
+                    f"kind's input tensor '{tensor}'; ignored",
+                    file=sys.stderr,
+                )
+        if args.hermetic:
+            from client_tpu_torch.perf.fake_endpoints import (
+                fake_tfserving,
+                fake_tfserving_grpc,
+                fake_torchserve,
+            )
+
+            fake = {
+                "torchserve": fake_torchserve,
+                "tfserve": fake_tfserving_grpc,
+                "tfserve_rest": fake_tfserving,
+            }[args.service_kind]([args.model_name]).start()
+            args.url = fake.url
+    elif args.hermetic:
         from client_tpu_torch.serve import InferenceEngine
         from client_tpu_torch.serve.models import model_sets
 
@@ -363,7 +408,8 @@ def main(argv=None):
 
     def backend_factory():
         return ClientBackendFactory.create(
-            kind, url=args.url, engine=engine, verbose=False
+            kind, url=args.url, engine=engine, verbose=False,
+            **backend_kwargs
         )
 
     control = backend_factory()
@@ -440,6 +486,10 @@ def main(argv=None):
                 num_streams=loader.num_streams,
             )
 
+        tenant_slots = _parse_tenants(args.tenants)
+        if tenant_slots and args.async_mode:
+            sys.exit("error: --tenants drives the thread-per-slot python "
+                     "load engine (not --async / --native-loadgen)")
         common = dict(
             backend_factory=backend_factory,
             data_loader=loader,
@@ -448,10 +498,14 @@ def main(argv=None):
             model_version=args.model_version,
             sequence_manager=sequences,
             max_threads=args.max_threads,
-            tenants=_parse_tenants(args.tenants),
+            tenants=tenant_slots,
         )
         latency_limit_us = args.latency_threshold * 1e3 or None
 
+        if args.async_mode and (args.request_intervals
+                                or args.request_rate_range):
+            sys.exit("error: --async applies to concurrency mode only "
+                     "(request-rate/interval schedules use worker threads)")
         if args.request_intervals:
             manager = CustomLoadManager(
                 intervals_file=args.request_intervals, **common
@@ -459,6 +513,19 @@ def main(argv=None):
         elif args.request_rate_range:
             manager = RequestRateManager(
                 distribution=args.request_distribution, **common
+            )
+        elif args.async_mode:
+            if (args.hermetic or kind != BackendKind.TRITON_GRPC
+                    or args.sequence):
+                sys.exit("error: --async requires a socket gRPC server and "
+                         "a stateless workload (sequences ride streaming)")
+            manager = AsyncConcurrencyManager(
+                url=args.url,
+                data_loader=loader,
+                data_manager=data_manager,
+                model_name=args.model_name,
+                model_version=args.model_version,
+                max_threads=args.max_threads,
             )
         else:
             manager = ConcurrencyManager(**common)
@@ -472,6 +539,16 @@ def main(argv=None):
                 utilization_probe=probe,
             ).start()
 
+        # the metrics (and the probe's first kernel) start BEFORE the
+        # rendezvous barrier so multi-rank measurement windows stay aligned
+        # after the barrier releases
+        rendezvous = None
+        if args.world_size > 1:
+            rendezvous = Rendezvous(
+                args.rank, args.world_size, args.rendezvous_addr
+            )
+            rendezvous.barrier()  # start measuring together (MPIBarrierWorld)
+
         profiler = InferenceProfiler(
             manager,
             backend=control,
@@ -481,6 +558,7 @@ def main(argv=None):
             percentile=args.percentile,
             verbose=args.verbose,
             metrics_manager=metrics,
+            rendezvous=rendezvous,
             measurement_mode=args.measurement_mode,
             measurement_request_count=args.measurement_request_count,
         )
@@ -566,6 +644,27 @@ def main(argv=None):
                 metrics.stop()
 
         print_summary(results, percentile=args.percentile)
+        if rendezvous is not None:
+            # rank-aggregated totals (the multi-model MPI mode's raison d'etre)
+            per_rank = rendezvous.all_gather(
+                [
+                    {"level": s.level_value, "throughput": s.throughput,
+                     "model": args.model_name}
+                    for s in results
+                ]
+            )
+            if args.rank == 0:
+                print("\nAggregate across ranks:")
+                for rank, levels in enumerate(per_rank):
+                    for entry in levels:
+                        print(
+                            f"  rank {rank} [{entry['model']}] level "
+                            f"{entry['level']}: {entry['throughput']:.1f} "
+                            "infer/sec"
+                        )
+                total = sum(e["throughput"] for lv in per_rank for e in lv)
+                print(f"  total: {total:.1f} infer/sec")
+            rendezvous.close()
         # every request of the run, windows or not: what the server's
         # statistics count
         completed, failed = manager.request_totals()
@@ -588,6 +687,8 @@ def main(argv=None):
             pass
         if engine is not None:
             engine.close()
+        if fake is not None:
+            fake.stop()
 
 
 if __name__ == "__main__":

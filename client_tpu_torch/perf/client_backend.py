@@ -5,8 +5,7 @@ src/c++/perf_analyzer/client_backend/client_backend.h:134-139
 BackendKind, :250-307 factory, :335-455 unified API): one interface over the
 transport variants so the load engine never touches protocol details.
 
-The port's copy of client_tpu/perf/client_backend.py, less the
-non-KServe backends (the TorchServe and TF-Serving kinds).  Backends:
+The port's copy of client_tpu/perf/client_backend.py.  Backends:
 
 - ``triton_grpc`` — the port's KServe-v2 gRPC client
   (client_tpu_torch/grpc) over the network (any Triton-compatible server);
@@ -19,12 +18,22 @@ non-KServe backends (the TorchServe and TF-Serving kinds).  Backends:
   regions are this process's own, so the engine's registry resolves them
   through the process-local broker (utils/cuda_shared_memory), never over
   IPC.
+- ``torchserve``, ``tfserve`` (gRPC PredictionService) and
+  ``tfserve_rest`` — the non-KServe protocol families (reference
+  client_backend.h:134-139), against a real service or the hermetic
+  fakes of perf/fake_endpoints.py.  The REST kinds send over the port's
+  HTTP client's ``http.client`` transport where the reference's use
+  urllib3, with the same transport-error wrapping; the gRPC kind speaks
+  the port's byte copy of the TF-Serving protos.
 - ``mock`` — deterministic fake with injectable latency/error schedules
   (reference mock_client_backend.h:405-583), used by the unit tests.
 """
 
+import json
 import threading
 import time
+
+import numpy as np
 
 from client_tpu_torch._infer_types import (
     InferInput,
@@ -46,6 +55,14 @@ class BackendKind:
     TRITON_HTTP = "triton_http"
     INPROCESS = "inprocess"
     MOCK = "mock"
+    # non-KServe protocol families (reference client_backend.h:134-139 lists
+    # TENSORFLOW_SERVING and TORCHSERVE next to the Triton kinds)
+    TORCHSERVE = "torchserve"
+    # TFSERVE speaks gRPC PredictionService (the reference's
+    # tfserve_grpc_client.cc shape); the REST variant stays available for
+    # endpoints with only the HTTP surface enabled
+    TFSERVE = "tfserve"
+    TFSERVE_REST = "tfserve_rest"
 
 
 class ClientBackend:
@@ -118,6 +135,12 @@ class ClientBackendFactory:
             return _InprocessBackend(engine)
         if kind == BackendKind.MOCK:
             return MockClientBackend(**kwargs)
+        if kind == BackendKind.TORCHSERVE:
+            return _TorchServeBackend(url, **kwargs)
+        if kind == BackendKind.TFSERVE:
+            return _TfServeGrpcBackend(url, **kwargs)
+        if kind == BackendKind.TFSERVE_REST:
+            return _TfServeBackend(url, **kwargs)
         raise InferenceServerException(f"unknown backend kind '{kind}'")
 
 
@@ -351,6 +374,385 @@ class _InprocessBackend(ClientBackend):
         for name in names:
             self._engine.shm.unregister_system(name)
             self._engine.shm.unregister_cuda(name)
+
+
+class _RestResult:
+    """InferResult-like view over a non-KServe JSON prediction response."""
+
+    def __init__(self, arrays, response):
+        self._arrays = arrays
+        self._response = response
+
+    def as_numpy(self, name):
+        return self._arrays.get(name)
+
+    def get_response(self):
+        return self._response
+
+
+class _TorchServeBackend(ClientBackend):
+    """TorchServe inference-API backend (reference
+    torchserve_http_client.cc:47-225): health via GET /ping, inference via
+    POST /predictions/{model} with the input payload as the request body.
+
+    TorchServe has no tensor-metadata endpoint, so (like the reference,
+    which requires --input-data for this service kind) the input shape is
+    declared at construction: ``input_shape``/``input_datatype`` kwargs, or
+    the DataLoader's ``--shape`` override downstream.
+    """
+
+    kind = BackendKind.TORCHSERVE
+
+    def __init__(self, url, verbose=False, input_shape=None,
+                 input_datatype="FP32", timeout_s=60.0):
+        from client_tpu_torch.http import InferenceServerClient
+
+        if "://" not in url:
+            url = "http://" + url
+        self._base = url.rstrip("/")
+        # the HTTP client's pool of keep-alive connections (8 idle at
+        # most); the reference's urllib3 total timeout becomes a bound on
+        # the connect and on each read
+        self._http = InferenceServerClient(
+            self._base, verbose=verbose, concurrency=8,
+            connection_timeout=timeout_s, network_timeout=timeout_s,
+        )
+        self._shape = list(input_shape or [-1])
+        self._datatype = input_datatype
+
+    def _request(self, method, path, body=None, headers=None):
+        """One request on the HTTP client's transport, with transport
+        errors wrapped — a transient connection reset must surface as a
+        per-window error count, not kill the sweep via the worker-fatal
+        path (mirrors http/__init__.py).  The answer has the ``status``
+        and raw ``data`` of any status."""
+        try:
+            return self._http._request_once(
+                method, path.lstrip("/"), headers, None, body
+            )
+        except InferenceServerException as e:
+            cause = e.debug_details()
+            raise InferenceServerException(
+                f"{self.kind} {method} {self._base}{path} failed: {cause}",
+                debug_details=cause,
+            ) from e
+
+    @staticmethod
+    def _json(r, what):
+        try:
+            return json.loads(r.data)
+        except Exception as e:
+            raise InferenceServerException(
+                f"{what} returned non-JSON body: {r.data[:200]!r}",
+                debug_details=e,
+            ) from e
+
+    def _get(self, path):
+        r = self._request("GET", path)
+        if r.status != 200:
+            raise InferenceServerException(
+                f"torchserve GET {path} -> {r.status}: {r.data[:200]!r}",
+                status=str(r.status),
+            )
+        return self._json(r, f"GET {path}")
+
+    def server_live(self):
+        return self._get("/ping").get("status") == "Healthy"
+
+    def model_metadata(self, model_name, model_version=""):
+        # surface the declared tensor interface in KServe-metadata shape so
+        # DataLoader / InferDataManager work unchanged
+        return {
+            "name": model_name,
+            "versions": ["1.0"],
+            "platform": "pytorch_torchserve",
+            "inputs": [{"name": "data", "datatype": self._datatype,
+                        "shape": self._shape}],
+            "outputs": [{"name": "predictions", "datatype": "FP64",
+                         "shape": [-1]}],
+        }
+
+    def model_config(self, model_name, model_version=""):
+        models = self._get(f"/models/{model_name}")
+        return {"name": model_name, "torchserve": models}
+
+    def infer(self, model_name, inputs, outputs=None, request_id="",
+              sequence_id=0, sequence_start=False, sequence_end=False,
+              model_version="", priority=0, timeout_us=None, headers=None):
+        if not inputs:
+            raise InferenceServerException("torchserve infer needs one input")
+        body = bytes(inputs[0].raw_data() or b"")
+        r = self._request(
+            "POST", f"/predictions/{model_name}", body=body,
+            headers={"Content-Type": "application/octet-stream"},
+        )
+        if r.status != 200:
+            raise InferenceServerException(
+                f"torchserve predict -> {r.status}: {r.data[:200]!r}",
+                status=str(r.status),
+            )
+        # A 200 is a successful inference whatever the body shape: numeric
+        # predictions become a validatable tensor; anything else (TorchServe
+        # classification dicts, text/plain custom handlers) stays reachable
+        # via get_response() as parsed JSON or raw bytes.
+        try:
+            doc = json.loads(r.data)
+        except Exception:
+            return _RestResult({}, r.data)
+        try:
+            arrays = {
+                "predictions": np.asarray(doc, dtype=np.float64).reshape(-1)
+            }
+        except (TypeError, ValueError):
+            arrays = {}
+        return _RestResult(arrays, doc)
+
+    def close(self):
+        self._http.close()
+
+
+class _TfServeGrpcBackend(ClientBackend):
+    """TensorFlow-Serving backend over gRPC PredictionService — the
+    reference's service shape (tensorflow_serving/tfserve_grpc_client.cc:
+    PredictRequest with a TensorProto inputs map, ModelService status for
+    liveness).  Wire messages come from the self-contained
+    proto/tfserve.proto mirror (field numbers match upstream tensorflow, so
+    this talks to a real TF-Serving endpoint)."""
+
+    kind = BackendKind.TFSERVE
+
+    _DTYPES = {
+        "FP32": ("DT_FLOAT", np.float32),
+        "FP64": ("DT_DOUBLE", np.float64),
+        "INT32": ("DT_INT32", np.int32),
+        "INT64": ("DT_INT64", np.int64),
+        "INT16": ("DT_INT16", np.int16),
+        "INT8": ("DT_INT8", np.int8),
+        "UINT8": ("DT_UINT8", np.uint8),
+        "UINT32": ("DT_UINT32", np.uint32),
+        "UINT64": ("DT_UINT64", np.uint64),
+        "BOOL": ("DT_BOOL", np.bool_),
+    }
+
+    def __init__(self, url, verbose=False, signature_name="serving_default",
+                 input_name="input", output_name="output", input_shape=None,
+                 input_datatype="FP32", **_):
+        import grpc
+
+        from client_tpu_torch._proto import tfserve_pb2 as tfs
+
+        self._tfs = tfs
+        self._signature = signature_name
+        self._input_name = input_name
+        self._output_name = output_name
+        self._shape = input_shape or [-1, 4]
+        self._datatype = input_datatype
+        self._channel = grpc.insecure_channel(url)
+        service = "/tensorflow.serving.PredictionService/"
+        self._predict = self._channel.unary_unary(
+            service + "Predict",
+            request_serializer=tfs.PredictRequest.SerializeToString,
+            response_deserializer=tfs.PredictResponse.FromString,
+        )
+        self._metadata_rpc = self._channel.unary_unary(
+            service + "GetModelMetadata",
+            request_serializer=tfs.GetModelMetadataRequest.SerializeToString,
+            response_deserializer=tfs.GetModelMetadataResponse.FromString,
+        )
+        self._status = self._channel.unary_unary(
+            "/tensorflow.serving.ModelService/GetModelStatus",
+            request_serializer=tfs.GetModelStatusRequest.SerializeToString,
+            response_deserializer=tfs.GetModelStatusResponse.FromString,
+        )
+
+    def server_live(self):
+        return True  # liveness is per-model (GetModelStatus) below
+
+    def model_ready(self, model_name, model_version=""):
+        import grpc
+
+        request = self._tfs.GetModelStatusRequest()
+        request.model_spec.name = model_name
+        try:
+            response = self._status(request)
+        except grpc.RpcError as e:
+            raise InferenceServerException(
+                f"GetModelStatus failed: {e.details()}"
+            ) from e
+        return any(
+            s.state == self._tfs.ModelVersionStatus.AVAILABLE
+            for s in response.model_version_status
+        )
+
+    def model_metadata(self, model_name, model_version=""):
+        import grpc
+
+        request = self._tfs.GetModelMetadataRequest()
+        request.model_spec.name = model_name
+        request.metadata_field.append("signature_def")
+        version = "1"
+        try:
+            response = self._metadata_rpc(request)
+            if response.model_spec.version.value:
+                version = str(response.model_spec.version.value)
+        except grpc.RpcError:
+            pass  # metadata verb optional on some deployments
+        return {
+            "name": model_name,
+            "versions": [version],
+            "platform": "tensorflow_serving",
+            "inputs": [{"name": self._input_name,
+                        "datatype": self._datatype, "shape": self._shape}],
+            "outputs": [{"name": self._output_name, "datatype": "FP32",
+                         "shape": [-1]}],
+        }
+
+    def model_config(self, model_name, model_version=""):
+        return {"name": model_name, "platform": "tensorflow_serving"}
+
+    def _to_tensor(self, tensor, inp):
+        datatype = inp.datatype()
+        if datatype == "BYTES":
+            arr = from_wire_bytes(inp.raw_data() or b"", "BYTES", inp.shape())
+            tensor.dtype = self._tfs.DT_STRING
+            for v in arr.flatten():
+                tensor.string_val.append(
+                    v if isinstance(v, bytes) else str(v).encode()
+                )
+        else:
+            entry = self._DTYPES.get(datatype)
+            if entry is None:
+                raise InferenceServerException(
+                    f"tfserve backend cannot map datatype {datatype}"
+                )
+            tensor.dtype = getattr(self._tfs, entry[0])
+            tensor.tensor_content = inp.raw_data() or b""
+        for d in inp.shape():
+            tensor.tensor_shape.dim.add().size = int(d)
+
+    def _from_tensor(self, tensor):
+        shape = [d.size for d in tensor.tensor_shape.dim]
+        for wire, (dt_name, np_dtype) in self._DTYPES.items():
+            if tensor.dtype == getattr(self._tfs, dt_name):
+                if tensor.tensor_content:
+                    arr = np.frombuffer(tensor.tensor_content, dtype=np_dtype)
+                else:
+                    # upstream's repeated-field conventions: int_val also
+                    # carries the narrow integer dtypes
+                    field = {
+                        "DT_FLOAT": tensor.float_val,
+                        "DT_DOUBLE": tensor.double_val,
+                        "DT_INT32": tensor.int_val,
+                        "DT_INT16": tensor.int_val,
+                        "DT_INT8": tensor.int_val,
+                        "DT_UINT8": tensor.int_val,
+                        "DT_INT64": tensor.int64_val,
+                        "DT_UINT32": tensor.uint32_val,
+                        "DT_UINT64": tensor.uint64_val,
+                        "DT_BOOL": tensor.bool_val,
+                    }[dt_name]
+                    arr = np.asarray(list(field), dtype=np_dtype)
+                return arr.reshape(shape) if shape else arr
+        if tensor.dtype == self._tfs.DT_STRING:
+            arr = np.array(list(tensor.string_val), dtype=np.object_)
+            return arr.reshape(shape) if shape else arr
+        raise InferenceServerException(
+            f"tfserve response carried unsupported dtype {tensor.dtype}"
+        )
+
+    def infer(self, model_name, inputs, outputs=None, request_id="",
+              sequence_id=0, sequence_start=False, sequence_end=False,
+              model_version="", priority=0, timeout_us=None, headers=None):
+        import grpc
+
+        if not inputs:
+            raise InferenceServerException("tfserve infer needs inputs")
+        request = self._tfs.PredictRequest()
+        request.model_spec.name = model_name
+        request.model_spec.signature_name = self._signature
+        if model_version:
+            request.model_spec.version.value = int(model_version)
+        for inp in inputs:
+            self._to_tensor(request.inputs[inp.name()], inp)
+        for out in outputs or []:
+            request.output_filter.append(out.name())
+        timeout_s = (timeout_us / 1e6) if timeout_us else None
+        try:
+            response = self._predict(request, timeout=timeout_s)
+        except grpc.RpcError as e:
+            raise InferenceServerException(
+                f"tfserve Predict failed: {e.details()}",
+                status=str(e.code().name),
+            ) from e
+        arrays = {
+            name: self._from_tensor(tensor)
+            for name, tensor in response.outputs.items()
+        }
+        return _RestResult(arrays, {"model_spec": response.model_spec.name})
+
+    def statistics(self, model_name="", model_version=""):
+        raise NotImplementedError("tensorflow serving exposes no statistics")
+
+    def close(self):
+        self._channel.close()
+
+
+class _TfServeBackend(_TorchServeBackend):
+    """TensorFlow-Serving backend over its REST predict API — for
+    deployments with only the HTTP surface enabled (the gRPC
+    PredictionService backend above is the reference's shape)."""
+
+    kind = BackendKind.TFSERVE_REST
+
+    def server_live(self):
+        return True  # liveness is per-model below
+
+    def model_metadata(self, model_name, model_version=""):
+        md = self._get(f"/v1/models/{model_name}/metadata")
+        meta = {
+            "name": model_name,
+            "versions": [md.get("model_spec", {}).get("version", "1")],
+            "platform": "tensorflow_serving",
+            "inputs": [{"name": "instances", "datatype": self._datatype,
+                        "shape": self._shape}],
+            "outputs": [{"name": "predictions", "datatype": "FP64",
+                         "shape": [-1]}],
+        }
+        return meta
+
+    def model_config(self, model_name, model_version=""):
+        return {"name": model_name,
+                "tfserving": self._get(f"/v1/models/{model_name}")}
+
+    def infer(self, model_name, inputs, outputs=None, request_id="",
+              sequence_id=0, sequence_start=False, sequence_end=False,
+              model_version="", priority=0, timeout_us=None, headers=None):
+        if not inputs:
+            raise InferenceServerException("tfserve infer needs one input")
+        inp = inputs[0]
+        arr = from_wire_bytes(
+            inp.raw_data() or b"", inp.datatype(), inp.shape()
+        )
+        doc = {"instances": arr.reshape(arr.shape[0], -1).tolist()
+               if arr.ndim > 1 else [arr.tolist()]}
+        r = self._request(
+            "POST", f"/v1/models/{model_name}:predict",
+            body=json.dumps(doc).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        if r.status != 200:
+            raise InferenceServerException(
+                f"tfserve predict -> {r.status}: {r.data[:200]!r}",
+                status=str(r.status),
+            )
+        out = self._json(r, "predict")
+        try:  # columnar ("outputs") or non-numeric responses: raw doc only
+            arrays = {
+                "predictions": np.asarray(out["predictions"], np.float64)
+            }
+        except (KeyError, TypeError, ValueError):
+            arrays = {}
+        return _RestResult(arrays, out)
 
 
 class MockStats:

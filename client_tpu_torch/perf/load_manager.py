@@ -8,10 +8,10 @@ is a worker thread (the sync-client analog of an InferContext), timestamps
 accumulate per-thread and are swapped out by the profiler between
 measurement windows.
 
-The port's copy of client_tpu/perf/load_manager.py less its
-``AsyncConcurrencyManager`` (``--async``: asyncio slots over a grpc.aio
-client, which the port does not have yet).  One addition: every request
-of a run, inside a measurement window or not, is counted by outcome
+The port's copy of client_tpu/perf/load_manager.py, with
+``AsyncConcurrencyManager`` (``--async``: asyncio slots on one loop thread
+over the port's grpc.aio client).  One addition: every request of a run,
+inside a measurement window or not, is counted by outcome
 (:meth:`LoadManager.request_totals`), so a run's client count can be held
 against the server's statistics.
 """
@@ -138,7 +138,8 @@ class InferContext:
 
 def _validate_result(loader, result, stream_id, step_id):
     """Compare response tensors against the data loader's expected-output
-    (validation_data) entries, when provided."""
+    (validation_data) entries, when provided — shared by the sync and async
+    request slots."""
     expected = loader.get_expected_outputs(stream_id, step_id)
     if not expected or result is None or not hasattr(result, "as_numpy"):
         return True
@@ -318,6 +319,227 @@ class ConcurrencyManager(LoadManager):
         while not stop.is_set():
             ctx.send()
             self.count_sent()
+
+
+class AsyncConcurrencyManager(LoadManager):
+    """N outstanding requests as asyncio tasks on ONE event-loop thread over
+    the grpc.aio client — the reference's ``-a/--async`` mode (async
+    InferContext slots on the completion-queue thread,
+    infer_context.cc:103-150).  Versus thread-per-slot, high concurrency
+    costs coroutines instead of OS threads and the GIL is held by a single
+    loop, so the measurement instrument stays honest at deep concurrency.
+
+    Stateless workloads only (the reference's async mode pairs sequences
+    with streaming, which rides ``async_stream_infer`` instead).  The
+    client is the port's grpc.aio one (client_tpu_torch/grpc/aio); as the
+    thread engine's workers do, every slot counts its requests by outcome
+    (:meth:`request_totals`).
+    """
+
+    def __init__(self, url, data_loader, data_manager, model_name,
+                 model_version="", max_threads=512):
+        super().__init__(
+            backend_factory=lambda: None,
+            data_loader=data_loader,
+            data_manager=data_manager,
+            model_name=model_name,
+            model_version=model_version,
+            max_threads=max_threads,
+        )
+        self._url = url
+        self.concurrency = 0
+        self._loop = None
+        self._loop_thread = None
+        self._client = None
+        self._slots = []  # (asyncio.Task, ThreadStat, threading.Event)
+
+    # -- loop plumbing ------------------------------------------------------
+
+    def _ensure_loop(self):
+        import asyncio
+
+        if self._loop is not None:
+            return
+        # the loop object is created HERE (caller thread) so self._loop
+        # is only ever written caller-side (_ensure_loop/cleanup); the
+        # pump thread works through its closure, never through self
+        loop = asyncio.new_event_loop()
+        started = threading.Event()
+
+        def run():
+            asyncio.set_event_loop(loop)
+            started.set()
+            try:
+                loop.run_forever()
+            finally:
+                loop.close()
+
+        self._loop = loop
+        self._loop_thread = threading.Thread(
+            target=run, name="perf-aio-loop", daemon=True
+        )
+        self._loop_thread.start()
+        started.wait()
+
+    def _call_in_loop(self, coro, timeout=60):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self._loop).result(
+            timeout
+        )
+
+    async def _get_client(self):
+        if self._client is None:
+            from client_tpu_torch.grpc import aio as aiogrpc
+
+            self._client = aiogrpc.InferenceServerClient(self._url)
+        return self._client
+
+    # -- slots --------------------------------------------------------------
+
+    async def _slot(self, ctx_id, stat, stop):
+        client = await self._get_client()
+        rot = ctx_id  # interleave (stream, step) rotation across slots
+        while not stop.is_set():
+            stream_id = rot % self.loader.num_streams
+            step_id = (
+                rot // self.loader.num_streams
+                % self.loader.num_steps(stream_id)
+            )
+            rot += 1
+            data = self.data_manager.get_infer_data(stream_id, step_id)
+            start = time.monotonic_ns()
+            ok = True
+            try:
+                result = await client.infer(
+                    self.model_name,
+                    data.inputs,
+                    outputs=data.outputs,
+                    model_version=self.model_version,
+                )
+                if getattr(self.data_manager, "completion_sync", False):
+                    self.data_manager.sync_outputs()
+                ok = _validate_result(
+                    self.loader, result, stream_id, step_id
+                )
+            except InferenceServerException:
+                ok = False
+            except Exception as e:  # noqa: BLE001 - transport collapse
+                with stat.lock:
+                    stat.fatal = e
+                return
+            end = time.monotonic_ns()
+            with stat.lock:
+                if ok:
+                    stat.completed += 1
+                else:
+                    stat.failed += 1
+                stat.records.append(
+                    RequestRecord(start, end, ok, endpoint=self._url)
+                )
+            self.count_sent()
+
+    def change_concurrency_level(self, concurrency):
+        import asyncio
+
+        if concurrency > self.max_threads:
+            raise InferenceServerException(
+                f"concurrency {concurrency} exceeds max_threads "
+                f"{self.max_threads}; raise --max-threads"
+            )
+        self.stop_workers()
+        self._residual = []  # see ConcurrencyManager.change_concurrency_level
+        self._ensure_loop()
+        self.concurrency = concurrency
+
+        async def start_slots():
+            slots = []
+            for ctx_id in range(concurrency):
+                stat = ThreadStat()
+                stop = threading.Event()
+                task = asyncio.get_running_loop().create_task(
+                    self._slot(ctx_id, stat, stop)
+                )
+                slots.append((task, stat, stop))
+            return slots
+
+        self._slots = self._call_in_loop(start_slots())
+
+    def stop_workers(self):
+        import asyncio
+
+        if not self._slots:
+            return
+        for _, _, stop in self._slots:
+            stop.set()
+
+        async def join_slots(timeout):
+            tasks = [task for task, _, _ in self._slots]
+            done, pending = await asyncio.wait(tasks, timeout=timeout)
+            for task in pending:  # wedged in a hung infer: cancel and move on
+                task.cancel()
+            if pending:
+                await asyncio.gather(*pending, return_exceptions=True)
+
+        try:
+            self._call_in_loop(join_slots(30), timeout=60)
+        except Exception:
+            pass  # teardown continues; records already harvested below
+        for _, stat, _ in self._slots:
+            with stat.lock:
+                self._residual.extend(stat.records)
+                stat.records = []
+                self._totals[0] += stat.completed
+                self._totals[1] += stat.failed
+        self._slots = []
+
+    def request_totals(self):
+        """(completed, failed): every request of the run so far."""
+        done, failed = self._totals
+        for _, stat, _ in self._slots:
+            with stat.lock:
+                done += stat.completed
+                failed += stat.failed
+        return done, failed
+
+    def swap_timestamps(self):
+        out = self._residual
+        self._residual = []
+        for _, stat, _ in self._slots:
+            with stat.lock:
+                out.extend(stat.records)
+                stat.records = []
+        return out
+
+    def check_health(self):
+        for task, stat, stop in self._slots:
+            with stat.lock:
+                if stat.fatal is not None:
+                    raise stat.fatal
+            if task.done() and not stop.is_set():
+                exc = None
+                if not task.cancelled():
+                    exc = task.exception()  # the slot's real failure
+                if exc is not None:
+                    raise exc
+                raise InferenceServerException(
+                    "an async load slot exited unexpectedly"
+                )
+
+    def cleanup(self):
+        self.stop_workers()
+        if self._loop is not None:
+            if self._client is not None:
+                try:
+                    self._call_in_loop(self._client.close(), timeout=10)
+                except Exception:
+                    pass
+                self._client = None
+            self._loop.call_soon_threadsafe(self._loop.stop)
+            self._loop_thread.join(timeout=10)
+            self._loop = None
+            self._loop_thread = None
+        self.data_manager.cleanup()
 
 
 class RequestRateManager(LoadManager):

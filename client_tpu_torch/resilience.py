@@ -2,13 +2,15 @@
 classification.
 
 Counterpart of client_tpu/resilience.py less its failover half (the
-replica-set router's ``call_with_failover``) and its asyncio twins:
-:class:`CircuitBreaker` (per-endpoint closed -> open -> half-open),
-:class:`CircuitBreakerRegistry`, :class:`CircuitOpenError`,
-:func:`is_connection_error` and :func:`is_connection_level`, and the
-retry half the gRPC client (client_tpu_torch/grpc) routes its unary
-calls through: :func:`combine_timeouts`, :class:`Deadline`,
-:class:`RetryPolicy`, :func:`backoff_delays` and :func:`call_with_retry`,
+replica-set router's ``call_with_failover``, ``acall_with_failover`` and
+``NoHealthyEndpointError``): :class:`CircuitBreaker` (per-endpoint
+closed -> open -> half-open), :class:`CircuitBreakerRegistry`,
+:class:`CircuitOpenError`, :func:`is_connection_error` and
+:func:`is_connection_level`, and the retry half the clients route their
+unary calls through: :func:`combine_timeouts`, :class:`Deadline`,
+:class:`RetryPolicy`, :func:`backoff_delays`, :func:`call_with_retry`
+(client_tpu_torch/grpc and http) and its asyncio twin
+:func:`acall_with_retry` (client_tpu_torch/grpc/aio and http/aio),
 copied from the reference onto the port's own
 ``InferenceServerException``.  The fleet tier (serve/fleet.py) puts
 every peer behind one breaker, and the server's coalescer tells a dead
@@ -46,6 +48,7 @@ __all__ = [
     "CircuitBreaker",
     "CircuitBreakerRegistry",
     "CircuitOpenError",
+    "acall_with_retry",
     "call_with_retry",
     "is_connection_error",
     "is_connection_level",
@@ -541,6 +544,37 @@ def call_with_retry(fn, policy):
             delay = _next_step(policy, deadline, exc, attempt, retryable)
             attempt += 1
             time.sleep(delay)
+        else:
+            if breaker is not None:
+                breaker.record_success()
+            _notify(policy.observer, "on_success", attempt)
+            return result
+
+
+async def acall_with_retry(fn, policy):
+    """Async twin of :func:`call_with_retry`; ``fn`` is a coroutine
+    function taking the derived per-attempt timeout."""
+    deadline = policy.new_deadline()
+    breaker = policy.circuit_breaker
+    attempt = 0
+    while True:
+        if breaker is not None:
+            breaker.before_attempt()
+        try:
+            result = await fn(deadline.attempt_timeout() if deadline else None)
+        except CircuitOpenError:
+            raise
+        except Exception as exc:
+            retryable = policy.retryable(exc)
+            _record_outcome(breaker, retryable)
+            if breaker is not None and breaker.state == CircuitBreaker.OPEN:
+                # failure opened the circuit: surface the real error now
+                # instead of backing off into a guaranteed fast-fail
+                _notify(policy.observer, "on_giveup", attempt, exc)
+                raise
+            delay = _next_step(policy, deadline, exc, attempt, retryable)
+            attempt += 1
+            await asyncio.sleep(delay)
         else:
             if breaker is not None:
                 breaker.record_success()

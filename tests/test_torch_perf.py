@@ -26,7 +26,10 @@ package's (client_tpu.perf), on the CPU.
 - The CLI: hermetic sweeps on ``--device cpu`` with their exports, the
   refusal without it, every option that is not ported yet refused, the
   gRPC legs with system and CUDA regions, and ``--speculative`` through
-  ``model_sets(..., speculative=)``.
+  ``model_sets(..., speculative=)``.  (``--async``, ``--service-kind``
+  and ``--world-size`` have files of their own:
+  tests/test_torch_perf_async.py, test_torch_backends.py and
+  test_torch_rendezvous.py.)
 
 Wall-clock waits are count windows or mocks; no stability case waits on
 the clock.
@@ -887,9 +890,7 @@ def test_cli_refuses_without_cuda_unless_asked_for_the_cpu(no_cuda):
 
 @pytest.mark.parametrize("flags", [
     ["-i", "http", "--ssl-https-ca-certificates-file", "ca.pem"],
-    ["--async"], ["--native-loadgen"],
-    ["--service-kind", "torchserve"], ["--service-kind", "tfserve"],
-    ["--service-kind", "tfserve_rest"], ["--world-size", "2"],
+    ["--native-loadgen"],
     ["-u", "localhost:1,localhost:2"], ["--churn-soak", "1"],
     ["--ssl-grpc-use-ssl"], ["--ssl-https-verify-peer", "0"],
     ["--ssl-grpc-root-certifications-file", "ca.pem"],
