@@ -20,7 +20,10 @@ shared-memory inputs, holds ResNet-50's direct path (requests the
 server does not batch) to the batcher's captured graphs and runs
 perf_analyzer over HTTP through the port's own HTTP client, and last
 drives the same server through the port's asyncio clients and
-perf_analyzer's --async, two-rank and non-KServe modes.
+perf_analyzer's --async, two-rank and non-KServe modes, then balances
+the LM and ResNet-50 across it and a second server process through the
+port's replica set, kills that process under load, and runs
+perf_analyzer over the pair.
 
     python3 chip_smoke.py
 
@@ -273,7 +276,8 @@ Phases, one line each or more; any failure exits non-zero:
                 replicas, launches_ring_flash and launches_ring_2rank:
                 phase 19's, launches_grpc: phase 21's, launches_perf:
                 phase 22's in-process legs, launches_http: phase 23's
-                -i http LM leg, launches_aio: phase 24's aio calls), its
+                -i http LM leg, launches_aio: phase 24's aio calls,
+                launches_balance: phase 25's balanced calls), its
                 route's own
                 error (phase 3, 7 or 10) and its times (phase 6, 9 or 12)
  21 grpc        the gRPC frontend (runs before phase 20's line; needs
@@ -383,6 +387,32 @@ Phases, one line each or more; any failure exits non-zero:
                 the server's successes; (e) --service-kind torchserve,
                 tfserve and tfserve_rest --hermetic against the port's
                 host fakes, beside the other legs
+ 25 balance     the replica set (client_tpu_torch.balance) on phase 23's
+                server (replica A, before it stops) and a second server
+                process on the card, B (python -m client_tpu_torch.serve
+                --models resnet,language: the same seeds), and B's
+                replacement, started with B.  (a) ReplicatedClient
+                (round-robin) sends 8 MAX_TOKENS-1 lm_streaming_int8
+                calls over HTTP and 4 decoupled token streams over gRPC
+                (a ReplicatedClient a stream on one shared pool) across
+                A and B: each equal to the sync client's answer from A
+                alone (the near-tie rule), ctpu_client_routed_total
+                within one of even on each pool; (b) 8 threads of
+                ResNet-50 over HTTP (least-inflight, probes every 50 ms),
+                B SIGKILLed after 3 s: no client-visible error, every
+                answer bit-equal to one of A's rows for the image in a
+                group 8 one-row clients can form (n copies padded with
+                zero rows to the batcher's bucket), B UNREACHABLE and its
+                routed count still from then on, the failovers and the
+                p50/p99 before and after; (c) python -m client_tpu_torch.
+                perf -u A,B' (B's replacement) on ResNet-50 at 8 over
+                gRPC and over HTTP: the per-endpoint split printed, each
+                endpoint's count of the run equal to its server's
+                success delta; then --churn-soak 0.5 over HTTP: exit 0,
+                no failure.  The launch counts in A's process are reset
+                before (a)'s balanced calls and read after (c): int8 and
+                paged attention must have launched (launches_balance in
+                phase 20)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -395,9 +425,11 @@ import gzip
 import itertools
 import json
 import os
+import queue
 import re
 import select
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -4646,9 +4678,10 @@ def http_phase(card):
     ResNet-50 wire and system-region legs over gRPC again, side by side;
     (c) ``python -m client_tpu_torch.perf -i http`` against ResNet-50 with
     --shared-memory none, system and cuda, and against HTTP_LM; then
-    phase 24 on the same server (aio_phase).  Returns the LM leg's
-    (launches, routes) (launches_http in phase 20) and phase 24's
-    (launches_aio)."""
+    phase 24 on the same server (aio_phase), then phase 25 with it as
+    replica A (balance_phase).  Returns the LM leg's (launches, routes)
+    (launches_http in phase 20), phase 24's (launches_aio) and phase
+    25's (launches_balance)."""
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import language, vision
 
@@ -4688,9 +4721,10 @@ def http_phase(card):
             launches, routes = http_lm_leg(card, server, tmp)
             phase(23, "http_done", seconds=time.monotonic() - t0, **card)
             aio = aio_phase(card, server, engines, tmp)
+            balanced = balance_phase(card, server, resnet, engines, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, routes, aio
+    return launches, routes, aio, balanced
 
 
 # -- the asyncio clients, --async, two ranks, the service kinds (phase 24) ----
@@ -5056,6 +5090,443 @@ def aio_phase(card, server, engines, tmp):
         check(launches[name] > 0,
               f"the aio calls launched {name} no time: {launches}")
     phase(24, "aio_done", launches=launches, launches_by_route=routes,
+          seconds=time.monotonic() - t0, **card)
+    return launches, routes
+
+
+
+# -- the replica set across two servers on the card (phase 25) -------------
+
+BALANCE_HTTP_CALLS = 8   # 25a: MAX_TOKENS-1 int8 calls over HTTP
+BALANCE_STREAMS = 4      # 25a: decoupled int8 token streams over gRPC
+BALANCE_THREADS = 8      # 25b: ResNet-50 client threads
+BALANCE_BEFORE_S = 3.0   # 25b: load before the kill, then after it
+BALANCE_AFTER_S = 3.0
+BALANCE_LEVEL = "8"      # 25c: perf_analyzer's concurrency across A,B
+BALANCE_WINDOW_MS = 1000
+BALANCE_CHURN_S = "0.5"  # 25c: --churn-soak's tick
+BALANCE_MODEL = "lm_streaming_int8"
+
+
+def replica_argv():
+    """The command of one replica process: the port's server on the card
+    with ResNet-50 and the language set from the seeds phase 23's server
+    used, HTTP and gRPC on free ports."""
+    return [sys.executable, "-m", "client_tpu_torch.serve",
+            "--models", "resnet,language", "--http-port", "0",
+            "--grpc-port", "0"]
+
+
+def start_replica(tmp, tag):
+    """Start a replica process.  Returns (process, its stderr file)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    err = open(os.path.join(tmp, f"replica_{tag}.err"), "w+")
+    proc = subprocess.Popen(replica_argv(), stdout=subprocess.PIPE,
+                            stderr=err, text=True, cwd=here,
+                            env={**os.environ, "PYTHONPATH": here})
+    return proc, err
+
+
+def replica_addresses(proc, err, timeout=300):
+    """Read a replica's HTTP and gRPC lines off a thread that goes on
+    draining its output.  Returns (http address, grpc address)."""
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+
+    threading.Thread(target=pump, daemon=True).start()
+    found, deadline = {}, time.monotonic() + timeout
+    while len(found) < 2:
+        try:
+            line = lines.get(timeout=1.0)
+        except queue.Empty:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                err.seek(0)
+                fail(f"replica exited {proc.poll()} before serving: "
+                     f"{err.read()[-3000:]}")
+            continue
+        for kind in ("HTTP", "gRPC"):
+            prefix = f"client_tpu_torch.serve: {kind} on "
+            if line.startswith(prefix):
+                found[kind] = line[len(prefix):].strip()
+    return found["HTTP"], found["gRPC"]
+
+
+def stop_replica(proc, err):
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait(timeout=60)
+    err.close()
+
+
+def model_successes(http_addr, model):
+    """(success, fail) counts of *model* from a server's statistics."""
+    _, body, _ = http(http_addr, f"/v2/models/{model}/stats")
+    stats = json.loads(body)["model_stats"][0]["inference_stats"]
+    return stats["success"]["count"], stats["fail"]["count"]
+
+
+def resnet_answers(model, x):
+    """Every row ResNet-50 gives for image *x* in each group the
+    BALANCE_THREADS one-row clients can form: n copies of it padded with
+    zero rows to the batcher's bucket for n, as the batcher pads them.  A
+    served answer is bit-equal to one of these rows (a bucket graph
+    replays its eager forward bit for bit, phase 13)."""
+    from client_tpu_torch.serve.dynamic_batcher import _bucket
+
+    rows = set()
+    with torch.no_grad():
+        for n in range(1, BALANCE_THREADS + 1):
+            batch = np.zeros((_bucket(n, model.max_batch_size),)
+                             + x.shape[1:], np.float32)
+            batch[:n] = x
+            out = model.fn({"INPUT0": batch}, {}, None)
+            out = out["OUTPUT0"].float().cpu().numpy()
+            rows.update(out[i].tobytes() for i in range(n))
+    return rows
+
+
+def lm_alone(a, grpcclient, httpclient, prompt):
+    """25a's prompts and the sync client's answers from A alone: tokens
+    of MAX_TOKENS-1 HTTP calls and of gRPC token streams.  Returns
+    (calls, their tokens, stream prompts, their tokens)."""
+    calls = distinct_prompts(prompt, BALANCE_HTTP_CALLS)
+    streams = distinct_prompts(prompt[::-1], BALANCE_STREAMS)
+    with httpclient.InferenceServerClient(a["http"]) as c:
+        want_http = [int(c.infer(BALANCE_MODEL,
+                                 grpc_lm_inputs(httpclient, p, 1))
+                         .as_numpy("TOKEN")[0]) for p in calls]
+    want_streams = [grpc_stream(grpcclient, a["grpc"], BALANCE_MODEL, p,
+                                GRPC_TOKENS) for p in streams]
+    return calls, want_http, streams, want_streams
+
+
+def balanced_lm(card, a, b, engines, grpcclient, httpclient, balance,
+                metrics, tfm, alone):
+    """25a: MAX_TOKENS-1 int8 calls over HTTP and decoupled token streams
+    over gRPC, round-robin across A and B through the port's
+    ReplicatedClient, against the sync client's answers from A alone
+    (*alone*, from lm_alone)."""
+    int8 = engines[BALANCE_MODEL]
+    calls, want_http, streams, want_streams = alone
+    registry = metrics.Registry()
+    http_pool = balance.EndpointPool(
+        [a["http"], b["http"]], policy="round-robin",
+        observer=metrics.BalancerMetricsObserver(registry))
+    grpc_pool = balance.EndpointPool(
+        [a["grpc"], b["grpc"]], policy="round-robin",
+        observer=metrics.BalancerMetricsObserver(registry))
+    with balance.ReplicatedClient(http_pool, transport="http",
+                                  probe_interval_s=None) as client:
+        got_http = [int(client.infer(BALANCE_MODEL,
+                                     grpc_lm_inputs(httpclient, p, 1))
+                        .as_numpy("TOKEN")[0]) for p in calls]
+    got_streams = [None] * BALANCE_STREAMS
+    errors = []
+
+    def one_stream(i):
+        toks, done = [], threading.Event()
+
+        def on_response(result, error):
+            if error is not None:
+                errors.append(repr(error))
+                done.set()
+                return
+            toks.append(int(result.as_numpy("TOKEN")[0]))
+            if len(toks) == GRPC_TOKENS:
+                done.set()
+
+        with balance.ReplicatedClient(grpc_pool, transport="grpc",
+                                      probe_interval_s=None) as client:
+            client.start_stream(on_response, stream_timeout=300)
+            client.async_stream_infer(BALANCE_MODEL, grpc_lm_inputs(
+                grpcclient, streams[i], GRPC_TOKENS))
+            done.wait(timeout=300)
+            client.stop_stream()
+        got_streams[i] = toks
+
+    # each ReplicatedClient's stream leases its replica in turn from the
+    # shared pool: A, B, A, B
+    threads = []
+    for i in range(BALANCE_STREAMS):
+        threads.append(threading.Thread(target=one_stream, args=(i,)))
+        threads[-1].start()
+        time.sleep(0.05)
+    for th in threads:
+        th.join(timeout=300)
+    check(not errors and all(g is not None for g in got_streams),
+          f"balanced gRPC streams: {errors}")
+    near = {
+        "http_max_tokens_1": [
+            agreement(tfm, int8.params, int8.cfg, p, [g], [w])
+            for p, g, w in zip(calls, got_http, want_http)],
+        "grpc_streams": [
+            agreement(tfm, int8.params, int8.cfg, p, g, w)
+            for p, g, w in zip(streams, got_streams, want_streams)]}
+    routed = {}
+    for transport, pool in (("http", http_pool), ("grpc", grpc_pool)):
+        counts = {url: int(registry.get("ctpu_client_routed_total",
+                                        {"endpoint": url}) or 0)
+                  for url in pool.urls()}
+        check(max(counts.values()) - min(counts.values()) <= 1
+              and min(counts.values()) > 0,
+              f"{transport} routed {counts}: not within one of even")
+        routed[transport] = counts
+    phase(25, "balance_lm", model=BALANCE_MODEL,
+          http_calls=BALANCE_HTTP_CALLS, streams=BALANCE_STREAMS,
+          stream_tokens=GRPC_TOKENS, routed=routed,
+          vs_a_alone=near, near_tie=NEAR_TIE, **card)
+
+
+def kill_under_load(card, a, b_proc, b, resnet, balance, metrics, resilience,
+                    httpclient):
+    """25b: ResNet-50 from BALANCE_THREADS threads through a
+    least-inflight ReplicatedClient with probes on; B SIGKILLed mid-load.
+    Zero client errors, every answer bit-equal to one of A's, B
+    UNREACHABLE and routed no more once it is."""
+    x = vision_images(1, seed=25).numpy()
+    want = resnet_answers(resnet, x)
+    registry = metrics.Registry()
+    pool = balance.EndpointPool(
+        [a["http"], b["http"]], policy="least-inflight",
+        observer=metrics.BalancerMetricsObserver(registry),
+        failure_threshold=2, reset_timeout_s=60.0)
+    client = balance.ReplicatedClient(
+        pool, transport="http", probe_interval_s=0.05,
+        retry_policy=resilience.RetryPolicy(
+            max_attempts=8, initial_backoff_s=0.02, max_backoff_s=0.2,
+            deadline_s=20.0))
+
+    def routed(url):
+        return int(registry.get("ctpu_client_routed_total",
+                                {"endpoint": url}) or 0)
+
+    stop = threading.Event()
+    lock = threading.Lock()
+    records, errors, unknown = [], [], []
+    seen = {}
+
+    def worker():
+        inp = httpclient.InferInput("INPUT0", list(x.shape), "FP32")
+        inp.set_data_from_numpy(x, binary_data=True)
+        while not stop.is_set():
+            t = time.monotonic()
+            try:
+                out = client.infer("resnet50", [inp]).as_numpy("OUTPUT0")
+            except Exception as e:  # noqa: BLE001 - counted, checked below
+                with lock:
+                    errors.append(repr(e))
+                continue
+            row = np.ascontiguousarray(out[0], np.float32).tobytes()
+            with lock:
+                records.append((t, time.monotonic() - t))
+                if row not in want:
+                    unknown.append(row)
+                seen[row] = seen.get(row, 0) + 1
+
+    def monitor():
+        while not stop.is_set():
+            if pool.states()[b["http"]] == "UNREACHABLE":
+                mark["at"] = time.monotonic()
+                # a lease taken just before the transition has called
+                # on_route within this
+                time.sleep(0.1)
+                mark["routed"] = routed(b["http"])
+                return
+            time.sleep(0.002)
+
+    mark = {}
+    threads = [threading.Thread(target=worker)
+               for _ in range(BALANCE_THREADS)]
+    watcher = threading.Thread(target=monitor)
+    try:
+        for th in threads:
+            th.start()
+        time.sleep(BALANCE_BEFORE_S)
+        routed_before = {u: routed(u) for u in pool.urls()}
+        t_kill = time.monotonic()
+        watcher.start()
+        os.kill(b_proc.pid, signal.SIGKILL)
+        time.sleep(BALANCE_AFTER_S)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+        watcher.join(timeout=30)
+        states = pool.states()
+        routed_end = {u: routed(u) for u in pool.urls()}
+        client.close()
+    b_proc.wait(timeout=60)
+    check(not errors, f"{len(errors)} client-visible errors across the "
+                      f"kill: {errors[:3]}")
+    check(not unknown, f"{len(unknown)} ResNet-50 answers equal none of A's")
+    check(states[b["http"]] == "UNREACHABLE" and "at" in mark,
+          f"the pool's view after the kill: {states}")
+    check(routed_end[b["http"]] == mark["routed"],
+          f"B routed {routed_end[b['http']] - mark['routed']} more "
+          "requests after it was UNREACHABLE")
+    check(routed_before[b["http"]] > 0 and routed_before[a["http"]] > 0,
+          f"before the kill: routed {routed_before}")
+
+    def pct(lat, q):
+        return float(np.percentile(np.asarray(lat) * 1e3, q)) if lat else None
+
+    before = [d for t, d in records if t + d < t_kill]
+    after = [d for t, d in records if t >= mark["at"]]
+    spanning = [d for t, d in records if t < mark["at"] and t + d >= t_kill]
+    phase(25, "balance_kill", model="resnet50", threads=BALANCE_THREADS,
+          policy="least-inflight", probe_interval_s=0.05,
+          requests=len(records), errors=len(errors),
+          answers_distinct=len(seen), answers_bit_equal_to_a=True,
+          a_rows_over_groups=len(want), group_rows=[1, BALANCE_THREADS],
+          failovers=int(registry.get("ctpu_client_failovers_total",
+                                     {"endpoint": b["http"]}) or 0),
+          unreachable_after_s=mark["at"] - t_kill,
+          routed_before_kill=routed_before, routed_end=routed_end,
+          b_routed_at_unreachable=mark["routed"],
+          p99_ms_before=pct(before, 99), p50_ms_before=pct(before, 50),
+          requests_before=len(before),
+          p99_ms_after=pct(after, 99), p50_ms_after=pct(after, 50),
+          requests_after=len(after), p99_ms_spanning=pct(spanning, 99),
+          requests_spanning=len(spanning), states=states, **card)
+
+
+def perf_across(a_http, b_http, urls, protocol, tmp, extra=(), tag=""):
+    """One ``python -m client_tpu_torch.perf -u A,B`` run on ResNet-50.
+    Returns (JSON export, stdout, each server's success delta)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, f"balance_{protocol}{tag}.json")
+    argv = [sys.executable, "-m", "client_tpu_torch.perf", "-i", protocol,
+            "-m", "resnet50", "-u", ",".join(urls),
+            "--concurrency-range", BALANCE_LEVEL,
+            "--measurement-interval", str(BALANCE_WINDOW_MS),
+            "--max-trials", str(PERF_TRIALS), "-s", PERF_STABILITY,
+            "--json-export", out, *extra]
+    before = {u: model_successes(h, "resnet50")
+              for u, h in zip(urls, (a_http, b_http))}
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=here,
+                          env={**os.environ, "PYTHONPATH": here},
+                          timeout=300)
+    check(proc.returncode == 0, f"perf -i {protocol} -u {urls} {extra} "
+                                f"exited {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    after = {u: model_successes(h, "resnet50")
+             for u, h in zip(urls, (a_http, b_http))}
+    with open(out) as f:
+        doc = json.load(f)
+    delta = {u: after[u][0] - before[u][0] for u in urls}
+    check(all(after[u][1] == before[u][1] for u in urls)
+          and doc["requests"]["failed"] == 0
+          and all(r["error_count"] == 0 for r in doc["results"]),
+          f"perf -u {urls} {extra}: {doc['requests']}, failures "
+          f"{before} -> {after}")
+    return doc, proc.stdout, delta
+
+
+def balance_phase(card, server, resnet, engines, tmp):
+    """Phase 25 on phase 23's server (A): a second server process (B) on
+    the card serving the same models from the same seeds, and B's
+    replacement started with it.  (a) balanced LM answers against A
+    alone; (b) B SIGKILLed under ResNet-50 load; (c) perf_analyzer -u A,B
+    over gRPC and HTTP, then --churn-soak.  The launch counts in A's
+    process are reset before (a)'s balanced calls and read after (c)
+    (launches_balance in phase 20).  Returns (launches, routes)."""
+    from client_tpu_torch import balance, ops, resilience
+    from client_tpu_torch import grpc as grpcclient
+    from client_tpu_torch import http as httpclient
+    from client_tpu_torch.serve import metrics
+    from client_tpu_torch.serve.models import language
+    from client_tpu_torch.serve.models import transformer as tfm
+
+    t0 = time.monotonic()
+    replicas = [start_replica(tmp, tag) for tag in ("b", "b2")]
+    try:
+        a = {"http": server.http_address, "grpc": server.grpc_address}
+        b_http, b_grpc = replica_addresses(*replicas[0])
+        b2_http, b2_grpc = replica_addresses(*replicas[1])
+        b = {"http": b_http, "grpc": b_grpc}
+        prompt = language.encode_text(PROMPT)
+        x = vision_images(1, seed=26).numpy()
+        for addr in (b_http, b2_http):
+            # each replica captures its engine's graphs at its first
+            # request, and its ResNet-50 buckets at their first use
+            with httpclient.InferenceServerClient(addr) as c:
+                c.infer(BALANCE_MODEL, grpc_lm_inputs(httpclient, prompt, 1))
+
+            def hit(addr=addr):
+                with httpclient.InferenceServerClient(addr) as c:
+                    inp = httpclient.InferInput("INPUT0", list(x.shape),
+                                                "FP32")
+                    inp.set_data_from_numpy(x)
+                    for _ in range(4):
+                        c.infer("resnet50", [inp])
+
+            warm = [threading.Thread(target=hit)
+                    for _ in range(BALANCE_THREADS)]
+            for th in warm:
+                th.start()
+            for th in warm:
+                th.join(timeout=300)
+        phase(25, "balance_replicas", a=a, b=b,
+              b_replacement={"http": b2_http, "grpc": b2_grpc},
+              replica_argv=replica_argv()[1:],
+              seconds=time.monotonic() - t0, **card)
+
+        alone = lm_alone(a, grpcclient, httpclient, prompt)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        balanced_lm(card, a, b, engines, grpcclient, httpclient, balance,
+                    metrics, tfm, alone)
+        kill_under_load(card, a, replicas[0][0], b, resnet, balance,
+                        metrics, resilience, httpclient)
+
+        # -- 25c perf_analyzer across A and B's replacement -----------------
+        runs = {}
+        for protocol in ("grpc", "http"):
+            urls = ([a["grpc"], b2_grpc] if protocol == "grpc"
+                    else [a["http"], b2_http])
+            doc, stdout, delta = perf_across(a["http"], b2_http, urls,
+                                             protocol, tmp)
+            per = doc["requests"]["per_endpoint"]
+            check(all(f"    endpoint {u}: " in stdout for u in urls),
+                  f"perf -i {protocol} -u A,B printed no per-endpoint "
+                  f"split: {stdout[-2000:]}")
+            check({u: per[u]["completed"] for u in urls} == delta
+                  and all(per[u]["failed"] == 0 for u in urls)
+                  and all(v > 0 for v in delta.values()),
+                  f"perf -i {protocol} per endpoint {per}, servers "
+                  f"{delta}")
+            runs[protocol] = {"levels": perf_levels(doc),
+                              "per_endpoint": per, "server_successes": delta,
+                              "split": [line.strip() for line in
+                                        stdout.splitlines()
+                                        if line.startswith("    endpoint ")]}
+            phase(25, "balance_perf", protocol=protocol, urls=urls,
+                  **runs[protocol], **card)
+        urls = [a["http"], b2_http]
+        doc, stdout, delta = perf_across(
+            a["http"], b2_http, urls, "http", tmp,
+            extra=["--churn-soak", BALANCE_CHURN_S], tag="_churn")
+        check(doc["requests"]["failed"] == 0
+              and sum(delta.values()) == doc["requests"]["completed"],
+              f"--churn-soak: {doc['requests']}, servers {delta}")
+        phase(25, "balance_churn", churn_soak_s=float(BALANCE_CHURN_S),
+              levels=perf_levels(doc), requests=doc["requests"],
+              per_endpoint=doc["requests"].get("per_endpoint"),
+              server_successes=delta, **card)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        routes = {n: dict(r) for n, r in ops.ROUTES.items()}
+    finally:
+        for proc, err in replicas:
+            stop_replica(proc, err)
+    for name in ("int8_matmul", "paged_attention"):
+        check(launches[name] > 0,
+              f"the balanced calls launched {name} no time in A: "
+              f"{launches}")
+    phase(25, "balance_done", launches=launches, launches_by_route=routes,
           seconds=time.monotonic() - t0, **card)
     return launches, routes
 
@@ -5618,7 +6089,9 @@ def main():
 
     # -- 23 the direct path on the captured graphs; perf_analyzer over HTTP -
     # -- 24 the asyncio clients, --async, two ranks, the service kinds -----
-    http_launches, http_routes, (aio_launches, aio_routes) = http_phase(card)
+    # -- 25 the replica set across this server and a second process --------
+    (http_launches, http_routes, (aio_launches, aio_routes),
+     (balance_launches, balance_routes)) = http_phase(card)
 
     # -- 20 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
@@ -5651,6 +6124,7 @@ def main():
         "launches_perf": perf_launches["int8_matmul"],
         "launches_http": http_launches["int8_matmul"],
         "launches_aio": aio_launches["int8_matmul"],
+        "launches_balance": balance_launches["int8_matmul"],
         "max_abs_err": max(worst.values()),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -5671,7 +6145,8 @@ def main():
                        "in-process perf_analyzer legs; launches_http: "
                        "phase 23's perf_analyzer -i http LM leg; "
                        "launches_aio: phase 24's grpc.aio streams and "
-                       "http.aio calls",
+                       "http.aio calls; launches_balance: phase 25's "
+                       "balanced calls in replica A",
         "checked_in": "phase 3",
     }, {
         "name": "int8_matmul",
@@ -5688,6 +6163,7 @@ def main():
         "launches_perf": perf_routes["int8_matmul"]["mma"],
         "launches_http": http_routes["int8_matmul"]["mma"],
         "launches_aio": aio_routes["int8_matmul"]["mma"],
+        "launches_balance": balance_routes["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
         "ms": prefill["ms"],
         "plain_ms": prefill["plain_ms"],
@@ -5706,7 +6182,9 @@ def main():
                        "calls; launches_perf: phase 22's in-process "
                        "perf_analyzer legs; launches_http: phase 23's "
                        "perf_analyzer -i http LM leg; launches_aio: "
-                       "phase 24's grpc.aio streams and http.aio calls",
+                       "phase 24's grpc.aio streams and http.aio calls; "
+                       "launches_balance: phase 25's balanced calls in "
+                       "replica A",
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -5767,6 +6245,7 @@ def main():
             "launches_perf": perf_routes["paged_attention"][route],
             "launches_http": http_routes["paged_attention"][route],
             "launches_aio": aio_routes["paged_attention"][route],
+            "launches_balance": balance_routes["paged_attention"][route],
             "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -5782,7 +6261,8 @@ def main():
                            "perf_analyzer legs; launches_http: phase "
                            "23's perf_analyzer -i http LM leg; "
                            "launches_aio: phase 24's grpc.aio streams "
-                           "and http.aio calls",
+                           "and http.aio calls; launches_balance: phase "
+                           "25's balanced calls in replica A",
             "checked_in": "phase 10",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -398,6 +398,12 @@ class InferenceServerClient:
                 if not chunk:
                     break
                 chunks.append(chunk)
+            if resp.length:
+                # EOF before the Content-Length's bytes (the server died
+                # mid-answer): http.client's read(amt) returns short
+                # where urllib3 raises, so raise as it does
+                raise http.client.IncompleteRead(b"".join(chunks),
+                                                 resp.length)
             response = _Response(resp.status, resp.headers, b"".join(chunks))
         except Exception as e:
             conn.close()

@@ -14,8 +14,12 @@ regions and the device probe run (``cuda`` unless ``cpu``).
 (perf/rendezvous.py), and ``--service-kind torchserve|tfserve|
 tfserve_rest`` the non-KServe backends (with ``--hermetic``, against the
 in-process fakes of perf/fake_endpoints.py, which need no device).
-Options the port does not have yet (``--native-loadgen``, a ``--url``
-replica list, SSL) are refused with a message, never ignored.
+A comma-separated ``--url`` replica list fans the load out across the
+replicas through the port's ``balance.EndpointPool`` (round-robin, a
+per-endpoint split in the summary), and ``--churn-soak SECONDS`` rotates
+the pool's membership through its discovery loop while the load runs.
+Options the port does not have yet (``--native-loadgen``, SSL) are
+refused with a message, never ignored.
 
     python -m client_tpu_torch.perf -m resnet50 -u localhost:8001 \\
         --shared-memory cuda --output-shared-memory-size 4000 --async
@@ -96,8 +100,9 @@ def build_parser():
     p.add_argument("-m", "--model-name", required=True)
     p.add_argument("-x", "--model-version", default="")
     p.add_argument("-u", "--url", default="localhost:8001",
-                   help="server address (a comma-separated replica "
-                        "list is not in the port yet)")
+                   help="server address; a comma-separated list fans the "
+                        "load out across replicas (per-endpoint split in "
+                        "the summary)")
     p.add_argument("-i", "--protocol", choices=["grpc", "http"], default="grpc")
     p.add_argument("-a", "--async", dest="async_mode", action="store_true",
                    help="async concurrency slots on one event loop over "
@@ -205,7 +210,12 @@ def build_parser():
     p.add_argument("--sequence-id-range", type=int, default=2**32 - 1)
     p.add_argument("--churn-soak", type=float, default=None,
                    metavar="SECONDS",
-                   help="needs a --url replica list (not in the port yet)")
+                   help="with a --url replica list: soak the replica pool "
+                        "under membership churn — every SECONDS a rotating "
+                        "replica is retired from the pool through the "
+                        "discovery layer and re-added one tick later "
+                        "(retire/evict/re-add paths exercised under load; "
+                        "the last healthy endpoint is never dropped)")
     p.add_argument("-f", "--filename", default=None, help="CSV output path")
     p.add_argument("--json-export", default=None,
                    help="per-sweep-point JSON report path (the full "
@@ -263,7 +273,7 @@ def build_parser():
     return p
 
 
-def _not_ported(args, urls):
+def _not_ported(args):
     """The first option given that the port does not have yet, or None
     (the order of ROADMAP.md's queue)."""
     ssl = (args.ssl_grpc_use_ssl or args.ssl_grpc_root_certifications_file
@@ -275,8 +285,6 @@ def _not_ported(args, urls):
            or args.ssl_https_private_key_file)
     for name, given in (
             ("--native-loadgen", args.native_loadgen),
-            ("a --url replica list (and --churn-soak)",
-             len(urls) > 1 or args.churn_soak is not None),
             ("SSL (the --ssl-* options)", ssl)):
         if given:
             return name
@@ -296,7 +304,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     urls = [u.strip() for u in args.url.split(",") if u.strip()]
-    refused = _not_ported(args, urls)
+    refused = _not_ported(args)
     if refused is not None:
         sys.exit(f"error: {refused} is not in the port yet "
                  "(queued in ROADMAP.md, Queue 1)")
@@ -406,10 +414,69 @@ def main(argv=None):
             else BackendKind.TRITON_HTTP
         )
 
+    # Multi-replica fan-out: workers are assigned round-robin across the
+    # --url list via an EndpointPool, and the summary reports a
+    # per-endpoint throughput/latency split.
+    replica_pool = None
+    if len(urls) > 1:
+        if (args.hermetic or args.native_loadgen or args.async_mode
+                or kind not in (BackendKind.TRITON_GRPC,
+                                BackendKind.TRITON_HTTP)):
+            sys.exit("error: a --url replica list drives the python load "
+                     "engine over socket HTTP/gRPC (not --hermetic, "
+                     "--native-loadgen, --async, or non-Triton "
+                     "--service-kind)")
+        if args.shared_memory != "none":
+            sys.exit("error: --shared-memory regions are registered on one "
+                     "server; they cannot fan out across a --url replica "
+                     "list")
+        if len(set(urls)) != len(urls):
+            sys.exit("error: duplicate endpoint in the --url replica list")
+        from client_tpu_torch.balance import EndpointPool
+
+        replica_pool = EndpointPool(urls, policy="round-robin")
+        args.url = urls[0]  # control plane: metadata/statistics/trace
+
+    # Churn-soak: drive discovery updates into the live pool while the
+    # load runs — membership rotates through the resolver machinery, so
+    # probation/retire/evict are exercised exactly as production would.
+    churn_loop = None
+    if args.churn_soak is not None:
+        if replica_pool is None:
+            sys.exit("error: --churn-soak needs a --url replica list "
+                     "(membership churn over a single endpoint would "
+                     "violate the last-healthy safety valve every tick)")
+        from client_tpu_torch.balance.discovery import (
+            CallableResolver,
+            DiscoveryLoop,
+        )
+
+        churn_tick = {"n": 0}
+
+        def churn_membership():
+            # tick k retires replica k % (n+1); the full-fleet round
+            # (k == n) re-admits everyone, so each replica cycles through
+            # retire -> evict -> re-add -> probation -> active
+            i = churn_tick["n"] % (len(urls) + 1)
+            churn_tick["n"] += 1
+            if i == len(urls):
+                return list(urls)
+            return [u for j, u in enumerate(urls) if j != i]
+
+        churn_loop = DiscoveryLoop(
+            replica_pool, CallableResolver(churn_membership),
+            interval_s=args.churn_soak,
+        ).start()
+        if args.verbose:
+            print(f"churn soak: rotating {len(urls)} replicas every "
+                  f"{args.churn_soak:g}s", file=sys.stderr)
+
     def backend_factory():
+        url = (
+            replica_pool.pick().url if replica_pool is not None else args.url
+        )
         return ClientBackendFactory.create(
-            kind, url=args.url, engine=engine, verbose=False,
-            **backend_kwargs
+            kind, url=url, engine=engine, verbose=False, **backend_kwargs
         )
 
     control = backend_factory()
@@ -670,6 +737,12 @@ def main(argv=None):
         completed, failed = manager.request_totals()
         json_extra["requests"] = {"completed": completed, "failed": failed}
         print(f"Requests: {completed} completed, {failed} failed")
+        if replica_pool is not None:
+            per = json_extra["requests"]["per_endpoint"] = {}
+            for url, (done, bad) in sorted(
+                    manager.request_totals(by_endpoint=True).items()):
+                per[url] = {"completed": done, "failed": bad}
+                print(f"Requests at {url}: {done} completed, {bad} failed")
         if args.filename:
             write_csv(args.filename, results, verbose=args.verbose)
             print(f"wrote {args.filename}")
@@ -681,6 +754,10 @@ def main(argv=None):
         print(f"error: {e}", file=sys.stderr)
         return 2
     finally:
+        if churn_loop is not None:
+            churn_loop.close()
+        if replica_pool is not None:
+            replica_pool.close()
         try:
             control.close()
         except Exception:

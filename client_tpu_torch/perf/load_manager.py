@@ -11,9 +11,9 @@ measurement windows.
 The port's copy of client_tpu/perf/load_manager.py, with
 ``AsyncConcurrencyManager`` (``--async``: asyncio slots on one loop thread
 over the port's grpc.aio client).  One addition: every request of a run,
-inside a measurement window or not, is counted by outcome
-(:meth:`LoadManager.request_totals`), so a run's client count can be held
-against the server's statistics.
+inside a measurement window or not, is counted by outcome and by the
+endpoint its worker sends to (:meth:`LoadManager.request_totals`), so a
+run's client count can be held against each server's statistics.
 """
 
 import threading
@@ -51,12 +51,21 @@ class ThreadStat:
     ``records`` and surface as error counts, not aborts.
     """
 
-    def __init__(self):
+    def __init__(self, endpoint=""):
         self.lock = threading.Lock()
         self.records = []
         self.fatal = None
         self.completed = 0  # every request this worker sent, by outcome
         self.failed = 0
+        self.endpoint = endpoint  # the replica this worker sends to
+
+
+def _tally(totals, stat):
+    """Add one worker's outcome counts into ``{endpoint: [completed,
+    failed]}`` (the caller holds ``stat.lock``)."""
+    row = totals.setdefault(stat.endpoint, [0, 0])
+    row[0] += stat.completed
+    row[1] += stat.failed
 
 
 class InferContext:
@@ -186,7 +195,8 @@ class LoadManager:
         self._threads = []  # (thread, ThreadStat, stop_event)
         self._backends = []
         self._residual = []  # records harvested from stopped workers
-        self._totals = [0, 0]  # (completed, failed) of stopped workers
+        # {endpoint: [completed, failed]} of stopped workers
+        self._totals = {}
         self._sent = 0
         self._sent_lock = threading.Lock()
 
@@ -202,14 +212,20 @@ class LoadManager:
                 stat.records = []
         return out
 
-    def request_totals(self):
-        """(completed, failed): every request of the run so far."""
-        done, failed = self._totals
-        for _, stat, _ in self._threads:
+    def _live_stats(self):
+        return [stat for _, stat, _ in self._threads]
+
+    def request_totals(self, by_endpoint=False):
+        """(completed, failed): every request of the run so far; with
+        ``by_endpoint``, ``{endpoint: (completed, failed)}``."""
+        totals = {k: list(v) for k, v in self._totals.items()}
+        for stat in self._live_stats():
             with stat.lock:
-                done += stat.completed
-                failed += stat.failed
-        return done, failed
+                _tally(totals, stat)
+        if by_endpoint:
+            return {k: tuple(v) for k, v in totals.items()}
+        return (sum(v[0] for v in totals.values()),
+                sum(v[1] for v in totals.values()))
 
     def count_sent(self, n=1):
         with self._sent_lock:
@@ -238,8 +254,8 @@ class LoadManager:
 
     def _spawn(self, target, ctx_id):
         stop = threading.Event()
-        stat = ThreadStat()
         backend = self._backend_factory()
+        stat = ThreadStat(endpoint=backend.endpoint)
         self._backends.append(backend)
         tenant = (
             self.tenants[ctx_id % len(self.tenants)] if self.tenants else ""
@@ -272,8 +288,7 @@ class LoadManager:
             with stat.lock:
                 self._residual.extend(stat.records)
                 stat.records = []
-                self._totals[0] += stat.completed
-                self._totals[1] += stat.failed
+                _tally(self._totals, stat)
         self._threads = []
         for b in self._backends:
             try:
@@ -455,7 +470,7 @@ class AsyncConcurrencyManager(LoadManager):
         async def start_slots():
             slots = []
             for ctx_id in range(concurrency):
-                stat = ThreadStat()
+                stat = ThreadStat(endpoint=self._url)
                 stop = threading.Event()
                 task = asyncio.get_running_loop().create_task(
                     self._slot(ctx_id, stat, stop)
@@ -489,18 +504,11 @@ class AsyncConcurrencyManager(LoadManager):
             with stat.lock:
                 self._residual.extend(stat.records)
                 stat.records = []
-                self._totals[0] += stat.completed
-                self._totals[1] += stat.failed
+                _tally(self._totals, stat)
         self._slots = []
 
-    def request_totals(self):
-        """(completed, failed): every request of the run so far."""
-        done, failed = self._totals
-        for _, stat, _ in self._slots:
-            with stat.lock:
-                done += stat.completed
-                failed += stat.failed
-        return done, failed
+    def _live_stats(self):
+        return [stat for _, stat, _ in self._slots]
 
     def swap_timestamps(self):
         out = self._residual

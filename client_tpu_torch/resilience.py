@@ -1,9 +1,7 @@
 """Circuit breakers, retry policies and connection-level error
 classification.
 
-Counterpart of client_tpu/resilience.py less its failover half (the
-replica-set router's ``call_with_failover``, ``acall_with_failover`` and
-``NoHealthyEndpointError``): :class:`CircuitBreaker` (per-endpoint
+Counterpart of client_tpu/resilience.py: :class:`CircuitBreaker` (per-endpoint
 closed -> open -> half-open), :class:`CircuitBreakerRegistry`,
 :class:`CircuitOpenError`, :func:`is_connection_error` and
 :func:`is_connection_level`, and the retry half the clients route their
@@ -11,8 +9,10 @@ unary calls through: :func:`combine_timeouts`, :class:`Deadline`,
 :class:`RetryPolicy`, :func:`backoff_delays`, :func:`call_with_retry`
 (client_tpu_torch/grpc and http) and its asyncio twin
 :func:`acall_with_retry` (client_tpu_torch/grpc/aio and http/aio),
-copied from the reference onto the port's own
-``InferenceServerException``.  The fleet tier (serve/fleet.py) puts
+and the failover half the replica-set router (``balance/``) routes its
+calls through: :class:`NoHealthyEndpointError`,
+:func:`call_with_failover` and :func:`acall_with_failover`, copied from
+the reference onto the port's own ``InferenceServerException``.  The fleet tier (serve/fleet.py) puts
 every peer behind one breaker, and the server's coalescer tells a dead
 leader's transport error from an answered one with
 :func:`is_connection_level`.
@@ -48,12 +48,15 @@ __all__ = [
     "CircuitBreaker",
     "CircuitBreakerRegistry",
     "CircuitOpenError",
+    "NoHealthyEndpointError",
     "acall_with_retry",
     "call_with_retry",
     "is_connection_error",
     "is_connection_level",
     "backoff_delays",
     "combine_timeouts",
+    "call_with_failover",
+    "acall_with_failover",
 ]
 
 
@@ -116,6 +119,19 @@ class CircuitOpenError(InferenceServerException):
     Subclasses InferenceServerException so callers' existing error handling
     sees the familiar type; ``status`` is the retryable 503 so a *different*
     endpoint's policy layered above may still route around it.
+    """
+
+    def __init__(self, msg):
+        super().__init__(msg=msg, status="503")
+
+
+class NoHealthyEndpointError(InferenceServerException):
+    """Raised when a replica-set router has no endpoint to offer.
+
+    Every endpoint is drained, unreachable, or behind an open circuit.
+    ``status`` is the retryable 503: the condition is transient by
+    construction (circuits half-open, drained replicas come back), so a
+    retry layer above may keep backing off into the router.
     """
 
     def __init__(self, msg):
@@ -547,6 +563,135 @@ def call_with_retry(fn, policy):
         else:
             if breaker is not None:
                 breaker.record_success()
+            _notify(policy.observer, "on_success", attempt)
+            return result
+
+
+def _failover_step(policy, deadline, exc, attempt, retryable, fresh):
+    """Retry decision for one failed *routed* attempt: returns the backoff
+    sleep before the next attempt, or raises *exc* when the classification,
+    attempt budget, or deadline budget says stop.
+
+    ``fresh`` is True when the router still has an untried healthy replica
+    for this request: the failover hop to it is immediate (sleeping in
+    front of a different, healthy endpoint only adds latency).  Once the
+    request has cycled through every candidate the normal backoff schedule
+    applies — hammering replicas that all just failed is the retry storm
+    the schedule exists to prevent."""
+    if not retryable or attempt + 1 >= policy.max_attempts:
+        _notify(policy.observer, "on_giveup", attempt, exc)
+        raise exc
+    delay = 0.0 if fresh else policy.delay_for(exc, attempt)
+    if deadline is not None:
+        remaining = deadline.remaining()
+        if remaining <= 0 or (delay > 0 and delay >= remaining):
+            _notify(policy.observer, "on_giveup", attempt, exc)
+            raise exc
+    _notify(policy.observer, "on_backoff", attempt, delay, exc)
+    return delay
+
+
+def call_with_failover(fn, policy, route):
+    """Run one logical request under *policy*, rotating endpoints per attempt.
+
+    The replica-set twin of :func:`call_with_retry`: instead of retrying one
+    fixed endpoint, every attempt is routed —
+
+    - ``route(excluded_keys)`` returns a *lease*: an object with ``key``
+      (stable endpoint identity for exclusion), ``last_candidate`` (True
+      when no other non-excluded healthy endpoint existed at pick time),
+      and ``success()`` / ``failure(exc, retryable)`` outcome hooks (the
+      router's inflight/breaker/health accounting).  It raises
+      :class:`NoHealthyEndpointError` when nothing is routable.
+    - ``fn(lease, attempt_timeout_s_or_None)`` performs one transport
+      attempt against ``lease.endpoint`` and raises on failure.
+
+    A failed attempt's endpoint is excluded from the next ``route()`` call,
+    so a retry lands on a different healthy replica while one exists (and
+    the hop is immediate — see :func:`_failover_step`); when every
+    candidate has been tried the exclusions wrap and the backoff schedule
+    takes over.  ``NoHealthyEndpointError`` from the router is itself
+    retried on the schedule (circuits half-open, drained replicas return)
+    until the attempt or deadline budget runs out.
+    """
+    deadline = policy.new_deadline()
+    excluded = []
+    attempt = 0
+    last_exc = None
+    while True:
+        try:
+            lease = route(tuple(excluded))
+        except NoHealthyEndpointError as exc:
+            if last_exc is not None:
+                exc.__cause__ = last_exc
+            delay = _failover_step(policy, deadline, exc, attempt,
+                                   retryable=True, fresh=False)
+            attempt += 1
+            time.sleep(delay)
+            excluded = []  # the endpoint set may have recovered: retry all
+            continue
+        try:
+            result = fn(lease, deadline.attempt_timeout() if deadline else None)
+        except Exception as exc:
+            retryable = policy.retryable(exc)
+            lease.failure(exc, retryable)
+            last_exc = exc
+            fresh = not lease.last_candidate
+            if lease.key not in excluded:
+                excluded.append(lease.key)
+            else:  # wrapped onto an already-tried replica: restart rotation
+                excluded = [lease.key]
+            delay = _failover_step(policy, deadline, exc, attempt, retryable,
+                                   fresh)
+            attempt += 1
+            if delay > 0:
+                time.sleep(delay)
+        else:
+            lease.success()
+            _notify(policy.observer, "on_success", attempt)
+            return result
+
+
+async def acall_with_failover(fn, policy, route):
+    """Async twin of :func:`call_with_failover`; ``fn`` is a coroutine
+    function ``fn(lease, timeout)``; ``route`` stays synchronous (endpoint
+    selection never blocks)."""
+    deadline = policy.new_deadline()
+    excluded = []
+    attempt = 0
+    last_exc = None
+    while True:
+        try:
+            lease = route(tuple(excluded))
+        except NoHealthyEndpointError as exc:
+            if last_exc is not None:
+                exc.__cause__ = last_exc
+            delay = _failover_step(policy, deadline, exc, attempt,
+                                   retryable=True, fresh=False)
+            attempt += 1
+            await asyncio.sleep(delay)
+            excluded = []
+            continue
+        try:
+            result = await fn(
+                lease, deadline.attempt_timeout() if deadline else None
+            )
+        except Exception as exc:
+            retryable = policy.retryable(exc)
+            lease.failure(exc, retryable)
+            last_exc = exc
+            fresh = not lease.last_candidate
+            if lease.key not in excluded:
+                excluded.append(lease.key)
+            else:
+                excluded = [lease.key]
+            delay = _failover_step(policy, deadline, exc, attempt, retryable,
+                                   fresh)
+            attempt += 1
+            if delay > 0:
+                await asyncio.sleep(delay)
+        else:
+            lease.success()
             _notify(policy.observer, "on_success", attempt)
             return result
 

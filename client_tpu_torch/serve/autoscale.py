@@ -5,8 +5,9 @@ Counterpart of client_tpu/serve/autoscale.py, copied onto the port's
 :class:`~client_tpu_torch.serve.Server` and
 :class:`~client_tpu_torch.serve.fleet.FleetTier`.  The balance pool it
 steers (``pressures()`` and ``update_endpoints(urls)``) is passed in:
-the port has no balance layer of its own, and the JAX package's
-``EndpointPool`` drives it unchanged.
+the port's own :class:`~client_tpu_torch.balance.EndpointPool`, whose
+health probes carry each replica's gossiped pressure and prefix
+summary.
 
 The fleet already *senses* load (``EndpointPool.pressures()`` — per-
 replica queue depth, paged-KV occupancy and prefix-affinity pressure

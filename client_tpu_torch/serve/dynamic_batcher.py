@@ -127,26 +127,35 @@ def _device_batch(parts, padded, out=None):
     return out
 
 
-def _device_rows(out, group, rows):
+def _group_sinks(group):
+    """``{output: [flat tensor or None per part]}``: the sinks each
+    request of a group gave when it was queued."""
+    names = set().union(*(p.sinks for p in group))
+    return {name: [p.sinks.get(name) for p in group] for name in names}
+
+
+def _device_rows(out, sizes, targets, rows):
     """Each part's rows of a fused device group's static outputs,
-    ``[{name: tensor}]``: copied into the part's sink where it has one
-    that holds them, else a view of one copy of the group's rows."""
-    sizes = [p.rows for p in group]
-    per_part = [{} for _ in group]
+    ``[{name: tensor}]``: copied into the part's sink (``targets``, from
+    :func:`_group_sinks`) where it has one that holds them, else a view
+    of one copy of the group's rows."""
+    per_part = [{} for _ in sizes]
     for name, arr in out.items():
         live = arr[:rows].split(sizes)
-        sinks = [p.sinks.get(name) for p in group]
-        sinks = [s[:part.numel()].view(part.shape)
-                 if s is not None and s.numel() >= part.numel() else None
-                 for s, part in zip(sinks, live)]
+        flat = targets.get(name) or [None] * len(sizes)
+        # each part's sink as a view of its rows' shape (a tensor, where
+        # the copy lands), None where it has none or it is too small
+        dsts = [s[:part.numel()].view(part.shape)
+                if s is not None and s.numel() >= part.numel() else None
+                for s, part in zip(flat, live)]
         copies = (arr[:rows].clone().split(sizes)
-                  if any(s is None for s in sinks) else None)
-        for i, (part, sink) in enumerate(zip(live, sinks)):
-            if sink is None:
+                  if any(d is None for d in dsts) else None)
+        for i, (part, dst) in enumerate(zip(live, dsts)):
+            if dst is None:
                 per_part[i][name] = copies[i]
             else:
-                sink.copy_(part)
-                per_part[i][name] = sink
+                dst.copy_(part)
+                per_part[i][name] = dst
     return per_part
 
 
@@ -507,6 +516,9 @@ class ModelBatcher:
         prog = self._program(padded, shapes)
         device = prog.device
         cuda = device.type == "cuda"
+        fused = group[0].signature[0]
+        # resolved before the lock: only the copies need it
+        targets = _group_sinks(group) if fused else None
         with prog.lock, device_stream(device):
             for name, ps in parts.items():
                 buf = prog.inputs[name]
@@ -521,8 +533,9 @@ class ModelBatcher:
                 buf.copy_(host, non_blocking=cuda)
             prog.run()
             out = prog.outputs
-            if group[0].signature[0]:
-                return ("fused", _device_rows(out, group, rows))
+            if fused:
+                return ("fused", _device_rows(
+                    out, [p.rows for p in group], targets, rows))
             tensors = {}
             for name, arr in out.items():
                 host = torch.empty((rows,) + tuple(arr.shape[1:]),

@@ -16,9 +16,12 @@ cycle), per-GPU memory, then every series in the engine's registry.
 Where the JAX package reports ``ctpu_tpu_memory_*`` from PJRT's
 ``memory_stats``, the port reports ``ctpu_gpu_memory_*`` from
 ``torch.cuda.memory_stats``, and only once CUDA is initialized in the
-process: a scrape never creates a CUDA context.  The client-side
-resilience and balancer observers (and their ``RESILIENCE`` registry)
-stay with the JAX package's client libraries.
+process: a scrape never creates a CUDA context.  Client-side series
+live in the module's ``RESILIENCE`` registry, rendered at the end of
+every scrape: :class:`ResilienceMetricsObserver` (retries, circuit
+state per endpoint) and :class:`BalancerMetricsObserver` (the replica
+set's routing, failovers, health, membership and gossiped pressure,
+fed by ``client_tpu_torch.balance.EndpointPool``).
 
 Every label value passes through :func:`escape_label`: the exposition
 format reserves ``\\``, ``"`` and newline inside quoted label values.
@@ -39,6 +42,15 @@ DURATION_BUCKETS_US = (
     100000, 250000, 500000, 1000000, 2500000, 10000000,
 )
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+# CircuitBreaker state -> gauge value (closed/half-open/open).
+CIRCUIT_STATE_VALUES = {"closed": 0, "half-open": 1, "open": 2}
+
+# Endpoint health state -> gauge value (client_tpu_torch.utils server states).
+ENDPOINT_STATE_VALUES = {"READY": 0, "NOT_READY": 1, "UNREACHABLE": 2}
+
+# Endpoint membership phase -> gauge value (client_tpu_torch.balance.pool).
+ENDPOINT_PHASE_VALUES = {"active": 0, "probation": 1, "retiring": 2}
 
 # LM prefix-cache + preemption series (written by serve/lm/prefix.py and
 # serve/lm/engine.py into whichever registry the engine is bound to; the
@@ -270,6 +282,181 @@ class Registry:
                     lines.append(f"{name}{labels} {_fmt(value)}")
 
 
+# Client-side resilience series (retries, circuit state) for clients
+# living in the same process as the server — the hermetic/in-process
+# deployment this framework's fake-server role serves.
+RESILIENCE = Registry()
+
+
+class ResilienceMetricsObserver:
+    """Adapter feeding resilience events into a metrics registry.
+
+    Attach one instance per endpoint as BOTH the retry-policy observer and
+    the circuit-breaker observer::
+
+        obs = ResilienceMetricsObserver("127.0.0.1:8000")
+        breaker = CircuitBreaker(observer=obs)
+        policy = RetryPolicy(circuit_breaker=breaker, observer=obs)
+    """
+
+    def __init__(self, endpoint, registry=None):
+        self.endpoint = endpoint
+        self.registry = registry if registry is not None else RESILIENCE
+        self.registry.set(
+            "ctpu_client_circuit_state", {"endpoint": endpoint}, 0,
+            help_="Circuit breaker state per endpoint "
+                  "(0=closed, 1=half-open, 2=open)",
+        )
+
+    # retry-policy hooks -----------------------------------------------------
+
+    def on_backoff(self, attempt, delay_s, exc):
+        self.registry.inc(
+            "ctpu_client_retries_total", {"endpoint": self.endpoint},
+            help_="Client retry attempts (one per backoff sleep)",
+        )
+
+    def on_giveup(self, attempt, exc):
+        self.registry.inc(
+            "ctpu_client_request_failures_total",
+            {"endpoint": self.endpoint},
+            help_="Client calls that exhausted their retry policy",
+        )
+
+    def on_success(self, attempt):
+        pass
+
+    # circuit-breaker hook ---------------------------------------------------
+
+    def on_state_change(self, old, new):
+        self.registry.set(
+            "ctpu_client_circuit_state", {"endpoint": self.endpoint},
+            CIRCUIT_STATE_VALUES.get(new, -1),
+            help_="Circuit breaker state per endpoint "
+                  "(0=closed, 1=half-open, 2=open)",
+        )
+        self.registry.inc(
+            "ctpu_client_circuit_transitions_total",
+            {"endpoint": self.endpoint, "to": new},
+            help_="Circuit breaker state transitions",
+        )
+
+
+class BalancerMetricsObserver:
+    """Adapter feeding replica-set routing events into a metrics registry.
+
+    Attach one instance as the ``observer`` of a
+    ``client_tpu_torch.balance.EndpointPool``::
+
+        obs = BalancerMetricsObserver()
+        pool = EndpointPool(urls, observer=obs)
+
+    Series (all per-endpoint): ``ctpu_client_routed_total`` (requests the
+    balancer sent to each replica — the convergence proof when replicas
+    die), ``ctpu_client_failovers_total`` (attempts that failed retryably
+    on a replica and rotated off it), ``ctpu_client_endpoint_state``
+    (the pool's READY/NOT_READY/UNREACHABLE health view),
+    ``ctpu_client_endpoint_phase`` (membership lifecycle:
+    active/probation/retiring), ``ctpu_client_membership_changes_total``
+    (discovery add/retire/unretire/promote/retain/evict events),
+    ``ctpu_client_pool_endpoints`` (pool size per phase), and the
+    streaming-reconnect pair ``ctpu_client_stream_reconnects_total`` /
+    ``ctpu_client_stream_replayed_requests_total``.
+    """
+
+    def __init__(self, registry=None):
+        self.registry = registry if registry is not None else RESILIENCE
+
+    def on_route(self, endpoint):
+        self.registry.inc(
+            "ctpu_client_routed_total", {"endpoint": endpoint},
+            help_="Requests routed to each replica by the client balancer",
+        )
+
+    def on_failover(self, endpoint):
+        self.registry.inc(
+            "ctpu_client_failovers_total", {"endpoint": endpoint},
+            help_="Attempts that failed retryably on a replica and were "
+                  "failed over",
+        )
+
+    def on_endpoint_state(self, endpoint, state):
+        self.registry.set(
+            "ctpu_client_endpoint_state", {"endpoint": endpoint},
+            ENDPOINT_STATE_VALUES.get(state, -1),
+            help_="Pool health view per endpoint "
+                  "(0=ready, 1=not-ready/draining, 2=unreachable)",
+        )
+
+    # membership / discovery hooks -------------------------------------------
+
+    def on_endpoint_phase(self, endpoint, phase):
+        self.registry.set(
+            "ctpu_client_endpoint_phase", {"endpoint": endpoint},
+            ENDPOINT_PHASE_VALUES.get(phase, -1),
+            help_="Pool membership phase per endpoint "
+                  "(0=active, 1=probation, 2=retiring)",
+        )
+
+    def on_membership(self, op, endpoint):
+        self.registry.inc(
+            "ctpu_client_membership_changes_total",
+            {"op": op, "endpoint": endpoint},
+            help_="Discovery-driven membership events "
+                  "(add/retire/unretire/promote/retain/evict)",
+        )
+        if op == "evict":
+            # the endpoint is gone: its per-endpoint gauges must not park
+            # at their last value (counters stay — they are history)
+            labels = {"endpoint": endpoint}
+            self.registry.remove("ctpu_client_endpoint_phase", labels)
+            self.registry.remove("ctpu_client_endpoint_state", labels)
+            self.registry.remove("ctpu_fleet_pressure_queue_depth", labels)
+            self.registry.remove("ctpu_fleet_pressure_prefix", labels)
+
+    def on_endpoint_pressure(self, endpoint, pressure):
+        """Gossiped autoscaling signals (probe-piggybacked; see
+        ``FleetTier.local_summary`` / ``EndpointPool.set_pressure``)."""
+        labels = {"endpoint": endpoint}
+        self.registry.set(
+            "ctpu_fleet_pressure_queue_depth", labels,
+            float(pressure.get("queue_depth", 0) or 0),
+            help_=FLEET_HELP["ctpu_fleet_pressure_queue_depth"],
+        )
+        self.registry.set(
+            "ctpu_fleet_pressure_prefix", labels,
+            float(pressure.get("prefix_hot", 0) or 0),
+            help_=FLEET_HELP["ctpu_fleet_pressure_prefix"],
+        )
+
+    def on_pool_size(self, active, probation, retiring):
+        for phase, count in (
+            ("active", active), ("probation", probation),
+            ("retiring", retiring),
+        ):
+            self.registry.set(
+                "ctpu_client_pool_endpoints", {"phase": phase}, count,
+                help_="Replica-set pool size per membership phase",
+            )
+
+    # streaming-reconnect hooks ----------------------------------------------
+
+    def on_stream_reconnect(self, endpoint):
+        self.registry.inc(
+            "ctpu_client_stream_reconnects_total", {"endpoint": endpoint},
+            help_="Streams that died connection-level on this replica and "
+                  "reconnected to a fresh one",
+        )
+
+    def on_stream_replayed(self, endpoint, count):
+        self.registry.inc(
+            "ctpu_client_stream_replayed_requests_total",
+            {"endpoint": endpoint}, value=count,
+            help_="Unacknowledged stream requests replayed onto this "
+                  "replica after a reconnect",
+        )
+
+
 def _fmt(value):
     if isinstance(value, float) and not value.is_integer():
         return f"{value:.6f}"
@@ -464,7 +651,9 @@ def render_metrics(engine):
     lines = []
     buf.emit(lines)
     # the engine's own series (sheds, drain, front door, SLO, profiler,
-    # the LM engine's): a registry renders its families as contiguous
+    # the LM engine's), then any client resilience series registered in
+    # this process: each registry renders its families as contiguous
     # blocks of its own
     engine.metrics.render_into(lines)
+    RESILIENCE.render_into(lines)
     return "\n".join(lines) + "\n"

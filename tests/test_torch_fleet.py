@@ -1402,3 +1402,85 @@ def test_server_replica_launcher_spawns_and_retires_port_replicas():
         for handle in (floor, extra):
             handle.server.stop()
             handle.tier.close()
+
+
+def test_port_pool_steers_the_port_autoscaler_on_gossiped_summaries():
+    """The port's own balance pool (client_tpu_torch.balance, no JAX
+    object) steers the port's Autoscaler over ServerReplicaLauncher
+    replicas.  Its probes carry ``(state, digests, pressure)`` read from
+    each replica's port tier: a gossiped queue depth over the watermark
+    spawns a replica, which enters probation and is promoted by its first
+    READY probe; a prefix exported into the new replica's tier routes
+    the matching request there; the fleet going idle retires it through
+    the pool (retire, then evict, its gauges gone) and drains it."""
+    from client_tpu_torch import http as thttp
+    from client_tpu_torch.balance import EndpointPool as PortPool
+    from client_tpu_torch.serve.builtins import sequence_model
+    from client_tpu_torch.serve.metrics import BalancerMetricsObserver
+
+    launcher = autoscale.ServerReplicaLauncher(
+        lambda device: [sequence_model()],
+        fleet_kwargs={"gossip_interval_s": 0}, drain_timeout_s=5,
+        device="cpu")
+    floor = launcher.spawn()
+    registry = Registry()
+    pool = PortPool([floor.url], policy="prefix-aware",
+                    observer=BalancerMetricsObserver(registry))
+    scaler = autoscale.Autoscaler(pool, launcher, autoscale.AutoscalePolicy(
+        min_replicas=1, max_replicas=2, up_after=1, down_after=1,
+        cooldown_s=0.0), registry=Registry())
+    scaler.adopt([floor])
+    load = {"queue_depth": 20}
+
+    def probe(url):
+        handle = {h.url: h for h in scaler.replicas()}[url]
+        with thttp.InferenceServerClient(url) as client:
+            state = client.server_state(timeout_s=2)
+        summary = fetch_summary(handle.fleet_address)
+        return state, summary["prefix_digests"], {**summary["pressure"],
+                                                  **load}
+
+    def wait(predicate):
+        deadline = time.monotonic() + 20
+        while not predicate() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert predicate()
+
+    handles = [floor]
+    pool.start_probes(probe, interval_s=0.05)
+    try:
+        wait(lambda: pool.pressures()[floor.url].get("queue_depth") == 20)
+        assert scaler.tick(now=1.0) == "up"
+        (new,) = [h for h in scaler.replicas() if h is not floor]
+        handles.append(new)
+        wait(lambda: pool.phases().get(new.url) == "active")
+        assert registry.get("ctpu_client_membership_changes_total",
+                            {"op": "add", "endpoint": new.url}) == 1
+        assert registry.get("ctpu_client_membership_changes_total",
+                            {"op": "promote", "endpoint": new.url}) == 1
+
+        row = np.arange(16)
+        new.tier.export_prefix(row, 2, 8, _blocks(2), _blocks(2))
+        digests = chain_digests(row, 8)
+        wait(lambda: set(digests) <= pool.summaries()[new.url])
+        assert not pool.summaries()[floor.url] & set(digests)
+        lease = pool.lease(request_ctx={"prefix_digests": digests})
+        assert lease.url == new.url
+        lease.success()
+
+        load["queue_depth"] = 0
+        wait(lambda: all(p.get("queue_depth") == 0
+                         for p in pool.pressures().values()))
+        assert scaler.tick(now=2.0) == "down"
+        assert pool.urls() == [floor.url]
+        assert registry.get("ctpu_client_membership_changes_total",
+                            {"op": "evict", "endpoint": new.url}) == 1
+        assert registry.get("ctpu_client_endpoint_phase",
+                            {"endpoint": new.url}) is None
+        assert new.tier._server is None  # the launcher drained and closed
+        assert scaler.status()["replicas"] == 1
+    finally:
+        pool.close()
+        for handle in handles:
+            handle.server.stop()
+            handle.tier.close()

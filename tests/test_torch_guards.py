@@ -80,7 +80,15 @@ def test_port_sources_exist():
             "client_tpu_torch/http/aio/__init__.py",
             "client_tpu_torch/perf/load_manager.py",
             "client_tpu_torch/perf/fake_endpoints.py",
-            "client_tpu_torch/_proto/tfserve_pb2.py"} <= paths
+            "client_tpu_torch/_proto/tfserve_pb2.py",
+            # the replica set: balance/ and the metrics it reports into
+            "client_tpu_torch/balance/__init__.py",
+            "client_tpu_torch/balance/policy.py",
+            "client_tpu_torch/balance/pool.py",
+            "client_tpu_torch/balance/discovery.py",
+            "client_tpu_torch/balance/stream.py",
+            "client_tpu_torch/balance/replicated.py",
+            "client_tpu_torch/serve/metrics.py"} <= paths
 
 
 def test_build_compiles_every_kernel_source():

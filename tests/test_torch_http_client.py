@@ -31,6 +31,7 @@ import client_tpu.http as jhttp
 import client_tpu.serve.builtins as jbuiltins
 import test_http_client as jhc
 import test_observability as jobs
+from client_tpu import resilience as jresilience
 from client_tpu import tracing as jtracing
 from client_tpu.serve import Server as JaxServer
 from client_tpu.utils import InferenceServerException as JaxError
@@ -383,8 +384,9 @@ class _Toy:
     """A raw HTTP/1.1 server on loopback for transport cases: answers
     ``GET /v2/health/live`` with 200 and, per mode, closes the
     connection after answering with no ``Connection: close`` (an idle
-    keep-alive timeout), drops it before answering, or answers late.
-    Counts connections and requests."""
+    keep-alive timeout), drops it before answering, answers late, or
+    dies after the status line and headers with the body owed (a
+    server killed mid-answer).  Counts connections and requests."""
 
     def __init__(self, mode="keep", delay_s=0.0):
         toy = self
@@ -406,6 +408,14 @@ class _Toy:
                     return
                 if delay_s:
                     time.sleep(delay_s)
+                if mode == "truncate":
+                    self.send_response(200)
+                    self.send_header("Content-Length", "64")
+                    self.end_headers()
+                    self.wfile.write(b'{"na')
+                    self.wfile.flush()
+                    self.close_connection = True
+                    return
                 body = b"{}"
                 self.send_response(200)
                 self.send_header("Content-Length", str(len(body)))
@@ -479,6 +489,28 @@ def test_a_dropped_request_raises_once_and_is_never_resent():
             assert resilience.is_connection_level(err.value)
             assert not c.is_server_live()
         assert toy.requests == 2
+    finally:
+        toy.close()
+
+
+def test_an_answer_cut_short_is_connection_level_as_in_jax():
+    """A server that dies after its headers, before the body its
+    Content-Length owes (a replica SIGKILLed mid-answer): the call raises
+    a connection-level error, as the JAX client's urllib3 does
+    (IncompleteRead), never a short body handed to the JSON parser, so a
+    retry or a replica set's failover takes it."""
+    toy = _Toy("truncate")
+    try:
+        port, ref = _both(toy.address)
+        with port, ref:
+            for client, errors, res in ((port, PortError, resilience),
+                                        (ref, JaxError, jresilience)):
+                with pytest.raises(errors) as err:
+                    client.get_server_metadata()
+                assert res.is_connection_level(err.value)
+            with pytest.raises(PortError) as err:
+                port._request_once("GET", "v2")
+            assert "IncompleteRead" in repr(err.value.debug_details())
     finally:
         toy.close()
 

@@ -45,6 +45,7 @@ from client_tpu.serve.metrics import RESILIENCE
 from client_tpu_torch.serve import Model, Server, TensorSpec
 from client_tpu_torch.serve import frontdoor as tfd
 from client_tpu_torch.serve import slo as tslo
+from client_tpu_torch.serve.metrics import RESILIENCE as TORCH_RESILIENCE
 from client_tpu_torch.serve.metrics import render_metrics
 from client_tpu_torch.serve.models import language
 from client_tpu_torch.serve.models import transformer as tfm
@@ -218,9 +219,10 @@ def test_same_answers_to_the_sequence(served):
 
 def test_metrics_family_set_equals_jax(served):
     """TestMetricsSurface: the same (family, TYPE) pairs in both scrapes
-    (apart from the memory rename and the JAX client-side series)."""
-    client_side = set(RESILIENCE._families)
-    got = _families(served["torch"][2])
+    (apart from the memory rename and each package's client-side series,
+    which hold whatever clients of the process registered)."""
+    client_side = set(RESILIENCE._families) | set(TORCH_RESILIENCE._families)
+    got = _families(served["torch"][2], exclude=client_side)
     want = _families(served["jax"][2], exclude=client_side)
     assert got == want
     names = {name for name, _ in got}

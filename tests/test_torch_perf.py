@@ -25,8 +25,11 @@ package's (client_tpu.perf), on the CPU.
   memory.py's tolerance).
 - The CLI: hermetic sweeps on ``--device cpu`` with their exports, the
   refusal without it, every option that is not ported yet refused, the
-  gRPC legs with system and CUDA regions, and ``--speculative`` through
-  ``model_sets(..., speculative=)``.  (``--async``, ``--service-kind``
+  gRPC legs with system and CUDA regions, ``--speculative`` through
+  ``model_sets(..., speculative=)``, a ``--url`` replica list over two
+  port servers on both transports (each endpoint's count its server's)
+  and ``--churn-soak``, and every replica-list refusal with the JAX
+  CLI's message.  (``--async``, ``--service-kind``
   and ``--world-size`` have files of their own:
   tests/test_torch_perf_async.py, test_torch_backends.py and
   test_torch_rendezvous.py.)
@@ -891,7 +894,6 @@ def test_cli_refuses_without_cuda_unless_asked_for_the_cpu(no_cuda):
 @pytest.mark.parametrize("flags", [
     ["-i", "http", "--ssl-https-ca-certificates-file", "ca.pem"],
     ["--native-loadgen"],
-    ["-u", "localhost:1,localhost:2"], ["--churn-soak", "1"],
     ["--ssl-grpc-use-ssl"], ["--ssl-https-verify-peer", "0"],
     ["--ssl-grpc-root-certifications-file", "ca.pem"],
 ])
@@ -902,6 +904,117 @@ def test_cli_refuses_what_is_not_ported(flags):
         main(["-m", "simple", "--hermetic", "--device", "cpu", *flags])
     assert "is not in the port yet" in str(e.value)
     assert "ROADMAP.md" in str(e.value)
+
+
+_PAIR = ["-u", "localhost:1,localhost:2"]
+
+
+@pytest.mark.parametrize("flags,jax_only,port_only", [
+    (_PAIR + ["--hermetic"], [], ["--device", "cpu"]),
+    (_PAIR + ["--async"], [], []),
+    (_PAIR + ["--service-kind", "torchserve"], [], []),
+    (_PAIR + ["-i", "http", "--service-kind", "tfserve_rest"], [], []),
+    (_PAIR + ["--shared-memory", "system"], [], []),
+    (_PAIR, ["--shared-memory", "tpu"],
+     ["--shared-memory", "cuda", "--device", "cpu"]),
+    (["-u", "localhost:1,localhost:1"], [], []),
+    (["-u", "localhost:1, localhost:2,localhost:1"], [], []),
+    (["--churn-soak", "1"], [], []),
+    (["-u", "localhost:1", "--churn-soak", "0.5"], [], []),
+], ids=["hermetic", "async", "torchserve", "tfserve_rest", "shm-system",
+        "shm-device", "duplicate", "duplicate-spaced", "churn-alone",
+        "churn-one-url"])
+def test_cli_replica_list_refusals_equal_jax(flags, jax_only, port_only):
+    """Every refusal of a --url replica list and of --churn-soak exits
+    with the JAX CLI's message, word for word, in the reference's order
+    (device regions are ``tpu`` in JAX's and ``cuda`` in the port's; the
+    port's ``--device cpu`` only lets a CUDA-implying flag reach the
+    check on this CPU)."""
+    messages = []
+    for run, extra in ((jmain, jax_only), (main, port_only)):
+        with pytest.raises(SystemExit) as e:
+            run(["-m", "simple", *flags, *extra])
+        messages.append(str(e.value))
+    assert messages[1] == messages[0]
+    assert messages[0].startswith("error: ")
+
+
+def test_cli_replica_list_with_native_loadgen_is_not_ported():
+    """--native-loadgen still refuses first, whatever else is given."""
+    with pytest.raises(SystemExit) as e:
+        main(["-m", "simple", *_PAIR, "--native-loadgen"])
+    assert str(e.value).startswith("error: --native-loadgen is not in the "
+                                   "port yet")
+
+
+def _simple_successes(server):
+    return server.engine.statistics("simple")[0]["inference_stats"][
+        "success"]["count"]
+
+
+@pytest.mark.parametrize("protocol", ["grpc", "http"])
+def test_cli_replica_list_counts_match_each_server(protocol, tmp_path,
+                                                   capsys):
+    """-i grpc|http -u A,B against two port servers on the CPU: workers
+    are spread round-robin over the list, the summary prints the
+    per-endpoint split, and each endpoint's count of the whole run (the
+    export's ``requests.per_endpoint``) is its server's success count;
+    the two sum to the run's ``requests``."""
+    json_path = tmp_path / "r.json"
+    with Server(device="cpu", http_port=0, grpc_port=0) as a, \
+            Server(device="cpu", http_port=0, grpc_port=0) as b:
+        urls = [getattr(s, f"{protocol}_address") for s in (a, b)]
+        rc = main(["-m", "simple", "-i", protocol, "-u", ",".join(urls),
+                   "--concurrency-range", "4", *_COUNT,
+                   "--json-export", str(json_path)])
+        counts = {url: _simple_successes(s) for url, s in zip(urls, (a, b))}
+    out = capsys.readouterr().out
+    assert rc == 0
+    doc = json.loads(json_path.read_text())
+    (record,) = doc["results"]
+    assert record["error_count"] == 0
+    per = doc["requests"]["per_endpoint"]
+    assert sorted(per) == sorted(urls)
+    for url in urls:
+        assert per[url] == {"completed": counts[url], "failed": 0}
+        assert counts[url] > 0
+        assert f"    endpoint {url}: " in out
+        assert f"Requests at {url}: {counts[url]} completed, 0 failed" in out
+    assert sum(counts.values()) == doc["requests"]["completed"]
+
+
+def test_cli_churn_soak_rotates_membership_with_no_error(monkeypatch,
+                                                        tmp_path):
+    """--churn-soak over two port servers: the discovery loop retires
+    and re-adds replicas while the load runs; the run exits 0 with no
+    error and the pool saw add and retire events."""
+    from client_tpu_torch import balance
+
+    events = []
+
+    class Recording:
+        def on_membership(self, op, endpoint):
+            events.append((op, endpoint))
+
+    class ObservedPool(balance.EndpointPool):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, observer=Recording(), **kwargs)
+
+    monkeypatch.setattr(balance, "EndpointPool", ObservedPool)
+    json_path = tmp_path / "r.json"
+    with Server(device="cpu", http_port=0) as a, \
+            Server(device="cpu", http_port=0) as b:
+        rc = main(["-m", "simple", "-i", "http", "-u",
+                   f"{a.http_address},{b.http_address}",
+                   "--concurrency-range", "2", "--churn-soak", "0.05",
+                   "--measurement-interval", "300", "--max-trials", "3",
+                   "-s", "100", "--json-export", str(json_path)])
+    assert rc == 0
+    doc = json.loads(json_path.read_text())
+    assert all(r["error_count"] == 0 for r in doc["results"])
+    assert doc["requests"]["failed"] == 0
+    ops = {op for op, _ in events}
+    assert {"add", "retire"} <= ops, events
 
 
 @pytest.mark.parametrize("shm", ["system", "cuda"])

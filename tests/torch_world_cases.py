@@ -363,7 +363,9 @@ def parallel_cases(rank, n, in_path, out_path, ckpt_dir):
 def segfault_rank(rank, n):
     """Rank 1 dies by SIGSEGV; the others sleep until they are stopped
     (the world's error must name the signal and hold each rank's Python
-    stack)."""
+    stack).  Every rank enters the case before rank 1 dies: a barrier
+    of the world's process group first, so rank 0's stack holds it."""
+    torch.distributed.barrier()
     if rank == 1:
         os.kill(os.getpid(), signal.SIGSEGV)
     time.sleep(600)
