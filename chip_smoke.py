@@ -23,7 +23,8 @@ drives the same server through the port's asyncio clients and
 perf_analyzer's --async, two-rank and non-KServe modes, then balances
 the LM and ResNet-50 across it and a second server process through the
 port's replica set, kills that process under load, and runs
-perf_analyzer over the pair.
+perf_analyzer over the pair, then through the native C++ load worker,
+spawned load processes and TLS.
 
     python3 chip_smoke.py
 
@@ -277,8 +278,10 @@ Phases, one line each or more; any failure exits non-zero:
                 phase 19's, launches_grpc: phase 21's, launches_perf:
                 phase 22's in-process legs, launches_http: phase 23's
                 -i http LM leg, launches_aio: phase 24's aio calls,
-                launches_balance: phase 25's balanced calls), its
-                route's own
+                launches_balance: phase 25's balanced calls,
+                launches_native: phase 26a's native-worker streams, null
+                where 26a is cut, launches_tls: phase 26c's HTTPS LM
+                leg), its route's own
                 error (phase 3, 7 or 10) and its times (phase 6, 9 or 12)
  21 grpc        the gRPC frontend (runs before phase 20's line; needs
                 grpcio).  The language set behind Server(grpc_port=0),
@@ -413,6 +416,37 @@ Phases, one line each or more; any failure exits non-zero:
                 before (a)'s balanced calls and read after (c): int8 and
                 paged attention must have launched (launches_balance in
                 phase 20)
+ 26 native      perf_analyzer's last load engines and SSL, on phase 23's
+                server before it stops.  (a) perf_worker, the C++ engine,
+                built from this checkout's src/cpp (make, into
+                build/torch_cpp), its build time printed; --native-loadgen
+                on ResNet-50 at 1 and 8 from the wire and from CUDA
+                regions, with and without --cuda-shm-sync (exit 0, no
+                error at any level, no server failure); the worker's 8
+                decoupled lm_streaming_int8 streams (TOKENS 64 of 7,
+                MAX_TOKENS 16): no error, its count of the streams that
+                ended in its window at most the server's successes, int8
+                and paged attention launched (launches_native in phase
+                20).  Where the worker does not build (no protoc or
+                libprotobuf), 26a is cut: its reason printed, and the
+                CLI's --native-loadgen must exit non-zero with the
+                build's message, nothing served.  (b) procpool: 2 spawned
+                processes x 4 against ResNet-50 from CUDA regions this
+                process registered, referenced by name
+                (export_region_specs): no error, every request the
+                workers sent equal to the server's successes, no worker
+                pid among nvidia-smi's compute apps while they run.  (c)
+                TLS relays (stdlib ssl, a certificate openssl makes for
+                localhost and 127.0.0.1; ALPN h2 for gRPC) in processes of
+                their own: ResNet-50 at 8 over -i grpc
+                --ssl-grpc-use-ssl with the root certificate, then the
+                plain wire, over -i http with the CA, then the plain wire,
+                --ssl-https-verify-peer 0 with no CA, a relay that
+                requires a client certificate with it (passes) and
+                without it (exits non-zero, nothing served);
+                lm_streaming_int8 over HTTPS with MAX_TOKENS 1, int8 and
+                paged attention launched (launches_tls in phase 20).
+                Every client count equals its server's
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -431,6 +465,7 @@ import select
 import shutil
 import signal
 import socket
+import ssl
 import subprocess
 import sys
 import tempfile
@@ -4629,6 +4664,20 @@ def mixed_socket_leg(card, server, tmp, solo):
           seconds=time.monotonic() - t0, **card)
 
 
+def write_lm_input(path):
+    """perf's --input-data for an LM leg: PROMPT's tokens, MAX_TOKENS 1
+    (a decoupled model answers over HTTP with one response).  Returns the
+    tokens."""
+    from client_tpu_torch.serve.models import language
+
+    tokens = language.encode_text(PROMPT).tolist()
+    with open(path, "w") as f:
+        json.dump({"data": [{"TOKENS": {"content": tokens,
+                                        "shape": [len(tokens)]},
+                             "MAX_TOKENS": [1]}]}, f)
+    return tokens
+
+
 def http_lm_leg(card, server, tmp):
     """Phase 23c's LM leg: ``perf -i http`` on HTTP_LM with MAX_TOKENS 1
     (a decoupled model answers over HTTP with one response, as in the
@@ -4639,14 +4688,9 @@ def http_lm_leg(card, server, tmp):
     routes)."""
     from client_tpu_torch import http as httpclient
     from client_tpu_torch import ops
-    from client_tpu_torch.serve.models import language
 
     data = os.path.join(tmp, "lm_http_input.json")
-    tokens = language.encode_text(PROMPT).tolist()
-    with open(data, "w") as f:
-        json.dump({"data": [{"TOKENS": {"content": tokens,
-                                        "shape": [len(tokens)]},
-                             "MAX_TOKENS": [1]}]}, f)
+    tokens = write_lm_input(data)
     with httpclient.InferenceServerClient(server.http_address) as c:
         inputs = [httpclient.InferInput("TOKENS", [len(tokens)], "INT32"),
                   httpclient.InferInput("MAX_TOKENS", [1], "INT32")]
@@ -4679,9 +4723,10 @@ def http_phase(card):
     (c) ``python -m client_tpu_torch.perf -i http`` against ResNet-50 with
     --shared-memory none, system and cuda, and against HTTP_LM; then
     phase 24 on the same server (aio_phase), then phase 25 with it as
-    replica A (balance_phase).  Returns the LM leg's (launches, routes)
-    (launches_http in phase 20), phase 24's (launches_aio) and phase
-    25's (launches_balance)."""
+    replica A (balance_phase), then phase 26 on it (native_phase).
+    Returns the LM leg's (launches, routes) (launches_http in phase 20),
+    phase 24's (launches_aio), phase 25's (launches_balance) and phase
+    26's (launches_native, None where 26a is cut, and launches_tls)."""
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import language, vision
 
@@ -4722,9 +4767,10 @@ def http_phase(card):
             phase(23, "http_done", seconds=time.monotonic() - t0, **card)
             aio = aio_phase(card, server, engines, tmp)
             balanced = balance_phase(card, server, resnet, engines, tmp)
+            native, tls = native_phase(card, server, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, routes, aio, balanced
+    return launches, routes, aio, balanced, native, tls
 
 
 # -- the asyncio clients, --async, two ranks, the service kinds (phase 24) ----
@@ -5531,6 +5577,517 @@ def balance_phase(card, server, resnet, engines, tmp):
     return launches, routes
 
 
+# -- the native worker, procpool and SSL on phase 23's server (phase 26) -----
+
+NATIVE_LEVELS = "1:8:7"   # 26a: --native-loadgen's concurrency levels
+NATIVE_WINDOW_MS = 500
+NATIVE_LEGS = (("none", False), ("cuda", False), ("cuda", True))
+NATIVE_LM_STREAMS = 8     # 26a: the worker's decoupled int8 streams ...
+NATIVE_LM_PROMPT = 64     # ... of a 64-token prompt (TOKENS:INT32:64=7)
+NATIVE_LM_TOKENS = 16     # ... and MAX_TOKENS 16
+NATIVE_LM_S = 2.0         # the worker's measured seconds on the LM
+POOL_PROCESSES = 2        # 26b: spawned load processes, 4 requests each
+POOL_CONCURRENCY = 8
+POOL_WINDOW_S = 2.0
+TLS_LEVEL = "8"           # 26c: the concurrency of every TLS leg
+TLS_WINDOW_MS = 500
+NATIVE_LAUNCHES_IN = ("launches_native: phase 26a's native-worker streams "
+                      "(null where the worker did not build: 26a cut); "
+                      "launches_tls: phase 26c's HTTPS LM leg")
+_NATIVE_LINE = re.compile(
+    r"^(Concurrency|Request rate|Sequences): (\S+), throughput: (\S+) "
+    r"infer/sec \(native\), p50 (\d+) usec, p99 (\d+) usec, errors (\d+)"
+    r".*, (stable|UNSTABLE) over (\d+) windows$")
+
+
+class TlsRelay:
+    """TLS in front of a plaintext TCP port: stdlib ``ssl`` on an asyncio
+    loop in a thread of its own, bytes copied both ways.  Neither server
+    terminates TLS itself; a deployment puts such a proxy in front of it,
+    and the perf CLI's --ssl-* options are held against this one.
+    ``alpn`` (``("h2",)`` for gRPC, which drops a TLS connection without
+    it) and ``client_ca`` (require a client certificate it signs) are the
+    server context's."""
+
+    def __init__(self, backend, cert, key, alpn=(), client_ca=None):
+        self._ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        self._ctx.load_cert_chain(cert, key)
+        if alpn:
+            self._ctx.set_alpn_protocols(list(alpn))
+        if client_ca:
+            self._ctx.verify_mode = ssl.CERT_REQUIRED
+            self._ctx.load_verify_locations(client_ca)
+        host, _, port = backend.rpartition(":")
+        self._backend = (host, int(port))
+        self._loop = asyncio.new_event_loop()
+        # a refused handshake (no client certificate) is the expected
+        # outcome of a leg, not an error to print
+        self._loop.set_exception_handler(lambda loop, context: None)
+        self._ready = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._server = None
+        self.address = None
+
+    def start(self):
+        self._thread.start()
+        if not self._ready.wait(30) or self.address is None:
+            raise RuntimeError("the TLS relay did not start")
+        return self
+
+    def stop(self):
+        if self._server is not None:
+            self._loop.call_soon_threadsafe(self._server.close)
+        self._thread.join(timeout=30)
+
+    def _run(self):
+        asyncio.set_event_loop(self._loop)
+
+        async def serve():
+            self._server = await asyncio.start_server(
+                self._handle, "127.0.0.1", 0, ssl=self._ctx)
+            self.address = "127.0.0.1:%d" % (
+                self._server.sockets[0].getsockname()[1])
+            self._ready.set()
+            try:
+                await self._server.serve_forever()
+            except asyncio.CancelledError:
+                pass
+
+        try:
+            self._loop.run_until_complete(serve())
+        finally:
+            self._ready.set()
+            for task in asyncio.all_tasks(self._loop):
+                task.cancel()
+            self._loop.run_until_complete(asyncio.sleep(0))
+            self._loop.close()
+
+    async def _handle(self, reader, writer):
+        try:
+            up_reader, up_writer = await asyncio.open_connection(
+                *self._backend)
+        except OSError:
+            writer.close()
+            return
+
+        async def pump(src, dst):
+            try:
+                while True:
+                    data = await src.read(1 << 16)
+                    if not data:
+                        break
+                    dst.write(data)
+                    await dst.drain()
+            except (OSError, asyncio.IncompleteReadError):
+                pass
+            finally:
+                dst.close()
+
+        await asyncio.gather(pump(reader, up_writer), pump(up_reader, writer))
+
+
+def make_tls_certs(tmp):
+    """Self-signed certificates made by ``openssl``: the server's, for
+    localhost and 127.0.0.1 (the relay's), and a client's.  Returns
+    {"server": (cert, key), "client": (cert, key)}."""
+    paths = {}
+    for who, subject, ext in (
+            ("server", "/CN=localhost",
+             ["-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"]),
+            ("client", "/CN=perf-client", [])):
+        cert = os.path.join(tmp, f"tls_{who}.pem")
+        key = os.path.join(tmp, f"tls_{who}.key")
+        proc = subprocess.run(
+            ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+             "-keyout", key, "-out", cert, "-days", "2", "-subj", subject,
+             *ext], capture_output=True, text=True)
+        check(proc.returncode == 0,
+              f"openssl made no {who} certificate: {proc.stderr[-1000:]}")
+        paths[who] = (cert, key)
+    return paths
+
+
+RELAY_PROCESS = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+
+backend, cert, key, alpn, client_ca = sys.argv[2:7]
+relay = chip_smoke.TlsRelay(backend, cert, key,
+                            alpn=tuple(a for a in alpn.split(",") if a),
+                            client_ca=client_ca or None).start()
+print(relay.address, flush=True)
+sys.stdin.read()  # until the parent closes its end
+relay.stop()
+"""
+
+
+def start_relay(backend, cert, key, alpn="", client_ca=""):
+    """A TlsRelay in a process of its own (off the server's interpreter
+    lock); its address is the first line it prints (relay_address)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", RELAY_PROCESS, here, backend, cert, key,
+         alpn, client_ca], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=here)
+    return proc
+
+
+def relay_address(proc):
+    line = proc.stdout.readline().strip()
+    if not line:
+        fail(f"TLS relay exited {proc.wait(timeout=30)}: "
+             f"{proc.stderr.read()[-2000:]}")
+    return line
+
+
+def stop_relay(proc):
+    try:
+        proc.stdin.close()
+        proc.wait(timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        proc.kill()
+        proc.wait()
+
+
+def perf_cli(server, model, tmp, tag, args, export=True):
+    """One ``python -m client_tpu_torch.perf -m <model> <args>`` process
+    against *model* behind this process's *server*.  Returns (the
+    process, its JSON export or None, the server's (success, fail)
+    deltas)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, f"p26_{tag}.json")
+    argv = [sys.executable, "-m", "client_tpu_torch.perf", "-m", model,
+            *args, *(["--json-export", out] if export else [])]
+    before = success_counts(server, model)
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=here,
+                          env={**os.environ, "PYTHONPATH": here},
+                          timeout=300)
+    after = success_counts(server, model)
+    doc = None
+    if export and proc.returncode == 0:
+        with open(out) as f:
+            doc = json.load(f)
+    return proc, doc, (after[0] - before[0], after[1] - before[1])
+
+
+def native_levels(stdout):
+    """The levels of a --native-loadgen sweep's output."""
+    levels = []
+    for line in stdout.splitlines():
+        m = _NATIVE_LINE.match(line.strip())
+        if m:
+            levels.append({"level": float(m.group(2)),
+                           "infer_per_s": float(m.group(3)),
+                           "p50_us": int(m.group(4)),
+                           "p99_us": int(m.group(5)),
+                           "errors": int(m.group(6)),
+                           "stable": m.group(7) == "stable",
+                           "windows": int(m.group(8))})
+    return levels
+
+
+def native_leg(card, server, tmp):
+    """Phase 26a: perf_worker built from this checkout, then
+    --native-loadgen on ResNet-50 from the wire and from CUDA regions
+    (with and without --cuda-shm-sync), then the worker's decoupled
+    streams on lm_streaming_int8 with the launch counts reset just before
+    and read just after.  Where the worker does not build, the CLI's
+    refusal with the build's message instead.  Returns (launches, routes),
+    or None where the leg is cut."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.perf.native_worker import (
+        build_native_worker,
+        run_native_worker,
+    )
+    from client_tpu_torch.utils import InferenceServerException
+
+    t0 = time.monotonic()
+    try:
+        binary = build_native_worker()
+    except InferenceServerException as e:
+        phase(26, "native_cut", reason=str(e)[-1500:],
+              build_s=time.monotonic() - t0, **card)
+        proc, _, delta = perf_cli(
+            server, "resnet50", tmp, "native_refused",
+            ["-u", server.grpc_address, "--native-loadgen"], export=False)
+        check(proc.returncode != 0 and delta == (0, 0)
+              and "building the native perf worker failed" in proc.stderr,
+              f"--native-loadgen without a worker exited "
+              f"{proc.returncode}, server {delta}: {proc.stderr[-2000:]}")
+        phase(26, "native_refused", rc=proc.returncode,
+              message=proc.stderr.strip().splitlines()[0][:300], **card)
+        return None
+    phase(26, "native_build", build_s=time.monotonic() - t0,
+          binary=os.path.relpath(
+              binary, os.path.dirname(os.path.abspath(__file__))), **card)
+    for shm, sync in NATIVE_LEGS:
+        args = ["-u", server.grpc_address, "--native-loadgen",
+                "--concurrency-range", NATIVE_LEVELS,
+                "--measurement-interval", str(NATIVE_WINDOW_MS),
+                "--max-trials", str(PERF_TRIALS), "-s", PERF_STABILITY]
+        if shm != "none":
+            args += ["--shared-memory", shm,
+                     "--output-shared-memory-size", "4000"]
+        if sync:
+            args.append("--cuda-shm-sync")
+        leg = f"resnet50 native {shm}" + (" --cuda-shm-sync" if sync else "")
+        proc, _, delta = perf_cli(server, "resnet50", tmp,
+                                  f"native_{shm}_{int(sync)}", args,
+                                  export=False)
+        levels = native_levels(proc.stdout)
+        check(proc.returncode == 0 and len(levels) == 2 and delta[1] == 0
+              and delta[0] > 0 and all(lv["errors"] == 0 for lv in levels),
+              f"{leg} exited {proc.returncode}, server {delta}, levels "
+              f"{levels}: {proc.stderr[-2000:]}")
+        phase(26, "native_resnet", leg=leg, levels=levels,
+              server_successes=delta[0], **card)
+    before = success_counts(server, HTTP_LM)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    report = run_native_worker(
+        server.grpc_address, HTTP_LM, binary=binary,
+        concurrency=NATIVE_LM_STREAMS, duration_s=NATIVE_LM_S,
+        warmup_s=0.5, decoupled=True,
+        wire_inputs=[("TOKENS", "INT32", [NATIVE_LM_PROMPT], 7),
+                     ("MAX_TOKENS", "INT32", [1], NATIVE_LM_TOKENS)])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    routes = {n: dict(r) for n, r in ops.ROUTES.items()}
+    after = success_counts(server, HTTP_LM)
+    served = after[0] - before[0]
+    # the worker counts the streams that ended inside its measured
+    # window; the server also counts the warm-up's and the drain's
+    check(report["mode"] == "decoupled" and report["errors"] == 0
+          and 0 < report["ok"] <= served and after[1] == before[1]
+          and report["responses"] >= max(report["ok"] - NATIVE_LM_STREAMS,
+                                         1) * NATIVE_LM_TOKENS,
+          f"the worker's decoupled {HTTP_LM}: {report}, server {served} "
+          f"successes, {after[1] - before[1]} failures")
+    for kernel in ("int8_matmul", "paged_attention"):
+        check(launches[kernel] > 0,
+              f"the worker's {HTTP_LM} streams launched {kernel} no time: "
+              f"{launches}")
+    phase(26, "native_lm", model=HTTP_LM, streams=NATIVE_LM_STREAMS,
+          workload={"prompt_tokens": NATIVE_LM_PROMPT,
+                    "max_tokens": NATIVE_LM_TOKENS},
+          report={k: v for k, v in report.items() if k != "windows"},
+          server_successes=served, launches=launches,
+          launches_by_route=routes,
+          sequence_leg="not run: phase 23's server serves no "
+                       "simple_sequence", **card)
+    return launches, routes
+
+
+def procpool_leg(card, server, tmp):
+    """Phase 26b: run_completion_multiproc, 2 spawned processes x 4,
+    against ResNet-50 from CUDA regions this process made and registered,
+    which the workers reference by name (export_region_specs);
+    nvidia-smi's compute apps sampled while they run."""
+    import multiprocessing
+
+    from client_tpu_torch.perf import (
+        BackendKind,
+        ClientBackendFactory,
+        DataLoader,
+        ModelParser,
+        create_infer_data_manager,
+    )
+    from client_tpu_torch.perf.procpool import (
+        export_region_specs,
+        run_completion_multiproc,
+    )
+
+    t0 = time.monotonic()
+    backend = ClientBackendFactory.create(BackendKind.TRITON_GRPC,
+                                          url=server.grpc_address)
+    parser = ModelParser.create(backend, "resnet50", "", batch_size=1)
+    loader = DataLoader(parser.inputs, batch_size=1)
+    loader.generate_data()
+    manager = create_infer_data_manager(
+        backend, loader, parser.inputs, parser.outputs,
+        shared_memory="cuda", output_shm_byte_size=4000, device="cuda")
+    manager.init()
+    samples, workers, stop, marks = [], [], threading.Event(), {}
+
+    def compute_apps():
+        q = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                            "--format=csv,noheader"],
+                           capture_output=True, text=True)
+        return sorted(int(x) for x in q.stdout.split()
+                      if x.strip().isdigit())
+
+    def sample():
+        while not stop.is_set():
+            samples.append(compute_apps())
+            stop.wait(0.25)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+
+    def on_go():
+        marks["go"] = time.monotonic()
+        workers.extend(p.pid for p in multiprocessing.active_children())
+        sampler.start()
+
+    try:
+        regions = manager.region_names()
+        input_specs, output_specs = export_region_specs(
+            manager, parser.inputs, loader)
+        spec = {"mode": "shm_ref", "num_streams": loader.num_streams,
+                "steps_per_stream": [loader.num_steps(s)
+                                     for s in range(loader.num_streams)],
+                "input_specs": input_specs, "output_specs": output_specs}
+        baseline = compute_apps()
+        before = success_counts(server, "resnet50")
+        t_start = time.monotonic()
+        res = run_completion_multiproc(
+            server.grpc_address, "resnet50", processes=POOL_PROCESSES,
+            concurrency=POOL_CONCURRENCY, window_s=POOL_WINDOW_S,
+            warmup_s=0.5, spec=spec, on_go=on_go)
+        t_end = time.monotonic()
+        after = success_counts(server, "resnet50")
+    finally:
+        stop.set()
+        if sampler.is_alive():
+            sampler.join(timeout=30)
+        manager.cleanup()
+        backend.close()
+    served = after[0] - before[0]
+    seen = sorted({pid for s in samples for pid in s})
+    check(res.error_count == 0 and res.completed_requests > 0
+          and res.requests == (served, 0) and after[1] == before[1],
+          f"procpool: {res.requests} requests, {res.completed_requests} "
+          f"in the window, {res.error_count} errors; the server "
+          f"{served} successes, {after[1] - before[1]} failures")
+    # a worker with a CUDA context would show as a compute app of its own,
+    # whatever pid nvidia-smi reads for it in this PID namespace
+    check(len(workers) == POOL_PROCESSES and samples
+          and not set(workers) & set(seen)
+          and all(len(s) <= len(baseline) for s in samples),
+          f"procpool workers {workers}, nvidia-smi compute apps {seen} "
+          f"({len(samples)} samples; before the workers: {baseline})")
+    phase(26, "procpool", model="resnet50", shared_memory="cuda",
+          processes=res.processes, concurrency=res.concurrency,
+          infer_per_s=res.throughput, p50_us=res.percentiles_us.get(50),
+          p99_us=res.percentiles_us.get(99), window_s=res.window_s,
+          completed_in_window=res.completed_requests,
+          requests=list(res.requests), server_successes=served,
+          worker_pids=workers, smi_compute_pids=seen,
+          smi_compute_pids_before=baseline, smi_samples=len(samples),
+          regions=regions, workers_ready_s=marks["go"] - t_start,
+          run_s=t_end - marks["go"], seconds=time.monotonic() - t0,
+          **card)
+
+
+def tls_leg(card, server, tmp):
+    """Phase 26c: python -m client_tpu_torch.perf through TLS relays in
+    front of this process's server: ResNet-50 at 8 over gRPC (ALPN h2,
+    the root certificate) and HTTP (the CA), each followed by the plain
+    wire; lm_streaming_int8 over HTTPS (MAX_TOKENS 1) with the launch
+    counts reset just before and read just after; --ssl-https-verify-peer
+    0 with no CA; a relay that requires a client certificate, with it
+    (passes) and without it (exits non-zero, nothing served).  Every
+    count equals its server's.  Returns (launches, routes)."""
+    from client_tpu_torch import ops
+
+    t0 = time.monotonic()
+    certs = make_tls_certs(tmp)
+    cert, key = certs["server"]
+    client_cert, client_key = certs["client"]
+    procs = {"grpc": start_relay(server.grpc_address, cert, key, "h2"),
+             "http": start_relay(server.http_address, cert, key),
+             "mtls": start_relay(server.http_address, cert, key,
+                                 client_ca=client_cert)}
+    try:
+        relays = {name: relay_address(p) for name, p in procs.items()}
+        level = ["--concurrency-range", TLS_LEVEL,
+                 "--measurement-interval", str(TLS_WINDOW_MS),
+                 "--max-trials", str(PERF_TRIALS), "-s", PERF_STABILITY]
+        legs = (
+            ("grpc tls", "grpc",
+             ["-i", "grpc", "--ssl-grpc-use-ssl",
+              "--ssl-grpc-root-certifications-file", cert]),
+            ("grpc plain", None, ["-i", "grpc"]),
+            ("http tls", "http",
+             ["-i", "http", "--ssl-https-ca-certificates-file", cert]),
+            ("http plain", None, ["-i", "http"]),
+            ("http verify-peer 0", "http",
+             ["-i", "http", "--ssl-https-verify-peer", "0"]),
+            ("http mtls", "mtls",
+             ["-i", "http", "--ssl-https-ca-certificates-file", cert,
+              "--ssl-https-client-certificate-file", client_cert,
+              "--ssl-https-private-key-file", client_key]))
+        for leg, relay, args in legs:
+            url = (relays[relay] if relay else
+                   server.grpc_address if args[1] == "grpc" else
+                   server.http_address)
+            proc, doc, delta = perf_cli(server, "resnet50", tmp,
+                                        leg.replace(" ", "_"),
+                                        args + ["-u", url] + level)
+            check(proc.returncode == 0 and delta[1] == 0 and delta[0] > 0
+                  and doc["requests"] == {"completed": delta[0],
+                                          "failed": 0},
+                  f"{leg} exited {proc.returncode}: the client counted "
+                  f"{doc and doc['requests']}, the server {delta}: "
+                  f"{proc.stderr[-2000:]}")
+            phase(26, "tls_resnet", leg=leg, url=url,
+                  levels=perf_levels(doc), requests=doc["requests"],
+                  server_successes=delta[0], **card)
+        proc, _, delta = perf_cli(
+            server, "resnet50", tmp, "mtls_refused",
+            ["-i", "http", "-u", relays["mtls"],
+             "--ssl-https-ca-certificates-file", cert] + level)
+        check(proc.returncode != 0 and delta == (0, 0),
+              f"a run without the client certificate exited "
+              f"{proc.returncode}, server {delta}")
+        phase(26, "tls_mtls_refused", rc=proc.returncode,
+              message=proc.stderr.strip()[-300:], **card)
+
+        data = os.path.join(tmp, "lm_tls_input.json")
+        tokens = write_lm_input(data)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        proc, doc, delta = perf_cli(
+            server, HTTP_LM, tmp, "tls_lm",
+            ["-i", "http", "-u", relays["http"],
+             "--ssl-https-ca-certificates-file", cert,
+             "--input-data", data] + level)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        routes = {n: dict(r) for n, r in ops.ROUTES.items()}
+        check(proc.returncode == 0 and delta[1] == 0 and delta[0] > 0
+              and doc["requests"] == {"completed": delta[0], "failed": 0},
+              f"{HTTP_LM} over HTTPS exited {proc.returncode}: the client "
+              f"counted {doc and doc['requests']}, the server {delta}: "
+              f"{proc.stderr[-2000:]}")
+        for kernel in ("int8_matmul", "paged_attention"):
+            check(launches[kernel] > 0,
+                  f"{HTTP_LM} over HTTPS launched {kernel} no time: "
+                  f"{launches}")
+        phase(26, "tls_lm", model=HTTP_LM, levels=perf_levels(doc),
+              requests=doc["requests"], server_successes=delta[0],
+              workload={"prompt_tokens": len(tokens), "max_tokens": 1},
+              launches=launches, launches_by_route=routes, **card)
+    finally:
+        for p in procs.values():
+            stop_relay(p)
+    phase(26, "tls_done", seconds=time.monotonic() - t0, **card)
+    return launches, routes
+
+
+def native_phase(card, server, tmp):
+    """Phase 26 on phase 23's server: (a) the native worker
+    (native_leg), (b) procpool (procpool_leg), (c) SSL (tls_leg).
+    Returns 26a's (launches, routes) or None where it is cut, and 26c's
+    (launches_native and launches_tls in phase 20)."""
+    t0 = time.monotonic()
+    native = native_leg(card, server, tmp)
+    procpool_leg(card, server, tmp)
+    tls = tls_leg(card, server, tmp)
+    phase(26, "native_phase_done", seconds=time.monotonic() - t0, **card)
+    return native, tls
+
+
 def main():
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -6090,8 +6647,11 @@ def main():
     # -- 23 the direct path on the captured graphs; perf_analyzer over HTTP -
     # -- 24 the asyncio clients, --async, two ranks, the service kinds -----
     # -- 25 the replica set across this server and a second process --------
+    # -- 26 the native worker, procpool and SSL ------------------------------
     (http_launches, http_routes, (aio_launches, aio_routes),
-     (balance_launches, balance_routes)) = http_phase(card)
+     (balance_launches, balance_routes), native,
+     (tls_launches, tls_routes)) = http_phase(card)
+    native_launches, native_routes = native or (None, None)
 
     # -- 20 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
@@ -6125,6 +6685,8 @@ def main():
         "launches_http": http_launches["int8_matmul"],
         "launches_aio": aio_launches["int8_matmul"],
         "launches_balance": balance_launches["int8_matmul"],
+        "launches_native": native_launches and native_launches["int8_matmul"],
+        "launches_tls": tls_launches["int8_matmul"],
         "max_abs_err": max(worst.values()),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -6146,7 +6708,7 @@ def main():
                        "phase 23's perf_analyzer -i http LM leg; "
                        "launches_aio: phase 24's grpc.aio streams and "
                        "http.aio calls; launches_balance: phase 25's "
-                       "balanced calls in replica A",
+                       "balanced calls in replica A; " + NATIVE_LAUNCHES_IN,
         "checked_in": "phase 3",
     }, {
         "name": "int8_matmul",
@@ -6164,6 +6726,8 @@ def main():
         "launches_http": http_routes["int8_matmul"]["mma"],
         "launches_aio": aio_routes["int8_matmul"]["mma"],
         "launches_balance": balance_routes["int8_matmul"]["mma"],
+        "launches_native": native_routes and native_routes["int8_matmul"]["mma"],
+        "launches_tls": tls_routes["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
         "ms": prefill["ms"],
         "plain_ms": prefill["plain_ms"],
@@ -6184,7 +6748,7 @@ def main():
                        "perf_analyzer -i http LM leg; launches_aio: "
                        "phase 24's grpc.aio streams and http.aio calls; "
                        "launches_balance: phase 25's balanced calls in "
-                       "replica A",
+                       "replica A; " + NATIVE_LAUNCHES_IN,
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -6246,6 +6810,9 @@ def main():
             "launches_http": http_routes["paged_attention"][route],
             "launches_aio": aio_routes["paged_attention"][route],
             "launches_balance": balance_routes["paged_attention"][route],
+            "launches_native": (native_routes
+                                and native_routes["paged_attention"][route]),
+            "launches_tls": tls_routes["paged_attention"][route],
             "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -6262,7 +6829,8 @@ def main():
                            "23's perf_analyzer -i http LM leg; "
                            "launches_aio: phase 24's grpc.aio streams "
                            "and http.aio calls; launches_balance: phase "
-                           "25's balanced calls in replica A",
+                           "25's balanced calls in replica A; "
+                           + NATIVE_LAUNCHES_IN,
             "checked_in": "phase 10",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

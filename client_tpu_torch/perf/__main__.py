@@ -18,8 +18,12 @@ A comma-separated ``--url`` replica list fans the load out across the
 replicas through the port's ``balance.EndpointPool`` (round-robin, a
 per-endpoint split in the summary), and ``--churn-soak SECONDS`` rotates
 the pool's membership through its discovery loop while the load runs.
-Options the port does not have yet (``--native-loadgen``, SSL) are
-refused with a message, never ignored.
+``--native-loadgen`` sweeps with the C++ engine (perf/native_worker.py,
+its binary built at first use from ``src/cpp``), and the ``--ssl-*``
+options secure the gRPC and HTTP backends; an SSL option the run cannot
+honour (``--async``, ``--native-loadgen``, ``--hermetic``, a non-Triton
+kind, the other protocol's options) is refused with a message where the
+reference drops it.
 
     python -m client_tpu_torch.perf -m resnet50 -u localhost:8001 \\
         --shared-memory cuda --output-shared-memory-size 4000 --async
@@ -51,6 +55,11 @@ from client_tpu_torch.perf.metrics_manager import (
     local_device_snapshot,
 )
 from client_tpu_torch.perf.model_parser import ModelParser
+from client_tpu_torch.perf.native_worker import (
+    build_native_worker,
+    native_windows_stable,
+    run_native_worker,
+)
 from client_tpu_torch.perf.rendezvous import Rendezvous
 from client_tpu_torch.utils import InferenceServerException
 
@@ -108,7 +117,12 @@ def build_parser():
                    help="async concurrency slots on one event loop over "
                         "grpc.aio (reference -a; stateless gRPC only)")
     p.add_argument("--native-loadgen", action="store_true",
-                   help="not in the port yet")
+                   help="generate load with the native C++ engine "
+                        "(build/torch_cpp/perf_worker, built at first use "
+                        "from src/cpp: async InferContexts on one "
+                        "connection, no GIL in the instrument); "
+                        "concurrency, request-rate or sequence mode over "
+                        "socket gRPC, wire, system or CUDA-shm inputs")
     p.add_argument("--service-kind",
                    choices=["triton", "torchserve", "tfserve",
                             "tfserve_rest"],
@@ -242,15 +256,16 @@ def build_parser():
                         "Not a utilization figure: in the server's process "
                         "it reads the running kernels' occupancy, from "
                         "another process the GPU's context time slice")
-    # SSL/TLS (reference command_line_parser.h SSL option block; names
-    # match): not in the port yet, refused
-    p.add_argument("--ssl-grpc-use-ssl", action="store_true")
+    # SSL/TLS (reference command_line_parser.h SSL option block; names match)
+    p.add_argument("--ssl-grpc-use-ssl", action="store_true",
+                   help="use an SSL-encrypted gRPC channel")
     p.add_argument("--ssl-grpc-root-certifications-file", default=None)
     p.add_argument("--ssl-grpc-private-key-file", default=None)
     p.add_argument("--ssl-grpc-certificate-chain-file", default=None)
     p.add_argument("--ssl-https-verify-peer", type=int, choices=[0, 1],
-                   default=1)
-    p.add_argument("--ssl-https-ca-certificates-file", default=None)
+                   default=1, help="0 disables server-cert verification")
+    p.add_argument("--ssl-https-ca-certificates-file", default=None,
+                   help="also switches the HTTP client to https://")
     p.add_argument("--ssl-https-client-certificate-file", default=None)
     p.add_argument("--ssl-https-private-key-file", default=None)
     # trace control plane: pushed to the server before profiling (reference
@@ -273,22 +288,211 @@ def build_parser():
     return p
 
 
-def _not_ported(args):
-    """The first option given that the port does not have yet, or None
-    (the order of ROADMAP.md's queue)."""
-    ssl = (args.ssl_grpc_use_ssl or args.ssl_grpc_root_certifications_file
-           or args.ssl_grpc_private_key_file
-           or args.ssl_grpc_certificate_chain_file
-           or not args.ssl_https_verify_peer
-           or args.ssl_https_ca_certificates_file
-           or args.ssl_https_client_certificate_file
-           or args.ssl_https_private_key_file)
-    for name, given in (
-            ("--native-loadgen", args.native_loadgen),
-            ("SSL (the --ssl-* options)", ssl)):
-        if given:
-            return name
-    return None
+def _ssl_options(args):
+    """The backends' ``ssl_options`` (gRPC options under ``-i grpc``, HTTPS
+    options under ``-i http``, as the reference builds them), or None.
+    Exits with a message where the reference would drop a given option
+    silently: a run with no SSL-capable client, the other protocol's
+    options, files without ``--ssl-grpc-use-ssl``, a key without its
+    certificate."""
+    grpc_given = [name for name, on in (
+        ("--ssl-grpc-use-ssl", args.ssl_grpc_use_ssl),
+        ("--ssl-grpc-root-certifications-file",
+         args.ssl_grpc_root_certifications_file),
+        ("--ssl-grpc-private-key-file", args.ssl_grpc_private_key_file),
+        ("--ssl-grpc-certificate-chain-file",
+         args.ssl_grpc_certificate_chain_file)) if on]
+    https_given = [name for name, on in (
+        ("--ssl-https-verify-peer 0", not args.ssl_https_verify_peer),
+        ("--ssl-https-ca-certificates-file",
+         args.ssl_https_ca_certificates_file),
+        ("--ssl-https-client-certificate-file",
+         args.ssl_https_client_certificate_file),
+        ("--ssl-https-private-key-file",
+         args.ssl_https_private_key_file)) if on]
+    if not grpc_given and not https_given:
+        return None
+    if (args.async_mode or args.native_loadgen or args.hermetic
+            or args.service_kind != "triton"):
+        sys.exit("error: the --ssl-* options secure the python load "
+                 "engine's socket gRPC/HTTP clients (not --async, "
+                 "--native-loadgen, --hermetic, or non-Triton "
+                 "--service-kind)")
+    grpc = args.protocol == "grpc"
+    other = https_given if grpc else grpc_given
+    if other:
+        sys.exit(f"error: {', '.join(other)}: not an option of -i "
+                 f"{args.protocol} (the --ssl-{'https' if grpc else 'grpc'}"
+                 f"-* options are -i {'http' if grpc else 'grpc'}'s)")
+    if grpc:
+        if not args.ssl_grpc_use_ssl:
+            sys.exit(f"error: {', '.join(grpc_given)} without "
+                     "--ssl-grpc-use-ssl: the channel would be plaintext")
+        return {
+            "use_ssl": True,
+            "root_certificates": args.ssl_grpc_root_certifications_file,
+            "private_key": args.ssl_grpc_private_key_file,
+            "certificate_chain": args.ssl_grpc_certificate_chain_file,
+        }
+    if (args.ssl_https_private_key_file
+            and not args.ssl_https_client_certificate_file):
+        sys.exit("error: --ssl-https-private-key-file without "
+                 "--ssl-https-client-certificate-file")
+    return {
+        "use_ssl": True,
+        "verify_peer": bool(args.ssl_https_verify_peer),
+        "ca_certificates_file": args.ssl_https_ca_certificates_file,
+        "client_certificate_file": args.ssl_https_client_certificate_file,
+        "private_key_file": args.ssl_https_private_key_file,
+    }
+
+
+def _refuse_native(args, kind, loader):
+    """Exits where --native-loadgen cannot run as asked (the reference's
+    refusals, in its order; device regions are ``cuda`` here)."""
+    if (args.hermetic or kind != BackendKind.TRITON_GRPC
+            or args.async_mode or args.request_intervals):
+        sys.exit("error: --native-loadgen drives a socket gRPC "
+                 "server (concurrency, --request-rate-range, or "
+                 "--sequence mode); interval-file replay and "
+                 "--async use the python engine")
+    # modes the native sweep does not implement fail LOUDLY rather
+    # than silently measuring something else
+    unsupported = [
+        ("-f/--filename", args.filename),
+        ("--json-export", args.json_export),
+        ("--latency-threshold", args.latency_threshold),
+        ("--binary-search", args.binary_search),
+        ("--collect-metrics", args.collect_metrics),
+        ("--world-size > 1", args.world_size > 1),
+        ("--measurement-mode count_windows",
+         args.measurement_mode == "count_windows"),
+    ]
+    offending = [name for name, on in unsupported if on]
+    if offending:
+        sys.exit("error: --native-loadgen does not support: "
+                 + ", ".join(offending))
+    if args.request_rate_range and args.sequence:
+        sys.exit("error: --native-loadgen sequence mode is "
+                 "closed-loop; pick --request-rate-range OR "
+                 "--sequence")
+    if args.shared_memory == "none" and args.input_data not in (
+            None, "random"):
+        sys.exit("error: --native-loadgen wire mode generates "
+                 "random tensor bytes; custom --input-data is "
+                 "honored via --shared-memory system/cuda (regions "
+                 "are staged with the real data)")
+    if (loader.num_streams != 1 or loader.num_steps(0) != 1):
+        sys.exit("error: --native-loadgen repeats one fixed request "
+                 "(stream 0, step 0); dataset rotation needs the "
+                 "python load engine")
+
+
+def _run_native_loadgen(args, binary, loader, data_manager):
+    """Load sweep driven by the native C++ engine (perf_worker): region
+    setup and metadata live here (this process owns the device); the
+    measurement loop is pure C++.  Sweeps concurrency, request rate
+    (--request-rate-range, constant/poisson), or stateful sequences
+    (--sequence) — each level runs one worker long enough for the
+    stability loop over its per-window records."""
+    from client_tpu_torch.perf.infer_data import _ShmInferDataManagerBase
+    from client_tpu_torch.utils import np_to_triton_dtype
+
+    try:
+        wire_inputs, shm_inputs, shm_outputs = [], [], []
+        step0 = loader.get_input_data(0, 0)
+        if isinstance(data_manager, _ShmInferDataManagerBase):
+            for name, td in step0.items():
+                region, nbytes = data_manager._regions[(0, 0, name)]
+                shm_inputs.append((
+                    name, np_to_triton_dtype(td.array.dtype),
+                    list(td.array.shape), region, nbytes,
+                ))
+            for name, (region, nbytes) in data_manager._out_regions.items():
+                shm_outputs.append((name, region, nbytes))
+        else:
+            for name, td in step0.items():
+                wire_inputs.append((
+                    name, np_to_triton_dtype(td.array.dtype),
+                    list(td.array.shape),
+                ))
+
+        window_s = max(args.measurement_interval / 1e3, 0.5)
+        # enough windows for the 3-window stability check without letting
+        # default settings balloon a level past ~6 windows
+        n_windows = max(3, min(args.max_trials, 6))
+        threshold = args.stability_percentage / 100.0
+
+        if args.request_rate_range:
+            start, end, step = _parse_range(args.request_rate_range, float)
+            # index-based levels: float accumulation (r += step) can skip
+            # the final level to rounding (0.1+0.1+0.1 > 0.3)
+            n_levels = int(round((end - start) / step)) + 1 if step else 1
+            levels = []
+            for i in range(max(n_levels, 1)):
+                r = start + i * step
+                if r > end * (1 + 1e-9):
+                    break
+                levels.append(("Request rate", r, {
+                    "request_rate": r,
+                    "distribution": args.request_distribution,
+                    "concurrency": args.max_threads,
+                }))
+        else:
+            start, end, step = _parse_range(args.concurrency_range or "1", int)
+            label = "Sequences" if args.sequence else "Concurrency"
+            levels = []
+            c = start
+            while c <= end:
+                kw = ({"sequences": c, "seq_steps": args.sequence_length,
+                       "concurrency": 1}
+                      if args.sequence else {"concurrency": c})
+                levels.append((label, c, kw))
+                c += step
+
+        best = None
+        errors = 0
+        for label, level, kw in levels:
+            report = run_native_worker(
+                args.url, args.model_name, binary=binary,
+                duration_s=window_s * n_windows, warmup_s=1.0,
+                window_interval_s=window_s,
+                completion_sync=args.cuda_shm_sync,
+                wire_inputs=wire_inputs, shm_inputs=shm_inputs,
+                shm_outputs=shm_outputs, **kw,
+            )
+            errors += report["errors"]
+            windows = report.get("windows", [])
+            stable = native_windows_stable(windows, threshold)
+            if stable:
+                tail = windows[-3:]
+                report["stable_throughput"] = round(
+                    sum(w["throughput"] for w in tail) / 3, 2
+                )
+            delayed = (f", delayed {report['delayed']}"
+                       if report.get("delayed") else "")
+            print(
+                f"{label}: {level:g}, throughput: "
+                f"{report['throughput']:.1f} infer/sec (native), "
+                f"p50 {report['p50_us']:.0f} usec, "
+                f"p99 {report['p99_us']:.0f} usec, "
+                f"errors {report['errors']}{delayed}, "
+                f"{'stable' if stable else 'UNSTABLE'} over "
+                f"{len(windows)} windows"
+            )
+            if best is None or report["throughput"] > best[1]["throughput"]:
+                best = (level, report)
+        if best is not None:
+            name = ("rate" if args.request_rate_range
+                    else "sequences" if args.sequence else "concurrency")
+            print(
+                f"Best: {name}={best[0]:g} -> "
+                f"{best[1]['throughput']:.1f} infer/sec, "
+                f"avg latency {best[1]['avg_us']:.0f} usec"
+            )
+        return 0 if best is not None and errors == 0 else 1
+    finally:
+        data_manager.cleanup()
 
 
 def _device(args):
@@ -304,10 +508,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     urls = [u.strip() for u in args.url.split(",") if u.strip()]
-    refused = _not_ported(args)
-    if refused is not None:
-        sys.exit(f"error: {refused} is not in the port yet "
-                 "(queued in ROADMAP.md, Queue 1)")
+    ssl_options = _ssl_options(args)
 
     shape_overrides = {}
     for item in args.shape:
@@ -476,7 +677,8 @@ def main(argv=None):
             replica_pool.pick().url if replica_pool is not None else args.url
         )
         return ClientBackendFactory.create(
-            kind, url=url, engine=engine, verbose=False, **backend_kwargs
+            kind, url=url, engine=engine, verbose=False,
+            ssl_options=ssl_options, **backend_kwargs
         )
 
     control = backend_factory()
@@ -518,6 +720,9 @@ def main(argv=None):
             if args.input_data not in (None, "random"):
                 sys.exit("error: --prefix-share generates its own prompt "
                          "workload; drop --input-data")
+            if args.native_loadgen:
+                sys.exit("error: --prefix-share rotates a prompt set; the "
+                         "native engine repeats one fixed request")
             loader.generate_prefix_share(
                 args.prefix_share, num_prompts=args.prefix_prompts,
                 shared_pool=args.prefix_pool,
@@ -532,6 +737,20 @@ def main(argv=None):
         else:
             loader.read_data_from_dir(args.input_data)
 
+        # every refusal comes before the data manager registers a region
+        tenant_slots = _parse_tenants(args.tenants)
+        if tenant_slots and (args.async_mode or args.native_loadgen):
+            sys.exit("error: --tenants drives the thread-per-slot python "
+                     "load engine (not --async / --native-loadgen)")
+        if args.async_mode and (args.request_intervals
+                                or args.request_rate_range):
+            sys.exit("error: --async applies to concurrency mode only "
+                     "(request-rate/interval schedules use worker threads)")
+        native_binary = None
+        if args.native_loadgen:
+            _refuse_native(args, kind, loader)
+            native_binary = build_native_worker()  # raises if it fails
+
         data_manager = create_infer_data_manager(
             control, loader, inputs_meta, outputs_meta,
             shared_memory=args.shared_memory,
@@ -541,6 +760,9 @@ def main(argv=None):
             device=device,
         )
         data_manager.init()
+        if args.native_loadgen:
+            return _run_native_loadgen(args, native_binary, loader,
+                                       data_manager)
 
         sequences = None
         if args.sequence:
@@ -553,10 +775,6 @@ def main(argv=None):
                 num_streams=loader.num_streams,
             )
 
-        tenant_slots = _parse_tenants(args.tenants)
-        if tenant_slots and args.async_mode:
-            sys.exit("error: --tenants drives the thread-per-slot python "
-                     "load engine (not --async / --native-loadgen)")
         common = dict(
             backend_factory=backend_factory,
             data_loader=loader,
@@ -569,10 +787,6 @@ def main(argv=None):
         )
         latency_limit_us = args.latency_threshold * 1e3 or None
 
-        if args.async_mode and (args.request_intervals
-                                or args.request_rate_range):
-            sys.exit("error: --async applies to concurrency mode only "
-                     "(request-rate/interval schedules use worker threads)")
         if args.request_intervals:
             manager = CustomLoadManager(
                 intervals_file=args.request_intervals, **common

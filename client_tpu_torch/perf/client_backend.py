@@ -30,6 +30,7 @@ The port's copy of client_tpu/perf/client_backend.py.  Backends:
 """
 
 import json
+import ssl
 import threading
 import time
 
@@ -122,11 +123,12 @@ class ClientBackendFactory:
     """Create backends by kind+url (client_backend.h:250-307 analog)."""
 
     @staticmethod
-    def create(kind, url=None, engine=None, verbose=False, **kwargs):
+    def create(kind, url=None, engine=None, verbose=False, ssl_options=None,
+               **kwargs):
         if kind == BackendKind.TRITON_GRPC:
-            return _GrpcBackend(url, verbose)
+            return _GrpcBackend(url, verbose, ssl_options=ssl_options)
         if kind == BackendKind.TRITON_HTTP:
-            return _HttpBackend(url, verbose)
+            return _HttpBackend(url, verbose, ssl_options=ssl_options)
         if kind == BackendKind.INPROCESS:
             if engine is None:
                 raise InferenceServerException(
@@ -147,11 +149,19 @@ class ClientBackendFactory:
 class _GrpcBackend(ClientBackend):
     kind = BackendKind.TRITON_GRPC
 
-    def __init__(self, url, verbose=False):
+    def __init__(self, url, verbose=False, ssl_options=None):
         import client_tpu_torch.grpc as grpcclient
 
+        opts = ssl_options or {}
         self.endpoint = url
-        self._client = grpcclient.InferenceServerClient(url, verbose=verbose)
+        self._client = grpcclient.InferenceServerClient(
+            url,
+            verbose=verbose,
+            ssl=opts.get("use_ssl", False),
+            root_certificates=opts.get("root_certificates"),
+            private_key=opts.get("private_key"),
+            certificate_chain=opts.get("certificate_chain"),
+        )
 
     def model_metadata(self, model_name, model_version=""):
         return self._client.get_model_metadata(
@@ -212,11 +222,37 @@ class _GrpcBackend(ClientBackend):
 class _HttpBackend(_GrpcBackend):
     kind = BackendKind.TRITON_HTTP
 
-    def __init__(self, url, verbose=False):
+    def __init__(self, url, verbose=False, ssl_options=None):
         import client_tpu_torch.http as httpclient
 
+        opts = ssl_options or {}
+        ctx = None
+        if opts.get("use_ssl") and (
+            opts.get("ca_certificates_file")
+            or opts.get("client_certificate_file")
+        ):
+            ctx = ssl.create_default_context(
+                cafile=opts.get("ca_certificates_file")
+            )
+            if opts.get("client_certificate_file"):
+                ctx.load_cert_chain(
+                    opts["client_certificate_file"],
+                    keyfile=opts.get("private_key_file"),
+                )
+            if not opts.get("verify_peer", True):
+                # check_hostname must go before CERT_NONE, or ssl raises
+                ctx.check_hostname = False
+                ctx.verify_mode = ssl.CERT_NONE
         self.endpoint = url
-        self._client = httpclient.InferenceServerClient(url, verbose=verbose)
+        # without a context, insecure=True makes the client's own default
+        # context non-verifying (verify_peer=0 with no CA)
+        self._client = httpclient.InferenceServerClient(
+            url,
+            verbose=verbose,
+            ssl=opts.get("use_ssl", False),
+            ssl_context=ctx,
+            insecure=not opts.get("verify_peer", True),
+        )
 
     # the HTTP client returns parsed JSON natively (no as_json kwarg); its
     # `timeout` is the KServe per-request server-side timeout in MICROSECONDS

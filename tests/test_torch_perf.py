@@ -24,15 +24,16 @@ package's (client_tpu.perf), on the CPU.
   of the JAX engine's over TPU shared memory (tests/test_torch_shared_
   memory.py's tolerance).
 - The CLI: hermetic sweeps on ``--device cpu`` with their exports, the
-  refusal without it, every option that is not ported yet refused, the
-  gRPC legs with system and CUDA regions, ``--speculative`` through
-  ``model_sets(..., speculative=)``, a ``--url`` replica list over two
-  port servers on both transports (each endpoint's count its server's)
-  and ``--churn-soak``, and every replica-list refusal with the JAX
-  CLI's message.  (``--async``, ``--service-kind``
-  and ``--world-size`` have files of their own:
-  tests/test_torch_perf_async.py, test_torch_backends.py and
-  test_torch_rendezvous.py.)
+  refusal without it, the gRPC legs with system and CUDA regions,
+  ``--speculative`` through ``model_sets(..., speculative=)``, a
+  ``--url`` replica list over two port servers on both transports (each
+  endpoint's count its server's) and ``--churn-soak``, and every
+  replica-list refusal with the JAX CLI's message.  (``--async``,
+  ``--service-kind``, ``--world-size``, ``--native-loadgen`` and the
+  ``--ssl-*`` options have files of their own:
+  tests/test_torch_perf_async.py, test_torch_backends.py,
+  test_torch_rendezvous.py, test_torch_native_worker.py and
+  test_torch_perf_ssl.py.)
 
 Wall-clock waits are count windows or mocks; no stability case waits on
 the clock.
@@ -891,21 +892,6 @@ def test_cli_refuses_without_cuda_unless_asked_for_the_cpu(no_cuda):
         assert "CUDA" in str(e.value) or "cpu" in str(e.value), argv
 
 
-@pytest.mark.parametrize("flags", [
-    ["-i", "http", "--ssl-https-ca-certificates-file", "ca.pem"],
-    ["--native-loadgen"],
-    ["--ssl-grpc-use-ssl"], ["--ssl-https-verify-peer", "0"],
-    ["--ssl-grpc-root-certifications-file", "ca.pem"],
-])
-def test_cli_refuses_what_is_not_ported(flags):
-    """Every option the port does not have yet exits with a message that
-    names ROADMAP.md's queue; none is ignored."""
-    with pytest.raises(SystemExit) as e:
-        main(["-m", "simple", "--hermetic", "--device", "cpu", *flags])
-    assert "is not in the port yet" in str(e.value)
-    assert "ROADMAP.md" in str(e.value)
-
-
 _PAIR = ["-u", "localhost:1,localhost:2"]
 
 
@@ -937,14 +923,6 @@ def test_cli_replica_list_refusals_equal_jax(flags, jax_only, port_only):
         messages.append(str(e.value))
     assert messages[1] == messages[0]
     assert messages[0].startswith("error: ")
-
-
-def test_cli_replica_list_with_native_loadgen_is_not_ported():
-    """--native-loadgen still refuses first, whatever else is given."""
-    with pytest.raises(SystemExit) as e:
-        main(["-m", "simple", *_PAIR, "--native-loadgen"])
-    assert str(e.value).startswith("error: --native-loadgen is not in the "
-                                   "port yet")
 
 
 def _simple_successes(server):
