@@ -24,7 +24,9 @@ perf_analyzer's --async, two-rank and non-KServe modes, then balances
 the LM and ResNet-50 across it and a second server process through the
 port's replica set, kills that process under load, and runs
 perf_analyzer over the pair, then through the native C++ load worker,
-spawned load processes and TLS.
+spawned load processes and TLS, and last runs the port's chaos round
+under its lock-order, race and resource witnesses, gRPC streams behind
+its fault proxy, and its traceview and profview.
 
     python3 chip_smoke.py
 
@@ -402,7 +404,7 @@ Phases, one line each or more; any failure exits non-zero:
                 alone (the near-tie rule), ctpu_client_routed_total
                 within one of even on each pool; (b) 8 threads of
                 ResNet-50 over HTTP (least-inflight, probes every 50 ms),
-                B SIGKILLed after 3 s: no client-visible error, every
+                B SIGKILLed after 2 s: no client-visible error, every
                 answer bit-equal to one of A's rows for the image in a
                 group 8 one-row clients can form (n copies padded with
                 zero rows to the batcher's bucket), B UNREACHABLE and its
@@ -447,6 +449,36 @@ Phases, one line each or more; any failure exits non-zero:
                 lm_streaming_int8 over HTTPS with MAX_TOKENS 1, int8 and
                 paged attention launched (launches_tls in phase 20).
                 Every client count equals its server's
+ 27 chaos       the failure-domain checks on phase 23's server, after
+                26.  (a) The port's LockWitness, RaceWitness and
+                ResourceWitness installed before anything is built, then
+                tests/test_chaos.py's spec-cancel-preempt round under the
+                port's ChaosMatrix (scenario seed 5) on an LmEngine at
+                DEFAULT_LM_CONFIG's width and depth, CUDA-graph ticks,
+                speculative k = 4, its pool sized so the gold admission
+                must preempt stream A: float32 (A and gold byte-exact to
+                the serial generate), then lm_streaming_int8's weights
+                (equal to the same round run first without witnesses,
+                the near-tie rule of int8 streams).  After each: a
+                preemption, speculation accepted, assert_kv_clean after
+                close, the lock graphs acyclic, race-free, the resource
+                witness's acquisitions > 0 with none live.  (b) 8
+                lm_streaming_int8 streams through the port's gRPC client,
+                7 behind one FaultProxy (refused, then restored) and one
+                behind another whose link dispatch_fault kills mid-stream:
+                that stream ends with a connection-level error, the 7
+                equal the undisturbed answers, the server drains and its
+                engine's pool is clean after close; the client's and the
+                server's trace files joined by the port's traceview: one
+                timeline a stream, queue + compute + wire equal to the
+                client's duration within 1 ms.  (c) python -m
+                client_tpu_torch.profview --live (the cnn on the card,
+                exit 0, a device share) and profview over the server's
+                /v2/debug/prof report (the LM engine's ticks).  The
+                launch counts are reset just before (a)'s witnessed
+                rounds and (b)'s streams and read just after: int8 and
+                paged attention must have launched (launches_chaos in
+                phase 20)
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -455,7 +487,9 @@ import asyncio
 import base64
 import contextlib
 import dataclasses
+import functools
 import gzip
+import io
 import itertools
 import json
 import os
@@ -4723,10 +4757,11 @@ def http_phase(card):
     (c) ``python -m client_tpu_torch.perf -i http`` against ResNet-50 with
     --shared-memory none, system and cuda, and against HTTP_LM; then
     phase 24 on the same server (aio_phase), then phase 25 with it as
-    replica A (balance_phase), then phase 26 on it (native_phase).
-    Returns the LM leg's (launches, routes) (launches_http in phase 20),
-    phase 24's (launches_aio), phase 25's (launches_balance) and phase
-    26's (launches_native, None where 26a is cut, and launches_tls)."""
+    replica A (balance_phase), then phase 26 on it (native_phase), then
+    phase 27 (chaos_phase).  Returns the LM leg's (launches, routes)
+    (launches_http in phase 20), phase 24's (launches_aio), phase 25's
+    (launches_balance), phase 26's (launches_native, None where 26a is
+    cut, and launches_tls) and phase 27's (launches_chaos)."""
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import language, vision
 
@@ -4768,9 +4803,10 @@ def http_phase(card):
             aio = aio_phase(card, server, engines, tmp)
             balanced = balance_phase(card, server, resnet, engines, tmp)
             native, tls = native_phase(card, server, tmp)
+            chaos = chaos_phase(card, server, engines, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, routes, aio, balanced, native, tls
+    return launches, routes, aio, balanced, native, tls, chaos
 
 
 # -- the asyncio clients, --async, two ranks, the service kinds (phase 24) ----
@@ -5146,10 +5182,10 @@ def aio_phase(card, server, engines, tmp):
 BALANCE_HTTP_CALLS = 8   # 25a: MAX_TOKENS-1 int8 calls over HTTP
 BALANCE_STREAMS = 4      # 25a: decoupled int8 token streams over gRPC
 BALANCE_THREADS = 8      # 25b: ResNet-50 client threads
-BALANCE_BEFORE_S = 3.0   # 25b: load before the kill, then after it
-BALANCE_AFTER_S = 3.0
+BALANCE_BEFORE_S = 2.0   # 25b: load before the kill, then after it
+BALANCE_AFTER_S = 2.0
 BALANCE_LEVEL = "8"      # 25c: perf_analyzer's concurrency across A,B
-BALANCE_WINDOW_MS = 1000
+BALANCE_WINDOW_MS = 500
 BALANCE_CHURN_S = "0.5"  # 25c: --churn-soak's tick
 BALANCE_MODEL = "lm_streaming_int8"
 
@@ -5588,9 +5624,9 @@ NATIVE_LM_TOKENS = 16     # ... and MAX_TOKENS 16
 NATIVE_LM_S = 2.0         # the worker's measured seconds on the LM
 POOL_PROCESSES = 2        # 26b: spawned load processes, 4 requests each
 POOL_CONCURRENCY = 8
-POOL_WINDOW_S = 2.0
+POOL_WINDOW_S = 1.0
 TLS_LEVEL = "8"           # 26c: the concurrency of every TLS leg
-TLS_WINDOW_MS = 500
+TLS_WINDOW_MS = 250
 NATIVE_LAUNCHES_IN = ("launches_native: phase 26a's native-worker streams "
                       "(null where the worker did not build: 26a cut); "
                       "launches_tls: phase 26c's HTTPS LM leg")
@@ -6086,6 +6122,518 @@ def native_phase(card, server, tmp):
     tls = tls_leg(card, server, tmp)
     phase(26, "native_phase_done", seconds=time.monotonic() - t0, **card)
     return native, tls
+
+
+# -- the failure-domain checks on phase 23's server (phase 27) ---------------
+
+# tests/test_chaos.py's _SpecChaosFixture (:1194) and its scenario seed
+# (:1294): stream A (free tier, a periodic prompt the n-gram drafter
+# continues) and B, cancelled with drafts in flight, fill the pool; the
+# gold admission cannot fit beside A and must preempt it.  The engine's
+# pool holds at least one max_seq sequence (64 blocks of 8 at
+# DEFAULT_LM_CONFIG's 512), so the fixture's budgets (A 9 of 12 blocks,
+# B 3, gold 7) are scaled to it: A reserves 48 blocks, B 16, gold 37
+CHAOS_SEED = 5
+CHAOS_PROMPTS = {"a": [5, 6] * 6, "b": [7, 8] * 6, "gold": [9, 7] * 6}
+CHAOS_BUDGETS = {"a": 372, "b": 116, "gold": 284}
+CHAOS_ENGINE = dict(max_slots=2, lane_counts=(2,), block_size=8,
+                    prefill_chunk=16, min_bucket=4, pool_tokens=512,
+                    speculative={"k": 4}, tenant_priority={"gold": 10.0})
+CHAOS_DEVICE = "cuda"
+# 27b: gRPC streams of lm_streaming_int8 behind the port's FaultProxy
+CHAOS_MODEL = "lm_streaming_int8"
+CHAOS_STREAMS = 8            # 7 survivors and the stream whose link dies
+CHAOS_VICTIM_TOKENS = 400    # MAX_TOKENS of that stream: still running
+CHAOS_KILL_AFTER = 8         # tokens it reads before its link is killed
+CHAOS_RESTORE_S = 0.5        # refuse until then (from the drivers' start)
+CHAOS_SUM_TOL_MS = 1.0       # queue + compute + wire against the total
+CHAOS_PROFVIEW = ["--live"]  # python -m client_tpu_torch.profview ...
+CHAOS_IN = ("launches_chaos: phase 27's witnessed spec-cancel-preempt "
+            "rounds (float32, int8) and its gRPC streams behind the "
+            "FaultProxy")
+
+
+class SpecChaosFixture:
+    """The port's counterpart of tests/test_chaos.py's _SpecChaosFixture
+    at DEFAULT_LM_CONFIG's width and depth on the card, every tick a
+    CUDA-graph replay: A streams, B streams two tokens and is cancelled
+    with drafts in flight, then the gold admission preempts A.  The
+    engine notes its preemptions into *flight*, which ChaosMatrix dumps
+    (under ``$TPU_FLIGHT_DIR``) when a check fails."""
+
+    def __init__(self, LmEngine, Registry, params, cfg, flight):
+        self.engine = LmEngine(params, cfg, device=CHAOS_DEVICE,
+                               registry=Registry(), **CHAOS_ENGINE)
+        self.engine.flight = self.flight = flight
+        self.outputs = {}
+        self.started_a = threading.Event()
+
+    def flight_recorders(self):
+        return [self.flight]
+
+    def apply_fault(self, fault):
+        from client_tpu_torch.testing.chaos import dispatch_fault
+
+        dispatch_fault(fault)
+
+    def drivers(self):
+        close = self.engine.CLOSE
+
+        def stream_a():
+            q, _ = self.engine.submit(CHAOS_PROMPTS["a"], CHAOS_BUDGETS["a"],
+                                      tenant="free")
+            first = q.get(timeout=300)
+            check(first is not close, "stream A closed before a token")
+            self.started_a.set()
+            self.outputs["a"] = [first] + collect(q, close)
+
+        def cancel_then_gold():
+            self.started_a.wait(timeout=300)
+            q, handle = self.engine.submit(
+                CHAOS_PROMPTS["b"], CHAOS_BUDGETS["b"], tenant="free")
+            for _ in range(2):
+                if q.get(timeout=300) is close:
+                    break
+            self.engine.cancel(handle)
+            collect(q, close)
+            q, _ = self.engine.submit(
+                CHAOS_PROMPTS["gold"], CHAOS_BUDGETS["gold"], tenant="gold")
+            self.outputs["gold"] = collect(q, close)
+
+        return [stream_a, cancel_then_gold]
+
+    def check(self, result):
+        result.assert_clean()
+        self.preempt = self.engine.preempt_stats()
+        self.spec = self.engine.spec_stats()
+        check(self.preempt["preemptions"] >= 1,
+              f"the gold admission never preempted stream A: {self.preempt}")
+        check(self.spec["accepted"] > 0,
+              f"speculation never engaged: {self.spec}")
+        for name in ("a", "gold"):
+            check(len(self.outputs.get(name) or ()) == CHAOS_BUDGETS[name],
+                  f"stream {name} delivered {self.outputs.get(name)}")
+
+    def close(self):
+        from client_tpu_torch.testing.chaos import assert_kv_clean
+
+        self.engine.close()
+        assert_kv_clean(self.engine)
+
+
+def spec_chaos_round(LmEngine, Registry, params, cfg, flight,
+                     witnesses=()):
+    """One spec-cancel-preempt round under ChaosMatrix, inside
+    *witnesses*, installed before the engine is built.  Returns the
+    fixture and the round's launch counts (reset just before, read just
+    after)."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.testing.chaos import ChaosMatrix, ChaosScenario
+
+    fixtures = []
+
+    def make(scenario):
+        fixtures.append(SpecChaosFixture(LmEngine, Registry, params, cfg,
+                                         flight))
+        return fixtures[-1]
+
+    with contextlib.ExitStack() as stack:
+        for w in witnesses:
+            stack.enter_context(w.installed())
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ChaosMatrix([ChaosScenario("spec-cancel-preempt", seed=CHAOS_SEED)]
+                    ).run(make, join_timeout_s=300)
+        torch.cuda.synchronize()
+        counts = (dict(ops.LAUNCHES),
+                  {n: dict(r) for n, r in ops.ROUTES.items()})
+    return fixtures[0], counts
+
+
+def witnessed_round(card, LmEngine, Registry, params, cfg, label, held_to,
+                    **extra):
+    """27a: the round inside the port's LockWitness, RaceWitness and
+    ResourceWitness; then the lock graphs acyclic, no unguarded shared
+    write, and every KV reservation witnessed and given back.  *held_to*
+    checks the survivors; *extra* rides on the phase line."""
+    from client_tpu_torch.analysis.witness import (
+        LockWitness,
+        RaceWitness,
+        ResourceWitness,
+    )
+    from client_tpu_torch.serve.flight import FlightRecorder
+
+    flight = FlightRecorder(name=f"chaos-{label}")
+    lock = LockWitness()
+    race = RaceWitness(flight=flight)
+    resources = ResourceWitness(flight=flight)
+    t0 = time.monotonic()
+    fx, counts = spec_chaos_round(LmEngine, Registry, params, cfg, flight,
+                                  witnesses=(lock, race, resources))
+    seconds = time.monotonic() - t0
+    edges = lock.assert_acyclic()
+    race_edges = race.assert_acyclic()
+    accesses = race.assert_race_free()
+    handles = resources.assert_clean()
+    check(handles > 0, "the resource witness saw no KV reservation")
+    check(lock.acquisitions > 0 and accesses > 0,
+          f"the witnesses saw no traffic: {lock.acquisitions} lock "
+          f"acquisitions, {accesses} witnessed field accesses")
+    survivors = {name: held_to(name, fx.outputs[name])
+                 for name in ("a", "gold")}
+    phase(27, "chaos_spec_round", weights=label, config="DEFAULT_LM_CONFIG",
+          engine={k: v for k, v in CHAOS_ENGINE.items()
+                  if k != "tenant_priority"},
+          scenario={"name": "spec-cancel-preempt", "seed": CHAOS_SEED},
+          budgets=CHAOS_BUDGETS, survivors=survivors,
+          preemptions=fx.preempt["preemptions"],
+          spec={k: fx.spec[k] for k in ("proposed", "accepted")},
+          lock_edges=edges, race_witness_lock_edges=race_edges,
+          lock_acquisitions=lock.acquisitions,
+          witnessed_field_accesses=accesses,
+          kv_acquisitions_witnessed=handles, kv_clean_after_close=True,
+          launches=counts[0], launches_by_route=counts[1],
+          seconds=seconds, **extra, **card)
+    return counts
+
+
+def chaos_stream(grpcclient, address, model, tokens, max_tokens, tracer,
+                 deadline, read=None, refused=None):
+    """One decoupled stream through the port's gRPC client at *address*,
+    under one client span whose traceparent rides the stream's metadata.
+    A connection-level failure before any token (a refused connection) is
+    retried on a new client until *deadline*.  Returns (tokens, error):
+    the error that ended the stream, or None."""
+    from client_tpu_torch.tracing import attempt_span, client_span
+
+    with client_span(tracer, model) as trace:
+        while True:
+            toks, errors, done = [], [], threading.Event()
+
+            def on_response(result, error):
+                if error is not None:
+                    errors.append(error)
+                    done.set()
+                    return
+                toks.append(int(result.as_numpy("TOKEN")[0]))
+                if read is not None:
+                    read(len(toks))
+                if len(toks) == max_tokens:
+                    done.set()
+
+            with attempt_span(trace, endpoint=address):
+                client = grpcclient.InferenceServerClient(address)
+                try:
+                    client.start_stream(on_response, stream_timeout=300,
+                                        headers={"traceparent":
+                                                 trace.traceparent()})
+                    try:
+                        client.async_stream_infer(
+                            model, grpc_lm_inputs(grpcclient, tokens,
+                                                  max_tokens))
+                    except grpcclient.InferenceServerException as e:
+                        # the stream died before the request went out (a
+                        # refused link): its callback carries the cause
+                        if not done.wait(timeout=10):
+                            errors.append(e)
+                    done.wait(timeout=300)
+                    client.stop_stream()
+                finally:
+                    client.close()
+            if not errors:
+                return toks, None
+            if toks or time.monotonic() > deadline:
+                trace.error = str(errors[0])
+                return toks, errors[0]
+            if refused is not None:
+                refused.append(str(errors[0]))
+            time.sleep(0.05)
+
+
+def connection_level(error):
+    """A gRPC failure of the link (UNAVAILABLE, a reset or closed
+    socket), not an answer of the server."""
+    text = str(error)
+    return "UNAVAILABLE" in text or any(
+        word in text.lower() for word in ("socket closed", "reset",
+                                          "connection"))
+
+
+def chaos_grpc_leg(card, server, engines, tmp):
+    """27b: 8 lm_streaming_int8 streams through the port's gRPC client,
+    7 behind one FaultProxy, one behind another.  dispatch_fault refuses
+    the first proxy's connections before the streams start and restores
+    them after CHAOS_RESTORE_S, and kills the second's link once its
+    stream has read CHAOS_KILL_AFTER tokens.  The killed stream ends with
+    a connection-level error; the other 7 equal the undisturbed answers
+    (the near-tie rule of int8 streams); the client's and the server's
+    trace files, joined by the port's traceview, give one timeline a
+    stream.  Returns the launch counts of the faulted streams and the
+    server's prof report after them."""
+    from client_tpu_torch import grpc as grpcclient
+    from client_tpu_torch import ops, traceview
+    from client_tpu_torch.serve.models import language
+    from client_tpu_torch.serve.models import transformer as tfm
+    from client_tpu_torch.testing.chaos import (
+        ChaosScenario,
+        FaultSpec,
+        dispatch_fault,
+        run_scenario,
+    )
+    from client_tpu_torch.testing.faults import FaultProxy
+    from client_tpu_torch.tracing import ClientTracer
+
+    t0 = time.monotonic()
+    eng = engines[CHAOS_MODEL]
+    prompts = distinct_prompts(language.encode_text(PROMPT), CHAOS_STREAMS)
+    survivors, victim = prompts[:-1], prompts[-1]
+    want = {}
+
+    def undisturbed(i):
+        want[i] = grpc_stream(grpcclient, server.grpc_address, CHAOS_MODEL,
+                              survivors[i], GRPC_TOKENS)
+
+    threads = [threading.Thread(target=undisturbed, args=(i,))
+               for i in range(len(survivors))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(len(want) == len(survivors), "an undisturbed stream did not end")
+
+    server_file = os.path.join(tmp, "chaos-server.jsonl")
+    client_file = os.path.join(tmp, "chaos-client.jsonl")
+    server.engine.update_trace_settings({
+        "trace_level": ["TIMESTAMPS"], "trace_rate": "1",
+        "trace_count": "-1", "trace_file": server_file})
+    tracer = ClientTracer(trace_file=client_file, trace_rate=1)
+    proxies = [FaultProxy(server.grpc_address),
+               FaultProxy(server.grpc_address)]
+    got, refused, victim_out = {}, [], {}
+    streaming = threading.Event()
+    deadline = time.monotonic() + 120
+
+    def survivor(i):
+        got[i] = chaos_stream(grpcclient, proxies[0].address, CHAOS_MODEL,
+                              survivors[i], GRPC_TOKENS, tracer, deadline,
+                              refused=refused)
+
+    def doomed():
+        def read(n):
+            if n == CHAOS_KILL_AFTER:
+                streaming.set()
+
+        victim_out["toks"], victim_out["error"] = chaos_stream(
+            grpcclient, proxies[1].address, CHAOS_MODEL, victim,
+            CHAOS_VICTIM_TOKENS, tracer, deadline, read=read)
+
+    def kill_mid_stream():
+        check(streaming.wait(timeout=120),
+              "the stream to be killed never streamed")
+        dispatch_fault(FaultSpec("kill_connections", target=1),
+                       proxies=proxies)
+
+    scenario = ChaosScenario("grpc-refuse-restore-kill", [
+        FaultSpec("restore", at_s=CHAOS_RESTORE_S, target=0),
+        FaultSpec("custom", at_s=CHAOS_RESTORE_S, fn=kill_mid_stream),
+    ], seed=CHAOS_SEED)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    try:
+        dispatch_fault(FaultSpec("refuse", target=0), proxies=proxies)
+        result = run_scenario(
+            scenario, lambda f: dispatch_fault(f, proxies=proxies),
+            [functools.partial(survivor, i) for i in range(len(survivors))]
+            + [doomed], join_timeout_s=300)
+        torch.cuda.synchronize()
+        counts = (dict(ops.LAUNCHES),
+                  {n: dict(r) for n, r in ops.ROUTES.items()})
+    finally:
+        for proxy in proxies:
+            proxy.close()
+        server.engine.update_trace_settings({"trace_level": ["OFF"],
+                                             "trace_file": ""})
+    result.assert_clean()
+    check(refused, "no stream met the refused connections")
+    toks, error = victim_out["toks"], victim_out["error"]
+    check(error is not None and connection_level(error)
+          and CHAOS_KILL_AFTER <= len(toks) < CHAOS_VICTIM_TOKENS,
+          f"the killed stream read {len(toks)} tokens and ended with "
+          f"{error!r}, not a connection-level error mid-stream")
+    near = [agreement(tfm, eng.params, eng.cfg, p, got[i][0], want[i])
+            for i, p in enumerate(survivors)]
+    check(all(got[i][1] is None for i in got),
+          f"a surviving stream failed: {[got[i][1] for i in got]}")
+    timelines = chaos_timelines(traceview, server_file, client_file)
+    prof = json.loads(http(server.http_address,
+                           "/v2/debug/prof?window=0")[1])
+    phase(27, "chaos_grpc_faults", model=CHAOS_MODEL,
+          streams=CHAOS_STREAMS, tokens=GRPC_TOKENS,
+          faults=[{"at_s": round(at, 4), "kind": f.kind,
+                   "target": f.target} for at, f in result.fired],
+          refused_attempts=len(refused),
+          killed={"tokens_read": len(toks), "max_tokens":
+                  CHAOS_VICTIM_TOKENS, "error": str(error)[:200]},
+          survivors_vs_undisturbed=near, near_tie=NEAR_TIE,
+          timelines=timelines, launches=counts[0],
+          launches_by_route=counts[1], seconds=time.monotonic() - t0,
+          **card)
+    return counts, prof
+
+
+def chaos_timelines(traceview, server_file, client_file):
+    """The port's traceview over the two trace files: one timeline a
+    stream (its client span and its server span under one trace id), and
+    for each stream that ended cleanly, queue + compute + wire equal to
+    the client's duration within CHAOS_SUM_TOL_MS."""
+    traces = traceview.join_traces(
+        traceview.load_records([client_file, server_file]))
+    streams = {tid: spans for tid, spans in traces.items()
+               if any(r.get("source") == "client" for r in spans)}
+    check(len(streams) == CHAOS_STREAMS,
+          f"{len(streams)} client traces, {CHAOS_STREAMS} streams")
+    worst, errors = 0.0, 0
+    for tid, spans in streams.items():
+        ends = sorted(r.get("source") for r in spans
+                      if not str(r.get("model_name")).startswith("__"))
+        check(ends == ["client", "server"],
+              f"trace {tid} is not one client and one server request "
+              f"span: {ends}")
+        if any(r.get("error") for r in spans):
+            errors += 1
+            continue
+        cp = traceview.critical_path(spans)
+        gap = abs(cp["queue_ms"] + cp["compute_ms"] + cp["wire_ms"]
+                  - cp["total_ms"])
+        worst = max(worst, gap)
+    check(errors == 1, f"{errors} traces carry an error, the killed one "
+                       "alone should")
+    check(worst <= CHAOS_SUM_TOL_MS,
+          f"queue + compute + wire misses the client's duration by "
+          f"{worst} ms")
+    return {"traces": len(streams), "with_error": errors,
+            "worst_sum_gap_ms": worst, "tolerance_ms": CHAOS_SUM_TOL_MS}
+
+
+def start_profview_live():
+    """27c, started with the phase (a process of its own on the card,
+    beside 27a-b): ``python -m client_tpu_torch.profview --live``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return time.monotonic(), subprocess.Popen(
+        [sys.executable, "-m", "client_tpu_torch.profview", *CHAOS_PROFVIEW],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here,
+        env={**os.environ, "PYTHONPATH": here})
+
+
+def chaos_profview(card, live, prof, tmp):
+    """27c: the ``profview --live`` run's cnn table (exit 0, cnn ticks
+    with a device share), then the port's profview over the server's
+    /v2/debug/prof report (the LM engine's ticks)."""
+    from client_tpu_torch import profview
+
+    t0, proc = live
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    live_s = time.monotonic() - t0
+    check(proc.returncode == 0,
+          f"profview --live exited {proc.returncode}: {err[-2000:]}")
+    share = re.search(r"model cnn_classifier .*share=([0-9.]+)%", out)
+    check("engine serve" in out and "batch=" in out
+          and share is not None and float(share.group(1)) > 0,
+          f"profview --live rendered no cnn ticks with a device share: "
+          f"{out[-2000:]}")
+    path = os.path.join(tmp, "prof.json")
+    with open(path, "w") as f:
+        json.dump(prof, f)
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        rc = profview.main([path])
+    table = table.getvalue()
+    lm = [e for e in prof["engines"]
+          if e.get("ticks") and e.get("kinds", {}).get("decode")]
+    check(rc == 0 and lm and all(f"engine {e['engine']}" in table
+                                 for e in lm),
+          f"profview over /v2/debug/prof shows no LM engine's ticks: "
+          f"{table[-2000:]}")
+    phase(27, "chaos_profview", live_seconds=live_s,
+          live_table=out.strip().splitlines(),
+          lm_engines={e["engine"]: {"ticks": e["ticks"],
+                                    "kinds": e["kinds"]} for e in lm},
+          served_table=table.strip().splitlines()[:12], **card)
+
+
+def chaos_phase(card, server, engines, tmp):
+    """Phase 27 on phase 23's server, after phase 26.  (a) The port's
+    counterpart of tests/test_chaos.py's spec-cancel-preempt round under
+    ChaosMatrix, inside the port's three witnesses: float32 (survivors
+    byte-exact to the serial generate), then with lm_streaming_int8's
+    int8 weights (survivors equal to the same round run first without
+    witnesses, the near-tie rule of int8 streams).  (b) gRPC streams
+    behind the port's FaultProxy (chaos_grpc_leg).  (c) profview.
+    Returns (launches, routes) summed over (a)'s witnessed rounds and
+    (b)'s streams (launches_chaos in phase 20).  (c)'s ``--live`` process
+    starts with the phase and runs beside (a) and (b)."""
+    from client_tpu_torch.serve.flight import FlightRecorder
+    from client_tpu_torch.serve.lm import LmEngine
+    from client_tpu_torch.serve.metrics import Registry
+    from client_tpu_torch.serve.models import language
+    from client_tpu_torch.serve.models import transformer as tfm
+    from client_tpu_torch.testing.chaos import (
+        assert_byte_exact,
+        assert_kv_clean,
+    )
+
+    t0 = time.monotonic()
+    live = start_profview_live()
+    cfg32 = dataclasses.replace(language.DEFAULT_LM_CONFIG, dtype="float32")
+    p32 = tfm.init_params(torch.Generator().manual_seed(0), cfg32,
+                          torch.device(CHAOS_DEVICE))
+
+    def serial(name):
+        want = list(tfm.generate(p32, cfg32, CHAOS_PROMPTS[name],
+                                 CHAOS_BUDGETS[name], readback_depth=0))
+
+        def held(got):
+            assert_byte_exact(got, want, label=f"float32 stream {name}")
+            return {"equal": True, "tokens": len(got)}
+        return held
+
+    f32 = {name: serial(name) for name in ("a", "gold")}
+    windows = [witnessed_round(card, LmEngine, Registry, p32, cfg32,
+                               "float32", lambda name, got: f32[name](got))]
+    int8 = engines[CHAOS_MODEL]
+    t_ref = time.monotonic()
+    ref, _ = spec_chaos_round(LmEngine, Registry, int8.params, int8.cfg,
+                              FlightRecorder(name="chaos-int8-unwitnessed"))
+    t_ref = time.monotonic() - t_ref
+    windows.append(witnessed_round(
+        card, LmEngine, Registry, int8.params, int8.cfg, "int8",
+        lambda name, got: agreement(tfm, int8.params, int8.cfg,
+                                    CHAOS_PROMPTS[name], got,
+                                    ref.outputs[name]),
+        unwitnessed_seconds=t_ref))
+    grpc_counts, prof = chaos_grpc_leg(card, server, engines, tmp)
+    windows.append(grpc_counts)
+    # the killed stream's blocks came back: the served engine drains and
+    # closes clean
+    check(server.engine.drain(timeout_s=60),
+          "the server did not drain after the faulted streams")
+    int8.close()
+    assert_kv_clean(int8)
+    chaos_profview(card, live, prof, tmp)
+    launches = {n: sum(w[0][n] for w in windows) for n in windows[0][0]}
+    routes = {n: {r: sum(w[1][n][r] for w in windows) for r in rs}
+              for n, rs in windows[0][1].items()}
+    check(launches["int8_matmul"] > 0 and launches["paged_attention"] > 0,
+          f"phase 27 launched int8 {launches['int8_matmul']} and paged "
+          f"{launches['paged_attention']} times")
+    phase(27, "chaos_done", launches=launches, launches_by_route=routes,
+          seconds=time.monotonic() - t0, **card)
+    return launches, routes
 
 
 def main():
@@ -6648,9 +7196,11 @@ def main():
     # -- 24 the asyncio clients, --async, two ranks, the service kinds -----
     # -- 25 the replica set across this server and a second process --------
     # -- 26 the native worker, procpool and SSL ------------------------------
+    # -- 27 the witnesses, the chaos harness and the postmortem tools --------
     (http_launches, http_routes, (aio_launches, aio_routes),
      (balance_launches, balance_routes), native,
-     (tls_launches, tls_routes)) = http_phase(card)
+     (tls_launches, tls_routes),
+     (chaos_launches, chaos_routes)) = http_phase(card)
     native_launches, native_routes = native or (None, None)
 
     # -- 20 kernels ----------------------------------------------------------
@@ -6687,6 +7237,7 @@ def main():
         "launches_balance": balance_launches["int8_matmul"],
         "launches_native": native_launches and native_launches["int8_matmul"],
         "launches_tls": tls_launches["int8_matmul"],
+        "launches_chaos": chaos_launches["int8_matmul"],
         "max_abs_err": max(worst.values()),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -6708,7 +7259,8 @@ def main():
                        "phase 23's perf_analyzer -i http LM leg; "
                        "launches_aio: phase 24's grpc.aio streams and "
                        "http.aio calls; launches_balance: phase 25's "
-                       "balanced calls in replica A; " + NATIVE_LAUNCHES_IN,
+                       "balanced calls in replica A; " + NATIVE_LAUNCHES_IN
+                       + "; " + CHAOS_IN,
         "checked_in": "phase 3",
     }, {
         "name": "int8_matmul",
@@ -6728,6 +7280,7 @@ def main():
         "launches_balance": balance_routes["int8_matmul"]["mma"],
         "launches_native": native_routes and native_routes["int8_matmul"]["mma"],
         "launches_tls": tls_routes["int8_matmul"]["mma"],
+        "launches_chaos": chaos_routes["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
         "ms": prefill["ms"],
         "plain_ms": prefill["plain_ms"],
@@ -6748,7 +7301,7 @@ def main():
                        "perf_analyzer -i http LM leg; launches_aio: "
                        "phase 24's grpc.aio streams and http.aio calls; "
                        "launches_balance: phase 25's balanced calls in "
-                       "replica A; " + NATIVE_LAUNCHES_IN,
+                       "replica A; " + NATIVE_LAUNCHES_IN + "; " + CHAOS_IN,
         "checked_in": "phase 3",
     }]
     sources = {"flash_fwd": "client_tpu_torch/ops/csrc/flash_fwd_bf16.cu",
@@ -6813,6 +7366,7 @@ def main():
             "launches_native": (native_routes
                                 and native_routes["paged_attention"][route]),
             "launches_tls": tls_routes["paged_attention"][route],
+            "launches_chaos": chaos_routes["paged_attention"][route],
             "max_abs_err": max(paged_worst_route[route].values()),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -6830,7 +7384,7 @@ def main():
                            "launches_aio: phase 24's grpc.aio streams "
                            "and http.aio calls; launches_balance: phase "
                            "25's balanced calls in replica A; "
-                           + NATIVE_LAUNCHES_IN,
+                           + NATIVE_LAUNCHES_IN + "; " + CHAOS_IN,
             "checked_in": "phase 10",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

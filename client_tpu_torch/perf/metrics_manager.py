@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from client_tpu_torch import resolve_device
-from client_tpu_torch.serve.prof import witness_shared
+from client_tpu_torch.analysis.witness import witness_shared
 from client_tpu_torch.utils import escape_label
 
 

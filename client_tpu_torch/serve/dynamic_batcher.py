@@ -689,6 +689,12 @@ class ModelBatcher:
                 if remaining <= 0:
                     break
                 self._host_cv.wait(timeout=remaining)
+            host_threads = list(self._host_threads)
+        # the completion workers return once closed and drained; a worker
+        # that ran torch ops and is still alive at interpreter exit
+        # aborts the process, so close() waits for them (bounded)
+        for thread in host_threads:
+            thread.join(timeout=max(deadline - time.monotonic(), 0.0))
         self._observer.close(timeout=max(deadline - time.monotonic(), 0.0))
         # Fail anything still queued (drained under the lock: items the
         # batcher thread already popped are its to complete).

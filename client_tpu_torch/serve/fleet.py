@@ -65,13 +65,13 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from client_tpu_torch.analysis.witness import witness_shared
 from client_tpu_torch.perf.rendezvous import recv_frame, send_frame
 from client_tpu_torch.resilience import (
     CircuitBreakerRegistry,
     CircuitOpenError,
 )
 from client_tpu_torch.serve.metrics import FLEET_HELP
-from client_tpu_torch.serve.prof import witness_shared
 from client_tpu_torch.utils import tensor_from_raw, tensor_raw_bytes
 
 __all__ = [

@@ -1,9 +1,8 @@
 """Continuous low-overhead phase profiler: where serving time goes.
 
-The port's copy of client_tpu/serve/prof.py.  Two differences: the MFU
+The port's copy of client_tpu/serve/prof.py.  One difference: the MFU
 denominator reads the device kind from ``torch.cuda.get_device_name()``
-(an NVIDIA H100 maps to its 989 TFLOP/s dense bf16 peak), and
-``witness_shared`` is a local marker (see below).
+(an NVIDIA H100 maps to its 989 TFLOP/s dense bf16 peak).
 
 Request tracing answers *what happened* per request; this module is the
 always-on layer that answers *why it was slow*: every engine keeps a
@@ -28,9 +27,9 @@ the advertised bf16 peak of the card, or a measured host GEMM peak
 where there is none (``cpu_fallback``) so attribution ratios are non-null everywhere.
 
 Surfaces: ``GET /v2/debug/prof`` (rollup JSON),
-``python -m client_tpu.profview`` (attribution tables), flight-recorder
-dumps (the last N tick profiles ride along), and bench.py's ``prof``
-block.
+``python -m client_tpu_torch.profview`` (attribution tables),
+flight-recorder dumps (the last N tick profiles ride along), and
+bench.py's ``prof`` block.
 
 Bracket discipline: a handle acquired with ``start_tick`` MUST reach
 ``finish`` on every exit path (``with`` handle, or ``try/finally``) —
@@ -52,19 +51,7 @@ import time
 
 import torch
 
-
-def witness_shared(*_locks):
-    """Records that a class's fields are guarded by the named locks.
-
-    The JAX package's decorator of this name feeds its dynamic race
-    witness; the port has no ``RaceWitness`` yet, so this marker returns
-    the class unchanged and only keeps the declaration beside the code."""
-
-    def mark(cls):
-        return cls
-
-    return mark
-
+from client_tpu_torch.analysis.witness import witness_shared
 
 __all__ = [
     "PhaseProfiler",

@@ -14,8 +14,11 @@
 """
 
 import ast
+import json
 import pathlib
 import re
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -88,7 +91,44 @@ def test_port_sources_exist():
             "client_tpu_torch/balance/discovery.py",
             "client_tpu_torch/balance/stream.py",
             "client_tpu_torch/balance/replicated.py",
-            "client_tpu_torch/serve/metrics.py"} <= paths
+            "client_tpu_torch/serve/metrics.py",
+            # the witnesses, the chaos harness and the postmortem tools
+            *FAILURE_DOMAIN_MODULES} <= paths
+
+
+# the port's copies of the reference's failure-domain tools (each has a
+# counterpart of the same path under client_tpu/)
+FAILURE_DOMAIN_MODULES = (
+    "client_tpu_torch/analysis/__init__.py",
+    "client_tpu_torch/analysis/witness.py",
+    "client_tpu_torch/analysis/resources.py",
+    "client_tpu_torch/testing/__init__.py",
+    "client_tpu_torch/testing/faults.py",
+    "client_tpu_torch/testing/chaos.py",
+    "client_tpu_torch/traceview.py",
+    "client_tpu_torch/profview.py",
+)
+
+
+@pytest.mark.parametrize("path", FAILURE_DOMAIN_MODULES)
+def test_failure_domain_tools_mirror_the_reference_and_import_alone(path):
+    """Each of the port's witness, chaos and postmortem modules has a
+    counterpart of the same path in client_tpu, and in a fresh
+    interpreter imports nothing of jax or client_tpu."""
+    assert (ROOT / ("client_tpu" + path[len("client_tpu_torch"):])).is_file()
+    name = path[:-3].replace("/", ".").removesuffix(".__init__")
+    src = f"""
+import json, sys
+sys.path.insert(0, {str(ROOT)!r})
+import {name}
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib",
+                                               "client_tpu"))))
+"""
+    out = subprocess.run([sys.executable, "-c", src], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_build_compiles_every_kernel_source():
