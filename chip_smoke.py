@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke run of client_tpu_torch on one NVIDIA GPU: builds the kernels,
-holds each against its plain PyTorch version, serves the LM over
-KServe-v2 HTTP through the continuous-batching engine, trains the flagship
+"""Smoke run of client_tpu_torch on one NVIDIA GPU: lints the port with
+its own static analyser (first, so that a finding costs seconds), builds
+the kernels, holds each against its plain PyTorch version, serves the LM
+over KServe-v2 HTTP through the continuous-batching engine, trains the flagship
 LM through the flash-attention kernels, serves ResNet-50 and the CNN
 through the dynamic batcher and the vision ensemble, serves ResNet-50
 again from CUDA shared memory of another process, serves the LM engines
@@ -294,8 +295,17 @@ Phases, one line each or more; any failure exits non-zero:
                 stream of lm_streaming_int8 and lm_streaming_batched equal
                 to its engine's own, 4 concurrent streams of each against
                 the serial runner (equal, or first diverging at a
-                near-tie), a stream stopped after 2 tokens giving its KV
-                blocks back within GRPC_STOP_SLACK tokens of the stop; the
+                near-tie), a stream stopped by the client after 2 tokens,
+                from the callback that reads the second (cancel_stream),
+                giving its KV blocks back within GRPC_STOP_SLACK tokens of
+                the stop (the server cancels the engine handle as the RPC
+                ends); the stop's tokens split at the client's cancel,
+                the server's notice (a context.add_callback) and the
+                handle's cancel, with the delivery of token 2 timed and
+                the readbacks in flight counted (StopSplit; the grpc_stops
+                line, printed before the stop is checked;
+                tools/grpc_phase.py runs the phase alone with
+                GRPC_STOP_RUNS, 20, stops); the
                 launch counts reset just before the first gRPC call and
                 read just after the last, the references run outside
                 that window (launches_grpc in phase 20)
@@ -479,15 +489,26 @@ Phases, one line each or more; any failure exits non-zero:
                 rounds and (b)'s streams and read just after: int8 and
                 paged attention must have launched (launches_chaos in
                 phase 20)
+ 28 analysis    (runs right after phase 1, so that a failure costs
+                seconds) the port's static analyser: python -m
+                client_tpu_torch.analysis client_tpu_torch --no-cache
+                --json in a process of its own, exit 0 and 0 findings
+                (the port's baseline.json grandfathers the syncs that
+                ops.CAPTURE_LOCK exists to hold), then each torch key's
+                fixture under tests/analysis_fixtures/torch: every _bad
+                fixture fires its rule, no _ok fixture fires anything;
+                the package's __version__, the rules fired, seconds
 Every timing line carries the card's name and power limit.  The last line
 is {"ok": true, "device": {...}}.
 """
 
 import asyncio
 import base64
+import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import gzip
 import io
 import itertools
@@ -595,6 +616,39 @@ F32_LOSS_ATOL = 1e-4
 F32_LOGIT_ATOL = 1e-4
 # - flash_attention through the padding against plain_attention, f32
 WRAPPER_TOL = (1e-4, 1e-3)
+
+
+# every process this script starts (popen), each the leader of a session
+# of its own; stop_children ends them and whatever they started, however
+# the run ends
+CHILDREN = []
+
+
+def popen(argv, **kw):
+    """``subprocess.Popen`` in a new session, registered in CHILDREN."""
+    proc = subprocess.Popen(argv, start_new_session=True, **kw)
+    CHILDREN.append(proc)
+    return proc
+
+
+def stop_children():
+    """Kill every process group popen started that still has a process
+    (a child that exited may have left its own children) and every
+    multiprocessing child, and reap them."""
+    import multiprocessing
+
+    while CHILDREN:
+        proc = CHILDREN.pop()
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    for child in multiprocessing.active_children():
+        child.kill()
+        child.join(timeout=30)
 
 
 def phase(n, name, **fields):
@@ -1451,7 +1505,7 @@ def decode_replay_ms(LmEngine, params, cfg, context=128, replays=200):
     eng = LmEngine(params, cfg, device="cuda", **ENGINE_KW)
     with eng._cv:
         eng._init_device_locked()
-        eng._build_programs_locked()
+    eng._build_programs()
     try:
         prog = eng._decode_programs[8]
         width = eng._table_width
@@ -1560,10 +1614,10 @@ def engine_graphs(LmEngine, ops, params, cfg, vocab):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
-            eng._build_programs_locked()
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved() - reserved
+        eng._build_programs()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved() - reserved
         check(all(bool(torch.isnan(pool[1:]).all())
                   for pool in eng.kv.pools["k"] + eng.kv.pools["v"])
               and bool((eng._tokens == 7).all())
@@ -1972,7 +2026,7 @@ class ShmClient:
         np.save(img_path, images)
         self.stderr = open(os.path.join(tmp, "shm_client.err"), "w+")
         here = os.path.dirname(os.path.abspath(__file__))
-        self.proc = subprocess.Popen(
+        self.proc = popen(
             [sys.executable, "-c", SHM_CLIENT, json.dumps({
                 "addr": addr, "model": model, "images": img_path,
                 "threads": threads, "big": big, "classes": 1000})],
@@ -3889,6 +3943,68 @@ def parallel_phase(card, tokens):
     return ring_launches, [got["launches"] for got in ranks]
 
 
+# the static analyser's torch fixtures and the rule each is about, by
+# its name's prefix (tests/test_torch_analysis.py holds the same set)
+ANALYSIS_FIXTURES = os.path.join("tests", "analysis_fixtures", "torch")
+ANALYSIS_RULES = {
+    "lock_dispatch_": "LOCK-DISPATCH",
+    "jit_unbounded_shape_": "JIT-UNBOUNDED-SHAPE",
+    "npy_truth_": "NPY-TRUTH",
+    "async_block_": "ASYNC-BLOCK",
+    "block_under_lock_": "BLOCK-UNDER-LOCK",
+}
+
+
+def analysis_phase(card):
+    """Phase 28: the port's static analyser over its own tree, in a
+    process of its own (rc 0, 0 findings), then over each torch
+    fixture in this process (every _bad fixture fires its rule, no _ok
+    fixture fires)."""
+    import client_tpu_torch
+    from client_tpu_torch.analysis import scan_paths
+
+    t0 = time.monotonic()
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "client_tpu_torch.analysis",
+         "client_tpu_torch", "--no-cache", "--json"],
+        cwd=here, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": here})
+    tree_s = time.monotonic() - t0
+    check(proc.returncode == 0,
+          f"the port's analyser exited {proc.returncode} on its own tree: "
+          f"{proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    check(report["count"] == 0 and not report["findings"],
+          f"the port's analyser found {report['findings']}")
+    fixtures = sorted(f for f in os.listdir(
+        os.path.join(here, ANALYSIS_FIXTURES)) if f.endswith(".py"))
+    fired = {}
+    for name in fixtures:
+        rule = next((r for p, r in ANALYSIS_RULES.items()
+                     if name.startswith(p)), None)
+        check(rule is not None, f"no rule is named for fixture {name}")
+        found = scan_paths([os.path.join(here, ANALYSIS_FIXTURES, name)])
+        rules = sorted({f.rule for f in found})
+        fired[name] = len(found)
+        if name.endswith("_bad.py"):
+            check(rules == [rule],
+                  f"{name}: fired {rules}, where {rule} was expected")
+        else:
+            check(not found, f"{name} fired {[f.render() for f in found]}")
+    bad = [n for n in fixtures if n.endswith("_bad.py")]
+    check(len(bad) == len(fixtures) - len(bad) == 7,
+          f"the torch fixtures are not 7 pairs: {fixtures}")
+    phase(28, "analysis", version=client_tpu_torch.__version__,
+          findings=report["count"],
+          grandfathered=len(report["grandfathered"]),
+          rules=len(report["rules"]), tree_seconds=tree_s,
+          fixtures=fired,
+          rules_fired=sorted({ANALYSIS_RULES[p] for p in ANALYSIS_RULES
+                              if any(n.startswith(p) for n in bad)}),
+          seconds=time.monotonic() - t0, **card)
+
+
 def grpc_lm_inputs(grpcclient, tokens, max_tokens):
     inputs = []
     for name, arr in (("TOKENS", np.asarray(tokens, np.int32)),
@@ -3900,11 +4016,18 @@ def grpc_lm_inputs(grpcclient, tokens, max_tokens):
 
 
 def grpc_stream(grpcclient, address, model, tokens, max_tokens,
-                stop_after=None):
+                stop_after=None, on_cancel=None):
     """One ModelStreamInfer request's tokens, on a client of its own
     (start_stream, async_stream_infer, stop_stream); with *stop_after* the
-    client cancels the stream once it has read that many."""
+    client cancels the stream once it has read that many: from the
+    callback that reads the last of them (``cancel_stream``), calling
+    *on_cancel* just before.  A cancel from another thread woken by that
+    callback waits for the interpreter lock while the engine decodes on:
+    that way 1 of 20 stops of tools/grpc_phase.py made 11 tokens where 2
+    were read, all of them before the cancel (NVIDIA H100 80GB HBM3,
+    700.00 W)."""
     toks, errors, enough = [], [], threading.Event()
+    client = grpcclient.InferenceServerClient(address)
 
     def on_response(result, error):
         if error is not None:
@@ -3913,9 +4036,12 @@ def grpc_stream(grpcclient, address, model, tokens, max_tokens,
         elif not enough.is_set():
             toks.append(int(result.as_numpy("TOKEN")[0]))
             if stop_after is not None and len(toks) == stop_after:
+                if on_cancel is not None:
+                    on_cancel()
+                client.cancel_stream()
                 enough.set()
 
-    with grpcclient.InferenceServerClient(address) as client:
+    with client:
         client.start_stream(on_response, stream_timeout=300)
         client.async_stream_infer(
             model, grpc_lm_inputs(grpcclient, tokens, max_tokens))
@@ -3934,18 +4060,273 @@ GRPC_STOP_AFTER = 2  # tokens the client reads before it stops
 # notices the cancel at its next yield and closes the stream there (3
 # tokens made in all on the H100)
 GRPC_STOP_SLACK = 8
+GRPC_STOP_RUNS = 20  # streams tools/grpc_phase.py stops, one after another
 
 
-def grpc_phase(card, prompt):
+class StopSplit:
+    """Where the tokens of one stopped gRPC stream are made.  Marks, each
+    the monotonic time beside the engine's ``ctpu_lm_tokens_total``:
+    ``cancel`` just before the client cancels, ``notice`` when the server
+    learns of it (a ``context.add_callback`` of the RPC's own, which fires
+    as the RPC ends) and ``close`` at the first cancel of the stream's
+    own engine handle, where the readbacks still in flight and the
+    tokens its lane held for the server (a windowed stream's, past
+    ``BatchedLmRunner.stream_window`` unread) are counted too (their
+    tokens are dropped, never delivered).  Within the time
+    before the cancel: ``sent`` when the server renders the
+    GRPC_STOP_AFTER-th response, the engine's delivery time of every
+    token (``tokens``), and the interpreter's garbage collections
+    (``gc``, generation and seconds).  Only an armed split marks."""
+
+    def __init__(self):
+        self.metrics = self.eng = None
+        self.armed = False
+        self.marks = {}
+        self.token_times = []
+        self.rendered = 0
+        self.collections = []
+        self._gc_t0 = None
+        # the armed stream's engine handle and the server thread that
+        # submitted it (a stream stopped before may still finish its
+        # cleanup inside this window: only this stream's marks count)
+        self.handle = self.thread = None
+
+    def on_submit(self, handle):
+        if self.armed and self.handle is None:
+            self.handle = handle
+            self.thread = threading.current_thread()
+
+    def on_cancel(self, handle):
+        if handle is not None and handle is self.handle:
+            held, placed = 0, handle.placed
+            if isinstance(placed, tuple):
+                lane = self.eng._lanes[placed[0]]
+                if lane.gen == placed[1]:
+                    held = len(lane.held)
+            self.mark("close", in_flight=len(self.eng._inflight),
+                      held=held)
+
+    def tokens(self):
+        return self.metrics.get("ctpu_lm_tokens_total") or 0
+
+    def mark(self, what, **extra):
+        if self.armed and what not in self.marks:
+            self.marks[what] = (time.monotonic(), self.tokens(), extra)
+
+    def on_token(self):
+        if self.armed:
+            self.token_times.append(time.monotonic())
+
+    def on_render(self):
+        if self.armed and threading.current_thread() is self.thread:
+            self.rendered += 1
+            if self.rendered == GRPC_STOP_AFTER:
+                self.mark("sent")
+
+    def on_gc(self, phase, info):
+        if phase == "start":
+            self._gc_t0 = time.monotonic()
+        elif self.armed and self._gc_t0 is not None:
+            self.collections.append(
+                (info["generation"], time.monotonic() - self._gc_t0))
+
+    def arm(self):
+        self.marks = {}
+        self.token_times = []
+        self.rendered = 0
+        self.collections = []
+        self.handle = self.thread = None
+        self.armed = True
+        self.mark("start")
+
+    def result(self, made):
+        self.armed = False
+        t = {k: v[0] for k, v in self.marks.items()}
+        n = {k: v[1] for k, v in self.marks.items()}
+        missing = {"sent", "cancel", "notice", "close"} - set(t)
+        check(not missing, f"the stopped stream left no {sorted(missing)} "
+              f"mark: {sorted(t)}")
+        times = self.token_times
+        before = [x for x in times if x <= t["cancel"]]
+        gaps = [b - a for a, b in zip(before, before[1:])]
+        return {
+            "tokens_made": made,
+            "tokens_before_cancel": n["cancel"] - n["start"],
+            "tokens_before_notice": n["notice"] - n["cancel"],
+            "tokens_after_notice": n["close"] - n["notice"],
+            "tokens_in_flight": self.marks["close"][2]["in_flight"],
+            "tokens_held": self.marks["close"][2]["held"],
+            "tokens_after_close": made - (n["close"] - n["start"]),
+            "tokens_before_sent": n["sent"] - n["start"],
+            "token_gap_s_max": max(gaps, default=0.0),
+            "read_s": {
+                # the engine's delivery of the last token read -> the
+                # server's rendering of it -> the client's cancel
+                "delivered_to_sent": (
+                    t["sent"] - times[GRPC_STOP_AFTER - 1]
+                    if len(times) >= GRPC_STOP_AFTER else None),
+                "sent_to_cancel": t["cancel"] - t["sent"],
+            },
+            "cancel_to_notice_s": t["notice"] - t["cancel"],
+            "notice_to_close_s": t["close"] - t["notice"],
+            "gc": [[g, round(d, 6)] for g, d in self.collections],
+        }
+
+
+@contextlib.contextmanager
+def stop_hooks(split):
+    """Install *split*'s notice mark on every ModelStreamInfer call of a
+    Server built inside this block (the frontend binds its handlers when
+    it is built), registered before the handler's own callbacks."""
+    from client_tpu_torch.serve import grpc_server
+
+    orig = grpc_server._Handlers.ModelStreamInfer
+    render = grpc_server._dict_to_response
+
+    def stream(handlers, request_iterator, context):
+        context.add_callback(lambda: split.mark("notice"))
+        return orig(handlers, request_iterator, context)
+
+    def rendered(*args):
+        split.on_render()
+        return render(*args)
+
+    grpc_server._Handlers.ModelStreamInfer = stream
+    grpc_server._dict_to_response = rendered
+    try:
+        yield split
+    finally:
+        grpc_server._Handlers.ModelStreamInfer = orig
+        grpc_server._dict_to_response = render
+
+
+def stop_runs(grpcclient, addr, server, eng, prompt, split, runs,
+              windows=(None,)):
+    """*runs* streams of *eng*'s model, each stopped by the client after
+    GRPC_STOP_AFTER tokens, one after another; returns each one's tokens
+    read, whether its KV blocks came back, its stream window and its
+    StopSplit.  Stop ``i`` runs at ``windows[i % len(windows)]`` as the
+    served runner's ``stream_window`` (0: unwindowed; None: as it is)."""
+    from client_tpu_torch.serve.models.continuous import BatchedLmRunner
+
+    split.metrics, split.eng = server.engine.metrics, eng
+    default_window = BatchedLmRunner.stream_window
+    engine_cancel, engine_submit = eng.cancel, eng.submit
+    wrapped = vars(eng).get("cancel")  # a wrapper already installed
+
+    def cancel(handle):
+        split.on_cancel(handle)
+        return engine_cancel(handle)
+
+    def submit(*args, **kw):
+        q, handle = engine_submit(*args, **kw)
+        split.on_submit(handle)
+        return q, handle
+
+    registry = eng.registry
+    registry_inc = registry.inc
+
+    def inc(name, *args, **kw):
+        if name == "ctpu_lm_tokens_total":
+            split.on_token()
+        return registry_inc(name, *args, **kw)
+
+    eng.cancel = cancel
+    eng.submit = submit
+    registry.inc = inc
+    gc.callbacks.append(split.on_gc)
+    stops = []
+    try:
+        for i in range(runs):
+            window = windows[i % len(windows)]
+            BatchedLmRunner.stream_window = (
+                default_window if window is None else window)
+            used = eng.kv.used_blocks
+            split.arm()
+            read = grpc_stream(grpcclient, addr, "lm_streaming_batched",
+                               prompt[:8], GRPC_STOP_MAX,
+                               stop_after=GRPC_STOP_AFTER,
+                               on_cancel=lambda: split.mark("cancel"))
+            deadline = time.monotonic() + 30
+            while (eng.kv.used_blocks != used
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            made = split.tokens() - split.marks["start"][1]
+            stops.append({"tokens_read": len(read),
+                          "blocks_back": eng.kv.used_blocks == used,
+                          "window": BatchedLmRunner.stream_window,
+                          **split.result(made)})
+    finally:
+        BatchedLmRunner.stream_window = default_window
+        gc.callbacks.remove(split.on_gc)
+        del registry.inc
+        del eng.submit
+        if wrapped is None:
+            del eng.cancel
+        else:
+            eng.cancel = wrapped
+    return stops
+
+
+def stop_summary(stops):
+    """Phase 21's stopped-stream fields: every stop's split, the worst of
+    each, and the threads of the process as the stops ran."""
+    bound = GRPC_STOP_AFTER + GRPC_STOP_SLACK
+    keys = [k for k in stops[0] if k.startswith("tokens_")
+            and k != "tokens_read"] + [
+        "token_gap_s", "cancel_to_notice_s", "notice_to_close_s"]
+    reads = [s["read_s"] for s in stops]
+    threads = collections.Counter(
+        re.sub(r"^Thread-\d+ |[-_]?\d+$", "", th.name)
+        for th in threading.enumerate())
+    by_window = {}
+    for s in stops:
+        w = by_window.setdefault(str(s["window"]), {
+            "runs": 0, "within_bound": 0, "tokens_made": []})
+        w["runs"] += 1
+        w["within_bound"] += s["tokens_made"] <= bound
+        w["tokens_made"].append(s["tokens_made"])
+    for w in by_window.values():
+        made = sorted(w.pop("tokens_made"))
+        w["tokens_made_p50"] = made[len(made) // 2]
+        w["tokens_made_worst"] = made[-1]
+    return {
+        "runs": len(stops), "tokens_read": GRPC_STOP_AFTER,
+        "tokens_made_max": bound, "max_tokens": GRPC_STOP_MAX,
+        "within_bound": sum(s["tokens_made"] <= bound for s in stops),
+        "by_window": by_window,
+        "worst": {k: max(s.get(k, s.get(k + "_max")) for s in stops)
+                  for k in keys},
+        "read_s_max": {k: max((r[k] for r in reads if r[k] is not None),
+                              default=None) for k in reads[0]},
+        "gc_s_max": max((d for s in stops for _, d in s["gc"]), default=0.0),
+        "switch_interval_s": sys.getswitchinterval(),
+        "threads": dict(threads.most_common()),
+        "stops": stops,
+    }
+
+
+def check_stops(stops):
+    for i, s in enumerate(stops):
+        check(s["tokens_read"] == GRPC_STOP_AFTER and s["blocks_back"],
+              f"stopped stream {i} read {s['tokens_read']} tokens and "
+              f"{'gave' if s['blocks_back'] else 'did not give'} its KV "
+              "blocks back")
+        check(s["tokens_made"] <= GRPC_STOP_AFTER + GRPC_STOP_SLACK,
+              f"stopped stream {i} ran on: {s['tokens_made']} tokens made, "
+              f"{GRPC_STOP_AFTER} read ({s})")
+
+
+def grpc_phase(card, prompt, stop_count=1, windows=(None,)):
     """Phase 21: the gRPC frontend on the card.  The language set behind
     ``Server(grpc_port=0)``, driven through the port's gRPC client (each
     stream on a client of its own): ready, metadata, every served model's
-    config, the
-    tokenizer, a decoupled ModelInfer refused, a lone stream of each
-    batched model, four concurrent streams each and a stream the client
-    stops after two tokens, which gives its KV blocks back having made at
-    most GRPC_STOP_SLACK tokens past the stop.  The launch counts are
-    reset just before the first gRPC call and read just after the last;
+    config, the tokenizer, a decoupled ModelInfer refused, a lone stream
+    of each batched model, four concurrent streams each and *stop_count*
+    streams, one after another, that the client stops after two tokens,
+    each of which gives its KV blocks back having made at most
+    GRPC_STOP_SLACK tokens past the stop (*windows*: stop_runs').  The
+    launch counts are reset just before the first gRPC call and read just after the last;
     what the streams are held against (each engine's own stream, the
     serial runner, the near-tie rule's forwards) runs after that window.
     Returns (launches, routes)."""
@@ -3965,8 +4346,10 @@ def grpc_phase(card, prompt):
     served_models = language.language_models(device="cuda")
     engines = {m.name: m.closer.__self__ for m in served_models
                if m.closer is not None}
-    with Server(models=served_models, http_port=0, grpc_port=0,
-                with_default_models=False) as server:
+    split = StopSplit()
+    with stop_hooks(split), Server(
+            models=served_models, http_port=0, grpc_port=0,
+            with_default_models=False) as server:
         addr = server.grpc_address
         with grpcclient.InferenceServerClient(addr) as client:
             torch.cuda.synchronize()
@@ -4017,25 +4400,14 @@ def grpc_phase(card, prompt):
             # under one KV block (16 tokens): the prefix cache keeps none
             # of its blocks, so the pool goes back to where it was
             eng = engines["lm_streaming_batched"]
-            used = eng.kv.used_blocks
-            made = server.engine.metrics.get("ctpu_lm_tokens_total") or 0
-            stopped = grpc_stream(grpcclient, addr, "lm_streaming_batched",
-                                  prompt[:8], GRPC_STOP_MAX,
-                                  stop_after=GRPC_STOP_AFTER)
-            deadline = time.monotonic() + 30
-            while (eng.kv.used_blocks != used
-                   and time.monotonic() < deadline):
-                time.sleep(0.01)
-            made = server.engine.metrics.get("ctpu_lm_tokens_total") - made
+            stops = stop_runs(grpcclient, addr, server, eng, prompt, split,
+                              stop_count, windows)
             torch.cuda.synchronize()
             launches = dict(ops.LAUNCHES)
             routes = {name: dict(r) for name, r in ops.ROUTES.items()}
-        check(len(stopped) == GRPC_STOP_AFTER and eng.kv.used_blocks == used,
-              f"a stopped stream left {eng.kv.used_blocks} blocks used, "
-              f"{used} before it")
-        check(made <= GRPC_STOP_AFTER + GRPC_STOP_SLACK,
-              f"the stopped stream ran on: {made} tokens made, "
-              f"{GRPC_STOP_AFTER} read")
+        stopped_stream = stop_summary(stops)
+        phase(21, "grpc_stops", **stopped_stream, **card)
+        check_stops(stops)
         near = {}
         for model_name, eng in engines.items():
             got = lone[model_name]
@@ -4062,12 +4434,8 @@ def grpc_phase(card, prompt):
           decoupled=sorted(k for k, v in configs.items() if v),
           lone_stream_equals_engine={k: len(v) for k, v in lone.items()},
           concurrent_vs_serial=near, near_tie=NEAR_TIE,
-          stopped_stream={"tokens_read": GRPC_STOP_AFTER,
-                          "tokens_made": made,
-                          "tokens_made_max": GRPC_STOP_AFTER
-                          + GRPC_STOP_SLACK,
-                          "max_tokens": GRPC_STOP_MAX,
-                          "blocks_back_to": used},
+          stopped_stream={k: v for k, v in stopped_stream.items()
+                          if k != "stops"},
           wire_ticks=wire["kinds"], launches=launches,
           launches_by_route=routes,
           seconds=time.monotonic() - t0, **card)
@@ -4333,7 +4701,7 @@ def perf_socket_leg(server, tmp, protocol, model, shm, sync=False,
     before = counts()
     t0 = time.monotonic()
     poller.start()
-    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+    proc = popen(argv, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             env=env or {**os.environ, "PYTHONPATH": here},
                             cwd=here)
@@ -4407,7 +4775,7 @@ def perf_socket_legs(card, tmp):
         # across processes (the client samples while this process loads)
         probe = DeviceUtilizationProbe()
         idle_here = perf_probe_samples(probe, PERF_PROBE_SAMPLES)
-        proc = subprocess.Popen(
+        proc = popen(
             [sys.executable, "-c", PERF_CHECK_CLIENT, addr,
              str(PERF_PROBE_SAMPLES)],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
@@ -4631,7 +4999,9 @@ def direct_path_leg(card, server, model):
 
 
 MIXED_LEVEL = 8
-MIXED_WINDOW_MS = 5000  # the system leg's windows: it outlasts the wire leg
+# the system leg's windows: it outlasts the wire leg, whose process
+# took 12-16 s for two levels on a slow host (three windows: 30 s)
+MIXED_WINDOW_MS = 10000
 
 
 def mixed_socket_leg(card, server, tmp, solo):
@@ -4650,7 +5020,7 @@ def mixed_socket_leg(card, server, tmp, solo):
             for shm in ("system", "none")}
     before = success_counts(server, "resnet50")
     t0 = time.monotonic()
-    bg = subprocess.Popen(
+    bg = popen(
         perf_argv(server, "grpc", "resnet50", "system", outs["system"],
                   levels=str(MIXED_LEVEL), window_ms=MIXED_WINDOW_MS),
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
@@ -4944,7 +5314,7 @@ def service_kind_runs(tmp):
     procs = {}
     for kind, model, shape in AIO_SERVICE_KINDS:
         out = os.path.join(tmp, f"service_{kind}.json")
-        procs[kind] = (out, subprocess.Popen(
+        procs[kind] = (out, popen(
             [sys.executable, "-m", "client_tpu_torch.perf", "-m", model,
              "--service-kind", kind, "--hermetic", "--shape", shape,
              "--concurrency-range", "1:2:1",
@@ -5000,6 +5370,7 @@ def aio_phase(card, server, engines, tmp):
     from client_tpu_torch.serve.lm import LmEngine
     from client_tpu_torch.serve.models import language
     from client_tpu_torch.serve.models import transformer as tfm
+    from client_tpu_torch.serve.models.continuous import BatchedLmRunner
 
     t0 = time.monotonic()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5050,6 +5421,7 @@ def aio_phase(card, server, engines, tmp):
           aio_vs_sync_client=near, near_tie=NEAR_TIE,
           cancelled_stream={"tokens_read": GRPC_STOP_AFTER,
                             "tokens_made": made,
+                            "stream_window": BatchedLmRunner.stream_window,
                             "tokens_made_max": GRPC_STOP_AFTER
                             + GRPC_STOP_SLACK,
                             "max_tokens": GRPC_STOP_MAX,
@@ -5128,7 +5500,7 @@ def aio_phase(card, server, engines, tmp):
     addr = f"127.0.0.1:{free_port()}"
     outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
     before = success_counts(server, "resnet50")
-    procs = [subprocess.Popen(
+    procs = [popen(
         perf_argv(server, "grpc", "resnet50", "none", outs[r],
                   levels=AIO_RANK_LEVEL,
                   extra=["--world-size", "2", "--rank", str(r),
@@ -5203,7 +5575,7 @@ def start_replica(tmp, tag):
     """Start a replica process.  Returns (process, its stderr file)."""
     here = os.path.dirname(os.path.abspath(__file__))
     err = open(os.path.join(tmp, f"replica_{tag}.err"), "w+")
-    proc = subprocess.Popen(replica_argv(), stdout=subprocess.PIPE,
+    proc = popen(replica_argv(), stdout=subprocess.PIPE,
                             stderr=err, text=True, cwd=here,
                             env={**os.environ, "PYTHONPATH": here})
     return proc, err
@@ -5762,7 +6134,7 @@ def start_relay(backend, cert, key, alpn="", client_ca=""):
     """A TlsRelay in a process of its own (off the server's interpreter
     lock); its address is the first line it prints (relay_address)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.Popen(
+    proc = popen(
         [sys.executable, "-c", RELAY_PROCESS, here, backend, cert, key,
          alpn, client_ca], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, cwd=here)
@@ -6519,7 +6891,7 @@ def start_profview_live():
     """27c, started with the phase (a process of its own on the card,
     beside 27a-b): ``python -m client_tpu_torch.profview --live``."""
     here = os.path.dirname(os.path.abspath(__file__))
-    return time.monotonic(), subprocess.Popen(
+    return time.monotonic(), popen(
         [sys.executable, "-m", "client_tpu_torch.profview", *CHAOS_PROFVIEW],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here,
         env={**os.environ, "PYTHONPATH": here})
@@ -6663,11 +7035,14 @@ def main():
     phase(1, "device", torch=torch.__version__, cuda=torch.version.cuda,
           count=torch.cuda.device_count(), **card)
 
+    # -- 28 the static analyser (first: a failure costs seconds) -----------
+    analysis_phase(card)
+
     # -- 2 build ---------------------------------------------------------
     # the shared-memory extension (cudashm.cpp) builds beside the kernels,
     # in a process of its own; phase 14 loads it
     here = os.path.dirname(os.path.abspath(__file__))
-    shm_build = subprocess.Popen(
+    shm_build = popen(
         [sys.executable, "-c",
          "from client_tpu_torch.utils.cuda_shared_memory import _build\n"
          "_build.extension()\nprint(_build.build_seconds)"],
@@ -7395,4 +7770,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_children()

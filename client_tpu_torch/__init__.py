@@ -9,6 +9,10 @@ PyTorch version, on a CUDA tensor it launches the hand-written kernel.
 
 import torch
 
+from client_tpu_torch._version import __version__
+
+__all__ = ["__version__", "resolve_device"]
+
 
 def resolve_device(device=None):
     """The torch.device an entry point runs on: ``cuda`` unless *device*

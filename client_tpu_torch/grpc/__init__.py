@@ -181,6 +181,7 @@ class _InferStream:
         self._callback = callback
         self._request_queue = queue.SimpleQueue()
         self._active = True
+        self._closed = False
         self._lock = threading.Lock()
         self._response_iterator = stubs["ModelStreamInfer"](
             iter(self._request_queue.get, self._CLOSE),
@@ -201,13 +202,24 @@ class _InferStream:
                 raise_error("stream is closed")
             self._request_queue.put(request)
 
+    def cancel(self):
+        """Cancel the RPC and leave the stream open: safe from the
+        stream's own callback, where ``close`` (which joins the thread
+        that runs the callback) is not."""
+        self._response_iterator.cancel()
+
     def close(self, cancel_requests=False):
         with self._lock:
-            if not self._active:
+            if self._closed:
                 return
+            self._closed = True
             self._active = False
         if cancel_requests:
             self._response_iterator.cancel()
+        # ends the request iterator grpc's request thread reads, also when
+        # the response side has already ended (the server closed the
+        # stream, an error, cancel_stream): the reference returns early
+        # then and leaves that thread blocked on the queue for good
         self._request_queue.put(self._CLOSE)
         self._handler.join(timeout=30)
 
@@ -693,6 +705,18 @@ class InferenceServerClient:
         if self._stream is not None:
             self._stream.close(cancel_requests)
             self._stream = None
+
+    def cancel_stream(self):
+        """Cancel the active stream's RPC at once, from any thread,
+        the stream's callback included: the server sees the cancel and
+        the callback receives nothing more.  It does not close the
+        stream: ``stop_stream()`` does that afterwards, from a thread
+        other than the callback's.  A port addition: the reference
+        cancels only through ``stop_stream(cancel_requests=True)``, so a
+        callback that has read enough must first wake another thread."""
+        stream = self._stream
+        if stream is not None:
+            stream.cancel()
 
     def async_stream_infer(
         self,

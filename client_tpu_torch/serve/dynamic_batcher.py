@@ -176,7 +176,8 @@ class _HostRows:
         self.tensors = tensors
         self.event = event
 
-    def numpy(self):
+    def fetch(self):
+        """The rows as numpy arrays, once the copies have landed."""
         if self.event is not None:
             self.event.synchronize()
         return {name: t.numpy() for name, t in self.tensors.items()}
@@ -186,7 +187,7 @@ def _to_host(result):
     """A model result as host numpy arrays (the reference's
     ``jax.device_get``); non-tensor entries (``__parameters__``) pass."""
     if isinstance(result, _HostRows):
-        return result.numpy()
+        return result.fetch()
     if isinstance(result, dict):
         return {k: _to_host(v) for k, v in result.items()}
     if isinstance(result, torch.Tensor):
@@ -398,7 +399,10 @@ class ModelBatcher:
         self.max_fused_arity = int(model.max_fused_arity)
         # fused models: {(bucket, input signature): _BucketProgram}
         self._programs = {}
-        self._programs_lock = threading.Lock()
+        # guards _programs, _building and _graph_stats; never held across a
+        # build or a capture (keys being built are claimed in _building)
+        self._programs_cv = threading.Condition()
+        self._building = set()
         self._graph_stats = {"graphs": 0, "capture_s": 0.0,
                              "direct_runs": 0}
         # Dispatch and completion are decoupled: the batcher thread only
@@ -450,19 +454,40 @@ class ModelBatcher:
         """The program of *bucket* at *shapes* ``{name: (dims, torch
         dtype)}``, built (and on CUDA captured) at its first use."""
         key = self._program_key(bucket, shapes)
-        with self._programs_lock:
-            prog = self._programs.get(key)
-            if prog is None:
-                prog, = self._build_programs([(key, bucket, shapes)])
-            return prog
+        prog, = self._programs_for([(key, bucket, shapes)])
+        return prog
+
+    def _programs_for(self, specs):
+        """The programs of ``[(key, bucket, shapes)]``, building those not
+        built yet.  The build runs outside ``_programs_cv``: the keys are
+        claimed first, so a caller that needs one of them waits for that
+        build alone, and nothing else waits through a capture.  A failed
+        build raises here and leaves its keys to the next caller."""
+        with self._programs_cv:
+            while any(key in self._building for key, _, _ in specs):
+                self._programs_cv.wait()
+            missing = [spec for spec in specs
+                       if spec[0] not in self._programs]
+            self._building.update(key for key, _, _ in missing)
+        if missing:
+            try:
+                self._build_programs(missing)
+            finally:
+                with self._programs_cv:
+                    self._building.difference_update(
+                        key for key, _, _ in missing)
+                    self._programs_cv.notify_all()
+        with self._programs_cv:
+            return [self._programs[key] for key, _, _ in specs]
 
     def _build_programs(self, specs):
         """Build one program per ``(key, bucket, shapes)`` and, on a CUDA
-        device, capture them all under the process's capture lock.  The
-        caller holds ``_programs_lock``."""
+        device, capture them all under the process's capture lock; then
+        install them under ``_programs_cv``."""
         device = self._device()
         progs = [_BucketProgram(self.model.fn, shapes, bucket, device)
                  for _, bucket, shapes in specs]
+        captured = None
         if device.type == "cuda":
             pool = torch.cuda.graph_pool_handle()
             stream = torch.cuda.Stream(device)
@@ -473,27 +498,31 @@ class ModelBatcher:
                 for prog in progs:
                     prog.capture(pool, stream)
                 torch.cuda.synchronize(device)
+                captured = (time.monotonic() - t0, before,
+                            torch.cuda.memory_reserved(device))
+        with self._programs_cv:
+            if captured is not None:
+                seconds, before, after = captured
                 stats = self._graph_stats
-                stats["capture_s"] += time.monotonic() - t0
+                stats["capture_s"] += seconds
                 stats.setdefault("memory_reserved_before", before)
-                stats["memory_reserved_after"] = (
-                    torch.cuda.memory_reserved(device))
-            self._graph_stats["graphs"] += len(progs)
-        for (key, _, _), prog in zip(specs, progs):
-            self._programs[key] = prog
+                stats["memory_reserved_after"] = after
+                stats["graphs"] += len(progs)
+            for (key, _, _), prog in zip(specs, progs):
+                self._programs[key] = prog
         return progs
 
     def programs(self):
         """{bucket: program} of the programs built so far (the last built
         per bucket where several input signatures were seen)."""
-        with self._programs_lock:
+        with self._programs_cv:
             return {prog.bucket: prog for prog in self._programs.values()}
 
     def graph_stats(self):
         """Graphs captured, capture seconds, direct-path requests run
         through a program (``direct_runs``), ``memory_reserved`` before the
         first capture and after the last (CUDA only)."""
-        with self._programs_lock:
+        with self._programs_cv:
             return dict(self._graph_stats)
 
     def _run_program(self, group, names, rows):
@@ -561,11 +590,11 @@ class ModelBatcher:
         device = _is_device_array(next(iter(inputs.values())))
         part = _Pending(inputs, rows, (device,))
         result = self._run_program([part], list(inputs), rows)
-        with self._programs_lock:
+        with self._programs_cv:
             self._graph_stats["direct_runs"] += 1
         if device:
             return result[1][0]
-        return result.numpy()
+        return result.fetch()
 
     def warmup(self, input_specs):
         """Prepare every padded bucket (the reference's ``model_warmup``)
@@ -587,10 +616,8 @@ class ModelBatcher:
         if self.model.fused_batching:
             tshapes = {name: (tuple(dims), _torch_dtype(dt))
                        for name, (dims, dt) in shapes.items()}
-            with self._programs_lock:
-                keys = [(self._program_key(b, tshapes), b) for b in buckets]
-                self._build_programs([(key, b, tshapes) for key, b in keys
-                                      if key not in self._programs])
+            self._programs_for([(self._program_key(b, tshapes), b, tshapes)
+                                for b in buckets])
             return
         # one eager forward per bucket: cuDNN and cuBLAS pick their
         # algorithms for each shape.  A device group's forward runs at the

@@ -452,6 +452,11 @@ class _Handlers:
 
     def ModelStreamInfer(self, request_iterator, context):
         tenant = _tenant_of(context)  # one identity per stream connection
+        # the RPC's end (a client's cancel among them) cancels the engine
+        # handles of the models streaming on it from grpc's own thread,
+        # before this handler's next send would fail
+        ended = model_runtime.StreamCancel()
+        context.add_callback(ended.fire)
         for request in request_iterator:
             trace = self._sample_trace(request, context)
             if trace is not None:
@@ -466,15 +471,16 @@ class _Handlers:
                 # response reaches the wire as the model produces it
                 responses = [result] if isinstance(result, tuple) else result
                 try:
-                    for response_json, blobs in responses:
-                        yield pb.ModelStreamInferResponse(
-                            infer_response=_dict_to_response(
-                                request.model_name,
-                                request.model_version,
-                                response_json,
-                                blobs,
+                    with ended.bound():
+                        for response_json, blobs in responses:
+                            yield pb.ModelStreamInferResponse(
+                                infer_response=_dict_to_response(
+                                    request.model_name,
+                                    request.model_version,
+                                    response_json,
+                                    blobs,
+                                )
                             )
-                        )
                 finally:
                     # a stream the client stops closes the model's
                     # generator here and now, which cancels its engine

@@ -60,7 +60,16 @@ device dispatch happens outside ``_cv``.  What differs:
   graphs read the pool at the addresses they recorded, so a rebind (the
   JAX engine's ``pool.at[idx].set``) would leave them reading the old
   tensors.  The export reads the blocks back to the host (``.cpu()``)
-  on the scheduler thread, as a swap-out does.
+  on the scheduler thread, as a swap-out does;
+- a stream may bound how far it runs ahead of its reader
+  (``submit(window=N)``; the served runner's streams do): once N tokens
+  wait unread in its queue, the lane's further tokens are held on the
+  host and the lane leaves the ticks (its next input token and RNG are
+  saved on the device before a tick that leaves it out, and put back
+  when it returns) until the reader reads on.  A network stream whose
+  frontend stalls then costs at most N + ``readback_depth`` ticks, and a
+  cancel drops what was held.  The JAX engine streams every token at
+  once.
 
 Scheduling model (one scheduler thread, every device dispatch outside
 the condition lock):
@@ -615,7 +624,8 @@ class _Program:
 class _Lane:
     __slots__ = ("gen", "active", "queue", "remaining", "produced",
                  "length", "limit", "tenant", "temperature", "top_k",
-                 "table", "blocks", "prompt", "tokens", "handle", "spec")
+                 "table", "blocks", "prompt", "tokens", "handle", "spec",
+                 "held", "parked")
 
     def __init__(self, table_width):
         self.gen = 0        # bumped on every (re)assignment and cancel
@@ -634,6 +644,10 @@ class _Lane:
         self.tokens = []    # delivered generation tokens (recompute replay)
         self.handle = None  # the submit() handle streaming on this lane
         self.spec = None    # LaneSpec when speculative decoding is on
+        self.held = []      # decoded tokens its windowed reader has no room for
+        # (gen, next input token, RNG) saved on the device while the lane
+        # sits out the ticks; the scheduler thread alone writes it
+        self.parked = None
 
 
 class _Handle:
@@ -641,10 +655,12 @@ class _Handle:
     _CANCELLED, or (slot, gen) once streaming."""
 
     __slots__ = ("prompt", "prompt_len", "max_tokens", "queue", "tenant",
-                 "temperature", "top_k", "seed", "placed", "remote_kv")
+                 "temperature", "top_k", "seed", "placed", "remote_kv",
+                 "window")
 
     def __init__(self, prompt, max_tokens, q, tenant, temperature, top_k,
-                 seed):
+                 seed, window=0):
+        self.window = int(window)  # 0: every token streams at once
         self.prompt = prompt
         self.prompt_len = int(prompt.shape[1])
         self.max_tokens = int(max_tokens)
@@ -658,6 +674,21 @@ class _Handle:
         # prefix tier on the submit caller's thread (never under _cv);
         # _admit adopts whatever still beats the local trie at admission
         self.remote_kv = None
+
+
+class _LaneQueue(queue.Queue):
+    """A windowed stream's token queue: every read sets the engine's wake
+    event, so a lane holding tokens for this reader streams them at
+    once."""
+
+    def __init__(self, wake):
+        super().__init__()
+        self._wake_event = wake
+
+    def _get(self):
+        item = super()._get()
+        self._wake_event.set()
+        return item
 
 
 class _PrefillJob:
@@ -777,6 +808,10 @@ class LmEngine:
         self._pool_tokens = int(pool_tokens or self.max_slots * cfg.max_seq)
 
         self._cv = threading.Condition()
+        # set by a windowed stream's read (and by submit and close): the
+        # scheduler waits on it while every lane it could tick holds
+        # tokens for a reader that has not read them
+        self._wake_event = threading.Event()
         self._closed = False
         self._lanes = [
             _Lane(self._table_width) for _ in range(self.max_slots)
@@ -791,6 +826,7 @@ class LmEngine:
         self._tick_log = deque(maxlen=int(tick_log_len))
         self._inflight = deque()
         self._thread = None  # started lazily on the first submit
+        self._starting = False  # a submit is building the programs
 
         # continuous profiler (serve/prof.py): each scheduler pass is one
         # tick with schedule/dispatch/device-wait/delivery phase spans;
@@ -968,17 +1004,23 @@ class LmEngine:
     # -- request side ------------------------------------------------------
 
     def submit(self, prompt_tokens, max_tokens, temperature=0.0, top_k=0,
-               seed=0, tenant=""):
-        """Returns (token_queue, handle); the queue ends with CLOSE."""
+               seed=0, tenant="", window=0):
+        """Returns (token_queue, handle); the queue ends with CLOSE.
+
+        ``window`` > 0 bounds the tokens that wait unread in the queue:
+        past it the engine holds the stream's tokens back and leaves its
+        lane out of the ticks until the reader reads on (the tokens and
+        their order are the same either way)."""
         prompt = np.asarray(prompt_tokens, np.int32).reshape(1, -1)
         max_tokens = min(int(max_tokens),
                          self.cfg.max_seq - prompt.shape[1])
-        q = queue.Queue()
+        q = _LaneQueue(self._wake_event) if window > 0 else queue.Queue()
         if max_tokens <= 0:
             q.put(_CLOSE)
             return q, None
         handle = _Handle(prompt, max_tokens, q, str(tenant or ""),
-                         temperature, top_k, seed)
+                         temperature, top_k, seed, window)
+        self._ensure_started()
         fleet = self.fleet
         if fleet is not None and self._prefix_enabled:
             shareable = (handle.prompt_len - 1) // self.block_size
@@ -987,7 +1029,6 @@ class LmEngine:
                     if self._closed:
                         q.put(_CLOSE)
                         return q, None
-                    self._ensure_thread_locked()
                     local = len(
                         self.prefix.match(handle.prompt[0], shareable)[0]
                     )
@@ -1009,9 +1050,9 @@ class LmEngine:
             if self._closed:
                 q.put(_CLOSE)
                 return q, None
-            self._ensure_thread_locked()
             self._pending.setdefault(handle.tenant, deque()).append(handle)
             self._cv.notify_all()
+        self._wake_event.set()
         return q, handle
 
     def cancel(self, handle):
@@ -1055,13 +1096,16 @@ class LmEngine:
             slot_idx, gen = placed
             lane = self._lanes[slot_idx]
             if lane.active and lane.gen == gen:
-                self._retire_lane_locked(lane)
+                # what the lane held for its reader is dropped, as the
+                # readbacks still in flight are
+                self._retire_lane_locked(lane, drop_held=True)
 
     def close(self):
         with self._cv:
             self._closed = True
             self._release_all_locked()
             self._cv.notify_all()
+        self._wake_event.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
             if self._thread.is_alive():
@@ -1080,18 +1124,36 @@ class LmEngine:
 
     # -- locked helpers ----------------------------------------------------
 
-    def _ensure_thread_locked(self):
-        """Start the engine on the first submit: the device state, every
-        program (captured before the scheduler serves; a failed capture
-        raises here), then the scheduler thread."""
-        if self._thread is not None:
-            return
-        self._init_device_locked()
-        self._build_programs_locked()
-        self._thread = threading.Thread(
-            target=self._loop, name="lm-engine", daemon=True
-        )
-        self._thread.start()
+    def _ensure_started(self):
+        """Start the engine on the first submit: the device state (under
+        ``_cv``), every program (built and captured OUTSIDE ``_cv``, so
+        no reader of the engine's state waits through an extension build
+        or a capture; a failed build or capture raises here, from the
+        submit that started the engine), then the scheduler thread.  A
+        submit that comes while another starts the engine waits for it;
+        one after a failed start starts it again."""
+        with self._cv:
+            while self._starting:
+                self._cv.wait()
+            if self._thread is not None or self._closed:
+                return
+            self._starting = True
+            self._init_device_locked()
+        try:
+            self._build_programs()
+            with self._cv:
+                closed = self._closed
+                if not closed:
+                    self._thread = threading.Thread(
+                        target=self._loop, name="lm-engine", daemon=True
+                    )
+                    self._thread.start()
+            if closed:  # closed while building: no thread will replay
+                self._release_programs()
+        finally:
+            with self._cv:
+                self._starting = False
+                self._cv.notify_all()
 
     def _init_device_locked(self):
         self.kv = KvBlockPool(
@@ -1117,10 +1179,12 @@ class LmEngine:
             (self.max_slots, 2), dtype=torch.int64, device=self.device
         )
 
-    def _build_programs_locked(self):
+    def _build_programs(self):
         """One program per static shape over the engine's device state;
         on CUDA each is captured as a CUDA graph, all in one memory pool,
-        before the scheduler serves."""
+        before the scheduler serves.  Runs outside ``_cv`` (the device
+        state it reads is set up before and not replaced until the engine
+        closes) and installs the programs under it."""
         params, cfg, bs = self.params, self.cfg, self.block_size
         width, dev = self._table_width, self.device
         lanes = {"tokens": self._tokens, "keys": self._keys,
@@ -1183,10 +1247,11 @@ class LmEngine:
                     "memory_reserved_before": before,
                     "memory_reserved_after": torch.cuda.memory_reserved(dev),
                 }
-        self._decode_programs = decode
-        self._verify_programs = verify
-        self._prefill_programs = prefill
-        self._graph_stats = stats
+        with self._cv:
+            self._decode_programs = decode
+            self._verify_programs = verify
+            self._prefill_programs = prefill
+            self._graph_stats = stats
 
     def _adopt(self, slot, tok, key):
         """Install a lane's next input token and RNG (seed, counter) in
@@ -1202,11 +1267,16 @@ class LmEngine:
         prog(values)
         return prog.state["tok"], prog.state["carry"]
 
-    def _retire_lane_locked(self, lane, close_queue=True):
+    def _retire_lane_locked(self, lane, close_queue=True, drop_held=False):
         """Release a lane and return its KV reservation (full prompt
         blocks go to the prefix cache; the rest free).  ``close_queue``
         False is the preemption path: the stream pauses, it does not
-        end."""
+        end.  Tokens held for a windowed reader stream first, past its
+        window, unless ``drop_held`` (a cancel)."""
+        held, lane.held = lane.held, []
+        if not drop_held:
+            for token in held:
+                self._put_locked(lane, token)
         lane.active = False
         lane.gen += 1  # in-flight ticks for this lane drop on drain
         if close_queue:
@@ -1220,6 +1290,61 @@ class LmEngine:
         blocks, lane.blocks = lane.blocks, None
         if blocks:
             self._release_blocks_locked(prompt, written, blocks)
+
+    # -- windowed streams ---------------------------------------------------
+
+    def _put_locked(self, lane, token):
+        lane.queue.put(token)
+        if self.registry is not None:
+            self.registry.inc(
+                "ctpu_lm_tokens_total",
+                help_="Tokens streamed by the LM engine",
+            )
+
+    def _emit_locked(self, lane, token):
+        """Stream one decoded *token*, or hold it while the lane's
+        windowed reader has its window's worth unread."""
+        window = lane.handle.window if lane.handle is not None else 0
+        if window and (lane.held or lane.queue.qsize() >= window):
+            lane.held.append(token)
+        else:
+            self._put_locked(lane, token)
+
+    def _release_held_locked(self):
+        """Stream held tokens as far as each reader's window allows."""
+        for lane in self._lanes:
+            while lane.held and lane.queue.qsize() < lane.handle.window:
+                self._put_locked(lane, lane.held.pop(0))
+
+    def _sit_out_locked(self, n, included):
+        """For a tick over the first *n* lanes: the lanes it leaves out
+        because they hold tokens, not yet parked (``(slot, gen)``), and
+        the parked lanes it takes in again (``(slot, parked)``)."""
+        park, unpark = [], []
+        for i in range(n):
+            lane = self._lanes[i]
+            parked = lane.parked
+            if parked is not None and parked[0] != lane.gen:
+                parked = None  # retired since: stale
+            if i in included:
+                if parked is not None:
+                    unpark.append((i, parked))
+            elif lane.active and lane.held and parked is None:
+                park.append((i, lane.gen))
+        return park, unpark
+
+    def _park(self, park, unpark):
+        """Before a tick (scheduler thread, stream order): save the next
+        input token and RNG of each lane it leaves out that holds tokens,
+        since the tick overwrites every lane's, and put back those of
+        each parked lane it takes in again."""
+        for i, gen in park:
+            self._lanes[i].parked = (
+                gen, self._tokens[i].clone(), self._keys[i].clone()
+            )
+        for i, (_, tok, key) in unpark:
+            self._adopt(i, tok, key)
+            self._lanes[i].parked = None
 
     def _release_blocks_locked(self, prompt, written_tokens, blocks):
         """Return one reservation: fully written FULL prompt blocks are
@@ -1789,18 +1914,21 @@ class LmEngine:
             # its full token budget (readback may still be in flight) —
             # dispatch-ahead must never write past the lane's block
             # reservation
+            # a lane holding tokens for its reader sits the tick out
             active = [
                 (i, self._lanes[i].gen)
                 for i in range(n)
                 if self._lanes[i].active
                 and self._lanes[i].length < self._lanes[i].limit
+                and not self._lanes[i].held
             ]
             if not active:
                 return False
-            # lanes outside the batch (idle, or at-budget awaiting drain)
-            # get a trash table + position 0: their scatter lands in the
-            # trash block and their garbage token is never delivered
+            # lanes outside the batch (idle, at-budget awaiting drain, or
+            # holding) get a trash table + position 0: their scatter lands
+            # in the trash block and their garbage token is never delivered
             included = {i for i, _ in active}
+            park, unpark = self._sit_out_locked(n, included)
             trash_row = np.zeros((self._table_width,), np.int32)
             tables = np.stack([
                 self._lanes[i].table if i in included else trash_row
@@ -1819,6 +1947,7 @@ class LmEngine:
             for i, _ in active:
                 self._lanes[i].length += 1  # this tick writes position len
             self._lane_gauges_locked(active_count=len(active))
+        self._park(park, unpark)
         t0 = time.monotonic()
         self._decode_programs[n]({"tables": tables, "lens": lens,
                                   "temps": temps, "topks": topks})
@@ -1857,7 +1986,7 @@ class LmEngine:
             for i in range(n):
                 lane = self._lanes[i]
                 if (not lane.active or lane.spec is None
-                        or lane.length >= lane.limit):
+                        or lane.length >= lane.limit or lane.held):
                     continue
                 room = min(lane.limit - 1 - lane.length,
                            lane.remaining - lane.produced - 1)
@@ -1876,7 +2005,8 @@ class LmEngine:
             for i in range(n):
                 lane = self._lanes[i]
                 if (not lane.active or lane.spec is None
-                        or lane.length >= lane.limit or not lane.tokens):
+                        or lane.length >= lane.limit or not lane.tokens
+                        or lane.held):
                     continue
                 room = min(lane.limit - 1 - lane.length,
                            lane.remaining - lane.produced - 1)
@@ -1908,6 +2038,7 @@ class LmEngine:
                 for i in range(n)
                 if self._lanes[i].active
                 and self._lanes[i].length < self._lanes[i].limit
+                and not self._lanes[i].held
             ]
             if not active:
                 return False
@@ -1945,6 +2076,8 @@ class LmEngine:
                 [self._lanes[i].top_k for i in range(n)], np.int32
             )
             self._lane_gauges_locked(active_count=len(active))
+            park, unpark = self._sit_out_locked(n, included)
+        self._park(park, unpark)
         t0 = time.monotonic()
         prog = self._verify_programs[(n, w)]
         with ptick.phase("verify_dispatch"):
@@ -1980,7 +2113,7 @@ class LmEngine:
                 proposed += d
                 accepted += acc
                 for token in toks:
-                    lane.queue.put(token)
+                    self._emit_locked(lane, token)
                     lane.produced += 1
                     lane.tokens.append(token)
                     # the tick wrote K/V for this token's position; the
@@ -1988,11 +2121,6 @@ class LmEngine:
                     # tick's write position — the rewind is this pointer
                     lane.length += 1
                     delivered += 1
-                    if self.registry is not None:
-                        self.registry.inc(
-                            "ctpu_lm_tokens_total",
-                            help_="Tokens streamed by the LM engine",
-                        )
                     if (lane.produced >= lane.remaining
                             or (self.eos_id is not None
                                 and token == self.eos_id)):
@@ -2060,15 +2188,10 @@ class LmEngine:
                 token = (
                     int(vals[slot_idx]) if vals.size > 1 else int(vals[0])
                 )
-                lane.queue.put(token)
+                self._emit_locked(lane, token)
                 lane.produced += 1
                 lane.tokens.append(token)  # recompute-replay history
                 delivered += 1
-                if self.registry is not None:
-                    self.registry.inc(
-                        "ctpu_lm_tokens_total",
-                        help_="Tokens streamed by the LM engine",
-                    )
                 done = (
                     lane.produced >= lane.remaining
                     or (self.eos_id is not None and token == self.eos_id)
@@ -2100,6 +2223,10 @@ class LmEngine:
             written_blocks = -(-lane.length // self.block_size)
             blocks = [int(b) for b in lane.table[:written_blocks]]
             n_blocks = len(lane.blocks)
+            # a lane sitting the ticks out keeps its token and RNG aside
+            parked = lane.parked
+            if parked is not None and parked[0] != gen:
+                parked = None
             use_swap = (
                 self._swapped_blocks + written_blocks
                 <= self.swap_block_limit
@@ -2113,8 +2240,12 @@ class LmEngine:
             idx = _to_device(np.asarray(blocks, np.int64), self.device)
             host_k = [p[idx].cpu() for p in self.kv.pools["k"]]
             host_v = [p[idx].cpu() for p in self.kv.pools["v"]]
-        token = int(self._tokens[slot])
-        key = self._keys[slot].to("cpu", copy=True)  # the lane is reused
+        if parked is not None:
+            _, token, key = parked
+            token, key = int(token), key.to("cpu", copy=True)
+        else:
+            token = int(self._tokens[slot])
+            key = self._keys[slot].to("cpu", copy=True)  # the lane is reused
         with self._cv:
             lane = self._lanes[slot]
             if self._closed or not lane.active or lane.gen != gen:
@@ -2322,6 +2453,13 @@ class LmEngine:
         if self._swapped:
             with ptick.phase("resume"):
                 self._resume_step()
+        if any(lane.held for lane in self._lanes):
+            # windowed readers that read on: stream what they have room
+            # for (cleared first, so a read from here on wakes the wait
+            # below)
+            self._wake_event.clear()
+            with self._cv:
+                self._release_held_locked()
         with ptick.phase("schedule"):
             self._admit()  # takes/releases _cv itself; no dispatch inside
         worked = False
@@ -2368,4 +2506,10 @@ class LmEngine:
                                             for l in self._lanes)),
                             timeout=0.05,
                         )
+            if any(lane.held for lane in self._lanes):
+                # every lane left holds tokens its reader has not read:
+                # wait for a read (or a submit, or close)
+                ptick.relabel("idle")
+                with ptick.phase("idle"):
+                    self._wake_event.wait(timeout=0.05)
         return True

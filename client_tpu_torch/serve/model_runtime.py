@@ -36,6 +36,7 @@ copied on the device, never through the host.
 """
 
 import base64
+import contextlib
 import mmap
 import os
 import threading
@@ -859,6 +860,72 @@ class BusyTracker:
             if self._active:
                 busy += time.monotonic_ns() - self._since
             return busy
+
+
+class StreamCancel:
+    """The cancels of one streaming RPC, fired when the RPC ends.
+
+    A frontend makes one for each stream (the gRPC frontend's
+    ``ModelStreamInfer``, from ``context.add_callback``, which runs on
+    grpc's own thread the moment the RPC ends, before the handler's next
+    send fails) and binds it to its handler thread while the model's
+    generator runs there (:meth:`bound`).  A model that holds a device
+    handle registers its cancel with :func:`on_stream_cancel` and
+    unregisters it when its stream ends; a cancel must be safe from
+    another thread (the LM engine's ``cancel`` takes its lock).  The
+    generator itself is never touched from that thread: it sees the
+    cancel as its handle's end."""
+
+    _bound = threading.local()
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._cancels = []
+        self._fired = False
+
+    def add(self, cancel):
+        """Register *cancel*; returns the callable that unregisters it.
+        After the RPC has ended it runs at once."""
+        with self._lock:
+            fired = self._fired
+            if not fired:
+                self._cancels.append(cancel)
+        if fired:
+            cancel()
+
+        def remove():
+            with self._lock:
+                if cancel in self._cancels:
+                    self._cancels.remove(cancel)
+        return remove
+
+    def fire(self):
+        """Run every registered cancel once (the RPC ended)."""
+        with self._lock:
+            self._fired = True
+            cancels, self._cancels = self._cancels, []
+        for cancel in cancels:
+            cancel()
+
+    @contextlib.contextmanager
+    def bound(self):
+        """This scope is the calling thread's inside the block."""
+        prev = getattr(StreamCancel._bound, "scope", None)
+        StreamCancel._bound.scope = self
+        try:
+            yield self
+        finally:
+            StreamCancel._bound.scope = prev
+
+
+def on_stream_cancel(cancel):
+    """Register *cancel* with the stream scope bound to this thread, if a
+    frontend bound one; returns the callable that unregisters it (a no-op
+    where no scope is bound: HTTP, in-process callers)."""
+    scope = getattr(StreamCancel._bound, "scope", None)
+    if scope is None:
+        return lambda: None
+    return scope.add(cancel)
 
 
 class _InflightStream:

@@ -17,6 +17,7 @@ and submit/cancel/stream surface over the continuous-batching engine of
 import numpy as np
 
 from client_tpu_torch.serve.lm.engine import _CLOSE, _TOPK_CAP, LmEngine
+from client_tpu_torch.serve.model_runtime import on_stream_cancel
 from client_tpu_torch.utils import InferenceServerException
 
 # the engine, under its historical serving-path name
@@ -29,7 +30,15 @@ class BatchedLmRunner:
     batched model reuses lm_streaming_model verbatim.  Per-request
     sampling (temperature / top_k / seed) runs inside the tick with
     per-lane RNG state; temperature 0 lanes take the on-device argmax, so
-    mixed greedy/sampled batches share one program."""
+    mixed greedy/sampled batches share one program.
+
+    Each stream is windowed (``LmEngine.submit``'s ``window``): once
+    ``stream_window`` tokens wait unread, the engine holds the rest and
+    the lane sits the ticks out until the frontend reads on, so a stalled
+    frontend, or a client that stopped, costs at most the window plus the
+    engine's readback depth in ticks."""
+
+    stream_window = 4
 
     def __init__(self, params, cfg, max_slots=4, eos_id=None,
                  check_prompt=None, **engine_kwargs):
@@ -56,13 +65,29 @@ class BatchedLmRunner:
             )
         q, handle = self.scheduler.submit(
             tokens, max_tokens, temperature=temperature, top_k=top_k,
-            seed=seed, tenant=tenant,
+            seed=seed, tenant=tenant, window=self.stream_window,
         )
+        # a frontend whose RPC ends (the client cancelled) cancels the
+        # handle from its own thread at once, rather than at this
+        # generator's close after the handler's next send fails
+        ended = []
+
+        def cancel():
+            ended.append(True)
+            self.scheduler.cancel(handle)
+
+        unhook = on_stream_cancel(cancel)
         try:
             while True:
                 tok = q.get()
                 if tok is _CLOSE:
+                    if ended:
+                        raise InferenceServerException(
+                            "the stream ended: its client went away",
+                            status="499",
+                        )
                     return
                 yield tok
         finally:
+            unhook()
             self.scheduler.cancel(handle)

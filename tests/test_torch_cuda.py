@@ -696,7 +696,7 @@ def _graph_engine(cuda_device, dtype, poison=False, n_experts=0):
                 pool[1:] = float("nan")
             eng._tokens.fill_(7)
             eng._keys.fill_(9)
-        eng._build_programs_locked()
+    eng._build_programs()
     return eng
 
 

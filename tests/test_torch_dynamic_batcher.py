@@ -9,7 +9,9 @@ as on the card; the back-to-back cases show each request keeps its own
 rows.  Values are exact (the echo model doubles its input).
 """
 
+import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -766,3 +768,46 @@ def test_stress_every_request_gets_its_own_rows(fused):
     assert stats["inference_count"] == total_rows
     assert stats["inference_stats"]["success"]["count"] == (
         n_threads * per_thread)
+
+
+def test_concurrent_first_uses_build_one_program_per_key():
+    """A bucket's program is built outside the batcher's program lock
+    (``_programs_for`` claims its key): callers that need the same key at
+    once get one build and the same program, and a reader of the
+    batcher's programs does not wait through the build.  No reference
+    counterpart (the JAX batcher builds its executables lazily in jit)."""
+    batcher = ModelBatcher(_fused_model([]), _Stats([]),
+                           max_queue_delay_s=0.0)
+    builds, started = [], threading.Event()
+    build = batcher._build_programs
+
+    def slow_build(specs):
+        builds.append([key for key, _, _ in specs])
+        started.set()
+        time.sleep(0.3)  # widen the window other callers arrive in
+        return build(specs)
+
+    batcher._build_programs = slow_build
+    shapes = {"IN": ((4,), torch.float32)}
+    got = [None] * 16
+    was = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(
+            target=lambda i=i: got.__setitem__(i, batcher._program(8, shapes)))
+            for i in range(len(got))]
+        for th in threads:
+            th.start()
+        assert started.wait(timeout=30)
+        t0 = time.monotonic()
+        assert batcher.programs() == {}
+        assert time.monotonic() - t0 < 0.2
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(was)
+        batcher.close()
+    assert len(builds) == 1
+    assert all(prog is got[0] for prog in got)
+    assert batcher.programs() == {8: got[0]}

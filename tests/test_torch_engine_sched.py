@@ -14,6 +14,7 @@ that one against the JAX engine.
 
 import dataclasses
 import functools
+import sys
 import threading
 import time
 
@@ -476,3 +477,128 @@ def test_replay_accounting():
     ops.count_launch("paged_attention", "mma")  # counted again
     assert (ops.ROUTES["paged_attention"]["mma"]
             == routes["paged_attention"]["mma"] + 1)
+
+
+def test_concurrent_first_submits_start_the_engine_once(params):
+    """The port's first submit builds the programs outside ``_cv``
+    (``_ensure_started``): many submits at once start one scheduler
+    thread over one build, no reader of the engine waits through that
+    build, and every stream equals the serial generate.  No reference
+    counterpart (the JAX engine builds under ``_cv``)."""
+    eng = _engine(params)
+    builds, started = [], threading.Event()
+    build = eng._build_programs
+
+    def slow_build():
+        builds.append(threading.current_thread().name)
+        started.set()
+        time.sleep(0.3)  # widen the window other submits arrive in
+        build()
+
+    eng._build_programs = slow_build
+    prompts = [[3, 1, 4, 1, 5][:i + 1] for i in range(5)] * 2
+    got = [None] * len(prompts)
+    was = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [
+            threading.Thread(target=lambda i=i, p=p: got.__setitem__(
+                i, _collect(eng.submit(p, 6)[0])))
+            for i, p in enumerate(prompts)]
+        for th in threads:
+            th.start()
+        assert started.wait(timeout=60)
+        t0 = time.monotonic()
+        assert eng.prefill_executables() == 0  # not built yet, no wait
+        assert time.monotonic() - t0 < 0.2
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(was)
+        eng.close()
+    assert len(builds) == 1
+    assert got == [_serial(params, p, 6) for p in prompts]
+    assert eng.kv.used_blocks == 0
+
+
+# -- windowed streams (the served runner's flow control) ----------------------
+
+def _until(cond, timeout=60):
+    t_end = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < t_end, "timed out"
+        time.sleep(0.005)
+
+
+def _sitting_out(eng, handle):
+    """True once *handle*'s lane holds tokens and nothing is in flight:
+    the engine has stopped decoding it."""
+    slot, gen = handle.placed
+    lane = eng._lanes[slot]
+    return lane.gen == gen and bool(lane.held) and not eng._inflight
+
+
+@pytest.mark.parametrize("temperature,speculative", [
+    (0.0, None), (0.8, None), (0.0, {"k": 4})],
+    ids=["greedy", "sampled", "speculative"])
+def test_windowed_stream_sits_out_and_streams_the_same_tokens(
+        params, temperature, speculative):
+    """A stream submitted with ``window=2`` that nobody reads stops at 2
+    tokens in its queue and at most the window plus the readback depth
+    decoded, while a second lane decodes on beside it (each tick of that
+    lane overwrites the first lane's token and RNG slot, so its parked
+    values must come back); read on, it gives exactly the tokens of the
+    same request unwindowed.  No reference counterpart (the JAX engine
+    streams every token at once)."""
+    prompt, other, n = [3, 1, 4, 1, 5], [2, 7, 1, 8], 40
+    kw = dict(temperature=temperature, seed=11)
+    reg = Registry()
+    eng = _engine(params, max_slots=2, lane_counts=(2,),
+                  speculative=speculative, registry=reg)
+    try:
+        want = _collect(eng.submit(prompt, n, **kw)[0])
+        base = reg.get("ctpu_lm_tokens_total")
+        q, h = eng.submit(prompt, n, window=2, **kw)
+        _until(lambda: h.placed is not None and _sitting_out(eng, h))
+        slot = h.placed[0]
+        assert q.qsize() == 2
+        # the window, the token that found it full, the readbacks in
+        # flight then, and a verify tick's drafts beyond its one token
+        extra = speculative["k"] if speculative else 0
+        assert eng._lanes[slot].produced <= 2 + 1 + eng.depth + extra
+        assert reg.get("ctpu_lm_tokens_total") - base == 2
+        # the other lane ticks on while the first sits out
+        assert _collect(eng.submit(other, n, **kw)[0]) == _collect(
+            eng.submit(other, n, **kw)[0])
+        got = _collect(q)
+        assert got == want
+        if temperature == 0.0:
+            assert got == _serial(params, prompt, n)
+        assert reg.get("ctpu_lm_tokens_total") - base == 3 * n
+    finally:
+        eng.close()
+    assert eng.kv.used_blocks == 0
+
+
+def test_cancelled_windowed_stream_drops_what_it_held(params):
+    """Cancelling a stream that sits out: what its lane held is dropped
+    (never counted as streamed), its queue closes, its KV blocks come
+    back and the lane serves the next stream exactly.  No reference
+    counterpart."""
+    reg = Registry()
+    eng = _engine(params, max_slots=1, lane_counts=(1,), registry=reg)
+    try:
+        q, h = eng.submit([1, 2, 3], 60, window=2)
+        _until(lambda: h.placed is not None and _sitting_out(eng, h))
+        held = len(eng._lanes[h.placed[0]].held)
+        assert held >= 1
+        eng.cancel(h)
+        assert [q.get(timeout=10) for _ in range(3)][-1] is CLOSE
+        assert reg.get("ctpu_lm_tokens_total") == 2
+        assert eng.kv.used_blocks == 0  # a prompt under one block
+        assert _collect(eng.submit([4, 5], 6, window=2)[0]) == _serial(
+            params, [4, 5], 6)
+    finally:
+        eng.close()
+    assert eng.kv.used_blocks == 0

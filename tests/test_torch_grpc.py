@@ -255,10 +255,11 @@ _PROMPTS = ("hello, grpc", "abc", "stream me")
 _TOKENS = 6
 _STOP_MAX = 48
 _STOP_AFTER = 2
-# tokens a stopped stream may make past the stop: the port's handler
-# closes the model's generator at its next yield (4-5 made here, 3 under
-# six busy processes); the JAX handler leaves that to grpcio dropping it
-# and keeps the stream's own bound
+# tokens a stopped stream may make past the stop: the port's server
+# cancels the engine handle as the RPC ends (StreamCancel, from
+# context.add_callback; 4-5 made here, 3 under six busy processes); the
+# JAX handler leaves that to grpcio dropping it and keeps the stream's
+# own bound
 _MADE_MAX = {"torch": _STOP_AFTER + 8, "jax": _STOP_MAX - 1}
 
 
@@ -355,9 +356,9 @@ def _wait_released(sched, timeout=30):
 def test_stopped_stream_gives_its_blocks_back(lm, pkg):
     """A client that stops its stream after two tokens ends the engine's
     stream early: the handle is cancelled and its KV blocks return, on
-    the port as on the JAX server.  The port's server closes the model's
-    generator as soon as it sees the cancel, so the engine makes at most
-    a few tokens past the stop."""
+    the port as on the JAX server.  The port's server cancels the engine
+    handle as soon as the RPC ends, so the engine makes at most a few
+    tokens past the stop."""
     server, sched = lm[pkg]
     before = server.engine.metrics.get("ctpu_lm_tokens_total") or 0
     toks, final = _lm_stream(server.grpc_address, lm["prompts"][0],

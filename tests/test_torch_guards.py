@@ -108,13 +108,57 @@ FAILURE_DOMAIN_MODULES = (
     "client_tpu_torch/traceview.py",
     "client_tpu_torch/profview.py",
 )
+# the static analyser and the version module
+ANALYSER_MODULES = (
+    "client_tpu_torch/_version.py",
+    "client_tpu_torch/analysis/__main__.py",
+    "client_tpu_torch/analysis/baseline.py",
+    "client_tpu_torch/analysis/cache.py",
+    "client_tpu_torch/analysis/callgraph.py",
+    "client_tpu_torch/analysis/concurrency.py",
+    "client_tpu_torch/analysis/core.py",
+    "client_tpu_torch/analysis/locksets.py",
+    "client_tpu_torch/analysis/report.py",
+    "client_tpu_torch/analysis/rules.py",
+)
+# modules of client_tpu/ with no counterpart of the same path, and why
+UNPAIRED = {
+    "_jax_compat.py": "shims over JAX API drift; the port has no JAX",
+    "utils/tpu_shared_memory/__init__.py":
+        "TPU device-buffer regions; the port's device regions are CUDA "
+        "(client_tpu_torch/utils/cuda_shared_memory)",
+}
 
 
-@pytest.mark.parametrize("path", FAILURE_DOMAIN_MODULES)
+def test_every_reference_module_has_a_port_counterpart():
+    """Walks client_tpu/: each module has a port module of the same path
+    under client_tpu_torch/, but the named exceptions, each with its
+    reason (and each still a module of the reference)."""
+    ref = ROOT / "client_tpu"
+    missing = sorted(
+        str(p.relative_to(ref)) for p in ref.rglob("*.py")
+        if "__pycache__" not in p.parts
+        and not (ROOT / "client_tpu_torch" / p.relative_to(ref)).is_file())
+    assert missing == sorted(UNPAIRED)
+    assert all((ref / name).is_file() and len(why) > 20
+               for name, why in UNPAIRED.items())
+
+
+def test_version_equals_the_reference():
+    import client_tpu
+    import client_tpu_torch
+
+    assert client_tpu_torch.__version__ == client_tpu.__version__ == "0.1.0"
+    assert "__version__" in client_tpu_torch.__all__
+
+
+@pytest.mark.parametrize("path",
+                         FAILURE_DOMAIN_MODULES + ANALYSER_MODULES)
 def test_failure_domain_tools_mirror_the_reference_and_import_alone(path):
-    """Each of the port's witness, chaos and postmortem modules has a
-    counterpart of the same path in client_tpu, and in a fresh
-    interpreter imports nothing of jax or client_tpu."""
+    """Each of the port's witness, chaos and postmortem modules, and of
+    its static analyser's, has a counterpart of the same path in
+    client_tpu, and in a fresh interpreter imports nothing of jax or
+    client_tpu."""
     assert (ROOT / ("client_tpu" + path[len("client_tpu_torch"):])).is_file()
     name = path[:-3].replace("/", ".").removesuffix(".__init__")
     src = f"""

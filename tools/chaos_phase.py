@@ -61,4 +61,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        chip_smoke.stop_children()

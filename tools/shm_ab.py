@@ -126,4 +126,7 @@ def runtime_api_ms(cs, addr, engine, name, images, want, client,
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        chip_smoke.stop_children()
