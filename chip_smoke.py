@@ -613,6 +613,9 @@ MOE_ROUTING_DIFF = 0.1
 MOE_LOGIT_ATOL = 0.125
 # - float32 (TF32 off), flash against plain: sums in another order
 F32_LOSS_ATOL = 1e-4
+# float32 losses of the graphed train step against the eager step from the
+# same weights: cuBLAS may pick other algorithms inside a capture
+GRAPH_F32_LOSS_ATOL = 1e-5
 F32_LOGIT_ATOL = 1e-4
 # - flash_attention through the padding against plain_attention, f32
 WRAPPER_TOL = (1e-4, 1e-3)
@@ -931,24 +934,103 @@ def flash_d128(ext, fa, gen, graph, shape=(32, 512, 128)):
             "sdpa_ms": sdpa_ms, "sdpa_bwd_ms": sdpa_bwd_ms}
 
 
-def train_run(tfm, cfg, impl, tokens, steps, params=None):
+def train_run(tfm, cfg, impl, tokens, steps, params=None, eager=False):
     """``steps`` Adam steps from init_params(seed 0) through the port's
-    train-step entry points; returns (params, opt_state, losses)."""
+    train-step entry points (one CUDA graph replayed a step from the
+    second, or with ``eager`` every step eagerly); returns (params,
+    opt_state, losses, step)."""
     if params is None:
         params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
     opt, step = tfm.make_train_step(cfg, attn_impl=impl,
-                                    learning_rate=TRAIN_LR)
+                                    learning_rate=TRAIN_LR, eager=eager)
     state = opt.init(params)
     losses = []
     for _ in range(steps):
         params, state, loss = step(params, state, tokens)
         losses.append(loss)
-    return params, state, [float(x) for x in losses]
+    return params, state, [float(x) for x in losses], step
+
+
+def graph_vs_eager_losses(graph, eager, label):
+    """The graphed step's losses within the phase's TRAIN_LOSS_* limits of
+    the eager step's, from the same weights."""
+    diffs = [abs(a - b) for a, b in zip(graph, eager)]
+    check(len(graph) == len(eager) and diffs[0] <= TRAIN_LOSS0_ATOL
+          and max(diffs) <= TRAIN_LOSS_STEP_ATOL
+          and diffs[-1] <= TRAIN_LOSS_LAST_ATOL,
+          f"{label}: graphed losses {graph} against eager {eager}")
+    return {"loss0_diff": diffs[0], "max_loss_diff": max(diffs),
+            "last_loss_diff": diffs[-1]}
+
+
+def train_graph_pair(tfm, cfg, tokens, label, graph=None):
+    """The flash step as one CUDA graph against the eager step from the
+    same weights over TRAIN_STEPS (phases 8 and 16): one replay launches
+    each flash kernel once a layer, and the graphed losses stay within the
+    TRAIN_LOSS_* limits of the eager ones.  ``graph`` is (losses, step) of
+    a graphed run already made.  Returns the record."""
+    if graph is None:
+        _, _, losses, step = train_run(tfm, cfg, "flash", tokens,
+                                       TRAIN_STEPS)
+    else:
+        losses, step = graph
+    per_replay = {name: n for (name, _), n in step.program.launches.items()}
+    check(per_replay == {n: cfg.n_layers for n in FLASH_KERNELS},
+          f"{label}: one replay launches {per_replay}, expected "
+          f"{cfg.n_layers} of each flash kernel")
+    _, _, eager, _ = train_run(tfm, cfg, "flash", tokens, TRAIN_STEPS,
+                               eager=True)
+    return {"graph_losses": losses, "eager_losses": eager,
+            **graph_vs_eager_losses(losses, eager, label),
+            "launches_per_replay": per_replay,
+            "capture_s": step.program.capture_s}
+
+
+def f32_graph_pair(tfm, cfg32, tokens):
+    """Phase 8's float32 leg: the graphed flash step's losses within
+    GRAPH_F32_LOSS_ATOL of the eager step's over TRAIN_STEPS."""
+    _, _, graph, _ = train_run(tfm, cfg32, "flash", tokens, TRAIN_STEPS)
+    _, _, eager, _ = train_run(tfm, cfg32, "flash", tokens, TRAIN_STEPS,
+                               eager=True)
+    diff = max(abs(a - b) for a, b in zip(graph, eager))
+    check(diff <= GRAPH_F32_LOSS_ATOL,
+          f"float32 graphed flash losses {graph} against eager {eager}")
+    return {"graph": graph, "eager": eager, "max_diff": diff,
+            "atol": GRAPH_F32_LOSS_ATOL}
+
+
+def train_step_turns(tfm, tcfg, tokens, card):
+    """Phase 9's step times: eager and graphed steps in turns, plain and
+    flash, each from fresh weights; then the flash step profiled both
+    ways."""
+    for eager in (True, False, False, True):
+        for impl in (("plain", "flash") if eager else ("flash", "plain")):
+            phase(9, "train_step", **step_time(tfm, tcfg, impl, tokens,
+                                               eager=eager), **card)
+    for eager in (True, False):
+        phase(9, "train_profile", attn_impl="flash",
+              **profile_steps(tfm, tcfg, tokens, eager=eager), **card)
+
+
+def moe_train_graph(tfm, cfg, tokens, card):
+    """Phase 16's MoE flash step as one CUDA graph against the eager step,
+    from the same weights and tokens; then each timed."""
+    pair = train_graph_pair(tfm, cfg, tokens, "MoE flash training")
+    times = [step_time(tfm, cfg, "flash", tokens, eager=eager)
+             for eager in (True, False)]
+    phase(16, "moe_train_graph", config=MOE, steps=TRAIN_STEPS, **pair,
+          step_times=times, **card)
 
 
 def checkpoint_round_trip(tfm, CheckpointManager, cfg, tokens):
-    """Two flash steps, a checkpoint, then one more step from the live state
-    and one from a fresh restore: both must be equal bit for bit."""
+    """Two flash steps through the step's program (eager, then captured),
+    a checkpoint, two more steps (replays).  The checkpoint is then resumed
+    two ways, each held bit for bit against the uninterrupted steps: copied
+    into the live params and optimizer state (in place: the graph keeps its
+    buffers) and the third step replayed; and restored into fresh params
+    and a fresh ``opt.init`` state that a new step function steps twice
+    (its program's eager first call, then its capture).  Returns the third
+    step's loss."""
     opt, step = tfm.make_train_step(cfg, attn_impl="flash",
                                     learning_rate=TRAIN_LR)
     fresh = lambda: tfm.init_params(  # noqa: E731
@@ -967,48 +1049,106 @@ def checkpoint_round_trip(tfm, CheckpointManager, cfg, tokens):
                 "params": template,
                 "opt_state": opt.init(template).state_dict()})
             latest = mgr.latest_step()
-    params2 = restored["params"]
-    state2 = opt.init(params2)
-    state2.load_state_dict(restored["opt_state"])
+    snap = lambda p: [w.detach().clone() for w in tfm._leaves(p)]  # noqa
+    uninterrupted = []
+    for _ in range(2):
+        params, state, loss = step(params, state, tokens)
+        uninterrupted.append((float(loss), snap(params)))
+
+    def same(p, loss, k):
+        want_loss, want = uninterrupted[k]
+        return float(loss) == want_loss and all(
+            torch.equal(a, b) for a, b in zip(tfm._leaves(p), want))
+
+    with torch.no_grad():
+        for live, saved in zip(tfm._leaves(params),
+                               tfm._leaves(restored["params"])):
+            live.copy_(saved)
+    state.load_state_dict(restored["opt_state"])
     params, state, loss = step(params, state, tokens)
-    params2, state2, loss2 = step(params2, state2, tokens)
-    same = all(torch.equal(a, b) for a, b in
-               zip(tfm._leaves(params), tfm._leaves(params2)))
-    check(latest == 2 and float(loss) == float(loss2) and same,
-          f"resumed step differs from the uninterrupted one: loss "
-          f"{float(loss2)} against {float(loss)}, params equal {same}")
-    return float(loss)
+    in_place = same(params, loss, 0)
+    check(step.program.launches and latest == 2 and in_place,
+          f"the step resumed in place differs from the uninterrupted one: "
+          f"loss {float(loss)} against {uninterrupted[0][0]}, replayed "
+          f"{bool(step.program.launches)}, latest step {latest}")
+    opt2, step2 = tfm.make_train_step(cfg, attn_impl="flash",
+                                      learning_rate=TRAIN_LR)
+    params2 = restored["params"]
+    state2 = opt2.init(params2)
+    state2.load_state_dict(restored["opt_state"])
+    fresh_same = []
+    for k in range(2):
+        params2, state2, loss2 = step2(params2, state2, tokens)
+        fresh_same.append(same(params2, loss2, k))
+    check(step2.program.launches and all(fresh_same),
+          f"the steps resumed into fresh objects differ from the "
+          f"uninterrupted ones: equal {fresh_same} (eager first call, "
+          f"then the capture), captured {bool(step2.program.launches)}")
+    return uninterrupted[0][0]
 
 
-def step_time(tfm, cfg, impl, tokens, steps=10, warmup=2):
-    """Train-step wall time (host clock around synchronized steps) and the
-    peak device memory of the steps, from fresh weights."""
-    params, state, _ = train_run(tfm, cfg, impl, tokens, warmup)
-    _, step = tfm.make_train_step(cfg, attn_impl=impl, learning_rate=TRAIN_LR)
+def graph_pool_bytes(pool):
+    """(reserved, allocated) bytes of the CUDA-graph memory pool ``pool``
+    from the allocator's snapshot; None where the snapshot does not name a
+    segment's pool."""
+    segments = torch.cuda.memory_snapshot()
+    if segments and "segment_pool_id" not in segments[0]:
+        return None
+    mine = [seg for seg in segments
+            if tuple(seg["segment_pool_id"]) == tuple(pool)]
+    return (sum(seg["total_size"] for seg in mine),
+            sum(seg["allocated_size"] for seg in mine))
+
+
+def step_time(tfm, cfg, impl, tokens, steps=10, warmup=2, eager=False):
+    """Train-step wall time (host clock around synchronized steps) from
+    fresh weights, after ``warmup`` steps of the same step function (for
+    the graph: the eager first step and the capture), and the device
+    memory the step holds at its most: ``held_mb``, the peak allocated
+    during the timed steps above what was allocated before the weights
+    were made, plus for the graph what its private pool reserves beyond
+    what is allocated in it (the activations freed inside the capture stay
+    reserved there for every replay; ``graph_pool_mb`` is the pool's
+    whole reservation)."""
     torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
+    before = torch.cuda.memory_allocated()
+    params, state, _, step = train_run(tfm, cfg, impl, tokens, warmup,
+                                       eager=eager)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(steps):
         params, state, loss = step(params, state, tokens)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
-    return {"attn_impl": impl, "ms_per_step": ms,
+    peak = torch.cuda.max_memory_allocated()
+    program = step.program
+    held, pool_mb = peak - before, None
+    if program is not None and program.pool is not None:
+        pool = graph_pool_bytes(program.pool)
+        if pool is None:
+            held = pool_mb = "not measured"
+        else:
+            held += pool[0] - pool[1]
+            pool_mb = pool[0] / 2**20
+    return {"attn_impl": impl, "graph": not eager, "ms_per_step": ms,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
-            "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
-            "peak_above_state_mb":
-                (torch.cuda.max_memory_allocated() - base) / 2**20,
+            "peak_mb": peak / 2**20,
+            "held_mb": held if isinstance(held, str) else held / 2**20,
+            "graph_pool_mb": pool_mb,
+            "capture_s": program.capture_s if program else None,
             "steps": steps, "last_loss": float(loss)}
 
 
-def profile_steps(tfm, cfg, tokens, steps=3):
-    """torch.profiler over ``steps`` warm flash steps: the device-busy share
-    of the wall time and the top kernels by device time."""
+def profile_steps(tfm, cfg, tokens, steps=3, eager=False):
+    """torch.profiler over ``steps`` warm flash steps (graph replays, or
+    eager steps): the device-busy share of the wall time and the top
+    kernels by device time.  The profiler starts after the capture and
+    no other thread launches meanwhile."""
     from torch.profiler import ProfilerActivity, profile
 
-    params, state, _ = train_run(tfm, cfg, "flash", tokens, 2)
-    _, step = tfm.make_train_step(cfg, attn_impl="flash",
-                                  learning_rate=TRAIN_LR)
+    params, state, _, step = train_run(tfm, cfg, "flash", tokens, 2,
+                                       eager=eager)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1017,7 +1157,233 @@ def profile_steps(tfm, cfg, tokens, steps=3):
             params, state, _ = step(params, state, tokens)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return {"steps": steps, **busy_share(prof, wall_us)}
+    return {"steps": steps, "graph": not eager, **busy_share(prof, wall_us)}
+
+
+# the serial LM legs of phase 6: greedy tokens a leg streams, and the
+# orders the eager loop and the CUDA graphs are timed in
+SERIAL_TOKENS = 128
+SERIAL_TURNS = ("eager", "graph", "graph", "eager")
+
+
+def serial_rate(tfm, params, cfg, prompt, depth, eager):
+    """One timed serial stream of SERIAL_TOKENS greedy tokens after an
+    8-token warm-up of the same path (for the graphs: the decode graph and
+    this prompt length's prefill graph are captured by then)."""
+    list(tfm.generate(params, cfg, prompt, 8, eager=eager))
+    t0 = time.monotonic()
+    stamps, tokens = [], []
+    for tok in tfm.generate(params, cfg, prompt, SERIAL_TOKENS,
+                            readback_depth=depth, eager=eager):
+        stamps.append(time.monotonic())
+        tokens.append(tok)
+    return {"readback_depth": depth, "ttft_ms": (stamps[0] - t0) * 1e3,
+            "tokens_per_s": (len(stamps) - 1) / (stamps[-1] - stamps[0]),
+            "tokens": len(stamps)}, tokens
+
+
+def serial_legs(tfm, prompt, card, models):
+    """Phase 6's serial legs: each model's ``generate`` through its CUDA
+    graphs (the default path) and through the eager loop, at readback
+    depth 8 (the served default) and 0 (strict serial), in turns
+    (SERIAL_TURNS).  Each graph stream must equal its eager stream token
+    for token.  Records what a new prompt length's prefill capture costs
+    and one decode replay's launches by kernel and route.  Returns the
+    launches and routes counted over the graph legs."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.serve.models import programs
+
+    launches = {name: 0 for name in ops.LAUNCHES}
+    routes = {name: {r: 0 for r in rs} for name, rs in ops.ROUTES.items()}
+    for model, params, cfg in models:
+        for depth in (8, 0):
+            streams = {}
+            for mode in SERIAL_TURNS:
+                eager = mode == "eager"
+                before = (dict(ops.LAUNCHES),
+                          {k: dict(v) for k, v in ops.ROUTES.items()})
+                row, tokens = serial_rate(tfm, params, cfg, prompt, depth,
+                                          eager)
+                torch.cuda.synchronize()
+                if not eager:
+                    for name, n in ops.LAUNCHES.items():
+                        launches[name] += n - before[0][name]
+                    for name, rs in ops.ROUTES.items():
+                        for r, n in rs.items():
+                            routes[name][r] += n - before[1][name][r]
+                streams.setdefault(mode, tokens)
+                check(tokens == streams[mode],
+                      f"{model} {mode} depth {depth}: two runs streamed "
+                      f"{streams[mode]} and {tokens}")
+                phase(6, "serial_decode", model=model, dtype=cfg.dtype,
+                      graphs=not eager, **row, **card)
+            check(streams["graph"] == streams["eager"],
+                  f"{model} depth {depth}: the CUDA graphs streamed "
+                  f"{streams['graph']}, the eager loop {streams['eager']}")
+        # the default path's pool: what its capture cost and a decode
+        # replay launches; then a prompt length it has not seen
+        pool = programs.serial_pool(params, cfg)
+        sets = pool.idle_sets()
+        check(len(sets) == 1 and "decode" in sets[0].captures
+              and len(prompt) in sets[0].captures,
+              f"{model}: generate left {len(sets)} program sets, captures "
+              f"{[p.captures for p in sets]}")
+        with pool.acquire(params, 1) as progs:
+            short = torch.as_tensor(prompt[:-1], dtype=torch.int32,
+                                    device="cuda")[None]
+            new_length = short.shape[1]
+            check(new_length not in progs.captures,
+                  f"{model}: length {new_length} captured already")
+            progs.prefill(params, short)
+            torch.cuda.synchronize()
+            captures = dict(progs.captures)
+            per_replay = progs.decode_launches
+        phase(6, "serial_graphs", model=model, dtype=cfg.dtype,
+              tokens=SERIAL_TOKENS, graph_equal_to_eager=True,
+              decode_capture_s=captures["decode"],
+              prefill_capture_s={"first_length": captures[len(prompt)],
+                                 "new_length": captures[new_length]},
+              prompt_tokens=len(prompt), new_prompt_tokens=new_length,
+              decode_replay_launches={f"{k}/{r}" if r else k: n
+                                      for (k, r), n in per_replay.items()},
+              **card)
+    return {"launches": launches, "routes": routes}
+
+
+# phase 6's served mix: serial lm_streaming requests beside live
+# lm_streaming_batched streams in one process.  Prompt lengths in bytes
+# are drawn log-normal (median SERIAL_MIX_MEDIAN, clipped to
+# [2, SERIAL_MIX_MAX]) from a seed: byte-level prompts rarely repeat an
+# exact length, and each new length captures a prefill graph.
+SERIAL_MIX_REQUESTS = 48
+SERIAL_MIX_TOKENS = 16
+SERIAL_MIX_MEDIAN, SERIAL_MIX_SIGMA, SERIAL_MIX_MAX = 64, 0.75, 384
+SERIAL_MIX_STREAMS = 4     # batched streams kept in flight
+SERIAL_MIX_ALONE_S = 2.0   # the batched engine alone, seconds
+
+
+def serial_mix_prompts(language, seed, lengths=None):
+    """SERIAL_MIX_REQUESTS printable-byte prompts (BOS included) at the
+    mix's lengths, or cycling through ``lengths``."""
+    rng = np.random.default_rng(seed)
+    if lengths is None:
+        drawn = rng.lognormal(np.log(SERIAL_MIX_MEDIAN), SERIAL_MIX_SIGMA,
+                              SERIAL_MIX_REQUESTS)
+        lengths = np.clip(np.rint(drawn), 2, SERIAL_MIX_MAX).astype(int)
+    else:
+        lengths = [lengths[i % len(lengths)]
+                   for i in range(SERIAL_MIX_REQUESTS)]
+    return [language.encode_text(bytes(rng.integers(32, 127, n - 1)
+                                       .tolist())) for n in lengths]
+
+
+def serial_beside_batched(tfm, language, LmEngine, params, cfg, prompt,
+                          card):
+    """The served serial path's prefill captures beside live batched
+    traffic, in one process: SERIAL_MIX_STREAMS batched greedy streams kept
+    in flight on an LmEngine over ``params``, first alone, then beside
+    serial ``_LmRunner.stream`` requests (one at a time, SERIAL_MIX_TOKENS
+    each) at lengths its program set already holds ("warm", no capture),
+    then at the mix's lengths ("mix", a capture at each length the set
+    does not hold).  Records the batched tokens/s and the gaps between a
+    batched stream's tokens in each window, the serial TTFTs split by
+    whether the request captured, and the share of requests that
+    captured."""
+    from client_tpu_torch.serve.models import programs
+
+    runner = language._LmRunner(cfg=cfg, params=params, device="cuda")
+    pool = programs.serial_pool(params, cfg)
+    eng = LmEngine(params, cfg, device="cuda", **ENGINE_KW)
+    stamps, errors, stop = [], [], threading.Event()
+    lock = threading.Lock()
+
+    def batched(p):
+        try:
+            while not stop.is_set():
+                q, _ = eng.submit(p, ENGINE_TOKENS)
+                last = None
+                while (tok := q.get(timeout=300)) is not LmEngine.CLOSE:
+                    now = time.monotonic()
+                    with lock:
+                        stamps.append((now, now - last if last else None))
+                    last = now
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    def window(t0, t1):
+        with lock:
+            inside = [(t, gap) for t, gap in stamps if t0 <= t < t1]
+        gaps = sorted(g * 1e3 for t, g in inside if g is not None)
+        return {"seconds": t1 - t0, "batched_tokens": len(inside),
+                "batched_tokens_per_s": len(inside) / (t1 - t0),
+                "gap_ms_p50": float(np.percentile(gaps, 50)),
+                "gap_ms_p99": float(np.percentile(gaps, 99)),
+                "gap_ms_max": gaps[-1]}
+
+    def serial(prompts):
+        rows = []
+        t0 = time.monotonic()
+        for p in prompts:
+            with pool.acquire(params, 1) as progs:
+                held = len(p) in progs.prefill_lengths
+            start = time.monotonic()
+            toks = runner.stream(p, SERIAL_MIX_TOKENS)
+            next(toks)
+            ttft = (time.monotonic() - start) * 1e3
+            for _ in toks:
+                pass
+            rows.append((len(p), held, ttft))
+        t1 = time.monotonic()
+        captured = [r[2] for r in rows if not r[1]]
+        warm = [r[2] for r in rows if r[1]]
+        stat = lambda xs, q: (float(np.percentile(xs, q))  # noqa: E731
+                              if xs else None)
+        return {**window(t0, t1), "requests": len(rows),
+                "distinct_lengths": len({r[0] for r in rows}),
+                "captured_share": len(captured) / len(rows),
+                "ttft_ms_p50_captured": stat(captured, 50),
+                "ttft_ms_max_captured": max(captured) if captured else None,
+                "ttft_ms_p50_held": stat(warm, 50),
+                "ttft_ms_p99_held": stat(warm, 99)}
+
+    # the set holds the lengths of the last requests it served: here the
+    # first of another draw from the mix
+    held = [len(p) for p in serial_mix_prompts(language, 24)]
+    warm = serial_mix_prompts(language, 25,
+                              held[:programs.PREFILL_GRAPHS])
+    mix = serial_mix_prompts(language, 23)
+    threads = [threading.Thread(target=batched, args=(p,), daemon=True)
+               for p in distinct_prompts(prompt, SERIAL_MIX_STREAMS)]
+    try:
+        q, _ = eng.submit(prompt, 8)  # the engine captures its programs
+        while q.get(timeout=300) is not LmEngine.CLOSE:
+            pass
+        for p in warm[:programs.PREFILL_GRAPHS]:
+            list(runner.stream(p, 2))  # the warm lengths' prefills
+        for th in threads:
+            th.start()
+        time.sleep(0.5)
+        t0 = time.monotonic()
+        time.sleep(SERIAL_MIX_ALONE_S)
+        rows = {"alone": window(t0, time.monotonic()),
+                "warm": serial(warm), "mix": serial(mix)}
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+        eng.close()
+    check(not errors and rows["warm"]["captured_share"] == 0.0,
+          f"serial beside batched: errors {errors}, warm window captured "
+          f"{rows['warm']['captured_share']}")
+    phase(6, "serial_beside_batched", model="lm_streaming",
+          batched_model="lm_streaming_batched", dtype=cfg.dtype,
+          batched_streams=SERIAL_MIX_STREAMS,
+          serial_tokens=SERIAL_MIX_TOKENS,
+          length_mix={"median": SERIAL_MIX_MEDIAN,
+                      "sigma": SERIAL_MIX_SIGMA, "max": SERIAL_MIX_MAX,
+                      "seed": 23},
+          prefill_graphs_a_set=programs.PREFILL_GRAPHS, **rows, **card)
+    return rows
 
 
 # -- the continuous-batching engine (phases 5, 10-12) -----------------------
@@ -3131,8 +3497,10 @@ def moe_phase(card, prompt):
             with aux_recorded(tfm, auxes), routing_recorded(
                     tfm, routes[impl], forced):
                 t0 = time.monotonic()
-                _, _, losses = train_run(tfm, cfg, impl, seed_tokens,
-                                         TRAIN_STEPS, params)
+                # eager: the hooks record (and the plain run forces)
+                # every step's routing, which a replay would not re-run
+                _, _, losses, _ = train_run(tfm, cfg, impl, seed_tokens,
+                                            TRAIN_STEPS, params, eager=True)
                 torch.cuda.synchronize()
                 seconds = time.monotonic() - t0
             if counted:
@@ -3179,6 +3547,8 @@ def moe_phase(card, prompt):
           seeds=train, loss0_atol=TRAIN_LOSS0_ATOL,
           max_loss_atol=TRAIN_LOSS_STEP_ATOL,
           last_loss_atol=TRAIN_LOSS_LAST_ATOL, **card)
+
+    moe_train_graph(tfm, cfg, tokens, card)
 
     # the engine: float32 streams equal to serial generate; bf16 and int8
     # graph streams equal to the same engine's programs run eagerly
@@ -7021,6 +7391,7 @@ def main():
     from client_tpu_torch.serve.lm import LmEngine
     from client_tpu_torch.serve.models import language
     from client_tpu_torch.serve.models import transformer as tfm
+    from client_tpu_torch.serve.models.programs import serial_pool
     from client_tpu_torch.train import CheckpointManager
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in f32
@@ -7112,6 +7483,7 @@ def main():
 
     # -- 4 model: cuda (kernel) against cpu (plain) -----------------------
     cfg = language.DEFAULT_LM_CONFIG
+    cfg32_lm = dataclasses.replace(cfg, dtype="float32")
     params_cpu = tfm.quantize_params(
         tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu"))
     params_gpu = tree_to(params_cpu, "cuda")
@@ -7233,6 +7605,10 @@ def main():
     # the int8 engine against the serial runner on the same weights
     ref_runner = language._LmRunner(device="cuda", quantize=True)
     expected = list(ref_runner.stream(prompt, 32))
+    serial_sets = serial_pool(ref_runner.params, ref_runner.cfg).idle_sets()
+    check(len(serial_sets) == 1 and "decode" in serial_sets[0].captures,
+          f"the serial runner streamed without its CUDA graphs: "
+          f"{[p.captures for p in serial_sets]}")
     int8_vs_serial = agreement(tfm, ref_runner.params, cfg, prompt,
                                streamed["lm_streaming_int8"], expected)
     phase(5, "server", requests=9, streamed_tokens={
@@ -7278,22 +7654,16 @@ def main():
         phase(6, "kernel_time", kernel="int8_matmul", dtype="bfloat16",
               **row, **card)
 
-    def decode_rate(params, depth):
-        list(tfm.generate(params, cfg, prompt, 8))  # warm-up
-        t0 = time.monotonic()
-        stamps = []
-        for _ in tfm.generate(params, cfg, prompt, 128, readback_depth=depth):
-            stamps.append(time.monotonic())
-        return {"readback_depth": depth, "ttft_ms": (stamps[0] - t0) * 1e3,
-                "tokens_per_s": (len(stamps) - 1) / (stamps[-1] - stamps[0]),
-                "tokens": len(stamps)}
-
     bf16_params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
-    for model, params in (("lm_streaming_int8", params_gpu),
-                          ("lm_streaming", bf16_params)):
-        for depth in (8, 0):  # 8: the served default; 0: strict serial
-            phase(6, "serial_decode", model=model, **decode_rate(params, depth),
-                  **card)
+    f32_params = tfm.init_params(torch.Generator().manual_seed(0), cfg32_lm,
+                                 "cuda")
+    serial_launches = serial_legs(tfm, prompt, card, (
+        ("lm_streaming_int8", params_gpu, cfg),
+        ("lm_streaming", bf16_params, cfg),
+        ("lm_streaming_f32", f32_params, cfg32_lm)))
+    del f32_params
+    serial_beside_batched(tfm, language, LmEngine, bf16_params, cfg, prompt,
+                          card)
 
     # -- 7 flash kernels against their plain versions ----------------------
     tcfg = tfm.TransformerConfig(**FLAGSHIP)
@@ -7319,7 +7689,8 @@ def main():
     tokens = torch.from_numpy(np.random.default_rng(TRAIN_SEED).integers(
         0, tcfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
     ops.reset_launches()
-    _, _, flash_losses = train_run(tfm, tcfg, "flash", tokens, TRAIN_STEPS)
+    _, _, flash_losses, flash_step = train_run(tfm, tcfg, "flash", tokens,
+                                               TRAIN_STEPS)
     torch.cuda.synchronize()
     train_launches = dict(ops.LAUNCHES)
     per_step = {n: c / TRAIN_STEPS for n, c in train_launches.items()}
@@ -7329,18 +7700,24 @@ def main():
           f"steps, expected {tcfg.n_layers} of each flash kernel a step")
     check(all(np.isfinite(flash_losses)) and flash_losses[-1] < flash_losses[0],
           f"flash training losses {flash_losses}")
-    _, _, plain_losses = train_run(tfm, tcfg, "plain", tokens, TRAIN_STEPS)
+    # the step is one CUDA graph from its second call: every flash kernel
+    # once a layer in each replay, counted there
+    train_graph = train_graph_pair(tfm, tcfg, tokens, "bf16 flash training",
+                                   graph=(flash_losses, flash_step))
+    per_replay = train_graph["launches_per_replay"]
+    _, _, plain_losses, _ = train_run(tfm, tcfg, "plain", tokens, TRAIN_STEPS)
     diffs = [abs(a - b) for a, b in zip(flash_losses, plain_losses)]
     d0, dstep, dlast = diffs[0], max(diffs), diffs[-1]
     check(d0 <= TRAIN_LOSS0_ATOL and dstep <= TRAIN_LOSS_STEP_ATOL
           and dlast <= TRAIN_LOSS_LAST_ATOL,
           f"flash losses {flash_losses} against plain {plain_losses}")
     cfg32 = dataclasses.replace(tcfg, n_layers=2, dtype="float32")
-    _, _, f32_flash = train_run(tfm, cfg32, "flash", tokens, 3)
-    _, _, f32_plain = train_run(tfm, cfg32, "plain", tokens, 3)
+    _, _, f32_flash, _ = train_run(tfm, cfg32, "flash", tokens, 3)
+    _, _, f32_plain, _ = train_run(tfm, cfg32, "plain", tokens, 3)
     d32 = max(abs(a - b) for a, b in zip(f32_flash, f32_plain))
     check(d32 <= F32_LOSS_ATOL,
           f"float32 flash losses {f32_flash} against plain {f32_plain}")
+    f32_graph = f32_graph_pair(tfm, cfg32, tokens)
     with torch.no_grad():
         logit_err = {}
         for c, atol in ((tcfg, LOGIT_ATOL), (cfg32, F32_LOGIT_ATOL)):
@@ -7366,6 +7743,8 @@ def main():
           last_loss_atol=TRAIN_LOSS_LAST_ATOL,
           float32_2layer={"flash": f32_flash, "plain": f32_plain,
                           "max_diff": d32, "atol": F32_LOSS_ATOL},
+          graph_vs_eager=train_graph,
+          float32_2layer_graph_vs_eager=f32_graph,
           forward_flash_vs_plain=logit_err,
           checkpoint_resume_bit_exact=True, resumed_step_loss=resumed_loss)
 
@@ -7423,10 +7802,7 @@ def main():
     del q, k, v, g, out, lse, delta, g_lse, q4, k4, v4, g4, q4r, k4r, v4r
     phase(9, "flash_kernel_time_d128", **flash_d128(ext, fa, gen, graph),
           **card)
-    for impl in ("plain", "flash", "flash", "plain"):
-        phase(9, "train_step", **step_time(tfm, tcfg, impl, tokens), **card)
-    phase(9, "train_profile", attn_impl="flash",
-          **profile_steps(tfm, tcfg, tokens), **card)
+    train_step_turns(tfm, tcfg, tokens, card)
 
     # -- 10 paged attention against its plain version ----------------------
     paged_worst, paged_worst_route, paged_cases = paged_vs_plain(pa, ops)
@@ -7602,6 +7978,7 @@ def main():
         "source": "client_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "client_tpu/ops/quant.py:51",
         "launches": main_launches["int8_matmul"],
+        "launches_serial": serial_launches["launches"]["int8_matmul"],
         "launches_phase_15": ops_launches["int8_matmul"],
         "launches_moe": moe_int8["launches"]["int8_matmul"],
         "launches_fleet": fleet_launches["int8_matmul"],
@@ -7626,7 +8003,9 @@ def main():
                 "(wq, wk, wv, wo, w_gate, w_up)",
         "launches_in": "phase 5 (serving, counted at each CUDA-graph "
                        "replay); all routes, the GEMV's "
-                       f"{main_routes['int8_matmul']['gemv']}; launches_moe: "
+                       f"{main_routes['int8_matmul']['gemv']}; "
+                       "launches_serial: phase 6's serial generate legs "
+                       "through their CUDA graphs; launches_moe: "
                        "phase 16's int8 MoE engine streams; launches_fleet: "
                        "phase 18's int8 replicas; launches_grpc: phase "
                        "21's gRPC calls; launches_perf: phase 22's "
@@ -7645,6 +8024,7 @@ def main():
         "source": "client_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "client_tpu/ops/quant.py:51",
         "launches": main_routes["int8_matmul"]["mma"],
+        "launches_serial": serial_launches["routes"]["int8_matmul"]["mma"],
         "launches_phase_15": ops_routes["int8_matmul"]["mma"],
         "launches_moe": moe_int8["routes"]["int8_matmul"]["mma"],
         "launches_fleet": fleet_routes["int8_matmul"]["mma"],
@@ -7668,7 +8048,8 @@ def main():
         "work": "one prefill chunk's six int8 projections at M=64, bf16 "
                 "(wq, wk, wv, wo, w_gate, w_up)",
         "launches_in": "phase 5 (serving: prefill chunks, counted at "
-                       "each CUDA-graph replay); launches_moe: phase 16's "
+                       "each CUDA-graph replay); launches_serial: phase "
+                       "6's serial prefill replays; launches_moe: phase 16's "
                        "int8 MoE engine streams; launches_fleet: phase 18's "
                        "int8 replicas; launches_grpc: phase 21's gRPC "
                        "calls; launches_perf: phase 22's in-process "
@@ -7693,6 +8074,7 @@ def main():
             "source": sources[name],
             "replaces": replaces[name],
             "launches": train_launches[name],
+            "launches_per_replay": per_replay[name],
             "launches_moe": moe_counts["train"]["launches"][name],
             "launches_ring_flash": ring_launches[name],
             "launches_ring_2rank": [r[name] for r in ring_rank_launches],
@@ -7702,9 +8084,12 @@ def main():
             "timing": "device time from CUDA-graph replay",
             "work": f"one layer's attention at the training shape: "
                     f"[{bh}, {t}, {d}] bf16, causal",
-            "launches_in": f"phase 8 ({TRAIN_STEPS} flash train steps); "
-                           f"launches_moe: phase 16's {TRAIN_STEPS} MoE "
-                           f"flash steps; launches_ring_flash: phase "
+            "launches_in": f"phase 8 ({TRAIN_STEPS} flash train steps: "
+                           f"the first eager, then one CUDA graph "
+                           f"captured and replayed, launches_per_replay "
+                           f"a replay); launches_moe: phase 16's "
+                           f"{TRAIN_STEPS} eager MoE flash steps; "
+                           f"launches_ring_flash: phase "
                            f"19a's {RING_STEPS} ring_flash steps on a "
                            f"one-rank mesh; launches_ring_2rank: each "
                            f"phase 19b rank's forward and backward",

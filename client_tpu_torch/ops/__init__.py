@@ -12,7 +12,9 @@ A CUDA graph launches its kernels without calling the wrappers, so a
 replay would count nothing.  While a thread captures a graph it holds
 ``recording()``: the wrappers it calls add to the recording instead of
 the counts, and every replay adds that recording once through
-``count_replay``.  A graph's launches are counted where it launches them,
+``count_replay``.  A capture that runs a backward names its stream:
+autograd launches the backward's kernels from a thread of its own, on the
+forward's stream, and those launches join the recording by that stream.  A graph's launches are counted where it launches them,
 at each replay; the warm-up run before a capture records too and is not
 counted (it serves no tick).
 """
@@ -27,6 +29,7 @@ ROUTES = {"int8_matmul": {"gemv": 0, "tiled": 0, "mma": 0},
           "paged_attention": {"split": 0, "mma": 0}}
 _lock = threading.Lock()
 _local = threading.local()  # .record: this thread's recording, if any
+_streams = {}  # {CUDA stream handle: recording} of the captures that name one
 # CUDA graphs are captured one at a time in a process (the engine's
 # programs and the dynamic batcher's bucket programs alike): captures
 # start on whichever thread needs them first
@@ -35,26 +38,38 @@ CAPTURE_LOCK = threading.Lock()
 
 def count_launch(name, route=None):
     record = getattr(_local, "record", None)
-    if record is not None:
-        record[name, route] = record.get((name, route), 0) + 1
-        return
+    if record is None and _streams:
+        import torch
+
+        record = _streams.get(torch.cuda.current_stream().cuda_stream)
     with _lock:
+        if record is not None:
+            record[name, route] = record.get((name, route), 0) + 1
+            return
         LAUNCHES[name] += 1
         if route is not None:
             ROUTES[name][route] += 1
 
 
 @contextlib.contextmanager
-def recording():
+def recording(stream=None):
     """Divert this thread's launch counts into a dict ``{(name, route):
-    launches}``, yielded, until the block ends (a CUDA graph's capture)."""
+    launches}``, yielded, until the block ends (a CUDA graph's capture);
+    with ``stream``, every launch any thread makes on that stream too."""
     if getattr(_local, "record", None) is not None:
         raise RuntimeError("launch recordings do not nest")
     _local.record = record = {}
+    key = None if stream is None else stream.cuda_stream
+    if key is not None:
+        with _lock:
+            _streams[key] = record
     try:
         yield record
     finally:
         _local.record = None
+        if key is not None:
+            with _lock:
+                _streams.pop(key, None)
 
 
 def count_replay(record):

@@ -120,6 +120,7 @@ content whose producing dispatch already ordered before the adopter's.
 """
 
 import functools
+import itertools
 import queue
 import threading
 import time
@@ -656,11 +657,12 @@ class _Handle:
 
     __slots__ = ("prompt", "prompt_len", "max_tokens", "queue", "tenant",
                  "temperature", "top_k", "seed", "placed", "remote_kv",
-                 "window")
+                 "window", "arrival")
 
     def __init__(self, prompt, max_tokens, q, tenant, temperature, top_k,
-                 seed, window=0):
+                 seed, window=0, arrival=0):
         self.window = int(window)  # 0: every token streams at once
+        self.arrival = arrival  # the submit's place in arrival order
         self.prompt = prompt
         self.prompt_len = int(prompt.shape[1])
         self.max_tokens = int(max_tokens)
@@ -817,6 +819,7 @@ class LmEngine:
             _Lane(self._table_width) for _ in range(self.max_slots)
         ]
         self._pending = OrderedDict()  # tenant -> deque[_Handle]
+        self._arrivals = itertools.count()  # submit order, before any wait
         self._rr = 0                   # round-robin cursor over tenants
         self._job = None
         self._scaler = LaneAutoscaler(
@@ -1019,7 +1022,8 @@ class LmEngine:
             q.put(_CLOSE)
             return q, None
         handle = _Handle(prompt, max_tokens, q, str(tenant or ""),
-                         temperature, top_k, seed, window)
+                         temperature, top_k, seed, window,
+                         next(self._arrivals))
         self._ensure_started()
         fleet = self.fleet
         if fleet is not None and self._prefix_enabled:
@@ -1050,7 +1054,14 @@ class LmEngine:
             if self._closed:
                 q.put(_CLOSE)
                 return q, None
-            self._pending.setdefault(handle.tenant, deque()).append(handle)
+            # in arrival order: submits that waited while another started
+            # the engine wake in any order (the JAX engine starts under
+            # _cv and enqueues each submit as it comes)
+            lane_q = self._pending.setdefault(handle.tenant, deque())
+            at = len(lane_q)
+            while at and lane_q[at - 1].arrival > handle.arrival:
+                at -= 1
+            lane_q.insert(at, handle)
             self._cv.notify_all()
         self._wake_event.set()
         return q, handle

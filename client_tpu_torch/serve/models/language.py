@@ -3,7 +3,8 @@
 Counterpart of client_tpu/serve/models/language.py: a byte-level
 tokenizer model, decoupled LMs that stream one response per generated
 token, and a text ensemble that chains them server-side.
-``lm_streaming`` runs the serial ``generate`` loop; ``lm_streaming_batched``
+``lm_streaming`` runs the serial ``generate`` loop (its prefill and decode
+steps replayed as CUDA graphs on CUDA); ``lm_streaming_batched``
 serves the same weights through the continuous-batching engine
 (client_tpu_torch.serve.lm: paged KV pool, chunked prefill, prefix cache,
 speculative decoding), every step's attention through the paged-attention
@@ -98,7 +99,10 @@ class _LmRunner:
 
     Params come from *params* (already on the device, e.g. from
     ``client_tpu_torch.convert``) or from a seeded ``torch.Generator``;
-    ``quantize=True`` serves them int8 weight-only."""
+    ``quantize=True`` serves them int8 weight-only.  Each stream runs
+    through a program set of its own from the params' pool
+    (``programs.serial_pool``); assigning other ``params`` makes the next
+    stream capture over them."""
 
     def __init__(self, cfg=None, seed=0, quantize=False, params=None,
                  device=None):

@@ -1,0 +1,376 @@
+"""The serial LM programs and the single-device train step as CUDA graphs.
+
+The port's counterpart of the JAX package's last compiled LM programs
+(client_tpu/serve/models/transformer.py):
+
+- ``_jitted_steps(cfg)``: ``jax.jit(prefill)`` and ``jax.jit(decode_step)``
+  behind ``generate``.  Here a :class:`SerialPrograms` owns one static KV
+  cache with its decode graph and a bounded LRU of prefill graphs, one per
+  exact prompt length (``PREFILL_GRAPHS``, as ``_jitted_steps``'
+  ``lru_cache``): the first sight of a length captures its graph, as
+  ``jax.jit`` compiles a new shape.  Token choice stays outside the graphs,
+  as JAX picks the token outside its jitted ``decode_step``.  A
+  :class:`SerialPool` hands out program sets for one params tree, one a
+  stream at a time, since two streams cannot share a static cache (JAX's
+  jitted steps are reentrant: each call gets its own cache).
+- ``_make_adam_step``: ``jax.jit(step, donate_argnums=(0, 1))``.  Here a
+  :class:`TrainProgram` runs its first call eagerly (a real step and the
+  warm-up: it builds the kernels' extension and allocates the gradients),
+  captures the whole step (zero-grad, forward, backward, the Adam update)
+  on its second and replays it from then on, the params and the optimizer
+  state updated in place (the port's stand-in for buffer donation).
+
+A graph is captured on a side stream after a warm-up, under
+``ops.CAPTURE_LOCK`` (one capture at a time in the process), with the
+kernels' launches recorded (``ops.recording``) and counted at each replay
+(``ops.count_replay``).  On a CPU device the same bodies run eagerly on the
+same static buffers.  A failed capture or replay raises; nothing runs the
+eager body on CUDA in its place.
+"""
+
+import collections
+import contextlib
+import threading
+import time
+import weakref
+
+import torch
+
+from client_tpu_torch import ops
+from client_tpu_torch.serve.models import transformer as tfm
+
+PREFILL_GRAPHS = 8  # prefill graphs a program set keeps (LRU)
+IDLE_SETS = 8       # program sets a pool keeps between streams
+_leaves = tfm._leaves
+
+
+class _Graph:
+    """One captured program: ``replay()`` launches it and counts the
+    launches its capture recorded."""
+
+    def __init__(self, graph, launches, seconds):
+        self.graph = graph
+        self.launches = launches  # {(kernel, route): launches} a replay
+        self.seconds = seconds    # warm-up + capture wall time
+
+    def replay(self):
+        self.graph.replay()
+        ops.count_replay(self.launches)
+
+
+def _capture(body, warm_up, pool, stream):
+    """Run ``warm_up()`` on ``stream`` (the kernels' lazy set-up: the
+    extension, cuBLAS's handle and workspace for the stream, the
+    allocator's blocks; its launches count nowhere), then record ``body()``
+    as a CUDA graph in ``pool`` on ``stream``.  One capture at a time in
+    the process (``ops.CAPTURE_LOCK``); the capture itself runs nothing."""
+    from client_tpu_torch.ops._build import kernels
+
+    kernels()  # build the extension before any capture
+    device = stream.device
+    t0 = time.monotonic()
+    main = torch.cuda.current_stream(device)
+    with ops.CAPTURE_LOCK:
+        stream.wait_stream(main)
+        if warm_up is not None:
+            with torch.cuda.stream(stream), ops.recording():
+                warm_up()
+        graph = torch.cuda.CUDAGraph()
+        with ops.recording(stream) as launches:
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                body()
+        main.wait_stream(stream)
+    return _Graph(graph, launches, time.monotonic() - t0)
+
+
+# -- the serial LM programs (generate) ---------------------------------------
+
+def _scratch(cache):
+    return {"k": [x.clone() for x in cache["k"]],
+            "v": [x.clone() for x in cache["v"]],
+            "len": cache["len"].clone()}
+
+
+class SerialPrograms:
+    """One stream's programs: a static KV cache, the static token input
+    and logits output, the decode program and the prefill programs by
+    prompt length (``PREFILL_GRAPHS`` at most, least recently used out).
+
+    ``prefill(params, prompt)`` and ``decode(params, token)`` copy their
+    input into the static buffer, run the program and return the static
+    logits [B, V] f32, valid until the next call.  On CUDA each program is
+    a CUDA graph (captured for ``params``' tensors: the caller passes the
+    same tree every call, which :class:`SerialPool` checks); on the CPU the
+    same body runs eagerly."""
+
+    def __init__(self, params, cfg, batch, device):
+        self.cfg, self.batch, self.device = cfg, int(batch), device
+        self.cache = tfm.init_cache(cfg, batch, device)
+        self.token = torch.zeros((batch,), dtype=torch.int32, device=device)
+        self.logits = torch.zeros((batch, cfg.vocab_size),
+                                  dtype=torch.float32, device=device)
+        self._prefill = collections.OrderedDict()  # length -> (buf, graph)
+        self.captures = {}  # {"decode" or prefill length: capture seconds}
+        self._graphs = device.type == "cuda"
+        self._decode = None
+        if self._graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(device)
+            self._decode = self._capture(
+                lambda c, out: self._decode_body(params, self.token, c, out))
+            self.captures["decode"] = self._decode.seconds
+
+    @property
+    def decode_launches(self):
+        """{(kernel, route): launches} of one decode replay ({} on the
+        CPU)."""
+        return dict(self._decode.launches) if self._decode else {}
+
+    @property
+    def prefill_lengths(self):
+        """The prompt lengths whose prefill programs the set holds, least
+        recently used first."""
+        return tuple(self._prefill)
+
+    def _capture(self, run):
+        """A graph of ``run(cache, logits)`` on the static buffers, after a
+        warm-up on scratch copies (it changes no live row)."""
+        scratch = _scratch(self.cache)
+        out = torch.empty_like(self.logits)
+        return _capture(lambda: run(self.cache, self.logits),
+                        lambda: run(scratch, out), self._pool, self._stream)
+
+    def _decode_body(self, params, token, cache, logits):
+        out, _ = tfm.decode_step(params, token, self.cfg, cache)
+        logits.copy_(out)
+
+    def _prefill_body(self, params, prompt, cache, logits):
+        out, _ = tfm.prefill(params, prompt, self.cfg, cache)
+        logits.copy_(out)
+
+    def prefill(self, params, prompt):
+        """Fill the cache from ``prompt`` [B, T] int32 (on the device);
+        returns the last position's logits."""
+        t = int(prompt.shape[1])
+        entry = self._prefill.get(t)
+        if entry is None:
+            buf = torch.zeros((self.batch, t), dtype=torch.int32,
+                              device=self.device)
+            graph = None
+            if self._graphs:
+                graph = self._capture(
+                    lambda c, out: self._prefill_body(params, buf, c, out))
+                self.captures[t] = graph.seconds
+            entry = (buf, graph)
+            self._prefill[t] = entry
+            while len(self._prefill) > PREFILL_GRAPHS:
+                self._prefill.popitem(last=False)
+        else:
+            self._prefill.move_to_end(t)
+        buf, graph = entry
+        buf.copy_(prompt)
+        if graph is None:
+            self._prefill_body(params, buf, self.cache, self.logits)
+        else:
+            graph.replay()
+        return self.logits
+
+    def decode(self, params, token):
+        """One decode step from ``token`` [B] int32 (on the device) at the
+        cache's length; returns the logits."""
+        self.token.copy_(token)
+        if self._decode is None:
+            self._decode_body(params, self.token, self.cache, self.logits)
+        else:
+            self._decode.replay()
+        return self.logits
+
+
+class SerialPool:
+    """Program sets for one params tree at one config: ``acquire(params,
+    batch)`` lends a set to one stream (the one freed last) and takes it
+    back after.  A set is
+    made (and on CUDA captured) outside the pool's lock when none is free;
+    up to ``IDLE_SETS`` are kept between streams.
+
+    The graphs bake the params' tensors in.  The pool remembers the tree's
+    leaves by weak reference: a call with other leaves (weights swapped)
+    drops every set and captures new ones.  It holds no strong reference to
+    the params, so a pool kept for a params tree frees nothing of it."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self._lock = threading.Lock()
+        self._leaves = ()
+        self._version = 0
+        self._free = []  # [(batch, SerialPrograms, event or None)]
+
+    def idle_sets(self):
+        """The program sets waiting for a stream, oldest first."""
+        with self._lock:
+            return [progs for _, progs, _ in self._free]
+
+    def _serves_locked(self, leaves):
+        return len(leaves) == len(self._leaves) and all(
+            ref() is w for ref, w in zip(self._leaves, leaves))
+
+    @contextlib.contextmanager
+    def acquire(self, params, batch):
+        leaves = list(_leaves(params))
+        device = leaves[0].device
+        progs = done = None
+        with self._lock:
+            if not self._serves_locked(leaves):
+                self._leaves = tuple(weakref.ref(w) for w in leaves)
+                self._version += 1
+                self._free.clear()
+            version = self._version
+            for i in range(len(self._free) - 1, -1, -1):
+                b, p, ev = self._free[i]
+                if b == batch:  # the set freed last: its prefills are warm
+                    progs, done = p, ev
+                    del self._free[i]
+                    break
+        if progs is None:
+            progs = SerialPrograms(params, self.cfg, batch, device)
+        elif done is not None:
+            # the last stream's replays may run on another stream
+            torch.cuda.current_stream(device).wait_event(done)
+        try:
+            yield progs
+        finally:
+            done = None
+            if device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+            with self._lock:
+                if (self._version == version
+                        and len(self._free) < IDLE_SETS):
+                    self._free.append((batch, progs, done))
+
+
+# pools for ``generate`` callers that bring no pool, by the params tree's
+# first LM-head leaf (a float tree and its int8 copy share the embedding,
+# not the head): {id(head): (weakref to head, {cfg: pool})}.  The weak
+# reference's callback drops the entry as the head dies, before its id can
+# be reused, and a lookup checks the referent too.
+_POOLS = {}
+_POOLS_LOCK = threading.Lock()
+
+
+def _forget(key, ref):
+    entry = _POOLS.get(key)
+    if entry is not None and entry[0] is ref:
+        _POOLS.pop(key, None)  # no lock: a callback may run inside one
+
+
+def serial_pool(params, cfg):
+    """The shared :class:`SerialPool` of ``params`` at ``cfg``."""
+    anchor = next(_leaves(params["lm_head"]))
+    key = id(anchor)
+    with _POOLS_LOCK:
+        entry = _POOLS.get(key)
+        if entry is None or entry[0]() is not anchor:
+            ref = weakref.ref(anchor, lambda r, key=key: _forget(key, r))
+            entry = _POOLS[key] = (ref, {})
+        pools = entry[1]
+        pool = pools.get(cfg)
+        if pool is None:
+            pool = pools[cfg] = SerialPool(cfg)
+        return pool
+
+
+# -- the single-device train step -------------------------------------------
+
+class TrainProgram:
+    """``body(params, opt_state, tokens) -> loss`` (zero-grad, forward,
+    backward, the optimizer's update, all in place) as one program.
+
+    On CUDA the first call with a params tree, an optimizer state and a
+    token shape runs ``body`` eagerly on the program's stream; the second
+    captures it as a CUDA graph (the gradients, set to None inside, come
+    back from the graph's pool and stay there) and replays it; every later
+    call copies the tokens into the static buffer and replays.  Other
+    params, another state or another token shape start over.  On the CPU
+    every call runs ``body`` on the static token buffer.
+
+    The optimizer's hyperparameters (its learning rate) are baked into the
+    graph, as optax's are into the jitted step.  Returns a copy of the
+    step's loss, as the JAX step returns a new array."""
+
+    def __init__(self, body):
+        self.body = body
+        self._key = None
+        self._tokens = None
+        self._graph = None
+        self._loss = None
+        self._calls = 0
+        self.capture_s = None
+
+    @property
+    def launches(self):
+        """{(kernel, route): launches} of one replay ({} before the
+        capture)."""
+        return dict(self._graph.launches) if self._graph else {}
+
+    @property
+    def pool(self):
+        """The id of the memory pool the graph allocates from (None before
+        the capture)."""
+        return self._graph.graph.pool() if self._graph else None
+
+    def _matches(self, params, opt_state, tokens):
+        key = self._key
+        if key is None:
+            return False
+        opt_ref, leaf_refs, shape = key
+        leaves = list(_leaves(params))
+        return (opt_ref() is opt_state
+                and shape == (tuple(tokens.shape), tokens.dtype,
+                              tokens.device)
+                and len(leaves) == len(leaf_refs)
+                and all(r() is w for r, w in zip(leaf_refs, leaves)))
+
+    def __call__(self, params, opt_state, tokens):
+        if not self._matches(params, opt_state, tokens):
+            self._key = (weakref.ref(opt_state),
+                         tuple(weakref.ref(w) for w in _leaves(params)),
+                         (tuple(tokens.shape), tokens.dtype, tokens.device))
+            self._tokens = torch.empty_like(tokens)
+            self._graph = self._loss = None
+            self._calls = 0
+        self._tokens.copy_(tokens)
+        self._calls += 1
+        if tokens.device.type != "cuda":
+            return self.body(params, opt_state, self._tokens).detach()
+        if self._graph is not None:
+            self._graph.replay()
+            return self._loss.clone()
+        if self._calls == 1:
+            return self._warm_up(params, opt_state)
+        box = {}
+
+        def run():
+            box["loss"] = self.body(params, opt_state,
+                                    self._tokens).detach()
+
+        self._graph = _capture(run, None, torch.cuda.graph_pool_handle(),
+                               self._stream)
+        self.capture_s = self._graph.seconds
+        self._loss = box["loss"]
+        self._graph.replay()
+        return self._loss.clone()
+
+    def _warm_up(self, params, opt_state):
+        """The first call: one real step, eagerly, on the stream the graph
+        will be captured on."""
+        device = self._tokens.device
+        self._stream = torch.cuda.Stream(device)
+        main = torch.cuda.current_stream(device)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            loss = self.body(params, opt_state, self._tokens).detach()
+        main.wait_stream(self._stream)
+        loss.record_stream(main)
+        return loss

@@ -13,13 +13,18 @@ weights are ``{"q", "s"}`` dicts that ``_mm`` sends to the CUDA kernel.
   ``attn_impl="flash"`` runs attention through the flash-attention
   kernels (client_tpu_torch.ops.flash_attention)
 - ``prefill`` / ``decode_step``: KV-cache incremental decoding with a
-  static-shape cache, written in place (plain attention, as in JAX)
-- ``generate``: the token-by-token loop behind the streaming models
+  static-shape cache, written in place, its length too (plain attention,
+  as in JAX); no host read, so both capture in a CUDA graph
+- ``generate``: the token-by-token loop behind the streaming models, its
+  prefill and decode steps replayed as CUDA graphs on CUDA
+  (``programs.SerialPrograms``, the counterpart of JAX's ``_jitted_steps``)
 - ``paged_attention``: attention against the continuous-batching engine's
   paged KV pool (client_tpu_torch.serve.lm), through the paged-attention
   kernel (client_tpu_torch.ops.paged_attention)
 - ``loss_fn`` / ``make_train_step``: next-token cross-entropy (plus the
-  router's load-balance term for MoE configs) and the Adam train step
+  router's load-balance term for MoE configs) and the Adam train step, on
+  one device replayed as one CUDA graph from its second call
+  (``programs.TrainProgram``, the counterpart of JAX's jitted step)
 - ``stack_pipeline_params`` / ``forward_pipelined`` /
   ``make_pipeline_train_step``: the layer stack as GPipe stages over the
   mesh's ``pp`` dim (client_tpu_torch.parallel.pipeline)
@@ -488,15 +493,17 @@ def prefill(params, tokens, cfg, cache):
         x, _ = _ffn_block(layer, x, cfg, with_aux=False)
     x = _rms_norm(x, params["ln_f"])
     logits = _mm(x[:, -1], params["lm_head"]).float()
-    cache["len"] = torch.full((b,), t, dtype=torch.int32, device=x.device)
+    cache["len"].fill_(t)
     return logits, cache
 
 
 def decode_step(params, token, cfg, cache):
     """One incremental decode step: token [B] int -> (logits [B,V], cache).
 
-    Writes this step's k/v into the cache in place at each row's position
-    (the JAX package rebuilds the cache functionally)."""
+    Writes this step's k/v into the cache in place at each row's position,
+    and advances ``cache["len"]`` in place (the JAX package rebuilds the
+    cache functionally): a CUDA graph of this step reads and writes the
+    same buffers at every replay."""
     b = token.shape[0]
     x = params["embed"][token.long()][:, None, :]  # [B,1,D]
     pos = cache["len"]  # [B]
@@ -528,7 +535,7 @@ def decode_step(params, token, cfg, cache):
         x, _ = _ffn_block(layer, x, cfg, with_aux=False)
     x = _rms_norm(x, params["ln_f"])
     logits = _mm(x[:, 0], params["lm_head"]).float()
-    cache["len"] = pos + 1
+    pos.add_(1)
     return logits, cache
 
 
@@ -611,9 +618,9 @@ def _leaves(tree):
 
 class _Adam:
     """The counterpart of ``optax.adam(learning_rate)``: ``init(params)``
-    returns the optimizer state, a ``torch.optim.Adam`` over the params'
-    leaves (optax's formula and defaults: b1 0.9, b2 0.999, eps 1e-8);
-    for params laid out on a mesh (DTensors), a ``_MeshAdam``."""
+    returns the optimizer state, an ``_AdamState`` over the params' leaves
+    (optax's formula and defaults: b1 0.9, b2 0.999, eps 1e-8); for params
+    laid out on a mesh (DTensors), a ``_MeshAdam``."""
 
     def __init__(self, learning_rate):
         self.learning_rate = learning_rate
@@ -639,23 +646,100 @@ class _Adam:
                 raise ValueError(
                     "params mix DTensors and plain tensors; lay every leaf "
                     "out on the mesh (parallel.device_put)")
-            opt = _MeshAdam(leaves, **kw)
-        else:
-            opt = torch.optim.Adam(leaves, **kw)
-        for group in opt.param_groups:
-            for w in group["params"]:
-                opt.state[w] = {
-                    "step": torch.tensor(0.0),
-                    "exp_avg": torch.zeros_like(w),
-                    "exp_avg_sq": torch.zeros_like(w),
-                }
-        return opt
+            return _MeshAdam(leaves, **kw)
+        return _AdamState(leaves, **kw)
 
 
-class _MeshAdam(torch.optim.Adam):
+class _AdamState(torch.optim.Optimizer):
+    """optax's Adam update as tensor ops, every tensor of the state on
+    the params' device (``step`` too, as a float32 scalar a leaf, the
+    layout of ``torch.optim.Adam``'s ``state_dict()``): the same formula
+    runs eagerly on the CPU and inside a CUDA graph, with no host read.
+    ``torch.optim.Adam``'s ``capturable`` refuses CPU params, and its
+    non-capturable ``step`` lives on the host.
+
+    ``load_state_dict`` copies the saved tensors into the live ones, so a
+    captured step goes on updating the state it was captured over; the
+    hyperparameters are the ones ``init`` was given (a checkpoint with
+    others is refused), as optax's are fixed in its update function."""
+
+    def __init__(self, params, lr, betas, eps):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+        for w in self.param_groups[0]["params"]:
+            self.state[w] = {
+                "step": torch.zeros((), dtype=torch.float32,
+                                    device=w.device),
+                "exp_avg": torch.zeros_like(w),
+                "exp_avg_sq": torch.zeros_like(w),
+            }
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            live = [w for w in group["params"] if w.grad is not None]
+            if not live:
+                continue
+            st = [self.state[w] for w in live]
+            grads = [w.grad for w in live]
+            steps = [x["step"] for x in st]
+            mu = [x["exp_avg"] for x in st]
+            nu = [x["exp_avg_sq"] for x in st]
+            # optax.scale_by_adam: mu = b1 mu + (1 - b1) g,
+            # nu = b2 nu + (1 - b2) g², both bias-corrected, then
+            # mu_hat / (sqrt(nu_hat) + eps), scaled by -lr
+            torch._foreach_add_(steps, 1.0)
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+            bc1 = torch._foreach_pow(b1, steps)
+            bc2 = torch._foreach_pow(b2, steps)
+            torch._foreach_neg_(bc1)
+            torch._foreach_neg_(bc2)
+            torch._foreach_add_(bc1, 1.0)
+            torch._foreach_add_(bc2, 1.0)
+            mu_hat = torch._foreach_div(mu, bc1)
+            nu_hat = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(nu_hat)
+            torch._foreach_add_(nu_hat, group["eps"])
+            torch._foreach_div_(mu_hat, nu_hat)
+            torch._foreach_add_(live, mu_hat, alpha=-group["lr"])
+
+    def load_state_dict(self, state_dict):
+        saved = state_dict["param_groups"]
+        if len(saved) != len(self.param_groups):
+            raise ValueError("the checkpoint has another number of "
+                             "parameter groups")
+        for group, old in zip(self.param_groups, saved):
+            for key in ("lr", "betas", "eps"):
+                if _floats(group[key]) != _floats(old[key]):
+                    raise ValueError(
+                        f"the checkpoint's {key} {old[key]} is not this "
+                        f"optimizer's {group[key]}")
+            if len(old["params"]) != len(group["params"]):
+                raise ValueError("the checkpoint holds another number of "
+                                 "parameters")
+        params = [w for g in self.param_groups for w in g["params"]]
+        ids = [i for g in saved for i in g["params"]]
+        with torch.no_grad():
+            for i, w in zip(ids, params):
+                for key, value in state_dict["state"].get(i, {}).items():
+                    self.state[w][key].copy_(value)
+
+
+def _floats(x):
+    """A hyperparameter as a tuple of floats (``betas`` is a pair)."""
+    return tuple(float(v) for v in x) if isinstance(
+        x, (tuple, list)) else (float(x),)
+
+
+class _MeshAdam(_AdamState):
     """Adam over the local shards of DTensor params: each rank updates its
     shard with its moments, plain tensors (DTensor dispatch would look up
-    a sharding rule for every op of the update on every step).
+    a sharding rule for every op of the update on every step), by the
+    single-device update's formula, so a one-rank mesh steps bit for bit
+    as one device does.
 
     The model's local regions compute on these same shards
     (``parallel.local_shard``), so the gradients land on them; ``step()``
@@ -725,28 +809,40 @@ class _MeshAdam(torch.optim.Adam):
         super().load_state_dict(state_dict)
 
 
-def _make_adam_step(loss, learning_rate):
+def _make_adam_step(loss, learning_rate, graph=False):
     """Adam scaffolding: (loss(params, tokens) -> scalar) ->
     ``(opt, step)`` with ``step(params, opt_state, tokens) -> (params,
     opt_state, loss)``.
 
     The step updates the params and the optimizer state in place and hands
     the same objects back: that takes the place of the JAX step's buffer
-    donation, and keeps the JAX call shape."""
+    donation, and keeps the JAX call shape.  With ``graph`` the step is a
+    ``programs.TrainProgram``: replayed as one CUDA graph from its second
+    call on CUDA, run on a static token buffer on the CPU."""
+    from client_tpu_torch.serve.models.programs import TrainProgram
+
     opt = _Adam(learning_rate)
 
-    def step(params, opt_state, tokens):
+    def body(params, opt_state, tokens):
         opt_state.zero_grad(set_to_none=True)
         value = loss(params, tokens)
         value.backward()
         opt_state.step()
-        return params, opt_state, value.detach()
+        return value
 
+    program = TrainProgram(body) if graph else None
+
+    def step(params, opt_state, tokens):
+        if program is not None:
+            return params, opt_state, program(params, opt_state, tokens)
+        return params, opt_state, body(params, opt_state, tokens).detach()
+
+    step.program = program
     return opt, step
 
 
 def make_train_step(cfg, attn_impl="plain", learning_rate=1e-3, *,
-                    mesh=None):
+                    mesh=None, eager=False):
     """Adam train step on next-token cross-entropy::
 
         opt, step = make_train_step(cfg, attn_impl="flash")
@@ -759,11 +855,19 @@ def make_train_step(cfg, attn_impl="plain", learning_rate=1e-3, *,
     (``parallel.device_put``), tokens the same on every rank (or a DTensor),
     and every rank runs the step; ``attn_impl`` "ring" or "ring_flash"
     shards the sequence over ``sp``.
+
+    On one device (no ``mesh``) the step is one program, as JAX's jitted
+    step is: on CUDA its first call runs eagerly (the warm-up), its second
+    captures the whole step as a CUDA graph, and every later call with the
+    same params, state and token shape replays it (``step.program``).
+    ``eager=True`` runs every step eagerly (a comparison leg).  A mesh
+    step stays eager: its collectives run over gloo, which a graph cannot
+    capture.
     """
     return _make_adam_step(
         lambda params, tokens: loss_fn(params, tokens, cfg, attn_impl,
                                        mesh=mesh),
-        learning_rate,
+        learning_rate, graph=mesh is None and not eager,
     )
 
 
@@ -930,7 +1034,7 @@ def _finish_readback(pending):
 
 
 def generate(params, cfg, prompt, max_new_tokens, temperature=0.0,
-             generator=None, readback_depth=8, stop_tokens=()):
+             generator=None, readback_depth=8, stop_tokens=(), eager=False):
     """Greedy/sampled generation; yields one int token id at a time.
 
     Each yield maps to one decoupled KServe response in the streaming
@@ -949,6 +1053,16 @@ def generate(params, cfg, prompt, max_new_tokens, temperature=0.0,
     Sampling (``temperature > 0``) draws with ``torch.multinomial`` from
     *generator* (seed 0 if None): repeatable for a seed, but not the JAX
     package's threefry stream.
+
+    The prefill and the decode steps run through a program set
+    (``programs.SerialPrograms``) lent by the pool that
+    ``programs.serial_pool`` keeps for these params: on CUDA each is a CUDA
+    graph over the set's static cache, the prefill's captured at the first
+    sight of a prompt length, and on the CPU the same bodies run eagerly on
+    the same buffers.  The token is chosen outside the programs, as JAX picks
+    it outside its jitted ``decode_step``.  ``eager=True`` runs ``prefill``
+    and ``decode_step`` eagerly on a cache of the call's own (a comparison
+    leg; the tokens are the same).
     """
     device = params["embed"].device
     prompt = torch.as_tensor(prompt, dtype=torch.int32, device=device)
@@ -959,8 +1073,28 @@ def generate(params, cfg, prompt, max_new_tokens, temperature=0.0,
     # the cache slot for step i's token is prompt_len + i; the last usable
     # slot is max_seq - 1
     max_new_tokens = min(max_new_tokens, cfg.max_seq - prompt.shape[1])
-    cache = init_cache(cfg, prompt.shape[0], device)
-    logits, cache = prefill(params, prompt, cfg, cache)
+    if eager:
+        yield from _generate(params, cfg, prompt, max_new_tokens,
+                             temperature, generator, readback_depth,
+                             stop_tokens, None)
+        return
+    from client_tpu_torch.serve.models.programs import serial_pool
+
+    with serial_pool(params, cfg).acquire(params, prompt.shape[0]) as progs:
+        yield from _generate(params, cfg, prompt, max_new_tokens,
+                             temperature, generator, readback_depth,
+                             stop_tokens, progs)
+
+
+def _generate(params, cfg, prompt, max_new_tokens, temperature, generator,
+              readback_depth, stop_tokens, progs):
+    """``generate``'s loop, through the program set ``progs`` (None: the
+    eager functions on a cache of its own)."""
+    if progs is None:
+        cache = init_cache(cfg, prompt.shape[0], prompt.device)
+        logits, cache = prefill(params, prompt, cfg, cache)
+    else:
+        logits = progs.prefill(params, prompt)
     depth = max(int(readback_depth), 0)
     stop = frozenset(int(t) for t in stop_tokens)
     pending = collections.deque()
@@ -973,7 +1107,10 @@ def generate(params, cfg, prompt, max_new_tokens, temperature=0.0,
         token = token.to(torch.int32)
         pending.append(_start_readback(token))
         if i + 1 < max_new_tokens:
-            logits, cache = decode_step(params, token, cfg, cache)
+            if progs is None:
+                logits, cache = decode_step(params, token, cfg, cache)
+            else:
+                logits = progs.decode(params, token)
         while len(pending) > depth:
             t = _finish_readback(pending.popleft())
             yield t

@@ -869,6 +869,86 @@ def test_engine_capture_writes_no_live_row(cuda_device, dtype):
     assert eng.decode_executables() == 0  # close() released the graphs
 
 
+# -- the serial LM programs and the train step as CUDA graphs -----------------
+
+_PROG_CFG = tfm.TransformerConfig(
+    vocab_size=258, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+    d_ff=512, max_seq=128, dtype="float32",
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_serial_graphs_equal_the_eager_loop(cuda_device, dtype):
+    """generate through its CUDA graphs against the eager loop on the same
+    weights: 48 greedy tokens equal; one decode replay counts the int8
+    projections it replays; a second prompt length captures its own
+    prefill graph."""
+    cfg = dataclasses.replace(
+        _PROG_CFG, dtype="float32" if dtype == "float32" else "bfloat16")
+    params = tfm.init_params(torch.Generator().manual_seed(5), cfg,
+                             cuda_device)
+    if dtype == "int8":
+        params = tfm.quantize_params(params)
+    from client_tpu_torch.serve.models.programs import serial_pool
+
+    pool = serial_pool(params, cfg)
+    for n in (7, 12):
+        prompt = np.arange(1, n + 1, dtype=np.int32)
+        want = list(tfm.generate(params, cfg, prompt, 48, eager=True))
+        ops.reset_launches()
+        got = list(tfm.generate(params, cfg, prompt, 48))
+        assert got == want
+        with pool.acquire(params, 1) as progs:
+            assert "decode" in progs.captures and n in progs.captures
+            per_replay = progs.decode_launches
+    if dtype == "int8":
+        per_step = sum(c for (name, _), c in per_replay.items()
+                       if name == "int8_matmul")
+        assert per_step > 0
+        # the second stream: its prefill replay and 47 decode replays
+        assert ops.LAUNCHES["int8_matmul"] >= 47 * per_step
+    else:
+        assert per_replay == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_impl", ["plain", "flash"])
+def test_train_step_graph_replays_equal_eager(cuda_device, attn_impl):
+    """make_train_step's graph (eager first call, capture on the second,
+    replays after) against the eager step from the same float32 weights:
+    losses within 1e-5 over 6 steps, every flash kernel counted once a
+    layer per replay, the params and state updated in place."""
+    cfg = _PROG_CFG
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 65))).to(cuda_device)
+    runs = {}
+    for eager in (True, False):
+        params = tfm.init_params(torch.Generator().manual_seed(6), cfg,
+                                 cuda_device)
+        opt, step = tfm.make_train_step(cfg, attn_impl=attn_impl,
+                                        learning_rate=1e-3, eager=eager)
+        state = opt.init(params)
+        losses = []
+        for _ in range(6):
+            params, state, loss = step(params, state, toks)
+            losses.append(float(loss))
+        runs[eager] = (losses, params, step)
+    np.testing.assert_allclose(runs[False][0], runs[True][0], atol=1e-5,
+                               rtol=0)
+    for a, b in zip(tfm._leaves(runs[False][1]), tfm._leaves(runs[True][1])):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().cpu().numpy(), atol=1e-4,
+                                   rtol=0)
+    launches = runs[False][2].program.launches
+    if attn_impl == "flash":
+        assert {name: c for (name, _), c in launches.items()} == {
+            n: cfg.n_layers for n in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")}
+    else:
+        assert launches == {}
+
+
 # -- the vision path: the dynamic batcher's bucket graphs ---------------------
 
 

@@ -522,6 +522,44 @@ def test_concurrent_first_submits_start_the_engine_once(params):
     assert eng.kv.used_blocks == 0
 
 
+def test_submits_waiting_for_the_start_keep_their_arrival_order(params):
+    """Submits that arrive while the first one starts the engine are
+    served in arrival order, as the JAX engine serves them (it enqueues
+    each submit under ``_cv`` as it comes): with one lane the streams
+    finish in the order they were submitted.  The port's waiting submits
+    wake in any order, so they enqueue by their arrival, not their
+    wake-up."""
+    eng = _engine(params, max_slots=1, lane_counts=(1,))
+    release = threading.Event()
+    build = eng._build_programs
+
+    def held_build():
+        assert release.wait(timeout=60)
+        build()
+
+    eng._build_programs = held_build
+    order, lock = [], threading.Lock()
+
+    def run(i):
+        _collect(eng.submit([5, i + 1], 4)[0])
+        with lock:
+            order.append(i)
+
+    threads = []
+    try:
+        for i in range(6):
+            threads.append(threading.Thread(target=run, args=(i,)))
+            threads[-1].start()
+            time.sleep(0.05)  # each submit waits before the next arrives
+        release.set()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        eng.close()
+    assert order == list(range(6))
+
+
 # -- windowed streams (the served runner's flow control) ----------------------
 
 def _until(cond, timeout=60):
