@@ -17,10 +17,17 @@ autograd launches the backward's kernels from a thread of its own, on the
 forward's stream, and those launches join the recording by that stream.  A graph's launches are counted where it launches them,
 at each replay; the warm-up run before a capture records too and is not
 counted (it serves no tick).
+
+Every CUDA graph of the port is captured by :func:`capture_graph`: a
+warm-up on a side stream, then ``CUDAGraph.capture_begin`` /
+``capture_end`` on that stream, with none of ``torch.cuda.graph``'s
+device-wide synchronize and cache flushes, which held up every other
+thread that allocated while a capture was set up.
 """
 
 import contextlib
 import threading
+import time
 
 LAUNCHES = {"int8_matmul": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "paged_attention": 0}
@@ -31,9 +38,63 @@ _lock = threading.Lock()
 _local = threading.local()  # .record: this thread's recording, if any
 _streams = {}  # {CUDA stream handle: recording} of the captures that name one
 # CUDA graphs are captured one at a time in a process (the engine's
-# programs and the dynamic batcher's bucket programs alike): captures
-# start on whichever thread needs them first
-CAPTURE_LOCK = threading.Lock()
+# programs, the batcher's buckets, the serial, train and vision programs
+# alike), so the graphs that share a memory pool are captured in the
+# order they replay.  Other threads' CUDA work goes on during a capture
+# (thread-local capture mode); only a thread that captures waits here.
+# Reentrant: the engine and the batcher hold it around a batch of
+# captures, each of which takes it again.
+CAPTURE_LOCK = threading.RLock()
+
+
+class Graph:
+    """One captured CUDA graph: ``replay()`` launches it and counts the
+    launches its capture recorded."""
+
+    def __init__(self, graph, launches, seconds):
+        self.graph = graph        # the torch.cuda.CUDAGraph
+        self.launches = launches  # {(kernel, route): launches} a replay
+        self.seconds = seconds    # warm-up + capture wall time
+
+    def replay(self):
+        self.graph.replay()
+        count_replay(self.launches)
+
+
+def capture_graph(body, warm_up, pool, stream):
+    """Record ``body()`` as a CUDA graph in ``pool`` (a graph pool handle,
+    or None for a pool of its own) on ``stream``, a side stream of the
+    current device, and return its :class:`Graph`.
+
+    ``stream`` waits for the calling thread's current stream, then runs
+    ``warm_up()`` unless it is None (the kernels' lazy set-up: cuDNN's
+    and cuBLAS's plans, handles and workspaces for ``stream``, the
+    allocator's blocks; its launches count nowhere), then records
+    ``body()`` between ``capture_begin`` and ``capture_end`` in
+    thread-local mode; the current stream then waits for ``stream``.
+    Nothing synchronizes the device, collects garbage or empties the
+    device or pinned-host cache, so no other thread's work or allocation
+    waits on a capture.  One capture at a time in the process
+    (``CAPTURE_LOCK``).  The capture itself runs nothing; a failed
+    capture raises."""
+    import torch
+
+    main = torch.cuda.current_stream(stream.device)
+    t0 = time.monotonic()
+    with CAPTURE_LOCK:
+        stream.wait_stream(main)
+        if warm_up is not None:
+            with torch.cuda.stream(stream), recording():
+                warm_up()
+        graph = torch.cuda.CUDAGraph()
+        with recording(stream) as launches, torch.cuda.stream(stream):
+            graph.capture_begin(pool, capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                graph.capture_end()
+        main.wait_stream(stream)
+    return Graph(graph, launches, time.monotonic() - t0)
 
 
 def count_launch(name, route=None):

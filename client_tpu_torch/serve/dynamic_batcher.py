@@ -206,9 +206,14 @@ class _BucketProgram:
     the hand-written kernel launches the capture recorded,
     ``ops.count_replay``); on the CPU ``run`` calls the forward eagerly
     and copies its result into the same static outputs, so both devices
-    share one contract."""
+    share one contract.
 
-    def __init__(self, fn, shapes, bucket, device):
+    Programs captured into one memory pool share one ``lock``: a graph
+    may write its intermediates where another's static output lies, so
+    the pool's programs take turns from filling the inputs until their
+    outputs' copies are issued, and the stream runs each turn whole."""
+
+    def __init__(self, fn, shapes, bucket, device, lock=None):
         self.fn = fn
         self.bucket = bucket
         self.device = device
@@ -220,10 +225,14 @@ class _BucketProgram:
         self.outputs = None
         self.graph = None
         self.launches = {}  # {(kernel, route): launches} of one replay
-        # the static buffers' one owner at a time: the batcher thread and
-        # a direct request's thread each hold it from filling the inputs
-        # until the outputs' copies are issued (the stream orders the rest)
-        self.lock = threading.Lock()
+        # runs that replayed the graph, and runs of the eager forward (on
+        # the CPU, or of a program not captured)
+        self.replays = self.eager_runs = 0
+        # the static buffers' (and the pool's) one owner at a time: the
+        # batcher thread and a direct request's thread each hold it from
+        # filling the inputs until the outputs' copies are issued (the
+        # stream orders the rest)
+        self.lock = lock or threading.Lock()
 
     def _forward(self):
         out = self.fn(self.inputs, {}, None)
@@ -234,6 +243,7 @@ class _BucketProgram:
 
     def run(self):
         if self.graph is None:
+            self.eager_runs += 1
             out = self._forward()
             if self.outputs is None:
                 self.outputs = out
@@ -241,25 +251,25 @@ class _BucketProgram:
                 for name, arr in out.items():
                     self.outputs[name].copy_(arr)
             return
+        self.replays += 1
         self.graph.replay()
         ops.count_replay(self.launches)
 
     def capture(self, pool, stream):
-        """Record the forward as a CUDA graph in *pool* on *stream*.  A
+        """Record the forward as a CUDA graph in *pool* on *stream*
+        (``ops.capture_graph``) and return the seconds it took.  A
         warm-up run on the same (zeroed) inputs comes first, so cuDNN and
         cuBLAS pick their algorithms and workspaces outside the capture;
         its launches count nowhere."""
-        main = torch.cuda.current_stream(self.device)
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream), ops.recording():
-            self._forward()
-        graph = torch.cuda.CUDAGraph()
-        with ops.recording() as launches:
-            with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.outputs = self._forward()
-        main.wait_stream(stream)
-        self.graph, self.launches = graph, launches
+        box = {}
+
+        def body():
+            box["outputs"] = self._forward()
+
+        captured = ops.capture_graph(body, self._forward, pool, stream)
+        self.outputs = box["outputs"]
+        self.graph, self.launches = captured.graph, captured.launches
+        return captured.seconds
 
 
 class _Pending:
@@ -485,7 +495,8 @@ class ModelBatcher:
         device, capture them all under the process's capture lock; then
         install them under ``_programs_cv``."""
         device = self._device()
-        progs = [_BucketProgram(self.model.fn, shapes, bucket, device)
+        lock = threading.Lock()  # the pool's, below
+        progs = [_BucketProgram(self.model.fn, shapes, bucket, device, lock)
                  for _, bucket, shapes in specs]
         captured = None
         if device.type == "cuda":

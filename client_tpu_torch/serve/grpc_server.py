@@ -409,8 +409,6 @@ class _Handlers:
 
     def ModelInfer(self, request, context):
         trace = self._sample_trace(request, context)
-        if trace is not None:
-            trace.event("REQUEST_START")
         # wire-path profiling (serve/prof.py): proto-decode / execute-
         # wait / proto-encode splits committed as one "grpc" tick
         ptick = self.engine.wire_prof.start_tick("grpc")
@@ -419,6 +417,11 @@ class _Handlers:
             req, binary = _request_to_dict(request)
             ptick.add("deserialize", time.perf_counter() - t_mark)
             t_mark = time.perf_counter()
+            if trace is not None:
+                # as the HTTP frontend does: the span starts where the
+                # decoded request reaches the engine, the decode being
+                # the wire's (traceview's "wire" holds serialization)
+                trace.event("REQUEST_START")
             result = self.engine.execute(
                 request.model_name, request.model_version, req, binary,
                 trace=trace, tenant=_tenant_of(context),
@@ -459,10 +462,10 @@ class _Handlers:
         context.add_callback(ended.fire)
         for request in request_iterator:
             trace = self._sample_trace(request, context)
-            if trace is not None:
-                trace.event("REQUEST_START")
             try:
                 req, binary = _request_to_dict(request)
+                if trace is not None:
+                    trace.event("REQUEST_START")  # as in ModelInfer
                 result = self.engine.execute(
                     request.model_name, request.model_version, req, binary,
                     trace=trace, tenant=tenant,
@@ -470,6 +473,7 @@ class _Handlers:
                 # a decoupled result streams lazily (generator): each
                 # response reaches the wire as the model produces it
                 responses = [result] if isinstance(result, tuple) else result
+                sent_ns = None
                 try:
                     with ended.bound():
                         for response_json, blobs in responses:
@@ -481,6 +485,10 @@ class _Handlers:
                                     blobs,
                                 )
                             )
+                            # grpc resumes this generator once it has
+                            # sent the response
+                            if trace is not None:
+                                sent_ns = time.time_ns()
                 finally:
                     # a stream the client stops closes the model's
                     # generator here and now, which cancels its engine
@@ -488,7 +496,10 @@ class _Handlers:
                     if hasattr(responses, "close"):
                         responses.close()
                 if trace is not None:
-                    trace.event("RESPONSE_SENT")
+                    # stamped when the last response went out, before the
+                    # model's generator recorded COMPUTE_END and released
+                    # its slots: that bookkeeping is no part of the span
+                    trace.event("RESPONSE_SENT", sent_ns)
             except InferenceServerException as e:
                 # ModelStreamInferResponse carries only a message string, so
                 # the status rides as a "[<status>] " prefix (str(e) form);

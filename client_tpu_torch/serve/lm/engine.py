@@ -609,17 +609,10 @@ class _Program:
         self._buf.zero_()
         scratch = {name: buf if name == "pools" else buf.clone()
                    for name, buf in self.state.items()}
-        main = torch.cuda.current_stream(self.device)
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream), ops.recording():
-            self.body(self.feeds, scratch)
-        graph = torch.cuda.CUDAGraph()
-        with ops.recording() as launches:
-            with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.body(self.feeds, self.state)
-        main.wait_stream(stream)
-        self.graph, self.launches = graph, launches
+        captured = ops.capture_graph(
+            lambda: self.body(self.feeds, self.state),
+            lambda: self.body(self.feeds, scratch), pool, stream)
+        self.graph, self.launches = captured.graph, captured.launches
 
 
 class _Lane:

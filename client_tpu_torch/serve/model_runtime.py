@@ -1405,6 +1405,11 @@ class InferenceEngine:
                 model_name, model_version, request, binary_section,
                 trace, tenant,
             )
+        # the queue starts where the engine receives the request, next
+        # to the frontend's REQUEST_START, so that little of the span
+        # lies outside queue and compute
+        trace.event("QUEUE_START")
+        trace.tenant = tenant
         with push_trace(trace):
             return self._execute_measured(
                 model_name, model_version, request, binary_section,
@@ -1441,9 +1446,6 @@ class InferenceEngine:
 
     def _execute_request(self, model_name, model_version, request,
                          binary_section, trace, tenant, t0):
-        if trace is not None:
-            trace.tenant = tenant
-            trace.event("QUEUE_START")
         front = self._front_key(model_name, model_version, request,
                                 binary_section)
         if front is not None:

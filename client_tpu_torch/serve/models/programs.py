@@ -20,18 +20,17 @@ The port's counterpart of the JAX package's last compiled LM programs
   on its second and replays it from then on, the params and the optimizer
   state updated in place (the port's stand-in for buffer donation).
 
-A graph is captured on a side stream after a warm-up, under
-``ops.CAPTURE_LOCK`` (one capture at a time in the process), with the
-kernels' launches recorded (``ops.recording``) and counted at each replay
-(``ops.count_replay``).  On a CPU device the same bodies run eagerly on the
-same static buffers.  A failed capture or replay raises; nothing runs the
-eager body on CUDA in its place.
+A graph is captured by ``ops.capture_graph`` (a warm-up, then the capture
+on a side stream, one capture at a time in the process, with no device
+sync or cache flush), with the kernels' launches recorded and counted at
+each replay (``ops.Graph.replay``).  On a CPU device the same bodies run
+eagerly on the same static buffers.  A failed capture or replay raises;
+nothing runs the eager body on CUDA in its place.
 """
 
 import collections
 import contextlib
 import threading
-import time
 import weakref
 
 import torch
@@ -42,46 +41,6 @@ from client_tpu_torch.serve.models import transformer as tfm
 PREFILL_GRAPHS = 8  # prefill graphs a program set keeps (LRU)
 IDLE_SETS = 8       # program sets a pool keeps between streams
 _leaves = tfm._leaves
-
-
-class _Graph:
-    """One captured program: ``replay()`` launches it and counts the
-    launches its capture recorded."""
-
-    def __init__(self, graph, launches, seconds):
-        self.graph = graph
-        self.launches = launches  # {(kernel, route): launches} a replay
-        self.seconds = seconds    # warm-up + capture wall time
-
-    def replay(self):
-        self.graph.replay()
-        ops.count_replay(self.launches)
-
-
-def _capture(body, warm_up, pool, stream):
-    """Run ``warm_up()`` on ``stream`` (the kernels' lazy set-up: the
-    extension, cuBLAS's handle and workspace for the stream, the
-    allocator's blocks; its launches count nowhere), then record ``body()``
-    as a CUDA graph in ``pool`` on ``stream``.  One capture at a time in
-    the process (``ops.CAPTURE_LOCK``); the capture itself runs nothing."""
-    from client_tpu_torch.ops._build import kernels
-
-    kernels()  # build the extension before any capture
-    device = stream.device
-    t0 = time.monotonic()
-    main = torch.cuda.current_stream(device)
-    with ops.CAPTURE_LOCK:
-        stream.wait_stream(main)
-        if warm_up is not None:
-            with torch.cuda.stream(stream), ops.recording():
-                warm_up()
-        graph = torch.cuda.CUDAGraph()
-        with ops.recording(stream) as launches:
-            with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                body()
-        main.wait_stream(stream)
-    return _Graph(graph, launches, time.monotonic() - t0)
 
 
 # -- the serial LM programs (generate) ---------------------------------------
@@ -115,6 +74,9 @@ class SerialPrograms:
         self._graphs = device.type == "cuda"
         self._decode = None
         if self._graphs:
+            from client_tpu_torch.ops._build import kernels
+
+            kernels()  # build the extension before any capture
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(device)
             self._decode = self._capture(
@@ -138,8 +100,9 @@ class SerialPrograms:
         warm-up on scratch copies (it changes no live row)."""
         scratch = _scratch(self.cache)
         out = torch.empty_like(self.logits)
-        return _capture(lambda: run(self.cache, self.logits),
-                        lambda: run(scratch, out), self._pool, self._stream)
+        return ops.capture_graph(lambda: run(self.cache, self.logits),
+                                 lambda: run(scratch, out), self._pool,
+                                 self._stream)
 
     def _decode_body(self, params, token, cache, logits):
         out, _ = tfm.decode_step(params, token, self.cfg, cache)
@@ -355,8 +318,9 @@ class TrainProgram:
             box["loss"] = self.body(params, opt_state,
                                     self._tokens).detach()
 
-        self._graph = _capture(run, None, torch.cuda.graph_pool_handle(),
-                               self._stream)
+        self._graph = ops.capture_graph(run, None,
+                                        torch.cuda.graph_pool_handle(),
+                                        self._stream)
         self.capture_s = self._graph.seconds
         self._loss = box["loss"]
         self._graph.replay()

@@ -12,18 +12,25 @@ reference.  On a CUDA device the activations run ``channels_last``; the
 wire spec stays NCHW.
 
 Served through the dynamic batcher (serve/dynamic_batcher.py), each
-padded bucket's forward is one CUDA graph on the card.
+padded bucket's forward is one CUDA graph on the card.  The pipeline's
+three steps run through programs of their own (:class:`_StepPrograms`,
+the port's ``jax.jit`` of each step): one CUDA graph per input shape and
+dtype, captured at its first sight.
 
 Parameters are drawn from an explicit ``torch.Generator`` on the CPU and
 then moved, so a seed gives the same weights on every device.  The draws
 are not JAX's; the tests carry the JAX parameters across instead.
 """
 
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from client_tpu_torch import resolve_device
+from client_tpu_torch.serve.dynamic_batcher import (
+    _BucketProgram, device_stream)
 from client_tpu_torch.serve.model_runtime import Model, TensorSpec
 
 # ImageNet-ish class count so classification extension demos look real.
@@ -358,21 +365,111 @@ _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+def _pixel_stats(device):
+    """ImageNet's per-channel mean and std, [1, 3, 1, 1] float32."""
+    return [torch.tensor(v, dtype=torch.float32, device=device)
+            .reshape(1, 3, 1, 1) for v in (_IMAGENET_MEAN, _IMAGENET_STD)]
+
+
+def _normalize(x, mean, std):
+    x = x.to(torch.float32) / 255.0
+    x = x.permute(0, 3, 1, 2)
+    return ((x - mean) / std).contiguous()
+
+
 @torch.no_grad()
 def _preprocess_forward(x):
     """uint8 NHWC image batch -> normalized float32 NCHW pixels."""
-    x = x.to(torch.float32) / 255.0
-    x = x.permute(0, 3, 1, 2)
-    mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float32,
-                        device=x.device).reshape(1, 3, 1, 1)
-    std = torch.tensor(_IMAGENET_STD, dtype=torch.float32,
-                       device=x.device).reshape(1, 3, 1, 1)
-    return ((x - mean) / std).contiguous()
+    return _normalize(x, *_pixel_stats(x.device))
+
+
+class _StepPrograms:
+    """One pipeline step's programs, keyed by its inputs' shapes and
+    dtypes as ``jax.jit`` keys its executables: a ``_BucketProgram`` each
+    (static inputs; on CUDA the step's forward as a graph, captured
+    through ``ops.capture_graph`` at the shape's first sight; static
+    outputs).
+
+    A call copies its inputs (host arrays or tensors on the device) into
+    the program's static inputs, runs it on the device's default stream
+    (as every ensemble hop) and returns copies of its outputs, since the
+    next call at that shape overwrites them while an ensemble hands the
+    result on to another thread.  A step's graphs share one memory pool,
+    so they share one lock, held from the copies in until the copies out
+    are issued (``_BucketProgram``).  On the CPU the forward runs eagerly
+    on the same static buffers.  No fallback: a failed capture or replay
+    raises from the call."""
+
+    def __init__(self, fn, device):
+        self.fn = fn  # (inputs, params, ctx) -> outputs, as a model's
+        self.device = device
+        self._programs = {}  # input signature -> _BucketProgram
+        # the programs, the pool, the stats, and every run and capture
+        self._lock = threading.Lock()
+        self._pool = self._stream = None
+        self._captures = {"graphs": 0, "capture_s": 0.0}
+
+    def shapes(self):
+        """The input signatures of the programs made so far: ((name,
+        shape, dtype), ...) each."""
+        with self._lock:
+            return list(self._programs)
+
+    def stats(self):
+        """Graphs captured, capture seconds, replays and eager runs; on
+        CUDA ``memory_reserved`` before the first capture and after the
+        last."""
+        with self._lock:
+            progs = list(self._programs.values())
+            return {**self._captures,
+                    "replays": sum(p.replays for p in progs),
+                    "eager_runs": sum(p.eager_runs for p in progs)}
+
+    def __call__(self, inputs):
+        tensors = {}
+        for name, x in inputs.items():
+            if isinstance(x, torch.Tensor):
+                tensors[name] = _as_device_tensor(x, self.device)
+            else:
+                # a wire tensor is a read-only view of the request body
+                tensors[name] = torch.from_numpy(
+                    np.require(x, requirements=["C", "W"]))
+        key = tuple((name, tuple(t.shape), t.dtype)
+                    for name, t in sorted(tensors.items()))
+        with self._lock, device_stream(self.device):
+            prog = self._programs.get(key) or self._build(key)
+            for name, t in tensors.items():
+                prog.inputs[name].copy_(t)
+            prog.run()
+            return {name: out.clone() for name, out in prog.outputs.items()}
+
+    def _build(self, key):
+        """The program of input signature *key*, captured on CUDA (the
+        caller holds ``_lock``)."""
+        shapes = {name: (shape[1:], dtype) for name, shape, dtype in key}
+        prog = _BucketProgram(self.fn, shapes, key[0][1][0], self.device,
+                              self._lock)
+        if self.device.type == "cuda":
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+                self._stream = torch.cuda.Stream(self.device)
+            before = torch.cuda.memory_reserved(self.device)
+            seconds = prog.capture(self._pool, self._stream)
+            stats = self._captures
+            stats["graphs"] += 1
+            stats["capture_s"] += seconds
+            stats.setdefault("memory_reserved_before", before)
+            stats["memory_reserved_after"] = torch.cuda.memory_reserved(
+                self.device)
+        self._programs[key] = prog
+        return prog
 
 
 class _VisionPipelineRunners:
     """Shared state behind the pipeline's composing models: one resnet
-    parameter tree (backbone stages + classification head) on *device*."""
+    parameter tree (backbone stages + classification head) on *device*,
+    and each step's programs (the JAX runners' ``_pre``, ``_features``
+    and ``_head`` jits; the softmax is folded into the head's)."""
 
     def __init__(self, stages, num_classes, seed=0, device=None):
         self.device = resolve_device(device)
@@ -382,22 +479,43 @@ class _VisionPipelineRunners:
             _init_resnet_params(torch.Generator().manual_seed(seed),
                                 num_classes=num_classes, stages=stages),
             self.device)
+        mean, std = _pixel_stats(self.device)
+        self._pre = _StepPrograms(lambda inputs, params, ctx: {
+            "PIXELS": _normalize(inputs["IMAGE"], mean, std)}, self.device)
+        self._features = _StepPrograms(self._features_fn, self.device)
+        self._head = _StepPrograms(self._head_fn, self.device)
+
+    def _features_fn(self, inputs, params, ctx):
+        # the float32 cast honors the FEATURES spec
+        return {"FEATURES": _resnet_features(
+            self.params, inputs["PIXELS"], stage_strides=self.strides
+        ).float()}
+
+    def _head_fn(self, inputs, params, ctx):
+        return {"SCORES": torch.softmax(
+            _resnet_head(self.params, inputs["FEATURES"]), dim=-1)}
+
+    def programs(self):
+        """{step: its _StepPrograms}."""
+        return {"preprocess": self._pre, "backbone": self._features,
+                "postprocess": self._head}
+
+    def graph_stats(self):
+        """{step: graphs captured, capture seconds, replays, eager runs
+        (on CUDA only a program not captured would make one), and on CUDA
+        ``memory_reserved`` before the step's first capture and after its
+        last}."""
+        return {step: progs.stats() for step, progs in self.programs().items()}
 
     def preprocess(self, inputs, params, ctx):
-        x = _as_device_tensor(inputs["IMAGE"], self.device)
-        return {"PIXELS": _preprocess_forward(x)}
+        return self._pre({"IMAGE": inputs["IMAGE"]})
 
     def backbone(self, inputs, params, ctx):
-        # the PIXELS handoff arrives on the device; the float32 cast
-        # honors the FEATURES spec and stays there
-        x = _as_device_tensor(inputs["PIXELS"], self.device)
-        feats = _resnet_features(self.params, x, stage_strides=self.strides)
-        return {"FEATURES": feats.float()}
+        # the PIXELS handoff arrives on the device and FEATURES stays there
+        return self._features({"PIXELS": inputs["PIXELS"]})
 
     def postprocess(self, inputs, params, ctx):
-        h = _as_device_tensor(inputs["FEATURES"], self.device)
-        scores = _resnet_head(self.params, h)
-        return {"SCORES": torch.softmax(scores, dim=-1)}
+        return self._head({"FEATURES": inputs["FEATURES"]})
 
 
 def vision_pipeline_models(image_size=32, stages=_TINY_STAGES,

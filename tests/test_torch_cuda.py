@@ -12,6 +12,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -1038,6 +1039,173 @@ def test_vision_pipeline_hands_cuda_tensors_over(cuda_device):
                                   {"model": "vision_pipeline"}) == 2
     finally:
         engine.close()
+
+
+def _count_flushes(monkeypatch):
+    """Count calls of the device-wide sync and both cache flushes that
+    ``torch.cuda.graph`` makes before a capture."""
+    calls = {"synchronize": 0, "empty_cache": 0, "_host_emptyCache": 0}
+    for owner, name in ((torch.cuda, "synchronize"),
+                        (torch.cuda, "empty_cache"),
+                        (torch._C, "_host_emptyCache")):
+        real = getattr(owner, name)
+
+        def counted(*args, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(owner, name, counted)
+    return calls
+
+
+def _graph_body(x, w):
+    return torch.softmax(x @ w, dim=-1).cumsum(-1) * 0.5
+
+
+@pytest.mark.cuda
+def test_capture_graph_makes_no_device_sync_or_flush(cuda_device,
+                                                     monkeypatch):
+    """``ops.capture_graph`` calls none of ``torch.cuda.synchronize``,
+    ``torch.cuda.empty_cache`` and ``torch._C._host_emptyCache`` (counted
+    by a monkeypatch), where ``torch.cuda.graph``'s context calls each."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(16, 64, generator=gen).to(cuda_device)
+    w = torch.randn(64, 32, generator=gen).to(cuda_device)
+    calls = _count_flushes(monkeypatch)
+    box = {}
+
+    def body():
+        box["out"] = _graph_body(x, w)
+
+    graph = ops.capture_graph(body, body, torch.cuda.graph_pool_handle(),
+                              torch.cuda.Stream())
+    assert calls == {"synchronize": 0, "empty_cache": 0,
+                     "_host_emptyCache": 0}
+    assert graph.launches == {} and graph.seconds > 0
+    # the counter sees the context's calls (the control)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(torch.cuda.CUDAGraph()):
+        body()
+    assert all(n >= 1 for n in calls.values()), calls
+
+
+@pytest.mark.cuda
+def test_capture_graph_replays_equal_the_eager_body(cuda_device):
+    """A graph captured through ``ops.capture_graph`` and replayed on new
+    inputs copied into its static input equals the eager body on them,
+    bit for bit, each replay on the current stream."""
+    gen = torch.Generator().manual_seed(4)
+    w = torch.randn(64, 32, generator=gen).to(cuda_device)
+    x = torch.zeros(16, 64, device=cuda_device)
+    box = {}
+
+    def body():
+        box["out"] = _graph_body(x, w)
+
+    graph = ops.capture_graph(body, body, torch.cuda.graph_pool_handle(),
+                              torch.cuda.Stream())
+    for _ in range(3):
+        new = torch.randn(16, 64, generator=gen).to(cuda_device)
+        x.copy_(new)
+        graph.replay()
+        assert torch.equal(box["out"], _graph_body(new, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["preprocess", "backbone", "postprocess"])
+def test_vision_step_graphs_equal_eager(cuda_device, step):
+    """Each vision step's program on the card (a CUDA graph captured at
+    the shape's first sight) against its eager function at rows 1 and 3:
+    bit for bit, no eager run, one graph per shape."""
+    from client_tpu_torch.serve.models import vision
+
+    runners = vision.vision_pipeline_models(device=cuda_device)[0] \
+        .fn.__self__
+    plain = {
+        "preprocess": vision._preprocess_forward,
+        "backbone": lambda x: vision._resnet_features(
+            runners.params, x, stage_strides=runners.strides).float(),
+        "postprocess": lambda h: torch.softmax(
+            vision._resnet_head(runners.params, h), dim=-1),
+    }
+    name = {"preprocess": "IMAGE", "backbone": "PIXELS",
+            "postprocess": "FEATURES"}[step]
+    for rows in (1, 3, 1, 3):
+        img = torch.from_numpy(np.random.default_rng(rows).integers(
+            0, 256, (rows, 32, 32, 3), dtype=np.uint8)).to(cuda_device)
+        x = img
+        for prior in ("preprocess", "backbone", "postprocess"):
+            if prior == step:
+                break
+            x = plain[prior](x)
+        got = next(iter(getattr(runners, step)({name: x}, {}, None)
+                        .values()))
+        assert torch.equal(got, plain[step](x))
+    stats = runners.graph_stats()[step]
+    assert stats["graphs"] == 2 and stats["eager_runs"] == 0
+    assert stats["replays"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["preprocess", "backbone", "postprocess"])
+def test_vision_step_threads_at_two_shapes_equal_eager(cuda_device, step):
+    """Four threads call a vision step at once, at rows 1 and 3 (two
+    graphs in one memory pool), twenty times each on their own seeded
+    input: every result equals the eager function of that input, bit for
+    bit, though one shape's graph may write its intermediates where the
+    other's static output lies."""
+    from client_tpu_torch.serve.models import vision
+
+    runners = vision.vision_pipeline_models(device=cuda_device)[0] \
+        .fn.__self__
+    plain = {
+        "preprocess": vision._preprocess_forward,
+        "backbone": lambda x: vision._resnet_features(
+            runners.params, x, stage_strides=runners.strides).float(),
+        "postprocess": lambda h: torch.softmax(
+            vision._resnet_head(runners.params, h), dim=-1),
+    }
+    name = {"preprocess": "IMAGE", "backbone": "PIXELS",
+            "postprocess": "FEATURES"}[step]
+    inputs = []
+    for i, rows in enumerate((1, 3, 1, 3)):
+        x = torch.from_numpy(np.random.default_rng(40 + i).integers(
+            0, 256, (rows, 32, 32, 3), dtype=np.uint8)).to(cuda_device)
+        for prior in ("preprocess", "backbone", "postprocess"):
+            if prior == step:
+                break
+            x = plain[prior](x)
+        inputs.append(x)
+    want = [plain[step](x) for x in inputs]
+    torch.cuda.synchronize()
+    results, errors = [None] * 4, []
+    start = threading.Barrier(4)
+
+    def worker(i):
+        try:
+            start.wait(timeout=30)
+            ok = True
+            for _ in range(20):
+                got = next(iter(getattr(runners, step)(
+                    {name: inputs[i]}, {}, None).values()))
+                ok = ok and torch.equal(got, want[i])
+            results[i] = ok
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors and results == [True] * 4
+    stats = runners.graph_stats()[step]
+    assert stats["graphs"] == 2 and stats["eager_runs"] == 0
 
 
 # -- CUDA shared memory: regions over CUDA IPC --------------------------------

@@ -665,6 +665,26 @@ def test_fused_warmup_builds_one_program_per_bucket():
     engine.close()
 
 
+def test_programs_built_together_share_the_pools_lock():
+    """The programs a build captures into one graph pool (a fused
+    warmup's buckets) share one lock, since a replay may overwrite
+    another's static outputs; a later build (another input signature)
+    has a pool and a lock of its own.  On the CPU each run is an eager
+    run of its program."""
+    record = []
+    engine = InferenceEngine(models=[_fused_model(record, warmup=True)])
+    batcher = engine._batchers["echo2x"]
+    warm = list(batcher._programs.values())
+    assert len({id(p.lock) for p in warm}) == 1
+    out = batcher.submit({"IN": torch.ones((5, 4), dtype=torch.float64)})
+    torch.testing.assert_close(out["OUT"], torch.full((5, 4), 2.0,
+                                                      dtype=torch.float64))
+    later = [p for p in batcher._programs.values() if p not in warm]
+    assert len(later) == 1 and later[0].lock is not warm[0].lock
+    assert later[0].eager_runs == 1 and later[0].replays == 0
+    engine.close()
+
+
 def test_dynamic_batching_in_model_config():
     model = _echo_model([], flops_per_item=12)
     cfg = model.config()

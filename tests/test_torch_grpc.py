@@ -291,14 +291,16 @@ def lm():
                "jax": (ref, jmodel.closer.__self__)}
 
 
-def _lm_stream(address, prompt, n, stop_after=None):
+def _lm_stream(address, prompt, n, stop_after=None, headers=None):
     """One client's stream (tests/test_continuous.py::
     test_grpc_batched_model_concurrent's run_stream); with *stop_after*
-    the client cancels the stream after that many tokens."""
+    the client cancels the stream after that many tokens.  *headers* ride
+    the stream's metadata."""
     results = queue.Queue()
     client = grpcclient.InferenceServerClient(address)
     client.start_stream(
-        callback=lambda result, error: results.put((result, error))
+        callback=lambda result, error: results.put((result, error)),
+        headers=headers,
     )
     t_in = grpcclient.InferInput("TOKENS", [len(prompt)], "INT32")
     t_in.set_data_from_numpy(np.asarray(prompt, dtype=np.int32))
@@ -535,6 +537,55 @@ def test_grpc_infer_joins_client_and_server_spans(tmp_path):
     assert server["protocol"] == "grpc"
     assert server["model_name"] == "simple"
     assert engines["wire"]["kinds"] == {"grpc": 1}
+
+
+def test_stream_span_ends_at_its_compute_end(lm, tmp_path):
+    """A traced stream on the port's server: RESPONSE_SENT is stamped when
+    the last response went out, so the server span ends at the model's
+    COMPUTE_END and the slot bookkeeping after it lies outside the span.
+    The port's traceview (the reference's attribution) then misses the
+    client's duration by the span's head alone, REQUEST_START to
+    QUEUE_START (queue ends where compute starts)."""
+    from client_tpu_torch import traceview
+    from client_tpu_torch.tracing import ClientTracer as PortTracer
+    from client_tpu_torch.tracing import client_span
+
+    port = lm["torch"][0]
+    server_file = str(tmp_path / "server.jsonl")
+    client_file = str(tmp_path / "client.jsonl")
+    port.engine.update_trace_settings({
+        "trace_level": ["TIMESTAMPS"], "trace_rate": "1",
+        "trace_count": "-1", "trace_file": server_file})
+    tracer = PortTracer(trace_file=client_file, trace_rate=1)
+    try:
+        with client_span(tracer, "lm_streaming_batched") as trace:
+            toks, final = _lm_stream(
+                port.grpc_address, lm["prompts"][0], _TOKENS,
+                headers={"traceparent": trace.traceparent()})
+    finally:
+        port.engine.update_trace_settings({"trace_level": ["OFF"],
+                                           "trace_file": ""})
+    assert final and toks == lm["want"][0]
+    traces = traceview.join_traces(
+        traceview.load_records([client_file, server_file]))
+    joined = [spans for spans in traces.values()
+              if any(r.get("source") == "client" for r in spans)]
+    assert len(joined) == 1
+    spans = joined[0]
+    server = [r for r in spans if r.get("source") == "server"
+              and not str(r.get("model_name")).startswith("__")]
+    assert len(server) == 1
+    stamps = {e["name"]: e["ns"] for e in server[0]["timestamps"]}
+    names = [e["name"] for e in server[0]["timestamps"]]
+    assert names[0] == "REQUEST_START" and names[-1] == "RESPONSE_SENT"
+    assert stamps["QUEUE_END"] == stamps["COMPUTE_START"]
+    assert stamps["RESPONSE_SENT"] <= stamps["COMPUTE_END"]
+    assert stamps["COMPUTE_END"] == max(stamps.values())
+    cp = traceview.critical_path(spans)
+    head_ms = (stamps["QUEUE_START"] - stamps["REQUEST_START"]) / 1e6
+    assert cp["total_ms"] - (cp["queue_ms"] + cp["compute_ms"]
+                             + cp["wire_ms"]) == pytest.approx(
+                                 head_ms, abs=1e-6)
 
 
 # -- (f) the engine takes a list of per-tensor buffers -------------------------
