@@ -458,7 +458,16 @@ Phases, one line each or more; any failure exits non-zero:
                 without it (exits non-zero, nothing served);
                 lm_streaming_int8 over HTTPS with MAX_TOKENS 1, int8 and
                 paged attention launched (launches_tls in phase 20).
-                Every client count equals its server's
+                Every client count equals its server's.  Phases 22-26's
+                client processes start through tools/torch_free.py:
+                those that need no torch (the service kinds, the runs
+                across A and B, the TLS relays and the perf runs through
+                them, the native legs from the wire) with
+                sys.modules["torch"] = None, the rest (CUDA regions, the
+                local GPU gauges and probe) with torch; each prints its
+                torch_loaded and seconds from spawn to its first request,
+                gathered on 26's client_starts line (a torch-free one
+                that loaded torch fails it)
  27 chaos       the failure-domain checks on phase 23's server, after
                 26.  (a) The port's LockWitness, RaceWitness and
                 ResourceWitness installed before anything is built, then
@@ -498,8 +507,9 @@ Phases, one line each or more; any failure exits non-zero:
                 fixture under tests/analysis_fixtures/torch: every _bad
                 fixture fires its rule, no _ok fixture fires anything;
                 the package's __version__, the rules fired, seconds
-Every timing line carries the card's name and power limit.  The last line
-is {"ok": true, "device": {...}}.
+Every timing line carries the card's name and power limit.  Before the
+kernels line, script_seconds: the process's seconds so far and phases
+22-26's.  The last line is {"ok": true, "device": {...}}.
 """
 
 import asyncio
@@ -510,6 +520,7 @@ import dataclasses
 import functools
 import gc
 import gzip
+import importlib.util
 import io
 import itertools
 import json
@@ -520,7 +531,6 @@ import select
 import shutil
 import signal
 import socket
-import ssl
 import subprocess
 import sys
 import tempfile
@@ -652,6 +662,112 @@ def stop_children():
     for child in multiprocessing.active_children():
         child.kill()
         child.join(timeout=30)
+
+
+# -- client processes that need no torch (phases 22-26) ------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+TORCH_FREE = os.path.join(HERE, "tools", "torch_free.py")
+TLS_RELAY = os.path.join(HERE, "tools", "tls_relay.py")
+# perf CLI options that need torch in the client's own process
+TORCH_OPTIONS = ("--collect-local-gpu-metrics",
+                 "--probe-device-utilization", "--device")
+# one entry a client process started through client_argv, with its
+# phase, its start line (tools/torch_free.py) and whether torch was
+# blocked in it
+CLIENT_STARTS = []
+# phases 22-26's seconds, each from its own start to its "done" line
+PHASE_SECONDS = {}
+
+
+def _tool(name):
+    """A module of tools/ loaded from its file (tools/ is no package)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "tools", name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+TlsRelay = _tool("tls_relay").TlsRelay
+
+
+def needs_torch(argv):
+    """Whether a client process of *argv* needs torch: a CUDA region,
+    the local GPU gauges or the probe, a device (the client code strings
+    that use them pass ``torch=True`` to client_argv)."""
+    return (any(a in TORCH_OPTIONS for a in argv)
+            or any(a == "--shared-memory" and b == "cuda"
+                   for a, b in zip(argv, argv[1:])))
+
+
+def client_argv(argv, torch=None):
+    """*argv* (``[sys.executable, ...]``) run through tools/torch_free.py:
+    torch blocked (``sys.modules["torch"] = None`` before the process runs
+    its module) unless it needs torch (*torch*, else needs_torch), and
+    its start timed either way (client_start reads the line)."""
+    if torch is None:
+        torch = needs_torch(argv)
+    return [sys.executable, TORCH_FREE,
+            *(["--with-torch"] if torch else []), *argv[1:]]
+
+
+def client_env(env=None):
+    """The environment of a client_argv process: PYTHONPATH this
+    checkout, and the spawn time its start is counted from (call this
+    in the Popen call, just before the process starts)."""
+    return {**(env or {**os.environ, "PYTHONPATH": HERE}),
+            "TORCH_FREE_SPAWN_T": repr(time.time())}
+
+
+def client_start(n, label, argv, stderr, waits=False):
+    """Note the start line of a client_argv process (phase *n*) from its
+    standard error, and return the rest of it.  Fails where the line is
+    missing or where a process started with torch blocked loaded it.
+    *waits*: its first request waits on another process's (a relay's
+    on its first client's), so its start_s is no start-up time."""
+    lines = (stderr or "").splitlines(keepends=True)
+    mine = [ln for ln in lines if ln.startswith("torch_free: ")]
+    rest = "".join(ln for ln in lines if not ln.startswith("torch_free: "))
+    check(len(mine) == 1, f"{label}: {len(mine)} start lines: {rest[-2000:]}")
+    rec = json.loads(mine[0][len("torch_free: "):])
+    blocked = "--with-torch" not in argv[:3]
+    check(not (blocked and rec["torch_loaded"]),
+          f"{label} was started torch-free and loaded torch: {rec}")
+    CLIENT_STARTS.append({"phase": n, "client": label,
+                          "torch_blocked": blocked, "waits": waits, **rec})
+    return rest
+
+
+def client_starts_summary(card):
+    """Phase 26's closing line on phases 22-26's client processes: each
+    one's torch_loaded and seconds from spawn to its first request, and
+    the median and range of each kind (the relays' aside: see
+    client_start's *waits*)."""
+    kinds = {}
+    for rec in CLIENT_STARTS:
+        if rec["start_s"] is not None and not rec["waits"]:
+            kinds.setdefault(rec["torch_loaded"], []).append(rec["start_s"])
+    summary = {("torch_loaded" if k else "torch_free"): {
+        "processes": len(v), "start_s_median": float(np.median(v)),
+        "start_s_min": min(v), "start_s_max": max(v)}
+        for k, v in kinds.items()}
+    check(any(not r["torch_loaded"] for r in CLIENT_STARTS),
+          "no client process of phases 22-26 ran torch-free")
+    phase(26, "client_starts", processes=CLIENT_STARTS, summary=summary,
+          start_s_from="the parent's time.time() just before Popen to the "
+                       "process's first socket connect or gRPC channel",
+          **card)
+
+
+def process_seconds():
+    """Seconds since this process started (its start time in
+    /proc/self/stat against /proc/uptime)."""
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return up - start / os.sysconf("SC_CLK_TCK")
 
 
 def phase(n, name, **fields):
@@ -5203,7 +5319,8 @@ def success_counts(server, model):
 
 
 def perf_socket_leg(server, tmp, protocol, model, shm, sync=False,
-                    extra=(), env=None, levels="1:8:7", tag="", watch=None):
+                    extra=(), env=None, levels="1:8:7", tag="", watch=None,
+                    n=None):
     """One ``python -m client_tpu_torch.perf -i <protocol>`` subprocess
     against *model* behind this process's *server*, at concurrency
     *levels* (1 and 8), with --collect-metrics --collect-local-gpu-metrics
@@ -5212,8 +5329,9 @@ def perf_socket_leg(server, tmp, protocol, model, shm, sync=False,
     in every record and, from CUDA regions, the regions seen over
     CudaSharedMemoryStatus and opened over CUDA IPC.  *watch*, if given,
     runs on a thread of its own as ``watch(pid, stop)`` while the
-    subprocess runs.  Returns (leg, JSON export, the server's successes,
-    the CUDA regions, seconds)."""
+    subprocess runs; its start is noted under phase *n* (client_start).
+    Returns (leg, JSON export, the server's successes, the CUDA regions,
+    seconds)."""
     from client_tpu_torch import grpc as grpcclient
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5244,10 +5362,9 @@ def perf_socket_leg(server, tmp, protocol, model, shm, sync=False,
     before = counts()
     t0 = time.monotonic()
     poller.start()
-    proc = popen(argv, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True,
-                            env=env or {**os.environ, "PYTHONPATH": here},
-                            cwd=here)
+    proc = popen(client_argv(argv), stdout=subprocess.PIPE,
+                 stderr=subprocess.PIPE, text=True, env=client_env(env),
+                 cwd=here)
     watcher = (None if watch is None else
                threading.Thread(target=watch, args=(proc.pid, stop),
                                 daemon=True))
@@ -5264,6 +5381,7 @@ def perf_socket_leg(server, tmp, protocol, model, shm, sync=False,
         if watcher is not None:
             watcher.join(timeout=30)
     seconds = time.monotonic() - t0
+    stderr = client_start(n, leg, proc.args, stderr)
     check(proc.returncode == 0,
           f"{leg} exited {proc.returncode}: {stderr[-3000:]}")
     after = counts()
@@ -5308,7 +5426,7 @@ def perf_socket_legs(card, tmp):
         addr = server.grpc_address
         for shm, sync in PERF_SHM_LEGS:
             leg, doc, served, regions, seconds = perf_socket_leg(
-                server, tmp, "grpc", "resnet50", shm, sync, env=env)
+                server, tmp, "grpc", "resnet50", shm, sync, env=env, n=22)
             phase(22, "perf_grpc", leg=leg, levels=perf_levels(doc),
                   requests=doc["requests"], server_successes=served,
                   cuda_regions_opened_over_ipc=regions,
@@ -5319,10 +5437,11 @@ def perf_socket_legs(card, tmp):
         probe = DeviceUtilizationProbe()
         idle_here = perf_probe_samples(probe, PERF_PROBE_SAMPLES)
         proc = popen(
-            [sys.executable, "-c", PERF_CHECK_CLIENT, addr,
-             str(PERF_PROBE_SAMPLES)],
+            client_argv([sys.executable, "-c", PERF_CHECK_CLIENT, addr,
+                         str(PERF_PROBE_SAMPLES)], torch=True),
             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True, env=env, cwd=here)
+            stderr=subprocess.PIPE, text=True, env=client_env(env),
+            cwd=here)
         try:
             first = proc.stdout.readline()
             if not first:
@@ -5341,6 +5460,8 @@ def perf_socket_legs(card, tmp):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        client_start(22, "the check client (CUDA regions, the probe)",
+                     proc.args, proc.stderr.read())
         check(answer["region_equals_wire"],
               f"a CUDA-region answer differs from the wire's by "
               f"{answer['max_abs_diff']}")
@@ -5379,8 +5500,9 @@ def perf_phase(card):
         perf_socket_legs(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    PHASE_SECONDS[22] = time.monotonic() - t0
     phase(22, "perf_done", launches=launches, launches_by_route=routes,
-          seconds=time.monotonic() - t0, **card)
+          seconds=PHASE_SECONDS[22], **card)
     return launches, routes
 
 
@@ -5564,24 +5686,30 @@ def mixed_socket_leg(card, server, tmp, solo):
     before = success_counts(server, "resnet50")
     t0 = time.monotonic()
     bg = popen(
-        perf_argv(server, "grpc", "resnet50", "system", outs["system"],
-                  levels=str(MIXED_LEVEL), window_ms=MIXED_WINDOW_MS),
+        client_argv(perf_argv(server, "grpc", "resnet50", "system",
+                              outs["system"], levels=str(MIXED_LEVEL),
+                              window_ms=MIXED_WINDOW_MS)),
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-        env=env, cwd=here)
+        env=client_env(env), cwd=here)
     try:
         while (success_counts(server, "resnet50")[0] == before[0]
                and bg.poll() is None and time.monotonic() - t0 < 120):
             time.sleep(0.05)
         wire = subprocess.run(
-            perf_argv(server, "grpc", "resnet50", "none", outs["none"],
-                      levels=str(MIXED_LEVEL)),
-            capture_output=True, text=True, timeout=300, env=env, cwd=here)
+            client_argv(perf_argv(server, "grpc", "resnet50", "none",
+                                  outs["none"], levels=str(MIXED_LEVEL))),
+            capture_output=True, text=True, timeout=300,
+            env=client_env(env), cwd=here)
         overlapped = bg.poll() is None
         _, bg_err = bg.communicate(timeout=300)
     finally:
         if bg.poll() is None:
             bg.kill()
             bg.wait()
+    wire.stderr = client_start(23, "resnet50 grpc none (mixed)", wire.args,
+                               wire.stderr)
+    bg_err = client_start(23, "resnet50 grpc system (mixed)", bg.args,
+                          bg_err)
     check(wire.returncode == 0 and bg.returncode == 0,
           f"the mixed legs exited {wire.returncode} (wire) and "
           f"{bg.returncode} (system): {wire.stderr[-2000:]} {bg_err[-2000:]}")
@@ -5647,7 +5775,8 @@ def http_lm_leg(card, server, tmp):
     torch.cuda.synchronize()
     ops.reset_launches()
     leg, doc, served, _, seconds = perf_socket_leg(
-        server, tmp, "http", HTTP_LM, "none", extra=["--input-data", data])
+        server, tmp, "http", HTTP_LM, "none", extra=["--input-data", data],
+        n=23)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     routes = {n: dict(r) for n, r in ops.ROUTES.items()}
@@ -5691,7 +5820,7 @@ def http_phase(card):
             side = {}
             for shm in ("none", "system"):
                 leg, doc, served, _, seconds = perf_socket_leg(
-                    server, tmp, "grpc", "resnet50", shm)
+                    server, tmp, "grpc", "resnet50", shm, n=23)
                 side[shm] = perf_levels(doc)
                 phase(23, "perf_grpc_again", leg=leg, levels=side[shm],
                       requests=doc["requests"], seconds=seconds, **card)
@@ -5706,13 +5835,14 @@ def http_phase(card):
             mixed_socket_leg(card, server, tmp, side["none"])
             for shm in HTTP_SHM_LEGS:
                 leg, doc, served, regions, seconds = perf_socket_leg(
-                    server, tmp, "http", "resnet50", shm)
+                    server, tmp, "http", "resnet50", shm, n=23)
                 phase(23, "perf_http", leg=leg, levels=perf_levels(doc),
                       requests=doc["requests"], server_successes=served,
                       cuda_regions_opened_over_ipc=regions,
                       seconds=seconds, export=doc, **card)
             launches, routes = http_lm_leg(card, server, tmp)
-            phase(23, "http_done", seconds=time.monotonic() - t0, **card)
+            PHASE_SECONDS[23] = time.monotonic() - t0
+            phase(23, "http_done", seconds=PHASE_SECONDS[23], **card)
             aio = aio_phase(card, server, engines, tmp)
             balanced = balance_phase(card, server, resnet, engines, tmp)
             native, tls = native_phase(card, server, tmp)
@@ -5858,14 +5988,15 @@ def service_kind_runs(tmp):
     for kind, model, shape in AIO_SERVICE_KINDS:
         out = os.path.join(tmp, f"service_{kind}.json")
         procs[kind] = (out, popen(
-            [sys.executable, "-m", "client_tpu_torch.perf", "-m", model,
-             "--service-kind", kind, "--hermetic", "--shape", shape,
-             "--concurrency-range", "1:2:1",
-             "--measurement-interval", str(PERF_WINDOW_MS["socket"]),
-             "--max-trials", str(PERF_TRIALS), "-s", PERF_STABILITY,
-             "--json-export", out],
+            client_argv([
+                sys.executable, "-m", "client_tpu_torch.perf", "-m", model,
+                "--service-kind", kind, "--hermetic", "--shape", shape,
+                "--concurrency-range", "1:2:1",
+                "--measurement-interval", str(PERF_WINDOW_MS["socket"]),
+                "--max-trials", str(PERF_TRIALS), "-s", PERF_STABILITY,
+                "--json-export", out]),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env={**os.environ, "PYTHONPATH": here}, cwd=here))
+            env=client_env(), cwd=here))
     return procs
 
 
@@ -5876,6 +6007,8 @@ def service_kind_results(card, procs, t0):
     try:
         for kind, (out, proc) in procs.items():
             stdout, stderr = proc.communicate(timeout=300)
+            stderr = client_start(24, f"--service-kind {kind} --hermetic",
+                                  proc.args, stderr)
             check(proc.returncode == 0,
                   f"--service-kind {kind} --hermetic exited "
                   f"{proc.returncode}: {stderr[-3000:]}")
@@ -6014,7 +6147,7 @@ def aio_phase(card, server, engines, tmp):
         leg, doc, served, regions, seconds = perf_socket_leg(
             server, tmp, "grpc", "resnet50", shm, extra=extra, env=env,
             levels=AIO_LEVELS, tag=f"{engine_kind}{i}",
-            watch=os_thread_watch(samples))
+            watch=os_thread_watch(samples), n=24)
         check(samples, f"{leg}: no OS thread count read")
         threads.setdefault(engine_kind, []).append(max(samples))
         runs.append({"engine": engine_kind, "shared_memory": shm,
@@ -6044,12 +6177,12 @@ def aio_phase(card, server, engines, tmp):
     outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
     before = success_counts(server, "resnet50")
     procs = [popen(
-        perf_argv(server, "grpc", "resnet50", "none", outs[r],
-                  levels=AIO_RANK_LEVEL,
-                  extra=["--world-size", "2", "--rank", str(r),
-                         "--rendezvous-addr", addr]),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=here) for r in range(2)]
+        client_argv(perf_argv(server, "grpc", "resnet50", "none", outs[r],
+                              levels=AIO_RANK_LEVEL,
+                              extra=["--world-size", "2", "--rank", str(r),
+                                     "--rendezvous-addr", addr])),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=client_env(env), cwd=here) for r in range(2)]
     try:
         ends = [p.communicate(timeout=300) for p in procs]
     finally:
@@ -6057,6 +6190,9 @@ def aio_phase(card, server, engines, tmp):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    ends = [(out, client_start(24, f"resnet50 grpc none rank {r}", p.args,
+                               err))
+            for r, (p, (out, err)) in enumerate(zip(procs, ends))]
     after = success_counts(server, "resnet50")
     for r, (p, (_, err)) in enumerate(zip(procs, ends)):
         check(p.returncode == 0, f"rank {r} exited {p.returncode}: "
@@ -6086,8 +6222,9 @@ def aio_phase(card, server, engines, tmp):
     for name in ("int8_matmul", "paged_attention"):
         check(launches[name] > 0,
               f"the aio calls launched {name} no time: {launches}")
+    PHASE_SECONDS[24] = time.monotonic() - t0
     phase(24, "aio_done", launches=launches, launches_by_route=routes,
-          seconds=time.monotonic() - t0, **card)
+          seconds=PHASE_SECONDS[24], **card)
     return launches, routes
 
 
@@ -6403,9 +6540,11 @@ def perf_across(a_http, b_http, urls, protocol, tmp, extra=(), tag=""):
             "--json-export", out, *extra]
     before = {u: model_successes(h, "resnet50")
               for u, h in zip(urls, (a_http, b_http))}
-    proc = subprocess.run(argv, capture_output=True, text=True, cwd=here,
-                          env={**os.environ, "PYTHONPATH": here},
-                          timeout=300)
+    proc = subprocess.run(client_argv(argv), capture_output=True, text=True,
+                          cwd=here, env=client_env(), timeout=300)
+    proc.stderr = client_start(
+        25, f"resnet50 {protocol} -u A,B {' '.join(extra)}".strip(),
+        proc.args, proc.stderr)
     check(proc.returncode == 0, f"perf -i {protocol} -u {urls} {extra} "
                                 f"exited {proc.returncode}: "
                                 f"{proc.stderr[-3000:]}")
@@ -6523,8 +6662,9 @@ def balance_phase(card, server, resnet, engines, tmp):
         check(launches[name] > 0,
               f"the balanced calls launched {name} no time in A: "
               f"{launches}")
+    PHASE_SECONDS[25] = time.monotonic() - t0
     phase(25, "balance_done", launches=launches, launches_by_route=routes,
-          seconds=time.monotonic() - t0, **card)
+          seconds=PHASE_SECONDS[25], **card)
     return launches, routes
 
 
@@ -6551,92 +6691,6 @@ _NATIVE_LINE = re.compile(
     r".*, (stable|UNSTABLE) over (\d+) windows$")
 
 
-class TlsRelay:
-    """TLS in front of a plaintext TCP port: stdlib ``ssl`` on an asyncio
-    loop in a thread of its own, bytes copied both ways.  Neither server
-    terminates TLS itself; a deployment puts such a proxy in front of it,
-    and the perf CLI's --ssl-* options are held against this one.
-    ``alpn`` (``("h2",)`` for gRPC, which drops a TLS connection without
-    it) and ``client_ca`` (require a client certificate it signs) are the
-    server context's."""
-
-    def __init__(self, backend, cert, key, alpn=(), client_ca=None):
-        self._ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
-        self._ctx.load_cert_chain(cert, key)
-        if alpn:
-            self._ctx.set_alpn_protocols(list(alpn))
-        if client_ca:
-            self._ctx.verify_mode = ssl.CERT_REQUIRED
-            self._ctx.load_verify_locations(client_ca)
-        host, _, port = backend.rpartition(":")
-        self._backend = (host, int(port))
-        self._loop = asyncio.new_event_loop()
-        # a refused handshake (no client certificate) is the expected
-        # outcome of a leg, not an error to print
-        self._loop.set_exception_handler(lambda loop, context: None)
-        self._ready = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._server = None
-        self.address = None
-
-    def start(self):
-        self._thread.start()
-        if not self._ready.wait(30) or self.address is None:
-            raise RuntimeError("the TLS relay did not start")
-        return self
-
-    def stop(self):
-        if self._server is not None:
-            self._loop.call_soon_threadsafe(self._server.close)
-        self._thread.join(timeout=30)
-
-    def _run(self):
-        asyncio.set_event_loop(self._loop)
-
-        async def serve():
-            self._server = await asyncio.start_server(
-                self._handle, "127.0.0.1", 0, ssl=self._ctx)
-            self.address = "127.0.0.1:%d" % (
-                self._server.sockets[0].getsockname()[1])
-            self._ready.set()
-            try:
-                await self._server.serve_forever()
-            except asyncio.CancelledError:
-                pass
-
-        try:
-            self._loop.run_until_complete(serve())
-        finally:
-            self._ready.set()
-            for task in asyncio.all_tasks(self._loop):
-                task.cancel()
-            self._loop.run_until_complete(asyncio.sleep(0))
-            self._loop.close()
-
-    async def _handle(self, reader, writer):
-        try:
-            up_reader, up_writer = await asyncio.open_connection(
-                *self._backend)
-        except OSError:
-            writer.close()
-            return
-
-        async def pump(src, dst):
-            try:
-                while True:
-                    data = await src.read(1 << 16)
-                    if not data:
-                        break
-                    dst.write(data)
-                    await dst.drain()
-            except (OSError, asyncio.IncompleteReadError):
-                pass
-            finally:
-                dst.close()
-
-        await asyncio.gather(pump(reader, up_writer), pump(up_reader, writer))
-
-
 def make_tls_certs(tmp):
     """Self-signed certificates made by ``openssl``: the server's, for
     localhost and 127.0.0.1 (the relay's), and a client's.  Returns
@@ -6658,30 +6712,16 @@ def make_tls_certs(tmp):
     return paths
 
 
-RELAY_PROCESS = r"""
-import sys
-sys.path.insert(0, sys.argv[1])
-import chip_smoke
-
-backend, cert, key, alpn, client_ca = sys.argv[2:7]
-relay = chip_smoke.TlsRelay(backend, cert, key,
-                            alpn=tuple(a for a in alpn.split(",") if a),
-                            client_ca=client_ca or None).start()
-print(relay.address, flush=True)
-sys.stdin.read()  # until the parent closes its end
-relay.stop()
-"""
-
-
 def start_relay(backend, cert, key, alpn="", client_ca=""):
     """A TlsRelay in a process of its own (off the server's interpreter
-    lock); its address is the first line it prints (relay_address)."""
+    lock), torch blocked: tools/tls_relay.py through tools/torch_free.py.
+    Its address is the first line it prints (relay_address)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    proc = popen(
-        [sys.executable, "-c", RELAY_PROCESS, here, backend, cert, key,
-         alpn, client_ca], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=here)
-    return proc
+    return popen(client_argv([sys.executable, TLS_RELAY, backend, cert, key,
+                              alpn, client_ca]),
+                 stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                 stderr=subprocess.PIPE, text=True, cwd=here,
+                 env=client_env())
 
 
 def relay_address(proc):
@@ -6692,29 +6732,33 @@ def relay_address(proc):
     return line
 
 
-def stop_relay(proc):
+def stop_relay(proc, label=None):
+    """End a relay process; with *label*, note its start (client_start)."""
     try:
         proc.stdin.close()
         proc.wait(timeout=30)
     except (OSError, subprocess.TimeoutExpired):
         proc.kill()
         proc.wait()
+    if label is not None:
+        client_start(26, label, proc.args, proc.stderr.read(), waits=True)
 
 
 def perf_cli(server, model, tmp, tag, args, export=True):
     """One ``python -m client_tpu_torch.perf -m <model> <args>`` process
-    against *model* behind this process's *server*.  Returns (the
-    process, its JSON export or None, the server's (success, fail)
-    deltas)."""
+    against *model* behind this process's *server*, torch blocked unless
+    *args* need it (client_argv).  Returns (the process, whose stderr no
+    longer holds the start line, its JSON export or None, the server's
+    (success, fail) deltas)."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(tmp, f"p26_{tag}.json")
     argv = [sys.executable, "-m", "client_tpu_torch.perf", "-m", model,
             *args, *(["--json-export", out] if export else [])]
     before = success_counts(server, model)
-    proc = subprocess.run(argv, capture_output=True, text=True, cwd=here,
-                          env={**os.environ, "PYTHONPATH": here},
-                          timeout=300)
+    proc = subprocess.run(client_argv(argv), capture_output=True, text=True,
+                          cwd=here, env=client_env(), timeout=300)
     after = success_counts(server, model)
+    proc.stderr = client_start(26, f"{model} {tag}", proc.args, proc.stderr)
     doc = None
     if export and proc.returncode == 0:
         with open(out) as f:
@@ -7020,8 +7064,8 @@ def tls_leg(card, server, tmp):
               workload={"prompt_tokens": len(tokens), "max_tokens": 1},
               launches=launches, launches_by_route=routes, **card)
     finally:
-        for p in procs.values():
-            stop_relay(p)
+        for name, p in procs.items():
+            stop_relay(p, f"TLS relay ({name})")
     phase(26, "tls_done", seconds=time.monotonic() - t0, **card)
     return launches, routes
 
@@ -7035,7 +7079,9 @@ def native_phase(card, server, tmp):
     native = native_leg(card, server, tmp)
     procpool_leg(card, server, tmp)
     tls = tls_leg(card, server, tmp)
-    phase(26, "native_phase_done", seconds=time.monotonic() - t0, **card)
+    PHASE_SECONDS[26] = time.monotonic() - t0
+    phase(26, "native_phase_done", seconds=PHASE_SECONDS[26], **card)
+    client_starts_summary(card)
     return native, tls
 
 
@@ -8334,6 +8380,9 @@ def main():
                            + NATIVE_LAUNCHES_IN + "; " + CHAOS_IN,
             "checked_in": "phase 10",
         })
+    phase(0, "script_seconds", seconds=process_seconds(),
+          phases_22_26={str(k): v for k, v in sorted(PHASE_SECONDS.items())},
+          phases_22_26_total=sum(PHASE_SECONDS.values()), **card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

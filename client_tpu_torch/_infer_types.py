@@ -6,11 +6,13 @@ outputs, and the gRPC client (client_tpu_torch/grpc) and the perf
 harness's in-process backend render it at request-build time.  Where the
 reference's ``set_data_from_array`` takes a ``jax.Array``, the port's
 takes a torch tensor on any device (a BF16 tensor keeps its own bits).
+The module imports numpy alone: a tensor is recognised through the torch
+the caller has loaded, as the reference recognises a ``jax.Array``.
 """
 
 import numpy as np
-import torch
 
+from client_tpu_torch import is_tensor, loaded_torch
 from client_tpu_torch.utils import (
     InferenceServerException,
     np_to_triton_dtype,
@@ -118,9 +120,9 @@ class InferInput:
         host copies use CUDA shared memory
         (client_tpu_torch.utils.cuda_shared_memory) + ``set_shared_memory``.
         A bfloat16 tensor is sent as BF16 bit for bit."""
-        if isinstance(device_array, torch.Tensor):
+        if is_tensor(device_array):
             t = device_array.detach()
-            if t.dtype == torch.bfloat16:
+            if t.dtype == loaded_torch().bfloat16:
                 if self._datatype != "BF16":
                     raise_error(
                         "device array datatype BF16 does not match input "

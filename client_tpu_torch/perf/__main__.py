@@ -23,7 +23,10 @@ its binary built at first use from ``src/cpp``), and the ``--ssl-*``
 options secure the gRPC and HTTP backends; an SSL option the run cannot
 honour (``--async``, ``--native-loadgen``, ``--hermetic``, a non-Triton
 kind, the other protocol's options) is refused with a message where the
-reference drops it.
+reference drops it.  Without torch installed the CLI drives any server
+over the wire and from system regions; an option that needs torch
+(``--shared-memory cuda``, ``--device``, the local GPU gauges, the probe,
+a hermetic model set other than ``builtin``) is refused with a message.
 
     python -m client_tpu_torch.perf -m resnet50 -u localhost:8001 \\
         --shared-memory cuda --output-shared-memory-size 4000 --async
@@ -33,7 +36,7 @@ reference drops it.
 import argparse
 import sys
 
-from client_tpu_torch import resolve_device
+from client_tpu_torch import require_torch, resolve_device
 from client_tpu_torch.perf import (
     AsyncConcurrencyManager,
     BackendKind,
@@ -495,11 +498,34 @@ def _run_native_loadgen(args, binary, loader, data_manager):
         data_manager.cleanup()
 
 
+def _refuse_without_torch(args):
+    """Exits, naming torch, where an option given needs it and it is not
+    installed: CUDA regions, a device, the local GPU gauges and the
+    probe."""
+    options = [flag for flag, on in (
+        ("--shared-memory cuda", args.shared_memory == "cuda"),
+        ("--device", args.device is not None),
+        ("--collect-local-gpu-metrics", args.collect_local_gpu_metrics),
+        ("--probe-device-utilization", args.probe_device_utilization),
+    ) if on]
+    if options:
+        try:
+            require_torch(", ".join(options))
+        except ModuleNotFoundError as e:
+            sys.exit(f"error: {e}")
+
+
 def _device(args):
     """The device the run's hermetic models, CUDA regions and probe use;
-    exits with a message where CUDA is implied and absent."""
+    exits with a message where CUDA is implied and absent.  None without
+    torch: only a hermetic run gets here then (its numpy builtins need
+    no device, and ``model_sets`` refuses the other sets)."""
     try:
         return resolve_device(args.device)
+    except ModuleNotFoundError as e:
+        if e.name != "torch":
+            raise
+        return None
     except RuntimeError as e:
         sys.exit(f"error: {e} (here: --device cpu)")
 
@@ -522,6 +548,7 @@ def main(argv=None):
             sys.exit("error: --speculative configures the in-process LM "
                      "engine; add --hermetic")
 
+    _refuse_without_torch(args)
     # a hermetic non-KServe run starts only a host fake: no device
     service = args.service_kind != "triton"
     device = None
@@ -601,9 +628,15 @@ def main(argv=None):
         speculative = None
         if args.speculative is not None:
             speculative = {"k": args.speculative, "drafter": args.drafter}
+        try:
+            models = model_sets(args.hermetic_models, device=device,
+                                speculative=speculative)
+        except ModuleNotFoundError as e:
+            if e.name != "torch":
+                raise
+            sys.exit(f"error: {e}")
         engine = InferenceEngine(  # no sockets
-            model_sets(args.hermetic_models, device=device,
-                       speculative=speculative),
+            models,
             response_cache=cache,
             coalescing=args.hermetic_cache_entries > 0,
         )

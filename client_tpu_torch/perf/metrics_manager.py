@@ -14,7 +14,8 @@ parts read the local GPU through torch.cuda: :func:`local_device_snapshot`
 :class:`DeviceUtilizationProbe` (a one-element add timed on a stream of
 its own; its delay is not a utilization figure, see the class).  Both
 raise without CUDA, where the reference's snapshot returns
-``{}`` off-device.
+``{}`` off-device, and import torch only when they run: the scraper
+itself needs none.
 """
 
 import threading
@@ -22,9 +23,8 @@ import time
 import urllib.request
 
 import numpy as np
-import torch
 
-from client_tpu_torch import resolve_device
+from client_tpu_torch import require_torch, resolve_device
 from client_tpu_torch.analysis.witness import witness_shared
 from client_tpu_torch.utils import escape_label
 
@@ -59,7 +59,8 @@ def local_device_snapshot():
     free bytes (``torch.cuda.mem_get_info``: every process's allocations),
     ``ctpu_gpu_memory_total_bytes`` its capacity, and
     ``ctpu_gpu_memory_peak_bytes`` this process's own allocator peak
-    (``torch.cuda.memory_stats``).  Raises without CUDA."""
+    (``torch.cuda.memory_stats``).  Raises without torch or CUDA."""
+    torch = require_torch("local GPU metrics")
     if not torch.cuda.is_available():
         raise RuntimeError(
             "local GPU metrics need CUDA, and this machine has none"
@@ -115,6 +116,8 @@ class DeviceUtilizationProbe:
     """
 
     def __init__(self, busy_factor=2.0, baseline_samples=8, device=None):
+        torch = require_torch("the device utilization probe")
+        self._torch = torch
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -132,6 +135,7 @@ class DeviceUtilizationProbe:
 
     def _time(self):
         """Seconds from launching the add to its completion."""
+        torch = self._torch
         t0 = time.perf_counter()
         if self._stream is None:
             torch.add(self._x, 1.0, out=self._y)

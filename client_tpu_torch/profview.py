@@ -36,7 +36,7 @@ import argparse
 import json
 import sys
 
-from client_tpu_torch import resolve_device
+from client_tpu_torch import require_torch, resolve_device
 from client_tpu_torch.serve.prof import attribute_phases
 
 __all__ = ["load_reports", "rollup_from_ticks", "render_engine", "main"]
@@ -250,8 +250,10 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.live:
         try:
+            require_torch("profview --live")
             device = resolve_device(args.device)
-        except RuntimeError as e:  # no CUDA, and --device cpu not given
+        except (ModuleNotFoundError, RuntimeError) as e:
+            # no torch, or no CUDA and --device cpu not given
             print(f"profview: {e}", file=sys.stderr)
             return 2
         engines = live_report(device=device).get("engines", [])

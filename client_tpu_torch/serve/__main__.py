@@ -22,7 +22,8 @@ def main():
         help="comma-separated model sets: builtin (the numpy models and "
              "the tiny vision pipeline), jax (the CNN classifier), resnet "
              "(resnet50), language, pipeline (the resnet50 vision "
-             "ensemble) (default: language)",
+             "ensemble) (default: language); without torch installed "
+             "only builtin, its numpy models",
     )
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
@@ -98,6 +99,13 @@ def main():
     from client_tpu_torch.serve.models import model_sets
     from client_tpu_torch.serve.slo import SloWatchdog
 
+    try:
+        models = model_sets(args.models, device=args.device)
+    except ModuleNotFoundError as e:
+        if e.name != "torch":
+            raise
+        parser.error(f"{e}; --models builtin serves without it")
+
     cache = None
     if args.response_cache_entries > 0:
         cache = ResponseCache(
@@ -131,7 +139,7 @@ def main():
         ).start()
 
     server = Server(
-        models=model_sets(args.models, device=args.device),
+        models=models,
         with_default_models=False,
         http_port=args.http_port,
         grpc_port=args.grpc_port,

@@ -8,12 +8,12 @@ closes through.  Where JAX blocks on the result arrays
 the current stream when the result is watched (right after its dispatch)
 and waits on that event; one wait per event covers everything the stream
 ran before it.  Host-only results (CPU tensors, numpy) settle at once on
-the caller thread.
+the caller thread; a process that never loaded torch has only those.
 """
 
 import threading
 
-import torch
+from client_tpu_torch import is_tensor, loaded_torch
 
 
 def _completion_event(result):
@@ -27,7 +27,8 @@ def _completion_event(result):
             stack.extend(item.values())
         elif isinstance(item, (list, tuple)):
             stack.extend(item)
-        elif isinstance(item, torch.Tensor) and item.is_cuda:
+        elif is_tensor(item) and item.is_cuda:
+            torch = loaded_torch()
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(item.device))
             return event

@@ -199,10 +199,10 @@ def ensemble_model():
 def default_models(device=None):
     """The builtin set: the numpy models above, and the tiny vision
     pipeline (preprocess -> resnet backbone -> postprocess) on *device*
-    (``cuda`` unless the caller says otherwise), built when the set is."""
-    from client_tpu_torch.serve.models.vision import vision_pipeline_models
-
-    return [
+    (``cuda`` unless the caller says otherwise), built when the set is.
+    Without torch installed the set is the numpy models alone, as the
+    reference's is without jax; any other import failure raises."""
+    models = [
         simple_model(),
         simple_string_model(),
         identity_model(),
@@ -214,5 +214,14 @@ def default_models(device=None):
         decoupled_model(),
         classification_model(),
         ensemble_model(),
-        *vision_pipeline_models(device=device),
     ]
+    try:
+        from client_tpu_torch.serve.models.vision import (
+            vision_pipeline_models,
+        )
+    except ModuleNotFoundError as e:
+        if e.name != "torch":
+            raise
+        return models
+    models.extend(vision_pipeline_models(device=device))
+    return models

@@ -41,6 +41,10 @@ host clock, as the reference's batcher stamps them; the engine's
 Eligibility: stateless, non-decoupled models with ``max_batch_size > 1``
 and host-resident (wire) inputs, or device tensors for models that opt in
 with ``batch_device_inputs``.
+
+The module imports without torch: a host model (``device`` None) batches
+numpy arrays on the host and never touches it, and the device half reads
+torch only once a model with a device reaches it.
 """
 
 import contextlib
@@ -49,9 +53,8 @@ import time
 from collections import deque
 
 import numpy as np
-import torch
 
-from client_tpu_torch import ops
+from client_tpu_torch import is_tensor, ops, require_torch
 from client_tpu_torch.serve._completion import CompletionObserver
 from client_tpu_torch.utils import InferenceServerException, triton_to_np_dtype
 
@@ -84,16 +87,24 @@ def _buckets_up_to(cap):
     return sorted(set(out))
 
 
+def _torch():
+    return require_torch("a model on a device")
+
+
 def _is_device_array(arr):
     """A tensor, on the device its model runs on: what a jax.Array is to
     the reference (numpy arrays are host arrays)."""
-    return isinstance(arr, torch.Tensor)
+    return is_tensor(arr)
 
 
 def device_stream(device):
-    """Run on *device*'s default stream (a no-op off CUDA): the one stream
-    every hop of a device tensor is ordered on."""
-    if device is not None and torch.device(device).type == "cuda":
+    """Run on *device*'s default stream (a no-op off CUDA, and for a host
+    model's None): the one stream every hop of a device tensor is ordered
+    on."""
+    if device is None:
+        return contextlib.nullcontext()
+    torch = _torch()
+    if torch.device(device).type == "cuda":
         return torch.cuda.stream(torch.cuda.default_stream(device))
     return contextlib.nullcontext()
 
@@ -103,7 +114,7 @@ def _dtype_key(arr):
 
 
 def _torch_dtype(np_dtype):
-    return torch.from_numpy(np.zeros(0, dtype=np_dtype)).dtype
+    return _torch().from_numpy(np.zeros(0, dtype=np_dtype)).dtype
 
 
 def _device_batch(parts, padded, out=None):
@@ -190,7 +201,7 @@ def _to_host(result):
         return result.fetch()
     if isinstance(result, dict):
         return {k: _to_host(v) for k, v in result.items()}
-    if isinstance(result, torch.Tensor):
+    if is_tensor(result):
         return result.detach().cpu().numpy()
     return result
 
@@ -214,6 +225,7 @@ class _BucketProgram:
     outputs' copies are issued, and the stream runs each turn whole."""
 
     def __init__(self, fn, shapes, bucket, device, lock=None):
+        torch = _torch()
         self.fn = fn
         self.bucket = bucket
         self.device = device
@@ -450,7 +462,7 @@ class ModelBatcher:
         self._thread.start()
 
     def _device(self):
-        return torch.device(self.model.device or "cpu")
+        return _torch().device(self.model.device or "cpu")
 
     # -- bucket programs (fused models) -------------------------------------
 
@@ -500,6 +512,7 @@ class ModelBatcher:
                  for _, bucket, shapes in specs]
         captured = None
         if device.type == "cuda":
+            torch = _torch()
             pool = torch.cuda.graph_pool_handle()
             stream = torch.cuda.Stream(device)
             with ops.CAPTURE_LOCK, device_stream(device):
@@ -554,6 +567,7 @@ class ModelBatcher:
             for name, ps in parts.items()
         }
         prog = self._program(padded, shapes)
+        torch = _torch()
         device = prog.device
         cuda = device.type == "cuda"
         fused = group[0].signature[0]
@@ -634,8 +648,7 @@ class ModelBatcher:
         # algorithms for each shape.  A device group's forward runs at the
         # same shapes (its parts assembled into a bucket buffer), so
         # unlike the reference's executables it needs no pass of its own.
-        device = self._device()
-        with device_stream(device):
+        with device_stream(self.model.device):
             for b in buckets:
                 zeros = {
                     name: np.zeros([b] + dims, dtype=np_dtype)

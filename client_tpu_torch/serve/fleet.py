@@ -7,6 +7,9 @@ CPU torch tensors (as the engine's swap store does), written on the
 wire under the JAX package's dtype names (``"bfloat16"``,
 ``"float32"``, ...) as the same raw little-endian bytes, bf16 through a
 16-bit integer view (``utils.tensor_raw_bytes`` / ``tensor_from_raw``).
+The module imports without torch: the response cache, sequences and
+gossip need none, and a tier without torch refuses a peer's pushed KV
+chain (``{"ok": false}``): it serves no LM.
 
 Everything above the balance layer used to be N independent copies of one
 server — a replica death lost its KV prefix trie and response cache, and
@@ -63,8 +66,8 @@ import time
 from collections import OrderedDict
 
 import numpy as np
-import torch
 
+from client_tpu_torch import require_torch
 from client_tpu_torch.analysis.witness import witness_shared
 from client_tpu_torch.perf.rendezvous import recv_frame, send_frame
 from client_tpu_torch.resilience import (
@@ -129,10 +132,15 @@ def chain_digests(tokens, block_size, max_blocks=None):
     return out
 
 
+def _torch():
+    return require_torch("the fleet tier's KV blocks")
+
+
 def _encode_block(arrays):
     """One block's per-layer [block_size, kv_heads, head_dim] tensors ->
     JSON-safe dict (dtype + shape + base64 payload per layer): the JAX
     package's dtype names and raw bytes."""
+    torch = _torch()
     out = []
     for a in arrays:
         name, raw = tensor_raw_bytes(torch.as_tensor(a))
@@ -181,6 +189,7 @@ class _PrefixStore:
         row = [int(t) for t in np.asarray(row).reshape(-1)]
         n_blocks = min(int(n_blocks), len(row) // int(block_size))
         digests = chain_digests(row, block_size, n_blocks)
+        torch = _torch()
         with self._lock:
             self.block_size = int(block_size)
             for i in range(n_blocks):
@@ -219,6 +228,7 @@ class _PrefixStore:
                 hits.append(entry)
         if not hits:
             return None
+        torch = _torch()
         n_layers = len(hits[0][1])
         k_layers = [
             torch.stack([h[1][layer] for h in hits])
@@ -707,7 +717,8 @@ class FleetTier:
                 _decode_block(request.get("k") or []),
                 _decode_block(request.get("v") or []),
             )
-        except (KeyError, ValueError):
+        except (KeyError, ValueError, ModuleNotFoundError):
+            # malformed, or a tier without torch (no tensor to hold it)
             return {"ok": False}
         self._gauge()
         return {"ok": True}

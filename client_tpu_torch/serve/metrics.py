@@ -15,8 +15,9 @@ cycle), per-GPU memory, then every series in the engine's registry.
 
 Where the JAX package reports ``ctpu_tpu_memory_*`` from PJRT's
 ``memory_stats``, the port reports ``ctpu_gpu_memory_*`` from
-``torch.cuda.memory_stats``, and only once CUDA is initialized in the
-process: a scrape never creates a CUDA context.  Client-side series
+``torch.cuda.memory_stats``, and only once torch is loaded and CUDA
+initialized in the process: a scrape never imports torch or creates a
+CUDA context.  Client-side series
 live in the module's ``RESILIENCE`` registry, rendered at the end of
 every scrape: :class:`ResilienceMetricsObserver` (retries, circuit
 state per endpoint) and :class:`BalancerMetricsObserver` (the replica
@@ -31,8 +32,7 @@ import bisect
 import threading
 import time
 
-import torch
-
+from client_tpu_torch import loaded_torch
 from client_tpu_torch.utils import escape_label
 
 
@@ -490,12 +490,14 @@ class _FamilyBuffer:
 
 
 def _device_lines(buf):
-    """Per-GPU memory gauges from the caching allocator.  Only once CUDA is
-    initialized in this process: a server serving on the card has done
-    that; forcing it inside the /metrics handler would create a CUDA
-    context (hundreds of MB, seconds) in a CPU-served process.  Reads the
+    """Per-GPU memory gauges from the caching allocator.  Only once torch
+    is loaded and CUDA initialized in this process: a server serving on
+    the card has done both; importing torch or creating a CUDA context
+    (hundreds of MB, seconds) inside the /metrics handler would stall
+    the first scrape of a numpy-only or CPU-served process.  Reads the
     allocator's host-side counters: no device work, no sync."""
-    if not torch.cuda.is_initialized():
+    torch = loaded_torch()
+    if torch is None or not torch.cuda.is_initialized():
         return
     buf.declare(
         "ctpu_gpu_memory_used_bytes", "gauge",

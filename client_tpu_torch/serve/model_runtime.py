@@ -32,7 +32,9 @@ Request inputs are numpy arrays decoded from the wire or read from a
 system region, or tensors: views of a CUDA region (zero-copy) and the
 device tensors between the steps of an ensemble.  An output stays a
 tensor until its disposition is known: one bound for a CUDA region is
-copied on the device, never through the host.
+copied on the device, never through the host.  The module imports
+without torch: a value is a tensor only once torch is loaded, so a
+numpy model's requests run with none.
 """
 
 import base64
@@ -43,8 +45,8 @@ import threading
 import time
 
 import numpy as np
-import torch
 
+from client_tpu_torch import is_tensor, loaded_torch
 from client_tpu_torch._infer_types import _np_from_json_data
 from client_tpu_torch.resilience import is_connection_level
 from client_tpu_torch.serve.dynamic_batcher import (
@@ -110,7 +112,7 @@ def _seq_encode(value):
     dicts; containers recurse; anything else must already be
     JSON-serializable — the fleet tier ships these snapshots as JSON
     frames)."""
-    if isinstance(value, torch.Tensor):
+    if is_tensor(value):
         name, raw = tensor_raw_bytes(value)
         return {
             "__nd__": [
@@ -720,8 +722,8 @@ class SharedMemoryRegistry:
         output's datatype there), and the copy is complete on return."""
         with self._lock:
             cuda = region_name in self._cuda
-        if cuda and datatype != "BYTES" and isinstance(arr, torch.Tensor):
-            want = cudashm.TORCH_DTYPES[datatype]
+        if cuda and datatype != "BYTES" and is_tensor(arr):
+            want = cudashm.torch_dtypes()[datatype]
             src = arr if arr.dtype == want else arr.to(want)
             nbytes = src.numel() * src.element_size()
         else:
@@ -737,7 +739,7 @@ class SharedMemoryRegistry:
         if region is None:
             self.write(region_name, offset, src)
             return nbytes
-        if (isinstance(src, torch.Tensor)
+        if (is_tensor(src)
                 and src.data_ptr() == region.span(offset, nbytes).data_ptr()):
             # written in place by the batcher (a sink), and complete
             return nbytes
@@ -752,11 +754,13 @@ class SharedMemoryRegistry:
         as a flat tensor of that dtype that the batcher can write the
         output's rows into at dispatch; None where it cannot (not a CUDA
         region, BYTES, an offset the dtype does not divide)."""
-        dtype = cudashm.TORCH_DTYPES.get(datatype)
         region = self._cuda_region(region_name, offset, byte_size)
-        if region is None or dtype is None:
+        if region is None:
             return None
-        itemsize = torch.empty(0, dtype=dtype).element_size()
+        dtype = cudashm.torch_dtypes().get(datatype)
+        if dtype is None:
+            return None
+        itemsize = dtype.itemsize
         span = region.span(offset, byte_size - byte_size % itemsize)
         if span.storage_offset() % itemsize:
             return None
@@ -804,10 +808,11 @@ class SharedMemoryRegistry:
 def _host_array(arr):
     """An output as a numpy array (a bf16 tensor widened to float32, the
     dtype BF16 decodes to)."""
-    if not isinstance(arr, torch.Tensor):
+    if not is_tensor(arr):
         return np.asarray(arr)
     arr = arr.detach().cpu()
-    return (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
+    return (arr.float() if arr.dtype == loaded_torch().bfloat16
+            else arr).numpy()
 
 
 def _attach_posix_shm(key, length):
@@ -2193,7 +2198,7 @@ class InferenceEngine:
         """``{output: flat tensor}`` of a device request's outputs bound
         for CUDA regions (``SharedMemoryRegistry.output_sink``); a
         classified output is rendered first (BYTES), so it has no sink."""
-        if not all(isinstance(a, torch.Tensor) for a in inputs.values()):
+        if not all(is_tensor(a) for a in inputs.values()):
             return None
         specs = {t.name: t for t in model.outputs}
         sinks = {}
@@ -2395,7 +2400,7 @@ class InferenceEngine:
             # the CUDA-shm path copies it on the device, with no D2H; a
             # classified output is read on the host
             arr = result_arrays[name]
-            if not isinstance(arr, torch.Tensor):
+            if not is_tensor(arr):
                 arr = np.asarray(arr)
             datatype = specs[name].datatype
             class_count = params.get("classification", 0)

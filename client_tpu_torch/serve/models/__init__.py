@@ -10,8 +10,11 @@ the resnet50 of BASELINE config 3, ``language`` the tokenizer ->
 streaming-LM stack, and ``pipeline`` the full-size vision ensemble DAG
 (preprocess -> resnet50 backbone -> classification postprocess).  Every
 set runs on *device* (``cuda`` unless the caller says otherwise).
+Without torch installed only ``builtin`` resolves (its numpy models);
+every other set raises a message naming torch.
 """
 
+from client_tpu_torch import require_torch
 from client_tpu_torch.utils import InferenceServerException
 
 
@@ -74,5 +77,7 @@ def model_sets(names, device=None, speculative=None):
                 f"unknown model set '{name}' (available: "
                 f"{', '.join(sorted(loaders))})"
             )
+        if name != "builtin":
+            require_torch(f"the model set '{name}'")
         models.extend(loaders[name](device=device))
     return models

@@ -49,8 +49,7 @@ import collections
 import threading
 import time
 
-import torch
-
+from client_tpu_torch import require_torch
 from client_tpu_torch.analysis.witness import witness_shared
 
 __all__ = [
@@ -120,7 +119,11 @@ def device_peak_tflops():
         if _peak_cache is not None:
             return _peak_cache
         kind = ""
-        if torch.cuda.is_available():
+        try:
+            torch = require_torch("the device peak")
+        except ModuleNotFoundError:  # no torch: no device to name
+            torch = None
+        if torch is not None and torch.cuda.is_available():
             kind = torch.cuda.get_device_name().lower()
         for pat, peak in _GPU_PEAKS:
             if pat in kind:

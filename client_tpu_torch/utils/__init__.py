@@ -4,6 +4,9 @@ Counterpart of client_tpu/utils/__init__.py (the exception, the dtype
 tables, the BYTES/BF16 wire codecs and the tenant header name).  numpy has no bfloat16, so BF16
 tensors decode to float32 (exact: every bf16 value is a float32) and
 encode from any float array by rounding to nearest even through torch.
+The module imports numpy alone: encoding BF16 and the tensor codec
+below import torch on first use, and without torch they raise a message
+naming it, as the reference's BF16 codec raises without ml_dtypes.
 
 :func:`tensor_raw_bytes` and :func:`tensor_from_raw` carry a tensor's
 raw little-endian bytes under the numpy dtype names the JAX package
@@ -13,10 +16,12 @@ the other's.  bf16 goes through a 16-bit integer view, never through a
 numpy bf16 dtype, which numpy alone does not have.
 """
 
+import functools
 import struct
 
 import numpy as np
-import torch
+
+from client_tpu_torch import require_torch
 
 __all__ = [
     "InferenceServerException",
@@ -222,6 +227,10 @@ def serialize_bf16_tensor(input_tensor):
     arr = np.asarray(input_tensor)
     if arr.dtype.kind != "f":
         raise_error("cannot serialize bf16 tensor: invalid datatype")
+    try:
+        torch = require_torch("BF16 encoding")
+    except ModuleNotFoundError as e:
+        raise InferenceServerException(str(e)) from e
     words = (
         torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
         .to(torch.bfloat16)
@@ -284,27 +293,36 @@ def from_wire_bytes(buf, datatype, shape):
     return arr.reshape(shape)
 
 
-# torch dtype <-> the numpy dtype name the JAX package writes for it
-_TORCH_DTYPE_NAMES = {
-    torch.bool: "bool",
-    torch.int8: "int8",
-    torch.uint8: "uint8",
-    torch.int16: "int16",
-    torch.int32: "int32",
-    torch.int64: "int64",
-    torch.float16: "float16",
-    torch.bfloat16: "bfloat16",
-    torch.float32: "float32",
-    torch.float64: "float64",
-}
-_TORCH_DTYPES = {name: dt for dt, name in _TORCH_DTYPE_NAMES.items()}
+@functools.cache
+def _torch_dtype_names():
+    """torch dtype -> the numpy dtype name the JAX package writes for it
+    (built on first use: the table needs torch)."""
+    torch = require_torch("the tensor codec")
+    return {
+        torch.bool: "bool",
+        torch.int8: "int8",
+        torch.uint8: "uint8",
+        torch.int16: "int16",
+        torch.int32: "int32",
+        torch.int64: "int64",
+        torch.float16: "float16",
+        torch.bfloat16: "bfloat16",
+        torch.float32: "float32",
+        torch.float64: "float64",
+    }
+
+
+@functools.cache
+def _torch_dtypes():
+    return {name: dt for dt, name in _torch_dtype_names().items()}
 
 
 def tensor_raw_bytes(tensor):
     """``(dtype name, raw little-endian bytes)`` of a tensor (copied to
     the host when it lies on a device)."""
+    torch = require_torch("the tensor codec")
     t = tensor.detach().to("cpu").contiguous()
-    name = _TORCH_DTYPE_NAMES.get(t.dtype)
+    name = _torch_dtype_names().get(t.dtype)
     if name is None:
         raise_error(f"no wire name for dtype {t.dtype}")
     if t.dtype == torch.bfloat16:
@@ -317,7 +335,8 @@ def tensor_from_raw(raw, dtype_name, shape):
     (the inverse of :func:`tensor_raw_bytes`, and the reader of the JAX
     package's ``str(array.dtype)`` + ``tobytes()``).  Raises ValueError on
     an unknown name or a size that does not match the shape."""
-    dtype = _TORCH_DTYPES.get(str(dtype_name))
+    torch = require_torch("the tensor codec")
+    dtype = _torch_dtypes().get(str(dtype_name))
     if dtype is None:
         raise ValueError(f"unknown dtype name {dtype_name!r}")
     carrier = torch.int16 if dtype == torch.bfloat16 else dtype

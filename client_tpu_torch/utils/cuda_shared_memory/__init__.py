@@ -22,19 +22,23 @@ uint8 tensor that only the broker resolves, so the whole server path runs
 on a machine without CUDA; without CUDA and without ``device="cpu"``,
 creating a region raises.
 
+The module imports without torch, as the clients that use only system
+regions do: creating or opening a region imports torch, and without it
+raises a message naming torch.
+
 Ordering across processes: ``set_shared_memory_region`` waits for its
 copies before it returns, and the server waits for its output copies
 before it answers, so each side reads what the other wrote.  Destroy a
 region only after every server that opened it has unregistered it.
 """
 
+import functools
 import threading
 import uuid
 
 import numpy as np
-import torch
 
-from client_tpu_torch import resolve_device
+from client_tpu_torch import require_torch, resolve_device
 from client_tpu_torch.utils import (
     InferenceServerException,
     serialize_byte_tensor,
@@ -43,22 +47,35 @@ from client_tpu_torch.utils.shared_memory import contents_as_numpy
 
 HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
 
-# KServe datatype -> the torch dtype a region's bytes are viewed as
-TORCH_DTYPES = {
-    "BOOL": torch.bool, "INT8": torch.int8, "INT16": torch.int16,
-    "INT32": torch.int32, "INT64": torch.int64, "UINT8": torch.uint8,
-    "UINT16": torch.uint16, "UINT32": torch.uint32, "UINT64": torch.uint64,
-    "FP16": torch.float16, "FP32": torch.float32, "FP64": torch.float64,
-    "BF16": torch.bfloat16,
-}
+FEATURE = "a CUDA shared memory region"
+
+
+def _torch():
+    return require_torch(FEATURE)
+
+
+@functools.cache
+def torch_dtypes():
+    """KServe datatype -> the torch dtype a region's bytes are viewed as
+    (built on first use: the table needs torch)."""
+    torch = _torch()
+    return {
+        "BOOL": torch.bool, "INT8": torch.int8, "INT16": torch.int16,
+        "INT32": torch.int32, "INT64": torch.int64, "UINT8": torch.uint8,
+        "UINT16": torch.uint16, "UINT32": torch.uint32,
+        "UINT64": torch.uint64, "FP16": torch.float16,
+        "FP32": torch.float32, "FP64": torch.float64,
+        "BF16": torch.bfloat16,
+    }
 
 
 def _torch_dtype(datatype):
+    torch = _torch()
     if isinstance(datatype, torch.dtype):
         return datatype
     if not isinstance(datatype, str):
         return torch.from_numpy(np.zeros(0, dtype=datatype)).dtype
-    dtype = TORCH_DTYPES.get(datatype)
+    dtype = torch_dtypes().get(datatype)
     if dtype is None:
         raise InferenceServerException(
             f"a {datatype} tensor has no typed view in a region")
@@ -71,7 +88,7 @@ def typed_view(flat, offset, byte_size, datatype, shape):
     synchronization) wherever the offset is aligned to the element size."""
     dtype = _torch_dtype(datatype)
     count = int(np.prod(shape)) if len(shape) else 1
-    itemsize = torch.empty(0, dtype=dtype).element_size()
+    itemsize = dtype.itemsize
     if byte_size != count * itemsize:
         raise InferenceServerException(
             f"{byte_size} bytes cannot hold a {list(shape)} tensor of "
@@ -91,6 +108,7 @@ def typed_view(flat, offset, byte_size, datatype, shape):
 def _as_bytes(value):
     """A tensor, numpy array or bytes-like value as a flat uint8 tensor
     of its bytes (BYTES arrays in their wire serialization)."""
+    torch = _torch()
     if isinstance(value, torch.Tensor):
         return value.detach().contiguous().reshape(-1).view(torch.uint8)
     if not isinstance(value, np.ndarray):
@@ -152,6 +170,7 @@ class CudaRegion:
         region's device.  The wait blocks the thread where CUDA's default
         wait would spin a core: a server waits on many threads at once."""
         if self.tensor is not None and self.tensor.is_cuda:
+            torch = _torch()
             done = torch.cuda.Event(blocking=True)
             done.record(torch.cuda.current_stream(self.tensor.device))
             done.synchronize()
@@ -182,6 +201,7 @@ def open_region(name, raw_handle, byte_size, device_id=0):
         raise InferenceServerException(
             f"CUDA shared memory region '{name}': a raw handle is "
             f"{HANDLE_BYTES} bytes, got {len(raw_handle)}", status="400")
+    torch = _torch()
     if not torch.cuda.is_available():
         raise InferenceServerException(
             f"CUDA shared memory region '{name}' is another process's: "
@@ -206,6 +226,7 @@ def create_shared_memory_region(triton_shm_name, byte_size, device_id=0,
     """Allocate a region of ``byte_size`` zeroed bytes on CUDA device
     ``device_id``, or, with ``device="cpu"``, in host memory that only
     this process's server resolves."""
+    torch = _torch()
     dev = resolve_device(device)
     if dev.type == "cpu":
         tensor = torch.zeros(byte_size, dtype=torch.uint8)
@@ -261,7 +282,7 @@ def get_contents_as_torch(cuda_shm_handle, datatype, shape, offset=0):
     a numpy dtype or a torch dtype."""
     dtype = _torch_dtype(datatype)
     count = int(np.prod(shape)) if len(shape) else 1
-    nbytes = count * torch.empty(0, dtype=dtype).element_size()
+    nbytes = count * dtype.itemsize
     return typed_view(cuda_shm_handle.span(offset, nbytes), 0, nbytes,
                       dtype, shape)
 
