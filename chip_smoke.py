@@ -253,14 +253,27 @@ Phases, one line each or more; any failure exits non-zero:
                 without, B's TTFT with the tier against an engine without
                 one at 1 and 8 streams (bf16), in turns
  19 parallel    several devices.  (a) A one-rank NCCL world, make_mesh()
-                with every dim 1: 3 Adam steps of the flagship config
-                (phase 8's tokens) with attn_impl="ring_flash" on params
-                laid out by param_specs (DTensors), against 3 single-device
-                flash steps from the same weights: losses within phase 8's
-                limits, params bit-equal; the launch counts
-                reset before the ring steps and read after (4/4/4 flash a
-                step); ms a step in turns (flash, ring_flash, ring_flash,
-                flash).  (b) Two gloo ranks on this one card, each a
+                with every dim 1 (programs.graphable: the mesh steps are
+                CUDA graphs there), phase 8's tokens, TRAIN_LR: three mesh
+                steps, each 3 graphed steps (the first eager, the second
+                the capture, then a replay) against 3 eager steps
+                (eager=True) from the same weights, losses and params
+                bit-equal, the launch counts reset before and read after:
+                ring_flash on the flagship's params laid out by
+                param_specs (DTensors; 4/4/4 flash a step and a replay;
+                against 3 single-device flash steps, losses within phase
+                8's limits and params bit-equal), ring_flash on MOE (4/4/4
+                a replay) and the GPipe step on pipeline_param_specs'
+                layout, 2 microbatches (0 launches of rows 1-5; losses
+                within phase 8's limits of 3 single-device plain steps).
+                Each step's ms a step graphed and eager in turns (graph,
+                eager, eager, graph; ring_flash between two legs of the
+                graphed flash step), capture s, held and graph-pool MB,
+                memory_reserved.  The NCCL capture probe: an all-reduce
+                and a batch_isend_irecv pair to rank 0 itself (the mesh
+                layer's collectives), each captured, replayed and held
+                against its eager call; a refusal is printed, not raised.
+                (b) Two gloo ranks on this one card, each a
                 process loading the kernels this process built:
                 make_mesh(sp=2) over gloo and ring_attention_sharded(
                 impl="flash") forward and backward on DTensors at
@@ -508,8 +521,8 @@ Phases, one line each or more; any failure exits non-zero:
                 fixture fires its rule, no _ok fixture fires anything;
                 the package's __version__, the rules fired, seconds
 Every timing line carries the card's name and power limit.  Before the
-kernels line, script_seconds: the process's seconds so far and phases
-22-26's.  The last line is {"ok": true, "device": {...}}.
+kernels line, script_seconds: the process's seconds so far, phase 19's
+and phases 22-26's.  The last line is {"ok": true, "device": {...}}.
 """
 
 import asyncio
@@ -1216,6 +1229,25 @@ def graph_pool_bytes(pool):
             sum(seg["allocated_size"] for seg in mine))
 
 
+def held_memory(before, program):
+    """(held_mb, graph_pool_mb, peak bytes) of a train step: the peak
+    allocated since the last reset above ``before``, plus for a graph
+    (``program``, a TrainProgram, or None) what its private pool reserves
+    beyond what is allocated in it (the activations freed inside the
+    capture stay reserved there for every replay; ``graph_pool_mb`` is the
+    pool's whole reservation)."""
+    peak = torch.cuda.max_memory_allocated()
+    held, pool_mb = (peak - before) / 2**20, None
+    if program is not None and program.pool is not None:
+        pool = graph_pool_bytes(program.pool)
+        if pool is None:
+            held = pool_mb = "not measured"
+        else:
+            held += (pool[0] - pool[1]) / 2**20
+            pool_mb = pool[0] / 2**20
+    return held, pool_mb, peak
+
+
 def step_time(tfm, cfg, impl, tokens, steps=10, warmup=2, eager=False):
     """Train-step wall time (host clock around synchronized steps) from
     fresh weights, after ``warmup`` steps of the same step function (for
@@ -1237,20 +1269,11 @@ def step_time(tfm, cfg, impl, tokens, steps=10, warmup=2, eager=False):
         params, state, loss = step(params, state, tokens)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
-    peak = torch.cuda.max_memory_allocated()
     program = step.program
-    held, pool_mb = peak - before, None
-    if program is not None and program.pool is not None:
-        pool = graph_pool_bytes(program.pool)
-        if pool is None:
-            held = pool_mb = "not measured"
-        else:
-            held += pool[0] - pool[1]
-            pool_mb = pool[0] / 2**20
+    held, pool_mb, peak = held_memory(before, program)
     return {"attn_impl": impl, "graph": not eager, "ms_per_step": ms,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
-            "peak_mb": peak / 2**20,
-            "held_mb": held if isinstance(held, str) else held / 2**20,
+            "peak_mb": peak / 2**20, "held_mb": held,
             "graph_pool_mb": pool_mb,
             "capture_s": program.capture_s if program else None,
             "steps": steps, "last_loss": float(loss)}
@@ -4345,6 +4368,10 @@ RING_STEPS = 3
 # flash step's kernels on the same bf16 inputs and gives its gradients bit
 # for bit; an H100 80GB HBM3 (700 W) read 0.0 in every run
 RING_PARAM_ATOL = 0.0
+# 19a's GPipe step: microbatches a step (on the one-rank mesh, pp = 1: one
+# stage, which is also the last; the schedule's loop runs once, at the
+# capture)
+PIPE_MICROBATCHES = 2
 # 19b: ring_attention_sharded(impl="flash") on make_mesh(sp=2) over two
 # gloo ranks on the one card, at the flagship's attention shape [B, T, H,
 # D], causal (shards of 256 tokens, which tile the kernels' blocks); held
@@ -4469,54 +4496,196 @@ def ring_vs_one_rank(world_out, n):
     return errs, ranks
 
 
-def mesh_train(tfm, cfg, params, tokens, steps, mesh=None):
-    """``steps`` Adam steps at TRAIN_LR: ring_flash on ``mesh``, or the
-    single-device flash step; returns (params, losses)."""
-    impl = "flash" if mesh is None else "ring_flash"
-    opt, step = tfm.make_train_step(cfg, attn_impl=impl,
-                                    learning_rate=TRAIN_LR, mesh=mesh)
+def mesh_legs(tfm, mesh):
+    """Phase 19a's three mesh steps on ``mesh``, through the port's entry
+    points at TRAIN_LR: {name: (cfg, make, fresh)}, ``make(eager)`` giving
+    (opt, step) and ``fresh()`` the config's weights from seed 0 laid out
+    on the mesh as the step takes them (DTensors): ring_flash on the
+    flagship, ring_flash on MOE, and the GPipe step on the flagship's
+    pipeline stages (PIPE_MICROBATCHES a step)."""
+    from client_tpu_torch import parallel
+
+    dense = tfm.TransformerConfig(**FLAGSHIP)
+    moe = tfm.TransformerConfig(**MOE)
+    stages = mesh.size(parallel.AXES.index("pp"))
+
+    def laid(cfg, pipeline=False):
+        def fresh():
+            params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                                     "cuda")
+            if pipeline:
+                params = tfm.stack_pipeline_params(params, stages)
+                specs = tfm.pipeline_param_specs(params)
+            else:
+                specs = parallel.param_specs(cfg)
+            return parallel.device_put(
+                params, parallel.named_shardings(mesh, specs))
+        return fresh
+
+    return {
+        "ring_flash": (dense, lambda eager: tfm.make_train_step(
+            dense, "ring_flash", TRAIN_LR, mesh=mesh, eager=eager),
+            laid(dense)),
+        "moe_ring_flash": (moe, lambda eager: tfm.make_train_step(
+            moe, "ring_flash", TRAIN_LR, mesh=mesh, eager=eager),
+            laid(moe)),
+        "gpipe": (dense, lambda eager: tfm.make_pipeline_train_step(
+            dense, mesh, PIPE_MICROBATCHES, TRAIN_LR, eager=eager),
+            laid(dense, pipeline=True)),
+    }
+
+
+def one_device(tfm, cfg, impl):
+    """(make, fresh) of the single-device step with ``impl`` at TRAIN_LR,
+    from the same seed as mesh_legs' weights."""
+    return (lambda eager: tfm.make_train_step(cfg, impl, TRAIN_LR,
+                                              eager=eager),
+            lambda: tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                                    "cuda"))
+
+
+def run_steps(make, params, tokens, steps, eager=False):
+    """``steps`` steps of ``make(eager)``'s step from ``params``; returns
+    (params, opt_state, losses, step)."""
+    opt, step = make(eager)
     state = opt.init(params)
     losses = []
     for _ in range(steps):
         params, state, loss = step(params, state, tokens)
         losses.append(float(loss))
-    return params, losses
+    return params, state, losses, step
 
 
-def mesh_step_ms(tfm, cfg, tokens, mesh, steps=10, warmup=2):
-    """Train-step wall time (host clock around synchronized steps) from
-    fresh weights: ring_flash on ``mesh``, or flash on one device."""
-    from client_tpu_torch import parallel
+def mesh_graph_vs_eager(tfm, name, cfg, make, fresh, tokens):
+    """RING_STEPS steps of a mesh step as one CUDA graph (the first call
+    eager, the second the capture, then replays), the launch counts reset
+    before and read after, against RING_STEPS eager steps from the same
+    weights: losses and every param bit-equal.  Returns the graphed
+    params and the record."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.serve.models.programs import TrainProgram
 
-    params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
-    if mesh is not None:
-        params = parallel.device_put(params, parallel.named_shardings(
-            mesh, parallel.param_specs(cfg)))
-    impl = "flash" if mesh is None else "ring_flash"
-    opt, step = tfm.make_train_step(cfg, attn_impl=impl,
-                                    learning_rate=TRAIN_LR, mesh=mesh)
-    state = opt.init(params)
-    for _ in range(warmup):
-        params, state, _ = step(params, state, tokens)
+    ops.reset_launches()
+    params, _, losses, step = run_steps(make, fresh(), tokens, RING_STEPS)
     torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    program = step.program
+    check(isinstance(program, TrainProgram),
+          f"19a {name}: the step on the NCCL mesh is not a program "
+          f"({program!r})")
+    replay = {n: c for (n, _), c in program.launches.items()}
+    flash = cfg.n_layers if name != "gpipe" else 0
+    want = {n: flash for n in FLASH_KERNELS} if flash else {}
+    check(replay == want,
+          f"19a {name}: one replay launches {replay}, expected {want}")
+    per_step = {n: c / RING_STEPS for n, c in launches.items()}
+    check(per_step == {"int8_matmul": 0, "paged_attention": 0,
+                       **{n: flash for n in FLASH_KERNELS}},
+          f"19a {name}: {RING_STEPS} steps launched {launches}, expected "
+          f"{flash} of each flash kernel a step")
+    eager_params, _, eager_losses, eager_step = run_steps(
+        make, fresh(), tokens, RING_STEPS, eager=True)
+    check(eager_step.program is None, f"19a {name}: eager=True made a "
+          f"program")
+    check(losses == eager_losses and all(np.isfinite(losses)),
+          f"19a {name}: graphed losses {losses} against eager "
+          f"{eager_losses}")
+    differ = [i for i, (a, b) in enumerate(zip(
+        tfm._leaves(params), tfm._leaves(eager_params)))
+        if not torch.equal(a.to_local(), b.to_local())]
+    check(not differ, f"19a {name}: graphed params differ from eager at "
+          f"leaves {differ}")
+    return params, {"graph_losses": losses, "eager_losses": eager_losses,
+                    "params_bit_equal": True, "launches": launches,
+                    "launches_per_step": per_step,
+                    "launches_per_replay": replay,
+                    "capture_s": program.capture_s}
+
+
+def mesh_step_time(make, fresh, tokens, eager, steps=10, warmup=2):
+    """Train-step wall time (host clock around synchronized steps) of
+    ``make(eager)``'s step from ``fresh()`` weights after ``warmup``
+    steps (for the graph: the eager first step and the capture), with the
+    capture's seconds, the memory the step holds (step_time's
+    accounting: the graph's pool included) and what the allocator
+    reserves after."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params, state, _, step = run_steps(make, fresh(), tokens, warmup, eager)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(steps):
         params, state, loss = step(params, state, tokens)
     torch.cuda.synchronize()
-    return {"attn_impl": impl, "mesh": mesh is not None,
-            "ms_per_step": (time.perf_counter() - t0) * 1e3 / steps,
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    held, pool_mb, peak = held_memory(before, step.program)
+    return {"graph": step.program is not None, "ms_per_step": ms,
+            "capture_s": step.program.capture_s if step.program else None,
+            "held_mb": held, "graph_pool_mb": pool_mb,
+            "peak_mb": peak / 2**20,
+            "reserved_mb": torch.cuda.memory_reserved() / 2**20,
             "steps": steps, "last_loss": float(loss)}
 
 
+def nccl_capture_probe(ops, collectives):
+    """Phase 19a's probe on the one-rank NCCL world: the mesh layer's two
+    collectives (``collectives._all_reduce``, a ``dist.all_reduce``, and
+    ``collectives._sendrecv``, a ``dist.batch_isend_irecv`` pair, here to
+    rank 0 itself) each run eagerly on one input, then captured through
+    ``ops.capture_graph`` on a buffer holding another, the buffer set to
+    the first and the graph replayed: its output against the eager
+    call's.  {name: {"captured", "equal", "error"}}; a refusal is the
+    probe's finding and is recorded, not raised."""
+    import torch.distributed as dist
+
+    group = dist.group.WORLD
+    gen = torch.Generator().manual_seed(RING_SEED)
+    x, other = (torch.randn((TRAIN_BATCH, 1 << 16), generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(2))
+    probes = {
+        "all_reduce": lambda buf: collectives._all_reduce(
+            [buf], (group,))[0],
+        "batch_isend_irecv": lambda buf: collectives._sendrecv(
+            buf, group, 1),
+    }
+    out = {}
+    for name, op in probes.items():
+        want = op(x)
+        torch.cuda.synchronize()
+        buf, box = other.clone(), {}
+        rec = {"captured": False, "equal": None, "error": None}
+        try:
+            graph = ops.capture_graph(lambda: box.update(y=op(buf)), None,
+                                      None, torch.cuda.Stream())
+            rec["captured"] = True
+            buf.copy_(x)
+            graph.replay()
+            torch.cuda.synchronize()
+            rec["equal"] = torch.equal(box["y"], want)
+        except Exception as e:  # noqa: BLE001 -- the refusal is recorded
+            cause = e.__context__
+            rec["error"] = (f"{type(e).__name__}: {e}"
+                            + (f" (during {type(cause).__name__}: {cause})"
+                               if cause is not None else ""))[:3000]
+        out[name] = rec
+    return out
+
+
 def parallel_phase(card, tokens):
-    """Phase 19: (a) the flagship's ring_flash training on a one-rank NCCL
-    mesh against the single-device flash steps; (b) a two-rank ring of the
-    flash kernels on this one card over gloo.  Returns the launch counts:
-    19a's (whole run) and each 19b rank's."""
+    """Phase 19: (a) on a one-rank NCCL mesh, the mesh train steps as CUDA
+    graphs (ring_flash on the flagship and on MOE, the GPipe step) against
+    their eager steps, ring_flash against the single-device flash steps
+    and GPipe against the plain ones, their times graphed and eager, and
+    the NCCL capture probe; (b) a two-rank ring of the flash kernels on
+    this one card over gloo.  Returns the launch counts (19a's graphed
+    ring_flash run, each 19b rank's) and the phase's seconds."""
     import torch.distributed as dist
 
     from client_tpu_torch import ops, parallel
     from client_tpu_torch.ops import _build
+    from client_tpu_torch.parallel import collectives
+    from client_tpu_torch.serve.models import programs
     from client_tpu_torch.serve.models import transformer as tfm
 
     t_phase = time.monotonic()
@@ -4531,48 +4700,75 @@ def parallel_phase(card, tokens):
         check(tuple(mesh.shape) == (1,) * 5
               and mesh.mesh_dim_names == parallel.AXES,
               f"make_mesh() gave {mesh}")
-        fresh = lambda: tfm.init_params(  # noqa: E731
-            torch.Generator().manual_seed(0), cfg, "cuda")
-        flat, flash_losses = mesh_train(tfm, cfg, fresh(), tokens,
-                                        RING_STEPS)
-        sharded = parallel.device_put(fresh(), parallel.named_shardings(
-            mesh, parallel.param_specs(cfg)))
-        ops.reset_launches()
-        sharded, ring_losses = mesh_train(tfm, cfg, sharded, tokens,
-                                          RING_STEPS, mesh)
-        torch.cuda.synchronize()
-        ring_launches = dict(ops.LAUNCHES)
-        per_step = {n: c / RING_STEPS for n, c in ring_launches.items()}
-        check(per_step == {"int8_matmul": 0, "paged_attention": 0,
-                           **{n: cfg.n_layers for n in FLASH_KERNELS}},
-              f"ring_flash training launched {ring_launches} in "
-              f"{RING_STEPS} steps, expected {cfg.n_layers} of each flash "
-              f"kernel a step")
+        check(programs.graphable(mesh), "19a's NCCL mesh is not graphable")
+        legs = mesh_legs(tfm, mesh)
+        flash_make, flash_fresh = one_device(tfm, cfg, "flash")
+        flat, _, flash_losses, _ = run_steps(flash_make, flash_fresh(),
+                                             tokens, RING_STEPS)
+        records = {}
+        for name, (lcfg, make, fresh) in legs.items():
+            params, records[name] = mesh_graph_vs_eager(
+                tfm, name, lcfg, make, fresh, tokens)
+            if name == "ring_flash":
+                ring_launches = records[name]["launches"]
+                ring_losses = records[name]["graph_losses"]
+                param_err = max(
+                    (a.full_tensor().float() - b.float()).abs().max().item()
+                    for a, b in zip(tfm._leaves(params), tfm._leaves(flat)))
+                check(param_err <= RING_PARAM_ATOL,
+                      f"ring_flash params differ from flash's by "
+                      f"{param_err} > {RING_PARAM_ATOL}")
+            del params
+        del flat
         diffs = [abs(a - b) for a, b in zip(ring_losses, flash_losses)]
         check(all(np.isfinite(ring_losses)) and diffs[0] <= TRAIN_LOSS0_ATOL
               and max(diffs) <= TRAIN_LOSS_STEP_ATOL
               and diffs[-1] <= TRAIN_LOSS_LAST_ATOL,
               f"ring_flash losses {ring_losses} against flash "
               f"{flash_losses}")
-        param_err = max(
-            (a.full_tensor().float() - b.float()).abs().max().item()
-            for a, b in zip(tfm._leaves(sharded), tfm._leaves(flat)))
-        check(param_err <= RING_PARAM_ATOL,
-              f"ring_flash params differ from flash's by {param_err} > "
-              f"{RING_PARAM_ATOL}")
-        del flat, sharded
-        times = [mesh_step_ms(tfm, cfg, tokens, m)
-                 for m in (None, mesh, mesh, None)]
+        plain_make, plain_fresh = one_device(tfm, cfg, "plain")
+        _, _, plain_losses, _ = run_steps(plain_make, plain_fresh(), tokens,
+                                          RING_STEPS)
+        pipe_losses = records["gpipe"]["graph_losses"]
+        pipe_diffs = [abs(a - b) for a, b in zip(pipe_losses, plain_losses)]
+        check(pipe_diffs[0] <= TRAIN_LOSS0_ATOL
+              and max(pipe_diffs) <= TRAIN_LOSS_STEP_ATOL
+              and pipe_diffs[-1] <= TRAIN_LOSS_LAST_ATOL,
+              f"GPipe losses {pipe_losses} against single-device plain "
+              f"{plain_losses}")
+        limits = {"first": TRAIN_LOSS0_ATOL, "any": TRAIN_LOSS_STEP_ATOL,
+                  "last": TRAIN_LOSS_LAST_ATOL}
         phase(19, "mesh_ring_flash", config=FLAGSHIP, dtype=cfg.dtype,
               mesh={n: 1 for n in parallel.AXES}, backend=backend,
               tokens=list(tokens.shape), steps=RING_STEPS, lr=TRAIN_LR,
-              ring_flash_losses=ring_losses, flash_losses=flash_losses,
-              loss_diffs=diffs, loss_atol={"first": TRAIN_LOSS0_ATOL,
-                                           "any": TRAIN_LOSS_STEP_ATOL,
-                                           "last": TRAIN_LOSS_LAST_ATOL},
-              param_max_abs_err=param_err, param_atol=RING_PARAM_ATOL,
-              launches=ring_launches, launches_per_step=per_step,
-              step_ms_in_turns=times, **card)
+              **records["ring_flash"], ring_flash_losses=ring_losses,
+              flash_losses=flash_losses, loss_diffs=diffs,
+              loss_atol=limits, param_max_abs_err=param_err,
+              param_atol=RING_PARAM_ATOL, **card)
+        phase(19, "mesh_moe_ring_flash", config=MOE, steps=RING_STEPS,
+              **records["moe_ring_flash"], **card)
+        phase(19, "mesh_gpipe", config=FLAGSHIP, stages=1,
+              microbatches=PIPE_MICROBATCHES, steps=RING_STEPS,
+              **records["gpipe"], plain_losses=plain_losses,
+              loss_diffs=pipe_diffs, loss_atol=limits, **card)
+        # graphed and eager in turns; ring_flash between two legs of the
+        # graphed single-device flash step, which runs the same kernels
+        for name, (_, make, fresh) in legs.items():
+            turns = [(True, make, fresh, eager)
+                     for eager in (False, True, True, False)]
+            if name == "ring_flash":
+                flash = (False, flash_make, flash_fresh, False)
+                turns = [flash, *turns, flash]
+            times = [{"mesh": on_mesh, **mesh_step_time(m, f, tokens, e)}
+                     for on_mesh, m, f, e in turns]
+            phase(19, "mesh_step_times", step=name, in_turns=times, **card)
+        probe = nccl_capture_probe(ops, collectives)
+        for name, rec in probe.items():
+            check(rec["equal"] is not False,
+                  f"19a's captured {name} replayed to another result than "
+                  f"its eager call")
+        phase(19, "nccl_capture_probe", backend=backend, world=1,
+              probes=probe, **card)
     finally:
         dist.destroy_process_group()
     # -- 19b: two gloo ranks on this card -------------------------------
@@ -4598,8 +4794,9 @@ def parallel_phase(card, tokens):
           shard_tokens=RING_SHAPE[1] // 2, max_abs_err=errs,
           tolerance=TOL[torch.bfloat16], g_lse_max_abs=g_lse, ranks=ranks,
           world_seconds=world_s, **card)
-    phase(19, "parallel_done", seconds=time.monotonic() - t_phase)
-    return ring_launches, [got["launches"] for got in ranks]
+    seconds = time.monotonic() - t_phase
+    phase(19, "parallel_done", seconds=seconds)
+    return ring_launches, [got["launches"] for got in ranks], seconds
 
 
 # the static analyser's torch fixtures and the rule each is about, by
@@ -8168,7 +8365,8 @@ def main():
     fleet_launches, fleet_routes = fleet_phase(card, p32, cfg32, pbf, cfg, p8)
 
     # -- 19 several devices: a one-rank mesh, a two-rank ring -----------------
-    ring_launches, ring_rank_launches = parallel_phase(card, tokens)
+    ring_launches, ring_rank_launches, phase_19_s = parallel_phase(card,
+                                                                   tokens)
 
     # -- 21 the gRPC frontend ----------------------------------------------
     grpc_launches, grpc_routes = grpc_phase(card, prompt)
@@ -8381,6 +8579,7 @@ def main():
             "checked_in": "phase 10",
         })
     phase(0, "script_seconds", seconds=process_seconds(),
+          phase_19=phase_19_s,
           phases_22_26={str(k): v for k, v in sorted(PHASE_SECONDS.items())},
           phases_22_26_total=sum(PHASE_SECONDS.values()), **card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,6 +26,7 @@ thread that allocated while a capture was set up.
 """
 
 import contextlib
+import gc
 import threading
 import time
 
@@ -74,9 +75,13 @@ def capture_graph(body, warm_up, pool, stream):
     thread-local mode; the current stream then waits for ``stream``.
     Nothing synchronizes the device, collects garbage or empties the
     device or pinned-host cache, so no other thread's work or allocation
-    waits on a capture.  One capture at a time in the process
-    (``CAPTURE_LOCK``).  The capture itself runs nothing; a failed
-    capture raises."""
+    waits on a capture.  Automatic garbage collection is paused from
+    ``capture_begin`` to ``capture_end``: a collection there could free a
+    dead graph held in a reference cycle, and destroying a graph on the
+    thread that captures invalidates the capture (``torch.cuda.graph``
+    collects before each capture instead, a pause of its own).  One
+    capture at a time in the process (``CAPTURE_LOCK``).  The capture
+    itself runs nothing; a failed capture raises."""
     import torch
 
     main = torch.cuda.current_stream(stream.device)
@@ -87,7 +92,8 @@ def capture_graph(body, warm_up, pool, stream):
             with torch.cuda.stream(stream), recording():
                 warm_up()
         graph = torch.cuda.CUDAGraph()
-        with recording(stream) as launches, torch.cuda.stream(stream):
+        with recording(stream) as launches, torch.cuda.stream(stream), \
+                _collection_paused():
             graph.capture_begin(pool, capture_error_mode="thread_local")
             try:
                 body()
@@ -95,6 +101,20 @@ def capture_graph(body, warm_up, pool, stream):
                 graph.capture_end()
         main.wait_stream(stream)
     return Graph(graph, launches, time.monotonic() - t0)
+
+
+@contextlib.contextmanager
+def _collection_paused():
+    """No automatic garbage collection in the block (an explicit
+    ``gc.collect()`` still runs); the collector's state is restored
+    after."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def count_launch(name, route=None):

@@ -1,4 +1,4 @@
-"""The serial LM programs and the single-device train step as CUDA graphs.
+"""The serial LM programs and the train steps as CUDA graphs.
 
 The port's counterpart of the JAX package's last compiled LM programs
 (client_tpu/serve/models/transformer.py):
@@ -13,12 +13,15 @@ The port's counterpart of the JAX package's last compiled LM programs
   :class:`SerialPool` hands out program sets for one params tree, one a
   stream at a time, since two streams cannot share a static cache (JAX's
   jitted steps are reentrant: each call gets its own cache).
-- ``_make_adam_step``: ``jax.jit(step, donate_argnums=(0, 1))``.  Here a
-  :class:`TrainProgram` runs its first call eagerly (a real step and the
-  warm-up: it builds the kernels' extension and allocates the gradients),
-  captures the whole step (zero-grad, forward, backward, the Adam update)
-  on its second and replays it from then on, the params and the optimizer
-  state updated in place (the port's stand-in for buffer donation).
+- ``_make_adam_step``: ``jax.jit(step, donate_argnums=(0, 1))``, on one
+  device and, through GSPMD, over a mesh (``make_train_step(mesh=)`` and
+  ``make_pipeline_train_step``).  Here a :class:`TrainProgram` runs its
+  first call eagerly (a real step and the warm-up: it builds the kernels'
+  extension and allocates the gradients), captures the whole step
+  (zero-grad, forward, backward, the Adam update) on its second and
+  replays it from then on, the params and the optimizer state updated in
+  place (the port's stand-in for buffer donation).  :func:`graphable`
+  says which worlds a mesh step is captured on.
 
 A graph is captured by ``ops.capture_graph`` (a warm-up, then the capture
 on a side stream, one capture at a time in the process, with no device
@@ -244,7 +247,38 @@ def serial_pool(params, cfg):
         return pool
 
 
-# -- the single-device train step -------------------------------------------
+# -- the train step -----------------------------------------------------------
+
+def graphable(mesh):
+    """Whether a train step on ``mesh`` (None: one device) runs as a
+    :class:`TrainProgram`.
+
+    With no mesh, always.  On a mesh, only where the mesh lies on CUDA and
+    every group of every mesh dim runs on NCCL, whose collectives a CUDA
+    graph records.  A gloo world stays eager: gloo sends and receives a
+    CUDA tensor through pinned host memory (``collectives._sendrecv``), a
+    host copy that a capture cannot record.  That covers the CPU worlds
+    and several ranks that share one card over gloo.
+
+    A capture of a multi-rank NCCL step is unproven: the mesh step has
+    been captured on a one-rank world only, where every mesh dim has size
+    1 and the step issues no collective."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+
+    return mesh.device_type == "cuda" and all(
+        dist.get_backend(mesh.get_group(dim)) == "nccl"
+        for dim in range(mesh.ndim))
+
+
+def _token_key(tokens):
+    """What a program's static token buffer is made for: the tokens'
+    shape, dtype and device, and a DTensor's mesh and placements."""
+    return (tuple(tokens.shape), tokens.dtype, tokens.device,
+            getattr(tokens, "device_mesh", None),
+            tuple(getattr(tokens, "placements", ())))
+
 
 class TrainProgram:
     """``body(params, opt_state, tokens) -> loss`` (zero-grad, forward,
@@ -257,6 +291,12 @@ class TrainProgram:
     call copies the tokens into the static buffer and replays.  Other
     params, another state or another token shape start over.  On the CPU
     every call runs ``body`` on the static token buffer.
+
+    On a mesh the params are DTensors: the key holds their leaves, and the
+    graph reads and the optimizer updates their local shards, the same
+    tensor objects on every call (``parallel.local_shard``).  Tokens may
+    be a plain tensor or a DTensor; the static buffer is made like them
+    (a DTensor's placements are part of the key).
 
     The optimizer's hyperparameters (its learning rate) are baked into the
     graph, as optax's are into the jitted step.  Returns a copy of the
@@ -287,11 +327,10 @@ class TrainProgram:
         key = self._key
         if key is None:
             return False
-        opt_ref, leaf_refs, shape = key
+        opt_ref, leaf_refs, token_key = key
         leaves = list(_leaves(params))
         return (opt_ref() is opt_state
-                and shape == (tuple(tokens.shape), tokens.dtype,
-                              tokens.device)
+                and token_key == _token_key(tokens)
                 and len(leaves) == len(leaf_refs)
                 and all(r() is w for r, w in zip(leaf_refs, leaves)))
 
@@ -299,7 +338,7 @@ class TrainProgram:
         if not self._matches(params, opt_state, tokens):
             self._key = (weakref.ref(opt_state),
                          tuple(weakref.ref(w) for w in _leaves(params)),
-                         (tuple(tokens.shape), tokens.dtype, tokens.device))
+                         _token_key(tokens))
             self._tokens = torch.empty_like(tokens)
             self._graph = self._loss = None
             self._calls = 0

@@ -818,7 +818,8 @@ def _make_adam_step(loss, learning_rate, graph=False):
     the same objects back: that takes the place of the JAX step's buffer
     donation, and keeps the JAX call shape.  With ``graph`` the step is a
     ``programs.TrainProgram``: replayed as one CUDA graph from its second
-    call on CUDA, run on a static token buffer on the CPU."""
+    call on CUDA, run on a static token buffer on the CPU.  The callers
+    pass ``programs.graphable(mesh)``: a gloo world's steps are eager."""
     from client_tpu_torch.serve.models.programs import TrainProgram
 
     opt = _Adam(learning_rate)
@@ -856,18 +857,23 @@ def make_train_step(cfg, attn_impl="plain", learning_rate=1e-3, *,
     and every rank runs the step; ``attn_impl`` "ring" or "ring_flash"
     shards the sequence over ``sp``.
 
-    On one device (no ``mesh``) the step is one program, as JAX's jitted
-    step is: on CUDA its first call runs eagerly (the warm-up), its second
-    captures the whole step as a CUDA graph, and every later call with the
-    same params, state and token shape replays it (``step.program``).
-    ``eager=True`` runs every step eagerly (a comparison leg).  A mesh
-    step stays eager: its collectives run over gloo, which a graph cannot
-    capture.
+    The step is one program, as JAX's jitted step is (``step.program``, a
+    ``programs.TrainProgram``): on CUDA its first call runs eagerly (the
+    warm-up), its second captures the whole step as a CUDA graph, and
+    every later call with the same params, state and token shape replays
+    it.  That holds on one device and on a mesh whose every group runs on
+    NCCL (``programs.graphable``).  A mesh on a gloo world stays eager
+    (``step.program`` is None): gloo stages CUDA tensors through host
+    memory, which a capture cannot record.  ``eager=True`` runs every step
+    eagerly (a comparison leg).  A capture or replay that fails raises;
+    nothing runs the eager step in its place.
     """
+    from client_tpu_torch.serve.models.programs import graphable
+
     return _make_adam_step(
         lambda params, tokens: loss_fn(params, tokens, cfg, attn_impl,
                                        mesh=mesh),
-        learning_rate, graph=mesh is None and not eager,
+        learning_rate, graph=graphable(mesh) and not eager,
     )
 
 
@@ -986,23 +992,36 @@ def forward_pipelined(pparams, tokens, cfg, mesh, n_microbatches):
                               stride=(t * v, v, 1))
 
 
-def make_pipeline_train_step(cfg, mesh, n_microbatches, learning_rate=1e-3):
+def _pipeline_loss(pparams, tokens, cfg, mesh, n_microbatches):
+    """Mean next-token cross-entropy of tokens [B, T+1] through the
+    pipelined stack, the same value on every rank."""
+    _check_mesh(pparams, "plain")
+    rows = _local_rows(tokens, mesh)
+    logits = _pipelined_local(pparams, rows[:, :-1], cfg, mesh,
+                              n_microbatches)
+    return _sharded_nll(logits, rows[:, 1:], _Region(mesh), ("dp",),
+                        vocab_parallel=False)
+
+
+def make_pipeline_train_step(cfg, mesh, n_microbatches, learning_rate=1e-3,
+                             *, eager=False):
     """Adam train step over pipeline-stacked params laid out by
     ``pipeline_param_specs``: gradients flow back through the schedule
     (the reverse permute).  Pipeline composes with data parallelism (each
     dp rank pipelines its rows); stage weights are replicated over tp/ep
     within the region, and the MoE router aux loss is not collected on
-    this path (as in JAX)."""
+    this path (as in JAX).
 
-    def loss(pparams, tokens):
-        _check_mesh(pparams, "plain")
-        rows = _local_rows(tokens, mesh)
-        logits = _pipelined_local(pparams, rows[:, :-1], cfg, mesh,
-                                  n_microbatches)
-        return _sharded_nll(logits, rows[:, 1:], _Region(mesh), ("dp",),
-                            vocab_parallel=False)
+    As ``make_train_step``'s mesh step: one CUDA graph a step from the
+    second call where every group of ``mesh`` runs on NCCL
+    (``programs.graphable``), the schedule's Python loop run once, at the
+    capture; eager on a gloo world and with ``eager=True``."""
+    from client_tpu_torch.serve.models.programs import graphable
 
-    return _make_adam_step(loss, learning_rate)
+    return _make_adam_step(
+        lambda pparams, tokens: _pipeline_loss(pparams, tokens, cfg, mesh,
+                                               n_microbatches),
+        learning_rate, graph=graphable(mesh) and not eager)
 
 
 def _start_readback(token):

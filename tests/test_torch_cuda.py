@@ -1116,6 +1116,40 @@ def test_capture_graph_replays_equal_the_eager_body(cuda_device):
 
 
 @pytest.mark.cuda
+def test_capture_survives_a_dead_graph_in_a_cycle(cuda_device):
+    """A dead CUDA graph held in a reference cycle, then a capture whose
+    body allocates past the collector's young-generation threshold:
+    ``ops.capture_graph`` pauses automatic collection in the capture, so
+    the dead graph is not destroyed on the capturing thread (which would
+    invalidate the capture) and the replay equals the eager body."""
+    import gc
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(16, 64, generator=gen).to(cuda_device)
+    w = torch.randn(64, 32, generator=gen).to(cuda_device)
+    stream = torch.cuda.Stream()
+    box = {}
+
+    def body():
+        box["out"] = _graph_body(x, w)
+        box["junk"] = [[] for _ in range(10_000)]
+
+    dead = [ops.capture_graph(body, body, torch.cuda.graph_pool_handle(),
+                              stream)]
+    dead.append(dead)
+    del dead
+    threshold = gc.get_threshold()
+    gc.set_threshold(100)
+    try:
+        graph = ops.capture_graph(body, None,
+                                  torch.cuda.graph_pool_handle(), stream)
+    finally:
+        gc.set_threshold(*threshold)
+    graph.replay()
+    assert torch.equal(box["out"], _graph_body(x, w))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("step", ["preprocess", "backbone", "postprocess"])
 def test_vision_step_graphs_equal_eager(cuda_device, step):
     """Each vision step's program on the card (a CUDA graph captured at

@@ -445,6 +445,59 @@ def test_program_feeds_pack_into_one_buffer():
     assert prog.graph is None
 
 
+def test_capture_pauses_garbage_collection(monkeypatch):
+    """ops.capture_graph pauses automatic garbage collection from
+    capture_begin to capture_end (a collection there could destroy a dead
+    CUDA graph on the capturing thread, which invalidates the capture),
+    not in the warm-up, and restores the collector after, also when the
+    body raises; a collector paused before stays paused.  The CUDA
+    stream, stream context and graph are stand-ins."""
+    import contextlib
+    import gc
+
+    seen = []
+
+    class Stream:
+        device = "cuda:0"
+        cuda_stream = 0x5EED
+
+        def wait_stream(self, other):
+            pass
+
+    class Graph:
+        def capture_begin(self, pool, capture_error_mode):
+            seen.append(("begin", gc.isenabled()))
+
+        def capture_end(self):
+            seen.append(("end", gc.isenabled()))
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    assert gc.isenabled()
+    ops.capture_graph(lambda: seen.append(("body", gc.isenabled())),
+                      lambda: seen.append(("warm_up", gc.isenabled())),
+                      None, Stream())
+    assert seen == [("warm_up", True), ("begin", False), ("body", False),
+                    ("end", False)]
+    assert gc.isenabled()
+
+    def refused():
+        raise ValueError("refused inside the capture")
+
+    with pytest.raises(ValueError, match="refused"):
+        ops.capture_graph(refused, None, None, Stream())
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        ops.capture_graph(lambda: None, None, None, Stream())
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 def test_replay_accounting():
     """ops.recording() diverts this thread's launch counts into a record
     (a capture); ops.count_replay adds the record once a replay, launches

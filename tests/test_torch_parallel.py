@@ -9,7 +9,10 @@ spawned once for the module: tests/torch_world_cases.py
 dp=2/tp=2/pp=2; JAX runs the same functions on the conftest's 8-device
 CPU mesh of the same shapes (one jitted program), meanwhile.  Params are
 made in JAX and carried across with ``convert.params_from_numpy``; tokens
-come from numpy seeds.  Then ``graft.dryrun_multichip(8)`` runs its own
+come from numpy seeds.  The same world runs the dp/tp/sp ring_flash
+step, the ep MoE step and the pp GPipe step as programs
+(``_make_adam_step(..., graph=True)``, TrainProgram's CPU path) beside
+their eager steps.  Then ``graft.dryrun_multichip(8)`` runs its own
 world.
 
 Stated tolerances (float32 throughout):
@@ -23,7 +26,9 @@ Stated tolerances (float32 throughout):
   and within 2 * lr elsewhere, and their gradients are held themselves
   at atol 1e-5 / rtol 1e-3 (tests/test_torch_train.py's GRAD_TOL);
 - logits at atol 1e-4 / rtol 1e-3 (tests/test_transformer.py's ring
-  against plain).
+  against plain);
+- a mesh program's losses and params against the eager step's from the
+  same weights: bit-equal (the same body on the same inputs).
 """
 
 import dataclasses
@@ -80,19 +85,26 @@ def _inputs():
     train = {"cfg": dataclasses.asdict(CFG), "params": dense, "lr": LR,
              "tokens": _tokens(6, (4, 17), CFG.vocab_size)}
     pipe = _np(jtfm.init_params(jax.random.PRNGKey(0), PIPE_CFG))
+    pipe_tokens = _tokens(4, (4, 9), PIPE_CFG.vocab_size)
+    moe_params = _np(jtfm.init_params(jax.random.PRNGKey(7), MOE_CFG))
+    moe_tokens = _tokens(8, (4, 17), MOE_CFG.vocab_size)
     return {
         "train_ring": train,
         "train_ring_flash": train,
         "moe_ep": {"cfg": dataclasses.asdict(MOE_CFG), "lr": LR,
-                   "params": _np(jtfm.init_params(jax.random.PRNGKey(7),
-                                                  MOE_CFG)),
+                   "params": moe_params,
                    "fwd_tokens": _tokens(1, (4, 8), MOE_CFG.vocab_size),
-                   "tokens": _tokens(8, (4, 17), MOE_CFG.vocab_size)},
+                   "tokens": moe_tokens},
         "pipeline": {"cfg": dataclasses.asdict(PIPE_CFG), "lr": 1e-2,
                      "params": pipe,
                      "stacked": _np(jtfm.stack_pipeline_params(pipe, 2)),
                      "fwd_tokens": _tokens(1, (4, 8), PIPE_CFG.vocab_size),
-                     "tokens": _tokens(4, (4, 9), PIPE_CFG.vocab_size)},
+                     "tokens": pipe_tokens},
+        "graph_train_ring_flash": train,
+        "graph_moe_ep": {"cfg": dataclasses.asdict(MOE_CFG), "lr": LR,
+                         "params": moe_params, "tokens": moe_tokens},
+        "graph_pipeline": {"cfg": dataclasses.asdict(PIPE_CFG), "lr": 1e-2,
+                           "params": pipe, "tokens": pipe_tokens},
         "param_specs": {"cfgs": {"dense": dataclasses.asdict(CFG),
                                  "moe": dataclasses.asdict(MOE_CFG)}},
         # the same weights restored from a checkpoint this process writes
@@ -335,6 +347,36 @@ def test_pipeline_matches_jax(world):
     np.testing.assert_allclose(got["logits"], want["logits"], **LOGIT_TOL)
     assert got["loss"] == pytest.approx(float(want["loss"]), rel=LOSS_RTOL)
     _assert_step(got, want, 1e-2)
+
+
+_GRAPH_CASES = ("moe_ep", "pipeline", "train_ring_flash")
+
+
+@pytest.mark.parametrize("kind", _GRAPH_CASES)
+def test_mesh_program_matches_eager_and_jax(world, kind):
+    """The dp/tp/sp ring_flash step, the ep MoE step (DTensor tokens) and
+    the pp GPipe step through ``_make_adam_step(..., graph=True)`` (the
+    program's CPU path): two steps' losses and the params after them
+    bit-equal to the eager step's from the same weights; the first loss
+    at 1e-5 relative to JAX's sharded step."""
+    got = _case(world, f"graph_{kind}")
+    want = world[1][kind]
+    assert got["program"] == "TrainProgram" and got["eager_program"] is None
+    assert got["losses"] == got["eager_losses"]
+    assert got["params_equal"]
+    assert got["losses"][0] == pytest.approx(float(want["loss"]),
+                                             rel=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("kind", _GRAPH_CASES)
+def test_mesh_program_starts_over(world, kind):
+    """The mesh program counts its calls with one params tree and state
+    (2 after two steps); new params, then a new state, start it over (its
+    first call again)."""
+    got = _case(world, f"graph_{kind}")
+    assert got["calls"] == 2
+    assert got["new_params_calls"] == 1
+    assert got["new_state_calls"] == 1
 
 
 def test_stack_stage_params_shapes():

@@ -2,7 +2,9 @@
 (client_tpu_torch.serve.models.programs.TrainProgram, the counterpart of
 the JAX package's jitted ``_make_adam_step``) and its Adam update
 (``transformer._AdamState``, optax's formula as tensor ops with the step
-count on the params' device) held against client_tpu's optax steps.
+count on the params' device) held against client_tpu's optax steps; and
+the graph decision for the mesh and pipeline steps
+(``programs.graphable``) on a one-rank mesh in this process.
 
 On the CPU the program runs the body its CUDA graph captures on the card
 (zero-grad, forward, backward, the update) eagerly, on its static token
@@ -182,11 +184,57 @@ def test_program_starts_over_for_other_state_or_shape():
     assert step.program._calls == 1
 
 
-def test_mesh_and_pipeline_steps_stay_eager():
-    """gloo collectives cannot be captured: a mesh step and a pipeline
-    step carry no program."""
-    cfg = tfm.TransformerConfig(**dataclasses.asdict(_JDENSE))
-    _, step = tfm.make_train_step(cfg, mesh=object())
-    assert step.program is None
-    _, pstep = tfm.make_pipeline_train_step(cfg, object(), 2)
-    assert pstep.program is None
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """make_mesh() over a one-rank gloo world in this process (every dim
+    1), left at the module's end."""
+    import torch.distributed as dist
+
+    from client_tpu_torch import parallel
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield parallel.make_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+_MESH_STEPS = {
+    "ring": lambda mesh, eager: tfm.make_train_step(
+        _cfg(_JDENSE), "ring", mesh=mesh, eager=eager),
+    "ring_flash": lambda mesh, eager: tfm.make_train_step(
+        _cfg(_JDENSE), "ring_flash", mesh=mesh, eager=eager),
+    "moe": lambda mesh, eager: tfm.make_train_step(
+        _cfg(_JMOE), "ring_flash", mesh=mesh, eager=eager),
+    "gpipe": lambda mesh, eager: tfm.make_pipeline_train_step(
+        _cfg(_JDENSE), mesh, 2, eager=eager),
+}
+
+
+def _cfg(jcfg):
+    return tfm.TransformerConfig(**dataclasses.asdict(jcfg))
+
+
+@pytest.mark.parametrize("eager", [False, True])
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+@pytest.mark.parametrize("kind", sorted(_MESH_STEPS))
+def test_mesh_and_pipeline_steps_stay_eager(one_rank_mesh, monkeypatch,
+                                            kind, backend, eager):
+    """The graph decision (programs.graphable) on a real mesh: a gloo
+    world's mesh and pipeline steps carry no program (gloo stages CUDA
+    tensors through host memory, which a capture cannot record); with
+    every group on NCCL and the mesh on CUDA (both patched in here) they
+    are a TrainProgram; ``eager=True`` carries none on either."""
+    import torch.distributed as dist
+
+    if backend == "nccl":
+        monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+        monkeypatch.setattr(type(one_rank_mesh), "device_type",
+                            property(lambda mesh: "cuda"))
+    assert programs.graphable(one_rank_mesh) == (backend == "nccl")
+    _, step = _MESH_STEPS[kind](one_rank_mesh, eager)
+    if backend == "nccl" and not eager:
+        assert isinstance(step.program, programs.TrainProgram)
+    else:
+        assert step.program is None

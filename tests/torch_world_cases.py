@@ -238,6 +238,64 @@ def _pipeline_case(mesh):
     return run
 
 
+def _graph_case(mesh, kind):
+    """The mesh step as a program (``_make_adam_step(..., graph=True)``:
+    on the CPU, TrainProgram runs the body on its static token buffer,
+    with the DTensor leaves in its key) against the eager step from the
+    same weights, two steps each; then new params, and a new state, each
+    start the program over.  The MoE case passes its tokens as a DTensor
+    laid out over dp, the others as a plain tensor."""
+    def run(inp):
+        from torch.distributed.tensor import distribute_tensor
+
+        cfg = _cfg(inp["cfg"])
+        toks = torch.from_numpy(inp["tokens"])
+        if kind == "pipeline":
+            def fresh():
+                plain = convert.params_from_numpy(inp["params"], "cpu")
+                pparams = tfm.stack_pipeline_params(plain, 2)
+                return device_put(pparams, named_shardings(
+                    mesh, tfm.pipeline_param_specs(pparams)))
+
+            def loss(p, t):
+                return tfm._pipeline_loss(p, t, cfg, mesh, 2)
+        else:
+            impl = "ring_flash" if kind == "train_ring_flash" else "plain"
+
+            def fresh():
+                return _params(inp, mesh, cfg)
+
+            def loss(p, t):
+                return tfm.loss_fn(p, t, cfg, impl, mesh=mesh)
+        if kind == "moe_ep":
+            toks = distribute_tensor(toks, mesh, parallel.placements(
+                mesh, parallel.P("dp", None)))
+        opt, graph = tfm._make_adam_step(loss, inp["lr"], graph=True)
+        _, eager = tfm._make_adam_step(loss, inp["lr"])
+        pa, pb = fresh(), fresh()
+        sa, sb = opt.init(pa), opt.init(pb)
+        got, want = [], []
+        for _ in range(2):
+            pa, sa, la = graph(pa, sa, toks)
+            pb, sb, lb = eager(pb, sb, toks)
+            got.append(float(la))
+            want.append(float(lb))
+        calls = graph.program._calls
+        equal = all(torch.equal(a.to_local(), b.to_local()) for a, b in
+                    zip(tfm._leaves(pa), tfm._leaves(pb)))
+        pc = fresh()
+        graph(pc, opt.init(pc), toks)
+        new_params = graph.program._calls
+        graph(pc, opt.init(pc), toks)
+        new_state = graph.program._calls
+        return {"program": type(graph.program).__name__,
+                "eager_program": eager.program, "losses": got,
+                "eager_losses": want, "params_equal": equal,
+                "calls": calls, "new_params_calls": new_params,
+                "new_state_calls": new_state}
+    return run
+
+
 def _mesh_validation(inp):
     errors = []
     for kw in ({"dp": 2, "tp": 2, "sp": 2, "pp": 2}, {"tp": 3}):
@@ -354,6 +412,9 @@ def parallel_cases(rank, n, in_path, out_path, ckpt_dir):
         ("train_ring_flash", _train_case(mesh, "ring_flash")),
         ("moe_ep", _moe_case(emesh)),
         ("pipeline", _pipeline_case(pmesh)),
+        ("graph_train_ring_flash", _graph_case(mesh, "train_ring_flash")),
+        ("graph_moe_ep", _graph_case(emesh, "moe_ep")),
+        ("graph_pipeline", _graph_case(pmesh, "pipeline")),
         ("restore", _restore(mesh, ckpt_dir)),
         ("refusals", _refusals(mesh)),
     ]
