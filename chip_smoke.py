@@ -295,9 +295,8 @@ Phases, one line each or more; any failure exits non-zero:
                 phase 22's in-process legs, launches_http: phase 23's
                 -i http LM leg, launches_aio: phase 24's aio calls,
                 launches_balance: phase 25's balanced calls,
-                launches_native: phase 26a's native-worker streams, null
-                where 26a is cut, launches_tls: phase 26c's HTTPS LM
-                leg), its route's own
+                launches_native: phase 26a's native-worker streams,
+                launches_tls: phase 26c's HTTPS LM leg), its route's own
                 error (phase 3, 7 or 10) and its times (phase 6, 9 or 12)
  21 grpc        the gRPC frontend (runs before phase 20's line; needs
                 grpcio).  The language set behind Server(grpc_port=0),
@@ -442,20 +441,22 @@ Phases, one line each or more; any failure exits non-zero:
                 paged attention must have launched (launches_balance in
                 phase 20)
  26 native      perf_analyzer's last load engines and SSL, on phase 23's
-                server before it stops.  (a) perf_worker, the C++ engine,
-                built from this checkout's src/cpp (make, into
-                build/torch_cpp), its build time printed; --native-loadgen
-                on ResNet-50 at 1 and 8 from the wire and from CUDA
-                regions, with and without --cuda-shm-sync (exit 0, no
-                error at any level, no server failure); the worker's 8
-                decoupled lm_streaming_int8 streams (TOKENS 64 of 7,
-                MAX_TOKENS 16): no error, its count of the streams that
-                ended in its window at most the server's successes, int8
-                and paged attention launched (launches_native in phase
-                20).  Where the worker does not build (no protoc or
-                libprotobuf), 26a is cut: its reason printed, and the
-                CLI's --native-loadgen must exit non-zero with the
-                build's message, nothing served.  (b) procpool: 2 spawned
+                server before it stops.  (a) perf_worker, the C++ engine:
+                src/cpp/perf/perf_worker.cc over the port's protobuf-free
+                client (client_tpu_torch/perf/csrc), built by g++ alone
+                into build/torch_cpp (no protoc, no libprotobuf: a build
+                that fails fails the phase); its build time and ldd's
+                list of its libraries printed, none libprotobuf;
+                --native-loadgen on ResNet-50 at 1 and 8 from the wire
+                and from CUDA regions, with and without --cuda-shm-sync
+                (exit 0, no error at any level, no server failure), the
+                wire leg's infer/s, p50 and p99 at 8 beside phase 22's
+                Python gRPC wire leg at 8; the worker's 8 decoupled
+                lm_streaming_int8 streams (TOKENS 64 of 7, MAX_TOKENS
+                16): no error, its count of the streams that ended in
+                its window at most the server's successes, int8 and
+                paged attention launched (launches_native in phase 20).
+                (b) procpool: 2 spawned
                 processes x 4 against ResNet-50 from CUDA regions this
                 process registered, referenced by name
                 (export_region_specs): no error, every request the
@@ -5624,6 +5625,12 @@ def perf_socket_legs(card, tmp):
         for shm, sync in PERF_SHM_LEGS:
             leg, doc, served, regions, seconds = perf_socket_leg(
                 server, tmp, "grpc", "resnet50", shm, sync, env=env, n=22)
+            if shm == "none":
+                PYTHON_GRPC_AT_8.update(
+                    next(lv for lv in perf_levels(doc) if lv["level"] == 8),
+                    leg="phase 22b, python -m client_tpu_torch.perf -i grpc "
+                        "from the wire on phase 22's server (ResNet-50 "
+                        "alone), the metrics scrape and the probe on")
             phase(22, "perf_grpc", leg=leg, levels=perf_levels(doc),
                   requests=doc["requests"], server_successes=served,
                   cuda_regions_opened_over_ipc=regions,
@@ -5999,8 +6006,8 @@ def http_phase(card):
     replica A (balance_phase), then phase 26 on it (native_phase), then
     phase 27 (chaos_phase).  Returns the LM leg's (launches, routes)
     (launches_http in phase 20), phase 24's (launches_aio), phase 25's
-    (launches_balance), phase 26's (launches_native, None where 26a is
-    cut, and launches_tls) and phase 27's (launches_chaos)."""
+    (launches_balance), phase 26's (launches_native and launches_tls)
+    and phase 27's (launches_chaos)."""
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import language, vision
 
@@ -6879,9 +6886,12 @@ POOL_CONCURRENCY = 8
 POOL_WINDOW_S = 1.0
 TLS_LEVEL = "8"           # 26c: the concurrency of every TLS leg
 TLS_WINDOW_MS = 250
-NATIVE_LAUNCHES_IN = ("launches_native: phase 26a's native-worker streams "
-                      "(null where the worker did not build: 26a cut); "
+NATIVE_LAUNCHES_IN = ("launches_native: phase 26a's native-worker streams; "
                       "launches_tls: phase 26c's HTTPS LM leg")
+# phase 22's Python gRPC wire leg at concurrency 8 (ResNet-50), set there
+# with the leg's description ("leg") and printed beside the native
+# worker's in phase 26a
+PYTHON_GRPC_AT_8 = {}
 _NATIVE_LINE = re.compile(
     r"^(Concurrency|Request rate|Sequences): (\S+), throughput: (\S+) "
     r"infer/sec \(native\), p50 (\d+) usec, p99 (\d+) usec, errors (\d+)"
@@ -6980,14 +6990,15 @@ def native_levels(stdout):
 
 
 def native_leg(card, server, tmp):
-    """Phase 26a: perf_worker built from this checkout, then
+    """Phase 26a: perf_worker built from this checkout by g++ alone (a
+    build that fails fails the phase), ldd's list of its libraries, then
     --native-loadgen on ResNet-50 from the wire and from CUDA regions
-    (with and without --cuda-shm-sync), then the worker's decoupled
-    streams on lm_streaming_int8 with the launch counts reset just before
-    and read just after.  Where the worker does not build, the CLI's
-    refusal with the build's message instead.  Returns (launches, routes),
-    or None where the leg is cut."""
+    (with and without --cuda-shm-sync), the wire leg at 8 beside phase
+    22's Python gRPC leg, then the worker's decoupled streams on
+    lm_streaming_int8 with the launch counts reset just before and read
+    just after.  Returns (launches, routes)."""
     from client_tpu_torch import ops
+    from client_tpu_torch.perf import native_worker
     from client_tpu_torch.perf.native_worker import (
         build_native_worker,
         run_native_worker,
@@ -6998,21 +7009,29 @@ def native_leg(card, server, tmp):
     try:
         binary = build_native_worker()
     except InferenceServerException as e:
-        phase(26, "native_cut", reason=str(e)[-1500:],
-              build_s=time.monotonic() - t0, **card)
-        proc, _, delta = perf_cli(
-            server, "resnet50", tmp, "native_refused",
-            ["-u", server.grpc_address, "--native-loadgen"], export=False)
-        check(proc.returncode != 0 and delta == (0, 0)
-              and "building the native perf worker failed" in proc.stderr,
-              f"--native-loadgen without a worker exited "
-              f"{proc.returncode}, server {delta}: {proc.stderr[-2000:]}")
-        phase(26, "native_refused", rc=proc.returncode,
-              message=proc.stderr.strip().splitlines()[0][:300], **card)
-        return None
-    phase(26, "native_build", build_s=time.monotonic() - t0,
-          binary=os.path.relpath(
-              binary, os.path.dirname(os.path.abspath(__file__))), **card)
+        fail(f"phase 26a: the native worker did not build: {e}")
+    build_s = time.monotonic() - t0
+    ldd = subprocess.run(["ldd", binary], capture_output=True, text=True)
+    libraries = [ln.strip() for ln in ldd.stdout.splitlines() if ln.strip()]
+    check(ldd.returncode == 0 and libraries
+          and not any("libprotobuf" in ln for ln in libraries),
+          f"ldd of the native worker exited {ldd.returncode}: "
+          f"{ldd.stdout[-2000:]} {ldd.stderr[-1000:]}")
+    built = native_worker.last_build
+    check(built is None or not any("protoc" in arg or "protobuf" in arg
+                                   for cmd in built["commands"]
+                                   for arg in cmd),
+          f"the native worker's build named protoc or protobuf: {built}")
+    phase(26, "native_build", build_s=build_s,
+          compiled=built is not None,
+          compile_s=built and built["seconds"],
+          commands=built and [" ".join(os.path.relpath(a, HERE)
+                                       if a.startswith(HERE) else a
+                                       for a in cmd)
+                              for cmd in built["commands"]],
+          libraries=libraries,
+          binary=os.path.relpath(binary, HERE), **card)
+    native_at_8 = None
     for shm, sync in NATIVE_LEGS:
         args = ["-u", server.grpc_address, "--native-loadgen",
                 "--concurrency-range", NATIVE_LEVELS,
@@ -7034,6 +7053,18 @@ def native_leg(card, server, tmp):
               f"{levels}: {proc.stderr[-2000:]}")
         phase(26, "native_resnet", leg=leg, levels=levels,
               server_successes=delta[0], **card)
+        if shm == "none":
+            native_at_8 = next(lv for lv in levels if lv["level"] == 8)
+    keys = ("infer_per_s", "p50_us", "p99_us", "stable")
+    python_at_8 = PYTHON_GRPC_AT_8 or None
+    phase(26, "native_vs_python_at_8", model="resnet50",
+          native={k: native_at_8[k] for k in keys},
+          python=python_at_8 and {k: python_at_8[k] for k in keys},
+          native_over_python=(python_at_8 and native_at_8["infer_per_s"]
+                              / python_at_8["infer_per_s"]),
+          native_leg="phase 26a, --native-loadgen from the wire on phase "
+                     "23's server (ResNet-50 and the language set)",
+          python_leg=python_at_8 and python_at_8["leg"], **card)
     before = success_counts(server, HTTP_LM)
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -7067,7 +7098,8 @@ def native_leg(card, server, tmp):
           server_successes=served, launches=launches,
           launches_by_route=routes,
           sequence_leg="not run: phase 23's server serves no "
-                       "simple_sequence", **card)
+                       "simple_sequence", seconds_26a=time.monotonic() - t0,
+          **card)
     return launches, routes
 
 
@@ -7270,8 +7302,8 @@ def tls_leg(card, server, tmp):
 def native_phase(card, server, tmp):
     """Phase 26 on phase 23's server: (a) the native worker
     (native_leg), (b) procpool (procpool_leg), (c) SSL (tls_leg).
-    Returns 26a's (launches, routes) or None where it is cut, and 26c's
-    (launches_native and launches_tls in phase 20)."""
+    Returns 26a's (launches, routes) and 26c's (launches_native and
+    launches_tls in phase 20)."""
     t0 = time.monotonic()
     native = native_leg(card, server, tmp)
     procpool_leg(card, server, tmp)
@@ -8383,7 +8415,7 @@ def main():
      (balance_launches, balance_routes), native,
      (tls_launches, tls_routes),
      (chaos_launches, chaos_routes)) = http_phase(card)
-    native_launches, native_routes = native or (None, None)
+    native_launches, native_routes = native
 
     # -- 20 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
@@ -8418,7 +8450,7 @@ def main():
         "launches_http": http_launches["int8_matmul"],
         "launches_aio": aio_launches["int8_matmul"],
         "launches_balance": balance_launches["int8_matmul"],
-        "launches_native": native_launches and native_launches["int8_matmul"],
+        "launches_native": native_launches["int8_matmul"],
         "launches_tls": tls_launches["int8_matmul"],
         "launches_chaos": chaos_launches["int8_matmul"],
         "max_abs_err": max(worst.values()),
@@ -8464,7 +8496,7 @@ def main():
         "launches_http": http_routes["int8_matmul"]["mma"],
         "launches_aio": aio_routes["int8_matmul"]["mma"],
         "launches_balance": balance_routes["int8_matmul"]["mma"],
-        "launches_native": native_routes and native_routes["int8_matmul"]["mma"],
+        "launches_native": native_routes["int8_matmul"]["mma"],
         "launches_tls": tls_routes["int8_matmul"]["mma"],
         "launches_chaos": chaos_routes["int8_matmul"]["mma"],
         "max_abs_err": worst_route["mma"]["bfloat16"],
@@ -8554,8 +8586,7 @@ def main():
             "launches_http": http_routes["paged_attention"][route],
             "launches_aio": aio_routes["paged_attention"][route],
             "launches_balance": balance_routes["paged_attention"][route],
-            "launches_native": (native_routes
-                                and native_routes["paged_attention"][route]),
+            "launches_native": native_routes["paged_attention"][route],
             "launches_tls": tls_routes["paged_attention"][route],
             "launches_chaos": chaos_routes["paged_attention"][route],
             "max_abs_err": max(paged_worst_route[route].values()),

@@ -122,7 +122,8 @@ def build_parser():
     p.add_argument("--native-loadgen", action="store_true",
                    help="generate load with the native C++ engine "
                         "(build/torch_cpp/perf_worker, built at first use "
-                        "from src/cpp: async InferContexts on one "
+                        "by g++ alone from src/cpp/perf and the port's "
+                        "protobuf-free client: async InferContexts on one "
                         "connection, no GIL in the instrument); "
                         "concurrency, request-rate or sequence mode over "
                         "socket gRPC, wire, system or CUDA-shm inputs")

@@ -7,11 +7,20 @@ connection, completed by its reactor thread.  No GIL anywhere near the
 measurement; the Python side only assembles arguments and parses the
 one-line JSON report.
 
-The binary is the JAX package's own worker, built from this checkout's
-``src/cpp`` at its first use into ``build/torch_cpp`` (the Makefile's
-``perf_worker`` target with the build directories redirected), under a
-file lock so concurrent first uses build it once.  A failed build raises
-with make's output: there is no fallback to the Python engine.
+The worker is ``src/cpp/perf/perf_worker.cc``, compiled unedited by g++
+alone at its first use into ``build/torch_cpp``: no protoc, no
+libprotobuf.  ``csrc/`` comes first on the include path, so the worker's
+``#include "grpc_client.h"`` takes this package's protobuf-free client
+(``csrc/grpc_client.{h,cc}`` over the hand-written KServe codec
+``csrc/kserve_wire.{h,cc}``), built over the repo's own HTTP/2 transport
+(``src/cpp/grpc/h2.cc``, ``hpack.cc``, ``src/cpp/client/transport.cc``).
+Each source compiles in a g++ process of its own, all started together,
+then one link; under a file lock, so concurrent first uses build once.  A
+stamp beside the binary (the hash of every source and header compiled,
+the flags, ``g++ --version`` and the machine) decides a rebuild: a binary
+built elsewhere or from other sources is never trusted.  A failed build
+raises with the compiler's output: there is no fallback to the Python
+engine.
 
 CUDA-shm loads reference regions by name, as procpool's do: the
 coordinator (Python, which owns the device) creates and registers the
@@ -19,47 +28,179 @@ regions; the native worker sends requests that name them.
 """
 
 import fcntl
+import hashlib
 import json
 import os
 import subprocess
+import time
 
 from client_tpu_torch.utils import InferenceServerException
 
-_ROOT = os.path.dirname(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-)
-_BUILD = "build/torch_cpp"
-_DEFAULT_BINARY = os.path.join(_ROOT, _BUILD, "perf_worker")
-_MAKE = ["make", f"CPP_BUILD={_BUILD}", "PB_CPP=build/torch_proto_cpp",
-         f"{_BUILD}/perf_worker"]
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(os.path.dirname(_HERE))
+_CSRC = os.path.join(_HERE, "csrc")
+_SRC = os.path.join(_ROOT, "src", "cpp")
+BUILD_DIR = os.path.join(_ROOT, "build", "torch_cpp")
+_DEFAULT_BINARY = os.path.join(BUILD_DIR, "perf_worker")
+
+CXX = "g++"
+CXXFLAGS = ["-O2", "-std=c++17"]
+LIBS = ["-lpthread", "-lrt"]
+# csrc/ ahead of src/cpp/client: grpc_client.h resolves to the port's
+INCLUDES = [_CSRC, os.path.join(_SRC, "client"), os.path.join(_SRC, "grpc")]
+HEADERS = [
+    os.path.join(_CSRC, "kserve_wire.h"),
+    os.path.join(_CSRC, "grpc_client.h"),
+    os.path.join(_SRC, "client", "common.h"),
+    os.path.join(_SRC, "client", "transport.h"),
+    os.path.join(_SRC, "grpc", "h2.h"),
+    os.path.join(_SRC, "grpc", "hpack.h"),
+]
+WORKER_SOURCES = [
+    os.path.join(_SRC, "perf", "perf_worker.cc"),
+    os.path.join(_CSRC, "grpc_client.cc"),
+    os.path.join(_CSRC, "kserve_wire.cc"),
+    os.path.join(_SRC, "grpc", "h2.cc"),
+    os.path.join(_SRC, "grpc", "hpack.cc"),
+    os.path.join(_SRC, "client", "transport.cc"),
+]
+# the codec alone behind a line-oriented front end (tests)
+WIRE_TOOL_SOURCES = [
+    os.path.join(_CSRC, "kserve_wire_tool.cc"),
+    os.path.join(_CSRC, "kserve_wire.cc"),
+]
+
+# the last build that compiled in this process: its wall seconds and the
+# commands it ran
+last_build = None
 
 
 def native_worker_available(binary=None):
     return os.path.exists(binary or _DEFAULT_BINARY)
 
 
+def _compiler_version():
+    try:
+        proc = subprocess.run([CXX, "--version"], capture_output=True,
+                              text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise InferenceServerException(f"{CXX} --version failed: {e}") from e
+    return proc.stdout
+
+
+def build_stamp(sources):
+    """The hash that decides a rebuild: every source and header compiled
+    (by path under the repo and content), the flags, the compiler's
+    ``--version`` and the machine (``uname -m``)."""
+    h = hashlib.sha256()
+    for path in sorted(set(sources) | set(HEADERS)):
+        h.update(os.path.relpath(path, _ROOT).encode() + b"\0")
+        try:
+            with open(path, "rb") as f:
+                h.update(f.read())
+        except OSError as e:
+            raise InferenceServerException(
+                f"a native source is missing: {e}") from e
+    h.update("\0".join([*CXXFLAGS, *LIBS, _compiler_version(),
+                        os.uname().machine]).encode())
+    return h.hexdigest()
+
+
+def _libraries(sources):
+    """LIBS, and zlib where a source includes it."""
+    needs_z = False
+    for path in sources:
+        with open(path, "rb") as f:
+            needs_z = needs_z or b"<zlib.h>" in f.read()
+    return LIBS + (["-lz"] if needs_z else [])
+
+
+def _compile_and_link(name, sources, build_dir, timeout_s):
+    """One g++ process a source, all started together, then the link into
+    a temporary name that replaces the binary.  Returns the commands."""
+    objdir = os.path.join(build_dir, name + ".objs")
+    os.makedirs(objdir, exist_ok=True)
+    includes = [f"-I{d}" for d in INCLUDES]
+    objects, commands, procs = [], [], []
+    deadline = time.monotonic() + timeout_s
+    try:
+        for i, src in enumerate(sources):
+            obj = os.path.join(objdir, f"{i}_{os.path.basename(src)}.o")
+            cmd = [CXX, *CXXFLAGS, *includes, "-c", src, "-o", obj]
+            objects.append(obj)
+            commands.append(cmd)
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        failed = []
+        for cmd, proc in zip(commands, procs):
+            out, _ = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1))
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(cmd[-3])} "
+                              f"({proc.returncode}): {out.strip()}")
+        if failed:
+            raise InferenceServerException("\n".join(failed))
+        tmp = os.path.join(build_dir, f".{name}.{os.getpid()}")
+        cmd = [CXX, "-o", tmp, *objects, *_libraries(sources)]
+        commands.append(cmd)
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=max(deadline - time.monotonic(), 1))
+        if proc.returncode != 0:
+            raise InferenceServerException(
+                f"link ({proc.returncode}): "
+                f"{proc.stderr.strip() or proc.stdout.strip()}")
+        os.replace(tmp, os.path.join(build_dir, name))
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise InferenceServerException(str(e)) from e
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return commands
+
+
+def build_native(name, sources, build_dir=None, timeout_s=600):
+    """Build *name* from *sources* into *build_dir* (default
+    ``build/torch_cpp``) unless the stamp beside it matches; returns its
+    path.  Raises InferenceServerException with the compiler's output
+    when the build fails (the stamp and any older binary stay)."""
+    build_dir = build_dir or BUILD_DIR
+    binary = os.path.join(build_dir, name)
+    stamp_path = binary + ".stamp"
+    global last_build
+    try:
+        os.makedirs(build_dir, exist_ok=True)
+        with open(os.path.join(build_dir, ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            stamp = build_stamp(sources)
+            try:
+                with open(stamp_path) as f:
+                    current = f.read().strip() == stamp
+            except OSError:
+                current = False
+            if current and os.path.exists(binary):
+                return binary
+            t0 = time.monotonic()
+            commands = _compile_and_link(name, sources, build_dir,
+                                         timeout_s)
+            with open(stamp_path, "w") as f:
+                f.write(stamp + "\n")
+            last_build = {"seconds": time.monotonic() - t0,
+                          "commands": commands}
+    except (InferenceServerException, OSError) as e:
+        raise InferenceServerException(
+            f"building the native {name.replace('_', ' ')} failed: "
+            f"{str(e)[-2000:]}") from e
+    return binary
+
+
 def build_native_worker(timeout_s=600):
     """Build (or bring up to date) the default binary; returns its path.
-    Raises InferenceServerException with make's output when the build
-    fails (on a machine without protoc or libprotobuf, for one)."""
-    os.makedirs(os.path.join(_ROOT, _BUILD), exist_ok=True)
-    with open(os.path.join(_ROOT, _BUILD, ".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            proc = subprocess.run(
-                _MAKE + [f"-j{min(os.cpu_count() or 1, 4)}"], cwd=_ROOT,
-                capture_output=True, text=True, timeout=timeout_s,
-            )
-        except (OSError, subprocess.TimeoutExpired) as e:
-            raise InferenceServerException(
-                f"building the native perf worker failed: {e}"
-            ) from e
-    if proc.returncode != 0:
-        raise InferenceServerException(
-            f"building the native perf worker failed ({proc.returncode}): "
-            f"{(proc.stderr.strip() or proc.stdout.strip())[-2000:]}"
-        )
-    return _DEFAULT_BINARY
+    Raises InferenceServerException with the compiler's output when the
+    build fails (on a machine without g++, for one)."""
+    return build_native("perf_worker", WORKER_SOURCES, timeout_s=timeout_s)
 
 
 def native_windows_stable(windows, threshold, window_count=3):

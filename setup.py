@@ -40,6 +40,7 @@ setup(
         "client_tpu.analysis": ["baseline.json"],
         # the port's CUDA sources, compiled on the GPU machine at first use
         "client_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"],
+        "client_tpu_torch.perf": ["csrc/*.h", "csrc/*.cc"],
     },
     python_requires=">=3.9",
     install_requires=["numpy>=1.22", "urllib3>=1.26", "protobuf>=3.19"],

@@ -6,28 +6,44 @@ CLI's --native-loadgen) held against the JAX package's
   (exact: the same arithmetic).
 - ``run_native_worker`` runs the same command line as JAX's for the same
   arguments (a stub binary that echoes its argv; exact), and fails alike.
-- The worker, built once for this file from ``src/cpp`` into
-  ``build/torch_cpp`` (the module fixture), drives the port's CPU server
-  in every mode of tests/test_cpp_client.py:166-300 (the JAX tests, which
-  skip while ``build/cpp`` is not built) and decoupled against
+- The port's worker, built once for this file by
+  ``native_worker.build_native_worker`` (g++ alone: the unedited
+  ``src/cpp/perf/perf_worker.cc`` over the port's protobuf-free client in
+  ``client_tpu_torch/perf/csrc``) into ``build/torch_cpp`` (the module
+  fixture), links no libprotobuf (``ldd``) and runs no ``protoc`` (a
+  build from scratch with a recording ``protoc`` first on ``PATH``).
+- The reference worker, built by the Makefile from ``src/cpp`` with
+  protoc and libprotobuf (the ``reference_binary`` fixture, into
+  ``build/torch_ref_cpp``), and the port's send equal first requests
+  (each parsed into a ``ModelInferRequest``) for the same arguments, to a
+  grpcio generic handler that keeps the raw bytes: wire inputs, shm
+  inputs and outputs, a decoupled stream, a sequence stream.
+- The port's worker drives the port's CPU server in every mode of
+  tests/test_cpp_client.py:166-300 (the JAX tests, which skip while
+  ``build/cpp`` is not built) and decoupled against
   ``lm_streaming_int8``: no error, its windowed count at most the
   server's successes.
 - ``--native-loadgen`` from the wire and from system regions: the port's
-  CLI against the port's server and the JAX CLI (its ``_DEFAULT_BINARY``
-  pointed at the same binary) against the JAX server print the same
-  levels in the same line format, with 0 errors and no server failure.
+  CLI (its own worker) against the port's server and the JAX CLI (its
+  ``_DEFAULT_BINARY`` pointed at the reference worker) against the JAX
+  server print the same levels in the same line format, with 0 errors
+  and no server failure.
 - Every refusal of JAX's CLI, word for word (device regions are ``cuda``
   in the port's wire-mode message where JAX's are ``tpu``), and a failed
   build that raises and registers nothing.
 
-The file is one unit under ``--dist loadfile``: the build runs once.
+The file is one unit under ``--dist loadfile``: each build runs once.
 """
 
 import json
+import os
 import re
 import stat
+import subprocess
 import sys
+import threading
 
+import grpc
 import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
@@ -36,6 +52,7 @@ from client_tpu.perf import native_worker as jnative
 from client_tpu.perf.__main__ import main as jmain
 from client_tpu.serve import Server as JaxServer
 from client_tpu.utils import InferenceServerException as JaxError
+from client_tpu_torch._proto import inference_pb2 as pb
 from client_tpu_torch.perf import native_worker as native
 from client_tpu_torch.perf.__main__ import main
 from client_tpu_torch.serve import Server
@@ -48,6 +65,28 @@ SIMPLE = [("INPUT0", "INT32", [1, 16]), ("INPUT1", "INT32", [1, 16])]
 @pytest.fixture(scope="module")
 def binary():
     return native.build_native_worker()
+
+
+_REF_BUILD = "build/torch_ref_cpp"
+
+
+@pytest.fixture(scope="module")
+def reference_binary():
+    """The JAX package's worker as the Makefile builds it: protoc's KServe
+    messages and libprotobuf (its own build directories, so build/cpp
+    stays the JAX tests' own)."""
+    proc = subprocess.run(
+        ["make", f"CPP_BUILD={_REF_BUILD}",
+         "PB_CPP=build/torch_ref_proto_cpp", f"{_REF_BUILD}/perf_worker",
+         f"-j{min(os.cpu_count() or 1, 4)}"],
+        cwd=native._ROOT, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return os.path.join(native._ROOT, _REF_BUILD, "perf_worker")
+
+
+def _ldd(path):
+    return subprocess.run(["ldd", path], capture_output=True, text=True,
+                          check=True).stdout
 
 
 @pytest.fixture(scope="module")
@@ -150,12 +189,14 @@ def test_worker_failures_raise_as_in_jax(tmp_path, text, match):
 
 def test_a_failed_build_raises_and_registers_nothing(monkeypatch, port_server,
                                                      capsys):
-    """No fallback to the Python engine: make's failure raises, and the
-    CLI exits 2 with it before any region is registered."""
-    monkeypatch.setattr(native, "_MAKE", ["make", "no-such-target"])
+    """No fallback to the Python engine: the compiler's failure raises
+    with its output, and the CLI exits 2 with it before any region is
+    registered."""
+    monkeypatch.setattr(native, "CXXFLAGS",
+                        [*native.CXXFLAGS, "-fno-such-option"])
     with pytest.raises(InferenceServerException,
-                       match="building the native perf worker failed.*"
-                             "no-such-target"):
+                       match="(?s)building the native perf worker failed.*"
+                             "no-such-option"):
         native.build_native_worker()
     before = _counts(port_server, "simple")
     rc = main(["-m", "simple", "-u", port_server.grpc_address,
@@ -165,6 +206,134 @@ def test_a_failed_build_raises_and_registers_nothing(monkeypatch, port_server,
     assert "building the native perf worker failed" in capsys.readouterr().err
     assert _counts(port_server, "simple") == before
     assert not port_server.engine.shm.system_status()
+
+
+# -- the port's worker beside the reference's ---------------------------------
+
+def test_port_worker_links_no_protobuf_and_runs_no_protoc(binary, tmp_path,
+                                                          monkeypatch):
+    """The worker builds from scratch with g++ alone: a ``protoc`` first
+    on PATH that records its calls is never called, no command names
+    protoc or protobuf, and neither that binary nor the module's links
+    libprotobuf (the reference's does)."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    calls = tmp_path / "protoc_calls"
+    protoc = bin_dir / "protoc"
+    protoc.write_text(f"#!/bin/sh\necho \"$@\" >> {calls}\nexit 1\n")
+    protoc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    fresh = native.build_native("perf_worker", native.WORKER_SOURCES,
+                                build_dir=str(tmp_path / "build"))
+    commands = native.last_build["commands"]
+    assert len(commands) == len(native.WORKER_SOURCES) + 1
+    assert all(cmd[0] == native.CXX for cmd in commands)
+    assert not any("protoc" in arg or "protobuf" in arg
+                   for cmd in commands for arg in cmd)
+    assert not calls.exists()
+    for path in (fresh, binary):
+        libraries = _ldd(path)
+        assert "libprotobuf" not in libraries, libraries
+        assert "libstdc++" in libraries
+    # the worker is the reference's own source, compiled unedited
+    assert native.WORKER_SOURCES[0].endswith(
+        os.path.join("src", "cpp", "perf", "perf_worker.cc"))
+
+
+def test_reference_worker_links_protobuf(reference_binary):
+    assert "libprotobuf" in _ldd(reference_binary)
+
+
+class _FirstRequests:
+    """A grpcio server whose generic handler keeps the raw bytes of every
+    ModelInfer and ModelStreamInfer request: unary calls answer an empty
+    response, stream requests one response carrying their id and
+    ``triton_final_response`` (the decoupled marker)."""
+
+    PREFIX = "/inference.GRPCInferenceService/"
+
+    def __init__(self):
+        self.requests = []
+        self._lock = threading.Lock()
+        outer = self
+
+        class Handler(grpc.GenericRpcHandler):
+            def service(self, details):
+                if details.method == outer.PREFIX + "ModelInfer":
+                    return grpc.unary_unary_rpc_method_handler(outer._unary)
+                if details.method == outer.PREFIX + "ModelStreamInfer":
+                    return grpc.stream_stream_rpc_method_handler(
+                        outer._stream)
+                return None
+
+        from concurrent import futures
+
+        self.server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
+        self.server.add_generic_rpc_handlers((Handler(),))
+        port = self.server.add_insecure_port("127.0.0.1:0")
+        self.address = f"127.0.0.1:{port}"
+        self.server.start()
+
+    def _keep(self, raw):
+        with self._lock:
+            self.requests.append(raw)
+
+    def _unary(self, raw, context):
+        self._keep(raw)
+        return b""
+
+    def _stream(self, raws, context):
+        for raw in raws:
+            self._keep(raw)
+            resp = pb.ModelInferResponse(
+                id=pb.ModelInferRequest.FromString(raw).id)
+            resp.parameters["triton_final_response"].bool_param = True
+            yield pb.ModelStreamInferResponse(
+                infer_response=resp).SerializeToString()
+
+    def first(self):
+        with self._lock:
+            assert self.requests, "no request reached the handler"
+            return self.requests[0]
+
+    def stop(self):
+        self.server.stop(None)
+
+
+@pytest.mark.parametrize("args", [
+    ["-m", "simple", "--wire-input", "INPUT0:INT32:1,16",
+     "--wire-input", "INPUT1:FP32:2,3,4"],
+    ["-m", "resnet50", "--shm-input", "INPUT:FP32:1,3,224,224:r_in:602112",
+     "--shm-output", "OUTPUT:r_out:4000"],
+    ["-m", "resnet50", "--completion-sync",
+     "--shm-input", "INPUT:FP32:1,3,224,224:r_in:602112",
+     "--shm-output", "OUTPUT:r_out:4000"],
+    ["-m", "lm_streaming_int8", "--decoupled",
+     "--wire-input", "TOKENS:INT32:64=7", "--wire-input", "MAX_TOKENS:INT32:1=16"],
+    ["-m", "simple_sequence", "--sequences", "2", "--seq-steps", "3",
+     "--wire-input", "INPUT:INT32:1"],
+], ids=["wire", "shm", "shm-sync", "decoupled", "sequence"])
+def test_first_request_equals_the_reference_workers(binary, reference_binary,
+                                                    args):
+    """The port's worker and the reference's, run with the same arguments
+    against the same raw-bytes handler, send first requests that parse to
+    equal ModelInferRequests (the random wire payloads are the worker's
+    seeded ones, so raw contents compare too)."""
+    firsts = []
+    for path in (binary, reference_binary):
+        sink = _FirstRequests()
+        try:
+            proc = subprocess.run(
+                [path, "-u", sink.address, "-c", "1", "-d", "0.3", "-w", "0",
+                 *args], capture_output=True, text=True, timeout=120)
+            assert proc.returncode == 0, proc.stderr
+            assert json.loads(proc.stdout.strip().splitlines()[-1])["ok"] > 0
+            firsts.append(pb.ModelInferRequest.FromString(sink.first()))
+        finally:
+            sink.stop()
+    port, reference = firsts
+    assert port == reference
+    assert port.model_name == args[1] and port.inputs
 
 
 # -- the built worker against the port's server -----------------------------
@@ -269,9 +438,9 @@ def _sweep(out):
 
 
 @pytest.mark.parametrize("shm", ["none", "system"])
-def test_cli_sweep_equals_jax(binary, port_server, jax_server, monkeypatch,
-                              capsys, shm):
-    monkeypatch.setattr(jnative, "_DEFAULT_BINARY", binary)
+def test_cli_sweep_equals_jax(binary, reference_binary, port_server,
+                              jax_server, monkeypatch, capsys, shm):
+    monkeypatch.setattr(jnative, "_DEFAULT_BINARY", reference_binary)
     flags = ["-m", "simple", "--native-loadgen", "--concurrency-range",
              "2:4:2", "--measurement-interval", "500", "--max-trials", "3",
              "--shared-memory", shm, "--output-shared-memory-size", "64"]
