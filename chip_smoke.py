@@ -514,13 +514,42 @@ Phases, one line each or more; any failure exits non-zero:
                 phase 20)
  28 analysis    (runs right after phase 1, so that a failure costs
                 seconds) the port's static analyser: python -m
-                client_tpu_torch.analysis client_tpu_torch --no-cache
-                --json in a process of its own, exit 0 and 0 findings
+                client_tpu_torch.analysis client_tpu_torch examples_torch
+                --no-cache --json in a process of its own, exit 0 and 0
+                findings
                 (the port's baseline.json grandfathers the syncs that
                 ops.CAPTURE_LOCK exists to hold), then each torch key's
                 fixture under tests/analysis_fixtures/torch: every _bad
                 fixture fires its rule, no _ok fixture fires anything;
                 the package's __version__, the rules fired, seconds
+ 29 examples    (last, after phase 27) the port's examples corpus
+                (examples_torch/) against one Server in this process
+                serving the language set, ResNet-50 and the builtin set:
+                (a) every example with -u (image_client.py with -m
+                resnet50, the three replica examples with --device cuda
+                and servers of their own), EXAMPLE_JOBS processes at a
+                time (model control alone, the system-region examples
+                one after another); (b) together, the examples that
+                stage tensors in CUDA regions of their own process (both
+                cudashm examples and image_client.py --shared-memory cuda
+                -m resnet50), opened by the server over CUDA IPC, beside
+                llm_streaming_client.py --hermetic: the server's copies
+                by direction in that window (torch.profiler; under 1 KiB
+                from the host, and to it only ResNet-50's 4,000 bytes
+                of logits beside 1 KiB), the regions it
+                opened over IPC, its registry empty after; (c) the C++
+                HTTP examples and cc_client_test, built at first use with
+                g++ alone (beside (a) and (b)), against the same server
+                (model control and cc_client_test, which unloads simple,
+                alone).  The schedule is tools/examples_suite.py's GROUPS.
+                Per run: rc,
+                seconds and PASS line; any failing run fails the script.
+                The reference's examples (clients of the JAX package)
+                are not run on the card; tests/test_torch_examples_
+                reference.py runs them against the port's server.  The
+                launch counts are reset before (a) and read after (c)
+                (launches_examples in phase 20: none of these paths runs
+                a hand-written kernel)
 Every timing line carries the card's name and power limit.  Before the
 kernels line, script_seconds: the process's seconds so far, phase 19's
 and phases 22-26's.  The last line is {"ok": true, "device": {...}}.
@@ -529,6 +558,7 @@ and phases 22-26's.  The last line is {"ok": true, "device": {...}}.
 import asyncio
 import base64
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -4813,8 +4843,8 @@ ANALYSIS_RULES = {
 
 
 def analysis_phase(card):
-    """Phase 28: the port's static analyser over its own tree, in a
-    process of its own (rc 0, 0 findings), then over each torch
+    """Phase 28: the port's static analyser over its own tree and its
+    examples, in a process of its own (rc 0, 0 findings), then over each torch
     fixture in this process (every _bad fixture fires its rule, no _ok
     fixture fires)."""
     import client_tpu_torch
@@ -4824,7 +4854,7 @@ def analysis_phase(card):
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run(
         [sys.executable, "-m", "client_tpu_torch.analysis",
-         "client_tpu_torch", "--no-cache", "--json"],
+         "client_tpu_torch", "examples_torch", "--no-cache", "--json"],
         cwd=here, capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": here})
     tree_s = time.monotonic() - t0
@@ -7840,6 +7870,174 @@ def chaos_phase(card, server, engines, tmp):
     return launches, routes
 
 
+# -- the examples corpus (phase 29) ------------------------------------------
+
+EXAMPLE_JOBS = 8        # example processes at a time
+EXAMPLE_TIMEOUT = 180   # seconds an example process may take
+EXAMPLE_DEVICE = "cuda"
+# host copies the server may make in the CUDA-region window beside
+# ResNet-50's logits (1000 float32), which image_client's classification
+# reads on the host (phase 14's bound a request)
+EXAMPLE_COPY_LIMIT = SHM_COPY_LIMIT
+EXAMPLE_LOGITS_BYTES = 1000 * 4
+
+
+def example_results(outcomes):
+    """Per run: rc, seconds and PASS line (the ends of the output of a
+    run that failed)."""
+    rows = []
+    for key in sorted(outcomes):
+        out = outcomes[key]
+        row = {"example": key, "rc": out.rc,
+               "seconds": round(out.seconds, 3), "pass": out.pass_line}
+        if not out.passed:
+            row["stdout"] = out.stdout[-1500:]
+            row["stderr"] = out.stderr[-3000:]
+        rows.append(row)
+    return rows
+
+
+def check_examples(leg, outcomes):
+    failed = [o.describe() for o in outcomes.values() if not o.passed]
+    check(not failed, f"phase 29 {leg}: {len(failed)} example(s) failed: "
+          + "\n".join(failed))
+
+
+def cuda_region_leg(card, server, ex):
+    """Phase 29b: both cudashm examples and image_client.py
+    --shared-memory cuda -m resnet50 (regions of their own processes,
+    opened here over CUDA IPC) together, beside llm_streaming_client.py
+    --hermetic, inside one torch.profiler window of this process."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    engine = server.engine
+    registered = []
+    register = engine.shm.register_cuda
+
+    def recording(name, raw_handle, device_id, byte_size):
+        register(name, raw_handle, device_id, byte_size)
+        with engine.shm._lock:
+            entry = engine.shm._cuda.get(name)
+        registered.append({"region": name, "byte_size": byte_size,
+                           "opened_over_ipc": bool(entry
+                                                   and entry["opened"])})
+
+    g, h = server.grpc_address, server.http_address
+    runs = [ex.url_run(ex.PORT_DIR, n, g, h)
+            for n in ("simple_grpc_cudashm_client.py",
+                      "simple_http_cudashm_client.py")]
+    runs.append(ex.url_run(
+        ex.PORT_DIR, "image_client.py", g, h,
+        key="image_client.py --shared-memory cuda -m resnet50",
+        extra=("--shared-memory", "cuda", "-m", "resnet50")))
+    runs.append(ex.Run(
+        "llm_streaming_client.py --hermetic",
+        os.path.join(ex.PORT_DIR, "llm_streaming_client.py"),
+        ("--hermetic", "--device", EXAMPLE_DEVICE)))
+    engine.shm.register_cuda = recording
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("cuda_region_examples"):
+                outcomes = ex.run_all(runs, jobs=len(runs),
+                                      timeout=EXAMPLE_TIMEOUT)
+            torch.cuda.synchronize()
+    finally:
+        del engine.shm.register_cuda  # the class's method again
+    copies = memcpy_bytes(prof, "cuda_region_examples")
+    left = engine.shm.cuda_status()
+    phase(29, "examples_cuda_regions", runs=example_results(outcomes),
+          server_copies=copies, regions=registered, registry_after=left,
+          **card)
+    check_examples("(b)", outcomes)
+    check(len(registered) == 5 and all(r["opened_over_ipc"]
+                                       for r in registered),
+          f"the server did not open every region over CUDA IPC: "
+          f"{registered}")
+    check(left == {}, f"regions left registered: {left}")
+    # the inputs are read on the device from their regions and the
+    # outputs written there device to device; the one host copy is
+    # ResNet-50's logits for image_client's classification
+    check(isinstance(copies, dict)
+          and copies["HtoD_bytes"] < EXAMPLE_COPY_LIMIT
+          and copies["DtoH_bytes"] < EXAMPLE_LOGITS_BYTES
+          + EXAMPLE_COPY_LIMIT,
+          f"the CUDA-region requests crossed the host: {copies}")
+    return outcomes
+
+
+def examples_phase(card):
+    """Phase 29: the port's examples corpus on the card (see the module
+    docstring).  Returns the launch counts of its window (reset before
+    (a), read after (c)) and its seconds."""
+    from client_tpu_torch import ops
+    from client_tpu_torch.perf import native_worker
+    from client_tpu_torch.serve import Server
+    from client_tpu_torch.serve.models import language, vision
+    from client_tpu_torch.utils import InferenceServerException
+    from client_tpu_torch.utils.cuda_shared_memory import _build as shm_build
+
+    ex = _tool("examples_suite")
+    t0 = time.monotonic()
+    shm_build.extension()  # built in phase 2; loaded before clients start
+    models = [vision.resnet50_model(device=EXAMPLE_DEVICE)]
+    models += language.language_models(device=EXAMPLE_DEVICE)
+    # (c)'s g++ build runs beside (a) and (b): it needs no device
+    with concurrent.futures.ThreadPoolExecutor(1) as cpp_pool, Server(
+            models=models, http_port=0, grpc_port=0,
+            device=EXAMPLE_DEVICE) as server:
+        before = native_worker.last_build
+        build = cpp_pool.submit(ex.build_cpp_http_examples)
+        g, h = server.grpc_address, server.http_address
+        setup_s = time.monotonic() - t0
+        ops.reset_launches()
+        # (a) every example with -u, the replica examples (the longest:
+        # servers of their own) first
+        runs = [ex.url_run(ex.PORT_DIR, n, g, h, device=EXAMPLE_DEVICE,
+                           extra=("-m", "resnet50")
+                           if n == "image_client.py" else ())
+                for n in ex.EXAMPLES if n not in ex.CUDA_REGIONS]
+        runs.sort(key=lambda r: os.path.basename(r.script)
+                  not in ex.REPLICAS)
+        t_a = time.monotonic()
+        url = ex.run_all(runs, jobs=EXAMPLE_JOBS, timeout=EXAMPLE_TIMEOUT)
+        url_s = time.monotonic() - t_a
+        phase(29, "examples_url", runs=example_results(url),
+              passed=sum(o.passed for o in url.values()), of=len(url),
+              seconds=url_s, **card)
+        check_examples("(a)", url)
+        # (b) the examples that stage tensors in CUDA regions
+        t_b = time.monotonic()
+        cuda_region_leg(card, server, ex)
+        regions_s = time.monotonic() - t_b
+        # (c) the C++ HTTP clients, built with g++ alone
+        t_c = time.monotonic()
+        try:
+            binaries = build.result()
+        except InferenceServerException as e:
+            fail(f"phase 29 (c): the C++ HTTP clients did not build: {e}")
+        built = native_worker.last_build
+        built = None if built is before else built  # up to date: none
+        cpp = ex.run_all([ex.cpp_run(path, h) for path in binaries.values()],
+                         jobs=EXAMPLE_JOBS, timeout=EXAMPLE_TIMEOUT,
+                         python="")
+        launches = dict(ops.LAUNCHES)
+        phase(29, "examples_cpp", runs=example_results(cpp),
+              compiled=built is not None,
+              build_s=built and built["seconds"],
+              commands=built and len(built["commands"]),
+              seconds=time.monotonic() - t_c, **card)
+        check_examples("(c)", cpp)
+    seconds = time.monotonic() - t0
+    phase(29, "examples_done", setup_s=setup_s, url_s=url_s,
+          cuda_regions_s=regions_s, cpp_s=time.monotonic() - t_c,
+          launches=launches, reference_examples="not run on the card: "
+          "they are clients of the JAX package (tests/test_torch_examples_"
+          "reference.py runs them against the port's server on the CPU)",
+          seconds=seconds, **card)
+    return launches, seconds
+
+
 def main():
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -8417,6 +8615,9 @@ def main():
      (chaos_launches, chaos_routes)) = http_phase(card)
     native_launches, native_routes = native
 
+    # -- 29 the examples corpus against one server in this process ---------
+    examples_launches, phase_29_s = examples_phase(card)
+
     # -- 20 kernels ----------------------------------------------------------
     by_shape = {(r["M"], r["K"], r["N"]): r for r in rows}
 
@@ -8609,8 +8810,13 @@ def main():
                            + NATIVE_LAUNCHES_IN + "; " + CHAOS_IN,
             "checked_in": "phase 10",
         })
+    for kernel in kernels:
+        kernel["launches_examples"] = examples_launches[kernel["name"]]
+        kernel["launches_examples_in"] = (
+            "phase 29's examples against this process's server, counted "
+            "from just before its first run to just after its last")
     phase(0, "script_seconds", seconds=process_seconds(),
-          phase_19=phase_19_s,
+          phase_19=phase_19_s, phase_29=phase_29_s,
           phases_22_26={str(k): v for k, v in sorted(PHASE_SECONDS.items())},
           phases_22_26_total=sum(PHASE_SECONDS.values()), **card)
     print(json.dumps({"kernels": kernels}), flush=True)

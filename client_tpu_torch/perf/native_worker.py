@@ -88,12 +88,14 @@ def _compiler_version():
     return proc.stdout
 
 
-def build_stamp(sources):
+def build_stamp(sources, headers=None):
     """The hash that decides a rebuild: every source and header compiled
-    (by path under the repo and content), the flags, the compiler's
-    ``--version`` and the machine (``uname -m``)."""
+    (by path under the repo and content; *headers* defaults to the
+    worker's), the flags, the compiler's ``--version`` and the machine
+    (``uname -m``)."""
     h = hashlib.sha256()
-    for path in sorted(set(sources) | set(HEADERS)):
+    for path in sorted(set(sources) | set(HEADERS if headers is None
+                                          else headers)):
         h.update(os.path.relpath(path, _ROOT).encode() + b"\0")
         try:
             with open(path, "rb") as f:
@@ -115,19 +117,23 @@ def _libraries(sources):
     return LIBS + (["-lz"] if needs_z else [])
 
 
-def _compile_and_link(name, sources, build_dir, timeout_s):
-    """One g++ process a source, all started together, then the link into
-    a temporary name that replaces the binary.  Returns the commands."""
-    objdir = os.path.join(build_dir, name + ".objs")
+def _compile_and_link(targets, build_dir, timeout_s):
+    """One g++ process a source, all started together (a source several
+    of *targets* share compiles once), then each target's link into a
+    temporary name that replaces its binary.  Returns the commands."""
+    names = sorted(targets)
+    objdir = os.path.join(build_dir, (names[0] if len(names) == 1
+                                      else "shared") + ".objs")
     os.makedirs(objdir, exist_ok=True)
     includes = [f"-I{d}" for d in INCLUDES]
-    objects, commands, procs = [], [], []
+    sources = list(dict.fromkeys(s for n in names for s in targets[n]))
+    objects, commands, procs = {}, [], []
     deadline = time.monotonic() + timeout_s
     try:
         for i, src in enumerate(sources):
             obj = os.path.join(objdir, f"{i}_{os.path.basename(src)}.o")
             cmd = [CXX, *CXXFLAGS, *includes, "-c", src, "-o", obj]
-            objects.append(obj)
+            objects[src] = obj
             commands.append(cmd)
             procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
@@ -141,16 +147,19 @@ def _compile_and_link(name, sources, build_dir, timeout_s):
                               f"({proc.returncode}): {out.strip()}")
         if failed:
             raise InferenceServerException("\n".join(failed))
-        tmp = os.path.join(build_dir, f".{name}.{os.getpid()}")
-        cmd = [CXX, "-o", tmp, *objects, *_libraries(sources)]
-        commands.append(cmd)
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=max(deadline - time.monotonic(), 1))
-        if proc.returncode != 0:
-            raise InferenceServerException(
-                f"link ({proc.returncode}): "
-                f"{proc.stderr.strip() or proc.stdout.strip()}")
-        os.replace(tmp, os.path.join(build_dir, name))
+        for name in names:
+            tmp = os.path.join(build_dir, f".{name}.{os.getpid()}")
+            cmd = [CXX, "-o", tmp, *(objects[s] for s in targets[name]),
+                   *_libraries(targets[name])]
+            commands.append(cmd)
+            proc = subprocess.run(
+                cmd, capture_output=True, text=True,
+                timeout=max(deadline - time.monotonic(), 1))
+            if proc.returncode != 0:
+                raise InferenceServerException(
+                    f"link of {name} ({proc.returncode}): "
+                    f"{proc.stderr.strip() or proc.stdout.strip()}")
+            os.replace(tmp, os.path.join(build_dir, name))
     except (OSError, subprocess.TimeoutExpired) as e:
         raise InferenceServerException(str(e)) from e
     finally:
@@ -161,39 +170,54 @@ def _compile_and_link(name, sources, build_dir, timeout_s):
     return commands
 
 
-def build_native(name, sources, build_dir=None, timeout_s=600):
-    """Build *name* from *sources* into *build_dir* (default
-    ``build/torch_cpp``) unless the stamp beside it matches; returns its
-    path.  Raises InferenceServerException with the compiler's output
-    when the build fails (the stamp and any older binary stay)."""
+def build_natives(targets, build_dir=None, headers=None, timeout_s=600):
+    """Build each ``{name: sources}`` of *targets* into *build_dir*
+    (default ``build/torch_cpp``) unless the stamp beside its binary
+    matches (*headers*: as ``build_stamp``); returns ``{name: path}``.
+    Raises InferenceServerException with the compiler's output when the
+    build fails (the stamps and any older binaries stay)."""
     build_dir = build_dir or BUILD_DIR
-    binary = os.path.join(build_dir, name)
-    stamp_path = binary + ".stamp"
+    paths = {name: os.path.join(build_dir, name) for name in targets}
     global last_build
     try:
         os.makedirs(build_dir, exist_ok=True)
         with open(os.path.join(build_dir, ".lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
-            stamp = build_stamp(sources)
-            try:
-                with open(stamp_path) as f:
-                    current = f.read().strip() == stamp
-            except OSError:
-                current = False
-            if current and os.path.exists(binary):
-                return binary
+            stale = {}
+            for name, sources in targets.items():
+                stamp = build_stamp(sources, headers)
+                try:
+                    with open(paths[name] + ".stamp") as f:
+                        current = f.read().strip() == stamp
+                except OSError:
+                    current = False
+                if not (current and os.path.exists(paths[name])):
+                    stale[name] = stamp
+            if not stale:
+                return paths
             t0 = time.monotonic()
-            commands = _compile_and_link(name, sources, build_dir,
-                                         timeout_s)
-            with open(stamp_path, "w") as f:
-                f.write(stamp + "\n")
+            commands = _compile_and_link(
+                {name: targets[name] for name in stale}, build_dir,
+                timeout_s)
+            for name, stamp in stale.items():
+                with open(paths[name] + ".stamp", "w") as f:
+                    f.write(stamp + "\n")
             last_build = {"seconds": time.monotonic() - t0,
                           "commands": commands}
     except (InferenceServerException, OSError) as e:
+        what = ", ".join(n.replace("_", " ") for n in sorted(targets))
         raise InferenceServerException(
-            f"building the native {name.replace('_', ' ')} failed: "
-            f"{str(e)[-2000:]}") from e
-    return binary
+            f"building the native {what} failed: {str(e)[-2000:]}") from e
+    return paths
+
+
+def build_native(name, sources, build_dir=None, timeout_s=600):
+    """Build *name* from *sources* into *build_dir* (default
+    ``build/torch_cpp``) unless the stamp beside it matches; returns its
+    path.  Raises InferenceServerException with the compiler's output
+    when the build fails (the stamp and any older binary stay)."""
+    return build_natives({name: sources}, build_dir,
+                         timeout_s=timeout_s)[name]
 
 
 def build_native_worker(timeout_s=600):

@@ -46,6 +46,10 @@ class FaultProxy:
         self._delay_s = 0.0
         self._cut_plans = []  # [remaining_response_bytes] budgets, one per conn
         self._active = []  # live (client_sock, upstream_sock) pairs
+        # kill_active() calls so far: a connection accepted before a kill
+        # but not yet in _active (its bridge still connecting upstream)
+        # is killed too when it gets there
+        self._kills = 0
         self.connections = 0  # accepted count (test observability)
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -87,6 +91,7 @@ class FaultProxy:
     def kill_active(self):
         """Mid-stream disconnect: hard-close every live bridged pair."""
         with self._lock:
+            self._kills += 1
             pairs, self._active = self._active, []
         for pair in pairs:
             for sock in pair:
@@ -104,6 +109,11 @@ class FaultProxy:
     def close(self):
         with self._lock:
             self._closed = True
+        try:
+            # close() alone does not wake the accept() blocked on it
+            self._srv.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._srv.close()
         except OSError:
@@ -133,6 +143,7 @@ class FaultProxy:
                         self._reset_next -= 1
                         reset = True
                     delay = self._delay_s
+                    kills = self._kills
                     # a reset connection must not consume a truncation
                     # plan: the plan applies to the next connection that
                     # bridges
@@ -146,14 +157,14 @@ class FaultProxy:
                     continue
                 threading.Thread(
                     target=self._bridge,
-                    args=(conn, delay, budget),
+                    args=(conn, delay, budget, kills),
                     name="fault-proxy-conn",
                     daemon=True,
                 ).start()
             except Exception:
                 _hard_close(conn)
 
-    def _bridge(self, conn, delay, budget):
+    def _bridge(self, conn, delay, budget, kills):
         if delay:
             time.sleep(delay)
         try:
@@ -163,7 +174,7 @@ class FaultProxy:
             return
         pair = (conn, upstream)
         with self._lock:
-            if self._closed:
+            if self._closed or self._kills != kills:
                 for sock in pair:
                     _hard_close(sock)
                 return

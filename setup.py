@@ -41,6 +41,8 @@ setup(
         # the port's CUDA sources, compiled on the GPU machine at first use
         "client_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"],
         "client_tpu_torch.perf": ["csrc/*.h", "csrc/*.cc"],
+        "client_tpu_torch.utils.cuda_shared_memory": ["cudashm.cpp"],
+        "client_tpu_torch.analysis": ["baseline.json"],
     },
     python_requires=">=3.9",
     install_requires=["numpy>=1.22", "urllib3>=1.26", "protobuf>=3.19"],
@@ -55,7 +57,9 @@ setup(
             "client-tpu-perf=client_tpu.perf.__main__:main",
             "client-tpu-serve=client_tpu.serve.__main__:main",
             "client-tpu-torch-serve=client_tpu_torch.serve.__main__:main",
+            "client-tpu-torch-perf=client_tpu_torch.perf.__main__:main",
             "client-tpu-lint=client_tpu.analysis.__main__:main",
+            "client-tpu-torch-lint=client_tpu_torch.analysis.__main__:main",
         ],
     },
 )

@@ -27,8 +27,10 @@ from client_tpu_torch import resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "client_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
-]
+    ROOT / "chip_smoke.py",
+    # the examples suite, which chip_smoke.py loads for phase 29
+    ROOT / "tools" / "examples_suite.py",
+] + sorted((ROOT / "examples_torch").glob("*.py"))
 
 
 def _forbidden(module):
@@ -535,7 +537,10 @@ def test_port_imports_without_grpc():
     blocked; the gRPC frontend's own module and both gRPC clients (sync
     and grpc.aio) refuse with ModuleNotFoundError naming grpc."""
     modules = []
-    for path in PORT_SOURCES:
+    # the examples are programs, not modules of the package: the gRPC
+    # ones need grpc as the reference's do; tools/ is no package
+    for path in (p for p in PORT_SOURCES
+                 if p.parent.name not in ("examples_torch", "tools")):
         rel = path.relative_to(ROOT).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         name = ".".join(parts)
@@ -633,3 +638,36 @@ print(json.dumps(loaded))
                          text=True, timeout=300, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_console_scripts_cover_the_ports_entry_points():
+    """setup.py installs the port's server, perf_analyzer and analyser
+    beside the reference's, each at a ``main`` that exists, and ships the
+    files they read at run time."""
+    import ast
+    import importlib
+
+    tree = ast.parse((ROOT / "setup.py").read_text())
+    scripts, data = {}, {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.keyword) and node.arg == "entry_points":
+            for spec in ast.literal_eval(node.value)["console_scripts"]:
+                name, target = (s.strip() for s in spec.split("="))
+                scripts[name] = target
+        if isinstance(node, ast.keyword) and node.arg == "package_data":
+            data = ast.literal_eval(node.value)
+    for name in ("serve", "perf", "lint"):
+        assert f"client-tpu-{name}" in scripts
+        assert scripts[f"client-tpu-torch-{name}"] == scripts[
+            f"client-tpu-{name}"].replace("client_tpu.", "client_tpu_torch.")
+    for name, target in scripts.items():
+        if name.startswith("client-tpu-torch-"):
+            module, func = target.split(":")
+            assert callable(getattr(importlib.import_module(module), func))
+    for package, patterns in data.items():
+        if package.startswith("client_tpu_torch"):
+            here = ROOT.joinpath(*package.split("."))
+            for pattern in patterns:
+                assert list(here.glob(pattern)), (package, pattern)
+    assert "baseline.json" in data["client_tpu_torch.analysis"]
+    assert "cudashm.cpp" in data["client_tpu_torch.utils.cuda_shared_memory"]
