@@ -541,13 +541,26 @@ Phases, one line each or more; any failure exits non-zero:
                 HTTP examples and cc_client_test, built at first use with
                 g++ alone (beside (a) and (b)), against the same server
                 (model control and cc_client_test, which unloads simple,
-                alone).  The schedule is tools/examples_suite.py's GROUPS.
+                alone); (d) the repo's 14 C++ gRPC examples, unedited,
+                built with g++ alone over the port's protobuf-free
+                client (no libprotobuf in ldd), against the same server;
+                then examples_torch/cpp/simple_grpc_cudashm_client (two
+                regions of its own process through libccudashm, the C
+                ABI of CUDA regions) alone in a torch.profiler window:
+                its 16 sums, 2 regions opened over CUDA IPC, the
+                server's copies HtoD 0 B and DtoH 0 B, the registry
+                empty after; then the ABI's line tool, a process of its
+                own, reads a region made here by cuda_shared_memory and
+                writes 64 bytes that this process reads back.  (c)'s
+                and (d)'s builds run one after another beside (a) and
+                (b).  The schedule is tools/examples_suite.py's GROUPS.
                 Per run: rc,
-                seconds and PASS line; any failing run fails the script.
+                seconds and PASS line; any failing run or build fails
+                the script.
                 The reference's examples (clients of the JAX package)
                 are not run on the card; tests/test_torch_examples_
                 reference.py runs them against the port's server.  The
-                launch counts are reset before (a) and read after (c)
+                launch counts are reset before (a) and read after (d)
                 (launches_examples in phase 20: none of these paths runs
                 a hand-written kernel)
 Every timing line carries the card's name and power limit.  Before the
@@ -7903,14 +7916,11 @@ def check_examples(leg, outcomes):
           + "\n".join(failed))
 
 
-def cuda_region_leg(card, server, ex):
-    """Phase 29b: both cudashm examples and image_client.py
-    --shared-memory cuda -m resnet50 (regions of their own processes,
-    opened here over CUDA IPC) together, beside llm_streaming_client.py
-    --hermetic, inside one torch.profiler window of this process."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    engine = server.engine
+@contextlib.contextmanager
+def recorded_registrations(engine):
+    """The CUDA regions the server registers while the block runs, in a
+    list: each region's name, bytes and whether the server opened it over
+    CUDA IPC."""
     registered = []
     register = engine.shm.register_cuda
 
@@ -7922,6 +7932,21 @@ def cuda_region_leg(card, server, ex):
                            "opened_over_ipc": bool(entry
                                                    and entry["opened"])})
 
+    engine.shm.register_cuda = recording
+    try:
+        yield registered
+    finally:
+        del engine.shm.register_cuda  # the class's method again
+
+
+def cuda_region_leg(card, server, ex):
+    """Phase 29b: both cudashm examples and image_client.py
+    --shared-memory cuda -m resnet50 (regions of their own processes,
+    opened here over CUDA IPC) together, beside llm_streaming_client.py
+    --hermetic, inside one torch.profiler window of this process."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    engine = server.engine
     g, h = server.grpc_address, server.http_address
     runs = [ex.url_run(ex.PORT_DIR, n, g, h)
             for n in ("simple_grpc_cudashm_client.py",
@@ -7934,16 +7959,13 @@ def cuda_region_leg(card, server, ex):
         "llm_streaming_client.py --hermetic",
         os.path.join(ex.PORT_DIR, "llm_streaming_client.py"),
         ("--hermetic", "--device", EXAMPLE_DEVICE)))
-    engine.shm.register_cuda = recording
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with record_function("cuda_region_examples"):
-                outcomes = ex.run_all(runs, jobs=len(runs),
-                                      timeout=EXAMPLE_TIMEOUT)
-            torch.cuda.synchronize()
-    finally:
-        del engine.shm.register_cuda  # the class's method again
+    with recorded_registrations(engine) as registered, profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        with record_function("cuda_region_examples"):
+            outcomes = ex.run_all(runs, jobs=len(runs),
+                                  timeout=EXAMPLE_TIMEOUT)
+        torch.cuda.synchronize()
     copies = memcpy_bytes(prof, "cuda_region_examples")
     left = engine.shm.cuda_status()
     phase(29, "examples_cuda_regions", runs=example_results(outcomes),
@@ -7966,15 +7988,166 @@ def cuda_region_leg(card, server, ex):
     return outcomes
 
 
+def build_cpp_clients(ex):
+    """Phase 29's C++ builds, one after another in one thread beside (a)
+    and (b): the HTTP clients (c), then the gRPC examples over the port's
+    protobuf-free client and the CUDA shared-memory example with its
+    ABI's line tool (d).  ``{set: {"paths", "build_s", "compiled",
+    "compile_s", "commands", "error"}}``: a set that did not build has
+    no paths and its InferenceServerException's message under
+    ``error``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from client_tpu_torch.perf import native_worker
+    from client_tpu_torch.utils import InferenceServerException
+
+    out = {}
+    for key, build in (
+            ("http", ex.build_cpp_http_examples),
+            ("grpc", ex.build_cpp_grpc_examples),
+            ("cuda", functools.partial(ex.build_cpp_cuda_examples,
+                                       cuda_home=CUDA_HOME))):
+        before, t0 = native_worker.last_build, time.monotonic()
+        try:
+            paths, error = build(), None
+        except InferenceServerException as e:
+            paths, error = {}, str(e)
+        built = native_worker.last_build
+        built = None if built is before else built  # up to date: none
+        out[key] = {"paths": paths, "build_s": time.monotonic() - t0,
+                    "compiled": built is not None,
+                    "compile_s": built and built["seconds"],
+                    "commands": built and len(built["commands"]),
+                    "error": error}
+    return out
+
+
+def linked_libraries(paths):
+    """The shared libraries ``ldd`` lists for the binaries at *paths*,
+    by name; fails the script where ldd fails."""
+    names = set()
+    for path in paths:
+        ldd = subprocess.run(["ldd", path], capture_output=True, text=True)
+        check(ldd.returncode == 0, f"ldd {path} exited {ldd.returncode}: "
+              f"{ldd.stderr[-1000:]}")
+        names.update(ln.split()[0] for ln in ldd.stdout.splitlines()
+                     if ln.strip())
+    return sorted(names)
+
+
+def abi_cross_check(tool):
+    """libccudashm against the Python module: a region made by
+    cuda_shared_memory (its torch extension) is opened by the ABI's line
+    tool in a process of its own, which reads all of its bytes and then
+    writes 64 at offset 128, which Python reads back."""
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    size = 256
+    written = np.arange(size, dtype=np.uint8)
+    patch = bytes(range(255, 191, -1))
+    region = cudashm.create_shared_memory_region("ccudashm_check", size, 0)
+    try:
+        cudashm.set_shared_memory_region(region, [written])
+        handle = "x" + cudashm.get_raw_handle(region).hex()
+        t0 = time.monotonic()
+        read = subprocess.run([tool, "read", handle, str(size), "0"],
+                              capture_output=True, text=True, timeout=120)
+        write = subprocess.run(
+            [tool, "write", handle, str(size), "0", "128", "x" + patch.hex()],
+            capture_output=True, text=True, timeout=120)
+        seconds = time.monotonic() - t0
+        back = region.read(128, len(patch))
+    finally:
+        cudashm.destroy_shared_memory_region(region)
+    result = {"bytes": size, "tool_read_equal":
+              read.stdout.strip() == "ok x" + written.tobytes().hex(),
+              "python_read_equal": write.stdout.strip() == "ok"
+              and back == patch, "seconds": seconds}
+    check(result["tool_read_equal"] and result["python_read_equal"],
+          f"libccudashm and cuda_shared_memory disagree on a region: "
+          f"read rc {read.returncode} {read.stdout[-300:]!r} "
+          f"{read.stderr[-500:]!r}; write rc {write.returncode} "
+          f"{write.stdout[-300:]!r} {write.stderr[-500:]!r}; python read "
+          f"{back.hex()}")
+    return result
+
+
+def cpp_device_leg(card, server, ex, builds):
+    """Phase 29d: the repo's 14 C++ gRPC examples, built with g++ alone
+    over the port's protobuf-free client, against the server; then the
+    C++ CUDA shared-memory example (two regions of its own process made
+    through libccudashm, opened here over CUDA IPC) alone inside a
+    torch.profiler window of this process; then the ABI against the
+    Python module on one region (:func:`abi_cross_check`)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for key, what in (("grpc", "the C++ gRPC examples"),
+                      ("cuda", "the C++ CUDA shared-memory example")):
+        if builds[key]["error"]:
+            fail(f"phase 29 (d): {what} did not build: "
+                 f"{builds[key]['error']}")
+    grpc_paths, cuda_paths = builds["grpc"]["paths"], builds["cuda"]["paths"]
+    libraries = linked_libraries([*grpc_paths.values(),
+                                  *cuda_paths.values()])
+    check(not any("protobuf" in name for name in libraries),
+          f"a C++ example links libprotobuf: {libraries}")
+    g = server.grpc_address
+    t0 = time.monotonic()
+    grpc = ex.run_all([ex.cpp_run(p, g) for p in grpc_paths.values()],
+                      jobs=EXAMPLE_JOBS, timeout=EXAMPLE_TIMEOUT, python="")
+    grpc_s = time.monotonic() - t0
+    phase(29, "examples_cpp_grpc", runs=example_results(grpc),
+          passed=sum(o.passed for o in grpc.values()), of=len(grpc),
+          seconds=grpc_s, libraries=libraries,
+          builds={k: {f: v for f, v in b.items() if f != "paths"}
+                  for k, b in builds.items()}, **card)
+    check_examples("(d)", grpc)
+    check(len(grpc) == len(ex.CPP_GRPC_EXAMPLES),
+          f"phase 29 (d) ran {len(grpc)} gRPC examples")
+
+    engine = server.engine
+    example = cuda_paths["simple_grpc_cudashm_client"]
+    t1 = time.monotonic()
+    with recorded_registrations(engine) as registered, profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        with record_function("cpp_cuda_region_example"):
+            cuda = ex.run_all([ex.cpp_run(example, g)], jobs=1,
+                              timeout=EXAMPLE_TIMEOUT, python="")
+        torch.cuda.synchronize()
+    cuda_s = time.monotonic() - t1
+    copies = memcpy_bytes(prof, "cpp_cuda_region_example")
+    left = engine.shm.cuda_status()
+    out = cuda["simple_grpc_cudashm_client"]
+    sums = [ln for ln in out.stdout.splitlines() if " + " in ln]
+    cross = abi_cross_check(cuda_paths["ccudashm_tool"])
+    phase(29, "examples_cpp_cuda_region", runs=example_results(cuda),
+          seconds=cuda_s, server_copies=copies, regions=registered,
+          registry_after=left, sum_lines=len(sums), abi_cross_check=cross,
+          **card)
+    check_examples("(d) CUDA", cuda)
+    # the sums are its lines; the differences (i - 5) it checks itself
+    # from its output region, and exits 1 where one is wrong
+    check(sums == [f"{i} + 5 = {i + 5}" for i in range(16)],
+          f"the C++ CUDA-shm example's sums: {sums}")
+    check(len(registered) == 2 and all(r["opened_over_ipc"]
+                                       for r in registered),
+          f"the server did not open both C++ regions over CUDA IPC: "
+          f"{registered}")
+    check(left == {}, f"regions left registered: {left}")
+    check(isinstance(copies, dict) and copies["HtoD_bytes"] == 0
+          and copies["DtoH_bytes"] == 0,
+          f"the C++ CUDA-region request crossed the host: {copies}")
+    return grpc_s + cuda_s
+
+
 def examples_phase(card):
     """Phase 29: the port's examples corpus on the card (see the module
     docstring).  Returns the launch counts of its window (reset before
-    (a), read after (c)) and its seconds."""
+    (a), read after (d)) and its seconds."""
     from client_tpu_torch import ops
-    from client_tpu_torch.perf import native_worker
     from client_tpu_torch.serve import Server
     from client_tpu_torch.serve.models import language, vision
-    from client_tpu_torch.utils import InferenceServerException
     from client_tpu_torch.utils.cuda_shared_memory import _build as shm_build
 
     ex = _tool("examples_suite")
@@ -7982,12 +8155,11 @@ def examples_phase(card):
     shm_build.extension()  # built in phase 2; loaded before clients start
     models = [vision.resnet50_model(device=EXAMPLE_DEVICE)]
     models += language.language_models(device=EXAMPLE_DEVICE)
-    # (c)'s g++ build runs beside (a) and (b): it needs no device
+    # (c)'s and (d)'s builds run beside (a) and (b): they need no device
     with concurrent.futures.ThreadPoolExecutor(1) as cpp_pool, Server(
             models=models, http_port=0, grpc_port=0,
             device=EXAMPLE_DEVICE) as server:
-        before = native_worker.last_build
-        build = cpp_pool.submit(ex.build_cpp_http_examples)
+        build = cpp_pool.submit(build_cpp_clients, ex)
         g, h = server.grpc_address, server.http_address
         setup_s = time.monotonic() - t0
         ops.reset_launches()
@@ -8012,25 +8184,27 @@ def examples_phase(card):
         regions_s = time.monotonic() - t_b
         # (c) the C++ HTTP clients, built with g++ alone
         t_c = time.monotonic()
-        try:
-            binaries = build.result()
-        except InferenceServerException as e:
-            fail(f"phase 29 (c): the C++ HTTP clients did not build: {e}")
-        built = native_worker.last_build
-        built = None if built is before else built  # up to date: none
-        cpp = ex.run_all([ex.cpp_run(path, h) for path in binaries.values()],
+        builds = build.result()
+        http = builds["http"]
+        if http["error"]:
+            fail(f"phase 29 (c): the C++ HTTP clients did not build: "
+                 f"{http['error']}")
+        cpp = ex.run_all([ex.cpp_run(path, h)
+                          for path in http["paths"].values()],
                          jobs=EXAMPLE_JOBS, timeout=EXAMPLE_TIMEOUT,
                          python="")
-        launches = dict(ops.LAUNCHES)
         phase(29, "examples_cpp", runs=example_results(cpp),
-              compiled=built is not None,
-              build_s=built and built["seconds"],
-              commands=built and len(built["commands"]),
+              compiled=http["compiled"], build_s=http["compile_s"],
+              commands=http["commands"],
               seconds=time.monotonic() - t_c, **card)
         check_examples("(c)", cpp)
+        cpp_s = time.monotonic() - t_c
+        # (d) the C++ gRPC examples and the C++ CUDA-region example
+        device_s = cpp_device_leg(card, server, ex, builds)
+        launches = dict(ops.LAUNCHES)
     seconds = time.monotonic() - t0
     phase(29, "examples_done", setup_s=setup_s, url_s=url_s,
-          cuda_regions_s=regions_s, cpp_s=time.monotonic() - t_c,
+          cuda_regions_s=regions_s, cpp_s=cpp_s, cpp_device_s=device_s,
           launches=launches, reference_examples="not run on the card: "
           "they are clients of the JAX package (tests/test_torch_examples_"
           "reference.py runs them against the port's server on the CPU)",

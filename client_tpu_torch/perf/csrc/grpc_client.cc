@@ -35,6 +35,24 @@ FramedRequest(const wire::ModelInferRequest& request)
   return framed;
 }
 
+// An encoded message behind its LPM header.
+std::string
+Framed(const std::string& message)
+{
+  std::string framed(5, '\0');
+  framed += message;
+  SetLpmHeader(&framed);
+  return framed;
+}
+
+// The Error of a call this client does not make.
+Error
+NotInThisClient(const char* call, const char* why)
+{
+  return Error(std::string(call) + " is not in the port's protobuf-free " +
+               "gRPC client: " + why);
+}
+
 // Pulls one complete length-prefixed message out of *buf* (erasing it).
 // Returns false when the buffer does not yet hold a complete message.
 bool
@@ -205,15 +223,21 @@ std::shared_ptr<GrpcInferResult>
 GrpcInferResult::FromMessage(std::string message)
 {
   auto res = std::make_shared<GrpcInferResult>();
-  res->body_ = std::move(message);
-  wire::ModelInferResponse response;
-  if (!wire::DecodeModelInferResponse(res->body_, &response)) {
-    res->body_.clear();
-    res->error_ = Error("failed to parse ModelInfer response");
-    return res;
-  }
-  res->Fill(response);
+  res->Parse(std::move(message));
   return res;
+}
+
+void
+GrpcInferResult::Parse(std::string message)
+{
+  body_ = std::move(message);
+  wire::ModelInferResponse response;
+  if (!wire::DecodeModelInferResponse(body_, &response)) {
+    body_.clear();
+    error_ = Error("failed to parse ModelInfer response");
+    return;
+  }
+  Fill(response);
 }
 
 std::shared_ptr<GrpcInferResult>
@@ -315,6 +339,307 @@ InferenceServerGrpcClient::Conn()
 {
   std::lock_guard<std::mutex> lk(conn_mu_);
   return conn_;
+}
+
+Error
+InferenceServerGrpcClient::Call(
+    const std::string& method, const std::string& framed,
+    std::string* response, uint64_t timeout_us,
+    const std::vector<std::pair<std::string, std::string>>& headers)
+{
+  Error err = Connected();
+  if (!err.IsOk()) return err;
+  auto conn = Conn();  // pin across the call (reconnects swap conn_)
+  const auto hdrs = RequestHeaders(
+      method, host_ + ":" + std::to_string(port_), timeout_us, headers);
+  int32_t sid = 0;
+  err = conn->StartStream(hdrs, false, &sid);
+  if (!err.IsOk()) return err;
+  const int64_t deadline_ms =
+      timeout_us > 0 ? static_cast<int64_t>(timeout_us / 1000) + 1 : 0;
+  err = conn->SendData(
+      sid, reinterpret_cast<const uint8_t*>(framed.data()), framed.size(),
+      true, deadline_ms);
+  if (err.IsOk()) err = conn->WaitEndStream(sid, deadline_ms);
+  if (!err.IsOk()) {
+    conn->ResetStream(sid, 0x8 /* CANCEL */);
+    conn->ForgetStream(sid);
+    return err;
+  }
+  auto stream = conn->GetStream(sid);
+  std::string wire_bytes;
+  wire_bytes.swap(stream->data);
+  conn->ForgetStream(sid);
+  err = GrpcStatus(*stream);
+  if (!err.IsOk()) return err;
+  bool rx_compressed = false;
+  if (!TakeLpm(&wire_bytes, response, &rx_compressed))
+    return Error(method + " response carried no message");
+  if (rx_compressed)
+    return Error(
+        "compressed gRPC response messages are not supported (this client "
+        "sends no grpc-accept-encoding)");
+  return Error::Success();
+}
+
+template <class Response>
+Error
+InferenceServerGrpcClient::CallFor(
+    const std::string& method, const std::string& request,
+    Response* response)
+{
+  std::string message;
+  Error err = Call(method, Framed(request), &message);
+  if (!err.IsOk()) return err;
+  if (!response->ParseFromString(message))
+    return Error("failed to parse " + method + " response");
+  return Error::Success();
+}
+
+namespace {
+
+// The live / ready responses' one bool.
+struct Flag {
+  bool value = false;
+  bool ParseFromString(std::string_view bytes)
+  {
+    return wire::DecodeFlagResponse(bytes, &value);
+  }
+};
+
+// A response with no fields (the register, unregister, load and unload
+// responses): any well-formed message.
+struct Empty {
+  bool ParseFromString(std::string_view bytes)
+  {
+    return wire::DecodeEmptyResponse(bytes);
+  }
+};
+
+}  // namespace
+
+Error
+InferenceServerGrpcClient::IsServerLive(bool* live)
+{
+  Flag flag;
+  Error err = CallFor("ServerLive", "", &flag);
+  *live = err.IsOk() && flag.value;
+  return err;
+}
+
+Error
+InferenceServerGrpcClient::IsServerReady(bool* ready)
+{
+  Flag flag;
+  Error err = CallFor("ServerReady", "", &flag);
+  *ready = err.IsOk() && flag.value;
+  return err;
+}
+
+Error
+InferenceServerGrpcClient::IsModelReady(
+    bool* ready, const std::string& model_name,
+    const std::string& model_version)
+{
+  Flag flag;
+  Error err = CallFor(
+      "ModelReady", wire::EncodeModelRequest(model_name, model_version),
+      &flag);
+  *ready = err.IsOk() && flag.value;
+  return err;
+}
+
+Error
+InferenceServerGrpcClient::ServerMetadata(
+    inference::ServerMetadataResponse* response)
+{
+  return CallFor("ServerMetadata", "", response);
+}
+
+Error
+InferenceServerGrpcClient::ModelMetadata(
+    inference::ModelMetadataResponse* response, const std::string& name,
+    const std::string& version)
+{
+  return CallFor(
+      "ModelMetadata", wire::EncodeModelRequest(name, version), response);
+}
+
+Error
+InferenceServerGrpcClient::ModelConfig(
+    inference::ModelConfigResponse* response, const std::string& name,
+    const std::string& version)
+{
+  return CallFor(
+      "ModelConfig", wire::EncodeModelRequest(name, version), response);
+}
+
+Error
+InferenceServerGrpcClient::ModelRepositoryIndex(
+    inference::RepositoryIndexResponse* response)
+{
+  return CallFor("RepositoryIndex", "", response);
+}
+
+Error
+InferenceServerGrpcClient::LoadModel(
+    const std::string& name, const std::string& config_json)
+{
+  Empty response;
+  return CallFor(
+      "RepositoryModelLoad",
+      wire::EncodeRepositoryModelRequest(name, config_json), &response);
+}
+
+Error
+InferenceServerGrpcClient::UnloadModel(const std::string& name)
+{
+  Empty response;
+  return CallFor(
+      "RepositoryModelUnload", wire::EncodeRepositoryModelRequest(name, ""),
+      &response);
+}
+
+Error
+InferenceServerGrpcClient::ModelInferenceStatistics(
+    inference::ModelStatisticsResponse* response, const std::string& name,
+    const std::string& version)
+{
+  return CallFor(
+      "ModelStatistics", wire::EncodeModelRequest(name, version), response);
+}
+
+Error
+InferenceServerGrpcClient::SystemSharedMemoryStatus(
+    inference::SystemSharedMemoryStatusResponse* response,
+    const std::string& region_name)
+{
+  return CallFor(
+      "SystemSharedMemoryStatus", wire::EncodeNameRequest(region_name),
+      response);
+}
+
+Error
+InferenceServerGrpcClient::RegisterSystemSharedMemory(
+    const std::string& name, const std::string& key, size_t byte_size,
+    size_t offset)
+{
+  Empty response;
+  return CallFor(
+      "SystemSharedMemoryRegister",
+      wire::EncodeSystemSharedMemoryRegisterRequest(
+          name, key, offset, byte_size),
+      &response);
+}
+
+Error
+InferenceServerGrpcClient::UnregisterSystemSharedMemory(
+    const std::string& name)
+{
+  Empty response;
+  return CallFor(
+      "SystemSharedMemoryUnregister", wire::EncodeNameRequest(name),
+      &response);
+}
+
+Error
+InferenceServerGrpcClient::CudaSharedMemoryStatus(
+    inference::CudaSharedMemoryStatusResponse* response,
+    const std::string& region_name)
+{
+  return CallFor(
+      "CudaSharedMemoryStatus", wire::EncodeNameRequest(region_name),
+      response);
+}
+
+Error
+InferenceServerGrpcClient::RegisterCudaSharedMemory(
+    const std::string& name, const std::string& raw_handle,
+    size_t device_id, size_t byte_size)
+{
+  Empty response;
+  return CallFor(
+      "CudaSharedMemoryRegister",
+      wire::EncodeCudaSharedMemoryRegisterRequest(
+          name, raw_handle, static_cast<int64_t>(device_id), byte_size),
+      &response);
+}
+
+Error
+InferenceServerGrpcClient::UnregisterCudaSharedMemory(
+    const std::string& name)
+{
+  Empty response;
+  return CallFor(
+      "CudaSharedMemoryUnregister", wire::EncodeNameRequest(name),
+      &response);
+}
+
+Error
+InferenceServerGrpcClient::RegisterTpuSharedMemory(
+    const std::string&, const std::string&, int, size_t)
+{
+  return NotInThisClient(
+      "RegisterTpuSharedMemory",
+      "the port's device regions are CUDA's (RegisterCudaSharedMemory)");
+}
+
+Error
+InferenceServerGrpcClient::UnregisterTpuSharedMemory(const std::string&)
+{
+  return NotInThisClient(
+      "UnregisterTpuSharedMemory",
+      "the port's device regions are CUDA's (UnregisterCudaSharedMemory)");
+}
+
+Error
+InferenceServerGrpcClient::InferMulti(
+    std::vector<InferResult*>*, const std::vector<InferOptions>&,
+    const std::vector<std::vector<InferInput*>>&,
+    const std::vector<std::vector<const InferRequestedOutput*>>&,
+    const std::vector<std::pair<std::string, std::string>>&)
+{
+  return NotInThisClient("InferMulti", "call Infer for each request");
+}
+
+Error
+InferenceServerGrpcClient::AsyncInferMulti(
+    OnMultiCompleteFn, const std::vector<InferOptions>&,
+    const std::vector<std::vector<InferInput*>>&,
+    const std::vector<std::vector<const InferRequestedOutput*>>&,
+    const std::vector<std::pair<std::string, std::string>>&)
+{
+  return NotInThisClient("AsyncInferMulti", "call AsyncInfer for each "
+                         "request");
+}
+
+Error
+InferenceServerGrpcClient::ClientInferStat(InferStat*)
+{
+  return NotInThisClient("ClientInferStat", "it keeps no request timers");
+}
+
+Error
+InferenceServerGrpcClient::Infer(
+    InferResult** result, const InferOptions& options,
+    const std::vector<InferInput*>& inputs,
+    const std::vector<const InferRequestedOutput*>& outputs,
+    const std::vector<std::pair<std::string, std::string>>& headers)
+{
+  std::string message;
+  Error err = Call(
+      "ModelInfer", FramedRequest(BuildInferRequest(options, inputs, outputs)),
+      &message, options.client_timeout_us, headers);
+  if (!err.IsOk()) return err;
+  auto* res = new GrpcInferResult();
+  res->Parse(std::move(message));
+  if (!res->RequestStatus().IsOk()) {
+    err = res->RequestStatus();
+    delete res;
+    return err;
+  }
+  *result = res;
+  return Error::Success();
 }
 
 Error

@@ -1,15 +1,20 @@
 // A KServe-v2 gRPC client without protobuf: the calls of
 // src/cpp/client/grpc_client.h that the native load worker
-// (src/cpp/perf/perf_worker.cc) makes, with the same namespace, class name
-// and signatures, over the same HTTP/2 transport (src/cpp/grpc/h2.h,
-// hpack, src/cpp/client/transport.h) and the hand-written codec of
-// kserve_wire.h in place of the generated messages.
+// (src/cpp/perf/perf_worker.cc) and the C++ gRPC examples
+// (src/cpp/examples) make, with the same namespace, class name and
+// signatures, over the same HTTP/2 transport (src/cpp/grpc/h2.h, hpack,
+// src/cpp/client/transport.h) and the hand-written codec of kserve_wire.h
+// in place of the generated messages (the responses the examples read are
+// the classes of kserve_messages.h).
 //
-// The worker is compiled unedited against this header: put this
-// directory on the include path ahead of src/cpp/client, and its
-// `#include "grpc_client.h"` resolves here.  What is left out: the
-// management and shared-memory verbs, sync Infer, the multi-request
-// variants, compression, keepalive, cached channels and TLS.
+// The worker and the examples compile unedited against this header: put
+// this directory on the include path ahead of src/cpp/client, and their
+// `#include "grpc_client.h"` resolves here.  Device regions are CUDA's
+// (RegisterCudaSharedMemory takes the 64 bytes of a cudaIpcMemHandle_t);
+// the TPU verbs are refused.  Left out: trace and log settings,
+// compression, keepalive, cached channels and TLS.  The calls declared
+// here and not implemented (InferMulti, AsyncInferMulti,
+// ClientInferStat, the TPU verbs) return an Error that names them.
 #pragma once
 
 #include <cstdint>
@@ -21,6 +26,7 @@
 #include <vector>
 
 #include "common.h"
+#include "kserve_messages.h"
 #include "kserve_wire.h"
 
 namespace ctpu {
@@ -39,6 +45,9 @@ class GrpcInferResult : public InferResult {
   // error_message gives an error result with the inner response's id.
   static std::shared_ptr<GrpcInferResult> FromStreamMessage(
       std::string message);
+  // Decodes *message* into this result (its RequestStatus the error of a
+  // malformed one).
+  void Parse(std::string message);
 
  private:
   void Fill(const wire::ModelInferResponse& response);
@@ -54,6 +63,57 @@ class InferenceServerGrpcClient {
       const std::string& url, bool verbose = false);
   ~InferenceServerGrpcClient();
 
+  // -- server / model management ------------------------------------------
+  Error IsServerLive(bool* live);
+  Error IsServerReady(bool* ready);
+  Error IsModelReady(
+      bool* ready, const std::string& model_name,
+      const std::string& model_version = "");
+  Error ServerMetadata(inference::ServerMetadataResponse* response);
+  Error ModelMetadata(
+      inference::ModelMetadataResponse* response, const std::string& name,
+      const std::string& version = "");
+  Error ModelConfig(
+      inference::ModelConfigResponse* response, const std::string& name,
+      const std::string& version = "");
+  Error ModelRepositoryIndex(inference::RepositoryIndexResponse* response);
+  Error LoadModel(
+      const std::string& name, const std::string& config_json = "");
+  Error UnloadModel(const std::string& name);
+  Error ModelInferenceStatistics(
+      inference::ModelStatisticsResponse* response,
+      const std::string& name = "", const std::string& version = "");
+
+  // -- shared memory verbs -------------------------------------------------
+  Error SystemSharedMemoryStatus(
+      inference::SystemSharedMemoryStatusResponse* response,
+      const std::string& region_name = "");
+  Error RegisterSystemSharedMemory(
+      const std::string& name, const std::string& key, size_t byte_size,
+      size_t offset = 0);
+  Error UnregisterSystemSharedMemory(const std::string& name = "");
+  // CUDA device regions: *raw_handle* is the 64 bytes of the region's
+  // cudaIpcMemHandle_t (ccudashm.h's CudaShmGetRawHandle), opened by the
+  // server over CUDA IPC.
+  Error CudaSharedMemoryStatus(
+      inference::CudaSharedMemoryStatusResponse* response,
+      const std::string& region_name = "");
+  Error RegisterCudaSharedMemory(
+      const std::string& name, const std::string& raw_handle,
+      size_t device_id, size_t byte_size);
+  Error UnregisterCudaSharedMemory(const std::string& name = "");
+  // Refused: the port's server holds no TPU regions.
+  Error RegisterTpuSharedMemory(
+      const std::string& name, const std::string& raw_handle, int device_id,
+      size_t byte_size);
+  Error UnregisterTpuSharedMemory(const std::string& name = "");
+
+  // -- inference ------------------------------------------------------------
+  Error Infer(
+      InferResult** result, const InferOptions& options,
+      const std::vector<InferInput*>& inputs,
+      const std::vector<const InferRequestedOutput*>& outputs = {},
+      const std::vector<std::pair<std::string, std::string>>& headers = {});
   Error AsyncInfer(
       OnCompleteFn callback, const InferOptions& options,
       const std::vector<InferInput*>& inputs,
@@ -70,9 +130,39 @@ class InferenceServerGrpcClient {
       const std::vector<const InferRequestedOutput*>& outputs = {});
   Error StopStream();
 
+  // Not in this client: each returns an Error that names it.
+  using OnMultiCompleteFn = std::function<void(std::vector<InferResultPtr>)>;
+  Error InferMulti(
+      std::vector<InferResult*>* results,
+      const std::vector<InferOptions>& options,
+      const std::vector<std::vector<InferInput*>>& inputs,
+      const std::vector<std::vector<const InferRequestedOutput*>>& outputs =
+          {},
+      const std::vector<std::pair<std::string, std::string>>& headers = {});
+  Error AsyncInferMulti(
+      OnMultiCompleteFn callback, const std::vector<InferOptions>& options,
+      const std::vector<std::vector<InferInput*>>& inputs,
+      const std::vector<std::vector<const InferRequestedOutput*>>& outputs =
+          {},
+      const std::vector<std::pair<std::string, std::string>>& headers = {});
+  using InferStat = ctpu::InferStat;
+  Error ClientInferStat(InferStat* stat);
+
  private:
   InferenceServerGrpcClient(const std::string& host, int port);
   Error Connected();
+  // One unary gRPC exchange: *framed* (an encoded message behind its LPM
+  // header) sent, the response message and trailers awaited, grpc-status
+  // checked; the response message's bytes into *response*.
+  Error Call(
+      const std::string& method, const std::string& framed,
+      std::string* response, uint64_t timeout_us = 0,
+      const std::vector<std::pair<std::string, std::string>>& headers = {});
+  // Call with the encoded *request*, then *response*'s ParseFromString.
+  template <class Response>
+  Error CallFor(
+      const std::string& method, const std::string& request,
+      Response* response);
   std::shared_ptr<h2::H2Connection> Conn();
 
   std::string host_;

@@ -2,6 +2,8 @@
 
 #include <cstring>
 
+#include "kserve_messages.h"
+
 namespace ctpu {
 namespace wire {
 
@@ -42,6 +44,15 @@ void
 PutString(std::string* out, uint32_t field, const std::string& s)
 {
   if (!s.empty()) PutBytes(out, field, s);
+}
+
+// proto3: a singular scalar at its default (zero) is not written
+void
+PutVarintField(std::string* out, uint32_t field, uint64_t v)
+{
+  if (v == 0) return;
+  PutTag(out, field, kVarint);
+  PutVarint(out, v);
 }
 
 void
@@ -311,6 +322,71 @@ DecodeOutputTensor(std::string_view bytes, OutputTensor* t)
   return true;
 }
 
+// What a field callback of DecodeFields did with the field it was given.
+enum class Got { kRead, kSkip, kBad };
+
+// Calls fn(field, wire_type, &reader) for each field of *bytes*: kRead
+// where fn read the value, kSkip to skip it (an unknown field, or a known
+// one with another wire type, as protobuf treats it), kBad where the value
+// is malformed.  False on a malformed message.
+template <class Fn>
+bool
+DecodeFields(std::string_view bytes, Fn fn)
+{
+  Reader r(bytes);
+  uint32_t field, wt;
+  while (!r.AtEnd()) {
+    if (!r.Tag(&field, &wt)) return false;
+    const Got got = fn(field, wt, &r);
+    if (got == Got::kBad || (got == Got::kSkip && !r.Skip(wt)))
+      return false;
+  }
+  return true;
+}
+
+Got
+ReadString(Reader* r, std::string* out)
+{
+  return StringField(r, kLen, out) ? Got::kRead : Got::kBad;
+}
+
+Got
+ReadVarint(Reader* r, uint64_t* out)
+{
+  return r->Varint(out) ? Got::kRead : Got::kBad;
+}
+
+// A singular or repeated embedded message: merged into *m.
+template <class M>
+Got
+ReadMessage(Reader* r, M* m)
+{
+  std::string_view v;
+  return r->Bytes(&v) && m->MergeFromString(v) ? Got::kRead : Got::kBad;
+}
+
+// One entry of a map<string, V> (key 1, value 2): a missing key is "", a
+// missing value V's default; a key seen again replaces its value.
+template <class V>
+Got
+ReadMapEntry(Reader* r, std::map<std::string, V>* map)
+{
+  std::string_view entry;
+  if (!r->Bytes(&entry)) return Got::kBad;
+  std::string key;
+  V value;
+  const bool ok = DecodeFields(
+      entry, [&](uint32_t field, uint32_t wt, Reader* er) -> Got {
+        if (wt != kLen) return Got::kSkip;
+        if (field == 1) return ReadString(er, &key);
+        if (field == 2) return ReadMessage(er, &value);
+        return Got::kSkip;
+      });
+  if (!ok) return Got::kBad;
+  (*map)[key] = std::move(value);
+  return Got::kRead;
+}
+
 }  // namespace
 
 Param
@@ -434,6 +510,88 @@ DecodeModelStreamInferResponse(
   return true;
 }
 
+std::string
+EncodeModelRequest(const std::string& name, const std::string& version)
+{
+  std::string out;
+  PutString(&out, 1, name);
+  PutString(&out, 2, version);
+  return out;
+}
+
+std::string
+EncodeNameRequest(const std::string& name)
+{
+  std::string out;
+  PutString(&out, 1, name);
+  return out;
+}
+
+std::string
+EncodeRepositoryModelRequest(
+    const std::string& model_name, const std::string& config_json)
+{
+  std::string out;
+  PutString(&out, 2, model_name);
+  if (!config_json.empty()) {
+    // map<string, ModelRepositoryParameter>: {1: "config", 2: {3: json}};
+    // a oneof member is written even when empty, but an empty json is
+    // not sent at all
+    std::string entry, value;
+    PutBytes(&value, 3, config_json);
+    PutBytes(&entry, 1, "config");
+    PutBytes(&entry, 2, value);
+    PutBytes(&out, 3, entry);
+  }
+  return out;
+}
+
+std::string
+EncodeSystemSharedMemoryRegisterRequest(
+    const std::string& name, const std::string& key, uint64_t offset,
+    uint64_t byte_size)
+{
+  std::string out;
+  PutString(&out, 1, name);
+  PutString(&out, 2, key);
+  PutVarintField(&out, 3, offset);
+  PutVarintField(&out, 4, byte_size);
+  return out;
+}
+
+std::string
+EncodeCudaSharedMemoryRegisterRequest(
+    const std::string& name, const std::string& raw_handle,
+    int64_t device_id, uint64_t byte_size)
+{
+  std::string out;
+  PutString(&out, 1, name);
+  PutString(&out, 2, raw_handle);
+  PutVarintField(&out, 3, static_cast<uint64_t>(device_id));
+  PutVarintField(&out, 4, byte_size);
+  return out;
+}
+
+bool
+DecodeFlagResponse(std::string_view bytes, bool* flag)
+{
+  *flag = false;
+  return DecodeFields(bytes, [&](uint32_t field, uint32_t wt, Reader* r) {
+    uint64_t v;
+    if (field != 1 || wt != kVarint) return Got::kSkip;
+    if (!r->Varint(&v)) return Got::kBad;
+    *flag = v != 0;
+    return Got::kRead;
+  });
+}
+
+bool
+DecodeEmptyResponse(std::string_view bytes)
+{
+  return DecodeFields(
+      bytes, [](uint32_t, uint32_t, Reader*) { return Got::kSkip; });
+}
+
 bool
 IsFinalResponse(const Params& parameters)
 {
@@ -444,3 +602,170 @@ IsFinalResponse(const Params& parameters)
 
 }  // namespace wire
 }  // namespace ctpu
+
+// -- the responses of kserve_messages.h --------------------------------------
+
+namespace inference {
+
+using ctpu::wire::DecodeFields;
+using ctpu::wire::Got;
+using ctpu::wire::Reader;
+using ctpu::wire::ReadMapEntry;
+using ctpu::wire::ReadMessage;
+using ctpu::wire::ReadString;
+using ctpu::wire::ReadVarint;
+using ctpu::wire::kLen;
+using ctpu::wire::kVarint;
+
+bool
+ServerMetadataResponse::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (wt != kLen) return Got::kSkip;
+    if (field == 1) return ReadString(r, &name_);
+    if (field == 2) return ReadString(r, &version_);
+    return Got::kSkip;
+  });
+}
+
+bool
+ModelMetadataResponse::TensorMetadata::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (field == 3 && (wt == kLen || wt == kVarint))
+      return ctpu::wire::ShapeField(r, wt, &shape_) ? Got::kRead : Got::kBad;
+    if (wt != kLen) return Got::kSkip;
+    if (field == 1) return ReadString(r, &name_);
+    if (field == 2) return ReadString(r, &datatype_);
+    return Got::kSkip;
+  });
+}
+
+bool
+ModelMetadataResponse::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (wt != kLen) return Got::kSkip;
+    if (field == 1) return ReadString(r, &name_);
+    if (field == 4) return ReadMessage(r, &inputs_.emplace_back());
+    if (field == 5) return ReadMessage(r, &outputs_.emplace_back());
+    return Got::kSkip;
+  });
+}
+
+bool
+ModelConfig::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    uint64_t v;
+    if (field != 4 || wt != kVarint) return Got::kSkip;
+    if (ReadVarint(r, &v) == Got::kBad) return Got::kBad;
+    max_batch_size_ = static_cast<int32_t>(v);  // int32: sign-extended
+    return Got::kRead;
+  });
+}
+
+bool
+ModelConfigResponse::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (field == 1 && wt == kLen) return ReadMessage(r, &config_);
+    return Got::kSkip;
+  });
+}
+
+bool
+RepositoryIndexResponse::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    std::string_view model;
+    if (field != 1 || wt != kLen) return Got::kSkip;
+    if (!r->Bytes(&model)) return Got::kBad;
+    ++models_size_;
+    return Got::kRead;
+  });
+}
+
+bool
+StatisticDuration::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (field == 1 && wt == kVarint) return ReadVarint(r, &count_);
+    return Got::kSkip;
+  });
+}
+
+bool
+InferStatistics::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (field == 1 && wt == kLen) return ReadMessage(r, &success_);
+    return Got::kSkip;
+  });
+}
+
+bool
+ModelStatistics::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (wt != kLen) return Got::kSkip;
+    if (field == 1) return ReadString(r, &name_);
+    if (field == 6) return ReadMessage(r, &inference_stats_);
+    return Got::kSkip;
+  });
+}
+
+bool
+ModelStatisticsResponse::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (field == 1 && wt == kLen)
+      return ReadMessage(r, &model_stats_.emplace_back());
+    return Got::kSkip;
+  });
+}
+
+bool
+SystemSharedMemoryStatusResponse::RegionStatus::MergeFromString(
+    std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (field == 1 && wt == kLen) return ReadString(r, &name_);
+    if (field == 2 && wt == kLen) return ReadString(r, &key_);
+    if (field == 3 && wt == kVarint) return ReadVarint(r, &offset_);
+    if (field == 4 && wt == kVarint) return ReadVarint(r, &byte_size_);
+    return Got::kSkip;
+  });
+}
+
+bool
+SystemSharedMemoryStatusResponse::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (field == 1 && wt == kLen) return ReadMapEntry(r, &regions_);
+    return Got::kSkip;
+  });
+}
+
+bool
+CudaSharedMemoryStatusResponse::RegionStatus::MergeFromString(
+    std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (field == 1 && wt == kLen) return ReadString(r, &name_);
+    if (field == 2 && wt == kVarint) return ReadVarint(r, &device_id_);
+    if (field == 3 && wt == kVarint) return ReadVarint(r, &byte_size_);
+    return Got::kSkip;
+  });
+}
+
+bool
+CudaSharedMemoryStatusResponse::MergeFromString(std::string_view bytes)
+{
+  return DecodeFields(bytes, [this](uint32_t field, uint32_t wt, Reader* r) {
+    if (field == 1 && wt == kLen) return ReadMapEntry(r, &regions_);
+    return Got::kSkip;
+  });
+}
+
+}  // namespace inference

@@ -1,7 +1,9 @@
-// A protobuf-free codec for the four KServe-v2 messages the native load
-// worker sends and reads: InferParameter, ModelInferRequest,
-// ModelInferResponse and ModelStreamInferResponse, with the field numbers
-// of proto/inference.proto.  proto3 is written and read by hand: varints,
+// A protobuf-free codec for the KServe-v2 messages the port's C++ gRPC
+// client sends and reads, with the field numbers of proto/inference.proto:
+// InferParameter, ModelInferRequest, ModelInferResponse and
+// ModelStreamInferResponse (the native load worker's), the management and
+// shared-memory requests, the live/ready responses, and the responses of
+// kserve_messages.h (their MergeFromString is defined here).  proto3 is written and read by hand: varints,
 // two's-complement int64 (no zigzag), length-delimited fields, packed
 // repeated int64 `shape` (unpacked accepted on decode), map entries as
 // field-1 key / field-2 value messages, and InferParameter's oneof (the
@@ -102,6 +104,38 @@ void EncodeModelInferRequest(const ModelInferRequest& request, std::string* out)
 bool DecodeModelInferResponse(std::string_view bytes, ModelInferResponse* out);
 bool DecodeModelStreamInferResponse(
     std::string_view bytes, ModelStreamInferResponse* out);
+
+// The management and shared-memory requests.  ServerLive, ServerReady,
+// ServerMetadata and RepositoryIndex requests are empty (no bytes).
+// ModelReady-, ModelMetadata-, ModelConfig- and ModelStatisticsRequest:
+// name 1, version 2.
+std::string EncodeModelRequest(
+    const std::string& name, const std::string& version);
+// System- and CudaSharedMemoryStatusRequest, System- and
+// CudaSharedMemoryUnregisterRequest: name 1.
+std::string EncodeNameRequest(const std::string& name);
+// RepositoryModelLoadRequest and RepositoryModelUnloadRequest: model_name
+// 2, and a non-empty *config_json* as parameters["config"] (field 3, a
+// ModelRepositoryParameter's string_param).
+std::string EncodeRepositoryModelRequest(
+    const std::string& model_name, const std::string& config_json);
+// SystemSharedMemoryRegisterRequest: name 1, key 2, offset 3, byte_size 4.
+std::string EncodeSystemSharedMemoryRegisterRequest(
+    const std::string& name, const std::string& key, uint64_t offset,
+    uint64_t byte_size);
+// CudaSharedMemoryRegisterRequest: name 1, raw_handle 2 (the 64 bytes of
+// a cudaIpcMemHandle_t), device_id 3, byte_size 4.
+std::string EncodeCudaSharedMemoryRegisterRequest(
+    const std::string& name, const std::string& raw_handle,
+    int64_t device_id, uint64_t byte_size);
+
+// ServerLiveResponse, ServerReadyResponse and ModelReadyResponse: their
+// one bool, field 1 (false where absent).  False on a malformed message.
+bool DecodeFlagResponse(std::string_view bytes, bool* flag);
+// The responses with no fields (RepositoryModelLoad-, -UnloadResponse,
+// the region register and unregister responses): whether *bytes* parse
+// as a message, every field skipped.
+bool DecodeEmptyResponse(std::string_view bytes);
 
 // Whether a response's parameters mark the final response of a decoupled
 // request (triton_final_response, a bool parameter).

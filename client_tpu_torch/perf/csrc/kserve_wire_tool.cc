@@ -8,6 +8,16 @@
 //   stream xHEX            -> "ok TOKENS..." (a ModelStreamInferResponse)
 //   (a malformed message)  -> "malformed"
 //
+// The management and shared-memory requests (each -> "ok xHEX"):
+//   model_request S S, name_request S, repository_request S S,
+//   system_register S S OFFSET SIZE, cuda_register S S DEVICE SIZE.
+// The responses of kserve_messages.h, read through their accessors (each
+// xHEX -> "ok WORDS..."): flag (ready 0|1), empty (no words), server_metadata (name S
+// version S), model_metadata (name S, then input|output S S N d1..dN a
+// tensor), model_config (max_batch_size N), repository_index (models N),
+// model_statistics (stat S success N a model), system_status (region K S
+// S OFFSET SIZE a region), cuda_status (region K S DEVICE SIZE a region).
+//
 // Request tokens: model S, version S, id S, param S P, input S S N d1..dN,
 // iparam S P (of the last input), output S, oparam S P (of the last
 // output), raw K S1..SK (one raw_input_contents entry of K pieces).
@@ -22,6 +32,7 @@
 #include <string>
 #include <vector>
 
+#include "kserve_messages.h"
 #include "kserve_wire.h"
 
 namespace {
@@ -188,6 +199,102 @@ DescribeResponse(
   return out.str();
 }
 
+void
+WriteTensors(
+    std::ostream& out, const char* word,
+    const inference::ModelMetadataResponse& m, bool inputs)
+{
+  const int n = inputs ? m.inputs_size() : m.outputs_size();
+  for (int i = 0; i < n; ++i) {
+    const auto& t = inputs ? m.inputs(i) : m.outputs(i);
+    out << " " << word << " " << Hex(t.name()) << " " << Hex(t.datatype())
+        << " " << t.shape().size();
+    for (const int64_t d : t.shape()) out << " " << d;
+  }
+}
+
+// The answer to a command of the management and shared-memory messages,
+// or "" where *command* is none of them.
+std::string
+ManagementAnswer(const std::string& command, std::istream& in)
+{
+  std::string a, b, c, d;
+  std::ostringstream out;
+  out << "ok";
+  if (command == "model_request") {
+    in >> a >> b;
+    return "ok " + Hex(ctpu::wire::EncodeModelRequest(Unhex(a), Unhex(b)));
+  }
+  if (command == "name_request") {
+    in >> a;
+    return "ok " + Hex(ctpu::wire::EncodeNameRequest(Unhex(a)));
+  }
+  if (command == "repository_request") {
+    in >> a >> b;
+    return "ok " +
+           Hex(ctpu::wire::EncodeRepositoryModelRequest(Unhex(a), Unhex(b)));
+  }
+  if (command == "system_register") {
+    in >> a >> b >> c >> d;
+    return "ok " + Hex(ctpu::wire::EncodeSystemSharedMemoryRegisterRequest(
+                       Unhex(a), Unhex(b), std::stoull(c), std::stoull(d)));
+  }
+  if (command == "cuda_register") {
+    in >> a >> b >> c >> d;
+    return "ok " + Hex(ctpu::wire::EncodeCudaSharedMemoryRegisterRequest(
+                       Unhex(a), Unhex(b), std::stoll(c), std::stoull(d)));
+  }
+  in >> a;
+  const std::string bytes = Unhex(a);
+  if (command == "flag") {
+    bool flag;
+    if (!ctpu::wire::DecodeFlagResponse(bytes, &flag)) return "malformed";
+    out << " ready " << (flag ? 1 : 0);
+  } else if (command == "empty") {
+    if (!ctpu::wire::DecodeEmptyResponse(bytes)) return "malformed";
+  } else if (command == "server_metadata") {
+    inference::ServerMetadataResponse m;
+    if (!m.ParseFromString(bytes)) return "malformed";
+    out << " name " << Hex(m.name()) << " version " << Hex(m.version());
+  } else if (command == "model_metadata") {
+    inference::ModelMetadataResponse m;
+    if (!m.ParseFromString(bytes)) return "malformed";
+    out << " name " << Hex(m.name());
+    WriteTensors(out, "input", m, true);
+    WriteTensors(out, "output", m, false);
+  } else if (command == "model_config") {
+    inference::ModelConfigResponse m;
+    if (!m.ParseFromString(bytes)) return "malformed";
+    out << " max_batch_size " << m.config().max_batch_size();
+  } else if (command == "repository_index") {
+    inference::RepositoryIndexResponse m;
+    if (!m.ParseFromString(bytes)) return "malformed";
+    out << " models " << m.models_size();
+  } else if (command == "model_statistics") {
+    inference::ModelStatisticsResponse m;
+    if (!m.ParseFromString(bytes)) return "malformed";
+    for (const auto& s : m.model_stats())
+      out << " stat " << Hex(s.name()) << " success "
+          << s.inference_stats().success().count();
+  } else if (command == "system_status") {
+    inference::SystemSharedMemoryStatusResponse m;
+    if (!m.ParseFromString(bytes)) return "malformed";
+    for (const auto& kv : m.regions())
+      out << " region " << Hex(kv.first) << " " << Hex(kv.second.name())
+          << " " << Hex(kv.second.key()) << " " << kv.second.offset() << " "
+          << kv.second.byte_size();
+  } else if (command == "cuda_status") {
+    inference::CudaSharedMemoryStatusResponse m;
+    if (!m.ParseFromString(bytes)) return "malformed";
+    for (const auto& kv : m.regions())
+      out << " region " << Hex(kv.first) << " " << Hex(kv.second.name())
+          << " " << kv.second.device_id() << " " << kv.second.byte_size();
+  } else {
+    return "";
+  }
+  return out.str();
+}
+
 }  // namespace
 
 int
@@ -213,6 +320,9 @@ main()
       ctpu::wire::ModelStreamInferResponse r;
       if (ctpu::wire::DecodeModelStreamInferResponse(bytes, &r))
         answer = DescribeResponse(r.infer_response, r.error_message);
+    } else {
+      const std::string managed = ManagementAnswer(command, in);
+      if (!managed.empty()) answer = managed;
     }
     std::cout << answer << "\n" << std::flush;
   }

@@ -49,6 +49,7 @@ LIBS = ["-lpthread", "-lrt"]
 # csrc/ ahead of src/cpp/client: grpc_client.h resolves to the port's
 INCLUDES = [_CSRC, os.path.join(_SRC, "client"), os.path.join(_SRC, "grpc")]
 HEADERS = [
+    os.path.join(_CSRC, "kserve_messages.h"),
     os.path.join(_CSRC, "kserve_wire.h"),
     os.path.join(_CSRC, "grpc_client.h"),
     os.path.join(_SRC, "client", "common.h"),
@@ -88,11 +89,11 @@ def _compiler_version():
     return proc.stdout
 
 
-def build_stamp(sources, headers=None):
+def build_stamp(sources, headers=None, includes=(), libs=()):
     """The hash that decides a rebuild: every source and header compiled
     (by path under the repo and content; *headers* defaults to the
-    worker's), the flags, the compiler's ``--version`` and the machine
-    (``uname -m``)."""
+    worker's), the flags (a build's own *includes* and *libs* among
+    them), the compiler's ``--version`` and the machine (``uname -m``)."""
     h = hashlib.sha256()
     for path in sorted(set(sources) | set(HEADERS if headers is None
                                           else headers)):
@@ -105,6 +106,8 @@ def build_stamp(sources, headers=None):
                 f"a native source is missing: {e}") from e
     h.update("\0".join([*CXXFLAGS, *LIBS, _compiler_version(),
                         os.uname().machine]).encode())
+    if includes or libs:  # a build without its own flags keeps its stamp
+        h.update("\0".join(["", *includes, "", *libs]).encode())
     return h.hexdigest()
 
 
@@ -117,15 +120,17 @@ def _libraries(sources):
     return LIBS + (["-lz"] if needs_z else [])
 
 
-def _compile_and_link(targets, build_dir, timeout_s):
+def _compile_and_link(targets, build_dir, timeout_s, includes=(), libs=()):
     """One g++ process a source, all started together (a source several
     of *targets* share compiles once), then each target's link into a
-    temporary name that replaces its binary.  Returns the commands."""
+    temporary name that replaces its binary.  *includes* (directories)
+    follow INCLUDES, *libs* (link arguments) follow LIBS.  Returns the
+    commands."""
     names = sorted(targets)
     objdir = os.path.join(build_dir, (names[0] if len(names) == 1
                                       else "shared") + ".objs")
     os.makedirs(objdir, exist_ok=True)
-    includes = [f"-I{d}" for d in INCLUDES]
+    includes = [f"-I{d}" for d in (*INCLUDES, *includes)]
     sources = list(dict.fromkeys(s for n in names for s in targets[n]))
     objects, commands, procs = {}, [], []
     deadline = time.monotonic() + timeout_s
@@ -150,7 +155,7 @@ def _compile_and_link(targets, build_dir, timeout_s):
         for name in names:
             tmp = os.path.join(build_dir, f".{name}.{os.getpid()}")
             cmd = [CXX, "-o", tmp, *(objects[s] for s in targets[name]),
-                   *_libraries(targets[name])]
+                   *_libraries(targets[name]), *libs]
             commands.append(cmd)
             proc = subprocess.run(
                 cmd, capture_output=True, text=True,
@@ -170,12 +175,15 @@ def _compile_and_link(targets, build_dir, timeout_s):
     return commands
 
 
-def build_natives(targets, build_dir=None, headers=None, timeout_s=600):
+def build_natives(targets, build_dir=None, headers=None, timeout_s=600,
+                  includes=(), libs=()):
     """Build each ``{name: sources}`` of *targets* into *build_dir*
     (default ``build/torch_cpp``) unless the stamp beside its binary
-    matches (*headers*: as ``build_stamp``); returns ``{name: path}``.
-    Raises InferenceServerException with the compiler's output when the
-    build fails (the stamps and any older binaries stay)."""
+    matches (*headers*, *includes* and *libs*: as ``build_stamp``; the
+    build's own include directories and link arguments, after the
+    worker's); returns ``{name: path}``.  Raises InferenceServerException
+    with the compiler's output when the build fails (the stamps and any
+    older binaries stay)."""
     build_dir = build_dir or BUILD_DIR
     paths = {name: os.path.join(build_dir, name) for name in targets}
     global last_build
@@ -185,7 +193,7 @@ def build_natives(targets, build_dir=None, headers=None, timeout_s=600):
             fcntl.flock(lock, fcntl.LOCK_EX)
             stale = {}
             for name, sources in targets.items():
-                stamp = build_stamp(sources, headers)
+                stamp = build_stamp(sources, headers, includes, libs)
                 try:
                     with open(paths[name] + ".stamp") as f:
                         current = f.read().strip() == stamp
@@ -198,7 +206,7 @@ def build_natives(targets, build_dir=None, headers=None, timeout_s=600):
             t0 = time.monotonic()
             commands = _compile_and_link(
                 {name: targets[name] for name in stale}, build_dir,
-                timeout_s)
+                timeout_s, includes, libs)
             for name, stamp in stale.items():
                 with open(paths[name] + ".stamp", "w") as f:
                     f.write(stamp + "\n")

@@ -6,8 +6,12 @@ messages and libprotobuf) into build directories of their own
 reference worker in ``build/torch_ref_cpp`` at the same time under
 ``--dist loadfile``), and each prints its PASS line against one port
 ``Server(device="cpu", grpc_port=0)``.  ``simple_grpc_tpushm_client``
-is left out: it stages tensors in TPU HBM, which the port refuses."""
+is left out: it stages tensors in TPU HBM, which the port refuses.
+test_torch_cpp_grpc_protofree.py makes the same binaries (through
+:func:`make_reference_binaries`, under a lock of the checkout) to hold the
+port's builds of the examples against them."""
 
+import fcntl
 import os
 import shutil
 import subprocess
@@ -21,39 +25,37 @@ import examples_suite as ex  # noqa: E402
 
 BUILD = "build/torch_ref_cpp_examples"
 PROTO = "build/torch_ref_proto_cpp_examples"
-EXAMPLES = [
-    "simple_grpc_infer_client",
-    "simple_grpc_sequence_stream_infer_client",
-    "simple_grpc_sequence_sync_infer_client",
-    "simple_grpc_async_infer_client",
-    "simple_grpc_health_metadata",
-    "simple_grpc_model_control",
-    "simple_grpc_shm_client",
-    "simple_grpc_string_infer_client",
-    "simple_grpc_ensemble_client",
-    "simple_grpc_decoupled_repeat_client",
-    "simple_grpc_custom_args_client",
-    "simple_grpc_timeout_client",
-    "image_client",
-    "reuse_infer_objects_grpc_client",
-]
+EXAMPLES = list(ex.CPP_GRPC_EXAMPLES)  # the Makefile's GRPC_EXAMPLES
 BINARIES = EXAMPLES + ["cc_grpc_client_test"]
 
-pytestmark = pytest.mark.skipif(
-    shutil.which("protoc") is None,
-    reason="the C++ gRPC clients need protoc's KServe messages "
-           "(the port's protobuf-free client has 6 of their 35 calls)")
+NO_PROTOC = ("the Makefile's C++ gRPC clients need protoc's KServe messages "
+             "(the port's protobuf-free client makes 19 of the 31 "
+             "Error-returning methods of src/cpp/client/grpc_client.h: the "
+             "14 examples build over it, cc_grpc_client_test does not)")
+pytestmark = pytest.mark.skipif(shutil.which("protoc") is None,
+                                reason=NO_PROTOC)
+
+
+def make_reference_binaries(names=BINARIES):
+    """Make *names* with the Makefile (protoc and libprotobuf) into
+    ``build/torch_ref_cpp_examples``, under a lock of the checkout: two
+    test files make the same binaries.  Returns ``{name: path}``."""
+    os.makedirs(os.path.join(ex.ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ex.ROOT, "build",
+                           ".torch_ref_cpp_examples.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        proc = subprocess.run(
+            ["make", f"CPP_BUILD={BUILD}", f"PB_CPP={PROTO}",
+             *(f"{BUILD}/{name}" for name in names),
+             f"-j{min(os.cpu_count() or 1, 4)}"],
+            cwd=ex.ROOT, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return {name: os.path.join(ex.ROOT, BUILD, name) for name in names}
 
 
 @pytest.fixture(scope="module")
 def built():
-    proc = subprocess.run(
-        ["make", f"CPP_BUILD={BUILD}", f"PB_CPP={PROTO}",
-         *(f"{BUILD}/{name}" for name in BINARIES),
-         f"-j{min(os.cpu_count() or 1, 4)}"],
-        cwd=ex.ROOT, capture_output=True, text=True, timeout=900)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return {name: os.path.join(ex.ROOT, BUILD, name) for name in BINARIES}
+    return make_reference_binaries()
 
 
 @pytest.fixture(scope="module")

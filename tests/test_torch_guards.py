@@ -195,22 +195,79 @@ def test_build_compiles_every_kernel_source():
             assert (csrc / name).is_file(), f"{p.name} includes {name}"
 
 
+# the C ABI of CUDA regions beside the extension, built with g++ by
+# tools/examples_suite.py's build_cpp_cuda_examples, not by _build.py
+CCUDASHM = {"ccudashm.h", "ccudashm.cc", "ccudashm_tool.cc"}
+
+
 def test_cuda_shm_build_compiles_the_source_beside_it():
     """The shared-memory extension is a second build: exactly the .cpp
-    beside its _build.py, into a build directory of its own."""
+    beside its _build.py, into a build directory of its own; the C ABI
+    beside it is not part of it."""
     from client_tpu_torch.ops import _build as kernels_build
     from client_tpu_torch.utils.cuda_shared_memory import _build
 
     here = ROOT / "client_tpu_torch" / "utils" / "cuda_shared_memory"
     on_disk = {p.name for p in here.iterdir()
-               if p.suffix in (".cu", ".cpp", ".cuh", ".h")}
+               if p.suffix in (".cu", ".cpp", ".cuh", ".h", ".cc")}
     built = [pathlib.Path(p) for p in _build.SOURCES]
     assert all(p.is_file() for p in built)
-    assert {p.name for p in built} == on_disk == {"cudashm.cpp"}
+    assert {p.name for p in built} == on_disk - CCUDASHM == {"cudashm.cpp"}
+    assert CCUDASHM <= on_disk
     assert pathlib.Path(_build.BUILD_DIR) == ROOT / "build" / (
         "client_tpu_torch_cudashm")
     assert _build.BUILD_DIR != kernels_build.BUILD_DIR
     assert _build._ext is None  # nothing was built on this machine
+
+
+# the port's C and C++ sources: the protobuf-free gRPC client and codec,
+# the C ABI of CUDA regions, and the C++ examples of examples_torch/cpp
+NATIVE_SOURCES = sorted(
+    [*(ROOT / "client_tpu_torch" / "perf" / "csrc").iterdir(),
+     *(ROOT / "client_tpu_torch" / "utils" / "cuda_shared_memory").glob(
+         "ccudashm*"),
+     *(ROOT / "examples_torch" / "cpp").iterdir()])
+# where their quoted includes may resolve: the port's own directories and
+# the repo's shared C++ client and HTTP/2 transport
+NATIVE_INCLUDE_DIRS = [
+    ROOT / "client_tpu_torch" / "perf" / "csrc",
+    ROOT / "client_tpu_torch" / "utils" / "cuda_shared_memory",
+    ROOT / "src" / "cpp" / "client", ROOT / "src" / "cpp" / "grpc"]
+
+
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _include_fault(name):
+    """Why the quoted include *name* is refused, or None: a path, a TPU
+    header, or a file of none of NATIVE_INCLUDE_DIRS (the first that has
+    it is the one the compiler takes: csrc/ ahead of src/cpp/client)."""
+    if "/" in name or "tpu" in name:
+        return "reaches outside the port's directories"
+    homes = [d for d in NATIVE_INCLUDE_DIRS if (d / name).is_file()]
+    if not homes:
+        return "resolves nowhere the port's builds look"
+    return None
+
+
+@pytest.mark.parametrize(
+    "path", NATIVE_SOURCES,
+    ids=[str(p.relative_to(ROOT)) for p in NATIVE_SOURCES])
+def test_port_native_sources_include_nothing_of_the_jax_package(path):
+    """No include reaches client_tpu/ or the reference's TPU regions
+    (src/cpp/shm): each quoted include is a file of the port's own
+    directories or of the shared client and transport."""
+    for name in _QUOTED_INCLUDE.findall(path.read_text()):
+        assert _include_fault(name) is None, (path.name, name,
+                                              _include_fault(name))
+
+
+def test_native_guard_catches_includes_of_the_jax_package():
+    for line in ('#include "../shm/ctpushm.h"', '#include "ctpushm.h"',
+                 '#include "client_tpu/x.h"', '#include "inference.pb.h"'):
+        assert _include_fault(_QUOTED_INCLUDE.findall(line)[0])
+    assert _include_fault("grpc_client.h") is None
+    assert (NATIVE_INCLUDE_DIRS[0] / "grpc_client.h").is_file()  # the port's
 
 
 @pytest.mark.parametrize(

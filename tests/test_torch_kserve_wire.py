@@ -17,6 +17,16 @@ for the module; every string and bytes field travels as hex.
   client's ``triton_final_response`` reading) and ``error_message``
   included.  Tolerance: exact.
 - A message cut short is refused, as protobuf refuses it.
+- The management and shared-memory requests of the C++ examples
+  (ModelReady/-Metadata/-Config/-Statistics, the region name requests,
+  repository load and unload, the system and CUDA region registrations)
+  encode byte-equal to protobuf's serialization of the same fields; the
+  responses they read (live/ready, server and model metadata, model
+  config, repository index, statistics, region status) read, through
+  kserve_messages.h's accessors, what protobuf reads from the same
+  bytes: one or two messages concatenated (protobuf merges them), each
+  with known fields the classes do not keep and unknown fields of every
+  wire type, at the top and nested.  Tolerance: exact.
 - The build stamp: a matching stamp does not rebuild; a changed source,
   compiler string or flag does.
 """
@@ -32,6 +42,7 @@ from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from client_tpu_torch._proto import inference_pb2 as pb
+from client_tpu_torch._proto import model_config_pb2 as mc
 from client_tpu_torch.perf import native_worker as native
 
 DTYPES = ["BOOL", "UINT8", "INT8", "INT16", "INT32", "INT64", "FP16",
@@ -353,3 +364,177 @@ def test_stamp_decides_the_rebuild(tmp_path, monkeypatch):
     monkeypatch.setattr(native, "CXXFLAGS", [*native.CXXFLAGS, "-g0"])
     assert build_once() == (binary, True)
     assert build_once() == (binary, False)
+
+
+# -- the management and shared-memory messages -------------------------------
+
+_uint64 = st.integers(0, 2 ** 64 - 1)
+
+
+@settings(max_examples=100, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(name=_text, version=_text, config=_text, key=_text,
+       handle=st.binary(min_size=64, max_size=64), device=_int64,
+       offset=_uint64, size=_uint64)
+def test_management_requests_encode_as_protobuf_does(
+        tool, name, version, config, key, handle, device, offset, size):
+    def want(message):
+        return "ok " + hx(message.SerializeToString())
+
+    got = tool(f"model_request {hx(name)} {hx(version)}")
+    for cls in (pb.ModelReadyRequest, pb.ModelMetadataRequest,
+                pb.ModelConfigRequest, pb.ModelStatisticsRequest):
+        assert got == want(cls(name=name, version=version))
+    got = tool(f"name_request {hx(name)}")
+    for cls in (pb.SystemSharedMemoryStatusRequest,
+                pb.SystemSharedMemoryUnregisterRequest,
+                pb.CudaSharedMemoryStatusRequest,
+                pb.CudaSharedMemoryUnregisterRequest):
+        assert got == want(cls(name=name))
+    load = pb.RepositoryModelLoadRequest(model_name=name)
+    if config:
+        load.parameters["config"].string_param = config
+    assert tool(f"repository_request {hx(name)} {hx(config)}") == want(load)
+    assert tool(f"repository_request {hx(name)} x") == want(
+        pb.RepositoryModelUnloadRequest(model_name=name))
+    assert tool(f"system_register {hx(name)} {hx(key)} {offset} {size}") == (
+        want(pb.SystemSharedMemoryRegisterRequest(
+            name=name, key=key, offset=offset, byte_size=size)))
+    assert tool(f"cuda_register {hx(name)} {hx(handle)} {device} {size}") == (
+        want(pb.CudaSharedMemoryRegisterRequest(
+            name=name, raw_handle=handle, device_id=device, byte_size=size)))
+
+
+def with_unknown(message, unknown):
+    """*message* with the *unknown* fields' bytes after its own: protobuf
+    keeps them and writes them again where the message is nested."""
+    out = type(message)()
+    out.MergeFromString(message.SerializeToString() + b"".join(unknown))
+    return out
+
+
+_unknown = st.lists(st.sampled_from(UNKNOWN), max_size=2)
+_shape = st.lists(_int64, max_size=4)
+_tensor = st.builds(
+    lambda n, d, s, u: with_unknown(
+        pb.ModelMetadataResponse.TensorMetadata(name=n, datatype=d, shape=s),
+        u), _text, st.sampled_from(DTYPES), _shape, _unknown)
+_duration = st.builds(
+    lambda c, ns, u: with_unknown(pb.StatisticDuration(count=c, ns=ns), u),
+    _uint64, _uint64, _unknown)
+_model_stats = st.builds(
+    lambda n, v, c, ok, bad, u: with_unknown(pb.ModelStatistics(
+        name=n, version=v, inference_count=c,
+        inference_stats=with_unknown(
+            pb.InferStatistics(success=ok, fail=bad), u)), u),
+    _text, _text, _uint64, _duration, _duration, _unknown)
+
+# command -> (protobuf class, a strategy of one message, its description)
+RESPONSES = {
+    "flag": (pb.ServerLiveResponse, st.builds(
+        lambda v: pb.ServerLiveResponse(live=v), st.booleans()),
+        lambda m: f" ready {int(m.live)}"),
+    "empty": (pb.CudaSharedMemoryRegisterResponse, st.builds(
+        pb.CudaSharedMemoryRegisterResponse), lambda m: ""),
+    "server_metadata": (pb.ServerMetadataResponse, st.builds(
+        lambda n, v, e: pb.ServerMetadataResponse(
+            name=n, version=v, extensions=e),
+        _text, _text, st.lists(_text, max_size=3)),
+        lambda m: f" name {hx(m.name)} version {hx(m.version)}"),
+    "model_metadata": (pb.ModelMetadataResponse, st.builds(
+        lambda n, vs, p, i, o: pb.ModelMetadataResponse(
+            name=n, versions=vs, platform=p, inputs=i, outputs=o),
+        _text, st.lists(_text, max_size=2), _text,
+        st.lists(_tensor, max_size=3), st.lists(_tensor, max_size=3)),
+        lambda m: f" name {hx(m.name)}" + "".join(
+            f" {word} {hx(t.name)} {hx(t.datatype)} {len(t.shape)}"
+            + "".join(f" {d}" for d in t.shape)
+            for word, tensors in (("input", m.inputs), ("output", m.outputs))
+            for t in tensors)),
+    "model_config": (pb.ModelConfigResponse, st.builds(
+        lambda n, b, u: pb.ModelConfigResponse(config=with_unknown(
+            mc.ModelConfig(name=n, max_batch_size=b), u)),
+        _text, st.integers(-2 ** 31, 2 ** 31 - 1), _unknown),
+        lambda m: f" max_batch_size {m.config.max_batch_size}"),
+    "repository_index": (pb.RepositoryIndexResponse, st.builds(
+        lambda ms: pb.RepositoryIndexResponse(models=[
+            pb.RepositoryIndexResponse.ModelIndex(
+                name=n, version=v, state="READY", reason=r)
+            for n, v, r in ms]),
+        st.lists(st.tuples(_text, _text, _text), max_size=4)),
+        lambda m: f" models {len(m.models)}"),
+    "model_statistics": (pb.ModelStatisticsResponse, st.builds(
+        lambda ms: pb.ModelStatisticsResponse(model_stats=ms),
+        st.lists(_model_stats, max_size=3)),
+        lambda m: "".join(
+            f" stat {hx(s.name)} success {s.inference_stats.success.count}"
+            for s in m.model_stats)),
+    "system_status": (pb.SystemSharedMemoryStatusResponse, st.builds(
+        lambda rs: pb.SystemSharedMemoryStatusResponse(regions={
+            k: pb.SystemSharedMemoryStatusResponse.RegionStatus(
+                name=n, key=key, offset=o, byte_size=b)
+            for k, (n, key, o, b) in rs.items()}),
+        st.dictionaries(_text, st.tuples(_text, _text, _uint64, _uint64),
+                        max_size=3)),
+        lambda m: "".join(
+            f" region {hx(k)} {hx(r.name)} {hx(r.key)} {r.offset} "
+            f"{r.byte_size}"
+            for k, r in sorted(m.regions.items(),
+                               key=lambda kv: kv[0].encode()))),
+    "cuda_status": (pb.CudaSharedMemoryStatusResponse, st.builds(
+        lambda rs: pb.CudaSharedMemoryStatusResponse(regions={
+            k: pb.CudaSharedMemoryStatusResponse.RegionStatus(
+                name=n, device_id=d, byte_size=b)
+            for k, (n, d, b) in rs.items()}),
+        st.dictionaries(_text, st.tuples(_text, _uint64, _uint64),
+                        max_size=3)),
+        lambda m: "".join(
+            f" region {hx(k)} {hx(r.name)} {r.device_id} {r.byte_size}"
+            for k, r in sorted(m.regions.items(),
+                               key=lambda kv: kv[0].encode()))),
+}
+
+
+@pytest.mark.parametrize("command", sorted(RESPONSES))
+@settings(max_examples=60, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow,
+                                 HealthCheck.function_scoped_fixture])
+@given(data=st.data())
+def test_management_response_reads_what_protobuf_reads(tool, command, data):
+    cls, message, describe = RESPONSES[command]
+    parts = data.draw(st.lists(st.tuples(message, _unknown), min_size=1,
+                               max_size=2))
+    wire = b"".join(m.SerializeToString() + b"".join(u) for m, u in parts)
+    want = cls.FromString(wire)  # two messages merge
+    assert tool(f"{command} {hx(wire)}") == "ok" + describe(want)
+
+
+@pytest.mark.parametrize("command", sorted(RESPONSES))
+def test_a_management_response_cut_short_is_refused(tool, command):
+    cls = RESPONSES[command][0]
+    message = {
+        "flag": pb.ServerLiveResponse(live=True),
+        "empty": pb.ServerLiveResponse(live=True),  # one field, any field
+        "server_metadata": pb.ServerMetadataResponse(name="s", version="1"),
+        "model_metadata": pb.ModelMetadataResponse(
+            name="m", inputs=[pb.ModelMetadataResponse.TensorMetadata(
+                name="IN", datatype="FP32", shape=[1, 300])]),
+        "model_config": pb.ModelConfigResponse(
+            config=mc.ModelConfig(name="m", max_batch_size=300)),
+        "repository_index": pb.RepositoryIndexResponse(models=[
+            pb.RepositoryIndexResponse.ModelIndex(name="m", state="READY")]),
+        "model_statistics": pb.ModelStatisticsResponse(model_stats=[
+            pb.ModelStatistics(name="m", inference_stats=pb.InferStatistics(
+                success=pb.StatisticDuration(count=300)))]),
+        "system_status": pb.SystemSharedMemoryStatusResponse(regions={
+            "r": pb.SystemSharedMemoryStatusResponse.RegionStatus(
+                name="r", key="/k", byte_size=300)}),
+        "cuda_status": pb.CudaSharedMemoryStatusResponse(regions={
+            "r": pb.CudaSharedMemoryStatusResponse.RegionStatus(
+                name="r", byte_size=300)}),
+    }[command]
+    data = message.SerializeToString()
+    for cut in (1, len(data) - 1):
+        with pytest.raises(DecodeError):
+            cls.FromString(data[:-cut])
+        assert tool(f"{command} {hx(data[:-cut])}") == "malformed"

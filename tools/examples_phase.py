@@ -6,8 +6,10 @@ checkout (the extension in a process of its own, beside the kernels, as
 phase 2 does), then calls ``chip_smoke.examples_phase``: the port's
 examples against one server in this process (the language set,
 ResNet-50 and the builtin set), the CUDA-region examples with the
-server's copies and regions, and the C++ HTTP clients built with g++
-alone.  It prints those lines and exits non-zero when a check fails.
+server's copies and regions, the C++ HTTP clients and the C++ gRPC
+examples built with g++ alone, and the C++ CUDA-region example over
+libccudashm with the ABI's check against the Python module.  It prints
+those lines and exits non-zero when a check fails.
 
     python3 tools/examples_phase.py
 """

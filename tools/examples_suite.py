@@ -11,14 +11,22 @@ one server; the rest run side by side.
 
 The repo's C++ HTTP examples and ``cc_client_test`` (``src/cpp``) are
 clients of the same servers: :func:`build_cpp_http_examples` builds them
-with g++ alone, at first use, through the native worker's build.
+with g++ alone, at first use, through the native worker's build.  So are
+its C++ gRPC examples, which :func:`build_cpp_grpc_examples` builds with
+g++ alone over the port's protobuf-free gRPC client
+(``client_tpu_torch/perf/csrc``), and the port's own C++ CUDA
+shared-memory example (``examples_torch/cpp``), which
+:func:`build_cpp_cuda_examples` builds with the CUDA runtime's headers
+and library beside the libccudashm C ABI and its line tool.
 
 The module imports neither torch nor grpc, and it reads the checkout's
 layout (``examples/``, ``examples_torch/``, ``src/cpp``): the tests on
 the CPU and ``chip_smoke.py`` on the card use the same tables and runner.
 """
 
+import fcntl
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -105,6 +113,11 @@ SYSTEM_SHM = (
     "simple_http_shm_string_client.py",
 )
 OWN_KEYS = os.path.join(ROOT, "tools", "own_shm_keys.py")
+# the C++ system-region examples, whose POSIX keys are fixed in their
+# source: a run holds a lock of the checkout for its binary's name, so
+# that two builds of one example (the port's and the Makefile's, run by
+# two tests at once) never unlink each other's region
+FIXED_KEYS = ("simple_grpc_shm_client", "simple_http_shm_client")
 # how an example is scheduled beside others against one server, by its
 # name (the Python examples' file names, the C++ binaries'); an example
 # not named runs side by side ("parallel")
@@ -155,6 +168,13 @@ def cpp_http_targets():
     return targets
 
 
+def _cpp_headers(*dirs):
+    """The headers of *dirs*: what a C++ build's stamp hashes beside its
+    sources."""
+    return [os.path.join(d, n) for d in dirs for n in sorted(os.listdir(d))
+            if n.endswith(".h")]
+
+
 def build_cpp_http_examples(build_dir=None, timeout_s=600):
     """Build (or bring up to date) the C++ HTTP examples and
     cc_client_test with g++ alone; a client source compiles once for all
@@ -163,11 +183,124 @@ def build_cpp_http_examples(build_dir=None, timeout_s=600):
     fails (no zlib headers, for one: the HTTP client links ``-lz``)."""
     from client_tpu_torch.perf.native_worker import build_natives
 
-    headers = [os.path.join(_CPP, "client", n)
-               for n in sorted(os.listdir(os.path.join(_CPP, "client")))
-               if n.endswith(".h")]
     return build_natives(cpp_http_targets(), build_dir or CPP_BUILD_DIR,
+                         headers=_cpp_headers(os.path.join(_CPP, "client")),
+                         timeout_s=timeout_s)
+
+
+# the C++ gRPC examples (src/cpp/examples), as the Makefile's GRPC_EXAMPLES
+# lists them; each takes ``-u host:port``
+CPP_GRPC_EXAMPLES = (
+    "simple_grpc_infer_client",
+    "simple_grpc_sequence_stream_infer_client",
+    "simple_grpc_sequence_sync_infer_client",
+    "simple_grpc_async_infer_client",
+    "simple_grpc_health_metadata",
+    "simple_grpc_model_control",
+    "simple_grpc_shm_client",
+    "simple_grpc_string_infer_client",
+    "simple_grpc_ensemble_client",
+    "simple_grpc_decoupled_repeat_client",
+    "simple_grpc_custom_args_client",
+    "simple_grpc_timeout_client",
+    "image_client",
+    "reuse_infer_objects_grpc_client",
+)
+_CSRC = os.path.join(ROOT, "client_tpu_torch", "perf", "csrc")
+# the port's gRPC client over the repo's HTTP/2 transport, and the system
+# shared-memory helpers (the Makefile's GRPC_OBJS without protobuf)
+_CPP_GRPC_CLIENT = [
+    os.path.join(_CSRC, "grpc_client.cc"),
+    os.path.join(_CSRC, "kserve_wire.cc"),
+    os.path.join(_CPP, "grpc", "h2.cc"),
+    os.path.join(_CPP, "grpc", "hpack.cc"),
+    os.path.join(_CPP, "client", "transport.cc"),
+    os.path.join(_CPP, "client", "shm_utils.cc"),
+]
+# the C ABI of CUDA regions, its line tool, and the C++ example over both
+CUDA_SHM_DIR = os.path.join(ROOT, "client_tpu_torch", "utils",
+                            "cuda_shared_memory")
+CPP_CUDA_EXAMPLE = os.path.join(PORT_DIR, "cpp",
+                                "simple_grpc_cudashm_client.cc")
+_CCUDASHM = os.path.join(CUDA_SHM_DIR, "ccudashm.cc")
+
+
+def cpp_grpc_targets():
+    """``{binary: sources}`` of the C++ gRPC examples: each its own .cc
+    and the port's gRPC client's sources."""
+    return {n: [os.path.join(_CPP, "examples", f"{n}.cc"), *_CPP_GRPC_CLIENT]
+            for n in CPP_GRPC_EXAMPLES}
+
+
+def build_cpp_grpc_examples(build_dir=None, timeout_s=600):
+    """Build (or bring up to date) the C++ gRPC examples, unedited, with
+    g++ alone over the port's protobuf-free client: no protoc and no
+    libprotobuf.  Returns ``{binary: path}``; raises
+    InferenceServerException with the compiler's output when the build
+    fails."""
+    from client_tpu_torch.perf.native_worker import build_natives
+
+    headers = _cpp_headers(_CSRC, os.path.join(_CPP, "client"),
+                           os.path.join(_CPP, "grpc"))
+    return build_natives(cpp_grpc_targets(), build_dir or CPP_BUILD_DIR,
                          headers=headers, timeout_s=timeout_s)
+
+
+def cuda_toolkit(cuda_home=None):
+    """``(include directory, library directory)`` of the CUDA toolkit at
+    *cuda_home*, else the one of ``nvcc`` on PATH, else ``$CUDA_HOME``'s.
+    Raises InferenceServerException naming the missing CUDA headers where
+    none of them holds ``cuda_runtime.h`` and ``libcudart``."""
+    from client_tpu_torch.utils import InferenceServerException
+
+    homes = [cuda_home] if cuda_home else []
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        homes.append(os.path.dirname(os.path.dirname(os.path.realpath(nvcc))))
+    if os.environ.get("CUDA_HOME"):
+        homes.append(os.environ["CUDA_HOME"])
+    for home in homes:
+        include = os.path.join(home, "include")
+        if not os.path.isfile(os.path.join(include, "cuda_runtime.h")):
+            continue
+        for lib in ("lib64", "lib", os.path.join("targets", "x86_64-linux",
+                                                  "lib")):
+            if os.path.exists(os.path.join(home, lib, "libcudart.so")):
+                return include, os.path.join(home, lib)
+    raise InferenceServerException(
+        "the C++ CUDA shared-memory build needs the CUDA toolkit's headers "
+        "(cuda_runtime.h) and libcudart, and found none: "
+        + (f"looked under {', '.join(homes)}" if homes
+           else "no nvcc on PATH and no CUDA_HOME"))
+
+
+def cpp_cuda_targets():
+    """``{binary: sources}`` of the C++ CUDA shared-memory example (over
+    the port's gRPC client and libccudashm) and the ABI's line tool."""
+    return {
+        "simple_grpc_cudashm_client": [CPP_CUDA_EXAMPLE, _CCUDASHM,
+                                       *_CPP_GRPC_CLIENT],
+        "ccudashm_tool": [os.path.join(CUDA_SHM_DIR, "ccudashm_tool.cc"),
+                          _CCUDASHM],
+    }
+
+
+def build_cpp_cuda_examples(build_dir=None, cuda_home=None, timeout_s=600):
+    """Build (or bring up to date) :func:`cpp_cuda_targets` with g++,
+    the CUDA toolkit's include directory (:func:`cuda_toolkit`) and
+    ``-lcudart`` (its directory on the binaries' run path).  Returns
+    ``{binary: path}``; raises InferenceServerException naming the CUDA
+    headers where the toolkit is missing, or with the compiler's output
+    when the build fails."""
+    from client_tpu_torch.perf.native_worker import build_natives
+
+    include, lib = cuda_toolkit(cuda_home)
+    headers = _cpp_headers(_CSRC, os.path.join(_CPP, "client"),
+                           os.path.join(_CPP, "grpc"), CUDA_SHM_DIR)
+    return build_natives(
+        cpp_cuda_targets(), build_dir or CPP_BUILD_DIR, headers=headers,
+        timeout_s=timeout_s, includes=(CUDA_SHM_DIR, include),
+        libs=(f"-L{lib}", f"-Wl,-rpath,{lib}", "-lcudart"))
 
 
 def cpp_run(binary, url, key=None):
@@ -255,7 +388,18 @@ def url_run(directory, name, grpc_url, http_url, device=None, key=None,
 def run_one(run, timeout=120.0, env=None, python=None):
     """Run one example to its end (or *timeout* seconds: rc -9 then)
     with *python* (this interpreter by default; ``""`` runs the script
-    itself, a binary)."""
+    itself, a binary); one of :data:`FIXED_KEYS` under its lock."""
+    name = os.path.basename(run.script)
+    if name not in FIXED_KEYS:
+        return _run(run, timeout, env, python)
+    lock_dir = os.path.join(ROOT, "build")
+    os.makedirs(lock_dir, exist_ok=True)
+    with open(os.path.join(lock_dir, f".{name}.keys.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _run(run, timeout, env, python)
+
+
+def _run(run, timeout, env, python):
     start = time.perf_counter()
     interpreter = [] if python == "" else [python or sys.executable]
     try:
